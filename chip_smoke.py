@@ -1,0 +1,322 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
+
+    python3 chip_smoke.py [--seed N]
+
+Phases, each printing a line; any failure exits non-zero with no result:
+
+1. device -- require CUDA, print the card's name and power limit
+   (nvidia-smi), turn TF32 off for float32 matmuls and convolutions;
+2. build  -- compile the port's CUDA kernels from this checkout (nvcc,
+   one process per source, all started together);
+3. kernels -- call each kernel's wrapper at the shapes the main path
+   gives it, hold the result against its plain PyTorch version on the
+   same inputs, and time kernel, plain version and library yardstick
+   (a PyTorch call the port itself never makes) beside the bound:
+   max(FLOPs / fp32 peak, bytes / HBM rate) at NVIDIA's H100 SXM
+   data-sheet rates;
+4. main path -- plan_fft((16384, 16384), SimMesh(4), backend="scatter",
+   local_impl="kernel"): the paper's slab fft2 over the N-scatter ring
+   with the next FFT pass fused into the arriving chunks, on a 2 GiB
+   complex64 array made on the card from --seed. The kernels' launch
+   counters are zeroed just before the first execute and read just
+   after it; the output is held against torch.fft.fft2(x).mT, the
+   inverse must round-trip, and the unfused alltoall plan must agree.
+
+The second-to-last line is one JSON object with a row per kernel; the
+last line is {"ok": true, "device": {...}}.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+N = 16384  # global (N, N) complex64: 2 GiB
+P = 4  # simulated ranks
+MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
+STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
+PACK_RTOL, PACK_ATOL = 1e-5, 1e-5  # one complex multiply per element
+FFT_REL_TOL = 2e-5  # fft_last_axis vs the library FFT, relative to max
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise SmokeFailure(msg)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
+    """Median over ``reps`` launches, each fenced by its own CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def bound(flops: float, nbytes: float, cm):
+    t_ops = flops / cm.PEAK_FLOPS_FP32
+    t_bytes = nbytes / cm.HBM_BW
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
+    """Each kernel against its plain version at the main path's shapes."""
+    dev = "cuda"
+    rows = []
+
+    def planar(t):
+        return t.real.contiguous(), t.imag.contiguous()
+
+    def rand(*shape):
+        return torch.randn(shape, device=dev, generator=g)
+
+    def compare(got, exp, rtol, atol):
+        err = max((a - b).abs().max().item() for a, b in zip(got, exp))
+        ok = all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(got, exp))
+        return err, ok
+
+    # stage_left: W (512, 512), A (B, 512, n2), T (512, n2) at both main-path
+    # passes: (B=4096, n2=32) per rank before the exchange -- the row of the
+    # JSON line -- and (B=16384, n2=8) after it
+    timed = []
+    for b, n2 in ((4096, 32), (16384, 8)):
+        w = planar(lf.dft_matrix(512, device=dev))
+        t = planar(lf.twiddle(512, n2, device=dev))
+        a = (rand(b, 512, n2), rand(b, 512, n2))
+        err, ok = compare(fft_stage.stage_left(w, a, t), ref.stage_left_ref(w, a, t), STAGE_RTOL, STAGE_ATOL)
+        ms = median_ms(torch, lambda: fft_stage.stage_left(w, a, t))
+        print(f"kernel stage_left {(b, 512, 512, n2)}: max_abs_err={err:.3e} "
+              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f}", flush=True)
+        check(ok, f"stage_left disagrees with its plain version at {(b, 512, n2)}")
+        timed.append((w, a, t, err, ms))
+    w, a, t, err, ms = timed[0]
+    B, K, Nn = a[0].shape
+    M = w[0].shape[0]
+    wc, ac, tc = (torch.complex(*x) for x in (w, a, t))
+    flops = 8.0 * B * M * K * Nn + 6.0 * B * M * Nn
+    nbytes = 8.0 * (M * K + B * K * Nn + M * Nn + B * M * Nn)
+    rows.append(dict(
+        name="stage_left", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
+        replaces="src/repro/kernels/fft_stage.py:106", shape=[B, M, K, Nn], max_abs_err=err, ms=ms,
+        plain_ms=median_ms(torch, lambda: ref.stage_left_ref(w, a, t)),
+        library="torch.matmul then * (two calls)",
+        library_ms=median_ms(torch, lambda: torch.matmul(wc, ac) * tc),
+    ))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
+    del wc, ac, tc, timed
+
+    # stage_right: A (B, 512, n2) @ W (n2, n2)^T, chained after stage_left
+    timed = []
+    for b, n2 in ((4096, 32), (16384, 8)):
+        a = (rand(b, 512, n2), rand(b, 512, n2))
+        w = planar(lf.dft_matrix(n2, device=dev))
+        err, ok = compare(fft_stage.stage_right(a, w), ref.stage_right_ref(a, w), STAGE_RTOL, STAGE_ATOL)
+        ms = median_ms(torch, lambda: fft_stage.stage_right(a, w))
+        print(f"kernel stage_right {(b, 512, n2, n2)}: max_abs_err={err:.3e} "
+              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f}", flush=True)
+        check(ok, f"stage_right disagrees with its plain version at {(b, 512, n2)}")
+        timed.append((a, w, err, ms))
+    a, w, err, ms = timed[0]
+    B, M, K = a[0].shape
+    Nn = w[0].shape[0]
+    ac, wc = torch.complex(*a), torch.complex(*w)
+    flops = 8.0 * B * M * K * Nn
+    nbytes = 8.0 * (B * M * K + Nn * K + B * M * Nn)
+    rows.append(dict(
+        name="stage_right", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
+        replaces="src/repro/kernels/fft_stage.py:214", shape=[B, M, K, Nn], max_abs_err=err, ms=ms,
+        plain_ms=median_ms(torch, lambda: ref.stage_right_ref(a, w)),
+        library="torch.matmul",
+        library_ms=median_ms(torch, lambda: torch.matmul(ac, wc.T)),
+    ))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
+    del ac, wc, timed
+
+    # chunk_twiddle_pack_c64: one arriving (r, c) = (4096, 4096) chunk, m (P, 4096);
+    # the own chunk is a strided view of the rank's (4096, 16384) block
+    r, c = N // P, N // P
+    block = torch.randn((r, N), dtype=torch.complex64, device=dev, generator=g)
+    m = torch.randn((P, r), dtype=torch.complex64, device=dev, generator=g)
+    for label, chunk in (("received", block[:, c:2 * c].contiguous()), ("own, strided", block[:, :c])):
+        got = fft_stage.chunk_twiddle_pack_c64(chunk, m)
+        exp = ref.chunk_twiddle_pack_ref(chunk, m)
+        err, ok = compare((torch.view_as_real(got),), (torch.view_as_real(exp),), PACK_RTOL, PACK_ATOL)
+        print(f"kernel chunk_twiddle_pack_c64 {(r, c)}x{P} ({label}): max_abs_err={err:.3e} "
+              f"(tol rtol={PACK_RTOL} atol={PACK_ATOL}) {'ok' if ok else 'MISMATCH'}", flush=True)
+        check(ok, f"chunk_twiddle_pack_c64 disagrees with its plain version ({label})")
+        if label == "received":
+            timed = (chunk, err)
+    chunk, err = timed
+    del got, exp
+    flops = 6.0 * r * c * P
+    nbytes = 8.0 * (r * c + P * r + c * P * r)
+    rows.append(dict(
+        name="chunk_twiddle_pack_c64", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
+        replaces="src/repro/kernels/fft_stage.py:171", shape=[1, r, c, P], max_abs_err=err,
+        ms=median_ms(torch, lambda: fft_stage.chunk_twiddle_pack_c64(chunk, m)),
+        plain_ms=median_ms(torch, lambda: ref.chunk_twiddle_pack_ref(chunk, m)),
+        library="torch.mul, broadcast over a transposed view (one call)",
+        library_ms=median_ms(torch, lambda: torch.mul(chunk.mT.unsqueeze(-2), m)),
+    ))
+    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
+    del block, chunk, m
+
+    # the pair as fft_last_axis (the LocalFFT of the main path) vs the library FFT
+    x = torch.randn((N // P, N), dtype=torch.complex64, device=dev, generator=g)
+    y, exp = ops.fft_last_axis(x), torch.fft.fft(x)
+    rel = ((y - exp).abs().max() / exp.abs().max()).item()
+    print(f"fft_last_axis {tuple(x.shape)} (stage_left + stage_right): rel_err={rel:.3e} "
+          f"(tol {FFT_REL_TOL}) ms={median_ms(torch, lambda: ops.fft_last_axis(x), reps=5):.3f} "
+          f"torch.fft.fft ms={median_ms(torch, lambda: torch.fft.fft(x), reps=5):.3f}", flush=True)
+    check(rel <= FFT_REL_TOL, "fft_last_axis disagrees with torch.fft.fft")
+    for row in rows:
+        print(f"kernel {row['name']} {tuple(row['shape'])}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
+              f"library_ms={row['library_ms']} ({row['library']}) bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']})", flush=True)
+    return rows
+
+
+def main_path(torch, g, fft_stage, plan_fft, SimMesh):
+    x = torch.randn((N, N), dtype=torch.complex64, device="cuda", generator=g)
+    plan = plan_fft((N, N), SimMesh(P), backend="scatter", local_impl="kernel")
+    check(plan.fused, "the scatter plan did not resolve to the fused pipeline")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fft_stage.reset_launches()
+    t0 = time.perf_counter()
+    y = plan.execute(x)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    launches = dict(fft_stage.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    print(f"main path: {plan!r} fused={plan.fused} first execute {first_s * 1e3:.1f} ms, "
+          f"launches {launches}, peak memory {peak / 2**30:.2f} GiB", flush=True)
+    for name, n in launches.items():
+        check(n > 0, f"kernel {name} was not launched on the main path")
+
+    oracle = torch.fft.fft2(x).mT
+    scale = oracle.abs().max().item()
+    err = (y - oracle).abs().max().item() / scale
+    print(f"main path vs torch.fft.fft2(x).mT: rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "main path disagrees with torch.fft.fft2")
+    check(tuple(y.shape) == (N, N) and bool(torch.isfinite(torch.view_as_real(y)).all()),
+          "main path output is not finite with the expected shape")
+
+    z = plan.inverse(y)
+    rt = ((z - x).abs().max() / x.abs().max()).item()
+    print(f"main path inverse round trip: rel_err={rt:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(rt <= MAIN_PATH_REL_TOL, "plan.inverse does not round-trip")
+    del z
+
+    a2a = plan_fft((N, N), SimMesh(P), backend="alltoall", pipeline=False, local_impl="kernel")
+    y2 = a2a.execute(x)
+    err2 = (y2 - oracle).abs().max().item() / scale
+    print(f"alltoall pipeline=False vs torch.fft.fft2(x).mT: rel_err={err2:.3e} (tol {MAIN_PATH_REL_TOL})",
+          flush=True)
+    check(err2 <= MAIN_PATH_REL_TOL, "the unfused alltoall plan disagrees with torch.fft.fft2")
+    del y2, oracle, y
+
+    def run(p):
+        def fn():
+            p.execute(x)
+            torch.cuda.synchronize()
+        fn()
+        times = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+
+    ms_scatter = run(plan)
+    ms_a2a = run(a2a)
+    ms_lib = median_ms(torch, lambda: torch.fft.fft2(x), reps=5)
+    print(f"main path timing: plan.execute scatter fused {ms_scatter:.2f} ms, alltoall unfused "
+          f"{ms_a2a:.2f} ms, torch.fft.fft2 {ms_lib:.2f} ms (median of 3 / 3 / 5), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args(argv)
+
+    import torch
+
+    if not torch.cuda.is_available():
+        raise SmokeFailure("torch.cuda.is_available() is false: the port's smoke run needs a GPU")
+    src = os.path.join(HERE, "src")
+    if not os.path.isdir(os.path.join(src, "repro_torch")):
+        raise SmokeFailure(f"no src/repro_torch beside {__file__}: run from a checkout of the repo")
+    sys.path.insert(0, src)
+
+    smi = nvidia_smi()
+    print(smi, flush=True)
+    print(f"device: {torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}, torch "
+          f"{torch.__version__}, CUDA {torch.version.cuda}, seed {args.seed}", flush=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    from repro_torch.core import SimMesh, plan_fft
+    from repro_torch.core import comm_model as cm
+    from repro_torch.core import fftmath as lf
+    from repro_torch.kernels import build, fft_stage, ops, ref
+
+    t0 = time.perf_counter()
+    built = build.build()
+    print(f"build: {time.perf_counter() - t0:.1f} s ({built})", flush=True)
+    for name in build.sources():
+        for line in build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}", flush=True)
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(args.seed)
+    rows = kernel_phase(torch, g, fft_stage, ref, ops, lf, cm)
+    torch.cuda.empty_cache()
+    launches = main_path(torch, g, fft_stage, plan_fft, SimMesh)
+    for row in rows:
+        row["launches"] = launches[row["name"]]
+
+    print(smi, flush=True)
+    print(json.dumps({"kernels": rows}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    try:
+        sys.exit(main())
+    except SmokeFailure as e:
+        print(f"chip_smoke: FAIL: {e}", file=sys.stderr, flush=True)
+        sys.exit(1)

@@ -1,0 +1,93 @@
+"""Alpha-beta cost model of the exchange strategies (the alpha-beta half
+of ``repro.core.comm_model``).
+
+Each strategy's time is priced as ``alpha`` per message plus bytes over
+``beta``, the paper's Fig. 3 regime (per-message overhead vs bandwidth).
+``backend="auto"`` and ``Plan.predict()`` rank strategies with it before
+anything runs.
+
+Defaults are NVIDIA H100 SXM figures from NVIDIA's data sheet, not
+measurements: NVLink 4 moves 900 GB/s per GPU in all, 450 GB/s each
+way, and HBM3 3.35 TB/s. ``ALPHA_S`` is a PLACEHOLDER -- no per-message
+latency has been fitted on the card; the reference's ``calibrate`` (a
+ppermute ping-pong fit) is not ported yet (ROADMAP A9). Every cost
+function takes the params explicitly.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Optional
+
+# --- NVIDIA H100 SXM constants (NVIDIA's data sheet) -------------------------
+NVLINK_BW = 450e9  # bytes/s per GPU, each way (900 GB/s bidirectional)
+HBM_BW = 3.35e12  # bytes/s
+PEAK_FLOPS_FP32 = 67e12  # FLOP/s, CUDA cores, no tensor cores
+#: per-message latency: a PLACEHOLDER until calibrate is ported (ROADMAP A9)
+ALPHA_S = 10e-6
+
+
+@dataclasses.dataclass(frozen=True)
+class CommParams:
+    alpha_s: float = ALPHA_S  # per message (placeholder, see module doc)
+    beta_bytes_s: float = NVLINK_BW  # per device, each way
+
+
+def t_alltoall(m_bytes: float, p: int, prm: CommParams = CommParams()) -> float:
+    """One fused all-to-all: every device ships (1-1/P)*M once; the fabric
+    moves it in a single synchronized phase."""
+    if p <= 1:
+        return 0.0
+    return prm.alpha_s + (1 - 1 / p) * m_bytes / prm.beta_bytes_s
+
+
+def effective_chunks(p: int, n_chunks: Optional[int] = None) -> int:
+    """Total chunks of a streaming exchange under an ``n_chunks`` target:
+    ``q * p`` where ``q = ceil(n_chunks / p)`` sub-chunks per peer block
+    (``None``/``<= p`` keeps the classic one-per-peer schedule). The
+    model-side twin of :func:`repro_torch.core.transpose.subchunks_per_peer`
+    -- the executed q additionally snaps to a divisor of the peer block's
+    row count, which the byte-level model ignores."""
+    if not n_chunks or n_chunks <= p:
+        return max(p, 1)
+    return max(1, -(-int(n_chunks) // p)) * max(p, 1)
+
+
+def t_scatter_ring(m_bytes: float, p: int, prm: CommParams = CommParams(),
+                   chunk_compute_s: float = 0.0,
+                   n_chunks: Optional[int] = None) -> float:
+    """Streaming ring: (P-1)*q direct sends of M/(P*q) each (q sub-chunks
+    per peer block, q=1 classically); per-sub-chunk compute overlaps the
+    next send (fully, if sub-chunk compute <= sub-chunk comm). When
+    compute exceeds comm, the difference is exposed on every step, and
+    the last sub-chunk's compute is always exposed (nothing left to
+    overlap). ``chunk_compute_s`` stays *per peer chunk* (there are P),
+    so costs stay comparable across n_chunks."""
+    if p <= 1:
+        return max(chunk_compute_s, 0.0)
+    n = effective_chunks(p, n_chunks)
+    q = n // p
+    msgs = (p - 1) * q
+    per_msg = prm.alpha_s + (m_bytes / n) / prm.beta_bytes_s
+    sub_compute = chunk_compute_s / q
+    exposed = max(0.0, sub_compute - per_msg) * msgs
+    return msgs * per_msg + sub_compute + exposed
+
+
+def t_bisection(m_bytes: float, p: int, prm: CommParams = CommParams()) -> float:
+    """ceil(log2 P) rounds of M/2 each (Bruck): fewest messages, most
+    bytes -- wins in the alpha-dominated small-chunk regime."""
+    if p <= 1:
+        return 0.0
+    rounds = math.ceil(math.log2(p))
+    return rounds * (prm.alpha_s + (m_bytes / 2) / prm.beta_bytes_s)
+
+
+def t_pairwise(m_bytes: float, p: int, prm: CommParams = CommParams(),
+               chunk_compute_s: float = 0.0,
+               n_chunks: Optional[int] = None) -> float:
+    """Pairwise XOR exchange: P-1 rounds, round s swapping the M/P chunk
+    with partner (rank XOR s), power-of-two P. Same bytes and chunk
+    streaming as the scatter ring; it differs in schedule, not overlap."""
+    return t_scatter_ring(m_bytes, p, prm, chunk_compute_s, n_chunks)

@@ -1,0 +1,669 @@
+"""Stage-schedule IR, PyTorch port of ``repro.core.schedule`` (the slab
+c2c part).
+
+Every distributed transform lowers to a declarative tuple of **Stage**
+records, and one interpreter (:func:`execute_schedule`) runs any
+schedule over the per-rank blocks of a
+:class:`~repro_torch.core.mesh.SimMesh`, reusing
+:func:`repro_torch.core.transpose.transpose_then_fft` /
+``distributed_transpose``. The cost model and the byte accounting walk
+the same object that executes.
+
+The stage records, their field order and :meth:`Schedule.canonical`
+are the reference's, byte for byte, so a schedule built here hashes
+exactly as the reference's does for the same arguments.
+
+Builders here: slab c2c (``fft2``, ``fft3``, the six-step ``fft1d``).
+The pencil and real (r2c/c2r) builders raise ``NotImplementedError``
+naming their ROADMAP item; their stage records exist so schedule text
+reads the same in both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import hashlib
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+import repro_torch.core.fftmath as lf
+import repro_torch.core.transpose as tr
+from repro_torch.core.mesh import SimMesh
+
+
+# ---------------------------------------------------------------------------
+# Shard-divisibility validation (slab c2c)
+# ---------------------------------------------------------------------------
+
+
+def check_divisible(global_shape, ndim: int, *, p: int, axis_name=None) -> None:
+    """Validate that ``global_shape`` can be slab-sharded over ``p``
+    ranks for a c2c transform of ``ndim`` dims. Raises a ``ValueError``
+    naming the offending data axis and mesh axis -- the plan-time
+    guard, so the failure never surfaces as an opaque chunking error
+    deep inside :mod:`repro_torch.core.transpose`. (The reference's
+    pencil and real branches arrive with those builders.)"""
+    shape = tuple(global_shape)
+    ax = axis_name
+    if ndim == 2:
+        r, c = shape[-2:]
+        for off, size in ((2, r), (1, c)):
+            if size % p:
+                raise ValueError(
+                    f"slab fft2: data axis -{off} (global size {size}) is not "
+                    f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                )
+    elif ndim == 3:
+        d0, d1, d2 = shape[-3:]
+        if d0 % p:
+            raise ValueError(
+                f"slab fft3: data axis -3 (global size {d0}) is not divisible "
+                f"by mesh axis {ax!r} (P={p}) -- shape {shape}"
+            )
+        if (d1 * d2) % p:
+            raise ValueError(
+                f"slab fft3: flattened axes (-2,-1) (size {d1}*{d2}={d1 * d2}) "
+                f"not divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+            )
+    else:
+        n = shape[-1]
+        if n % (p * p):
+            raise ValueError(
+                f"fft1d_large: data axis -1 (size {n}) must be divisible by "
+                f"P^2={p * p} of mesh axis {ax!r} -- shape {shape}"
+            )
+
+
+# ---------------------------------------------------------------------------
+# Stage records
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalFFT:
+    """One local c2c FFT pass along ``axis`` (1/n factor when inverse)."""
+
+    axis: int = -1
+    inverse: bool = False
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalR2C:
+    """Local real-to-complex pass along the last axis (keeps H = N//2+1)."""
+
+
+@dataclasses.dataclass(frozen=True)
+class LocalC2R:
+    """Local complex-to-real pass: half spectrum (length ``n_last//2+1``)
+    to a real length-``n_last`` signal, carrying the 1/n factor."""
+
+    n_last: int
+
+
+@dataclasses.dataclass(frozen=True)
+class HermitianPack:
+    """Zero-pad the Hermitian axis from ``h`` to the shard-divisible
+    ``hp`` (the pad is exactly zero, so downstream FFTs stay exact)."""
+
+    h: int
+    hp: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Trim:
+    """Keep the first ``h`` entries of the last axis."""
+
+    h: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Relayout:
+    """Free local data movement: ``swap_last2`` / ``swap_outer``
+    (axes -3,-2) / ``flatten2`` (merge the last two axes) /
+    ``unflatten2`` (split the last axis into ``dims``)."""
+
+    op: str
+    dims: Tuple[int, ...] = ()
+
+
+@dataclasses.dataclass(frozen=True)
+class Twiddle:
+    """Six-step twiddle w_n^(j2*k1) of the 1-D large transform (N = r*c
+    viewed row-major). Always immediately precedes an Exchange: on a
+    chunk-streaming backend the executor folds it into that exchange's
+    per-chunk compute; otherwise it is applied up-front to the block."""
+
+    n: int
+    r: int
+    c: int
+
+
+@dataclasses.dataclass(frozen=True)
+class Exchange:
+    """One collective transpose over mesh axis ``axis`` (ring size
+    ``p``), dispatched through the backend registry. ``fft=True`` runs
+    :func:`repro_torch.core.transpose.transpose_then_fft` -- the
+    following FFT pass folded into the arriving chunks when ``fused``
+    and the backend streams (conjugated tables when ``inverse``).
+    ``elems`` is the per-device payload element count and ``payload``
+    its wire dtype class -- the byte truth the cost model walks."""
+
+    axis: str
+    role: str  # 'slab' | 'row' | 'col'
+    backend: str
+    p: int
+    elems: float
+    payload: str = "complex"
+    fft: bool = False
+    inverse: bool = False
+    fused: bool = False
+    n_chunks: Optional[int] = None
+
+
+_REAL_STAGES = (LocalR2C, LocalC2R, HermitianPack, Trim)
+
+
+# ---------------------------------------------------------------------------
+# Schedule container
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class Schedule:
+    """A lowered transform: stage tuple + the metadata the runner and
+    the analyzers need. ``global_shape`` is the full data-side shape
+    (batch dims included); ``in_tail``/``out_tail`` are the trailing
+    partition-spec entries of the transform's input/output (leading
+    batch dims are replicated). ``conj``/``scale`` implement the c2c
+    inverse as the conjugate-wrap of the forward schedule.
+    ``global_backend`` marks whole-transform backends: the stage list
+    still carries the abstract exchange structure for cost/byte
+    accounting, but execution is one library transform of the gathered
+    array."""
+
+    kind: str
+    global_shape: Tuple[int, ...]
+    ndim: int
+    decomp: str
+    real: bool
+    inverse: bool
+    transpose_back: bool
+    stages: Tuple[object, ...]
+    in_tail: Tuple[Optional[str], ...]
+    out_tail: Tuple[Optional[str], ...]
+    conj: bool = False
+    scale: Optional[float] = None
+    n_last: Optional[int] = None
+    h: Optional[int] = None
+    hp: Optional[int] = None
+    global_backend: Optional[str] = None
+
+    # -- identity ----------------------------------------------------------
+    def canonical(self) -> str:
+        """Stable text form: header + one dataclass repr per stage. This
+        is what hashes, and what the golden snapshots diff."""
+        head = (
+            f"kind={self.kind}|shape={self.global_shape}|ndim={self.ndim}|"
+            f"decomp={self.decomp}|real={self.real}|inverse={self.inverse}|"
+            f"tb={self.transpose_back}|conj={self.conj}|scale={self.scale}|"
+            f"n_last={self.n_last}|h={self.h}|hp={self.hp}|"
+            f"in={self.in_tail}|out={self.out_tail}|gb={self.global_backend}"
+        )
+        return "\n".join([head] + [repr(st) for st in self.stages])
+
+    def schedule_hash(self) -> str:
+        """12-hex content hash of :meth:`canonical` -- two plans with the
+        same hash execute the same pipeline."""
+        return hashlib.sha256(self.canonical().encode()).hexdigest()[:12]
+
+    # -- queries -----------------------------------------------------------
+    def exchanges(self, role: Optional[str] = None) -> Tuple[Exchange, ...]:
+        return tuple(
+            st for st in self.stages
+            if isinstance(st, Exchange) and (role is None or st.role == role)
+        )
+
+    def describe(self, *, params=None, chunk_compute_s: float = 0.0,
+                 real_itemsize: int = 8, complex_itemsize: int = 8) -> str:
+        return describe_schedule(
+            self, params=params, chunk_compute_s=chunk_compute_s,
+            real_itemsize=real_itemsize, complex_itemsize=complex_itemsize,
+        )
+
+
+# ---------------------------------------------------------------------------
+# Cost / byte walks (the SAME object that executes)
+# ---------------------------------------------------------------------------
+
+
+def exchange_block_bytes(st: Exchange, real_itemsize: int, complex_itemsize: int) -> float:
+    """Full per-device block bytes one Exchange re-shards (the alpha-beta
+    ``m_bytes``); the wire ships ``(1 - 1/p)`` of it."""
+    item = complex_itemsize if st.payload == "complex" else real_itemsize
+    return st.elems * item
+
+
+def exchange_wire_bytes(st: Exchange, real_itemsize: int, complex_itemsize: int) -> float:
+    return exchange_block_bytes(st, real_itemsize, complex_itemsize) * (1 - 1 / st.p)
+
+
+def schedule_comm_bytes(sched: Schedule, real_itemsize: int, complex_itemsize: int) -> float:
+    """Total bytes each device ships per transform -- the sum of every
+    Exchange stage's wire payload."""
+    return sum(
+        exchange_wire_bytes(st, real_itemsize, complex_itemsize)
+        for st in sched.exchanges()
+    )
+
+
+def stage_seconds(st: Exchange, params, chunk_compute_s: float,
+                  real_itemsize: int, complex_itemsize: int) -> float:
+    """Alpha-beta predicted seconds of one Exchange stage, costed by its
+    own backend at its own ring size with its own pipeline fields."""
+    from repro_torch.core import backends
+
+    b = backends.get(st.backend)
+    return b.cost(
+        exchange_block_bytes(st, real_itemsize, complex_itemsize),
+        st.p, params, chunk_compute_s,
+        n_chunks=st.n_chunks, fused=st.fused,
+    )
+
+
+def predict_seconds(sched: Schedule, params, chunk_compute_s: float,
+                    real_itemsize: int, complex_itemsize: int,
+                    role: Optional[str] = None) -> float:
+    """Whole-schedule predicted seconds: the sum of :func:`stage_seconds`
+    over its Exchange stages."""
+    return sum(
+        stage_seconds(st, params, chunk_compute_s, real_itemsize, complex_itemsize)
+        for st in sched.exchanges(role)
+    )
+
+
+# ---------------------------------------------------------------------------
+# Rewrites
+# ---------------------------------------------------------------------------
+
+
+def with_pipeline(sched: Schedule, fused: bool, n_chunks: Optional[int]) -> Schedule:
+    """Rewrite every Exchange's pipeline fields (fused / sub-chunked)."""
+    stages = tuple(
+        dataclasses.replace(st, fused=bool(fused), n_chunks=n_chunks)
+        if isinstance(st, Exchange) else st
+        for st in sched.stages
+    )
+    return dataclasses.replace(sched, stages=stages)
+
+
+def with_backends(sched: Schedule, *, slab: Optional[str] = None,
+                  row: Optional[str] = None, col: Optional[str] = None) -> Schedule:
+    """Rewrite Exchange backends by role -- backend candidates as
+    schedule rewrites."""
+    sub = {"slab": slab, "row": row, "col": col}
+
+    def rw(st):
+        if not isinstance(st, Exchange):
+            return st
+        nm = sub.get(st.role)
+        return st if nm is None else dataclasses.replace(st, backend=nm)
+
+    return dataclasses.replace(sched, stages=tuple(rw(st) for st in sched.stages))
+
+
+# ---------------------------------------------------------------------------
+# Builders (pure: shapes + names + ring sizes in, Schedule out)
+# ---------------------------------------------------------------------------
+
+
+def build_schedule(
+    global_shape,
+    *,
+    ndim: int,
+    inverse: bool = False,
+    real: bool = False,
+    decomp: str = "slab",
+    axis_name=None,
+    p: int = 1,
+    row_axis=None,
+    col_axis=None,
+    p_rows: int = 1,
+    p_cols: int = 1,
+    backend: str = "alltoall",
+    backend_row: str = "alltoall",
+    backend_col: str = "alltoall",
+    fused: bool = False,
+    n_chunks: Optional[int] = None,
+    transpose_back: bool = False,
+    pad: bool = True,
+    rows: Optional[int] = None,
+) -> Schedule:
+    """Lower one distributed transform to its stage schedule (the
+    reference's signature; only slab c2c is built in this package so
+    far). Slab c2c divisibility stays with the plan layer, as in the
+    reference."""
+    if decomp == "pencil":
+        raise NotImplementedError(
+            "pencil schedules are not ported yet (ROADMAP A8: core/grid.py + core/pencil.py)"
+        )
+    if real:
+        raise NotImplementedError("real (r2c/c2r) schedules are not ported yet (ROADMAP A7: core/real.py)")
+    return _slab_c2c(
+        tuple(global_shape), ndim, inverse, axis_name, p, backend, fused, n_chunks,
+        transpose_back, rows,
+    )
+
+
+def _global_kind(backend: str) -> Optional[str]:
+    from repro_torch.core import backends
+
+    try:
+        b = backends.get(backend)
+    except (KeyError, ValueError):
+        return None
+    return backend if b.kind == "global" else None
+
+
+def _slab_c2c(shape, ndim, inverse, ax, p, backend, fused, n_chunks, tb, rows):
+    gb = _global_kind(backend)
+    m = float(np.prod(shape)) / p
+
+    def ex(fft=False, fuse=False):
+        return Exchange(
+            axis=ax, role="slab", backend=backend, p=p, elems=m,
+            fft=fft, fused=fuse, n_chunks=n_chunks,
+        )
+
+    meta = dict(
+        global_shape=shape, ndim=ndim, decomp="slab", real=False,
+        inverse=inverse, transpose_back=tb, global_backend=gb,
+    )
+    if ndim == 2:
+        stages = [LocalFFT(axis=-1), ex(fft=True, fuse=fused)]
+        if tb:
+            stages.append(ex())
+        return Schedule(
+            kind="fft2", stages=tuple(stages), in_tail=(ax, None),
+            out_tail=(ax, None), conj=inverse,
+            scale=float(shape[-1] * shape[-2]) if inverse else None, **meta,
+        )
+    if ndim == 3:
+        d0, d1, d2 = shape[-3:]
+        stages = (
+            LocalFFT(axis=-1), LocalFFT(axis=-2), Relayout("flatten2"),
+            ex(fft=True, fuse=fused), ex(), Relayout("unflatten2", (d1, d2)),
+        )
+        return Schedule(
+            kind="fft3", stages=stages, in_tail=(ax, None, None),
+            out_tail=(ax, None, None), conj=inverse,
+            scale=float(d0 * d1 * d2) if inverse else None, **meta,
+        )
+    # ndim == 1: the six-step large transform (forward only)
+    if inverse:
+        raise NotImplementedError("1-D large inverse: conjugate externally")
+    n = shape[-1]
+    r = rows or p
+    if n % r or (n // r) % p or r % p:
+        if gb is not None:
+            # the library reference FFTs any length -- keep the reference's
+            # behaviour of not imposing the six-step factorization on it
+            return Schedule(kind="fft1d", stages=(), in_tail=(ax,), out_tail=(ax,), **meta)
+        raise ValueError(f"N={n} must factor as rows({r}) x cols with both divisible by P={p}")
+    c = n // r
+    stages = (
+        Relayout("unflatten2", (r // p, c)),
+        ex(fft=True, fuse=fused),
+        Twiddle(n=n, r=r, c=c),
+        ex(),
+        LocalFFT(axis=-1),
+        ex(),
+        Relayout("flatten2"),
+    )
+    return Schedule(kind="fft1d", stages=stages, in_tail=(ax,), out_tail=(ax,), **meta)
+
+
+# ---------------------------------------------------------------------------
+# The executor (lock step over the per-rank blocks of a SimMesh)
+# ---------------------------------------------------------------------------
+
+
+def _relayout(v: torch.Tensor, st: Relayout) -> torch.Tensor:
+    if st.op == "swap_last2":
+        return v.transpose(-1, -2)
+    if st.op == "swap_outer":
+        return v.transpose(-3, -2)
+    if st.op == "flatten2":
+        return v.reshape(v.shape[:-2] + (v.shape[-2] * v.shape[-1],))
+    if st.op == "unflatten2":
+        a, b = st.dims
+        return v.reshape(v.shape[:-1] + (a, b))
+    raise ValueError(f"unknown relayout op {st.op!r}")
+
+
+def _twiddle_table(n: int, k1: torch.Tensor, j2: torch.Tensor, dtype) -> torch.Tensor:
+    """exp(-2*pi*i*k1*j2/n) for integer index grids, computed in float64
+    and cast (the tables stay at double precision whatever the data)."""
+    ang = (-2.0 * np.pi / n) * (k1.to(torch.float64) * j2.to(torch.float64))
+    return torch.polar(torch.ones_like(ang), ang).to(dtype)
+
+
+def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: SimMesh):
+    """Twiddle + the exchange it rides: fused into the per-chunk compute
+    on streaming backends (applied to each sub-chunk as it arrives),
+    up-front to the whole block otherwise."""
+    from repro_torch.core import backends
+
+    n, r, c, p = tw.n, tw.r, tw.c, ex.p
+    device = vs[0].device
+    if backends.get(ex.backend).supports_chunk_fn:
+
+        def tw_chunk(chunk: torch.Tensor, src: int, offset: int) -> torch.Tensor:
+            # chunk (..., R/p, rows): my k1 block x src's j2 rows
+            # [offset, offset+rows) of its C/p block.
+            me = mesh.axis_index(ex.axis)
+            k1 = me * (r // p) + torch.arange(r // p, device=device)
+            j2 = src * (c // p) + offset + torch.arange(chunk.shape[-1], device=device)
+            return chunk * _twiddle_table(n, k1[:, None], j2[None, :], chunk.dtype)
+
+        return tr.distributed_transpose(
+            vs, mesh, ex.axis, strategy=ex.backend, chunk_fn=tw_chunk, n_chunks=ex.n_chunks
+        )
+    out = []
+    for me, v in enumerate(vs):
+        j2 = me * (c // p) + torch.arange(c // p, device=device)
+        k1 = torch.arange(r, device=device)
+        out.append(v * _twiddle_table(n, j2[:, None], k1[None, :], v.dtype))
+    return tr.distributed_transpose(out, mesh, ex.axis, strategy=ex.backend)
+
+
+def _execute_stages(vs, stages: Tuple[object, ...], mesh: SimMesh, *, impl="torch"):
+    """Interpret a run of stages over the per-rank blocks ``vs`` (a list,
+    updated in place rank by rank so a local pass frees each input block
+    as it goes)."""
+    p = len(vs)
+    i = 0
+    while i < len(stages):
+        st = stages[i]
+        if isinstance(st, LocalFFT):
+            for k in range(p):
+                vs[k] = lf.local_fft(vs[k], axis=st.axis, inverse=st.inverse, impl=impl)
+        elif isinstance(st, Relayout):
+            for k in range(p):
+                vs[k] = _relayout(vs[k], st)
+        elif isinstance(st, Twiddle):
+            nxt = stages[i + 1] if i + 1 < len(stages) else None
+            if not isinstance(nxt, Exchange):
+                raise ValueError("Twiddle must immediately precede an Exchange")
+            vs = _twiddled_exchange(vs, st, nxt, mesh)
+            i += 2
+            continue
+        elif isinstance(st, Exchange):
+            if st.fft:
+                vs = tr.transpose_then_fft(
+                    vs, mesh, st.axis, strategy=st.backend, impl=impl,
+                    fused=st.fused, n_chunks=st.n_chunks, inverse=st.inverse,
+                )
+            else:
+                vs = tr.distributed_transpose(
+                    vs, mesh, st.axis, strategy=st.backend, n_chunks=st.n_chunks
+                )
+        elif isinstance(st, _REAL_STAGES):
+            raise NotImplementedError(f"{st!r}: real stages are not ported yet (ROADMAP A7)")
+        else:
+            raise TypeError(f"unknown stage {st!r}")
+        i += 1
+    return vs
+
+
+def execute_schedule(vs, sched: Schedule, mesh: SimMesh, *, impl="torch"):
+    """Interpret a schedule over the per-rank local blocks -- the single
+    body behind every distributed transform (use :func:`run_schedule`
+    for a global array)."""
+    vs = list(vs)
+    if sched.conj:
+        vs = [torch.conj_physical(v) for v in vs]
+    vs = _execute_stages(vs, sched.stages, mesh, impl=impl)
+    for k in range(len(vs)):
+        if sched.conj:
+            vs[k] = torch.conj_physical(vs[k])
+        if sched.scale is not None:
+            vs[k] = vs[k] / sched.scale
+    return vs
+
+
+def simulate_specs(sched: Schedule, ndim: int) -> Tuple[Tuple[Optional[str], ...], ...]:
+    """Walk the stage list symbolically and return the full-length
+    partition spec at every stage boundary: ``specs[0]`` is the input
+    spec, ``specs[i + 1]`` the spec after stage ``i``. An Exchange keeps
+    the same spec positions sharded (it transposes the data of the last
+    two local dims); a Relayout permutes/merges/splits spec entries as
+    it moves the local dims; local stages never touch sharding. The
+    final spec must land on the schedule's own ``out_tail``."""
+    spec = [None] * (ndim - len(sched.in_tail)) + list(sched.in_tail)
+    out = [tuple(spec)]
+    for st in sched.stages:
+        if isinstance(st, Relayout):
+            if st.op == "swap_last2":
+                spec[-1], spec[-2] = spec[-2], spec[-1]
+            elif st.op == "swap_outer":
+                spec[-3], spec[-2] = spec[-2], spec[-3]
+            elif st.op == "flatten2":
+                if spec[-1] is not None:
+                    raise ValueError(
+                        "flatten2 with the minor axis sharded has no "
+                        "block-contiguous partition spec"
+                    )
+                spec = spec[:-2] + [spec[-2]]
+            elif st.op == "unflatten2":
+                spec = spec[:-1] + [spec[-1], None]
+            else:  # pragma: no cover - _relayout already rejects these
+                raise ValueError(f"unknown relayout op {st.op!r}")
+        elif isinstance(st, (Twiddle, Exchange)):
+            ex = st if isinstance(st, Exchange) else None
+            if ex is not None and ex.p > 1 and spec[-2] != ex.axis:
+                raise ValueError(
+                    f"exchange over mesh axis {ex.axis!r} but simulated "
+                    f"spec has {spec[-2]!r} sharded at position -2"
+                )
+        out.append(tuple(spec))
+    expected = [None] * (len(out[-1]) - len(sched.out_tail)) + list(sched.out_tail)
+    if list(out[-1]) != expected:
+        raise ValueError(
+            f"spec simulation of {sched.kind} schedule landed on "
+            f"{out[-1]} but the schedule declares out_tail={sched.out_tail}"
+        )
+    return tuple(out)
+
+
+def _library_reference(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
+    """The whole-transform reference (the 'FFTW3 reference' analogue, the
+    counterpart of the reference's GSPMD ``_xla_reference``): one
+    library ``torch.fft`` transform of the gathered global array, in the
+    schedule's output layout."""
+    k, inv, tb = sched.kind, sched.inverse, sched.transpose_back
+    if k == "fft2":
+        out = torch.fft.ifft2(x) if inv else torch.fft.fft2(x)
+        return out if tb else out.transpose(-1, -2)
+    if k == "fft3":
+        f3 = torch.fft.ifftn if inv else torch.fft.fftn
+        return f3(x, dim=(-3, -2, -1))
+    if k == "fft1d":
+        return torch.fft.fft(x)
+    raise ValueError(f"no whole-transform reference for schedule kind {k!r}")  # pragma: no cover
+
+
+def run_schedule(x: torch.Tensor, sched: Schedule, mesh: SimMesh, *, impl="torch") -> torch.Tensor:
+    """Run a schedule on a global array: split it into the per-rank
+    blocks of the schedule's input spec, interpret the stages, and
+    gather the blocks of its output spec -- or dispatch the whole
+    transform to the library reference for ``kind="global"`` backends.
+    ``x`` is first moved to the mesh's device (:meth:`SimMesh.place`)."""
+    x = mesh.place(x)
+    if sched.global_backend is not None:
+        return _library_reference(x, sched)
+    vs = execute_schedule(mesh.split(x, sched.in_tail), sched, mesh, impl=impl)
+    return mesh.gather(vs, sched.out_tail)
+
+
+# ---------------------------------------------------------------------------
+# Pretty-printing (Plan.describe)
+# ---------------------------------------------------------------------------
+
+
+def _stage_label(st) -> str:
+    if isinstance(st, Exchange):
+        bits = [f"{st.role}:{st.axis}", st.backend, f"p={st.p}"]
+        if st.fft:
+            bits.append("ifft" if st.inverse else "fft")
+        if st.fused:
+            bits.append("fused" + (f"@{st.n_chunks}" if st.n_chunks else ""))
+        if st.payload != "complex":
+            bits.append(st.payload)
+        return f"Exchange({', '.join(bits)})"
+    if isinstance(st, LocalFFT):
+        return f"LocalFFT(axis={st.axis}{', inverse' if st.inverse else ''})"
+    if isinstance(st, Relayout):
+        d = f", dims={st.dims}" if st.dims else ""
+        return f"Relayout({st.op}{d})"
+    if isinstance(st, Twiddle):
+        return f"Twiddle(n={st.n}, r={st.r}, c={st.c})"
+    return repr(st)
+
+
+def describe_schedule(sched: Schedule, *, params=None, chunk_compute_s: float = 0.0,
+                      real_itemsize: int = 8, complex_itemsize: int = 8) -> str:
+    """Human-readable stage dump with per-stage predicted microseconds
+    and wire bytes. Local stages show '-' in the modeled columns (the
+    alpha-beta model prices exchanges; local compute rides
+    ``chunk_compute_s``)."""
+    from repro_torch.core import comm_model as cm
+
+    prm = params or cm.CommParams()
+    head = (
+        f"schedule {sched.kind} [{sched.decomp}"
+        f"{', inverse' if sched.inverse else ''}"
+        f"{', transpose_back' if sched.transpose_back else ''}] "
+        f"shape={sched.global_shape} hash={sched.schedule_hash()}"
+    )
+    lines = [head]
+    if sched.global_backend is not None:
+        lines.append(f"  (whole-transform reference backend: {sched.global_backend})")
+    lines.append(f"  {'#':>2}  {'stage':<52} {'model us':>10} {'wire bytes':>12}")
+    t_total = 0.0
+    b_total = 0.0
+    for i, st in enumerate(sched.stages):
+        if isinstance(st, Exchange):
+            t = stage_seconds(st, prm, chunk_compute_s, real_itemsize, complex_itemsize)
+            b = exchange_wire_bytes(st, real_itemsize, complex_itemsize)
+            t_total += t
+            b_total += b
+            lines.append(f"  {i:>2}  {_stage_label(st):<52} {t * 1e6:>10.2f} {b:>12.0f}")
+        else:
+            lines.append(f"  {i:>2}  {_stage_label(st):<52} {'-':>10} {'-':>12}")
+    lines.append(
+        f"  total modeled exchange time {t_total * 1e6:.2f} us, "
+        f"wire bytes/device {b_total:.0f}"
+    )
+    return "\n".join(lines)

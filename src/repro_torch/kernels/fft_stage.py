@@ -1,0 +1,198 @@
+"""Wrappers of the Hopper kernels in ``csrc/fft_stage.cu``.
+
+This is the compute hot-spot of the matmul-formulated local FFT
+(:mod:`repro_torch.core.fftmath`). One four-step stage computes
+
+    left  mode:  out = (W @ A) * T        (column DFT + twiddle, fused)
+    right mode:  out = A @ W^T            (row DFT; final stage, T = 1)
+
+on complex operands stored as separate (re, im) float32 planes, and
+:func:`chunk_twiddle_pack_c64` is the fused exchange's per-chunk
+callback (relayout + W_P-column x twiddle multiply in one launch).
+
+Each wrapper takes the plain PyTorch version (:mod:`.ref`) for tensors
+on the CPU. For CUDA tensors it launches its kernel or raises: it
+checks device, dtype, shape and contiguity first, and raises if the
+launch reports an error. :data:`LAUNCHES` counts kernel launches per
+kernel (plain-path calls are not counted), so a run can show that its
+main path went through the kernels. The kernels choose their own tiles
+and take any shape; the reference's Pallas block sizes (``bm``/``bn``)
+have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch.kernels import build, ref
+
+Planar = Tuple[torch.Tensor, torch.Tensor]
+
+#: kernel name -> launches since the last :func:`reset_launches`
+LAUNCHES: Dict[str, int] = {"stage_left": 0, "stage_right": 0, "chunk_twiddle_pack_c64": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+@functools.lru_cache(maxsize=None)
+def _lib() -> ctypes.CDLL:
+    lib = build.load("fft_stage")
+    ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    lib.stage_left_f32.argtypes = [ptr] * 8 + [i64, i32, i32, i32, ptr]
+    lib.stage_left_f32.restype = i32
+    lib.stage_right_f32.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
+    lib.stage_right_f32.restype = i32
+    lib.chunk_twiddle_pack_c64.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+    lib.chunk_twiddle_pack_c64.restype = i32
+    lib.fft_stage_error_string.argtypes = [i32]
+    lib.fft_stage_error_string.restype = ctypes.c_char_p
+    return lib
+
+
+def _on_cuda(name: str, *tensors: torch.Tensor) -> bool:
+    """True for CUDA operands, False for CPU operands; raises for mixed
+    or other devices."""
+    devices = {t.device for t in tensors}
+    if len(devices) > 1:
+        raise ValueError(f"{name}: operands on different devices {sorted(map(str, devices))}")
+    dev = devices.pop()
+    if dev.type not in ("cpu", "cuda"):
+        raise ValueError(f"{name}: unsupported device {dev}")
+    return dev.type == "cuda"
+
+
+def _check_launchable(name: str, dtype: torch.dtype, tensors) -> None:
+    for t in tensors:
+        if t.dtype != dtype:
+            raise ValueError(f"{name}: expected {dtype} operands, got {t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous (call .contiguous())")
+        if t.is_conj() or t.is_neg():
+            raise ValueError(f"{name}: operands must not be lazy conj/neg views (resolve them first)")
+
+
+def _launch(name: str, fn, device: torch.device, *args) -> None:
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = fn(*args, stream)
+    if rc != 0:
+        msg = _lib().fft_stage_error_string(rc).decode()
+        raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
+    LAUNCHES[name] += 1
+
+
+def _check_planar_shapes(name: str, pairs) -> None:
+    for label, (re, im), shape in pairs:
+        if tuple(re.shape) != shape or tuple(im.shape) != shape:
+            raise ValueError(
+                f"{name}: {label} planes must be {shape}, got {tuple(re.shape)}/{tuple(im.shape)}"
+            )
+
+
+def stage_left(w: Planar, a: Planar, t: Planar) -> Planar:
+    """Fused (W @ A) * T over planar-complex operands.
+
+    w: (M, K) re/im;  a: (B, K, N) re/im;  t: (M, N) re/im -> (B, M, N).
+    """
+    wr, wi = w
+    ar, ai = a
+    tr, ti = t
+    if ar.ndim != 3 or wr.ndim != 2:
+        raise ValueError(f"stage_left: w must be (M, K) and a (B, K, N), got {tuple(wr.shape)}, {tuple(ar.shape)}")
+    B, K, N = ar.shape
+    M = wr.shape[0]
+    _check_planar_shapes("stage_left", (("w", w, (M, K)), ("a", a, (B, K, N)), ("t", t, (M, N))))
+    operands = (wr, wi, ar, ai, tr, ti)
+    if not _on_cuda("stage_left", *operands):
+        return ref.stage_left_ref(w, a, t)
+    _check_launchable("stage_left", torch.float32, operands)
+    out_r = torch.empty((B, M, N), dtype=torch.float32, device=ar.device)
+    out_i = torch.empty_like(out_r)
+    if out_r.numel():
+        _launch(
+            "stage_left", _lib().stage_left_f32, ar.device,
+            *(x.data_ptr() for x in (*operands, out_r, out_i)), B, M, K, N,
+        )
+    return out_r, out_i
+
+
+def stage_right(a: Planar, w: Planar) -> Planar:
+    """A @ W^T over planar-complex operands.
+
+    a: (B, M, K) re/im;  w: (N, K) re/im -> (B, M, N).
+    """
+    ar, ai = a
+    wr, wi = w
+    if ar.ndim != 3 or wr.ndim != 2:
+        raise ValueError(f"stage_right: a must be (B, M, K) and w (N, K), got {tuple(ar.shape)}, {tuple(wr.shape)}")
+    B, M, K = ar.shape
+    N = wr.shape[0]
+    _check_planar_shapes("stage_right", (("a", a, (B, M, K)), ("w", w, (N, K))))
+    operands = (ar, ai, wr, wi)
+    if not _on_cuda("stage_right", *operands):
+        return ref.stage_right_ref(a, w)
+    _check_launchable("stage_right", torch.float32, operands)
+    out_r = torch.empty((B, M, N), dtype=torch.float32, device=ar.device)
+    out_i = torch.empty_like(out_r)
+    if out_r.numel():
+        _launch(
+            "stage_right", _lib().stage_right_f32, ar.device,
+            *(x.data_ptr() for x in (*operands, out_r, out_i)), B, M, K, N,
+        )
+    return out_r, out_i
+
+
+def chunk_twiddle_pack_c64(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """Fused twiddle+pack for one arriving exchange chunk (complex64).
+
+    ``chunk``: (..., rows, c) -- the raw received piece (rows of the
+    source block x my column block); ``m``: (p, rows) -- the W_P column
+    for this source times the four-step twiddle slice for these rows.
+    Returns (..., c, p, rows): the chunk's contribution to the fused DFT
+    stage's accumulator (see
+    :func:`repro_torch.core.transpose.transpose_then_fft`), in a single
+    launch instead of a relayout copy + twiddle multiply. The kernel
+    reads the chunk with its row stride, so a strided view of a larger
+    block needs no copy; its last axis must be contiguous.
+    """
+    if chunk.dtype != torch.complex64 or m.dtype != torch.complex64:
+        raise ValueError(
+            f"chunk_twiddle_pack_c64 is a complex64 kernel (pairs of f32, not "
+            f"planar-f32 planes); got {chunk.dtype}/{m.dtype} (c128 callers use "
+            f"the plain torch path)"
+        )
+    lead = tuple(chunk.shape[:-2])
+    rows, c = chunk.shape[-2:]
+    p = m.shape[0]
+    if tuple(m.shape) != (p, rows):
+        raise ValueError(f"m must be (p, rows)=({p}, {rows}), got {tuple(m.shape)}")
+    if not _on_cuda("chunk_twiddle_pack_c64", chunk, m):
+        return ref.chunk_twiddle_pack_ref(chunk, m)
+    _check_launchable("chunk_twiddle_pack_c64", torch.complex64, (m,))
+    if chunk.is_conj() or chunk.is_neg():
+        raise ValueError("chunk_twiddle_pack_c64: chunk must not be a lazy conj/neg view")
+    if chunk.stride(-1) != 1:
+        raise ValueError("chunk_twiddle_pack_c64: the chunk's last axis must be contiguous")
+    try:
+        flat = chunk.view(-1, rows, c)
+    except RuntimeError:
+        raise ValueError(
+            "chunk_twiddle_pack_c64: the chunk's leading axes must collapse to "
+            "one stride (call .contiguous())"
+        ) from None
+    B = flat.shape[0]
+    out = torch.empty((B, c, p, rows), dtype=torch.complex64, device=chunk.device)
+    if out.numel():
+        _launch(
+            "chunk_twiddle_pack_c64", _lib().chunk_twiddle_pack_c64, chunk.device,
+            flat.data_ptr(), m.data_ptr(), out.data_ptr(), B, rows, c, p,
+            flat.stride(0), flat.stride(1),
+        )
+    return out.reshape(lead + (c, p, rows))

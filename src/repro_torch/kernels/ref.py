@@ -1,0 +1,46 @@
+"""Plain PyTorch versions of the Hopper kernels (the allclose targets).
+
+The wrappers in :mod:`repro_torch.kernels.fft_stage` run these for
+tensors on the CPU; ``chip_smoke.py`` holds each kernel against them on
+the card."""
+
+from __future__ import annotations
+
+from typing import Tuple
+
+import torch
+
+Planar = Tuple[torch.Tensor, torch.Tensor]
+
+
+def _to_c(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
+    return torch.complex(re.float(), im.float())
+
+
+def stage_left_ref(w: Planar, a: Planar, t: Planar) -> Planar:
+    """(W @ A) * T, complex planar: w (M,K), a (B,K,N), t (M,N)."""
+    wc, ac, tc = _to_c(*w), _to_c(*a), _to_c(*t)
+    out = (wc @ ac) * tc
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def stage_right_ref(a: Planar, w: Planar) -> Planar:
+    """A @ W^T, complex planar: a (B,M,K), w (N,K)."""
+    ac, wc = _to_c(*a), _to_c(*w)
+    out = ac @ wc.T
+    return out.real.contiguous(), out.imag.contiguous()
+
+
+def chunk_twiddle_pack_ref(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+    """out[..., j, k, t] = chunk[..., t, j] * m[k, t]: the relayout of one
+    arriving chunk (..., rows, c) -> (..., c, rows) followed by the
+    broadcast multiply with ``m`` (p, rows) -- the two-op path of the
+    fused exchange's chunk callback."""
+    ct = chunk.transpose(-1, -2)  # (..., c, rows)
+    return ct[..., None, :] * m  # (..., c, p, rows)
+
+
+def fft_last_axis_ref(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
+    """Oracle for ops.fft_last_axis: the library FFT."""
+    x = x.to(torch.complex64)
+    return torch.fft.ifft(x) if inverse else torch.fft.fft(x)

@@ -1,0 +1,69 @@
+"""repro_torch and chip_smoke.py stand alone: they import no jax and
+nothing of the reference package, and chip_smoke.py refuses to report a
+result without a GPU or outside a checkout."""
+
+import os
+import pathlib
+import re
+import shutil
+import subprocess
+import sys
+
+from conftest import REPO, SRC
+
+PKG = pathlib.Path(SRC) / "repro_torch"
+SMOKE = pathlib.Path(REPO) / "chip_smoke.py"
+FORBIDDEN = re.compile(r"^\s*(import|from)\s+(jax|jaxlib|repro)(\.|\s|$)", re.M)
+
+
+def _modules():
+    return sorted(
+        ".".join(p.relative_to(SRC).with_suffix("").parts).removesuffix(".__init__")
+        for p in PKG.rglob("*.py")
+        if "build" not in p.relative_to(PKG).parts[:-1]
+    )
+
+
+def test_sources_import_no_jax_and_no_reference():
+    files = [p for p in PKG.rglob("*.py") if "build" not in p.relative_to(PKG).parts[:-1]] + [SMOKE]
+    assert len(files) > 10
+    for path in files:
+        text = path.read_text()
+        assert not FORBIDDEN.search(text), f"{path} imports jax or the reference package"
+        assert "import jax" not in text
+
+
+def test_every_module_imports_with_jax_blocked():
+    code = (
+        "import importlib, sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['repro'] = None\n"
+        f"sys.path.insert(0, {SRC!r}); sys.path.insert(0, {REPO!r})\n"
+        f"for m in {_modules()!r} + ['chip_smoke']:\n"
+        "    importlib.import_module(m)\n"
+        "assert not any(k == 'jax' or k.startswith('jax.') for k, v in sys.modules.items() if v is not None)\n"
+        "print('IMPORTED', len(sys.modules))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=300)
+    assert out.returncode == 0, out.stderr
+    assert "IMPORTED" in out.stdout
+
+
+def _run_smoke(cwd, script):
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    return subprocess.run([sys.executable, str(script)], capture_output=True, text=True,
+                          timeout=300, cwd=cwd, env=env)
+
+
+def test_chip_smoke_fails_without_a_gpu_or_a_checkout(tmp_path):
+    import torch
+
+    if not torch.cuda.is_available():
+        out = _run_smoke(REPO, SMOKE)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
+    alone = tmp_path / "chip_smoke.py"
+    shutil.copy(SMOKE, alone)
+    out = _run_smoke(tmp_path, alone)
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout

@@ -1,0 +1,125 @@
+"""Port parity for the stage-schedule IR: the 15 slab c2c golden
+schedules byte for byte, the byte and cost walks against the
+reference's, the divisibility messages, the rewrites and the spec
+simulation."""
+
+import json
+import os
+
+import pytest
+
+import repro_torch.core.schedule as sch
+from repro_torch.core import CommParams
+
+GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden_schedules.json")
+
+
+def slab_c2c_cases():
+    """key -> build_schedule kwargs: the slab c2c entries of
+    tests/test_schedule.py's snapshot grid (the kwargs are the same)."""
+    cases = {}
+    for ndim, shape in ((2, (16, 16)), (3, (8, 8, 8))):
+        for inverse in (False, True):
+            for fused in (False, True):
+                for tb in ((False, True) if ndim == 2 else (False,)):
+                    key = (
+                        f"slab/ndim{ndim}/c2c/{'inv' if inverse else 'fwd'}/"
+                        f"{'fused' if fused else 'unfused'}" + ("/tb" if tb else "")
+                    )
+                    cases[key] = dict(
+                        global_shape=shape, ndim=ndim, inverse=inverse, real=False,
+                        decomp="slab", axis_name="x", p=4, backend="scatter",
+                        fused=fused, transpose_back=tb,
+                    )
+    for fused in (False, True):
+        cases[f"slab/ndim1/c2c/fwd/{'fused' if fused else 'unfused'}"] = dict(
+            global_shape=(64,), ndim=1, inverse=False, decomp="slab",
+            axis_name="x", p=4, backend="scatter", fused=fused,
+        )
+    cases["slab/ndim2/c2c/fwd/xla_auto"] = dict(
+        global_shape=(16, 16), ndim=2, inverse=False, decomp="slab",
+        axis_name="x", p=4, backend="xla_auto",
+    )
+    return cases
+
+
+CASES = slab_c2c_cases()
+
+
+def test_case_grid_covers_every_slab_c2c_golden():
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    slab_c2c = {k for k in golden if k.startswith(("slab/ndim1/", "slab/ndim2/c2c/", "slab/ndim3/c2c/"))}
+    assert set(CASES) == slab_c2c and len(CASES) == 15
+
+
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_golden_schedule_byte_identical(key):
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    assert sch.build_schedule(**CASES[key]).canonical() == golden[key]
+
+
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_byte_and_cost_walks_match_reference(key):
+    import repro.core.comm_model as ref_cm
+    import repro.core.schedule as ref_sch
+
+    mine = sch.build_schedule(**CASES[key])
+    theirs = ref_sch.build_schedule(**CASES[key])
+    assert mine.schedule_hash() == theirs.schedule_hash()
+    for item in (8, 16):
+        assert sch.schedule_comm_bytes(mine, item, item) == ref_sch.schedule_comm_bytes(theirs, item, item)
+    for alpha, beta, cc, n_chunks in ((1e-6, 200e9, 0.0, None), (5e-6, 450e9, 3e-6, 16)):
+        for fused in (False, True):
+            a = sch.with_pipeline(mine, fused, n_chunks)
+            b = ref_sch.with_pipeline(theirs, fused, n_chunks)
+            got = sch.predict_seconds(a, CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 8, 8)
+            exp = ref_sch.predict_seconds(b, ref_cm.CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 8, 8)
+            assert got == exp
+
+
+@pytest.mark.parametrize("key", sorted(CASES))
+def test_specs_land_on_out_tail(key):
+    built = sch.build_schedule(**CASES[key])
+    specs = sch.simulate_specs(built, len(built.global_shape))
+    assert specs[0][-len(built.in_tail):] == built.in_tail
+    assert specs[-1][-len(built.out_tail):] == built.out_tail
+    assert len(specs) == len(built.stages) + 1
+
+
+@pytest.mark.parametrize(
+    "shape,ndim,p",
+    [((10, 16), 2, 4), ((16, 10), 2, 4), ((6, 4, 4), 3, 4), ((8, 3, 3), 3, 4), ((40,), 1, 4)],
+)
+def test_check_divisible_messages_match_reference(shape, ndim, p):
+    import repro.core.schedule as ref_sch
+
+    with pytest.raises(ValueError) as theirs:
+        ref_sch.check_divisible(shape, ndim, p=p, axis_name="model")
+    with pytest.raises(ValueError) as mine:
+        sch.check_divisible(shape, ndim, p=p, axis_name="model")
+    assert str(mine.value) == str(theirs.value)
+
+
+def test_rewrites_and_describe():
+    base = sch.build_schedule((16, 16), ndim=2, axis_name="x", p=4, backend="scatter", fused=True)
+    other = sch.with_backends(base, slab="alltoall")
+    assert {st.backend for st in other.exchanges()} == {"alltoall"}
+    assert other.schedule_hash() != base.schedule_hash()
+    unfused = sch.with_pipeline(base, False, 8)
+    assert all(not st.fused and st.n_chunks == 8 for st in unfused.exchanges())
+    text = base.describe(params=CommParams())
+    assert base.schedule_hash() in text and "Exchange(slab:x, scatter, p=4, fft, fused)" in text
+
+
+def test_unported_builders_name_their_roadmap_item():
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        sch.build_schedule((16, 16), ndim=2, decomp="pencil", row_axis="r", col_axis="c",
+                           p_rows=2, p_cols=2)
+    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
+        sch.build_schedule((16, 16), ndim=2, real=True, axis_name="x", p=4)
+    with pytest.raises(NotImplementedError, match="conjugate externally"):
+        sch.build_schedule((64,), ndim=1, inverse=True, axis_name="x", p=4)
+    with pytest.raises(ValueError, match="must factor as rows"):
+        sch.build_schedule((66,), ndim=1, axis_name="x", p=4, backend="scatter")
