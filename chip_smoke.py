@@ -13,8 +13,11 @@ Phases, each printing a line; any failure exits non-zero with no result:
    gives it, hold the result against its plain PyTorch version on the
    same inputs, and time kernel, plain version and library yardstick
    (a PyTorch call the port itself never makes) beside the bound:
-   max(FLOPs / fp32 peak, bytes / HBM rate) at NVIDIA's H100 SXM
-   data-sheet rates;
+   max(FLOPs / peak, bytes / HBM rate) at NVIDIA's H100 SXM data-sheet
+   rates -- for the two 3xTF32 stage kernels both the fp32 CUDA-core
+   bound and the tensor-core one (3 x FLOPs / TF32 peak, their
+   ``bound_ms``); then fft_last_axis, and its glue (its time minus the
+   two stage kernels');
 4. main path -- plan_fft((16384, 16384), SimMesh(4), backend="scatter",
    local_impl="kernel"): the paper's slab fft2 over the N-scatter ring
    with the next FFT pass fused into the arriving chunks, on a 2 GiB
@@ -80,10 +83,22 @@ def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
     return statistics.median(times)
 
 
-def bound(flops: float, nbytes: float, cm):
-    t_ops = flops / cm.PEAK_FLOPS_FP32
+def bound(flops: float, nbytes: float, cm, peak: float = None):
+    """(ms, "operations" | "bytes"): the least time for ``flops`` at
+    ``peak`` (default: the fp32 CUDA-core peak) and ``nbytes`` at the HBM
+    rate."""
+    t_ops = flops / (peak or cm.PEAK_FLOPS_FP32)
     t_bytes = nbytes / cm.HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def tensor_core_bounds(row, flops, nbytes, cm):
+    """Both bounds of a 3xTF32 tensor-core stage: the fp32 CUDA-core one
+    and the tensor-core one (three TF32 products per fp32 product). The
+    kernel runs on the tensor cores, so ``bound_ms`` is the latter."""
+    row["bound_fp32_ms"], row["bound_fp32_by"] = bound(flops, nbytes, cm)
+    row["bound_ms"], row["bound_by"] = bound(3 * flops, nbytes, cm, cm.PEAK_FLOPS_TF32)
+    row["bound_units"] = "3xTF32 tensor cores (mma.sync m16n8k8)"
 
 
 def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
@@ -91,90 +106,86 @@ def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
     dev = "cuda"
     rows = []
 
-    def planar(t):
-        return t.real.contiguous(), t.imag.contiguous()
-
-    def rand(*shape):
-        return torch.randn(shape, device=dev, generator=g)
+    def crand(*shape):
+        return torch.randn(shape, dtype=torch.complex64, device=dev, generator=g)
 
     def compare(got, exp, rtol, atol):
-        err = max((a - b).abs().max().item() for a, b in zip(got, exp))
-        ok = all(torch.allclose(a, b, rtol=rtol, atol=atol) for a, b in zip(got, exp))
-        return err, ok
+        got, exp = torch.view_as_real(got), torch.view_as_real(exp)
+        return (got - exp).abs().max().item(), torch.allclose(got, exp, rtol=rtol, atol=atol)
 
     # stage_left: W (512, 512), A (B, 512, n2), T (512, n2) at both main-path
     # passes: (B=4096, n2=32) per rank before the exchange -- the row of the
     # JSON line -- and (B=16384, n2=8) after it
     timed = []
     for b, n2 in ((4096, 32), (16384, 8)):
-        w = planar(lf.dft_matrix(512, device=dev))
-        t = planar(lf.twiddle(512, n2, device=dev))
-        a = (rand(b, 512, n2), rand(b, 512, n2))
-        err, ok = compare(fft_stage.stage_left(w, a, t), ref.stage_left_ref(w, a, t), STAGE_RTOL, STAGE_ATOL)
-        ms = median_ms(torch, lambda: fft_stage.stage_left(w, a, t))
+        w = lf.dft_matrix(512, device=dev)
+        t = lf.twiddle(512, n2, device=dev)
+        a = crand(b, 512, n2)
+        err, ok = compare(fft_stage.stage_left_c64(w, a, t), ref.stage_left_c64_ref(w, a, t), STAGE_RTOL, STAGE_ATOL)
+        ms = median_ms(torch, lambda: fft_stage.stage_left_c64(w, a, t))
+        lib_ms = median_ms(torch, lambda: torch.matmul(w, a) * t)
         print(f"kernel stage_left {(b, 512, 512, n2)}: max_abs_err={err:.3e} "
-              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f}", flush=True)
+              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f} "
+              f"library_ms={lib_ms:.4f}", flush=True)
         check(ok, f"stage_left disagrees with its plain version at {(b, 512, n2)}")
-        timed.append((w, a, t, err, ms))
-    w, a, t, err, ms = timed[0]
-    B, K, Nn = a[0].shape
-    M = w[0].shape[0]
-    wc, ac, tc = (torch.complex(*x) for x in (w, a, t))
+        timed.append((w, a, t, err, ms, lib_ms))
+    w, a, t, err, ms, lib_ms = timed[0]
+    B, K, Nn = a.shape
+    M = w.shape[0]
     flops = 8.0 * B * M * K * Nn + 6.0 * B * M * Nn
     nbytes = 8.0 * (M * K + B * K * Nn + M * Nn + B * M * Nn)
     rows.append(dict(
         name="stage_left", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
         replaces="src/repro/kernels/fft_stage.py:106", shape=[B, M, K, Nn], max_abs_err=err, ms=ms,
-        plain_ms=median_ms(torch, lambda: ref.stage_left_ref(w, a, t)),
-        library="torch.matmul then * (two calls)",
-        library_ms=median_ms(torch, lambda: torch.matmul(wc, ac) * tc),
+        ms_second_pass=timed[1][4], library_ms_second_pass=timed[1][5],
+        plain_ms=median_ms(torch, lambda: ref.stage_left_c64_ref(w, a, t)),
+        library="torch.matmul then * (two calls)", library_ms=lib_ms,
     ))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
-    del wc, ac, tc, timed
+    tensor_core_bounds(rows[-1], flops, nbytes, cm)
+    del timed, w, a, t
 
     # stage_right: A (B, 512, n2) @ W (n2, n2)^T, chained after stage_left
     timed = []
     for b, n2 in ((4096, 32), (16384, 8)):
-        a = (rand(b, 512, n2), rand(b, 512, n2))
-        w = planar(lf.dft_matrix(n2, device=dev))
-        err, ok = compare(fft_stage.stage_right(a, w), ref.stage_right_ref(a, w), STAGE_RTOL, STAGE_ATOL)
-        ms = median_ms(torch, lambda: fft_stage.stage_right(a, w))
+        a = crand(b, 512, n2)
+        w = lf.dft_matrix(n2, device=dev)
+        err, ok = compare(fft_stage.stage_right_c64(a, w), ref.stage_right_c64_ref(a, w), STAGE_RTOL, STAGE_ATOL)
+        ms = median_ms(torch, lambda: fft_stage.stage_right_c64(a, w))
+        lib_ms = median_ms(torch, lambda: torch.matmul(a, w.T))
         print(f"kernel stage_right {(b, 512, n2, n2)}: max_abs_err={err:.3e} "
-              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f}", flush=True)
+              f"(tol rtol={STAGE_RTOL} atol={STAGE_ATOL}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f} "
+              f"library_ms={lib_ms:.4f}", flush=True)
         check(ok, f"stage_right disagrees with its plain version at {(b, 512, n2)}")
-        timed.append((a, w, err, ms))
-    a, w, err, ms = timed[0]
-    B, M, K = a[0].shape
-    Nn = w[0].shape[0]
-    ac, wc = torch.complex(*a), torch.complex(*w)
+        timed.append((a, w, err, ms, lib_ms))
+    a, w, err, ms, lib_ms = timed[0]
+    B, M, K = a.shape
+    Nn = w.shape[0]
     flops = 8.0 * B * M * K * Nn
     nbytes = 8.0 * (B * M * K + Nn * K + B * M * Nn)
     rows.append(dict(
         name="stage_right", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
         replaces="src/repro/kernels/fft_stage.py:214", shape=[B, M, K, Nn], max_abs_err=err, ms=ms,
-        plain_ms=median_ms(torch, lambda: ref.stage_right_ref(a, w)),
-        library="torch.matmul",
-        library_ms=median_ms(torch, lambda: torch.matmul(ac, wc.T)),
+        ms_second_pass=timed[1][3], library_ms_second_pass=timed[1][4],
+        plain_ms=median_ms(torch, lambda: ref.stage_right_c64_ref(a, w)),
+        library="torch.matmul", library_ms=lib_ms,
     ))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
-    del ac, wc, timed
+    tensor_core_bounds(rows[-1], flops, nbytes, cm)
+    del timed, a, w
 
     # chunk_twiddle_pack_c64: one arriving (r, c) = (4096, 4096) chunk, m (P, 4096);
     # the own chunk is a strided view of the rank's (4096, 16384) block
     r, c = N // P, N // P
-    block = torch.randn((r, N), dtype=torch.complex64, device=dev, generator=g)
-    m = torch.randn((P, r), dtype=torch.complex64, device=dev, generator=g)
+    block = crand(r, N)
+    m = crand(P, r)
     for label, chunk in (("received", block[:, c:2 * c].contiguous()), ("own, strided", block[:, :c])):
-        got = fft_stage.chunk_twiddle_pack_c64(chunk, m)
-        exp = ref.chunk_twiddle_pack_ref(chunk, m)
-        err, ok = compare((torch.view_as_real(got),), (torch.view_as_real(exp),), PACK_RTOL, PACK_ATOL)
+        err, ok = compare(fft_stage.chunk_twiddle_pack_c64(chunk, m), ref.chunk_twiddle_pack_ref(chunk, m),
+                          PACK_RTOL, PACK_ATOL)
         print(f"kernel chunk_twiddle_pack_c64 {(r, c)}x{P} ({label}): max_abs_err={err:.3e} "
               f"(tol rtol={PACK_RTOL} atol={PACK_ATOL}) {'ok' if ok else 'MISMATCH'}", flush=True)
         check(ok, f"chunk_twiddle_pack_c64 disagrees with its plain version ({label})")
         if label == "received":
             timed = (chunk, err)
     chunk, err = timed
-    del got, exp
     flops = 6.0 * r * c * P
     nbytes = 8.0 * (r * c + P * r + c * P * r)
     rows.append(dict(
@@ -188,18 +199,25 @@ def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
     rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
     del block, chunk, m
 
-    # the pair as fft_last_axis (the LocalFFT of the main path) vs the library FFT
-    x = torch.randn((N // P, N), dtype=torch.complex64, device=dev, generator=g)
+    # the pair as fft_last_axis (the LocalFFT of the main path) vs the library FFT;
+    # its glue is its time minus the two stage kernels' at the same shapes
+    x = crand(N // P, N)
     y, exp = ops.fft_last_axis(x), torch.fft.fft(x)
     rel = ((y - exp).abs().max() / exp.abs().max()).item()
+    del y, exp
+    fft_ms = median_ms(torch, lambda: ops.fft_last_axis(x), reps=5)
+    glue_ms = fft_ms - rows[0]["ms"] - rows[1]["ms"]
     print(f"fft_last_axis {tuple(x.shape)} (stage_left + stage_right): rel_err={rel:.3e} "
-          f"(tol {FFT_REL_TOL}) ms={median_ms(torch, lambda: ops.fft_last_axis(x), reps=5):.3f} "
+          f"(tol {FFT_REL_TOL}) ms={fft_ms:.3f} glue_ms={glue_ms:.3f} "
           f"torch.fft.fft ms={median_ms(torch, lambda: torch.fft.fft(x), reps=5):.3f}", flush=True)
     check(rel <= FFT_REL_TOL, "fft_last_axis disagrees with torch.fft.fft")
     for row in rows:
+        extra = (f" bound_fp32_ms={row['bound_fp32_ms']:.4f} ({row['bound_fp32_by']}, fp32 CUDA cores) "
+                 f"second pass ms={row['ms_second_pass']:.4f} library_ms={row['library_ms_second_pass']:.4f}"
+                 if "bound_fp32_ms" in row else "")
         print(f"kernel {row['name']} {tuple(row['shape'])}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
-              f"library_ms={row['library_ms']} ({row['library']}) bound_ms={row['bound_ms']:.4f} "
-              f"({row['bound_by']})", flush=True)
+              f"library_ms={row['library_ms']:.4f} ({row['library']}) bound_ms={row['bound_ms']:.4f} "
+              f"({row['bound_by']}, {row.get('bound_units', 'fp32 CUDA cores')}){extra}", flush=True)
     return rows
 
 

@@ -24,6 +24,7 @@ from typing import Optional
 NVLINK_BW = 450e9  # bytes/s per GPU, each way (900 GB/s bidirectional)
 HBM_BW = 3.35e12  # bytes/s
 PEAK_FLOPS_FP32 = 67e12  # FLOP/s, CUDA cores, no tensor cores
+PEAK_FLOPS_TF32 = 495e12  # FLOP/s, TF32 tensor cores, dense (H100 SXM data sheet)
 #: per-message latency: a PLACEHOLDER until calibrate is ported (ROADMAP A9)
 ALPHA_S = 10e-6
 

@@ -6,7 +6,10 @@ This is the compute hot-spot of the matmul-formulated local FFT
     left  mode:  out = (W @ A) * T        (column DFT + twiddle, fused)
     right mode:  out = A @ W^T            (row DFT; final stage, T = 1)
 
-on complex operands stored as separate (re, im) float32 planes, and
+on interleaved complex64 operands (:func:`stage_left_c64`,
+:func:`stage_right_c64`, the entry points ``ops.fft_last_axis`` calls;
+:func:`stage_left` and :func:`stage_right` keep the reference's planar
+(re, im) signatures and pack around the same kernels), and
 :func:`chunk_twiddle_pack_c64` is the fused exchange's per-chunk
 callback (relayout + W_P-column x twiddle multiply in one launch).
 
@@ -45,10 +48,10 @@ def reset_launches() -> None:
 def _lib() -> ctypes.CDLL:
     lib = build.load("fft_stage")
     ptr, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    lib.stage_left_f32.argtypes = [ptr] * 8 + [i64, i32, i32, i32, ptr]
-    lib.stage_left_f32.restype = i32
-    lib.stage_right_f32.argtypes = [ptr] * 6 + [i64, i32, i32, i32, ptr]
-    lib.stage_right_f32.restype = i32
+    lib.stage_left_c64.argtypes = [ptr] * 4 + [i64, i32, i32, i32, ptr]
+    lib.stage_left_c64.restype = i32
+    lib.stage_right_c64.argtypes = [ptr] * 3 + [i64, i32, i32, i32, ptr]
+    lib.stage_right_c64.restype = i32
     lib.chunk_twiddle_pack_c64.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
     lib.chunk_twiddle_pack_c64.restype = i32
     lib.fft_stage_error_string.argtypes = [i32]
@@ -96,57 +99,92 @@ def _check_planar_shapes(name: str, pairs) -> None:
             )
 
 
+def _check_shapes(name: str, pairs) -> None:
+    for label, x, shape in pairs:
+        if tuple(x.shape) != shape:
+            raise ValueError(f"{name}: {label} must be {shape}, got {tuple(x.shape)}")
+
+
+def _left_dims(name: str, w: torch.Tensor, a: torch.Tensor):
+    if a.ndim != 3 or w.ndim != 2:
+        raise ValueError(f"{name}: w must be (M, K) and a (B, K, N), got {tuple(w.shape)}, {tuple(a.shape)}")
+    B, K, N = a.shape
+    return B, w.shape[0], K, N
+
+
+def _right_dims(name: str, a: torch.Tensor, w: torch.Tensor):
+    if a.ndim != 3 or w.ndim != 2:
+        raise ValueError(f"{name}: a must be (B, M, K) and w (N, K), got {tuple(a.shape)}, {tuple(w.shape)}")
+    B, M, K = a.shape
+    return B, M, K, w.shape[0]
+
+
+def stage_left_c64(w: torch.Tensor, a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """Fused (W @ A) * T over interleaved complex64 operands.
+
+    w: (M, K);  a: (B, K, N);  t: (M, N) -> (B, M, N), contiguous.
+    """
+    B, M, K, N = _left_dims("stage_left", w, a)
+    _check_shapes("stage_left", (("w", w, (M, K)), ("t", t, (M, N))))
+    if not _on_cuda("stage_left", w, a, t):
+        return ref.stage_left_c64_ref(w, a, t)
+    _check_launchable("stage_left", torch.complex64, (w, a, t))
+    out = torch.empty((B, M, N), dtype=torch.complex64, device=a.device)
+    if out.numel():
+        _launch("stage_left", _lib().stage_left_c64, a.device,
+                w.data_ptr(), a.data_ptr(), t.data_ptr(), out.data_ptr(), B, M, K, N)
+    return out
+
+
+def stage_right_c64(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A @ W^T over interleaved complex64 operands.
+
+    a: (B, M, K);  w: (N, K) -> (B, M, N). On the card the result is the
+    ``.mT`` view of a (B, N, M) contiguous buffer -- the order
+    :func:`repro_torch.kernels.ops.fft_last_axis` flattens to -- so its
+    strides differ from the plain version's; the values do not.
+    """
+    B, M, K, N = _right_dims("stage_right", a, w)
+    _check_shapes("stage_right", (("w", w, (N, K)),))
+    if not _on_cuda("stage_right", a, w):
+        return ref.stage_right_c64_ref(a, w)
+    _check_launchable("stage_right", torch.complex64, (a, w))
+    out = torch.empty((B, N, M), dtype=torch.complex64, device=a.device)
+    if out.numel():
+        _launch("stage_right", _lib().stage_right_c64, a.device,
+                a.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, K, N)
+    return out.mT
+
+
 def stage_left(w: Planar, a: Planar, t: Planar) -> Planar:
-    """Fused (W @ A) * T over planar-complex operands.
+    """Fused (W @ A) * T over planar-complex operands (the reference's
+    signature); on the card it packs to complex64 and launches
+    :func:`stage_left_c64`.
 
     w: (M, K) re/im;  a: (B, K, N) re/im;  t: (M, N) re/im -> (B, M, N).
     """
-    wr, wi = w
-    ar, ai = a
-    tr, ti = t
-    if ar.ndim != 3 or wr.ndim != 2:
-        raise ValueError(f"stage_left: w must be (M, K) and a (B, K, N), got {tuple(wr.shape)}, {tuple(ar.shape)}")
-    B, K, N = ar.shape
-    M = wr.shape[0]
+    B, M, K, N = _left_dims("stage_left", w[0], a[0])
     _check_planar_shapes("stage_left", (("w", w, (M, K)), ("a", a, (B, K, N)), ("t", t, (M, N))))
-    operands = (wr, wi, ar, ai, tr, ti)
+    operands = (*w, *a, *t)
     if not _on_cuda("stage_left", *operands):
         return ref.stage_left_ref(w, a, t)
     _check_launchable("stage_left", torch.float32, operands)
-    out_r = torch.empty((B, M, N), dtype=torch.float32, device=ar.device)
-    out_i = torch.empty_like(out_r)
-    if out_r.numel():
-        _launch(
-            "stage_left", _lib().stage_left_f32, ar.device,
-            *(x.data_ptr() for x in (*operands, out_r, out_i)), B, M, K, N,
-        )
-    return out_r, out_i
+    return ref.to_planes(stage_left_c64(torch.complex(*w), torch.complex(*a), torch.complex(*t)))
 
 
 def stage_right(a: Planar, w: Planar) -> Planar:
-    """A @ W^T over planar-complex operands.
+    """A @ W^T over planar-complex operands (the reference's signature);
+    on the card it packs to complex64 and launches :func:`stage_right_c64`.
 
     a: (B, M, K) re/im;  w: (N, K) re/im -> (B, M, N).
     """
-    ar, ai = a
-    wr, wi = w
-    if ar.ndim != 3 or wr.ndim != 2:
-        raise ValueError(f"stage_right: a must be (B, M, K) and w (N, K), got {tuple(ar.shape)}, {tuple(wr.shape)}")
-    B, M, K = ar.shape
-    N = wr.shape[0]
+    B, M, K, N = _right_dims("stage_right", a[0], w[0])
     _check_planar_shapes("stage_right", (("a", a, (B, M, K)), ("w", w, (N, K))))
-    operands = (ar, ai, wr, wi)
+    operands = (*a, *w)
     if not _on_cuda("stage_right", *operands):
         return ref.stage_right_ref(a, w)
     _check_launchable("stage_right", torch.float32, operands)
-    out_r = torch.empty((B, M, N), dtype=torch.float32, device=ar.device)
-    out_i = torch.empty_like(out_r)
-    if out_r.numel():
-        _launch(
-            "stage_right", _lib().stage_right_f32, ar.device,
-            *(x.data_ptr() for x in (*operands, out_r, out_i)), B, M, K, N,
-        )
-    return out_r, out_i
+    return ref.to_planes(stage_right_c64(torch.complex(*a), torch.complex(*w)))
 
 
 def chunk_twiddle_pack_c64(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

@@ -4,11 +4,12 @@
 executed by the kernels (fft_stage.py):
 
     A = x.reshape(-1, n1, n2)
-    B = stage_left(W_n1, A, T_n1n2)      # column DFT + twiddle, fused
-    D = stage_right(B, W_n2)             # row DFT
+    B = stage_left_c64(W_n1, A, T_n1n2)  # column DFT + twiddle, fused
+    D = stage_right_c64(B, W_n2)         # row DFT
     out[k1 + n1*k2] = D[k1, k2]
 
-For CPU tensors the stage wrappers run their plain PyTorch versions --
+all in interleaved complex64. For CPU tensors the stage wrappers run
+their plain PyTorch versions --
 the same math, so the CPU tests check the path the card runs.
 
 Factor choice (:func:`_kernel_factors`) is the reference's: n1 is the
@@ -30,18 +31,17 @@ import repro_torch.core.fftmath as lf
 from repro_torch.kernels import fft_stage
 
 
-def _split_planar(x: torch.Tensor):
-    return x.real.float().contiguous(), x.imag.float().contiguous()
-
-
 @functools.lru_cache(maxsize=64)
-def _planar_tables(n1: int, n2: int, device: str):
-    """(W_n1, T_n1n2, W_n2) as planar f32 pairs on ``device``."""
-    return (
-        _split_planar(lf.dft_matrix(n1, device=device)),
-        _split_planar(lf.twiddle(n1, n2, device=device)),
-        _split_planar(lf.dft_matrix(n2, device=device)),
-    )
+def _tables(n1: int, n2: int, inverse: bool, device: str):
+    """(W_n1, T_n1n2, W_n2) as complex64 on ``device``, built in float64.
+    The inverse's tables are the conjugates, with 1/n folded into W_n2:
+    conj(fft(conj(x))) / n with no conj or scale pass over the data."""
+    w1 = lf.dft_matrix(n1, dtype=torch.complex128)
+    tw = lf.twiddle(n1, n2, dtype=torch.complex128)
+    w2 = lf.dft_matrix(n2, dtype=torch.complex128)
+    if inverse:
+        w1, tw, w2 = w1.conj(), tw.conj(), w2.conj() / (n1 * n2)
+    return tuple(t.resolve_conj().to(torch.complex64).to(device) for t in (w1, tw, w2))
 
 
 def _kernel_factors(n: int) -> Optional[tuple[int, int]]:
@@ -57,7 +57,11 @@ def _kernel_factors(n: int) -> Optional[tuple[int, int]]:
 
 def fft_last_axis(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     """FFT along the last axis via the fused-stage kernels. Returns
-    complex64 whatever the input precision, as the reference does."""
+    complex64 whatever the input precision, as the reference does.
+
+    On the card the data stays interleaved complex64 throughout:
+    ``stage_right_c64`` writes its result in the flattened order
+    (k1 + n1*k2), so the final transpose and reshape are views."""
     if not x.is_complex():
         x = x.to(torch.complex64)
     n = x.shape[-1]
@@ -65,17 +69,11 @@ def fft_last_axis(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:
     if factors is None:
         return lf.fft_matmul(x, inverse=inverse)
     n1, n2 = factors
-    v = torch.conj_physical(x) if inverse else x
-    lead = v.shape[:-1]
-    a = v.reshape((-1, n1, n2))
-    w1, tw, w2 = _planar_tables(n1, n2, str(x.device))
-    b = fft_stage.stage_left(w1, _split_planar(a), tw)
-    d_re, d_im = fft_stage.stage_right(b, w2)
-    d = torch.complex(d_re, d_im)  # (B, k1, k2); flat index k1 + n1*k2
-    out = d.transpose(-1, -2).reshape(lead + (n,))
-    if inverse:
-        out = torch.conj_physical(out) / n
-    return out
+    lead = x.shape[:-1]
+    a = x.to(torch.complex64).resolve_conj().reshape((-1, n1, n2)).contiguous()
+    w1, tw, w2 = _tables(n1, n2, inverse, str(x.device))
+    d = fft_stage.stage_right_c64(fft_stage.stage_left_c64(w1, a, tw), w2)  # (B, k1, k2)
+    return d.transpose(-1, -2).reshape(lead + (n,))
 
 
 def stage_left(w, a, t):

@@ -17,18 +17,29 @@ def _to_c(re: torch.Tensor, im: torch.Tensor) -> torch.Tensor:
     return torch.complex(re.float(), im.float())
 
 
+def stage_left_c64_ref(w: torch.Tensor, a: torch.Tensor, t: torch.Tensor) -> torch.Tensor:
+    """(W @ A) * T, complex64: w (M,K), a (B,K,N), t (M,N) -> (B,M,N)."""
+    return (w @ a) * t
+
+
+def stage_right_c64_ref(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """A @ W^T, complex64: a (B,M,K), w (N,K) -> (B,M,N)."""
+    return a @ w.T
+
+
+def to_planes(c: torch.Tensor) -> Planar:
+    """Complex -> contiguous (re, im) planes."""
+    return c.real.contiguous(), c.imag.contiguous()
+
+
 def stage_left_ref(w: Planar, a: Planar, t: Planar) -> Planar:
     """(W @ A) * T, complex planar: w (M,K), a (B,K,N), t (M,N)."""
-    wc, ac, tc = _to_c(*w), _to_c(*a), _to_c(*t)
-    out = (wc @ ac) * tc
-    return out.real.contiguous(), out.imag.contiguous()
+    return to_planes(stage_left_c64_ref(_to_c(*w), _to_c(*a), _to_c(*t)))
 
 
 def stage_right_ref(a: Planar, w: Planar) -> Planar:
     """A @ W^T, complex planar: a (B,M,K), w (N,K)."""
-    ac, wc = _to_c(*a), _to_c(*w)
-    out = ac @ wc.T
-    return out.real.contiguous(), out.imag.contiguous()
+    return to_planes(stage_right_c64_ref(_to_c(*a), _to_c(*w)))
 
 
 def chunk_twiddle_pack_ref(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:

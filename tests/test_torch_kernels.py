@@ -46,26 +46,107 @@ def _c64(seed, shape):
     return (r.standard_normal(shape) + 1j * r.standard_normal(shape)).astype(np.complex64)
 
 
+def _pack(pair):
+    return torch.complex(*_t(pair))
+
+
+def _unpack(c):
+    return c.real.contiguous(), c.imag.contiguous()
+
+
+# each stage through both entry points: the reference's planar signature
+# and the interleaved complex64 one ops.fft_last_axis calls
+FORMS = {
+    "planar": (ops.stage_left, ops.stage_right),
+    "c64": (
+        lambda w, a, t: _unpack(fft_stage.stage_left_c64(*(torch.complex(*x) for x in (w, a, t)))),
+        lambda a, w: _unpack(fft_stage.stage_right_c64(torch.complex(*a), torch.complex(*w))),
+    ),
+}
+
+
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("b,m,k,n", LEFT_CASES)
-def test_stage_left_matches_reference(b, m, k, n):
+def test_stage_left_matches_reference(b, m, k, n, form):
     _, ref_ops, _ = _reference()
     w, a, t = _planar(1, (m, k)), _planar(2, (b, k, n)), _planar(3, (m, n))
     before = dict(fft_stage.LAUNCHES)
-    got = ops.stage_left(_t(w), _t(a), _t(t))
+    got = FORMS[form][0](_t(w), _t(a), _t(t))
     exp = ref_ops.stage_left(w, a, t)
     for g, e in zip(got, exp):
         np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=2e-4, atol=2e-3)
     assert fft_stage.LAUNCHES == before  # the plain path launches nothing
 
 
+@pytest.mark.parametrize("form", sorted(FORMS))
 @pytest.mark.parametrize("b,m,k,n", RIGHT_CASES)
-def test_stage_right_matches_reference(b, m, k, n):
+def test_stage_right_matches_reference(b, m, k, n, form):
     _, ref_ops, _ = _reference()
     a, w = _planar(4, (b, m, k)), _planar(5, (n, k))
-    got = ops.stage_right(_t(a), _t(w))
+    got = FORMS[form][1](_t(a), _t(w))
     exp = ref_ops.stage_right(a, w)
     for g, e in zip(got, exp):
         np.testing.assert_allclose(g.numpy(), np.asarray(e), rtol=2e-4, atol=2e-3)
+
+
+def test_fft_last_axis_reads_stage_right_transposed_layout(monkeypatch):
+    """On the card stage_right_c64 returns the (B, M, N) view of a
+    (B, N, M) buffer. fft_last_axis must give the same values from it,
+    and its final transpose + reshape must be a view of that buffer."""
+    buffers = []
+
+    def transposed_right(a, w):
+        out = ref.stage_right_c64_ref(a, w).mT.contiguous()  # (B, N, M)
+        buffers.append(out)
+        return out.mT
+
+    x = torch.from_numpy(_c64(16384, (3, 16384)))
+    exp = ops.fft_last_axis(x)
+    monkeypatch.setattr(fft_stage, "stage_right_c64", transposed_right)
+    got = ops.fft_last_axis(x)
+    assert got.shape == exp.shape and got.dtype == torch.complex64
+    assert got.data_ptr() == buffers[-1].data_ptr()  # no copy after the kernel
+    torch.testing.assert_close(got, exp, rtol=0, atol=0)
+
+
+def _tf32(x: np.ndarray) -> np.ndarray:
+    """cvt.rna.tf32.f32 on float32 values (round to 10 mantissa bits,
+    ties away from zero)."""
+    bits = x.astype(np.float32).view(np.uint32)
+    return ((bits + np.uint32(0x1000)) & np.uint32(0xFFFFE000)).view(np.float32)
+
+
+def test_one_pass_tf32_misses_the_fft_tolerance_and_3xtf32_holds_it():
+    """Why the kernels split each operand: the four-step FFT at n = 16384
+    with one-pass TF32 products misses the 2e-5 tolerance the card tests
+    hold fft_last_axis to; the 3xTF32 sum (big*big + big*small +
+    small*big, fp32 operands split as on the card) meets it."""
+    n1, n2 = ops._kernel_factors(16384)
+    x = _c64(5, (2, n1, n2))
+    w1 = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n1)) / 16384 * n2).astype(np.complex64)
+    tw = np.exp(-2j * np.pi * np.outer(np.arange(n1), np.arange(n2)) / 16384).astype(np.complex64)
+    w2 = np.exp(-2j * np.pi * np.outer(np.arange(n2), np.arange(n2)) / n2).astype(np.complex64)
+
+    def cplx(f):
+        return lambda x: f(x.real) + 1j * f(x.imag)
+
+    one = cplx(_tf32)
+    big, small = one, cplx(lambda v: _tf32(v - _tf32(v)))
+
+    def matmul(a, b, three):
+        a, b = a.astype(np.complex64), b.astype(np.complex64)
+        if not three:
+            return (one(a).astype(np.complex128) @ one(b)).astype(np.complex64)
+        return (big(a) @ big(b) + big(a) @ small(b) + small(a) @ big(b)).astype(np.complex64)
+
+    oracle = np.fft.fft(x.reshape(2, -1))
+    errs = {}
+    for three in (False, True):
+        d = matmul(matmul(w1, x, three) * tw, w2.T, three)
+        got = d.transpose(0, 2, 1).reshape(2, -1)
+        errs[three] = np.abs(got - oracle).max() / np.abs(oracle).max()
+    assert errs[False] > 2e-5, errs
+    assert errs[True] < 2e-6, errs
 
 
 @pytest.mark.parametrize("lead,rows,c,p", PACK_CASES)
@@ -158,30 +239,45 @@ def cuda_device():
 
 @pytest.mark.cuda
 class TestKernelsOnCard:
-    @pytest.mark.parametrize("b,m,k,n", LEFT_CASES + [(3, 100, 37, 5)])
-    def test_stage_left(self, cuda_device, b, m, k, n):
+    @pytest.mark.parametrize("form", sorted(FORMS))
+    @pytest.mark.parametrize("b,m,k,n", LEFT_CASES + [(3, 100, 37, 5), (2, 500, 500, 2), (64, 512, 512, 32)])
+    def test_stage_left(self, cuda_device, b, m, k, n, form):
         w, a, t = _planar(1, (m, k)), _planar(2, (b, k, n)), _planar(3, (m, n))
+        left = FORMS[form][0]
         before = fft_stage.LAUNCHES["stage_left"]
-        got = fft_stage.stage_left(_t(w, cuda_device), _t(a, cuda_device), _t(t, cuda_device))
+        got = left(_t(w, cuda_device), _t(a, cuda_device), _t(t, cuda_device))
         torch.cuda.synchronize()
         assert fft_stage.LAUNCHES["stage_left"] == before + 1
         exp = ref.stage_left_ref(_t(w, cuda_device), _t(a, cuda_device), _t(t, cuda_device))
         for g, e in zip(got, exp):
             np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(), rtol=2e-4, atol=2e-3)
         # folding the batch into the GEMM's columns must not change any batch
-        one = fft_stage.stage_left(_t(w, cuda_device), tuple(p[-1:] for p in _t(a, cuda_device)),
-                                   _t(t, cuda_device))
+        one = left(_t(w, cuda_device), tuple(p[-1:] for p in _t(a, cuda_device)), _t(t, cuda_device))
         for g, o in zip(got, one):
             np.testing.assert_allclose(g[-1:].cpu().numpy(), o.cpu().numpy(), rtol=1e-5, atol=1e-4)
 
-    @pytest.mark.parametrize("b,m,k,n", RIGHT_CASES + [(3, 7, 33, 17), (2, 5, 9, 40), (4, 16, 8, 8)])
-    def test_stage_right(self, cuda_device, b, m, k, n):
+    @pytest.mark.parametrize("form", sorted(FORMS))
+    @pytest.mark.parametrize("b,m,k,n", RIGHT_CASES + [(3, 7, 33, 17), (2, 5, 9, 40), (4, 16, 8, 8),
+                                                       (2, 500, 2, 2), (2, 3, 64, 5), (256, 512, 32, 32),
+                                                       (1024, 512, 8, 8)])
+    def test_stage_right(self, cuda_device, b, m, k, n, form):
         a, w = _planar(4, (b, m, k)), _planar(5, (n, k))
-        got = fft_stage.stage_right(_t(a, cuda_device), _t(w, cuda_device))
+        before = fft_stage.LAUNCHES["stage_right"]
+        got = FORMS[form][1](_t(a, cuda_device), _t(w, cuda_device))
         torch.cuda.synchronize()
+        assert fft_stage.LAUNCHES["stage_right"] == before + 1
         exp = ref.stage_right_ref(_t(a, cuda_device), _t(w, cuda_device))
         for g, e in zip(got, exp):
             np.testing.assert_allclose(g.cpu().numpy(), e.cpu().numpy(), rtol=2e-4, atol=2e-3)
+
+    def test_stage_right_c64_returns_a_transposed_view(self, cuda_device):
+        b, m, k, n = 3, 64, 32, 32
+        a = torch.from_numpy(_c64(10, (b, m, k))).to(cuda_device)
+        w = torch.from_numpy(_c64(11, (n, k))).to(cuda_device)
+        got = fft_stage.stage_right_c64(a, w)
+        assert got.shape == (b, m, n) and got.stride() == (m * n, 1, m)
+        exp = ref.stage_right_c64_ref(a, w)
+        np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(), rtol=2e-4, atol=2e-3)
 
     @pytest.mark.parametrize("lead,rows,c,p", PACK_CASES + [((2,), 100, 70, 3)])
     def test_chunk_twiddle_pack(self, cuda_device, lead, rows, c, p):
@@ -209,6 +305,33 @@ class TestKernelsOnCard:
         a = tuple(p.transpose(-1, -2).contiguous().transpose(-1, -2) for p in _t(_planar(2, (2, 4, 3)), cuda_device))
         with pytest.raises(ValueError, match="contiguous"):
             fft_stage.stage_left(w, a, t)
+        # the complex64 entry points
+        wc, tc = (torch.complex(*x) for x in (w, t))
+        ac = torch.from_numpy(_c64(2, (2, 4, 3))).to(cuda_device)
+        with pytest.raises(ValueError, match="complex64"):
+            fft_stage.stage_left_c64(wc, ac.to(torch.complex128), tc)
+        with pytest.raises(ValueError, match="contiguous"):
+            fft_stage.stage_left_c64(wc, ac.mT.contiguous().mT, tc)
+        with pytest.raises(ValueError, match="lazy conj"):
+            fft_stage.stage_left_c64(wc.conj(), ac, tc)
+        w2 = torch.from_numpy(_c64(3, (5, 3))).to(cuda_device)
+        with pytest.raises(ValueError, match="complex64"):
+            fft_stage.stage_right_c64(ac.to(torch.complex128), w2)
+        with pytest.raises(ValueError, match="contiguous"):
+            fft_stage.stage_right_c64(ac, w2.mT.contiguous().mT)
+        with pytest.raises(ValueError, match=r"w must be \(5, 3\)"):
+            fft_stage.stage_right_c64(ac, w2[:, :2].contiguous())
+
+    def test_fft_last_axis_holds_fp32_precision(self, cuda_device):
+        """n = 16384 at a main-path-like batch: one-pass TF32 products
+        reach ~4e-4 here (test_one_pass_tf32_misses_the_fft_tolerance_...)."""
+        x = torch.from_numpy(_c64(12, (64, 16384))).to(cuda_device)
+        before = dict(fft_stage.LAUNCHES)
+        got = ops.fft_last_axis(x)
+        assert fft_stage.LAUNCHES["stage_left"] == before["stage_left"] + 1
+        assert fft_stage.LAUNCHES["stage_right"] == before["stage_right"] + 1
+        exp = torch.fft.fft(x)
+        assert ((got - exp).abs().max() / exp.abs().max()).item() <= 2e-5
 
     @pytest.mark.parametrize("n", [1024, 4096, 16384, 1000])
     @pytest.mark.parametrize("inverse", [False, True])
