@@ -24,10 +24,27 @@ Phases, each printing a line; any failure exits non-zero with no result:
    complex64 array made on the card from --seed. The kernels' launch
    counters are zeroed just before the first execute and read just
    after it; the output is held against torch.fft.fft2(x).mT, the
-   inverse must round-trip, and the unfused alltoall plan must agree.
+   inverse must round-trip, and the unfused alltoall plan must agree;
+5. real Poisson -- solve_poisson on a real 16384 x 16384 float32 field
+   (1 GiB) through plan_fft(real=True, backend="scatter",
+   local_impl="kernel") on SimMesh(4), fused: held against a float64
+   torch.fft solve of the same field, the rfft2 / irfft2 round trip
+   against torch.fft.rfft2;
+6. rfft3 -- plan_fft((1024,) * 3, SimMesh(4), ndim=3, real=True) on a
+   4 GiB float32 cube, held against torch.fft.rfftn, and its inverse;
+7. NCCL -- one process per visible card (torch.multiprocessing.spawn),
+   each a rank of a ProcessGroupMesh over NCCL running the c2c main
+   path and phase 5's real solve on its own block, through the fused
+   scatter ring, the unfused ring and the unfused alltoall; every rank
+   holds the gathered result against SimMesh(P) on the same seed. On a
+   machine with several cards this is the exchanges' comparison over
+   NVLink.
 
-The second-to-last line is one JSON object with a row per kernel; the
-last line is {"ok": true, "device": {...}}.
+Phases 4-7 each zero the kernels' launch counters just before they run
+and read them just after; each fails if a kernel of its path was never
+launched (at P = 1 a plan does not fuse, so phase 7 launches the two
+stages only). The second-to-last line is one JSON object with a row
+per kernel; the last line is {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -38,11 +55,14 @@ import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 N = 16384  # global (N, N) complex64: 2 GiB
 P = 4  # simulated ranks
+N3 = 1024  # the rfft3 phase: a (N3, N3, N3) float32 cube, 4 GiB
+NCCL_TIMEOUT_S = 300  # the process group's timeout in the NCCL phase
 MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
 PACK_RTOL, PACK_ATOL = 1e-5, 1e-5  # one complex multiply per element
@@ -81,6 +101,40 @@ def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def host_ms(torch, fn, reps: int = 3) -> float:
+    """Median host-clock ms of ``fn()`` followed by a synchronize, after
+    one warm-up call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def rel_err(torch, got, exp) -> float:
+    return ((got - exp).abs().max() / exp.abs().max()).item()
+
+
+def counted(torch, fft_stage, label: str, fn, expect=None):
+    """Run ``fn`` with the launch counters zeroed just before and read
+    just after; fail if a kernel of ``expect`` (default: all) was never
+    launched. Returns (fn's result, launches, peak GiB)."""
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fft_stage.reset_launches()
+    out = fn()
+    torch.cuda.synchronize()
+    launches = dict(fft_stage.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for name in launches if expect is None else expect:
+        check(launches[name] > 0, f"kernel {name} was not launched on the {label} path")
+    return out, launches, peak
 
 
 def bound(flops: float, nbytes: float, cm, peak: float = None):
@@ -225,19 +279,11 @@ def main_path(torch, g, fft_stage, plan_fft, SimMesh):
     x = torch.randn((N, N), dtype=torch.complex64, device="cuda", generator=g)
     plan = plan_fft((N, N), SimMesh(P), backend="scatter", local_impl="kernel")
     check(plan.fused, "the scatter plan did not resolve to the fused pipeline")
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    fft_stage.reset_launches()
     t0 = time.perf_counter()
-    y = plan.execute(x)
-    torch.cuda.synchronize()
+    y, launches, peak = counted(torch, fft_stage, "main", lambda: plan.execute(x))
     first_s = time.perf_counter() - t0
-    launches = dict(fft_stage.LAUNCHES)
-    peak = torch.cuda.max_memory_allocated()
     print(f"main path: {plan!r} fused={plan.fused} first execute {first_s * 1e3:.1f} ms, "
-          f"launches {launches}, peak memory {peak / 2**30:.2f} GiB", flush=True)
-    for name, n in launches.items():
-        check(n > 0, f"kernel {name} was not launched on the main path")
+          f"launches {launches}, peak memory {peak:.2f} GiB", flush=True)
 
     oracle = torch.fft.fft2(x).mT
     scale = oracle.abs().max().item()
@@ -261,25 +307,156 @@ def main_path(torch, g, fft_stage, plan_fft, SimMesh):
     check(err2 <= MAIN_PATH_REL_TOL, "the unfused alltoall plan disagrees with torch.fft.fft2")
     del y2, oracle, y
 
-    def run(p):
-        def fn():
-            p.execute(x)
-            torch.cuda.synchronize()
-        fn()
-        times = []
-        for _ in range(3):
-            t0 = time.perf_counter()
-            fn()
-            times.append((time.perf_counter() - t0) * 1e3)
-        return statistics.median(times)
-
-    ms_scatter = run(plan)
-    ms_a2a = run(a2a)
+    ms_scatter = host_ms(torch, lambda: plan.execute(x))
+    ms_a2a = host_ms(torch, lambda: a2a.execute(x))
     ms_lib = median_ms(torch, lambda: torch.fft.fft2(x), reps=5)
     print(f"main path timing: plan.execute scatter fused {ms_scatter:.2f} ms, alltoall unfused "
           f"{ms_a2a:.2f} ms, torch.fft.fft2 {ms_lib:.2f} ms (median of 3 / 3 / 5), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return launches
+
+
+def poisson_oracle(torch, f):
+    """The float64 torch.fft solve of laplacian(u) = f on the periodic
+    (2 pi)^2 box, zero mean."""
+    n0, n1 = f.shape
+    fh = torch.fft.rfft2(f.double())
+    k0 = torch.fft.fftfreq(n0, d=1.0 / n0, dtype=torch.float64, device=f.device)[:, None]
+    k1 = torch.fft.rfftfreq(n1, d=1.0 / n1, dtype=torch.float64, device=f.device)[None, :]
+    k2 = k0 * k0 + k1 * k1
+    k2[0, 0] = 1.0
+    fh = -fh / k2
+    fh[0, 0] = 0.0
+    return torch.fft.irfft2(fh, s=(n0, n1))
+
+
+def real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson):
+    """Phase 5: the real Poisson solve at 16384^2 on SimMesh(4)."""
+    f = torch.randn((N, N), dtype=torch.float32, device="cuda", generator=g)
+    plan = plan_fft((N, N), SimMesh(P), real=True, backend="scatter", local_impl="kernel")
+    check(plan.fused and plan.real, "the real scatter plan did not resolve to the fused r2c pipeline")
+    u, launches, peak = counted(torch, fft_stage, "real Poisson", lambda: solve_poisson(f, plan))
+    print(f"real Poisson: {plan!r} fused={plan.fused} H={plan.hermitian_len} Hp={plan.padded_hermitian_len}, "
+          f"launches {launches}, peak memory {peak:.2f} GiB", flush=True)
+    check(tuple(u.shape) == (N, N) and u.dtype == torch.float32 and bool(torch.isfinite(u).all()),
+          "the Poisson solution is not a finite float32 field of the input's shape")
+    exp = poisson_oracle(torch, f)
+    err = rel_err(torch, u.double(), exp)
+    print(f"real Poisson vs float64 torch.fft solve: rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "solve_poisson disagrees with the float64 torch.fft solve")
+    del u, exp
+
+    y = plan.execute(f)
+    ref = torch.fft.rfft2(f).mT
+    h = plan.hermitian_len
+    err = rel_err(torch, y[:h], ref)
+    check(not y[h:].any(), "the padded Hermitian rows are not zero")
+    z = plan.inverse(y)
+    rt = rel_err(torch, z, f)
+    print(f"rfft2 vs torch.fft.rfft2(x).mT: rel_err={err:.3e}; irfft2 round trip rel_err={rt:.3e} "
+          f"(tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err <= MAIN_PATH_REL_TOL and rt <= MAIN_PATH_REL_TOL, "rfft2/irfft2 disagree with torch.fft")
+    del z, ref
+    ms = host_ms(torch, lambda: plan.execute(f))
+    ms_inv = host_ms(torch, lambda: plan.inverse(y))
+    del y
+    ms_solve = host_ms(torch, lambda: solve_poisson(f, plan))
+    ms_lib = median_ms(torch, lambda: torch.fft.rfft2(f), reps=5)
+    print(f"real Poisson timing: plan.execute (rfft2) {ms:.2f} ms, plan.inverse (irfft2) {ms_inv:.2f} ms, "
+          f"solve_poisson {ms_solve:.2f} ms (median of 3), torch.fft.rfft2 {ms_lib:.2f} ms (median of 5), "
+          f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
+def rfft3_phase(torch, g, fft_stage, plan_fft, SimMesh):
+    """Phase 6: rfft3 / irfft3 of a 1024^3 float32 cube on SimMesh(4)."""
+    x = torch.randn((N3, N3, N3), dtype=torch.float32, device="cuda", generator=g)
+    plan = plan_fft(tuple(x.shape), SimMesh(P), ndim=3, real=True, backend="scatter", local_impl="kernel")
+    y, launches, peak = counted(torch, fft_stage, "rfft3", lambda: plan.execute(x))
+    print(f"rfft3: {plan!r} fused={plan.fused} Hp={plan.padded_hermitian_len}, launches {launches}, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    check(tuple(y.shape) == (N3, N3, N3 // 2 + 1), "rfft3 output has the wrong shape")
+    err = rel_err(torch, y, torch.fft.rfftn(x))
+    print(f"rfft3 vs torch.fft.rfftn: rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "rfft3 disagrees with torch.fft.rfftn")
+    z = plan.inverse(y)
+    rt = rel_err(torch, z, x)
+    print(f"irfft3 round trip: rel_err={rt:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(rt <= MAIN_PATH_REL_TOL, "irfft3 does not round-trip")
+    del y, z
+    ms = host_ms(torch, lambda: plan.execute(x))
+    ms_lib = median_ms(torch, lambda: torch.fft.rfftn(x), reps=5)
+    print(f"rfft3 timing: plan.execute {ms:.2f} ms (median of 3), torch.fft.rfftn {ms_lib:.2f} ms "
+          f"(median of 5), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
+    return launches
+
+
+NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
+
+
+def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
+    """Phase 7, one rank: the c2c main path and the real Poisson solve on
+    this rank's block over NCCL -- the fused scatter ring, the same ring
+    unfused, and the unfused alltoall -- each held against the same plan
+    on SimMesh(world) and the same seed (every rank checks the gathered
+    result)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.apps import solve_poisson
+    from repro_torch.core import SimMesh, init_process_mesh, plan_fft
+    from repro_torch.kernels import fft_stage
+
+    mesh = init_process_mesh(rank, world, init_method, timeout_s=NCCL_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        g = torch.Generator(device=mesh.device)
+        g.manual_seed(seed)
+        x = torch.randn((N, N), dtype=torch.complex64, device=mesh.device, generator=g)
+        f = torch.randn((N, N), dtype=torch.float32, device=mesh.device, generator=g)
+        sim = SimMesh(world, device=mesh.device)
+        report = {"rank": rank, "P": world}
+        for label, real, data in (("c2c main path", False, x), ("real Poisson", True, f)):
+            block = mesh.split(data, ("model", None))[0]
+            for backend, pipeline in NCCL_VARIANTS:
+                kw = dict(real=real, backend=backend, pipeline=pipeline, local_impl="kernel")
+                plan, ref = plan_fft((N, N), mesh, **kw), plan_fft((N, N), sim, **kw)
+                exp = solve_poisson(data, ref) if real else ref.execute(data)
+                run = (lambda: solve_poisson(block, plan)) if real else (lambda: plan.execute(block))
+                expect = None if plan.fused else ("stage_left", "stage_right")
+                got, launches, peak = counted(torch, fft_stage, f"NCCL {label}", run, expect)
+                err = rel_err(torch, mesh.gather([got], ("model", None)), exp)
+                check(err <= 1e-6, f"rank {rank}: ProcessGroupMesh {label} ({backend}, pipeline={pipeline}) "
+                                   f"disagrees with SimMesh({world})")
+                del got, exp
+                report[f"{label} {backend} pipeline={pipeline}"] = dict(
+                    fused=plan.fused, launches=launches, rel_err_vs_sim=err, ms=host_ms(torch, run),
+                    peak_gib=peak)
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(report, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_phase(torch, seed: int):
+    """Phase 7: one ProcessGroupMesh rank per visible card over NCCL."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(nccl_rank, args=(world, f"file://{os.path.join(tmp, 'rendezvous')}", seed, tmp),
+                 nprocs=world, join=True)
+        reports = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                reports.append(json.load(fh))
+    for rep in reports:
+        for key, r in rep.items():
+            if isinstance(r, dict):
+                print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
+                      f"rel_err vs SimMesh({rep['P']})={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
+                      f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
+    return reports[0]
 
 
 def main(argv=None) -> int:
@@ -303,6 +480,7 @@ def main(argv=None) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    from repro_torch.apps import solve_poisson
     from repro_torch.core import SimMesh, plan_fft
     from repro_torch.core import comm_model as cm
     from repro_torch.core import fftmath as lf
@@ -321,8 +499,18 @@ def main(argv=None) -> int:
     rows = kernel_phase(torch, g, fft_stage, ref, ops, lf, cm)
     torch.cuda.empty_cache()
     launches = main_path(torch, g, fft_stage, plan_fft, SimMesh)
+    torch.cuda.empty_cache()
+    by_path = {"c2c_main_path": launches}
+    by_path["real_poisson"] = real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson)
+    torch.cuda.empty_cache()
+    by_path["rfft3"] = rfft3_phase(torch, g, fft_stage, plan_fft, SimMesh)
+    torch.cuda.empty_cache()
+    nccl = nccl_phase(torch, args.seed)
+    by_path["nccl_c2c"] = nccl["c2c main path scatter pipeline=auto"]["launches"]
+    by_path["nccl_real_poisson"] = nccl["real Poisson scatter pipeline=auto"]["launches"]
     for row in rows:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

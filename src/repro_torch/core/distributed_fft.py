@@ -17,7 +17,9 @@ ranks (:func:`repro_torch.core.transpose.transpose_then_fft`);
 ``n_chunks`` decouples the streamed chunk count from P.
 
 Every transform here is a thin builder over
-:mod:`repro_torch.core.schedule`.
+:mod:`repro_torch.core.schedule`. ``x`` is the caller's array of the
+mesh: the global array on a :class:`~repro_torch.core.mesh.SimMesh`,
+the rank's own block on a :class:`~repro_torch.core.mesh.ProcessGroupMesh`.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 import repro_torch.core.schedule as sch
 from repro_torch.core import backends
-from repro_torch.core.mesh import SimMesh
+from repro_torch.core.mesh import Mesh
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,17 +58,17 @@ def _check(cfg: FFTConfig) -> backends.CollectiveBackend:
     return backend
 
 
-def _build(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig, *,
+def _build(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig, *,
            ndim: int, inverse: bool, rows: Optional[int] = None) -> sch.Schedule:
     return sch.build_schedule(
-        tuple(x.shape), ndim=ndim, inverse=inverse, decomp="slab",
+        mesh.global_shape(x.shape, ndim), ndim=ndim, inverse=inverse, decomp="slab",
         axis_name=axis_name, p=mesh.shape[axis_name], backend=cfg.strategy,
         fused=cfg.fused, n_chunks=cfg.n_chunks,
         transpose_back=cfg.transpose_back, rows=rows,
     )
 
 
-def fft2(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
+def fft2(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
          inverse: bool = False) -> torch.Tensor:
     """Distributed 2-D FFT of (..., R, C), R sharded over ``axis_name``.
 
@@ -78,11 +80,11 @@ def fft2(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTCon
     return sch.run_schedule(x, built, mesh, impl=cfg.local_impl)
 
 
-def ifft2(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTConfig()) -> torch.Tensor:
+def ifft2(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig = FFTConfig()) -> torch.Tensor:
     return fft2(x, mesh, axis_name, cfg, inverse=True)
 
 
-def fft3(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
+def fft3(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
          inverse: bool = False) -> torch.Tensor:
     """Slab-decomposed 3-D FFT of (..., D0, D1, D2), D0 sharded: local
     batched 2-D FFT over (D1, D2), one strategy-switched exchange to
@@ -92,7 +94,7 @@ def fft3(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTCon
     return sch.run_schedule(x, built, mesh, impl=cfg.local_impl)
 
 
-def fft1d_large(x: torch.Tensor, mesh: SimMesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
+def fft1d_large(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig = FFTConfig(), *,
                 rows: Optional[int] = None) -> torch.Tensor:
     """Distributed 1-D FFT of a signal too large for one device: x
     (..., N) viewed as (R, C) row-major with R = rows (default P)

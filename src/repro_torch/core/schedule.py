@@ -1,10 +1,10 @@
 """Stage-schedule IR, PyTorch port of ``repro.core.schedule`` (the slab
-c2c part).
+part: c2c and r2c/c2r).
 
 Every distributed transform lowers to a declarative tuple of **Stage**
 records, and one interpreter (:func:`execute_schedule`) runs any
-schedule over the per-rank blocks of a
-:class:`~repro_torch.core.mesh.SimMesh`, reusing
+schedule over the local blocks of a mesh
+(:mod:`repro_torch.core.mesh`), reusing
 :func:`repro_torch.core.transpose.transpose_then_fft` /
 ``distributed_transpose``. The cost model and the byte accounting walk
 the same object that executes.
@@ -13,10 +13,11 @@ The stage records, their field order and :meth:`Schedule.canonical`
 are the reference's, byte for byte, so a schedule built here hashes
 exactly as the reference's does for the same arguments.
 
-Builders here: slab c2c (``fft2``, ``fft3``, the six-step ``fft1d``).
-The pencil and real (r2c/c2r) builders raise ``NotImplementedError``
-naming their ROADMAP item; their stage records exist so schedule text
-reads the same in both packages.
+Builders here: slab c2c (``fft2``, ``fft3``, the six-step ``fft1d``)
+and slab r2c/c2r (``rfft2``, ``irfft2``, ``rfft3``, ``irfft3``). The
+pencil builders raise ``NotImplementedError`` naming their ROADMAP
+item; their stage records exist so schedule text reads the same in
+both packages.
 """
 
 from __future__ import annotations
@@ -30,50 +31,122 @@ import torch
 
 import repro_torch.core.fftmath as lf
 import repro_torch.core.transpose as tr
-from repro_torch.core.mesh import SimMesh
+from repro_torch.core.mesh import Mesh
 
 
 # ---------------------------------------------------------------------------
-# Shard-divisibility validation (slab c2c)
+# Hermitian-length helpers (shared by the validator and the builders;
+# re-exported by repro_torch.core.real for its public API)
 # ---------------------------------------------------------------------------
 
 
-def check_divisible(global_shape, ndim: int, *, p: int, axis_name=None) -> None:
+def rfft_len(n: int) -> int:
+    """Length of the Hermitian-non-redundant rfft output for a real
+    length-``n`` axis (numpy's ``n//2 + 1``)."""
+    return int(n) // 2 + 1
+
+
+def padded_rfft_len(n: int, multiple: int, weight: int = 1) -> int:
+    """Smallest ``hp >= rfft_len(n)`` with ``(weight * hp) % multiple == 0``.
+
+    ``weight`` covers the slab fft3 case where the *flattened* axis
+    ``D1 * Hp`` (not ``Hp`` itself) must divide the shard count."""
+    hp = rfft_len(n)
+    while (weight * hp) % multiple:
+        hp += 1
+    return hp
+
+
+def _pad_disabled_hint(n: int, multiple: int, weight: int = 1) -> str:
+    return (
+        f"pass pad=True (pads the half spectrum to "
+        f"{padded_rfft_len(n, multiple, weight)}, plan-recorded trim)"
+    )
+
+
+# ---------------------------------------------------------------------------
+# Shard-divisibility validation (slab c2c and r2c)
+# ---------------------------------------------------------------------------
+
+
+def check_divisible(global_shape, ndim: int, *, p: int, axis_name=None, real: bool = False,
+                    pad: bool = True):
     """Validate that ``global_shape`` can be slab-sharded over ``p``
-    ranks for a c2c transform of ``ndim`` dims. Raises a ``ValueError``
+    ranks for a transform of ``ndim`` dims. Raises a ``ValueError``
     naming the offending data axis and mesh axis -- the plan-time
     guard, so the failure never surfaces as an opaque chunking error
     deep inside :mod:`repro_torch.core.transpose`. (The reference's
-    pencil and real branches arrive with those builders.)"""
+    pencil branches arrive with that builder.)
+
+    Returns ``(h, hp)`` for real problems (the Hermitian and
+    shard-padded Hermitian lengths), ``None`` for c2c."""
     shape = tuple(global_shape)
     ax = axis_name
+    if not real:
+        if ndim == 2:
+            r, c = shape[-2:]
+            for off, size in ((2, r), (1, c)):
+                if size % p:
+                    raise ValueError(
+                        f"slab fft2: data axis -{off} (global size {size}) is not "
+                        f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                    )
+        elif ndim == 3:
+            d0, d1, d2 = shape[-3:]
+            if d0 % p:
+                raise ValueError(
+                    f"slab fft3: data axis -3 (global size {d0}) is not divisible "
+                    f"by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                )
+            if (d1 * d2) % p:
+                raise ValueError(
+                    f"slab fft3: flattened axes (-2,-1) (size {d1}*{d2}={d1 * d2}) "
+                    f"not divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                )
+        else:
+            n = shape[-1]
+            if n % (p * p):
+                raise ValueError(
+                    f"fft1d_large: data axis -1 (size {n}) must be divisible by "
+                    f"P^2={p * p} of mesh axis {ax!r} -- shape {shape}"
+                )
+        return None
+
     if ndim == 2:
         r, c = shape[-2:]
-        for off, size in ((2, r), (1, c)):
-            if size % p:
-                raise ValueError(
-                    f"slab fft2: data axis -{off} (global size {size}) is not "
-                    f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
-                )
-    elif ndim == 3:
+        if r % p:
+            raise ValueError(
+                f"real slab rfft2: data axis -2 (global size {r}) is not "
+                f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+            )
+        h = rfft_len(c)
+        if not pad and h % p:
+            raise ValueError(
+                f"real slab rfft2: Hermitian axis -1 (N={c} -> N//2+1={h}) is "
+                f"not divisible by mesh axis {ax!r} (P={p}) and "
+                f"pad=False -- shape {shape}; {_pad_disabled_hint(c, p)}"
+            )
+        return h, (padded_rfft_len(c, p) if pad else h)
+    if ndim == 3:
         d0, d1, d2 = shape[-3:]
         if d0 % p:
             raise ValueError(
-                f"slab fft3: data axis -3 (global size {d0}) is not divisible "
-                f"by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                f"real slab rfft3: data axis -3 (global size {d0}) is not "
+                f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
             )
-        if (d1 * d2) % p:
+        h = rfft_len(d2)
+        if not pad and (d1 * h) % p:
             raise ValueError(
-                f"slab fft3: flattened axes (-2,-1) (size {d1}*{d2}={d1 * d2}) "
-                f"not divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                f"real slab rfft3: flattened axes (-2,-1) (size {d1}*{h}={d1 * h} "
+                f"after the Hermitian truncation of N={d2}) not divisible by "
+                f"mesh axis {ax!r} (P={p}) and pad=False -- shape "
+                f"{shape}; {_pad_disabled_hint(d2, p, d1)}"
             )
-    else:
-        n = shape[-1]
-        if n % (p * p):
-            raise ValueError(
-                f"fft1d_large: data axis -1 (size {n}) must be divisible by "
-                f"P^2={p * p} of mesh axis {ax!r} -- shape {shape}"
-            )
+        return h, (padded_rfft_len(d2, p, weight=d1) if pad else h)
+    raise NotImplementedError(
+        f"real transforms support ndim 2 or 3, got ndim={ndim} "
+        f"(1-D real: run the c2c fft1d_large on a complexified signal)"
+    )
 
 
 # ---------------------------------------------------------------------------
@@ -113,7 +186,8 @@ class HermitianPack:
 
 @dataclasses.dataclass(frozen=True)
 class Trim:
-    """Keep the first ``h`` entries of the last axis."""
+    """Keep the first ``h`` entries of the last axis (drop the shard pad
+    where the Hermitian axis lands local again)."""
 
     h: int
 
@@ -160,9 +234,6 @@ class Exchange:
     inverse: bool = False
     fused: bool = False
     n_chunks: Optional[int] = None
-
-
-_REAL_STAGES = (LocalR2C, LocalC2R, HermitianPack, Trim)
 
 
 # ---------------------------------------------------------------------------
@@ -341,19 +412,20 @@ def build_schedule(
     rows: Optional[int] = None,
 ) -> Schedule:
     """Lower one distributed transform to its stage schedule (the
-    reference's signature; only slab c2c is built in this package so
-    far). Slab c2c divisibility stays with the plan layer, as in the
-    reference."""
+    reference's signature; slab c2c and slab r2c/c2r are built in this
+    package so far). Real problems are validated here (the builder needs
+    ``h``/``hp`` anyway); slab c2c divisibility stays with the plan
+    layer, as in the reference."""
     if decomp == "pencil":
         raise NotImplementedError(
             "pencil schedules are not ported yet (ROADMAP A8: core/grid.py + core/pencil.py)"
         )
+    shape = tuple(global_shape)
     if real:
-        raise NotImplementedError("real (r2c/c2r) schedules are not ported yet (ROADMAP A7: core/real.py)")
-    return _slab_c2c(
-        tuple(global_shape), ndim, inverse, axis_name, p, backend, fused, n_chunks,
-        transpose_back, rows,
-    )
+        return _slab_real(shape, ndim, inverse, axis_name, p, backend, fused, n_chunks,
+                          transpose_back, pad)
+    return _slab_c2c(shape, ndim, inverse, axis_name, p, backend, fused, n_chunks,
+                     transpose_back, rows)
 
 
 def _global_kind(backend: str) -> Optional[str]:
@@ -424,8 +496,102 @@ def _slab_c2c(shape, ndim, inverse, ax, p, backend, fused, n_chunks, tb, rows):
     return Schedule(kind="fft1d", stages=stages, in_tail=(ax,), out_tail=(ax,), **meta)
 
 
+def _slab_real(shape, ndim, inverse, ax, p, backend, fused, n_chunks, tb, pad):
+    gb = _global_kind(backend)
+    h, hp = check_divisible(shape, ndim, p=p, axis_name=ax, real=True, pad=pad)
+    he = float(np.prod(shape[:-1])) * hp / p
+    n_last = shape[-1]
+
+    def ex(fft=False, fuse=False, inv=False):
+        return Exchange(
+            axis=ax, role="slab", backend=backend, p=p, elems=he,
+            fft=fft, inverse=inv, fused=fuse, n_chunks=n_chunks,
+        )
+
+    meta = dict(
+        global_shape=shape, ndim=ndim, decomp="slab", real=True,
+        inverse=inverse, transpose_back=tb, n_last=n_last, h=h, hp=hp,
+        global_backend=gb,
+    )
+    if ndim == 2:
+        if not inverse:
+            stages = [LocalR2C(), HermitianPack(h, hp), ex(fft=True, fuse=fused)]
+            if tb:
+                stages += [ex(), Trim(h)]
+            return Schedule(
+                kind="rfft2", stages=tuple(stages), in_tail=(ax, None),
+                out_tail=(ax, None), **meta,
+            )
+        if tb:
+            stages = [HermitianPack(h, hp), ex(fft=True, fuse=fused, inv=True)]
+        else:
+            stages = [LocalFFT(axis=-1, inverse=True)]
+        stages += [ex(), Trim(h), LocalC2R(n_last)]
+        return Schedule(
+            kind="irfft2", stages=tuple(stages), in_tail=(ax, None),
+            out_tail=(ax, None), **meta,
+        )
+    d1 = shape[-2]
+    if not inverse:
+        stages = (
+            LocalR2C(), HermitianPack(h, hp), LocalFFT(axis=-2),
+            Relayout("flatten2"), ex(fft=True, fuse=fused), ex(),
+            Relayout("unflatten2", (d1, hp)), Trim(h),
+        )
+        return Schedule(
+            kind="rfft3", stages=stages, in_tail=(ax, None, None),
+            out_tail=(ax, None, None), **meta,
+        )
+    stages = (
+        HermitianPack(h, hp), Relayout("flatten2"),
+        ex(fft=True, fuse=fused, inv=True), ex(),
+        Relayout("unflatten2", (d1, hp)), LocalFFT(axis=-2, inverse=True),
+        Trim(h), LocalC2R(n_last),
+    )
+    return Schedule(
+        kind="irfft3", stages=stages, in_tail=(ax, None, None),
+        out_tail=(ax, None, None), **meta,
+    )
+
+
 # ---------------------------------------------------------------------------
-# The executor (lock step over the per-rank blocks of a SimMesh)
+# Local r2c/c2r building blocks (re-exported by repro_torch.core.real;
+# they live here so the executor has no real.py import)
+# ---------------------------------------------------------------------------
+
+
+def local_rfft(x: torch.Tensor, impl) -> torch.Tensor:
+    """r2c along the last axis. ``torch`` uses the library rfft; the
+    matmul and kernel impls have no r2c codelet, so they transform the
+    complexified axis (complex64, as the reference does) and keep the
+    non-redundant half."""
+    if impl == "torch":
+        return torch.fft.rfft(x, dim=-1)
+    return lf.local_fft(x, axis=-1, impl=impl)[..., : rfft_len(x.shape[-1])]
+
+
+def local_irfft(x: torch.Tensor, n: int, impl) -> torch.Tensor:
+    """c2r along the last axis: half spectrum (length ``n//2+1``) to a
+    real length-``n`` signal, carrying the 1/n factor."""
+    if impl == "torch":
+        return torch.fft.irfft(x, n=n, dim=-1)
+    h = x.shape[-1]
+    # rebuild the redundant half (X[n-k] = conj(X[k]), k = 1..n-h) and
+    # run the impl's c2c inverse; the result is real up to roundoff
+    tail = torch.conj(x[..., 1 : n - h + 1]).flip(-1)
+    full = torch.cat([x, tail], dim=-1)
+    return lf.local_fft(full, axis=-1, inverse=True, impl=impl).real
+
+
+def pad_last(v: torch.Tensor, count: int) -> torch.Tensor:
+    """``v`` with ``count`` zeros appended along the last axis."""
+    if count == 0:
+        return v
+    return torch.nn.functional.pad(v, (0, count))
+
+
+# ---------------------------------------------------------------------------
+# The executor (over the local blocks of a mesh)
 # ---------------------------------------------------------------------------
 
 
@@ -449,7 +615,7 @@ def _twiddle_table(n: int, k1: torch.Tensor, j2: torch.Tensor, dtype) -> torch.T
     return torch.polar(torch.ones_like(ang), ang).to(dtype)
 
 
-def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: SimMesh):
+def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: Mesh):
     """Twiddle + the exchange it rides: fused into the per-chunk compute
     on streaming backends (applied to each sub-chunk as it arrives),
     up-front to the whole block otherwise."""
@@ -471,17 +637,17 @@ def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: SimMesh):
             vs, mesh, ex.axis, strategy=ex.backend, chunk_fn=tw_chunk, n_chunks=ex.n_chunks
         )
     out = []
-    for me, v in enumerate(vs):
+    for me, v in zip(mesh.local_ranks(), vs):
         j2 = me * (c // p) + torch.arange(c // p, device=device)
         k1 = torch.arange(r, device=device)
         out.append(v * _twiddle_table(n, j2[:, None], k1[None, :], v.dtype))
     return tr.distributed_transpose(out, mesh, ex.axis, strategy=ex.backend)
 
 
-def _execute_stages(vs, stages: Tuple[object, ...], mesh: SimMesh, *, impl="torch"):
-    """Interpret a run of stages over the per-rank blocks ``vs`` (a list,
-    updated in place rank by rank so a local pass frees each input block
-    as it goes)."""
+def _execute_stages(vs, stages: Tuple[object, ...], mesh: Mesh, *, impl="torch"):
+    """Interpret a run of stages over the local blocks ``vs`` (a list,
+    updated in place block by block so a local pass frees each input
+    block as it goes)."""
     p = len(vs)
     i = 0
     while i < len(stages):
@@ -489,6 +655,18 @@ def _execute_stages(vs, stages: Tuple[object, ...], mesh: SimMesh, *, impl="torc
         if isinstance(st, LocalFFT):
             for k in range(p):
                 vs[k] = lf.local_fft(vs[k], axis=st.axis, inverse=st.inverse, impl=impl)
+        elif isinstance(st, LocalR2C):
+            for k in range(p):
+                vs[k] = local_rfft(vs[k], impl)
+        elif isinstance(st, LocalC2R):
+            for k in range(p):
+                vs[k] = local_irfft(vs[k], st.n_last, impl)
+        elif isinstance(st, HermitianPack):
+            for k in range(p):
+                vs[k] = pad_last(vs[k], st.hp - st.h)
+        elif isinstance(st, Trim):
+            for k in range(p):
+                vs[k] = vs[k][..., : st.h]
         elif isinstance(st, Relayout):
             for k in range(p):
                 vs[k] = _relayout(vs[k], st)
@@ -509,18 +687,16 @@ def _execute_stages(vs, stages: Tuple[object, ...], mesh: SimMesh, *, impl="torc
                 vs = tr.distributed_transpose(
                     vs, mesh, st.axis, strategy=st.backend, n_chunks=st.n_chunks
                 )
-        elif isinstance(st, _REAL_STAGES):
-            raise NotImplementedError(f"{st!r}: real stages are not ported yet (ROADMAP A7)")
         else:
             raise TypeError(f"unknown stage {st!r}")
         i += 1
     return vs
 
 
-def execute_schedule(vs, sched: Schedule, mesh: SimMesh, *, impl="torch"):
-    """Interpret a schedule over the per-rank local blocks -- the single
-    body behind every distributed transform (use :func:`run_schedule`
-    for a global array)."""
+def execute_schedule(vs, sched: Schedule, mesh: Mesh, *, impl="torch"):
+    """Interpret a schedule over the local blocks -- the single body
+    behind every distributed transform (use :func:`run_schedule` for a
+    caller's array)."""
     vs = list(vs)
     if sched.conj:
         vs = [torch.conj_physical(v) for v in vs]
@@ -591,20 +767,36 @@ def _library_reference(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
         return f3(x, dim=(-3, -2, -1))
     if k == "fft1d":
         return torch.fft.fft(x)
+    if k == "rfft2":
+        y = torch.fft.rfft2(x)
+        if tb:
+            return y
+        y = y.transpose(-1, -2)
+        return torch.nn.functional.pad(y, (0, 0, 0, sched.hp - y.shape[-2]))
+    if k == "irfft2":
+        if not tb:
+            x = x[..., : sched.h, :].transpose(-1, -2)
+        return torch.fft.irfft2(x, s=(sched.global_shape[-2], sched.n_last))
+    if k == "rfft3":
+        return torch.fft.rfftn(x, dim=(-3, -2, -1))
+    if k == "irfft3":
+        return torch.fft.irfftn(x, s=sched.global_shape[-3:], dim=(-3, -2, -1))
     raise ValueError(f"no whole-transform reference for schedule kind {k!r}")  # pragma: no cover
 
 
-def run_schedule(x: torch.Tensor, sched: Schedule, mesh: SimMesh, *, impl="torch") -> torch.Tensor:
-    """Run a schedule on a global array: split it into the per-rank
-    blocks of the schedule's input spec, interpret the stages, and
-    gather the blocks of its output spec -- or dispatch the whole
-    transform to the library reference for ``kind="global"`` backends.
-    ``x`` is first moved to the mesh's device (:meth:`SimMesh.place`)."""
-    x = mesh.place(x)
+def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch") -> torch.Tensor:
+    """Run a schedule on the caller's array -- the global array on a
+    :class:`~repro_torch.core.mesh.SimMesh`, the rank's own block on a
+    :class:`~repro_torch.core.mesh.ProcessGroupMesh` -- moved to the
+    mesh's device: cut it into the local blocks of the schedule's input
+    spec, interpret the stages, and hand back the blocks of its output
+    spec the same way. ``kind="global"`` backends instead run the whole
+    transform as one library call on the gathered global array."""
     if sched.global_backend is not None:
-        return _library_reference(x, sched)
-    vs = execute_schedule(mesh.split(x, sched.in_tail), sched, mesh, impl=impl)
-    return mesh.gather(vs, sched.out_tail)
+        out = _library_reference(mesh.global_input(x, sched.in_tail), sched)
+        return mesh.global_output(out, sched.out_tail)
+    vs = execute_schedule(mesh.local_blocks(x, sched.in_tail), sched, mesh, impl=impl)
+    return mesh.caller_array(vs, sched.out_tail)
 
 
 # ---------------------------------------------------------------------------
@@ -624,6 +816,14 @@ def _stage_label(st) -> str:
         return f"Exchange({', '.join(bits)})"
     if isinstance(st, LocalFFT):
         return f"LocalFFT(axis={st.axis}{', inverse' if st.inverse else ''})"
+    if isinstance(st, LocalR2C):
+        return "LocalR2C()"
+    if isinstance(st, LocalC2R):
+        return f"LocalC2R(n={st.n_last})"
+    if isinstance(st, HermitianPack):
+        return f"HermitianPack(h={st.h}, hp={st.hp})"
+    if isinstance(st, Trim):
+        return f"Trim(h={st.h})"
     if isinstance(st, Relayout):
         d = f", dims={st.dims}" if st.dims else ""
         return f"Relayout({st.op}{d})"

@@ -18,16 +18,28 @@ rest of the communication is still in flight:
 ``pairwise_xor``
     P-1 symmetric swap rounds with partner (me XOR s). Beyond-paper.
 
-The per-rank code is the reference's, run in lock step over a
-:class:`~repro_torch.core.mesh.SimMesh`: every function takes and
-returns a list with one local block per rank, and ``me`` is a plain
-``int``. The local block is ``(..., r, C)`` with the global rows
-``R = P*r`` sharded; the transposed result is ``(..., c, R)`` with the
-global columns ``C = P*c`` sharded.
+The per-rank code is the reference's, run over the local blocks of a
+mesh (:mod:`repro_torch.core.mesh`): every function takes and returns a
+list with one block per rank this process runs (all ``p`` on a
+:class:`~repro_torch.core.mesh.SimMesh`, the own one on a
+:class:`~repro_torch.core.mesh.ProcessGroupMesh`), and ``me`` is a
+plain ``int`` from ``mesh.local_ranks()``. The local block is
+``(..., r, C)`` with the global rows ``R = P*r`` sharded; the
+transposed result is ``(..., c, R)`` with the global columns ``C = P*c``
+sharded.
 
 **Pipelining (``n_chunks``).** The streaming exchanges decouple the chunk
 count from P: each peer block can be sub-chunked into ``q`` pieces so the
 exchange ships ``(P-1)*q`` smaller messages.
+
+**Overlap.** XLA overlapped the reference's sends with the per-chunk
+compute through async collective-permute. Here it is written out: the
+streaming exchanges post every message (send and receive) before the
+first chunk callback runs, then run the callbacks on the own chunk and
+on each message as it completes. On a ``ProcessGroupMesh`` the later
+messages travel meanwhile (on the card, on NCCL's stream); the
+simulated mesh copies each message when it is waited on, so there it
+stays sequential.
 
 **Compute fusion.** :func:`transpose_then_fft` folds the *next FFT
 pass* into the exchange on streaming backends: the length-R DFT after a
@@ -35,10 +47,6 @@ transpose decomposes over source ranks (decimation in time, j = src*r +
 j2), so each arriving chunk contributes a rank-1 outer product with one
 DFT-matrix column. Monolithic backends fall back to transpose + local
 FFT.
-
-On the simulated mesh every send and every chunk callback runs in
-program order, so nothing overlaps: the schedule, the message count and
-the bytes are the reference's, the overlap is not (see ``mesh.py``).
 """
 
 from __future__ import annotations
@@ -48,7 +56,7 @@ from typing import Callable, List, Optional
 
 import torch
 
-from repro_torch.core.mesh import SimMesh
+from repro_torch.core.mesh import Mesh
 
 Blocks = List[torch.Tensor]
 
@@ -133,7 +141,7 @@ def _call_chunk_fn(fn: ChunkFn, arity: int, chunk, src, offset: int):
 # ---------------------------------------------------------------------------
 
 
-def _alltoall(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
+def _alltoall(xs: Blocks, mesh: Mesh, axis_name: str) -> Blocks:
     # (..., r, C) --split cols/concat rows--> (..., R, c) --local T--> (..., c, R)
     nd = xs[0].ndim
     ys = mesh.all_to_all(xs, split_axis=nd - 1, concat_axis=nd - 2)
@@ -145,35 +153,50 @@ def _alltoall(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
 # ---------------------------------------------------------------------------
 
 
+def _post_rounds(chunks: List[torch.Tensor], mesh: Mesh, schedule, p: int, q: int, rq: int) -> list:
+    """Post every peer round's ``q`` sub-chunk messages at once, before
+    any chunk callback runs, and return ``(sources, t, pending)`` per
+    message in round order: ``sources[i]`` is the rank local rank ``i``
+    receives from. ``schedule(me, s, p)`` gives round s's ppermute
+    ``perm`` (the same on every rank), the chunk slot ``me`` ships and
+    the rank it receives from. Every send is a slice of the input, never
+    a chunk callback's result (the reference's double-buffer dataflow)."""
+    posted = []
+    for s in range(1, p):
+        steps = [schedule(me, s, p) for me in mesh.local_ranks()]
+        for t in range(q):
+            pieces = [chunks[i][st[1]][..., t * rq : (t + 1) * rq, :] for i, st in enumerate(steps)]
+            posted.append(([st[2] for st in steps], t, mesh.ppermute_start(pieces, steps[0][0])))
+    return posted
+
+
 def _chunked_exchange(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     chunk_fn: Optional[ChunkFn],
     schedule,
     n_chunks: Optional[int] = None,
 ) -> Blocks:
     """Shared chunk-streaming exchange: P-1 peer rounds, each shipped as
-    ``q`` sub-chunk messages (``q`` from :func:`subchunks_per_peer`).
+    ``q`` sub-chunk messages (``q`` from :func:`subchunks_per_peer`),
+    all posted up front (:func:`_post_rounds`).
 
-    ``schedule(me, s, p)`` defines round s: the ppermute ``perm`` (the
-    same on every rank), the chunk slot this rank ships, and the source
-    rank of the chunk it receives. Each received piece is transposed
-    (and optionally further processed by ``chunk_fn``) on arrival --
-    'the arriving data chunks can be transposed as soon as they are
-    received' (paper, §3). Every send uses a slice of the input, never a
-    chunk_fn result (the reference's double-buffer dataflow)."""
+    Each received piece is transposed (and optionally further processed
+    by ``chunk_fn``) as it arrives -- 'the arriving data chunks can be
+    transposed as soon as they are received' (paper, §3) -- while the
+    later messages are still in flight; the own chunk is processed
+    first, with no communication."""
     p = mesh.axis_size(axis_name)
+    ranks = mesh.local_ranks()
     x0 = xs[0]
     r, c = x0.shape[-2], x0.shape[-1] // p
-    chunks = [_split_chunks(x, p) for x in xs]  # per rank (p, ..., r, c)
+    chunks = [_split_chunks(x, p) for x in xs]  # per local rank (p, ..., r, c)
     q = subchunks_per_peer(r, p, n_chunks)
     rq = r // q
     arity = _chunk_fn_arity(chunk_fn) if chunk_fn is not None else 3
     per_sub = chunk_fn is None or arity >= 3
-
-    def sub(block: torch.Tensor, t: int) -> torch.Tensor:
-        return block[..., t * rq : (t + 1) * rq, :]
+    posted = _post_rounds(chunks, mesh, schedule, p, q, rq)
 
     def process(me: int, piece: torch.Tensor, src: int, offset: int) -> torch.Tensor:
         out = _transpose_local(piece)  # (..., c, rows)
@@ -182,45 +205,36 @@ def _chunked_exchange(
                 out = _call_chunk_fn(chunk_fn, arity, out, src, offset)
         return out
 
-    # parts[me]: (src, col_offset, processed (..., c, rows)) in arrival order
-    parts: List[list] = [[] for _ in range(p)]
-
-    def rounds(blocks: Blocks, srcs: List[int], perm=None) -> None:
-        if per_sub:
-            for t in range(q):
-                pieces = [sub(b, t) for b in blocks]
-                if perm is not None:
-                    pieces = mesh.ppermute(pieces, perm)
-                for me in range(p):
-                    parts[me].append((srcs[me], t * rq, process(me, pieces[me], srcs[me], t * rq)))
+    # parts[i]: (src, col_offset, processed (..., c, rows)) in arrival order
+    parts: List[list] = [[] for _ in ranks]
+    arrivals = [(list(ranks), t, None) for t in range(q)]  # the own chunk: no message
+    arrivals += posted
+    got: List[list] = [[] for _ in ranks]
+    for srcs, t, pending in arrivals:
+        if pending is None:
+            pieces = [chunks[i][me][..., t * rq : (t + 1) * rq, :] for i, me in enumerate(ranks)]
         else:
+            pieces = pending.wait()
+        for i, me in enumerate(ranks):
+            if per_sub:
+                parts[i].append((srcs[i], t * rq, process(me, pieces[i], srcs[i], t * rq)))
+                continue
             # 2-arg chunk_fn: stream the transport, process the whole
             # reassembled peer block (position-blind fusions only)
-            got: List[list] = [[] for _ in range(p)]
-            for t in range(q):
-                pieces = [sub(b, t) for b in blocks]
-                if perm is not None:
-                    pieces = mesh.ppermute(pieces, perm)
-                for me in range(p):
-                    got[me].append(_transpose_local(pieces[me]))
-            for me in range(p):
-                whole = got[me][0] if q == 1 else torch.cat(got[me], dim=-1)
+            got[i].append(_transpose_local(pieces[i]))
+            if t == q - 1:
+                whole = got[i][0] if q == 1 else torch.cat(got[i], dim=-1)
+                got[i] = []
                 with mesh.running(me):
-                    parts[me].append((srcs[me], 0, chunk_fn(whole, srcs[me])))
-
-    # Own chunk (round 0) -- compute immediately, no communication.
-    rounds([chunks[me][me] for me in range(p)], list(range(p)))
-    for s in range(1, p):
-        steps = [schedule(me, s, p) for me in range(p)]  # (perm, send slot, source) per rank
-        rounds([chunks[me][steps[me][1]] for me in range(p)], [st[2] for st in steps], steps[0][0])
+                    parts[i].append((srcs[i], 0, chunk_fn(whole, srcs[i])))
 
     # Assemble (..., c, R): the piece from src j at row offset o supplies
     # columns [j*r + o, j*r + o + rows).
     out_blocks = []
-    for me in range(p):
-        first = parts[me][0][2]
+    for i in range(len(ranks)):
+        first = parts[i][0][2]
         out = torch.zeros(x0.shape[:-2] + (c, p * r), dtype=first.dtype, device=first.device)
-        for src, off, part in parts[me]:
+        for src, off, part in parts[i]:
             out[..., src * r + off : src * r + off + part.shape[-1]] = part
         out_blocks.append(out)
     return out_blocks
@@ -228,16 +242,18 @@ def _chunked_exchange(
 
 def _chunked_reduce(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     chunk_fn: ChunkFn,
     schedule,
     n_chunks: Optional[int] = None,
 ) -> Blocks:
     """Streaming exchange-and-accumulate: like :func:`_chunked_exchange`
-    but the per-source results are *summed*, not concatenated -- the
-    shape the fused DFT stage needs (each arriving chunk contributes to
-    every output frequency of the cross-rank dimension).
+    (every message posted up front, the own chunk first, each callback
+    as its message arrives) but the per-source results are *summed*, not
+    concatenated -- the shape the fused DFT stage needs (each arriving
+    chunk contributes to every output frequency of the cross-rank
+    dimension).
 
     ``chunk_fn(chunk, src, offset)`` receives the RAW (untransposed)
     received piece (..., rows, c) -- rows ``[offset, offset + rows)`` of
@@ -247,25 +263,25 @@ def _chunked_reduce(
     alive instead of one per arrival) and concatenate along the last
     axis across offsets."""
     p = mesh.axis_size(axis_name)
+    ranks = mesh.local_ranks()
     r = xs[0].shape[-2]
     chunks = [_split_chunks(x, p) for x in xs]
     q = subchunks_per_peer(r, p, n_chunks)
     rq = r // q
-
-    def sub(block: torch.Tensor, t: int) -> torch.Tensor:
-        return block[..., t * rq : (t + 1) * rq, :]
+    posted = _post_rounds(chunks, mesh, schedule, p, q, rq)
 
     def call(me: int, piece: torch.Tensor, src: int, offset: int) -> torch.Tensor:
         with mesh.running(me):
             return chunk_fn(piece, src, offset)
 
-    parts = [[call(me, sub(chunks[me][me], t), me, t * rq) for t in range(q)] for me in range(p)]
-    for s in range(1, p):
-        steps = [schedule(me, s, p) for me in range(p)]  # (perm, send slot, source) per rank
-        for t in range(q):
-            recv = mesh.ppermute([sub(chunks[me][steps[me][1]], t) for me in range(p)], steps[0][0])
-            for me in range(p):
-                parts[me][t].add_(call(me, recv[me], steps[me][2], t * rq))
+    parts = [
+        [call(me, chunks[i][me][..., t * rq : (t + 1) * rq, :], me, t * rq) for t in range(q)]
+        for i, me in enumerate(ranks)
+    ]
+    for srcs, t, pending in posted:
+        recv = pending.wait()
+        for i, me in enumerate(ranks):
+            parts[i][t].add_(call(me, recv[i], srcs[i], t * rq))
     return [pt[0] if q == 1 else torch.cat(pt, dim=-1) for pt in parts]
 
 
@@ -281,7 +297,7 @@ def _swap_schedule(me: int, s: int, p: int):
 
 def _scatter(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     chunk_fn: Optional[ChunkFn] = None,
     n_chunks: Optional[int] = None,
@@ -296,7 +312,7 @@ def _scatter(
 # ---------------------------------------------------------------------------
 
 
-def _bisection(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
+def _bisection(xs: Blocks, mesh: Mesh, axis_name: str) -> Blocks:
     """Bruck all-to-all: ceil(log2 P) rounds, each shipping the slots whose
     round-bit is set. Message count log P (vs P-1), bytes P/2 slots per
     round (vs 1 slot per step).
@@ -308,7 +324,8 @@ def _bisection(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
     """
     p = mesh.axis_size(axis_name)
     # Phase 1: rotate so slot j holds destination (me + j) mod p.
-    bufs = [torch.roll(_split_chunks(x, p), -me, dims=0) for me, x in enumerate(xs)]
+    ranks = mesh.local_ranks()
+    bufs = [torch.roll(_split_chunks(x, p), -me, dims=0) for me, x in zip(ranks, xs)]
 
     # Phase 2: log rounds of exchange with rank (me + 2^t), shipping the
     # slots {j : bit t of j set} (half the buffer), the same on every rank.
@@ -318,14 +335,14 @@ def _bisection(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
         idx = [j for j in range(p) if (j >> t) & 1]
         perm = [(i, (i + step) % p) for i in range(p)]
         recv = mesh.ppermute([b[idx] for b in bufs], perm)
-        for me in range(p):
-            bufs[me][idx] = recv[me]
+        for i in range(len(ranks)):
+            bufs[i][idx] = recv[i]
         t += 1
 
     # Phase 3: slot j now holds the chunk from source (me - j) mod p.
     out = []
-    for me in range(p):
-        by_src = torch.flip(torch.roll(bufs[me], -(me + 1), dims=0), dims=(0,))
+    for me, buf in zip(ranks, bufs):
+        by_src = torch.flip(torch.roll(buf, -(me + 1), dims=0), dims=(0,))
         out.append(_transpose_local(_merge_rows(by_src)))  # (..., c, R)
     return out
 
@@ -337,7 +354,7 @@ def _bisection(xs: Blocks, mesh: SimMesh, axis_name: str) -> Blocks:
 
 def _pairwise_xor(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     chunk_fn: Optional[ChunkFn] = None,
     n_chunks: Optional[int] = None,
@@ -364,7 +381,7 @@ def _check_columns(xs: Blocks, p: int, axis_name: str) -> None:
 
 def distributed_transpose(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     *,
     strategy: str = "alltoall",
@@ -410,7 +427,7 @@ def distributed_transpose(
 
 def transpose_then_fft(
     xs: Blocks,
-    mesh: SimMesh,
+    mesh: Mesh,
     axis_name: str,
     *,
     strategy: str,
@@ -480,7 +497,7 @@ def transpose_then_fft(
         return ref.chunk_twiddle_pack_ref(chunk, m)  # (..., c, k1=p, j2=rows)
 
     acc = backend.stream_reduce([x.to(cdtype) for x in xs], mesh, axis_name, chunk_fn, n_chunks=n_chunks)
-    for i in range(p):
+    for i in range(len(acc)):
         a = lf.local_fft(acc[i], axis=-1, inverse=inverse, impl=impl)  # j2 -> k2 (1/r if inverse)
         # F index k = k1 + P*k2 -> order (k2 major, k1 minor).
         out = _transpose_local(a)  # (..., c, k2=r, k1=p)

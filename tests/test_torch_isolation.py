@@ -9,6 +9,8 @@ import shutil
 import subprocess
 import sys
 
+import pytest
+
 from conftest import REPO, SRC
 
 PKG = pathlib.Path(SRC) / "repro_torch"
@@ -67,3 +69,33 @@ def test_chip_smoke_fails_without_a_gpu_or_a_checkout(tmp_path):
     out = _run_smoke(tmp_path, alone)
     assert out.returncode != 0
     assert '"ok"' not in out.stdout
+
+
+def test_new_modules_are_covered():
+    """The r2c transforms, the apps and the process-group mesh are among
+    the modules the two checks above import with jax blocked."""
+    mods = _modules()
+    for m in ("repro_torch.core.real", "repro_torch.core.mesh", "repro_torch.apps",
+              "repro_torch.apps.spectral", "repro_torch.apps.poisson", "repro_torch.apps.derivatives",
+              "repro_torch.apps.convolve"):
+        assert m in mods, m
+    assert "class ProcessGroupMesh" in (PKG / "core" / "mesh.py").read_text()
+
+
+def test_new_entry_points_ask_for_the_card(tmp_path):
+    """Called without device=, the process-group entry point and the
+    plans the apps run on pick the card, and raise without one."""
+    import torch
+
+    from repro_torch.core import SimMesh, init_process_mesh
+
+    if torch.cuda.is_available():
+        assert SimMesh(2).device.type == "cuda"
+        return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_process_mesh(0, 1, f"file://{tmp_path / 'rendezvous'}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        init_process_mesh(0, 1, f"file://{tmp_path / 'rendezvous'}", device="cuda")
+    import torch.distributed as dist
+
+    assert not dist.is_initialized()

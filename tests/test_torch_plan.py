@@ -124,8 +124,10 @@ def test_plan_errors_name_the_axis_and_the_roadmap_item():
         plan_fft((16, 16), mesh, pipeline="fast")
     with pytest.raises(NotImplementedError, match="1-D large inverse"):
         plan_fft((64,), mesh, ndim=1, direction="inverse")
+    with pytest.raises(NotImplementedError, match="1-D real transform"):
+        plan_fft((64,), mesh, ndim=1, real=True)
     for kwargs, item in (
-        (dict(real=True), "A7"), (dict(decomp="pencil"), "A8"), (dict(decomp="auto"), "A8"),
+        (dict(decomp="pencil"), "A8"), (dict(decomp="auto"), "A8"), (dict(decomp="pencil", real=True), "A8"),
         (dict(planner="measure"), "A9"), (dict(faults=object()), "A12"),
         (dict(backend="scatter@u"), "A9"),
     ):

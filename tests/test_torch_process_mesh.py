@@ -1,0 +1,192 @@
+"""ProcessGroupMesh over gloo: the port's transforms with one rank per
+process, each rank holding its own block, against SimMesh(P) on the
+same seeded input.
+
+One ``torch.multiprocessing.spawn`` per P runs every case inside it
+(process start-up dominates, so the cases share it). Each rank checks
+its own results and raises on a mismatch, which fails the spawn; rank 0
+lists the cases that ran. The cases: every backend, fused and unfused
+(and sub-chunked), for c2c fft2 and real rfft2 round trips through
+``plan_fft``; fft3 / rfft3 and the functional rfft2 / irfft2; the
+Poisson solve; that the streaming exchanges post every message before
+the first chunk callback; and, last, that a peer which never posts its
+receive fails within the group's timeout instead of hanging."""
+
+import json
+import time
+
+import numpy as np
+import pytest
+import torch
+
+REL_TOL = 1e-6  # the same arithmetic on the same blocks; only the transport differs
+TIMEOUT_S = 2.0  # the short-timeout group of the hang case
+
+
+def _rel(got: torch.Tensor, exp: torch.Tensor) -> float:
+    return ((got - exp).abs().max() / exp.abs().max()).item()
+
+
+def _c64(seed, shape):
+    r = np.random.default_rng(seed)
+    return torch.from_numpy((r.standard_normal(shape) + 1j * r.standard_normal(shape)).astype(np.complex64))
+
+
+def _f32(seed, shape):
+    return torch.from_numpy(np.random.default_rng(seed).standard_normal(shape).astype(np.float32))
+
+
+def _cases(mesh, sim, ran):
+    """Every case of one P; ``mesh`` is this rank's ProcessGroupMesh,
+    ``sim`` the SimMesh(P) oracle on the CPU."""
+    from repro_torch.apps import solve_poisson
+    from repro_torch.core import FFTConfig, backends, irfft2, plan_fft, rfft2
+    from repro_torch.core import transpose as tr
+
+    p, rank = mesh.p, mesh.rank
+
+    def check(name, got_block, exp_global, tail):
+        got = mesh.gather([got_block], tail)
+        err = _rel(got, exp_global)
+        if not err <= REL_TOL:
+            raise AssertionError(f"P={p} rank {rank} {name}: rel err {err:.3e} > {REL_TOL}")
+        ran.append(name)
+
+    x = _c64(p, (2, 8 * p, 4 * p))  # (batch, R, C)
+    xr = _f32(p + 1, (3, 8 * p, 10))  # odd batch, Hermitian axis 6 (padded to a multiple of P)
+    for name in backends.supporting(p):
+        for pipeline in ("auto", False, 3 * p):
+            tag = f"{name}/{pipeline}"
+            kw = dict(backend=name, pipeline=pipeline, local_impl="kernel")
+            plan, ref = plan_fft(x.shape, mesh, **kw), plan_fft(x.shape, sim, **kw)
+            assert plan.fused == ref.fused and plan.schedule_hash() == ref.schedule_hash()
+            y = plan.execute(mesh.split(x, (plan.axis_name, None))[0])
+            exp = ref.execute(x)
+            check(f"c2c {tag}", y, exp, ("model", None))
+            check(f"c2c inverse {tag}", plan.inverse(y), ref.inverse(exp), ("model", None))
+            rplan, rref = plan_fft(xr.shape, mesh, real=True, **kw), plan_fft(xr.shape, sim, real=True, **kw)
+            ry = rplan.execute(mesh.split(xr, ("model", None))[0])
+            rexp = rref.execute(xr)
+            assert tuple(mesh.gather([ry], ("model", None)).shape) == rref.spectrum_shape()
+            check(f"r2c {tag}", ry, rexp, ("model", None))
+            check(f"c2r {tag}", rplan.inverse(ry), rref.inverse(rexp), ("model", None))
+
+    x3, xr3 = _c64(7, (4 * p, 4, 2 * p)), _f32(8, (4 * p, 3, 10))
+    for real, arr in ((False, x3), (True, xr3)):
+        kw = dict(ndim=3, backend="scatter", real=real, local_impl="kernel")
+        plan, ref = plan_fft(arr.shape, mesh, **kw), plan_fft(arr.shape, sim, **kw)
+        y = plan.execute(mesh.split(arr, ("model", None, None))[0])
+        exp = ref.execute(arr)
+        check(f"fft3 real={real}", y, exp, ("model", None, None))
+        check(f"ifft3 real={real}", plan.inverse(y), ref.inverse(exp), ("model", None, None))
+
+    cfg = FFTConfig(strategy="pairwise_xor", fused=True, transpose_back=True)
+    y = rfft2(mesh.split(xr, ("model", None))[0], mesh, "model", cfg)
+    exp = rfft2(xr, sim, "model", cfg)
+    check("functional rfft2 transpose_back", y, exp, ("model", None))
+    check("functional irfft2", irfft2(y, mesh, "model", cfg, n_last=10), irfft2(exp, sim, "model", cfg, n_last=10),
+          ("model", None))
+
+    n = 8 * p
+    grid = np.arange(n) * 2 * np.pi / n
+    gx, gy = np.meshgrid(grid, grid, indexing="ij")
+    f = torch.from_numpy((-5.0 * np.sin(gx) * np.cos(2 * gy)).astype(np.float32))
+    kw = dict(real=True, backend="scatter", local_impl="kernel")
+    plan, ref = plan_fft((n, n), mesh, **kw), plan_fft((n, n), sim, **kw)
+    check("solve_poisson", solve_poisson(mesh.split(f, ("model", None))[0], plan),
+          solve_poisson(f, ref), ("model", None))
+
+    with pytest.raises(ValueError, match="sends or receives twice"):
+        mesh.ppermute_start([x], [(rank, (rank + 1) % p), (rank, rank)])
+    with pytest.raises(ValueError, match="cannot run rank"):
+        with mesh.running((rank + 1) % p):
+            pass
+    assert mesh.local_ranks() == [rank] and mesh.axis_index("model") == rank
+    ran.append("argument checks")
+
+    # every message is posted before the first chunk callback runs
+    q = 2
+    blocks = mesh.split(_c64(9, (4 * p, 4 * p)), ("model", None))
+    for name in ("scatter", "pairwise_xor"):
+        for run in (
+            lambda fn: tr.distributed_transpose(blocks, mesh, "model", strategy=name, chunk_fn=fn, n_chunks=q * p),
+            lambda fn: backends.get(name).stream_reduce(blocks, mesh, "model", fn, n_chunks=q * p),
+        ):
+            seen = []
+
+            def fn(chunk, src, offset):
+                seen.append(mesh.in_flight)
+                return chunk
+
+            run(fn)
+            assert seen[0] == (p - 1) * q and len(seen) == p * q and mesh.in_flight == 0, (name, seen)
+        ran.append(f"posted up front {name}")
+
+
+def _hang_case(ran):
+    """Rank 0 sends to rank 1, which never posts its receive: the send
+    fails within the group's timeout."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from repro_torch.core import ProcessGroupMesh
+
+    group = dist.new_group(timeout=datetime.timedelta(seconds=TIMEOUT_S))
+    mesh = ProcessGroupMesh(device="cpu", group=group)
+    if mesh.rank == 0:
+        t0 = time.perf_counter()
+        pending = mesh.ppermute_start([torch.ones(4, dtype=torch.complex64)], [(0, 1)])
+        with pytest.raises(RuntimeError, match="[Tt]imed out|timeout"):
+            pending.wait()
+        waited = time.perf_counter() - t0
+        assert waited < 4 * TIMEOUT_S, waited
+        ran.append(f"unreceived send fails after {waited:.1f} s")
+    dist.barrier()  # the default group: rank 1 leaves only after rank 0 has timed out
+
+
+def _worker(rank, world, init_method, out_path):
+    import torch.distributed as dist
+
+    from repro_torch.core import SimMesh, init_process_mesh
+
+    torch.set_num_threads(1)
+    mesh = init_process_mesh(rank, world, init_method, device="cpu", timeout_s=60)
+    try:
+        ran = []
+        _cases(mesh, SimMesh(world, device="cpu"), ran)
+        _hang_case(ran)
+        if rank == 0:
+            with open(out_path, "w") as fh:
+                json.dump(ran, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.parametrize("p", [2, 4])
+def test_process_group_mesh_matches_sim_mesh(p, tmp_path):
+    import torch.multiprocessing as mp
+
+    out = tmp_path / "ran.json"
+    mp.spawn(_worker, args=(p, f"file://{tmp_path / 'rendezvous'}", str(out)), nprocs=p, join=True)
+    ran = json.loads(out.read_text())
+    from repro_torch.core import backends
+
+    names = backends.supporting(p)
+    assert len(names) == 5  # alltoall, bisection, pairwise_xor, scatter, xla_auto
+    for kind in ("c2c", "c2c inverse", "r2c", "c2r"):
+        assert [c for c in ran if c.startswith(kind + " ") and c.count(" ") == kind.count(" ") + 1] == [
+            f"{kind} {n}/{pipe}" for n in names for pipe in ("auto", False, 3 * p)
+        ]
+    for case in ("fft3 real=True", "ifft3 real=False", "functional irfft2", "solve_poisson",
+                 "posted up front scatter", "posted up front pairwise_xor"):
+        assert case in ran
+    assert len(ran) == 4 * 15 + 4 + 2 + 1 + 1 + 2 + 1, ran
+    assert ran[-1].startswith("unreceived send fails"), ran
+
+
+def test_process_group_mesh_needs_a_group():
+    from repro_torch.core import ProcessGroupMesh
+
+    with pytest.raises(RuntimeError, match="init_process_mesh"):
+        ProcessGroupMesh(device="cpu")

@@ -1,5 +1,5 @@
-"""Port parity for the stage-schedule IR: the 15 slab c2c golden
-schedules byte for byte, the byte and cost walks against the
+"""Port parity for the stage-schedule IR: the 15 slab c2c and 13 slab
+r2c golden schedules byte for byte, the byte and cost walks against the
 reference's, the divisibility messages, the rewrites and the spec
 simulation."""
 
@@ -43,14 +43,34 @@ def slab_c2c_cases():
     return cases
 
 
-CASES = slab_c2c_cases()
+def slab_r2c_cases():
+    """key -> build_schedule kwargs: the slab r2c entries of
+    tests/test_schedule.py's snapshot grid."""
+    cases = {}
+    for key, kw in slab_c2c_cases().items():
+        if key.startswith(("slab/ndim2/c2c/", "slab/ndim3/c2c/")):
+            cases[key.replace("/c2c/", "/r2c/")] = dict(kw, real=True)
+    return cases
+
+
+C2C_CASES = slab_c2c_cases()
+R2C_CASES = slab_r2c_cases()
+CASES = {**C2C_CASES, **R2C_CASES}
 
 
 def test_case_grid_covers_every_slab_c2c_golden():
     with open(GOLDEN_PATH) as f:
         golden = json.load(f)
     slab_c2c = {k for k in golden if k.startswith(("slab/ndim1/", "slab/ndim2/c2c/", "slab/ndim3/c2c/"))}
-    assert set(CASES) == slab_c2c and len(CASES) == 15
+    assert set(C2C_CASES) == slab_c2c and len(C2C_CASES) == 15
+
+
+def test_case_grid_covers_every_slab_r2c_golden():
+    with open(GOLDEN_PATH) as f:
+        golden = json.load(f)
+    slab_r2c = {k for k in golden if k.startswith(("slab/ndim2/r2c/", "slab/ndim3/r2c/"))}
+    assert set(R2C_CASES) == slab_r2c and len(R2C_CASES) == 13
+    assert len(CASES) == 28 and len(golden) == 52
 
 
 @pytest.mark.parametrize("key", sorted(CASES))
@@ -68,14 +88,14 @@ def test_byte_and_cost_walks_match_reference(key):
     mine = sch.build_schedule(**CASES[key])
     theirs = ref_sch.build_schedule(**CASES[key])
     assert mine.schedule_hash() == theirs.schedule_hash()
-    for item in (8, 16):
-        assert sch.schedule_comm_bytes(mine, item, item) == ref_sch.schedule_comm_bytes(theirs, item, item)
+    for r_item, c_item in ((8, 8), (16, 16), (4, 8)):
+        assert sch.schedule_comm_bytes(mine, r_item, c_item) == ref_sch.schedule_comm_bytes(theirs, r_item, c_item)
     for alpha, beta, cc, n_chunks in ((1e-6, 200e9, 0.0, None), (5e-6, 450e9, 3e-6, 16)):
         for fused in (False, True):
             a = sch.with_pipeline(mine, fused, n_chunks)
             b = ref_sch.with_pipeline(theirs, fused, n_chunks)
-            got = sch.predict_seconds(a, CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 8, 8)
-            exp = ref_sch.predict_seconds(b, ref_cm.CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 8, 8)
+            got = sch.predict_seconds(a, CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 4, 8)
+            exp = ref_sch.predict_seconds(b, ref_cm.CommParams(alpha_s=alpha, beta_bytes_s=beta), cc, 4, 8)
             assert got == exp
 
 
@@ -117,8 +137,12 @@ def test_unported_builders_name_their_roadmap_item():
     with pytest.raises(NotImplementedError, match="ROADMAP A8"):
         sch.build_schedule((16, 16), ndim=2, decomp="pencil", row_axis="r", col_axis="c",
                            p_rows=2, p_cols=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A7"):
-        sch.build_schedule((16, 16), ndim=2, real=True, axis_name="x", p=4)
+    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
+        sch.build_schedule((16, 16), ndim=2, real=True, decomp="pencil", row_axis="r", col_axis="c",
+                           p_rows=2, p_cols=2)
+    assert sch.build_schedule((16, 16), ndim=2, real=True, axis_name="x", p=4).kind == "rfft2"
+    with pytest.raises(NotImplementedError, match="real transforms support ndim 2 or 3"):
+        sch.build_schedule((64,), ndim=1, real=True, axis_name="x", p=4)
     with pytest.raises(NotImplementedError, match="conjugate externally"):
         sch.build_schedule((64,), ndim=1, inverse=True, axis_name="x", p=4)
     with pytest.raises(ValueError, match="must factor as rows"):

@@ -156,6 +156,41 @@ def test_ppermute_copies_into_fresh_receive_tensors():
     assert torch.equal(partial[1], pieces[0]) and not partial[0].any() and not partial[2].any()
 
 
+@pytest.mark.parametrize("name", ["scatter", "pairwise_xor"])
+def test_streaming_exchanges_post_every_message_before_the_first_callback(name):
+    """The simulated mesh's messages are posted as the process-group
+    mesh's are (all before any chunk callback) and copied when waited
+    on; each callback sees how many are still in flight."""
+    p, q = 4, 2
+    mesh = SimMesh(p, device="cpu")
+    xs = _blocks(_c64(50, (4 * p, 4 * p)), p)
+    for run in (
+        lambda fn: tr.distributed_transpose(xs, mesh, "model", strategy=name, chunk_fn=fn, n_chunks=q * p),
+        lambda fn: backends.get(name).stream_reduce(xs, mesh, "model", fn, n_chunks=q * p),
+    ):
+        seen = []
+
+        def fn(chunk, src, offset):
+            seen.append((mesh.axis_index("model"), src, mesh.in_flight))
+            return chunk
+
+        run(fn)
+        own = [(me, me, (p - 1) * q) for me in range(p) for _ in range(q)]
+        assert sorted(seen[: p * q]) == own  # the own chunks first, every message posted
+        assert [n for _, _, n in seen[p * q :]] == [n for n in range((p - 1) * q - 1, -1, -1) for _ in range(p)]
+        assert mesh.in_flight == 0
+
+
+def test_pending_message_is_waited_once():
+    mesh = SimMesh(2, device="cpu")
+    pending = mesh.ppermute_start([torch.ones(2), torch.zeros(2)], [(0, 1), (1, 0)])
+    assert mesh.in_flight == 1
+    got = pending.wait()
+    assert torch.equal(got[0], torch.zeros(2)) and torch.equal(got[1], torch.ones(2)) and mesh.in_flight == 0
+    with pytest.raises(RuntimeError, match="already waited on"):
+        pending.wait()
+
+
 def test_all_to_all_split_gather_and_axis_index():
     mesh = SimMesh(4, device="cpu")
     x = torch.arange(4 * 8).reshape(8, 4)
