@@ -38,13 +38,31 @@ Phases, each printing a line; any failure exits non-zero with no result:
    scatter ring, the unfused ring and the unfused alltoall; every rank
    holds the gathered result against SimMesh(P) on the same seed. On a
    machine with several cards this is the exchanges' comparison over
-   NVLink.
+   NVLink. Then the ranks join a grid of auto_grid_shape(P) with one
+   NCCL subgroup per ring of each axis and run phase 8's fused and
+   unfused pencil plans on their own blocks, held against SimMesh with
+   the same grid (one card: a 1x1 grid, no message moves);
+8. pencil c2c -- plan_fft((16384, 16384), SimMesh((2, 2)),
+   decomp="pencil", backend=("scatter", "scatter"), local_impl="kernel"),
+   fused, on phase 4's 2 GiB array: held against torch.fft.fft2(x) (the
+   natural layout), the inverse must round-trip, the unfused
+   ("alltoall", "alltoall") plan must agree; timed beside phase 4's slab
+   plan on the same transform;
+9. pencil rfft3 -- plan_fft((1024,) * 3, SimMesh((2, 2)), ndim=3,
+   real=True, decomp="pencil", backend="scatter") on phase 6's 4 GiB
+   cube: the reversed layout with the Hermitian axis padded over P_col
+   (513 -> 514), its first 513 entries held against
+   torch.fft.rfftn(x).permute(2, 1, 0), and its inverse; timed beside
+   phase 6's slab rfft3.
 
-Phases 4-7 each zero the kernels' launch counters just before they run
+Phases 4-9 each zero the kernels' launch counters just before they run
 and read them just after; each fails if a kernel of its path was never
 launched (at P = 1 a plan does not fuse, so phase 7 launches the two
-stages only). The second-to-last line is one JSON object with a row
-per kernel; the last line is {"ok": true, "device": {...}}.
+stages only), and phases 8-9 fail if the path's peak memory reaches
+40 GiB. Phases 8-9 print the shapes each kernel was launched at and
+time each kernel once at the shapes phase 3 did not. The second-to-last
+line is one JSON object with a row per kernel; the last line is
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
@@ -62,6 +80,15 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 N = 16384  # global (N, N) complex64: 2 GiB
 P = 4  # simulated ranks
 N3 = 1024  # the rfft3 phase: a (N3, N3, N3) float32 cube, 4 GiB
+GRID = (2, 2)  # the pencil phases' simulated grid, (P_row, P_col)
+GRID_AXES = ("rows", "cols")
+PEAK_LIMIT_GIB = 40.0  # a path's peak device memory, of the 80 GB card
+#: the launch shapes (fft_stage.SHAPES keys) phase 3 times each kernel at
+KERNEL_PHASE_SHAPES = {
+    "stage_left": {(4096, 512, 512, 32), (16384, 512, 512, 8)},
+    "stage_right": {(4096, 512, 32, 32), (16384, 512, 8, 8)},
+    "chunk_twiddle_pack_c64": {(1, N // P, N // P, P)},
+}
 NCCL_TIMEOUT_S = 300  # the process group's timeout in the NCCL phase
 MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
@@ -275,8 +302,24 @@ def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
     return rows
 
 
-def main_path(torch, g, fft_stage, plan_fft, SimMesh):
-    x = torch.randn((N, N), dtype=torch.complex64, device="cuda", generator=g)
+def main_input(torch, seed: int):
+    """The main path's (N, N) complex64 array, drawn on the card from a
+    fresh generator at ``seed`` (phase 8 transforms the same array)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randn((N, N), dtype=torch.complex64, device="cuda", generator=g)
+
+
+def cube_input(torch, seed: int):
+    """The rfft3 phases' (N3, N3, N3) float32 cube, drawn likewise
+    (phases 6 and 9 transform the same cube)."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    return torch.randn((N3, N3, N3), dtype=torch.float32, device="cuda", generator=g)
+
+
+def main_path(torch, seed, fft_stage, plan_fft, SimMesh):
+    x = main_input(torch, seed)
     plan = plan_fft((N, N), SimMesh(P), backend="scatter", local_impl="kernel")
     check(plan.fused, "the scatter plan did not resolve to the fused pipeline")
     t0 = time.perf_counter()
@@ -313,7 +356,7 @@ def main_path(torch, g, fft_stage, plan_fft, SimMesh):
     print(f"main path timing: plan.execute scatter fused {ms_scatter:.2f} ms, alltoall unfused "
           f"{ms_a2a:.2f} ms, torch.fft.fft2 {ms_lib:.2f} ms (median of 3 / 3 / 5), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches
+    return launches, ms_scatter
 
 
 def poisson_oracle(torch, f):
@@ -368,9 +411,9 @@ def real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson):
     return launches
 
 
-def rfft3_phase(torch, g, fft_stage, plan_fft, SimMesh):
+def rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh):
     """Phase 6: rfft3 / irfft3 of a 1024^3 float32 cube on SimMesh(4)."""
-    x = torch.randn((N3, N3, N3), dtype=torch.float32, device="cuda", generator=g)
+    x = cube_input(torch, seed)
     plan = plan_fft(tuple(x.shape), SimMesh(P), ndim=3, real=True, backend="scatter", local_impl="kernel")
     y, launches, peak = counted(torch, fft_stage, "rfft3", lambda: plan.execute(x))
     print(f"rfft3: {plan!r} fused={plan.fused} Hp={plan.padded_hermitian_len}, launches {launches}, "
@@ -388,10 +431,137 @@ def rfft3_phase(torch, g, fft_stage, plan_fft, SimMesh):
     ms_lib = median_ms(torch, lambda: torch.fft.rfftn(x), reps=5)
     print(f"rfft3 timing: plan.execute {ms:.2f} ms (median of 3), torch.fft.rfftn {ms_lib:.2f} ms "
           f"(median of 5), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches
+    return launches, ms
+
+
+def launch_shapes(fft_stage) -> dict:
+    """Kernel name -> {launch shape: launches} of the run just counted."""
+    return {name: dict(shapes) for name, shapes in fft_stage.SHAPES.items()}
+
+
+def print_shapes(label: str, shapes: dict) -> None:
+    for name, by_shape in shapes.items():
+        listed = ", ".join(f"{shape} x{n}" for shape, n in sorted(by_shape.items()))
+        print(f"{label} launch shapes {name}: {listed or 'none'}", flush=True)
+
+
+def check_peak(label: str, peak: float, what: str) -> None:
+    print(f"{label}: peak memory {peak:.2f} GiB ({what}; limit {PEAK_LIMIT_GIB:.0f})", flush=True)
+    check(peak < PEAK_LIMIT_GIB, f"{label} peaked at {peak:.2f} GiB, over {PEAK_LIMIT_GIB} GiB")
+
+
+def time_launch_shapes(torch, g, fft_stage, ref, lf, cm, label: str, shapes: dict) -> None:
+    """Each kernel once at every shape of ``shapes`` that phase 3 did not
+    time: held against its plain version on random inputs, then kernel
+    and plain timed (CUDA events, median of 5) beside the bound."""
+    def crand(*shape):
+        return torch.randn(shape, dtype=torch.complex64, device="cuda", generator=g)
+
+    for name, by_shape in shapes.items():
+        for shape in sorted(set(by_shape) - KERNEL_PHASE_SHAPES[name]):
+            if name == "stage_left":
+                b, m, k, n = shape
+                w, a, t = lf.dft_matrix(m, device="cuda"), crand(b, k, n), lf.twiddle(m, n, device="cuda")
+                run, plain = (lambda: fft_stage.stage_left_c64(w, a, t)), (lambda: ref.stage_left_c64_ref(w, a, t))
+                flops, nbytes = 8.0 * b * m * k * n + 6.0 * b * m * n, 8.0 * (m * k + b * k * n + m * n + b * m * n)
+                tol, (ms_bound, by) = (STAGE_RTOL, STAGE_ATOL), bound(3 * flops, nbytes, cm, cm.PEAK_FLOPS_TF32)
+            elif name == "stage_right":
+                b, m, k, n = shape
+                a, w = crand(b, m, k), lf.dft_matrix(n, device="cuda")
+                run, plain = (lambda: fft_stage.stage_right_c64(a, w)), (lambda: ref.stage_right_c64_ref(a, w))
+                flops, nbytes = 8.0 * b * m * k * n, 8.0 * (b * m * k + n * k + b * m * n)
+                tol, (ms_bound, by) = (STAGE_RTOL, STAGE_ATOL), bound(3 * flops, nbytes, cm, cm.PEAK_FLOPS_TF32)
+            else:
+                b, rows, c, p = shape
+                chunk, m = crand(b, rows, c), crand(p, rows)
+                run = lambda: fft_stage.chunk_twiddle_pack_c64(chunk, m)  # noqa: E731
+                plain = lambda: ref.chunk_twiddle_pack_ref(chunk, m)  # noqa: E731
+                flops, nbytes = 6.0 * b * rows * c * p, 8.0 * (b * rows * c + p * rows + b * c * p * rows)
+                tol, (ms_bound, by) = (PACK_RTOL, PACK_ATOL), bound(flops, nbytes, cm)
+            got, exp = torch.view_as_real(run()), torch.view_as_real(plain())
+            err = (got - exp).abs().max().item()
+            ok = torch.allclose(got, exp, rtol=tol[0], atol=tol[1])
+            del got, exp
+            ms, plain_ms = median_ms(torch, run, reps=5), median_ms(torch, plain, reps=5)
+            print(f"kernel {name} {shape} (launched {by_shape[shape]}x on the {label} path): max_abs_err={err:.3e} "
+                  f"(tol rtol={tol[0]} atol={tol[1]}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f} "
+                  f"plain_ms={plain_ms:.4f} bound_ms={ms_bound:.4f} ({by})", flush=True)
+            check(ok, f"{name} disagrees with its plain version at {shape}")
+            del run, plain
+            torch.cuda.empty_cache()
+
+
+def pencil_c2c_phase(torch, seed, fft_stage, plan_fft, SimMesh, slab_ms: float):
+    """Phase 8: the c2c main path's transform of the same array as a 2x2
+    pencil plan."""
+    x = main_input(torch, seed)
+    mesh = SimMesh(GRID, axis_names=GRID_AXES)
+    plan = plan_fft((N, N), mesh, decomp="pencil", backend=("scatter", "scatter"), local_impl="kernel")
+    check(plan.fused, "the pencil scatter plan did not resolve to the fused pipeline")
+    y, launches, peak = counted(torch, fft_stage, "pencil c2c", lambda: plan.execute(x))
+    shapes = launch_shapes(fft_stage)
+    print(f"pencil c2c: {plan!r} fused={plan.fused}, launches {launches}", flush=True)
+    print_shapes("pencil c2c", shapes)
+    check_peak("pencil c2c", peak, "plan.execute")
+    check(tuple(y.shape) == (N, N) and bool(torch.isfinite(torch.view_as_real(y)).all()),
+          "the pencil output is not finite with the expected shape")
+    oracle = torch.fft.fft2(x)
+    err = rel_err(torch, y, oracle)
+    print(f"pencil c2c vs torch.fft.fft2(x): rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "the pencil plan disagrees with torch.fft.fft2")
+    z = plan.inverse(y)
+    rt = rel_err(torch, z, x)
+    print(f"pencil c2c inverse round trip: rel_err={rt:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(rt <= MAIN_PATH_REL_TOL, "the pencil plan.inverse does not round-trip")
+    del z, y
+    a2a = plan_fft((N, N), mesh, decomp="pencil", backend=("alltoall", "alltoall"), pipeline=False,
+                   local_impl="kernel")
+    err2 = rel_err(torch, a2a.execute(x), oracle)
+    print(f"pencil alltoall+alltoall pipeline=False vs torch.fft.fft2(x): rel_err={err2:.3e} "
+          f"(tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(err2 <= MAIN_PATH_REL_TOL, "the unfused pencil plan disagrees with torch.fft.fft2")
+    del oracle
+    ms = host_ms(torch, lambda: plan.execute(x))
+    ms_a2a = host_ms(torch, lambda: a2a.execute(x))
+    print(f"pencil c2c timing: plan.execute scatter+scatter fused {ms:.2f} ms, alltoall+alltoall unfused "
+          f"{ms_a2a:.2f} ms (median of 3); slab scatter fused (phase 4) {slab_ms:.2f} ms on the same transform",
+          flush=True)
+    check_peak("pencil c2c", torch.cuda.max_memory_allocated() / 2**30, "the whole phase")
+    return launches, shapes
+
+
+def pencil_rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh, slab_ms: float):
+    """Phase 9: phase 6's rfft3 of the same cube as a 2x2 pencil plan
+    (reversed layout)."""
+    x = cube_input(torch, seed)
+    plan = plan_fft(tuple(x.shape), SimMesh(GRID, axis_names=GRID_AXES), ndim=3, real=True, decomp="pencil",
+                    backend="scatter", local_impl="kernel")
+    y, launches, peak = counted(torch, fft_stage, "pencil rfft3", lambda: plan.execute(x))
+    shapes = launch_shapes(fft_stage)
+    h, hp = plan.hermitian_len, plan.padded_hermitian_len
+    print(f"pencil rfft3: {plan!r} fused={plan.fused} H={h} Hp={hp}, launches {launches}", flush=True)
+    print_shapes("pencil rfft3", shapes)
+    check_peak("pencil rfft3", peak, "plan.execute")
+    check(tuple(y.shape) == (hp, N3, N3) and hp == N3 // 2 + 2, "pencil rfft3 output has the wrong shape")
+    err = rel_err(torch, y[:h], torch.fft.rfftn(x).permute(2, 1, 0))
+    print(f"pencil rfft3 vs torch.fft.rfftn(x).permute(2, 1, 0): rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})",
+          flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "pencil rfft3 disagrees with torch.fft.rfftn")
+    check(not y[h:].any(), "the padded Hermitian entries are not zero")
+    z = plan.inverse(y)
+    rt = rel_err(torch, z, x)
+    print(f"pencil irfft3 round trip: rel_err={rt:.3e} (tol {MAIN_PATH_REL_TOL})", flush=True)
+    check(rt <= MAIN_PATH_REL_TOL, "pencil irfft3 does not round-trip")
+    del y, z
+    ms = host_ms(torch, lambda: plan.execute(x))
+    print(f"pencil rfft3 timing: plan.execute {ms:.2f} ms (median of 3); slab rfft3 (phase 6) {slab_ms:.2f} ms "
+          f"on the same transform", flush=True)
+    check_peak("pencil rfft3", torch.cuda.max_memory_allocated() / 2**30, "the whole phase")
+    return launches, shapes
 
 
 NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
+NCCL_PENCIL_VARIANTS = ((("scatter", "scatter"), "auto"), (("alltoall", "alltoall"), False))
 
 
 def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
@@ -399,12 +569,13 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
     this rank's block over NCCL -- the fused scatter ring, the same ring
     unfused, and the unfused alltoall -- each held against the same plan
     on SimMesh(world) and the same seed (every rank checks the gathered
-    result)."""
+    result); then phase 8's pencil plans on a grid of auto_grid_shape(world)
+    with one NCCL subgroup per ring, against SimMesh on the same grid."""
     import torch
     import torch.distributed as dist
 
     from repro_torch.apps import solve_poisson
-    from repro_torch.core import SimMesh, init_process_mesh, plan_fft
+    from repro_torch.core import ProcessGroupMesh, SimMesh, auto_grid_shape, init_process_mesh, plan_fft
     from repro_torch.kernels import fft_stage
 
     mesh = init_process_mesh(rank, world, init_method, timeout_s=NCCL_TIMEOUT_S)
@@ -430,8 +601,27 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
                                    f"disagrees with SimMesh({world})")
                 del got, exp
                 report[f"{label} {backend} pipeline={pipeline}"] = dict(
-                    fused=plan.fused, launches=launches, rel_err_vs_sim=err, ms=host_ms(torch, run),
-                    peak_gib=peak)
+                    fused=plan.fused, launches=launches, rel_err_vs_sim=err, sim=f"SimMesh({world})",
+                    ms=host_ms(torch, run), peak_gib=peak)
+        del f
+        grid = auto_grid_shape(world)
+        gmesh = ProcessGroupMesh(device=mesh.device, grid=grid, axis_names=GRID_AXES, timeout_s=NCCL_TIMEOUT_S)
+        gsim = SimMesh(grid, axis_names=GRID_AXES, device=mesh.device)
+        for backend, pipeline in NCCL_PENCIL_VARIANTS:
+            kw = dict(decomp="pencil", backend=backend, pipeline=pipeline, local_impl="kernel")
+            plan, ref = plan_fft((N, N), gmesh, **kw), plan_fft((N, N), gsim, **kw)
+            block = gmesh.split(x, plan.input_spec().tail)[0]
+            exp = ref.execute(x)
+            expect = None if plan.fused else ("stage_left", "stage_right")
+            got, launches, peak = counted(torch, fft_stage, "NCCL pencil c2c", lambda: plan.execute(block), expect)
+            err = rel_err(torch, gmesh.gather([got], plan.schedule().out_tail), exp)
+            check(err <= 1e-6, f"rank {rank}: ProcessGroupMesh grid {grid} pencil c2c ({plan.backend}, "
+                               f"pipeline={pipeline}) disagrees with SimMesh({grid})")
+            check(peak < PEAK_LIMIT_GIB, f"rank {rank}: NCCL pencil c2c peaked at {peak:.2f} GiB")
+            del got, exp
+            report[f"pencil c2c grid={grid[0]}x{grid[1]} {plan.backend} pipeline={pipeline}"] = dict(
+                fused=plan.fused, launches=launches, rel_err_vs_sim=err, sim=f"SimMesh({grid})",
+                ms=host_ms(torch, lambda: plan.execute(block)), peak_gib=peak)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -454,7 +644,7 @@ def nccl_phase(torch, seed: int):
         for key, r in rep.items():
             if isinstance(r, dict):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
-                      f"rel_err vs SimMesh({rep['P']})={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
+                      f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
     return reports[0]
 
@@ -481,7 +671,7 @@ def main(argv=None) -> int:
     torch.backends.cudnn.allow_tf32 = False
 
     from repro_torch.apps import solve_poisson
-    from repro_torch.core import SimMesh, plan_fft
+    from repro_torch.core import SimMesh, auto_grid_shape, plan_fft
     from repro_torch.core import comm_model as cm
     from repro_torch.core import fftmath as lf
     from repro_torch.kernels import build, fft_stage, ops, ref
@@ -498,16 +688,25 @@ def main(argv=None) -> int:
     g.manual_seed(args.seed)
     rows = kernel_phase(torch, g, fft_stage, ref, ops, lf, cm)
     torch.cuda.empty_cache()
-    launches = main_path(torch, g, fft_stage, plan_fft, SimMesh)
+    launches, slab_ms = main_path(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
     by_path = {"c2c_main_path": launches}
     by_path["real_poisson"] = real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson)
     torch.cuda.empty_cache()
-    by_path["rfft3"] = rfft3_phase(torch, g, fft_stage, plan_fft, SimMesh)
+    by_path["rfft3"], slab_rfft3_ms = rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
     nccl = nccl_phase(torch, args.seed)
     by_path["nccl_c2c"] = nccl["c2c main path scatter pipeline=auto"]["launches"]
     by_path["nccl_real_poisson"] = nccl["real Poisson scatter pipeline=auto"]["launches"]
+    grid = auto_grid_shape(torch.cuda.device_count())
+    by_path["nccl_pencil_c2c"] = nccl[f"pencil c2c grid={grid[0]}x{grid[1]} scatter+scatter pipeline=auto"][
+        "launches"]
+    by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
+    torch.cuda.empty_cache()
+    time_launch_shapes(torch, g, fft_stage, ref, lf, cm, "pencil c2c", shapes)
+    by_path["pencil_rfft3"], shapes = pencil_rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_rfft3_ms)
+    torch.cuda.empty_cache()
+    time_launch_shapes(torch, g, fft_stage, ref, lf, cm, "pencil rfft3", shapes)
     for row in rows:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}

@@ -7,7 +7,7 @@ mesh (one-device simulated or ``torch.distributed``) -- flows through
 the application unchanged. The apps never look at the mesh: they read
 the plan's :meth:`~repro_torch.core.Plan.spectral_axes` layout contract
 and operate in whatever frequency-domain layout (transposed,
-Hermitian-padded) the plan produces. Arrays are the plan's caller
+axis-reversed, Hermitian-padded) the plan produces. Arrays are the plan's caller
 arrays: global on a ``SimMesh``, the rank's own block on a
 ``ProcessGroupMesh``.
 

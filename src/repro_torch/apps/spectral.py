@@ -1,14 +1,14 @@
 """Shared spectral plumbing: wavenumber grids in the plan's own layout.
 
 A distributed plan's spectrum is rarely the natural ``fftn`` layout --
-slab 2-D output is transposed, real plans carry a shard-padded
-Hermitian axis. Anything multiplying in frequency space (Poisson,
-derivatives, filters) therefore needs the frequency of every *output*
-position, not of the natural layout.
+slab 2-D output is transposed, pencil 3-D output is axis-reversed, real
+plans carry a shard-padded Hermitian axis. Anything multiplying in
+frequency space (Poisson, derivatives, filters) therefore needs the
+frequency of every *output* position, not of the natural layout.
 :meth:`repro_torch.core.Plan.spectral_axes` is the layout contract;
 :func:`wavenumbers` turns it into broadcast-ready coordinate tensors,
 so the solvers in this package are written once and run under every
-backend x real/complex x mesh combination the plan layer supports.
+decomposition x backend x real/complex x mesh combination the plan layer supports.
 """
 
 from __future__ import annotations
@@ -38,9 +38,11 @@ def wavenumbers(plan, lengths: Optional[Sequence[float]] = None) -> Tuple[torch.
     returned tuple is ordered by *original* axis, each entry a tensor of
     ones-except-one-dim shape placed at that axis's position in the
     spectrum layout -- ``sum(k*k for k in wavenumbers(plan))`` is
-    ``|k|^2`` in the plan's own output layout. The spectrum's leading
-    transform dim is the sharded one, so on a ``ProcessGroupMesh`` the
-    entry placed there holds the rank's own block of it.
+    ``|k|^2`` in the plan's own output layout. On a ``ProcessGroupMesh``
+    each entry placed at a sharded position of the spectrum
+    (:meth:`~repro_torch.core.Plan.spectrum_tail`: the slab's leading
+    dim, both of a pencil plan's leading dims) holds the rank's own
+    block of it.
 
     Padded Hermitian positions get ``k = 0``: the plan guarantees the
     data there is exactly zero, so any multiplicative use is unaffected.
@@ -53,7 +55,7 @@ def wavenumbers(plan, lengths: Optional[Sequence[float]] = None) -> Tuple[torch.
     if len(lengths) != nd:
         raise ValueError(f"lengths must have {nd} entries (one per transform axis), got {len(lengths)}")
     mesh = plan.mesh
-    tail = (plan.axis_name,) + (None,) * (nd - 1)
+    spec = plan.spectrum_tail()
     out = [None] * nd
     for pos, ax in enumerate(axes):
         scale = 2 * np.pi / lengths[ax.orig + nd]
@@ -65,5 +67,7 @@ def wavenumbers(plan, lengths: Optional[Sequence[float]] = None) -> Tuple[torch.
         shape = [1] * nd
         shape[pos] = ax.n_out
         kt = torch.as_tensor(k.reshape(shape), dtype=plan.dtype.to_real(), device=mesh.device)
-        out[ax.orig + nd] = mesh.global_output(kt, tail) if pos == 0 else kt
+        if spec[pos] is not None:  # this rank's block of the sharded position
+            kt = mesh.global_output(kt, tuple(a if i == pos else None for i, a in enumerate(spec)))
+        out[ax.orig + nd] = kt
     return tuple(out)

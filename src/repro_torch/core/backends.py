@@ -136,6 +136,36 @@ def cheapest(
     return min(costs, key=costs.__getitem__)
 
 
+def cheapest_pair(
+    m_bytes: float,
+    p_rows: int,
+    p_cols: int,
+    prm: CommParams = CommParams(),
+    *,
+    names: Optional[Iterable[str]] = None,
+    chunk_compute_s: float = 0.0,
+    n_chunks: Optional[int] = None,
+    fused: bool = True,
+) -> Tuple[str, str]:
+    """Per-axis cost-model argmin for a pencil grid: (backend_row,
+    backend_col), each the :func:`cheapest` per-rank (``shard_map``)
+    backend for its own sub-ring size. The two selections are
+    independent -- each sub-exchange moves the local block over only its
+    own axis, so the ranking decomposes (the 2-D ``backend="auto"``
+    rule). ``m_bytes`` is the per-device local block."""
+    if names is None:
+        row_names = supporting(p_rows, kind="shard_map")
+        col_names = supporting(p_cols, kind="shard_map")
+    else:
+        names = [n for n in names if get(n).kind == "shard_map"]
+        row_names = col_names = names
+    row = cheapest(m_bytes, p_rows, prm, names=row_names,
+                   chunk_compute_s=chunk_compute_s, n_chunks=n_chunks, fused=fused)
+    col = cheapest(m_bytes, p_cols, prm, names=col_names,
+                   chunk_compute_s=chunk_compute_s, n_chunks=n_chunks, fused=fused)
+    return row, col
+
+
 # ---------------------------------------------------------------------------
 # Built-in backends (the paper's strategies + beyond-paper additions)
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
 """Alpha-beta cost model of the exchange strategies (the alpha-beta half
-of ``repro.core.comm_model``).
+of ``repro.core.comm_model``, with the per-axis pencil sums).
 
 Each strategy's time is priced as ``alpha`` per message plus bytes over
 ``beta``, the paper's Fig. 3 regime (per-message overhead vs bandwidth).
@@ -92,3 +92,61 @@ def t_pairwise(m_bytes: float, p: int, prm: CommParams = CommParams(),
     with partner (rank XOR s), power-of-two P. Same bytes and chunk
     streaming as the scatter ring; it differs in schedule, not overlap."""
     return t_scatter_ring(m_bytes, p, prm, chunk_compute_s, n_chunks)
+
+
+#: Sub-axis exchanges per pencil transform, (n_row, n_col): fft3 is one
+#: transpose per grid axis (+1 each under transpose_back); fft2
+#: transforms each data dim over its own sub-ring with a transpose /
+#: FFT / transpose-back pass, i.e. two exchanges per axis.
+PENCIL_EXCHANGES = {2: (2, 2), 3: (1, 1)}
+
+
+def pencil_exchanges(ndim: int, transpose_back: bool = False):
+    """(n_row, n_col) sub-axis exchanges of one pencil transform."""
+    try:
+        n_row, n_col = PENCIL_EXCHANGES[ndim]
+    except KeyError:
+        raise ValueError(f"pencil decomposition supports ndim 2 or 3, got {ndim}") from None
+    if transpose_back and ndim == 3:
+        n_row, n_col = n_row + 1, n_col + 1
+    return n_row, n_col
+
+
+def t_pencil_axis(m_bytes: float, p_axis: int, backend: str, n_exchanges: int,
+                  prm: CommParams = CommParams(), chunk_compute_s: float = 0.0, *,
+                  first_m_bytes: Optional[float] = None, n_chunks: Optional[int] = None,
+                  fused: bool = True) -> float:
+    """Predicted seconds of all of one grid axis's sub-exchanges: the
+    axis's backend costed at the axis's own sub-ring size.
+    ``first_m_bytes`` sizes the axis's first exchange separately (the
+    real pencil rfft2's first cols exchange ships the untransformed real
+    block; every later one the Hermitian-truncated complex payload)."""
+    from repro_torch.core import backends  # late: backends imports this module
+
+    b = backends.get(backend)
+
+    def one(m: float) -> float:
+        return b.cost(m, p_axis, prm, chunk_compute_s, n_chunks=n_chunks, fused=fused)
+
+    if first_m_bytes is None:
+        return n_exchanges * one(m_bytes)
+    return one(first_m_bytes) + (n_exchanges - 1) * one(m_bytes)
+
+
+def t_pencil(m_bytes: float, p_rows: int, p_cols: int, backend_row: str, backend_col: str,
+             prm: CommParams = CommParams(), *, ndim: int = 3, transpose_back: bool = False,
+             chunk_compute_s: float = 0.0, first_col_m_bytes: Optional[float] = None,
+             n_chunks: Optional[int] = None, fused: bool = True) -> float:
+    """Predicted seconds of one pencil transform's communication: each
+    sub-axis exchange costed by its own backend at its own sub-ring size
+    (P_row or P_col), the axes summed (the FFT passes between them
+    serialize the exchanges). ``m_bytes`` is the per-device local block
+    (the half-spectrum block for a real transform, with
+    ``first_col_m_bytes`` the rfft2's full-width real first exchange)."""
+    n_row, n_col = pencil_exchanges(ndim, transpose_back)
+    return t_pencil_axis(
+        m_bytes, p_rows, backend_row, n_row, prm, chunk_compute_s, n_chunks=n_chunks, fused=fused,
+    ) + t_pencil_axis(
+        m_bytes, p_cols, backend_col, n_col, prm, chunk_compute_s,
+        first_m_bytes=first_col_m_bytes, n_chunks=n_chunks, fused=fused,
+    )

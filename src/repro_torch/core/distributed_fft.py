@@ -61,8 +61,8 @@ def _check(cfg: FFTConfig) -> backends.CollectiveBackend:
 def _build(x: torch.Tensor, mesh: Mesh, axis_name: str, cfg: FFTConfig, *,
            ndim: int, inverse: bool, rows: Optional[int] = None) -> sch.Schedule:
     return sch.build_schedule(
-        mesh.global_shape(x.shape, ndim), ndim=ndim, inverse=inverse, decomp="slab",
-        axis_name=axis_name, p=mesh.shape[axis_name], backend=cfg.strategy,
+        mesh.global_shape(x.shape, (axis_name,) + (None,) * (ndim - 1)), ndim=ndim, inverse=inverse,
+        decomp="slab", axis_name=axis_name, p=mesh.shape[axis_name], backend=cfg.strategy,
         fused=cfg.fused, n_chunks=cfg.n_chunks,
         transpose_back=cfg.transpose_back, rows=rows,
     )

@@ -1,29 +1,37 @@
 """FFTW-style plan/executor front-end over the collective-backend
-registry, PyTorch port of the slab c2c part of ``repro.core.plan``:
+registry, PyTorch port of ``repro.core.plan``:
 
     mesh = SimMesh(4)                      # device=None: the card
     plan = plan_fft((n, n), mesh, backend="scatter", local_impl="kernel")
     y = plan.execute(x)                    # fft2(x).mT, C sharded
     x2 = plan.inverse(y)
     rplan = plan_fft((n, n), mesh, real=True)  # r2c: rfft2(x).mT, Hp rows
+    grid = SimMesh((2, 2), axis_names=("rows", "cols"))
+    pplan = plan_fft((n, n), grid, decomp="pencil", backend=("scatter", "alltoall"))
 
-A :class:`Plan` validates the (global shape, mesh, shard axis, backend)
-combination once, at construction -- shard-divisibility included, so a
-bad shape fails here naming the offending data axis; resolves
-``backend="auto"`` to the alpha-beta cost-model argmin over every
-registered backend supporting the shard count; resolves ``pipeline=``;
-and lowers each direction once to its stage schedule, which execution,
-:meth:`Plan.predict` and :meth:`Plan.comm_bytes` all walk.
+A :class:`Plan` validates the (global shape, mesh, shard axes,
+decomposition, backend) combination once, at construction --
+shard-divisibility included, so a bad shape fails here naming the
+offending data axis and mesh/grid dimension; resolves the
+decomposition (``decomp="slab"``: one mesh axis, the paper's layout;
+``"pencil"``: a 2-D :class:`~repro_torch.core.grid.ProcessGrid`, one
+backend per grid axis; ``"auto"``: pencil whenever the mesh offers a
+valid grid and the cost model does not prefer slab); resolves
+``backend="auto"`` to the alpha-beta cost-model argmin (per grid axis
+for pencil, :func:`~repro_torch.core.backends.cheapest_pair`) and
+``pipeline=``; and lowers each direction once to its stage schedule,
+which execution, :meth:`Plan.predict` and :meth:`Plan.comm_bytes` all
+walk.
 
 The mesh is a :class:`~repro_torch.core.mesh.SimMesh` (``execute``
 takes and returns global arrays) or a
 :class:`~repro_torch.core.mesh.ProcessGroupMesh` (each rank passes and
-gets back its own block).
+gets back its own block of the layout :meth:`Plan.input_spec` names).
 
-Ported so far: ``decomp="slab"`` c2c transforms (ndim 1, 2, 3) and r2c
-/ c2r transforms (``real=True``, ndim 2, 3) under
-``planner="estimate"``. The rest of the reference's surface raises
-``NotImplementedError`` naming its ROADMAP item.
+Ported so far: c2c (ndim 1, 2, 3) and r2c / c2r (``real=True``, ndim
+2, 3) transforms, slab and pencil, under ``planner="estimate"``. The
+rest of the reference's surface raises ``NotImplementedError`` naming
+its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -36,7 +44,13 @@ import torch
 import repro_torch.core.schedule as sch
 from repro_torch.core import backends
 from repro_torch.core import comm_model as cm
+from repro_torch.core import grid as _grid
+from repro_torch.core import pencil as _pencil
 from repro_torch.core.mesh import Mesh, fft_axis
+
+#: Pair-key separator for pencil backend pairs ("scatter+bisection") --
+#: registry names are identifiers, so '+' cannot appear inside one.
+PAIR_SEP = "+"
 
 _DTYPE_PARTNERS = {
     torch.float32: torch.complex64, torch.complex64: torch.float32,
@@ -74,6 +88,36 @@ class SpectralAxis(NamedTuple):
     half: bool
 
 
+class InputSpec(NamedTuple):
+    """What a direction of a plan takes from its caller: the global
+    ``shape``, the ``dtype`` and the trailing partition spec ``tail``
+    (one mesh axis name or None per transform dim; leading batch dims
+    are replicated) -- the counterpart of the reference's
+    ``Plan.input_spec`` / ``input_sharding``. On a ``ProcessGroupMesh``
+    each rank passes ``mesh.split(x, tail)[0]``."""
+
+    shape: Tuple[int, ...]
+    dtype: torch.dtype
+    tail: Tuple[Optional[str], ...]
+
+
+def pair_key(backend_row: str, backend_col: str) -> str:
+    return f"{backend_row}{PAIR_SEP}{backend_col}"
+
+
+def split_pair(key) -> Tuple[str, str]:
+    """(row, col) from a pair key, a 2-tuple/list, or a single name
+    (applied to both axes)."""
+    if isinstance(key, (tuple, list)):
+        if len(key) != 2:
+            raise ValueError(f"pencil backend pair must have 2 entries, got {key!r}")
+        return str(key[0]), str(key[1])
+    if PAIR_SEP in key:
+        row, _, col = key.partition(PAIR_SEP)
+        return row, col
+    return key, key
+
+
 def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
@@ -85,6 +129,12 @@ class Plan:
     Construct through :func:`plan_fft`. ``direction`` fixes what
     ``execute`` computes ("forward" or "inverse"); ``inverse`` always
     computes the opposite. The 1-D large transform has no inverse.
+
+    Slab plans expose ``backend`` (one registry name); pencil plans
+    expose ``backend_row`` / ``backend_col``, ``backend`` as the
+    ``"row+col"`` pair key, and ``grid`` (the resolved
+    :class:`~repro_torch.core.grid.ProcessGrid`). Pencil supports ndim
+    2 and 3.
     """
 
     def __init__(
@@ -94,7 +144,7 @@ class Plan:
         *,
         ndim: int = 2,
         direction: str = "forward",
-        backend: str = "auto",
+        backend="auto",
         axis_name: Optional[str] = None,
         local_impl: str = "torch",
         transpose_back: bool = False,
@@ -102,6 +152,8 @@ class Plan:
         params: Optional[cm.CommParams] = None,
         chunk_compute_s: float = 0.0,
         decomp: str = "slab",
+        row_axis: Optional[str] = None,
+        col_axis: Optional[str] = None,
         real: bool = False,
         pad: bool = True,
         pipeline="auto",
@@ -112,12 +164,12 @@ class Plan:
             raise ValueError(f"direction must be 'forward' or 'inverse', got {direction!r}")
         if decomp not in ("slab", "pencil", "auto"):
             raise ValueError(f"decomp must be 'slab', 'pencil' or 'auto', got {decomp!r}")
-        if decomp != "slab":
-            raise _not_ported(f"decomp={decomp!r}", "A8 (core/grid.py + core/pencil.py)")
         if real and ndim == 1:
             raise NotImplementedError(
                 "1-D real transform is not implemented: complexify and use ndim=1 c2c"
             )
+        if isinstance(backend, str) and "@" in backend:
+            raise _not_ported(f"measured-planner variant id {backend!r}", "A9 (core/planner.py)")
         if not (
             pipeline in ("auto", True, False, None)
             or (isinstance(pipeline, int) and not isinstance(pipeline, bool) and pipeline >= 0)
@@ -131,6 +183,8 @@ class Plan:
             raise NotImplementedError(
                 "1-D large inverse is not implemented: plan forward and conjugate externally"
             )
+        if (row_axis is None) != (col_axis is None):
+            raise ValueError("pass both row_axis and col_axis, or neither")
         self.global_shape = tuple(global_shape)
         self.mesh = mesh
         self.axis_name = axis_name or fft_axis(mesh)
@@ -159,13 +213,85 @@ class Plan:
         self.params = params or cm.CommParams()
         self.chunk_compute_s = chunk_compute_s
         self.pipeline = "auto" if (pipeline is True or pipeline is None) else pipeline
-        #: resolved by _resolve_pipeline once the backend is known
+        #: resolved by _resolve_pipeline once the backend(s) are known
         self.fused: bool = False
         self.n_chunks: Optional[int] = None
         #: direction -> lowered stage schedule (the single pipeline truth)
         self._schedules: Dict[bool, sch.Schedule] = {}
-        self.decomp = "slab"
-        self._init_slab(backend)
+        self.grid: Optional[_grid.ProcessGrid] = None
+        self.backend_row: Optional[str] = None
+        self.backend_col: Optional[str] = None
+        if decomp == "slab":
+            if row_axis is not None:
+                raise ValueError("row_axis/col_axis apply to decomp='pencil' (or 'auto') only")
+            self.decomp = "slab"
+            self._init_slab(backend)
+        elif decomp == "pencil":
+            self.decomp = "pencil"
+            self._init_pencil(backend, row_axis, col_axis)
+        else:
+            self._init_auto(backend, axis_name, row_axis, col_axis)
+
+    def _init_auto(self, backend, axis_name: Optional[str], row_axis: Optional[str],
+                   col_axis: Optional[str]) -> None:
+        """decomp='auto': pencil when the WHOLE pencil plan validates
+        (grid, divisibility, per-axis backends) and a slab plan of at
+        least the same parallelism does not predict cheaper, else slab
+        -- a pinned backend that only works under one decomposition
+        steers the choice instead of erroring."""
+        if row_axis is not None:
+            # explicitly configured grid axes are a user argument, not an
+            # infeasibility signal: bad names raise, never fall back
+            _grid.grid_from_mesh(self.mesh, row_axis, col_axis)
+        pencil_err: Optional[ValueError] = None
+        self.decomp = None
+        if self.ndim in (2, 3) and not (self.ndim == 2 and self.transpose_back):
+            try:
+                self.decomp = "pencil"
+                self._init_pencil(backend, row_axis, col_axis)
+            except ValueError as e:
+                pencil_err = e
+                self.grid = None
+                self.decomp = None
+        if self.decomp == "pencil":
+            # cost-aware tie-break: a degenerate (P, 1) grid doubles the
+            # fft2 exchanges over the same ring, so slab wins it. The
+            # trial shards over the largest of fft_axis and the grid axes
+            trial_ax = axis_name
+            if trial_ax is None:
+                candidates = (fft_axis(self.mesh), self.grid.row_axis, self.grid.col_axis)
+                trial_ax = max(candidates, key=lambda a: self.mesh.shape[a])
+            try:
+                trial = Plan(
+                    self.global_shape, self.mesh, ndim=self.ndim, direction=self.direction,
+                    backend=backend, axis_name=trial_ax, local_impl=self.local_impl,
+                    transpose_back=self.transpose_back, dtype=self.dtype, params=self.params,
+                    chunk_compute_s=self.chunk_compute_s, decomp="slab", real=self.real,
+                    pad=self.pad, pipeline=self.pipeline,
+                )
+            except (ValueError, NotImplementedError):
+                trial = None
+            if (
+                trial is not None
+                and trial.shards >= self.shards
+                and trial.predict()[trial.backend] < self.predict()[self.backend]
+            ):
+                self.grid = None
+                self.backend_row = self.backend_col = None
+                self.axis_name = trial_ax
+                self.decomp = "slab"
+                self._init_slab(backend)
+        if self.decomp is None:
+            self.decomp = "slab"
+            try:
+                self._init_slab(backend)
+            except ValueError as e:
+                if pencil_err is not None:
+                    raise ValueError(
+                        f"decomp='auto': neither decomposition fits this "
+                        f"problem -- pencil: {pencil_err} -- slab: {e}"
+                    ) from e
+                raise
 
     # -- pipelined overlap resolution -------------------------------------------
     def _pipeline_enabled(self) -> bool:
@@ -179,10 +305,16 @@ class Plan:
 
     def _resolve_pipeline(self) -> None:
         """Fused execution wherever a chunk-streaming backend rides a
-        >1-shard ring (unless ``pipeline=False``)."""
+        >1-shard ring (unless ``pipeline=False``). Pencil legs fuse
+        independently inside the schedule; ``fused`` records whether ANY
+        leg can, which is what the cost model overlaps."""
         self.n_chunks = self._pipeline_n_chunks()
         if not self._pipeline_enabled():
             self.fused = False
+            return
+        if self.decomp == "pencil":
+            legs = ((self.backend_row, self.grid.p_rows), (self.backend_col, self.grid.p_cols))
+            self.fused = any(backends.get(b).supports_chunk_fn and p > 1 for b, p in legs)
             return
         b = self.backend_obj
         self.fused = bool(b.kind == "shard_map" and b.supports_chunk_fn and self.shards > 1)
@@ -192,14 +324,16 @@ class Plan:
         caller's ``chunk_compute_s`` when given, else a memory-bound
         napkin -- each arriving chunk's outer-product contribution
         writes one local block's worth of accumulator (``_cost_bytes /
-        HBM_BW``, the H100's data-sheet rate). Zero on a one-shard ring."""
+        HBM_BW``, the H100's data-sheet rate). Zero when no exchange
+        ring exceeds one shard."""
         if self.chunk_compute_s:
             return self.chunk_compute_s
-        if self.shards <= 1:
+        rings = max(self.grid.shape) if self.decomp == "pencil" else self.shards
+        if rings <= 1:
             return 0.0
         return self._cost_bytes(dtype) / cm.HBM_BW
 
-    def _init_slab(self, backend: str) -> None:
+    def _init_slab(self, backend) -> None:
         self._schedules.clear()
         p = self.shards
         if self.real:
@@ -208,13 +342,11 @@ class Plan:
             )
         else:
             sch.check_divisible(self.global_shape, self.ndim, p=p, axis_name=self.axis_name)
-        if not isinstance(backend, str) or "+" in backend:
+        if not isinstance(backend, str) or PAIR_SEP in backend:
             raise ValueError(
                 f"slab plans take one backend name, got {backend!r} "
                 f"(per-axis pairs are decomp='pencil')"
             )
-        if "@" in backend:
-            raise _not_ported(f"measured-planner variant id {backend!r}", "A9 (core/planner.py)")
         if backend == "auto":
             backend = backends.cheapest(
                 self._cost_bytes(), p, self.params,
@@ -228,9 +360,44 @@ class Plan:
             raise ValueError(f"backend {backend!r} does not support P={p}")
         self._resolve_pipeline()
 
+    def _init_pencil(self, backend, row_axis: Optional[str], col_axis: Optional[str]) -> None:
+        if self.ndim == 1:
+            raise ValueError("pencil decomposition supports ndim 2 or 3 (1-D is slab-only)")
+        if self.ndim == 2 and self.transpose_back:
+            raise ValueError(
+                "pencil fft2 already returns the natural layout; "
+                "transpose_back applies to slab plans and pencil fft3 only"
+            )
+        self._schedules.clear()
+        self.grid = g = _grid.grid_from_mesh(self.mesh, row_axis, col_axis)
+        checked = sch.check_divisible(
+            self.global_shape, self.ndim, p_rows=g.p_rows, p_cols=g.p_cols,
+            row_axis=g.row_axis, col_axis=g.col_axis, real=self.real, pad=self.pad,
+        )
+        if self.real:
+            self.hermitian_len, self.padded_hermitian_len = checked
+        if isinstance(backend, str) and backend == "auto":
+            br, bc = backends.cheapest_pair(
+                self._cost_bytes(), g.p_rows, g.p_cols, self.params,
+                chunk_compute_s=self._auto_chunk_compute_s(),
+                n_chunks=self._pipeline_n_chunks(),
+                fused=self._pipeline_enabled(),
+            )
+        else:
+            br, bc = split_pair(backend)
+        self.backend_row, self.backend_col = br, bc
+        self.backend = pair_key(br, bc)
+        self.backend_obj = None  # per-axis backends; see backend_row/col
+        self._resolve_pipeline()
+        _pencil._check_backends(  # raises naming the axis
+            _pencil.PencilConfig(backend_row=br, backend_col=bc), g
+        )
+
     # -- geometry --------------------------------------------------------------
     @property
     def shards(self) -> int:
+        if self.decomp == "pencil":
+            return self.grid.size
         return self.mesh.shape[self.axis_name]
 
     def local_bytes(self, dtype=None) -> float:
@@ -269,16 +436,28 @@ class Plan:
 
     def comm_bytes(self, dtype=None) -> float:
         """Total bytes each device ships per transform, summed over every
-        Exchange stage of the plan's own schedule (each re-shards its
-        block over the P-ring, shipping (1-1/P) of it). Real plans count
-        the Hermitian payload: every complex exchange moves the
-        truncated ``Hp`` block (~half the c2c bytes at the same shape);
-        the c2r inverse mirrors the chain, so the total is
-        direction-agnostic."""
+        Exchange stage of the plan's own schedule -- each re-shards its
+        block over its ring (P for slab, P_row / P_col per pencil
+        sub-exchange), shipping (1-1/P_ring) of it. Real plans count the
+        Hermitian payload (the pencil rfft2's first cols exchange ships
+        the full-width block at the real dtype); the c2r inverse mirrors
+        the chain, so the total is direction-agnostic."""
         r_item, c_item = self._byte_sizes(dtype)
         return sch.schedule_comm_bytes(self.schedule(), r_item, c_item)
 
     # -- the spectrum layout ---------------------------------------------------
+    def _opposite_reverses_layout(self) -> bool:
+        """Whether the opposite direction consumes the reversed-axes
+        pencil layout (3-D c2c pencil without transpose_back: the
+        forward output is fftn reversed, sharded (cols, rows))."""
+        return self.decomp == "pencil" and self.ndim == 3 and not self.transpose_back
+
+    def _spectrum_side(self, opposite: bool) -> bool:
+        """Real plans only: whether the (possibly opposite) direction's
+        input is the half spectrum (the c2r side) rather than the real
+        array."""
+        return (self.direction == "inverse") != opposite
+
     def spectral_axes(self) -> Tuple[SpectralAxis, ...]:
         """The plan's frequency-domain layout: one :class:`SpectralAxis`
         per trailing output dim of the forward transform (equivalently,
@@ -287,10 +466,13 @@ class Plan:
         nd = self.ndim
         dims = self.global_shape[-nd:]
         natural = list(range(-nd, 0))
-        order = [-1, -2] if (nd == 2 and not self.transpose_back) else natural
-        # the output dim the slab keeps sharded: the Hermitian axis must
-        # stay padded there (trimming would break divisibility)
-        sharded = {0} if nd > 1 else set()
+        if self.decomp == "pencil":
+            order = natural if (nd == 2 or self.transpose_back) else natural[::-1]
+        else:
+            order = [-1, -2] if (nd == 2 and not self.transpose_back) else natural
+        # output dims the decomposition keeps sharded: the Hermitian axis
+        # must stay padded there (trimming would break divisibility)
+        sharded = {0, 1} if self.decomp == "pencil" else ({0} if nd > 1 else set())
         axes = []
         for pos, orig in enumerate(order):
             n = dims[orig]
@@ -307,16 +489,58 @@ class Plan:
         inverse input), batch dims included."""
         return self.global_shape[: -self.ndim] + tuple(a.n_out for a in self.spectral_axes())
 
+    def spectrum_tail(self) -> Tuple[Optional[str], ...]:
+        """Trailing partition spec of the spectrum, position by position
+        as :meth:`spectral_axes` orders it: slab shards its leading dim;
+        pencil its two leading dims over (rows, cols), or (cols, rows)
+        in the reversed 3-D layout."""
+        if self.decomp == "pencil":
+            row, col = self.grid.row_axis, self.grid.col_axis
+            lead = (col, row) if self._opposite_reverses_layout() else (row, col)
+        else:
+            lead = (self.axis_name,)
+        return lead + (None,) * (self.ndim - len(lead))
+
+    def input_spec(self, dtype=None, opposite: bool = False) -> InputSpec:
+        """The planned direction's input layout (``opposite=True``: the
+        opposite direction's, which differs where it consumes the
+        spectrum or the reversed-axes pencil layout): global shape,
+        dtype and trailing partition spec."""
+        nd = self.ndim
+        if self.decomp == "pencil":
+            row, col = self.grid.row_axis, self.grid.col_axis
+            if self.real:
+                if self._spectrum_side(opposite) and self._opposite_reverses_layout():
+                    row, col = col, row
+            elif opposite and self._opposite_reverses_layout():
+                row, col = col, row
+            tail = (row, col) + (None,) * (nd - 2)
+        else:
+            tail = (self.axis_name,) + (None,) * (nd - 1)
+        shape = self.global_shape
+        if self.real:
+            if self._spectrum_side(opposite):
+                return InputSpec(self.spectrum_shape(), dtype or self.cdtype, tail)
+            return InputSpec(shape, dtype or self.dtype, tail)
+        if opposite and self._opposite_reverses_layout():
+            shape = shape[:-3] + tuple(reversed(shape[-3:]))
+        return InputSpec(shape, dtype or self.dtype, tail)
+
     # -- cost model ------------------------------------------------------------
     def predict(self, dtype=None, chunk_compute_s: Optional[float] = None, *,
                 fused: Optional[bool] = None, n_chunks: Optional[int] = None) -> Dict[str, float]:
         """Alpha-beta predicted seconds per backend for this problem: the
         plan's own schedule, rewritten to each backend supporting this
         shard count, walked by :func:`repro_torch.core.schedule.predict_seconds`.
-        ``fused``/``n_chunks`` (default: the plan's own resolution)
-        report the fused vs unfused variants of the same problem."""
+        Pencil: one entry per ``"row+col"`` pair, each axis costed at its
+        own sub-ring size (see :meth:`predict_axes`). ``fused``/``n_chunks``
+        (default: the plan's own resolution) report the fused vs unfused
+        variants of the same problem."""
         fused = self.fused if fused is None else fused
         n_chunks = self.n_chunks if n_chunks is None else n_chunks
+        if self.decomp == "pencil":
+            row_costs, col_costs = self.predict_axes(dtype, chunk_compute_s, fused=fused, n_chunks=n_chunks)
+            return {pair_key(r, c): row_costs[r] + col_costs[c] for r in row_costs for c in col_costs}
         cc = self._auto_chunk_compute_s(dtype) if chunk_compute_s is None else chunk_compute_s
         r_item, c_item = self._byte_sizes(dtype)
         base = sch.with_pipeline(self.schedule(), fused, n_chunks)
@@ -324,6 +548,30 @@ class Plan:
             name: sch.predict_seconds(sch.with_backends(base, slab=name), self.params, cc, r_item, c_item)
             for name in backends.supporting(self.shards)
         }
+
+    def predict_axes(self, dtype=None, chunk_compute_s: Optional[float] = None, *,
+                     fused: Optional[bool] = None,
+                     n_chunks: Optional[int] = None) -> Tuple[Dict[str, float], Dict[str, float]]:
+        """Pencil only: (row_costs, col_costs) -- per-backend predicted
+        seconds of all of this transform's exchanges over that grid
+        axis, each at its own sub-ring size. ``predict()[f"{r}+{c}"] ==
+        row_costs[r] + col_costs[c]`` by construction."""
+        if self.decomp != "pencil":
+            raise ValueError("predict_axes is a pencil-plan method; use predict()")
+        fused = self.fused if fused is None else fused
+        n_chunks = self.n_chunks if n_chunks is None else n_chunks
+        cc = self._auto_chunk_compute_s(dtype) if chunk_compute_s is None else chunk_compute_s
+        r_item, c_item = self._byte_sizes(dtype)
+        base = sch.with_pipeline(self.schedule(), fused, n_chunks)
+        out = []
+        for role, p_axis in (("row", self.grid.p_rows), ("col", self.grid.p_cols)):
+            out.append({
+                name: sch.predict_seconds(
+                    sch.with_backends(base, **{role: name}), self.params, cc, r_item, c_item, role,
+                )
+                for name in backends.supporting(p_axis, kind="shard_map")
+            })
+        return out[0], out[1]
 
     # -- the stage schedule (the single pipeline truth) ------------------------
     def schedule(self, inverse: Optional[bool] = None) -> sch.Schedule:
@@ -335,12 +583,32 @@ class Plan:
             return cached
         if self.ndim == 1 and inv:
             raise NotImplementedError("1-D large inverse: conjugate externally")
-        built = sch.build_schedule(
-            self.global_shape, ndim=self.ndim, inverse=inv, real=self.real,
-            decomp="slab", axis_name=self.axis_name, p=self.shards,
-            backend=self.backend, fused=self.fused, n_chunks=self.n_chunks,
-            transpose_back=self.transpose_back, pad=self.pad,
-        )
+        if self.decomp == "pencil":
+            g, shape = self.grid, self.global_shape
+            row, col, pr, pc = g.row_axis, g.col_axis, g.p_rows, g.p_cols
+            br, bc = self.backend_row, self.backend_col
+            opposite = inv != (self.direction == "inverse")
+            if not self.real and opposite and self._opposite_reverses_layout():
+                # the opposite direction consumes the reversed-axes output,
+                # sharded (cols, rows): swap the grid roles (and the
+                # per-axis backends with them) so the transform reads that
+                # sharding directly. Real plans never swap: each irfft
+                # consumes exactly the layout its rfft produces.
+                shape = shape[:-3] + tuple(reversed(shape[-3:]))
+                row, col, pr, pc, br, bc = col, row, pc, pr, bc, br
+            built = sch.build_schedule(
+                shape, ndim=self.ndim, inverse=inv, real=self.real, decomp="pencil",
+                row_axis=row, col_axis=col, p_rows=pr, p_cols=pc, backend_row=br, backend_col=bc,
+                fused=self.fused, n_chunks=self.n_chunks,
+                transpose_back=self.transpose_back, pad=self.pad,
+            )
+        else:
+            built = sch.build_schedule(
+                self.global_shape, ndim=self.ndim, inverse=inv, real=self.real,
+                decomp="slab", axis_name=self.axis_name, p=self.shards,
+                backend=self.backend, fused=self.fused, n_chunks=self.n_chunks,
+                transpose_back=self.transpose_back, pad=self.pad,
+            )
         self._schedules[inv] = built
         return built
 
@@ -350,10 +618,10 @@ class Plan:
         return self.schedule(inverse).schedule_hash()
 
     def describe(self, inverse: Optional[bool] = None, dtype=None) -> str:
-        """Stage dump of the direction's schedule with per-stage predicted
-        microseconds and wire bytes."""
+        """The plan (with its grid) and a stage dump of the direction's
+        schedule with per-stage predicted microseconds and wire bytes."""
         r_item, c_item = self._byte_sizes(dtype)
-        return self.schedule(inverse).describe(
+        return f"{self!r}\n" + self.schedule(inverse).describe(
             params=self.params, chunk_compute_s=self._auto_chunk_compute_s(dtype),
             real_itemsize=r_item, complex_itemsize=c_item,
         )
@@ -365,7 +633,8 @@ class Plan:
     def execute(self, x) -> torch.Tensor:
         """Run the planned direction on ``x``, moved to the mesh's
         device: the global array on a ``SimMesh``, the rank's own block
-        on a ``ProcessGroupMesh`` (the result likewise)."""
+        (of :meth:`input_spec`'s layout) on a ``ProcessGroupMesh`` (the
+        result likewise)."""
         return self._run(x, self.direction == "inverse")
 
     def inverse(self, x) -> torch.Tensor:
@@ -384,9 +653,10 @@ class Plan:
         raise _not_ported("Plan.roofline", "A9 (what Plan.lower/roofline report)")
 
     def __repr__(self) -> str:
+        where = f"grid={self.grid.p_rows}x{self.grid.p_cols}" if self.decomp == "pencil" else f"P={self.shards}"
         return (
             f"Plan({'r2c' if self.real else 'c2c'}, shape={self.global_shape}, ndim={self.ndim}, "
-            f"decomp={self.decomp!r}, P={self.shards}, "
+            f"decomp={self.decomp!r}, {where}, "
             f"backend={self.backend!r}, direction={self.direction!r}, "
             f"dtype={str(self.dtype).replace('torch.', '')})"
         )
@@ -407,6 +677,8 @@ def plan_fft(
     chunk_compute_s: float = 0.0,
     planner: str = "estimate",
     decomp: str = "slab",
+    row_axis: Optional[str] = None,
+    col_axis: Optional[str] = None,
     real: bool = False,
     pad: bool = True,
     pipeline="auto",
@@ -438,9 +710,19 @@ def plan_fft(
     next shard-divisible length (``Plan.padded_hermitian_len``);
     ``pad=False`` raises at plan time naming the offending axis.
 
+    ``decomp`` picks the process decomposition: ``"slab"`` (default;
+    one sharded data dim over mesh axis ``axis_name``), ``"pencil"``
+    (two sharded data dims over a 2-D grid of the mesh, ``row_axis`` /
+    ``col_axis``, conventionally ``("rows", "cols")``; each transpose is
+    a sub-axis exchange with its own backend -- pass
+    ``backend=("scatter", "bisection")`` or the ``"scatter+bisection"``
+    pair key to pin, ``"auto"`` for the per-axis argmin; ndim 2 or 3),
+    or ``"auto"`` (pencil whenever the mesh offers a valid grid for this
+    shape and a slab plan of at least equal parallelism does not predict
+    cheaper; else slab).
+
     Not ported yet, each raising ``NotImplementedError``:
-    ``planner="measure"``, ``faults=``, and decompositions other than
-    ``"slab"``.
+    ``planner="measure"`` and ``faults=``.
     """
     if planner not in ("estimate", "measure"):
         raise ValueError(f"planner must be 'estimate' or 'measure', got {planner!r}")
@@ -452,5 +734,6 @@ def plan_fft(
         global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
         axis_name=axis_name, local_impl=local_impl,
         transpose_back=transpose_back, dtype=dtype, params=params,
-        chunk_compute_s=chunk_compute_s, decomp=decomp, real=real, pad=pad, pipeline=pipeline,
+        chunk_compute_s=chunk_compute_s, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
+        real=real, pad=pad, pipeline=pipeline,
     )

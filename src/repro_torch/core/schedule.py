@@ -1,5 +1,5 @@
-"""Stage-schedule IR, PyTorch port of ``repro.core.schedule`` (the slab
-part: c2c and r2c/c2r).
+"""Stage-schedule IR, PyTorch port of ``repro.core.schedule`` (slab and
+pencil, c2c and r2c/c2r).
 
 Every distributed transform lowers to a declarative tuple of **Stage**
 records, and one interpreter (:func:`execute_schedule`) runs any
@@ -13,11 +13,13 @@ The stage records, their field order and :meth:`Schedule.canonical`
 are the reference's, byte for byte, so a schedule built here hashes
 exactly as the reference's does for the same arguments.
 
-Builders here: slab c2c (``fft2``, ``fft3``, the six-step ``fft1d``)
-and slab r2c/c2r (``rfft2``, ``irfft2``, ``rfft3``, ``irfft3``). The
-pencil builders raise ``NotImplementedError`` naming their ROADMAP
-item; their stage records exist so schedule text reads the same in
-both packages.
+Builders here: slab c2c (``fft2``, ``fft3``, the six-step ``fft1d``),
+slab r2c/c2r (``rfft2``, ``irfft2``, ``rfft3``, ``irfft3``) and their
+pencil counterparts over a 2-D grid (c2c ``fft2`` / ``fft3``, r2c/c2r
+``rfft2`` / ``rfft3`` and inverses), whose exchanges each run over one
+grid axis. The executor runs an exchange once per ring of its axis
+(:meth:`repro_torch.core.mesh.SimMesh.rings`), so the transport code
+stays 1-D.
 """
 
 from __future__ import annotations
@@ -69,20 +71,59 @@ def _pad_disabled_hint(n: int, multiple: int, weight: int = 1) -> str:
 # ---------------------------------------------------------------------------
 
 
-def check_divisible(global_shape, ndim: int, *, p: int, axis_name=None, real: bool = False,
-                    pad: bool = True):
-    """Validate that ``global_shape`` can be slab-sharded over ``p``
-    ranks for a transform of ``ndim`` dims. Raises a ``ValueError``
-    naming the offending data axis and mesh axis -- the plan-time
-    guard, so the failure never surfaces as an opaque chunking error
-    deep inside :mod:`repro_torch.core.transpose`. (The reference's
-    pencil branches arrive with that builder.)
+def check_divisible(
+    global_shape,
+    ndim: int,
+    *,
+    p: Optional[int] = None,
+    axis_name=None,
+    p_rows: Optional[int] = None,
+    p_cols: Optional[int] = None,
+    row_axis=None,
+    col_axis=None,
+    real: bool = False,
+    pad: bool = True,
+):
+    """Validate that ``global_shape`` can be sharded for this transform:
+    slab over ``p`` ranks of ``axis_name``, or pencil over the
+    ``p_rows`` x ``p_cols`` grid (pass ``p_rows``). The one copy behind
+    ``pencil.check_divisible``, ``real.check_divisible_slab`` /
+    ``check_divisible_pencil`` and the plan. Raises a ``ValueError``
+    naming the offending data axis and mesh/grid dimension -- the
+    plan-time guard, so the failure never surfaces as an opaque chunking
+    error deep inside :mod:`repro_torch.core.transpose`.
 
     Returns ``(h, hp)`` for real problems (the Hermitian and
     shard-padded Hermitian lengths), ``None`` for c2c."""
     shape = tuple(global_shape)
-    ax = axis_name
+    pencil = p_rows is not None
+
     if not real:
+        if pencil:
+            pr, pc = p_rows, p_cols
+
+            def need(axis_from_end: int, divisor: int, why: str) -> None:
+                size = shape[len(shape) - axis_from_end]
+                if size % divisor:
+                    raise ValueError(
+                        f"pencil fft{ndim}: data axis -{axis_from_end} (global size "
+                        f"{size}) is not divisible by {why} -- shape "
+                        f"{shape} on grid {pr}x{pc} "
+                        f"(row_axis={row_axis!r}, col_axis={col_axis!r})"
+                    )
+
+            if ndim == 3:
+                need(3, pr, f"P_row={pr} ({row_axis!r})")
+                need(2, pc, f"P_col={pc} ({col_axis!r})")
+                need(2, pr, f"P_row={pr} ({row_axis!r}; the rows exchange re-shards it)")
+                need(1, pc, f"P_col={pc} ({col_axis!r}; the cols exchange re-shards it)")
+            elif ndim == 2:
+                need(2, pr * pc, f"P_row*P_col={pr * pc} (both sub-rings re-shard it)")
+                need(1, pr * pc, f"P_row*P_col={pr * pc} (both sub-rings re-shard it)")
+            else:
+                raise ValueError(f"pencil decomposition supports ndim 2 or 3, got {ndim}")
+            return None
+        ax = axis_name
         if ndim == 2:
             r, c = shape[-2:]
             for off, size in ((2, r), (1, c)):
@@ -112,41 +153,94 @@ def check_divisible(global_shape, ndim: int, *, p: int, axis_name=None, real: bo
                 )
         return None
 
-    if ndim == 2:
-        r, c = shape[-2:]
-        if r % p:
-            raise ValueError(
-                f"real slab rfft2: data axis -2 (global size {r}) is not "
-                f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
-            )
-        h = rfft_len(c)
-        if not pad and h % p:
-            raise ValueError(
-                f"real slab rfft2: Hermitian axis -1 (N={c} -> N//2+1={h}) is "
-                f"not divisible by mesh axis {ax!r} (P={p}) and "
-                f"pad=False -- shape {shape}; {_pad_disabled_hint(c, p)}"
-            )
-        return h, (padded_rfft_len(c, p) if pad else h)
+    if not pencil:
+        if ndim == 2:
+            r, c = shape[-2:]
+            if r % p:
+                raise ValueError(
+                    f"real slab rfft2: data axis -2 (global size {r}) is not "
+                    f"divisible by mesh axis {axis_name!r} (P={p}) -- shape {shape}"
+                )
+            h = rfft_len(c)
+            if not pad and h % p:
+                raise ValueError(
+                    f"real slab rfft2: Hermitian axis -1 (N={c} -> N//2+1={h}) is "
+                    f"not divisible by mesh axis {axis_name!r} (P={p}) and "
+                    f"pad=False -- shape {shape}; {_pad_disabled_hint(c, p)}"
+                )
+            return h, (padded_rfft_len(c, p) if pad else h)
+        if ndim == 3:
+            d0, d1, d2 = shape[-3:]
+            if d0 % p:
+                raise ValueError(
+                    f"real slab rfft3: data axis -3 (global size {d0}) is not "
+                    f"divisible by mesh axis {axis_name!r} (P={p}) -- shape {shape}"
+                )
+            h = rfft_len(d2)
+            if not pad and (d1 * h) % p:
+                raise ValueError(
+                    f"real slab rfft3: flattened axes (-2,-1) (size {d1}*{h}={d1 * h} "
+                    f"after the Hermitian truncation of N={d2}) not divisible by "
+                    f"mesh axis {axis_name!r} (P={p}) and pad=False -- shape "
+                    f"{shape}; {_pad_disabled_hint(d2, p, d1)}"
+                )
+            return h, (padded_rfft_len(d2, p, weight=d1) if pad else h)
+        raise NotImplementedError(
+            f"real transforms support ndim 2 or 3, got ndim={ndim} "
+            f"(1-D real: run the c2c fft1d_large on a complexified signal)"
+        )
+
+    pr, pc = p_rows, p_cols
+    where = (
+        f"shape {shape} on grid {pr}x{pc} "
+        f"(row_axis={row_axis!r}, col_axis={col_axis!r})"
+    )
     if ndim == 3:
         d0, d1, d2 = shape[-3:]
-        if d0 % p:
+        if d0 % pr:
             raise ValueError(
-                f"real slab rfft3: data axis -3 (global size {d0}) is not "
-                f"divisible by mesh axis {ax!r} (P={p}) -- shape {shape}"
+                f"real pencil rfft3: data axis -3 (global size {d0}) is not "
+                f"divisible by P_row={pr} ({row_axis!r}) -- {where}"
             )
+        for divisor, why in ((pc, f"P_col={pc} ({col_axis!r})"),
+                             (pr, f"P_row={pr} ({row_axis!r}; the rows "
+                                  f"exchange re-shards it)")):
+            if d1 % divisor:
+                raise ValueError(
+                    f"real pencil rfft3: data axis -2 (global size {d1}) is "
+                    f"not divisible by {why} -- {where}"
+                )
         h = rfft_len(d2)
-        if not pad and (d1 * h) % p:
+        if not pad and h % pc:
             raise ValueError(
-                f"real slab rfft3: flattened axes (-2,-1) (size {d1}*{h}={d1 * h} "
-                f"after the Hermitian truncation of N={d2}) not divisible by "
-                f"mesh axis {ax!r} (P={p}) and pad=False -- shape "
-                f"{shape}; {_pad_disabled_hint(d2, p, d1)}"
+                f"real pencil rfft3: Hermitian axis -1 (N={d2} -> N//2+1={h}) "
+                f"is not divisible by P_col={pc} ({col_axis!r}) and "
+                f"pad=False -- {where}; {_pad_disabled_hint(d2, pc)}"
             )
-        return h, (padded_rfft_len(d2, p, weight=d1) if pad else h)
-    raise NotImplementedError(
-        f"real transforms support ndim 2 or 3, got ndim={ndim} "
-        f"(1-D real: run the c2c fft1d_large on a complexified signal)"
-    )
+        return h, (padded_rfft_len(d2, pc) if pad else h)
+    if ndim == 2:
+        r, c = shape[-2:]
+        if r % (pr * pc):
+            raise ValueError(
+                f"real pencil rfft2: data axis -2 (global size {r}) is not "
+                f"divisible by P_row*P_col={pr * pc} (both sub-rings re-shard "
+                f"it) -- {where}"
+            )
+        if c % pc:
+            raise ValueError(
+                f"real pencil rfft2: data axis -1 (global size {c}) is not "
+                f"divisible by P_col={pc} ({col_axis!r}) -- {where}"
+            )
+        h = rfft_len(c)
+        if not pad and h % (pr * pc):
+            raise ValueError(
+                f"real pencil rfft2: Hermitian axis -1 (N={c} -> N//2+1={h}) "
+                f"is not divisible by P_row*P_col={pr * pc} (both sub-rings "
+                f"re-shard it) and pad=False -- {where}; "
+                f"{_pad_disabled_hint(c, pr * pc)}"
+            )
+        return h, (padded_rfft_len(c, pr * pc) if pad else h)
+    raise NotImplementedError(f"real pencil transforms support ndim 2 or 3, got {ndim}")
 
 
 # ---------------------------------------------------------------------------
@@ -412,15 +506,18 @@ def build_schedule(
     rows: Optional[int] = None,
 ) -> Schedule:
     """Lower one distributed transform to its stage schedule (the
-    reference's signature; slab c2c and slab r2c/c2r are built in this
-    package so far). Real problems are validated here (the builder needs
-    ``h``/``hp`` anyway); slab c2c divisibility stays with the plan
-    layer, as in the reference."""
-    if decomp == "pencil":
-        raise NotImplementedError(
-            "pencil schedules are not ported yet (ROADMAP A8: core/grid.py + core/pencil.py)"
-        )
+    reference's signature). ``global_shape`` is the full data-side shape
+    (real-side for r2c/c2r, batch dims included); for a pencil schedule
+    pass the grid axes and sizes, for slab the mesh axis and its size.
+    Real and pencil problems are validated here; slab c2c divisibility
+    stays with the plan layer, as in the reference."""
     shape = tuple(global_shape)
+    if decomp == "pencil":
+        if real:
+            return _pencil_real(shape, ndim, inverse, row_axis, col_axis, p_rows, p_cols,
+                                backend_row, backend_col, fused, n_chunks, transpose_back, pad)
+        return _pencil_c2c(shape, ndim, inverse, row_axis, col_axis, p_rows, p_cols,
+                           backend_row, backend_col, fused, n_chunks, transpose_back)
     if real:
         return _slab_real(shape, ndim, inverse, axis_name, p, backend, fused, n_chunks,
                           transpose_back, pad)
@@ -554,6 +651,129 @@ def _slab_real(shape, ndim, inverse, ax, p, backend, fused, n_chunks, tb, pad):
     )
 
 
+def _pencil_c2c(shape, ndim, inverse, row, col, pr, pc, br, bc, fused, n_chunks, tb):
+    check_divisible(shape, ndim, p_rows=pr, p_cols=pc, row_axis=row, col_axis=col)
+    m = float(np.prod(shape)) / (pr * pc)
+
+    def exr(fft=False, fuse=False):
+        return Exchange(axis=row, role="row", backend=br, p=pr, elems=m,
+                        fft=fft, fused=fuse, n_chunks=n_chunks)
+
+    def exc(fft=False, fuse=False):
+        return Exchange(axis=col, role="col", backend=bc, p=pc, elems=m,
+                        fft=fft, fused=fuse, n_chunks=n_chunks)
+
+    meta = dict(
+        global_shape=shape, ndim=ndim, decomp="pencil", real=False,
+        inverse=inverse, transpose_back=tb,
+    )
+    if ndim == 3:
+        d0, d1, d2 = shape[-3:]
+        stages = [
+            LocalFFT(axis=-1), exc(fft=True, fuse=fused),
+            Relayout("swap_outer"), exr(fft=True, fuse=fused),
+        ]
+        if tb:
+            stages += [exr(), Relayout("swap_outer"), exc()]
+        in_tail = (row, col, None)
+        return Schedule(
+            kind="fft3", stages=tuple(stages), in_tail=in_tail,
+            out_tail=in_tail if tb else (col, row, None), conj=inverse,
+            scale=float(d0 * d1 * d2) if inverse else None, **meta,
+        )
+    if tb:
+        raise ValueError(
+            "pencil fft2 already returns the natural layout; "
+            "transpose_back applies to slab transforms and pencil fft3 only"
+        )
+    r_glob, c_glob = shape[-2:]
+    stages = (
+        Relayout("swap_last2"), exc(fft=True, fuse=fused), exc(),
+        Relayout("swap_last2"), exr(fft=True, fuse=fused), exr(),
+    )
+    return Schedule(
+        kind="fft2", stages=stages, in_tail=(row, col), out_tail=(row, col),
+        conj=inverse, scale=float(r_glob * c_glob) if inverse else None, **meta,
+    )
+
+
+def _pencil_real(shape, ndim, inverse, row, col, pr, pc, br, bc, fused, n_chunks, tb, pad):
+    h, hp = check_divisible(
+        shape, ndim, p_rows=pr, p_cols=pc, row_axis=row, col_axis=col,
+        real=True, pad=pad,
+    )
+    shards = pr * pc
+    he = float(np.prod(shape[:-1])) * hp / shards
+    n_last = shape[-1]
+
+    def exr(fft=False, fuse=False, inv=False):
+        return Exchange(axis=row, role="row", backend=br, p=pr, elems=he,
+                        fft=fft, inverse=inv, fused=fuse, n_chunks=n_chunks)
+
+    def exc(fft=False, fuse=False, inv=False, payload="complex", elems=None):
+        return Exchange(axis=col, role="col", backend=bc, p=pc,
+                        elems=he if elems is None else elems, payload=payload,
+                        fft=fft, inverse=inv, fused=fuse, n_chunks=n_chunks)
+
+    meta = dict(
+        global_shape=shape, ndim=ndim, decomp="pencil", real=True,
+        inverse=inverse, transpose_back=tb, n_last=n_last, h=h, hp=hp,
+    )
+    if ndim == 3:
+        if not inverse:
+            stages = [
+                LocalR2C(), HermitianPack(h, hp), exc(fft=True, fuse=fused),
+                Relayout("swap_outer"), exr(fft=True, fuse=fused),
+            ]
+            if tb:
+                stages += [exr(), Relayout("swap_outer"), exc(), Trim(h)]
+            in_tail = (row, col, None)
+            return Schedule(
+                kind="rfft3", stages=tuple(stages), in_tail=in_tail,
+                out_tail=in_tail if tb else (col, row, None), **meta,
+            )
+        if tb:
+            stages = [
+                HermitianPack(h, hp), exc(), Relayout("swap_outer"),
+                exr(fft=True, fuse=fused, inv=True),
+            ]
+        else:
+            stages = [LocalFFT(axis=-1, inverse=True)]
+        stages += [
+            exr(fft=True, fuse=fused, inv=True), Relayout("swap_outer"),
+            exc(), Trim(h), LocalC2R(n_last),
+        ]
+        return Schedule(
+            kind="irfft3", stages=tuple(stages),
+            in_tail=(row, col, None) if tb else (col, row, None),
+            out_tail=(row, col, None), **meta,
+        )
+    if tb:
+        raise ValueError(
+            "pencil rfft2 already returns the natural layout; "
+            "transpose_back applies to slab transforms and pencil rfft3 only"
+        )
+    real_elems = float(np.prod(shape)) / shards
+    if not inverse:
+        stages = (
+            Relayout("swap_last2"), exc(payload="real", elems=real_elems),
+            LocalR2C(), HermitianPack(h, hp), exc(), Relayout("swap_last2"),
+            exr(fft=True, fuse=fused), exr(),
+        )
+        return Schedule(
+            kind="rfft2", stages=stages, in_tail=(row, col),
+            out_tail=(row, col), **meta,
+        )
+    stages = (
+        exr(fft=True, fuse=fused, inv=True), exr(), Relayout("swap_last2"),
+        exc(), Trim(h), LocalC2R(n_last),
+        exc(payload="real", elems=real_elems), Relayout("swap_last2"),
+    )
+    return Schedule(
+        kind="irfft2", stages=stages, in_tail=(row, col), out_tail=(row, col), **meta
+    )
+
+
 # ---------------------------------------------------------------------------
 # Local r2c/c2r building blocks (re-exported by repro_torch.core.real;
 # they live here so the executor has no real.py import)
@@ -615,10 +835,22 @@ def _twiddle_table(n: int, k1: torch.Tensor, j2: torch.Tensor, dtype) -> torch.T
     return torch.polar(torch.ones_like(ang), ang).to(dtype)
 
 
+def _on_rings(vs, mesh: Mesh, axis: str, fn):
+    """Run ``fn(blocks, ring)`` -- an exchange over the 1-D view ``ring``
+    -- on every ring of mesh axis ``axis``, writing each ring's result
+    blocks back into ``vs`` in place (one ring on a 1-D mesh or a
+    process; every ring of the axis, one after another, on a simulated
+    grid)."""
+    for ring, idx in mesh.rings(axis):
+        for k, v in zip(idx, fn([vs[k] for k in idx], ring)):
+            vs[k] = v
+    return vs
+
+
 def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: Mesh):
     """Twiddle + the exchange it rides: fused into the per-chunk compute
     on streaming backends (applied to each sub-chunk as it arrives),
-    up-front to the whole block otherwise."""
+    up-front to the whole block otherwise. ``mesh`` is a 1-D ring view."""
     from repro_torch.core import backends
 
     n, r, c, p = tw.n, tw.r, tw.c, ex.p
@@ -647,7 +879,8 @@ def _twiddled_exchange(vs, tw: Twiddle, ex: Exchange, mesh: Mesh):
 def _execute_stages(vs, stages: Tuple[object, ...], mesh: Mesh, *, impl="torch"):
     """Interpret a run of stages over the local blocks ``vs`` (a list,
     updated in place block by block so a local pass frees each input
-    block as it goes)."""
+    block as it goes). Each exchange runs over every ring of its mesh
+    axis (:func:`_on_rings`)."""
     p = len(vs)
     i = 0
     while i < len(stages):
@@ -674,19 +907,19 @@ def _execute_stages(vs, stages: Tuple[object, ...], mesh: Mesh, *, impl="torch")
             nxt = stages[i + 1] if i + 1 < len(stages) else None
             if not isinstance(nxt, Exchange):
                 raise ValueError("Twiddle must immediately precede an Exchange")
-            vs = _twiddled_exchange(vs, st, nxt, mesh)
+            _on_rings(vs, mesh, nxt.axis, lambda blocks, ring: _twiddled_exchange(blocks, st, nxt, ring))
             i += 2
             continue
         elif isinstance(st, Exchange):
             if st.fft:
-                vs = tr.transpose_then_fft(
-                    vs, mesh, st.axis, strategy=st.backend, impl=impl,
+                _on_rings(vs, mesh, st.axis, lambda blocks, ring: tr.transpose_then_fft(
+                    blocks, ring, st.axis, strategy=st.backend, impl=impl,
                     fused=st.fused, n_chunks=st.n_chunks, inverse=st.inverse,
-                )
+                ))
             else:
-                vs = tr.distributed_transpose(
-                    vs, mesh, st.axis, strategy=st.backend, n_chunks=st.n_chunks
-                )
+                _on_rings(vs, mesh, st.axis, lambda blocks, ring: tr.distributed_transpose(
+                    blocks, ring, st.axis, strategy=st.backend, n_chunks=st.n_chunks
+                ))
         else:
             raise TypeError(f"unknown stage {st!r}")
         i += 1

@@ -491,7 +491,10 @@ def transpose_then_fft(
         if use_kernel:
             from repro_torch.kernels import fft_stage
 
-            return fft_stage.chunk_twiddle_pack_c64(chunk, m)
+            # the kernel reads rows with their stride but needs unit-stride
+            # columns: the own chunk of a transposed block (the pencil
+            # fft2's swap_last2) is copied first
+            return fft_stage.chunk_twiddle_pack_c64(chunk if chunk.stride(-1) == 1 else chunk.contiguous(), m)
         from repro_torch.kernels import ref
 
         return ref.chunk_twiddle_pack_ref(chunk, m)  # (..., c, k1=p, j2=rows)

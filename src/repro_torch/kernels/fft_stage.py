@@ -18,7 +18,8 @@ on the CPU. For CUDA tensors it launches its kernel or raises: it
 checks device, dtype, shape and contiguity first, and raises if the
 launch reports an error. :data:`LAUNCHES` counts kernel launches per
 kernel (plain-path calls are not counted), so a run can show that its
-main path went through the kernels. The kernels choose their own tiles
+main path went through the kernels; :data:`SHAPES` splits the count by
+launch shape. The kernels choose their own tiles
 and take any shape; the reference's Pallas block sizes (``bm``/``bn``)
 have no counterpart here.
 """
@@ -37,11 +38,15 @@ Planar = Tuple[torch.Tensor, torch.Tensor]
 
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"stage_left": 0, "stage_right": 0, "chunk_twiddle_pack_c64": 0}
+#: kernel name -> {launch shape: launches} since the last :func:`reset_launches`;
+#: the shape is (B, M, K, N) for the stages, (B, rows, c, p) for the pack
+SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {name: {} for name in LAUNCHES}
 
 
 def reset_launches() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+        SHAPES[name].clear()
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,7 +86,7 @@ def _check_launchable(name: str, dtype: torch.dtype, tensors) -> None:
             raise ValueError(f"{name}: operands must not be lazy conj/neg views (resolve them first)")
 
 
-def _launch(name: str, fn, device: torch.device, *args) -> None:
+def _launch(name: str, shape: Tuple[int, ...], fn, device: torch.device, *args) -> None:
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = fn(*args, stream)
@@ -89,6 +94,7 @@ def _launch(name: str, fn, device: torch.device, *args) -> None:
         msg = _lib().fft_stage_error_string(rc).decode()
         raise RuntimeError(f"{name} kernel launch failed: {msg} (cudaError {rc})")
     LAUNCHES[name] += 1
+    SHAPES[name][shape] = SHAPES[name].get(shape, 0) + 1
 
 
 def _check_planar_shapes(name: str, pairs) -> None:
@@ -131,7 +137,7 @@ def stage_left_c64(w: torch.Tensor, a: torch.Tensor, t: torch.Tensor) -> torch.T
     _check_launchable("stage_left", torch.complex64, (w, a, t))
     out = torch.empty((B, M, N), dtype=torch.complex64, device=a.device)
     if out.numel():
-        _launch("stage_left", _lib().stage_left_c64, a.device,
+        _launch("stage_left", (B, M, K, N), _lib().stage_left_c64, a.device,
                 w.data_ptr(), a.data_ptr(), t.data_ptr(), out.data_ptr(), B, M, K, N)
     return out
 
@@ -151,7 +157,7 @@ def stage_right_c64(a: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     _check_launchable("stage_right", torch.complex64, (a, w))
     out = torch.empty((B, N, M), dtype=torch.complex64, device=a.device)
     if out.numel():
-        _launch("stage_right", _lib().stage_right_c64, a.device,
+        _launch("stage_right", (B, M, K, N), _lib().stage_right_c64, a.device,
                 a.data_ptr(), w.data_ptr(), out.data_ptr(), B, M, K, N)
     return out.mT
 
@@ -229,7 +235,7 @@ def chunk_twiddle_pack_c64(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor
     out = torch.empty((B, c, p, rows), dtype=torch.complex64, device=chunk.device)
     if out.numel():
         _launch(
-            "chunk_twiddle_pack_c64", _lib().chunk_twiddle_pack_c64, chunk.device,
+            "chunk_twiddle_pack_c64", (B, rows, c, p), _lib().chunk_twiddle_pack_c64, chunk.device,
             flat.data_ptr(), m.data_ptr(), out.data_ptr(), B, rows, c, p,
             flat.stride(0), flat.stride(1),
         )

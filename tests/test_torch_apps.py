@@ -2,7 +2,9 @@
 repro.apps and the analytic / numpy oracles of tests/test_apps.py: the
 Poisson solve, the spectral gradient and laplacian, FFT convolution and
 correlation, and the wavenumber grids, through c2c and r2c slab plans
-(natural and transposed spectrum layouts). The port runs on
+(natural and transposed spectrum layouts) and pencil plans on SimMesh
+grids (natural 2-D, reversed 3-D, the Hermitian axis padded over the
+grid; against the reference's pencil plans on a 1x1 grid). The port runs on
 SimMesh(P, device="cpu") at P = 1 and 4 with the scatter backend and
 the kernel impl (the kernels' plain versions on the CPU); the reference
 runs on its one in-process device -- the apps' outputs are physical
@@ -175,3 +177,102 @@ def test_wavenumbers_layouts():
     assert k0.dtype == torch.float64
     with pytest.raises(ValueError, match="lengths"):
         wavenumbers(plan3, lengths=(1.0, 2.0))
+
+
+# ---------------------------------------------------------------------------
+# Pencil plans: natural 2-D layout, reversed 3-D layout, Hermitian axis
+# padded over the grid
+# ---------------------------------------------------------------------------
+
+GRIDS = ((1, 1), (2, 2), (2, 4))
+PENCIL_LAYOUTS = {  # name -> plan_fft kwargs on a ("rows", "cols") grid
+    "pencil-c2c": dict(decomp="pencil"),
+    "pencil-r2c": dict(decomp="pencil", real=True),
+}
+PENCIL3_LAYOUTS = {**PENCIL_LAYOUTS, "pencil-c2c-tb": dict(decomp="pencil", transpose_back=True),
+                   "pencil-r2c-tb": dict(decomp="pencil", real=True, transpose_back=True)}
+
+
+def _grid_plans(shape, grid, layouts, ndim=2):
+    mesh = SimMesh(grid, axis_names=("rows", "cols"), device="cpu")
+    return {name: plan_fft(shape, mesh, ndim=ndim, backend=("scatter", "pairwise_xor"), local_impl="kernel", **kw)
+            for name, kw in layouts.items()}
+
+
+def _ref_grid_run(app, *arrays, plan_kw, shape, ndim=2):
+    """The reference app on a pencil plan over its one in-process device
+    (a 1x1 grid); real output."""
+    import jax.numpy as jnp
+
+    import repro.apps as ref_apps
+    from repro.core import plan_fft as ref_plan_fft
+    from repro.core.compat import make_mesh
+
+    plan = ref_plan_fft(shape, make_mesh((1, 1), ("rows", "cols")), ndim=ndim, **plan_kw)
+    dt = np.float32 if plan.real else np.complex64
+    out = getattr(ref_apps, app)(*[jnp.asarray(a.astype(dt)) for a in arrays], plan)
+    if isinstance(out, tuple):
+        return [np.real(np.asarray(o)) for o in out]
+    return np.real(np.asarray(out))
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_poisson_pencil_2d_and_3d(grid):
+    n = 16
+    X, Y = _grid2(n)
+    u0 = np.sin(X) * np.cos(2 * Y)
+    for name, plan in _grid_plans((n, n), grid, PENCIL_LAYOUTS).items():
+        u = np.real(solve_poisson(_cast(-5 * u0, plan), plan).numpy())
+        assert np.abs(u - u0).max() < 1e-4, name
+        if grid == (1, 1):
+            _close_to_ref(u, _ref_grid_run("solve_poisson", -5 * u0, plan_kw=PENCIL_LAYOUTS[name], shape=(n, n)))
+    n3 = 8
+    xs = np.arange(n3) * 2 * np.pi / n3
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    u3 = np.sin(X) * np.cos(2 * Y) * np.sin(3 * Z)
+    for name, plan in _grid_plans((n3,) * 3, grid, PENCIL3_LAYOUTS, ndim=3).items():
+        u = np.real(solve_poisson(_cast(-14 * u3, plan), plan).numpy())
+        assert np.abs(u - u3).max() < 1e-4, name
+
+
+@pytest.mark.parametrize("grid", GRIDS)
+def test_gradient_laplacian_convolve_pencil(grid):
+    n = 16
+    X, Y = _grid2(n)
+    u = np.sin(X) * np.cos(3 * Y)
+    rng = np.random.default_rng(4)
+    a = rng.standard_normal((n, n)).astype(np.float32)
+    b = rng.standard_normal((n, n)).astype(np.float32)
+    ref_cv = np.real(np.fft.ifft2(np.fft.fft2(a) * np.fft.fft2(b)))
+    for name, plan in _grid_plans((n, n), grid, PENCIL_LAYOUTS).items():
+        gx, gy = (np.real(g.numpy()) for g in gradient(_cast(u, plan), plan))
+        assert np.abs(gx - np.cos(X) * np.cos(3 * Y)).max() < 1e-4, name
+        assert np.abs(gy + 3 * np.sin(X) * np.sin(3 * Y)).max() < 1e-4, name
+        assert np.abs(np.real(laplacian(_cast(u, plan), plan).numpy()) + 10 * u).max() < 1e-3, name
+        cv = np.real(fft_convolve(_cast(a, plan), _cast(b, plan), plan).numpy())
+        assert np.abs(cv - ref_cv).max() < 1e-3 * np.abs(ref_cv).max(), name
+        if grid == (1, 1):
+            _close_to_ref(cv, _ref_grid_run("fft_convolve", a, b, plan_kw=PENCIL_LAYOUTS[name], shape=(n, n)))
+    # the 3-D gradient in the reversed layout, one component per original axis
+    n3 = 8
+    xs = np.arange(n3) * 2 * np.pi / n3
+    X, Y, Z = np.meshgrid(xs, xs, xs, indexing="ij")
+    u3 = np.sin(X) * np.cos(Y) * np.sin(2 * Z)
+    plan = _grid_plans((n3,) * 3, grid, {"r": dict(decomp="pencil", real=True)}, ndim=3)["r"]
+    g0, g1, g2 = (g.numpy() for g in gradient(_cast(u3, plan), plan))
+    assert np.abs(g0 - np.cos(X) * np.cos(Y) * np.sin(2 * Z)).max() < 1e-4
+    assert np.abs(g1 + np.sin(X) * np.sin(Y) * np.sin(2 * Z)).max() < 1e-4
+    assert np.abs(g2 - 2 * np.sin(X) * np.cos(Y) * np.cos(2 * Z)).max() < 1e-4
+
+
+def test_wavenumbers_pencil_layouts():
+    """The reversed 3-D layout puts axis -1's wavenumbers first, padded
+    over P_col; the natural 2-D layout pads the last axis over the grid."""
+    mesh = SimMesh((2, 4), axis_names=("rows", "cols"), device="cpu")
+    plan3 = plan_fft((4, 8, 10), mesh, ndim=3, real=True, decomp="pencil")  # spectrum (8, 8, 4): (Hp, D1, D0)
+    k0, k1, k2 = wavenumbers(plan3)
+    assert k0.shape == (1, 1, 4) and k1.shape == (1, 8, 1) and k2.shape == (8, 1, 1)
+    assert float(k2[5, 0, 0]) == 5.0 and not k2[6:].any()  # rfftfreq of n=10, then the P_col pad
+    plan2 = plan_fft((8, 12), mesh, real=True, decomp="pencil")  # natural (8, Hp=8): H = 7 padded over 2x4
+    kx, ky = wavenumbers(plan2)
+    assert kx.shape == (8, 1) and ky.shape == (1, 8) and float(ky[0, 6]) == 6.0 and not ky[0, 7:].any()

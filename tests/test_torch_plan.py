@@ -126,13 +126,20 @@ def test_plan_errors_name_the_axis_and_the_roadmap_item():
         plan_fft((64,), mesh, ndim=1, direction="inverse")
     with pytest.raises(NotImplementedError, match="1-D real transform"):
         plan_fft((64,), mesh, ndim=1, real=True)
+    grid = SimMesh((2, 2), axis_names=("rows", "cols"), device="cpu")
     for kwargs, item in (
-        (dict(decomp="pencil"), "A8"), (dict(decomp="auto"), "A8"), (dict(decomp="pencil", real=True), "A8"),
-        (dict(planner="measure"), "A9"), (dict(faults=object()), "A12"),
-        (dict(backend="scatter@u"), "A9"),
+        (dict(planner="measure"), "A9"), (dict(faults=object()), "A12"), (dict(backend="scatter@u"), "A9"),
+        (dict(decomp="pencil", backend="scatter@u"), "A9"),
     ):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            plan_fft((16, 16), mesh, **kwargs)
+            plan_fft((16, 16), grid if kwargs.get("decomp") else mesh, **kwargs)
+    # decomp="pencil" / "auto" (ROADMAP A8) plan: pencil on a grid, slab on one axis
+    for kwargs, decomp in ((dict(decomp="pencil"), "pencil"), (dict(decomp="auto"), "pencil"),
+                           (dict(decomp="pencil", real=True), "pencil")):
+        assert plan_fft((16, 16), grid, **kwargs).decomp == decomp
+    assert plan_fft((16, 16), mesh, decomp="auto").decomp == "slab"
+    with pytest.raises(ValueError, match=">= 2 axes"):
+        plan_fft((16, 16), mesh, decomp="pencil")
     plan = plan_fft((16, 16), mesh)
     for method, item in ((plan.profile, "A11"), (plan.lower, "A9"), (plan.roofline, "A9")):
         with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):

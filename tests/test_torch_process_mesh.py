@@ -10,7 +10,12 @@ lists the cases that ran. The cases: every backend, fused and unfused
 ``plan_fft``; fft3 / rfft3 and the functional rfft2 / irfft2; the
 Poisson solve; that the streaming exchanges post every message before
 the first chunk callback; and, last, that a peer which never posts its
-receive fails within the group's timeout instead of hanging."""
+receive fails within the group's timeout instead of hanging.
+
+One more spawn at P = 4 builds the 2-D grids (2,2), (1,4) and (4,1)
+from per-axis subgroups and runs the pencil plans on each, against
+SimMesh on the same grid, ending with an unreceived send on a sub-axis
+ring that fails within that subgroup's timeout."""
 
 import json
 import time
@@ -183,6 +188,118 @@ def test_process_group_mesh_matches_sim_mesh(p, tmp_path):
         assert case in ran
     assert len(ran) == 4 * 15 + 4 + 2 + 1 + 1 + 2 + 1, ran
     assert ran[-1].startswith("unreceived send fails"), ran
+
+
+GRIDS = ((2, 2), (1, 4), (4, 1))
+
+
+def _grid_cases(mesh, ran):
+    """Pencil plans on one ProcessGroupMesh grid (one subgroup per ring
+    of each axis), each held against the same plan on a SimMesh of the
+    same grid: c2c fft2 / fft3 fused and unfused and one mixed pair,
+    fft3 transposed back, rfft3 and a real Poisson solve, each rank on
+    its own block."""
+    from repro_torch.apps import solve_poisson
+    from repro_torch.core import SimMesh, plan_fft
+
+    grid = mesh.dims
+    sim = SimMesh(grid, axis_names=mesh.axis_names, device="cpu")
+    rank = mesh.rank
+
+    def run(name, shape, data, **kw):
+        plan, ref = plan_fft(shape, mesh, decomp="pencil", **kw), plan_fft(shape, sim, decomp="pencil", **kw)
+        assert plan.schedule_hash() == ref.schedule_hash() and plan.fused == ref.fused
+        block = mesh.split(data, plan.input_spec().tail)[0]
+        y, exp = plan.execute(block), ref.execute(data)
+        out_tail = plan.schedule().out_tail
+        for label, got, want, tail in ((name, y, exp, out_tail),
+                                       (f"{name} inverse", plan.inverse(y), ref.inverse(exp), plan.input_spec().tail)):
+            err = _rel(mesh.gather([got], tail), want)
+            if not err <= REL_TOL:
+                raise AssertionError(f"grid {grid} rank {rank} {label}: rel err {err:.3e} > {REL_TOL}")
+        ran.append(f"{grid} {name}")
+
+    x2, x3 = _c64(11, (2, 8, 16)), _c64(12, (8, 8, 8))
+    for pair, pipeline in ((("scatter", "scatter"), "auto"), (("scatter", "scatter"), False),
+                           (("scatter", "bisection"), "auto")):
+        kw = dict(backend=pair, pipeline=pipeline, local_impl="kernel")
+        run(f"fft2 {'+'.join(pair)}/{pipeline}", x2.shape, x2, **kw)
+        run(f"fft3 {'+'.join(pair)}/{pipeline}", x3.shape, x3, ndim=3, **kw)
+    run("fft3 transpose_back", x3.shape, x3, ndim=3, transpose_back=True, backend=("pairwise_xor", "alltoall"))
+    xr3 = _f32(13, (8, 8, 10))
+    run("rfft3", xr3.shape, xr3, ndim=3, real=True, backend="scatter", local_impl="kernel")
+
+    n = 16
+    g = np.arange(n) * 2 * np.pi / n
+    gx, gy = np.meshgrid(g, g, indexing="ij")
+    f = torch.from_numpy((-5.0 * np.sin(gx) * np.cos(2 * gy)).astype(np.float32))
+    kw = dict(real=True, decomp="pencil", backend="scatter", local_impl="kernel")
+    plan, ref = plan_fft((n, n), mesh, **kw), plan_fft((n, n), sim, **kw)
+    tail = plan.input_spec().tail
+    got = mesh.gather([solve_poisson(mesh.split(f, tail)[0], plan)], tail)
+    err = _rel(got, solve_poisson(f, ref))
+    if not err <= REL_TOL:
+        raise AssertionError(f"grid {grid} rank {rank} solve_poisson: rel err {err:.3e} > {REL_TOL}")
+    ran.append(f"{grid} solve_poisson")
+
+
+def _sub_axis_hang_case(ran):
+    """On a 2x2 grid with a short timeout, rank 0 sends to its cols-ring
+    peer (rank 1), which never posts its receive: the send fails within
+    the subgroup's timeout."""
+    import torch.distributed as dist
+
+    from repro_torch.core import ProcessGroupMesh
+
+    mesh = ProcessGroupMesh(device="cpu", grid=(2, 2), timeout_s=TIMEOUT_S)
+    ((ring, _),) = mesh.rings("cols")
+    if mesh.rank == 0:
+        assert ring.p == 2 and ring.rank == 0 and ring._global == [0, 1]
+        t0 = time.perf_counter()
+        pending = ring.ppermute_start([torch.ones(4, dtype=torch.complex64)], [(0, 1)])
+        with pytest.raises(RuntimeError, match="[Tt]imed out|timeout"):
+            pending.wait()
+        waited = time.perf_counter() - t0
+        assert waited < 4 * TIMEOUT_S, waited
+        ran.append(f"unreceived sub-axis send fails after {waited:.1f} s")
+    dist.barrier()  # the default group: the others leave only after rank 0 has timed out
+
+
+def _grid_worker(rank, world, init_method, out_path):
+    import torch.distributed as dist
+
+    from repro_torch.core import ProcessGroupMesh, init_process_mesh
+
+    torch.set_num_threads(1)
+    mesh = init_process_mesh(rank, world, init_method, device="cpu", timeout_s=60, grid=GRIDS[0])
+    try:
+        ran = []
+        for grid in GRIDS:
+            gm = mesh if grid == GRIDS[0] else ProcessGroupMesh(device="cpu", grid=grid, timeout_s=60)
+            assert gm.shape == {"rows": grid[0], "cols": grid[1]} and gm.coords(rank) == dict(
+                zip(("rows", "cols"), divmod(rank, grid[1])))
+            _grid_cases(gm, ran)
+        _sub_axis_hang_case(ran)
+        if rank == 0:
+            with open(out_path, "w") as fh:
+                json.dump(ran, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_process_group_grid_matches_sim_mesh(tmp_path):
+    """P = 4 processes over gloo as a (2,2), (1,4) and (4,1) grid, each
+    axis's exchanges over its own ring subgroup."""
+    import torch.multiprocessing as mp
+
+    out = tmp_path / "ran.json"
+    mp.spawn(_grid_worker, args=(4, f"file://{tmp_path / 'rendezvous'}", str(out)), nprocs=4, join=True)
+    ran = json.loads(out.read_text())
+    per_grid = ["fft2 scatter+scatter/auto", "fft3 scatter+scatter/auto", "fft2 scatter+scatter/False",
+                "fft3 scatter+scatter/False", "fft2 scatter+bisection/auto", "fft3 scatter+bisection/auto",
+                "fft3 transpose_back", "rfft3", "solve_poisson"]
+    assert ran[:-1] == [f"{grid} {name}" for grid in GRIDS for name in per_grid], ran
+    assert ran[-1].startswith("unreceived sub-axis send fails"), ran
 
 
 def test_process_group_mesh_needs_a_group():

@@ -1,7 +1,7 @@
-"""Port parity for the stage-schedule IR: the 15 slab c2c and 13 slab
-r2c golden schedules byte for byte, the byte and cost walks against the
-reference's, the divisibility messages, the rewrites and the spec
-simulation."""
+"""Port parity for the stage-schedule IR: all 52 golden schedules (15
+slab c2c, 13 slab r2c, 24 pencil) byte for byte, the byte and cost
+walks against the reference's, the divisibility messages, the rewrites
+and the spec simulation."""
 
 import json
 import os
@@ -53,9 +53,32 @@ def slab_r2c_cases():
     return cases
 
 
+def pencil_cases():
+    """key -> build_schedule kwargs: the pencil entries of
+    tests/test_schedule.py's snapshot grid (a 2x2 grid, scatter over
+    rows and alltoall over cols)."""
+    cases = {}
+    for ndim, shape in ((2, (16, 16)), (3, (8, 8, 8))):
+        for real in (False, True):
+            for inverse in (False, True):
+                for fused in (False, True):
+                    for tb in ((False, True) if ndim == 3 else (False,)):
+                        key = (
+                            f"pencil/ndim{ndim}/{'r2c' if real else 'c2c'}/{'inv' if inverse else 'fwd'}/"
+                            f"{'fused' if fused else 'unfused'}" + ("/tb" if tb else "")
+                        )
+                        cases[key] = dict(
+                            global_shape=shape, ndim=ndim, inverse=inverse, real=real, decomp="pencil",
+                            row_axis="rows", col_axis="cols", p_rows=2, p_cols=2,
+                            backend_row="scatter", backend_col="alltoall", fused=fused, transpose_back=tb,
+                        )
+    return cases
+
+
 C2C_CASES = slab_c2c_cases()
 R2C_CASES = slab_r2c_cases()
-CASES = {**C2C_CASES, **R2C_CASES}
+PENCIL_CASES = pencil_cases()
+CASES = {**C2C_CASES, **R2C_CASES, **PENCIL_CASES}
 
 
 def test_case_grid_covers_every_slab_c2c_golden():
@@ -70,7 +93,16 @@ def test_case_grid_covers_every_slab_r2c_golden():
         golden = json.load(f)
     slab_r2c = {k for k in golden if k.startswith(("slab/ndim2/r2c/", "slab/ndim3/r2c/"))}
     assert set(R2C_CASES) == slab_r2c and len(R2C_CASES) == 13
-    assert len(CASES) == 28 and len(golden) == 52
+    assert len(CASES) == 52 and set(CASES) == set(golden)
+
+
+def test_case_grid_covers_every_pencil_golden():
+    """The port's pencil cases are the reference's snapshot kwargs, one
+    for one (tests/test_schedule.py::snapshot_cases)."""
+    from test_schedule import snapshot_cases
+
+    ref = {k: kw for k, kw in snapshot_cases().items() if k.startswith("pencil/")}
+    assert PENCIL_CASES == ref and len(PENCIL_CASES) == 24
 
 
 @pytest.mark.parametrize("key", sorted(CASES))
@@ -133,12 +165,22 @@ def test_rewrites_and_describe():
     assert base.schedule_hash() in text and "Exchange(slab:x, scatter, p=4, fft, fused)" in text
 
 
-def test_unported_builders_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sch.build_schedule((16, 16), ndim=2, decomp="pencil", row_axis="r", col_axis="c",
-                           p_rows=2, p_cols=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A8"):
-        sch.build_schedule((16, 16), ndim=2, real=True, decomp="pencil", row_axis="r", col_axis="c",
+def test_builders_cover_pencil_and_reject_what_the_reference_rejects():
+    c2c = sch.build_schedule((16, 16), ndim=2, decomp="pencil", row_axis="r", col_axis="c", p_rows=2, p_cols=2)
+    assert c2c.kind == "fft2" and c2c.decomp == "pencil" and c2c.in_tail == c2c.out_tail == ("r", "c")
+    assert [st.role for st in c2c.exchanges()] == ["col", "col", "row", "row"]
+    r2c = sch.build_schedule((16, 16), ndim=2, real=True, decomp="pencil", row_axis="r", col_axis="c",
+                             p_rows=2, p_cols=2)
+    assert r2c.kind == "rfft2" and r2c.exchanges()[0].payload == "real" and r2c.hp == 12
+    fft3 = sch.build_schedule((8, 8, 8), ndim=3, decomp="pencil", row_axis="r", col_axis="c", p_rows=2, p_cols=4)
+    assert fft3.out_tail == ("c", "r", None)  # the reversed layout
+    with pytest.raises(ValueError, match="pencil fft2 already returns the natural layout"):
+        sch.build_schedule((16, 16), ndim=2, decomp="pencil", row_axis="r", col_axis="c", p_rows=2, p_cols=2,
+                           transpose_back=True)
+    with pytest.raises(ValueError, match="pencil decomposition supports ndim 2 or 3"):
+        sch.build_schedule((64,), ndim=1, decomp="pencil", row_axis="r", col_axis="c", p_rows=2, p_cols=2)
+    with pytest.raises(NotImplementedError, match="real pencil transforms support ndim 2 or 3"):
+        sch.build_schedule((64,), ndim=1, real=True, decomp="pencil", row_axis="r", col_axis="c",
                            p_rows=2, p_cols=2)
     assert sch.build_schedule((16, 16), ndim=2, real=True, axis_name="x", p=4).kind == "rfft2"
     with pytest.raises(NotImplementedError, match="real transforms support ndim 2 or 3"):
