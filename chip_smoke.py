@@ -16,8 +16,12 @@ Phases, each printing a line; any failure exits non-zero with no result:
    max(FLOPs / peak, bytes / HBM rate) at NVIDIA's H100 SXM data-sheet
    rates -- for the two 3xTF32 stage kernels both the fp32 CUDA-core
    bound and the tensor-core one (3 x FLOPs / TF32 peak, their
-   ``bound_ms``); then fft_last_axis, and its glue (its time minus the
-   two stage kernels');
+   ``bound_ms``); chunk_twiddle_pack_c64 in both modes (fresh, and
+   accumulating into ``out=``) on each chunk layout the paths hand it,
+   beside torch.mul / Tensor.addcmul_ and the fresh pack followed by
+   Tensor.add_ (the exchange's path for a chunk_fn without ``out``);
+   then fft_last_axis, and its glue (its time minus the two stage
+   kernels');
 4. main path -- plan_fft((16384, 16384), SimMesh(4), backend="scatter",
    local_impl="kernel"): the paper's slab fft2 over the N-scatter ring
    with the next FFT pass fused into the arriving chunks, on a 2 GiB
@@ -56,12 +60,16 @@ Phases, each printing a line; any failure exits non-zero with no result:
    phase 6's slab rfft3.
 
 Phases 4-9 each zero the kernels' launch counters just before they run
-and read them just after; each fails if a kernel of its path was never
-launched (at P = 1 a plan does not fuse, so phase 7 launches the two
-stages only), and phases 8-9 fail if the path's peak memory reaches
-40 GiB. Phases 8-9 print the shapes each kernel was launched at and
-time each kernel once at the shapes phase 3 did not. The second-to-last
-line is one JSON object with a row per kernel; the last line is
+and read them just after, the pack's split by mode; each fails if a
+kernel of its path was never launched (at P = 1 a plan does not fuse,
+so phase 7 launches the two stages only), phase 4 if its exchange did
+not pack P own chunks fresh and P(P-1) arrivals accumulating, and
+phases 8-9 if the path's peak memory reaches 40 GiB. Phases 4-6 and 8-9
+print the shapes each kernel was launched at and time each kernel once
+at every shape not timed before. Kernel times are CUDA-event medians of
+runs of back-to-back calls. The second-to-last line is one JSON object
+with a row per kernel, the pack's accumulate mode a row of its own
+(``chunk_twiddle_pack_c64 accumulate``); the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -69,6 +77,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -87,8 +96,11 @@ PEAK_LIMIT_GIB = 40.0  # a path's peak device memory, of the 80 GB card
 KERNEL_PHASE_SHAPES = {
     "stage_left": {(4096, 512, 512, 32), (16384, 512, 512, 8)},
     "stage_right": {(4096, 512, 32, 32), (16384, 512, 8, 8)},
-    "chunk_twiddle_pack_c64": {(1, N // P, N // P, P)},
+    "chunk_twiddle_pack_c64": {(1, N // P, N // P, P, mode, unit)
+                               for mode in ("fresh", "accumulate") for unit in ("cols", "rows")},
 }
+PACK = "chunk_twiddle_pack_c64"
+PACK_MODES = ("fresh", "accumulate")
 NCCL_TIMEOUT_S = 300  # the process group's timeout in the NCCL phase
 MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
@@ -114,20 +126,27 @@ def nvidia_smi() -> str:
 
 
 def median_ms(torch, fn, reps: int = 10, warmup: int = 2) -> float:
-    """Median over ``reps`` launches, each fenced by its own CUDA events."""
+    """Median over ``reps`` of the device ms per call of a run of
+    back-to-back calls fenced by one pair of CUDA events: as many calls
+    as fill ~2.5 ms (1 to 20), so the host's time to issue a call -- a
+    wrapper's checks and allocation -- overlaps the kernels instead of
+    leaving the card idle inside the fence."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
+
+    def run(n: int) -> float:
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
-        fn()
+        for _ in range(n):
+            fn()
         end.record()
         end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
+        return start.elapsed_time(end) / n
+
+    n = max(1, min(20, math.ceil(2.5 / max(run(1), 1e-3))))
+    return statistics.median(run(n) for _ in range(reps))
 
 
 def host_ms(torch, fn, reps: int = 3) -> float:
@@ -158,8 +177,10 @@ def counted(torch, fft_stage, label: str, fn, expect=None):
     out = fn()
     torch.cuda.synchronize()
     launches = dict(fft_stage.LAUNCHES)
+    for mode in PACK_MODES:  # the pack's launches split by mode (fft_stage.SHAPES keys)
+        launches[f"{PACK} {mode}"] = sum(n for key, n in fft_stage.SHAPES[PACK].items() if key[4] == mode)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    for name in launches if expect is None else expect:
+    for name in fft_stage.LAUNCHES if expect is None else expect:
         check(launches[name] > 0, f"kernel {name} was not launched on the {label} path")
     return out, launches, peak
 
@@ -171,6 +192,16 @@ def bound(flops: float, nbytes: float, cm, peak: float = None):
     t_ops = flops / (peak or cm.PEAK_FLOPS_FP32)
     t_bytes = nbytes / cm.HBM_BW
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops > t_bytes else "bytes")
+
+
+def pack_bound(b: int, rows: int, c: int, p: int, mode: str, cm):
+    """(ms, by) of chunk_twiddle_pack_c64 on a (b, rows, c) chunk and m
+    (p, rows): the chunk and m read once, the (b, c, p, rows) result
+    written once -- and in accumulate mode read once too; one complex
+    multiply (6 FLOPs) per output, and a complex add (2) to accumulate."""
+    out = b * c * p * rows
+    acc = mode == "accumulate"
+    return bound((8.0 if acc else 6.0) * out, 8.0 * (b * rows * c + p * rows + (2 if acc else 1) * out), cm)
 
 
 def tensor_core_bounds(row, flops, nbytes, cm):
@@ -253,33 +284,68 @@ def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
     tensor_core_bounds(rows[-1], flops, nbytes, cm)
     del timed, a, w
 
-    # chunk_twiddle_pack_c64: one arriving (r, c) = (4096, 4096) chunk, m (P, 4096);
-    # the own chunk is a strided view of the rank's (4096, 16384) block
+    # chunk_twiddle_pack_c64 at the main path's shape, chunk (r, c) = (4096, 4096),
+    # m (P, 4096), accumulator (4096, P, 4096): both modes against the plain
+    # version on every chunk layout the paths hand it -- a received (contiguous)
+    # chunk, the own chunk as a strided view of the rank's (4096, 16384) block, a
+    # chunk unit-stride along its rows (the pencil fft2's transposed own chunk) --
+    # and an accumulator that is a sub-chunk's column slot of a wider one
     r, c = N // P, N // P
     block = crand(r, N)
     m = crand(P, r)
-    for label, chunk in (("received", block[:, c:2 * c].contiguous()), ("own, strided", block[:, :c])):
-        err, ok = compare(fft_stage.chunk_twiddle_pack_c64(chunk, m), ref.chunk_twiddle_pack_ref(chunk, m),
-                          PACK_RTOL, PACK_ATOL)
-        print(f"kernel chunk_twiddle_pack_c64 {(r, c)}x{P} ({label}): max_abs_err={err:.3e} "
+    acc0 = crand(c, P, r)
+    chunks = {"received": block[:, c:2 * c].contiguous(), "own, strided": block[:, :c],
+              "transposed": crand(c, r).mT}
+    wide = crand(c, P, 2 * r)
+    accs = {"contiguous": acc0, "slot": wide[..., r:]}
+    errs = {mode: 0.0 for mode in PACK_MODES}
+    for label, chunk in chunks.items():
+        got, exp = fft_stage.chunk_twiddle_pack_c64(chunk, m), ref.chunk_twiddle_pack_ref(chunk, m)
+        err, ok = compare(got, exp, PACK_RTOL, PACK_ATOL)
+        errs["fresh"] = max(errs["fresh"], err)
+        print(f"kernel {PACK} fresh {(r, c)}x{P} ({label}): max_abs_err={err:.3e} "
               f"(tol rtol={PACK_RTOL} atol={PACK_ATOL}) {'ok' if ok else 'MISMATCH'}", flush=True)
-        check(ok, f"chunk_twiddle_pack_c64 disagrees with its plain version ({label})")
-        if label == "received":
-            timed = (chunk, err)
-    chunk, err = timed
-    flops = 6.0 * r * c * P
-    nbytes = 8.0 * (r * c + P * r + c * P * r)
-    rows.append(dict(
-        name="chunk_twiddle_pack_c64", route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
-        replaces="src/repro/kernels/fft_stage.py:171", shape=[1, r, c, P], max_abs_err=err,
-        ms=median_ms(torch, lambda: fft_stage.chunk_twiddle_pack_c64(chunk, m)),
-        plain_ms=median_ms(torch, lambda: ref.chunk_twiddle_pack_ref(chunk, m)),
-        library="torch.mul, broadcast over a transposed view (one call)",
-        library_ms=median_ms(torch, lambda: torch.mul(chunk.mT.unsqueeze(-2), m)),
-    ))
-    rows[-1]["bound_ms"], rows[-1]["bound_by"] = bound(flops, nbytes, cm)
-    del block, chunk, m
+        check(ok, f"{PACK} (fresh) disagrees with its plain version ({label})")
+        for acc_label, acc in accs.items():
+            if acc_label == "slot" and label != "received":
+                continue
+            out = acc.clone()
+            check(fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out) is out, f"{PACK} did not return out")
+            err, ok = compare(out, acc.clone().add_(exp), PACK_RTOL, PACK_ATOL)
+            errs["accumulate"] = max(errs["accumulate"], err)
+            print(f"kernel {PACK} accumulate {(r, c)}x{P} ({label}, {acc_label} accumulator): "
+                  f"max_abs_err={err:.3e} (tol rtol={PACK_RTOL} atol={PACK_ATOL}) {'ok' if ok else 'MISMATCH'}",
+                  flush=True)
+            check(ok, f"{PACK} (accumulate) disagrees with its plain version ({label}, {acc_label})")
+        del got, exp, out
+    chunk, out = chunks["received"], acc0.clone()
 
+    def pack(acc=None, ch=chunk):
+        return fft_stage.chunk_twiddle_pack_c64(ch, m, out=acc)
+
+    times = {mode: {label: median_ms(torch, lambda: pack(ch=ch, acc=None if mode == "fresh" else out))
+                    for label, ch in chunks.items()} for mode in PACK_MODES}
+    times["accumulate"]["received, slot accumulator"] = median_ms(torch, lambda: pack(acc=accs["slot"]))
+    yardsticks = {
+        "fresh": ("torch.mul, broadcast over a transposed view (one call)",
+                  lambda: torch.mul(chunk.mT.unsqueeze(-2), m), lambda: ref.chunk_twiddle_pack_ref(chunk, m)),
+        "accumulate": ("Tensor.addcmul_, broadcast over a transposed view (one call)",
+                       lambda: out.addcmul_(chunk.mT.unsqueeze(-2), m),
+                       lambda: ref.chunk_twiddle_pack_ref(chunk, m, out=out)),
+    }
+    for mode in PACK_MODES:
+        library, lib_fn, plain_fn = yardsticks[mode]
+        ms_bound, by = pack_bound(1, r, c, P, mode, cm)
+        rows.append(dict(
+            name=PACK if mode == "fresh" else f"{PACK} {mode}", mode=mode, route="cuda", source="src/repro_torch/kernels/csrc/fft_stage.cu",
+            replaces="src/repro/kernels/fft_stage.py:171", shape=[1, r, c, P], max_abs_err=errs[mode],
+            ms=times[mode]["received"], ms_by_chunk=times[mode], plain_ms=median_ms(torch, plain_fn),
+            library=library, library_ms=median_ms(torch, lib_fn), bound_ms=ms_bound, bound_by=by,
+        ))
+    # an arrival's work for a chunk_fn without out: a fresh pack, then the add
+    rows[-1]["pair"] = "the fresh pack then Tensor.add_"
+    rows[-1]["pair_ms"] = median_ms(torch, lambda: out.add_(pack()))
+    del block, chunks, chunk, m, acc0, accs, wide, out
     # the pair as fft_last_axis (the LocalFFT of the main path) vs the library FFT;
     # its glue is its time minus the two stage kernels' at the same shapes
     x = crand(N // P, N)
@@ -296,6 +362,10 @@ def kernel_phase(torch, g, fft_stage, ref, ops, lf, cm):
         extra = (f" bound_fp32_ms={row['bound_fp32_ms']:.4f} ({row['bound_fp32_by']}, fp32 CUDA cores) "
                  f"second pass ms={row['ms_second_pass']:.4f} library_ms={row['library_ms_second_pass']:.4f}"
                  if "bound_fp32_ms" in row else "")
+        if "ms_by_chunk" in row:
+            extra = " by chunk " + ", ".join(f"{k} {v:.4f}" for k, v in row["ms_by_chunk"].items())
+            if "pair_ms" in row:
+                extra += f"; pair ({row['pair']}) ms={row['pair_ms']:.4f}"
         print(f"kernel {row['name']} {tuple(row['shape'])}: ms={row['ms']:.4f} plain_ms={row['plain_ms']:.4f} "
               f"library_ms={row['library_ms']:.4f} ({row['library']}) bound_ms={row['bound_ms']:.4f} "
               f"({row['bound_by']}, {row.get('bound_units', 'fp32 CUDA cores')}){extra}", flush=True)
@@ -325,8 +395,14 @@ def main_path(torch, seed, fft_stage, plan_fft, SimMesh):
     t0 = time.perf_counter()
     y, launches, peak = counted(torch, fft_stage, "main", lambda: plan.execute(x))
     first_s = time.perf_counter() - t0
+    shapes = launch_shapes(fft_stage)
     print(f"main path: {plan!r} fused={plan.fused} first execute {first_s * 1e3:.1f} ms, "
           f"launches {launches}, peak memory {peak:.2f} GiB", flush=True)
+    print_shapes("main path", shapes)
+    # one fused exchange: each rank's own chunk writes its accumulator, the
+    # P - 1 arriving chunks add into it
+    check(launches[f"{PACK} fresh"] == P and launches[f"{PACK} accumulate"] == P * (P - 1),
+          f"the fused exchange did not pack {P} own chunks fresh and {P * (P - 1)} arrivals accumulating")
 
     oracle = torch.fft.fft2(x).mT
     scale = oracle.abs().max().item()
@@ -356,7 +432,7 @@ def main_path(torch, seed, fft_stage, plan_fft, SimMesh):
     print(f"main path timing: plan.execute scatter fused {ms_scatter:.2f} ms, alltoall unfused "
           f"{ms_a2a:.2f} ms, torch.fft.fft2 {ms_lib:.2f} ms (median of 3 / 3 / 5), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches, ms_scatter
+    return launches, shapes, ms_scatter
 
 
 def poisson_oracle(torch, f):
@@ -379,6 +455,7 @@ def real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson):
     plan = plan_fft((N, N), SimMesh(P), real=True, backend="scatter", local_impl="kernel")
     check(plan.fused and plan.real, "the real scatter plan did not resolve to the fused r2c pipeline")
     u, launches, peak = counted(torch, fft_stage, "real Poisson", lambda: solve_poisson(f, plan))
+    shapes = launch_shapes(fft_stage)
     print(f"real Poisson: {plan!r} fused={plan.fused} H={plan.hermitian_len} Hp={plan.padded_hermitian_len}, "
           f"launches {launches}, peak memory {peak:.2f} GiB", flush=True)
     check(tuple(u.shape) == (N, N) and u.dtype == torch.float32 and bool(torch.isfinite(u).all()),
@@ -408,7 +485,8 @@ def real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson):
     print(f"real Poisson timing: plan.execute (rfft2) {ms:.2f} ms, plan.inverse (irfft2) {ms_inv:.2f} ms, "
           f"solve_poisson {ms_solve:.2f} ms (median of 3), torch.fft.rfft2 {ms_lib:.2f} ms (median of 5), "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches
+    print_shapes("real Poisson", shapes)
+    return launches, shapes
 
 
 def rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh):
@@ -416,6 +494,7 @@ def rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh):
     x = cube_input(torch, seed)
     plan = plan_fft(tuple(x.shape), SimMesh(P), ndim=3, real=True, backend="scatter", local_impl="kernel")
     y, launches, peak = counted(torch, fft_stage, "rfft3", lambda: plan.execute(x))
+    shapes = launch_shapes(fft_stage)
     print(f"rfft3: {plan!r} fused={plan.fused} Hp={plan.padded_hermitian_len}, launches {launches}, "
           f"peak memory {peak:.2f} GiB", flush=True)
     check(tuple(y.shape) == (N3, N3, N3 // 2 + 1), "rfft3 output has the wrong shape")
@@ -431,7 +510,8 @@ def rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh):
     ms_lib = median_ms(torch, lambda: torch.fft.rfftn(x), reps=5)
     print(f"rfft3 timing: plan.execute {ms:.2f} ms (median of 3), torch.fft.rfftn {ms_lib:.2f} ms "
           f"(median of 5), peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
-    return launches, ms
+    print_shapes("rfft3", shapes)
+    return launches, shapes, ms
 
 
 def launch_shapes(fft_stage) -> dict:
@@ -450,35 +530,42 @@ def check_peak(label: str, peak: float, what: str) -> None:
     check(peak < PEAK_LIMIT_GIB, f"{label} peaked at {peak:.2f} GiB, over {PEAK_LIMIT_GIB} GiB")
 
 
-def time_launch_shapes(torch, g, fft_stage, ref, lf, cm, label: str, shapes: dict) -> None:
-    """Each kernel once at every shape of ``shapes`` that phase 3 did not
-    time: held against its plain version on random inputs, then kernel
-    and plain timed (CUDA events, median of 5) beside the bound."""
+def time_launch_shapes(torch, g, fft_stage, ref, lf, cm, label: str, shapes: dict, done: set) -> None:
+    """Each kernel once at every shape of ``shapes`` not in ``done`` (the
+    (kernel, shape) pairs timed already, phase 3's included; the new ones
+    are added): held against its plain version on random inputs, then
+    kernel and plain timed (CUDA events, median of 5) beside the bound.
+    A pack shape carries its mode and chunk layout."""
     def crand(*shape):
         return torch.randn(shape, dtype=torch.complex64, device="cuda", generator=g)
 
     for name, by_shape in shapes.items():
-        for shape in sorted(set(by_shape) - KERNEL_PHASE_SHAPES[name]):
+        for shape in sorted(set(by_shape) - {s for n, s in done if n == name}):
+            done.add((name, shape))
             if name == "stage_left":
                 b, m, k, n = shape
                 w, a, t = lf.dft_matrix(m, device="cuda"), crand(b, k, n), lf.twiddle(m, n, device="cuda")
                 run, plain = (lambda: fft_stage.stage_left_c64(w, a, t)), (lambda: ref.stage_left_c64_ref(w, a, t))
                 flops, nbytes = 8.0 * b * m * k * n + 6.0 * b * m * n, 8.0 * (m * k + b * k * n + m * n + b * m * n)
                 tol, (ms_bound, by) = (STAGE_RTOL, STAGE_ATOL), bound(3 * flops, nbytes, cm, cm.PEAK_FLOPS_TF32)
+                check_pair = (run, plain)
             elif name == "stage_right":
                 b, m, k, n = shape
                 a, w = crand(b, m, k), lf.dft_matrix(n, device="cuda")
                 run, plain = (lambda: fft_stage.stage_right_c64(a, w)), (lambda: ref.stage_right_c64_ref(a, w))
                 flops, nbytes = 8.0 * b * m * k * n, 8.0 * (b * m * k + n * k + b * m * n)
                 tol, (ms_bound, by) = (STAGE_RTOL, STAGE_ATOL), bound(3 * flops, nbytes, cm, cm.PEAK_FLOPS_TF32)
+                check_pair = (run, plain)
             else:
-                b, rows, c, p = shape
-                chunk, m = crand(b, rows, c), crand(p, rows)
-                run = lambda: fft_stage.chunk_twiddle_pack_c64(chunk, m)  # noqa: E731
-                plain = lambda: ref.chunk_twiddle_pack_ref(chunk, m)  # noqa: E731
-                flops, nbytes = 6.0 * b * rows * c * p, 8.0 * (b * rows * c + p * rows + b * c * p * rows)
-                tol, (ms_bound, by) = (PACK_RTOL, PACK_ATOL), bound(flops, nbytes, cm)
-            got, exp = torch.view_as_real(run()), torch.view_as_real(plain())
+                b, rows, c, p, mode, unit = shape
+                chunk = crand(b, rows, c) if unit == "cols" else crand(b, c, rows).mT
+                m, acc = crand(p, rows), (crand(b, c, p, rows) if mode == "accumulate" else None)
+                out = None if acc is None else acc.clone()
+                run = lambda: fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out)  # noqa: E731
+                plain = lambda: ref.chunk_twiddle_pack_ref(chunk, m, out=out)  # noqa: E731
+                check_pair = (run, lambda: ref.chunk_twiddle_pack_ref(chunk, m, out=None if acc is None else acc.clone()))
+                tol, (ms_bound, by) = (PACK_RTOL, PACK_ATOL), pack_bound(b, rows, c, p, mode, cm)
+            got, exp = (torch.view_as_real(fn()) for fn in check_pair)
             err = (got - exp).abs().max().item()
             ok = torch.allclose(got, exp, rtol=tol[0], atol=tol[1])
             del got, exp
@@ -487,7 +574,7 @@ def time_launch_shapes(torch, g, fft_stage, ref, lf, cm, label: str, shapes: dic
                   f"(tol rtol={tol[0]} atol={tol[1]}) {'ok' if ok else 'MISMATCH'} ms={ms:.4f} "
                   f"plain_ms={plain_ms:.4f} bound_ms={ms_bound:.4f} ({by})", flush=True)
             check(ok, f"{name} disagrees with its plain version at {shape}")
-            del run, plain
+            del run, plain, check_pair
             torch.cuda.empty_cache()
 
 
@@ -688,13 +775,21 @@ def main(argv=None) -> int:
     g.manual_seed(args.seed)
     rows = kernel_phase(torch, g, fft_stage, ref, ops, lf, cm)
     torch.cuda.empty_cache()
-    launches, slab_ms = main_path(torch, args.seed, fft_stage, plan_fft, SimMesh)
+    done = {(name, shape) for name, shapes in KERNEL_PHASE_SHAPES.items() for shape in shapes}
+
+    def time_shapes(label, shapes):
+        time_launch_shapes(torch, g, fft_stage, ref, lf, cm, label, shapes, done)
+
+    launches, shapes, slab_ms = main_path(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
+    time_shapes("c2c main", shapes)
     by_path = {"c2c_main_path": launches}
-    by_path["real_poisson"] = real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson)
+    by_path["real_poisson"], shapes = real_poisson(torch, g, fft_stage, plan_fft, SimMesh, solve_poisson)
     torch.cuda.empty_cache()
-    by_path["rfft3"], slab_rfft3_ms = rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
+    time_shapes("real Poisson", shapes)
+    by_path["rfft3"], shapes, slab_rfft3_ms = rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
+    time_shapes("rfft3", shapes)
     nccl = nccl_phase(torch, args.seed)
     by_path["nccl_c2c"] = nccl["c2c main path scatter pipeline=auto"]["launches"]
     by_path["nccl_real_poisson"] = nccl["real Poisson scatter pipeline=auto"]["launches"]
@@ -703,13 +798,14 @@ def main(argv=None) -> int:
         "launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
-    time_launch_shapes(torch, g, fft_stage, ref, lf, cm, "pencil c2c", shapes)
+    time_shapes("pencil c2c", shapes)
     by_path["pencil_rfft3"], shapes = pencil_rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_rfft3_ms)
     torch.cuda.empty_cache()
-    time_launch_shapes(torch, g, fft_stage, ref, lf, cm, "pencil rfft3", shapes)
-    for row in rows:
-        row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = {path: counts[row["name"]] for path, counts in by_path.items()}
+    time_shapes("pencil rfft3", shapes)
+    for row in rows:  # the pack's rows count their own mode's launches
+        key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
+        row["launches"] = launches[key]
+        row["launches_by_path"] = {path: counts[key] for path, counts in by_path.items()}
 
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)

@@ -55,7 +55,9 @@ class CollectiveBackend:
                       n_chunks: Optional[int] = None) -> Blocks:
         """Streaming exchange-and-accumulate over this backend's own
         schedule (:func:`repro_torch.core.transpose._chunked_reduce`) --
-        the hook the fused transpose+FFT stage rides."""
+        the hook the fused transpose+FFT stage rides. A ``chunk_fn`` with
+        a keyword-only ``out`` accumulates each arrival into its slot of
+        the own chunk's result (see :data:`~repro_torch.core.transpose.ChunkFn`)."""
         raise NotImplementedError(
             f"backend {self.name!r} is not chunk-streaming; fused stages "
             f"need a backend with supports_chunk_fn"

@@ -69,6 +69,13 @@ Strategy = str
 #: pipelining it then receives each (..., c, r/q) piece as it arrives,
 #: with ``offset`` the starting index within the source block's r rows.
 #: Two-argument chunk_fns are only ever handed whole peer blocks.
+#:
+#: The streaming reduce (:func:`_chunked_reduce`) also takes a chunk_fn
+#: with a keyword-only ``out`` parameter, ``(chunk, src, offset, *,
+#: out=None)`` -- the signal is that parameter in its signature (found
+#: by :func:`inspect.signature`; ``**kwargs`` does not count). Such a
+#: chunk_fn returns a fresh result when ``out`` is None and otherwise
+#: ADDS its result into ``out`` (a slot of the accumulator) in place.
 ChunkFn = Callable[..., torch.Tensor]
 
 
@@ -128,6 +135,16 @@ def _chunk_fn_arity(fn: ChunkFn) -> int:
         ):
             n += 1
     return 3 if n >= 3 else 2
+
+
+def _chunk_fn_accumulates(fn: ChunkFn) -> bool:
+    """Whether ``fn`` takes a keyword-only ``out`` to accumulate into
+    (see :data:`ChunkFn`)."""
+    try:
+        prm = inspect.signature(fn).parameters.get("out")
+    except (TypeError, ValueError):  # builtins / exotic callables
+        return False
+    return prm is not None and prm.kind == inspect.Parameter.KEYWORD_ONLY
 
 
 def _call_chunk_fn(fn: ChunkFn, arity: int, chunk, src, offset: int):
@@ -259,9 +276,18 @@ def _chunked_reduce(
     received piece (..., rows, c) -- rows ``[offset, offset + rows)`` of
     source ``src``'s block -- and returns a fresh tensor whose LAST axis
     is that source-row axis. Results sum over sources at equal offsets
-    (accumulated in place, which keeps one accumulator per sub-chunk
-    alive instead of one per arrival) and concatenate along the last
-    axis across offsets."""
+    and concatenate along the last axis across offsets.
+
+    A chunk_fn with a keyword-only ``out`` (see :data:`ChunkFn`) is
+    handed the own chunk whole (offset 0, no message, so nothing to
+    pipeline): its fresh (..., r) result is the accumulator, and each
+    arriving sub-chunk is added into its column slot
+    ``acc[..., offset : offset + rows]`` through ``out=`` -- no
+    per-arrival temporary, no zero fill, no concatenation. Any other
+    chunk_fn gets every piece, the own chunk's too, and its fresh results
+    are summed in place (one accumulator per sub-chunk, concatenated at
+    the end). The sum's order is the same either way: the own chunk's
+    term, then each arrival's in posting order."""
     p = mesh.axis_size(axis_name)
     ranks = mesh.local_ranks()
     r = xs[0].shape[-2]
@@ -270,9 +296,17 @@ def _chunked_reduce(
     rq = r // q
     posted = _post_rounds(chunks, mesh, schedule, p, q, rq)
 
-    def call(me: int, piece: torch.Tensor, src: int, offset: int) -> torch.Tensor:
+    def call(me: int, piece: torch.Tensor, src: int, offset: int, **kw) -> torch.Tensor:
         with mesh.running(me):
-            return chunk_fn(piece, src, offset)
+            return chunk_fn(piece, src, offset, **kw)
+
+    if _chunk_fn_accumulates(chunk_fn):
+        accs = [call(me, chunks[i][me], me, 0) for i, me in enumerate(ranks)]
+        for srcs, t, pending in posted:
+            recv = pending.wait()
+            for i, me in enumerate(ranks):
+                call(me, recv[i], srcs[i], t * rq, out=accs[i][..., t * rq : (t + 1) * rq])
+        return accs
 
     parts = [
         [call(me, chunks[i][me][..., t * rq : (t + 1) * rq, :], me, t * rq) for t in range(q)]
@@ -449,7 +483,8 @@ def transpose_then_fft(
     The inner sum streams through :func:`_chunked_reduce`: each arriving
     chunk's contribution is a rank-1 outer product with one W_P column
     (times the elementwise twiddle) -- with ``impl="kernel"`` and
-    complex64 data, one :func:`chunk_twiddle_pack_c64` launch per chunk.
+    complex64 data, one :func:`chunk_twiddle_pack_c64` launch per chunk:
+    the own chunk's writes the accumulator, each arrival's adds into it.
     After the exchange only a *local* length-r FFT and the k-order
     relayout remain. The same identity conjugated gives the inverse
     transform (tables conjugate; the trailing local FFT carries 1/r and
@@ -484,20 +519,21 @@ def transpose_then_fft(
 
     use_kernel = impl == "kernel" and cdtype == torch.complex64
 
-    def chunk_fn(chunk: torch.Tensor, src: int, offset: int) -> torch.Tensor:
-        # chunk (..., rows, c) = rows [offset, offset+rows) of src's block.
+    def chunk_fn(chunk: torch.Tensor, src: int, offset: int, *, out=None) -> torch.Tensor:
+        # chunk (..., rows, c) = rows [offset, offset+rows) of src's block;
+        # the result (..., c, k1=p, j2=rows) is fresh, or added into out.
         rows = chunk.shape[-2]
         m = w_p[:, src, None] * tw[:, offset : offset + rows]  # (k1, j2) for this piece
         if use_kernel:
             from repro_torch.kernels import fft_stage
 
-            # the kernel reads rows with their stride but needs unit-stride
-            # columns: the own chunk of a transposed block (the pencil
-            # fft2's swap_last2) is copied first
-            return fft_stage.chunk_twiddle_pack_c64(chunk if chunk.stride(-1) == 1 else chunk.contiguous(), m)
+            # one launch, fresh or accumulating; the kernel takes the
+            # chunk unit-stride along either axis (the own chunk of the
+            # pencil fft2's swap_last2-transposed block: along its rows)
+            return fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out)
         from repro_torch.kernels import ref
 
-        return ref.chunk_twiddle_pack_ref(chunk, m)  # (..., c, k1=p, j2=rows)
+        return ref.chunk_twiddle_pack_ref(chunk, m, out=out)
 
     acc = backend.stream_reduce([x.to(cdtype) for x in xs], mesh, axis_name, chunk_fn, n_chunks=n_chunks)
     for i in range(len(acc)):

@@ -10,7 +10,8 @@
 //             (stage_right, pallas_call at :214): out[b] = A[b] @ W^T
 // chunk_twiddle_pack_c64 replaces _chunk_twiddle_pack_kernel
 //             (chunk_twiddle_pack_c64, pallas_call at :171):
-//             out[b, j, k, t] = chunk[b, t, j] * m[k, t]
+//             out[b, j, k, t] = chunk[b, t, j] * m[k, t], or, in its
+//             accumulate mode, out[b, j, k, t] += chunk[b, t, j] * m[k, t]
 //
 // Both stages are complex GEMMs on the tensor cores in 3xTF32:
 // mma.sync.m16n8k8 TF32, each fp32 operand split as big = tf32(x) (round
@@ -70,10 +71,32 @@
 //   the final transpose costs nothing.
 //
 // chunk_twiddle_pack is a transpose plus p complex multiplies per
-// element, bound by bytes (main path: chunk (4096, 4096) c64 read, out
-// (4096, 4, 4096) written: 640 MiB, 0.2 ms at 3.35 TB/s). A 32x32
-// shared-memory tile makes both the chunk reads and the out writes
-// coalesced.
+// element (6 FLOPs per output, 8 accumulating: ~6 us at the fp32 peak),
+// so both modes are bound by bytes. At the main path (chunk (4096, 4096)
+// c64, p = 4, out (4096, 4, 4096)): fresh mode reads the chunk and
+// writes out, 640 MiB, 0.200 ms at 3.35 TB/s; accumulate mode -- the
+// fused exchange's per-arrival sum, which before was this kernel into a
+// fresh tensor and then an add_ (1.5 GiB more) -- also reads out:
+// 1.13 GiB, 0.361 ms. Design:
+//   - out is written along t in 16-byte runs (two complex64 a thread, a
+//     warp 512 contiguous bytes of one (j, k) row), and read the same
+//     way in accumulate mode, all of a thread's accumulator loads for
+//     one k issued before its first store;
+//   - m[k, t..t+1] is loaded once per k and used for all of the
+//     thread's columns (it was re-read for every (j, k));
+//   - a chunk unit-stride along j is staged through a 64 x 32 smem tile
+//     (rows permuted so each thread's two rows sit 32 smem rows apart:
+//     conflict-free with an odd row stride); a chunk unit-stride along t
+//     (a transposed block's own chunk) is read straight along t, no
+//     tile, no copy;
+//   - tiles wholly inside the chunk take a body with no masks and no
+//     alignment branches; <= 64 registers keep 4 blocks on an SM;
+//   - any strides: the chunk's row (or column) and batch strides, out's
+//     batch, column and k strides (a sub-chunk's slot of a wider
+//     accumulator); a persistent loop over the batch.
+// Of these, the 16-byte runs and loading m once per k made accumulate
+// mode fast; fresh mode was already at ~83 % of its byte bound in the
+// original 32 x 32 tile (CUDA events; PERF.md).
 //
 // Every kernel masks ragged M, K and columns; K is zero-padded to the
 // MMA depth in shared memory.
@@ -456,37 +479,161 @@ cudaError_t launch_right(const float2* a, const float2* w, float2* out, long lon
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
 // ---- chunk_twiddle_pack ------------------------------------------------------
+//
+// out[b, j, k, t] (+)= chunk[b, t, j] * m[k, t]. A block owns a tile of
+// PACK_T = 64 rows t by PACK_J = 32 columns j of one batch entry; lane l
+// of warp w takes the two adjacent rows t0 + 2l, t0 + 2l + 1 and the
+// PACK_JPT columns j0 + w + 8i. Each thread's stores run along t, so a
+// warp writes 512 contiguous bytes of one (j, k) row, one 16-byte store a
+// thread.
 
-__global__ void chunk_twiddle_pack(const float2* __restrict__ chunk,
-                                   const float2* __restrict__ m,
-                                   float2* __restrict__ out, long long B,
-                                   int rows, int c, int p, long long sb,
-                                   long long sr) {
-  __shared__ float2 tile[32][33];
-  const int t0 = blockIdx.x * 32, j0 = blockIdx.y * 32;
-  for (long long b = blockIdx.z; b < B; b += gridDim.z) {
-    // read chunk[b, t, j]: consecutive threads walk j (coalesced)
+constexpr int PACK_THREADS = 256;
+constexpr int PACK_WARPS = PACK_THREADS / 32;  // warps, side by side along j
+constexpr int PACK_JPT = 4;                    // columns a thread
+constexpr int PACK_T = 64;                     // rows t of a tile, two a lane
+constexpr int PACK_J = PACK_WARPS * PACK_JPT;  // columns j of a tile
+constexpr int PACK_S = PACK_J + 1;  // odd smem row stride: a warp's column reads hit 32 banks
+
+struct Run {  // two adjacent complex64 values along t
+  float2 e[2];
+};
+
+// p[0..2) (n of them valid): one 16-byte access where vec says p is
+// 16-byte aligned, element by element otherwise
+__device__ __forceinline__ Run load_run(const float2* p, int n, bool vec) {
+  Run r;
+  if (vec && n >= 2) {
+    const float4 q = *reinterpret_cast<const float4*>(p);
+    r.e[0] = make_float2(q.x, q.y);
+    r.e[1] = make_float2(q.z, q.w);
+  } else {
 #pragma unroll
-    for (int s = 0; s < 32; s += 8) {
-      const int t = t0 + threadIdx.y + s, j = j0 + threadIdx.x;
-      if (t < rows && j < c) tile[threadIdx.y + s][threadIdx.x] = chunk[b * sb + t * sr + j];
-    }
-    __syncthreads();
-    // write out[b, j, k, t]: consecutive threads walk t (coalesced)
-#pragma unroll
-    for (int s = 0; s < 32; s += 8) {
-      const int j = j0 + threadIdx.y + s, t = t0 + threadIdx.x;
-      if (j < c && t < rows) {
-        const float2 v = tile[threadIdx.x][threadIdx.y + s];
-        float2* o = out + ((b * c + j) * p) * (long long)rows + t;
-        for (int k = 0; k < p; ++k) {
-          const float2 w = m[(long long)k * rows + t];
-          o[(long long)k * rows] = make_float2(v.x * w.x - v.y * w.y, v.x * w.y + v.y * w.x);
-        }
-      }
-    }
-    __syncthreads();
+    for (int s = 0; s < 2; ++s) r.e[s] = s < n ? p[s] : make_float2(0.f, 0.f);
   }
+  return r;
+}
+
+__device__ __forceinline__ void store_run(float2* p, const Run& r, int n, bool vec) {
+  if (vec && n >= 2) {
+    *reinterpret_cast<float4*>(p) = make_float4(r.e[0].x, r.e[0].y, r.e[1].x, r.e[1].y);
+  } else {
+#pragma unroll
+    for (int s = 0; s < 2; ++s)
+      if (s < n) p[s] = r.e[s];
+  }
+}
+
+// One batch entry of one tile. FULL: the tile lies wholly inside the
+// chunk and every run is 16-byte aligned, so the body has no masks and no
+// alignment branches (the edge tiles take FULL = false).
+template <bool ACC, bool ROWS, bool FULL>
+__device__ __forceinline__ void pack_tile(const float2* __restrict__ chunk, const float2* __restrict__ m,
+                                          float2* __restrict__ o, float2* tile, int rows, int c, int p,
+                                          long long cs, long long oj, long long ok, int t0, int jt,
+                                          bool vec_in, bool vec_m, bool vec_out) {
+  const int warp = threadIdx.x >> 5, u = threadIdx.x & 31;
+  const int t = t0 + 2 * u, j0 = jt + warp;  // this thread's first row and column
+  const int nt = FULL ? 2 : rows - t;
+  const bool vi = FULL || vec_in, vm = FULL || vec_m, vo = FULL || vec_out;
+  auto n_at = [&](int j) { return FULL || j < c ? nt : 0; };
+  Run v[PACK_JPT];
+  if (ROWS) {  // chunk[:, j] is unit-stride along t: read straight, no transpose
+#pragma unroll
+    for (int i = 0; i < PACK_JPT; ++i) {
+      const int j = j0 + PACK_WARPS * i;
+      v[i] = load_run(chunk + j * cs + t, n_at(j), vi);
+    }
+  } else {
+    // stage chunk[t0:t0+T, j-tile] reading along j (coalesced); tile row
+    // tl lands in smem row (tl % 2)*(T/2) + tl/2, so this thread's two
+    // rows are smem rows u and u + T/2
+    for (int e = threadIdx.x; e < PACK_T * PACK_J; e += PACK_THREADS) {
+      const int tl = e / PACK_J, jl = e - tl * PACK_J, tt = t0 + tl, j = jt + jl;
+      tile[((tl % 2) * (PACK_T / 2) + tl / 2) * PACK_S + jl] =
+          FULL || (tt < rows && j < c) ? chunk[tt * cs + j] : make_float2(0.f, 0.f);
+    }
+    __syncthreads();
+#pragma unroll
+    for (int i = 0; i < PACK_JPT; ++i)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) v[i].e[s] = tile[(s * (PACK_T / 2) + u) * PACK_S + warp + PACK_WARPS * i];
+    __syncthreads();  // the tile is free for the next batch entry
+  }
+  if (nt <= 0) return;
+  o += t;
+  // m[k, t..t+2) once per k; in ACC mode every accumulator load of the k
+  // is issued before the first multiply
+  for (int k = 0; k < p; ++k) {
+    const Run w = load_run(m + (long long)k * rows + t, nt, vm);
+    Run r[PACK_JPT];
+#pragma unroll
+    for (int i = 0; i < PACK_JPT; ++i) {
+      const int j = j0 + PACK_WARPS * i;
+      if (ACC) r[i] = load_run(o + j * oj + k * ok, n_at(j), vo);
+    }
+#pragma unroll
+    for (int i = 0; i < PACK_JPT; ++i)
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        const float2 x = cmul(v[i].e[s], w.e[s]);
+        r[i].e[s] = ACC ? make_float2(r[i].e[s].x + x.x, r[i].e[s].y + x.y) : x;
+      }
+#pragma unroll
+    for (int i = 0; i < PACK_JPT; ++i) {
+      const int j = j0 + PACK_WARPS * i;
+      if (FULL || j < c) store_run(o + j * oj + k * ok, r[i], nt, vo);
+    }
+  }
+}
+
+// flags: bit 0 the chunk's runs along t are 16-byte aligned (ROWS only),
+// bit 1 m's, bit 2 out's. Four blocks an SM: at most 64 registers.
+template <bool ACC, bool ROWS>
+__global__ void __launch_bounds__(PACK_THREADS, 4)
+chunk_twiddle_pack(const float2* __restrict__ chunk, const float2* __restrict__ m,
+                   float2* __restrict__ out, long long B, int rows, int c, int p,
+                   long long cb, long long cs, long long ob, long long oj, long long ok, int flags) {
+  __shared__ float2 tile[ROWS ? 1 : PACK_T * PACK_S];
+  const bool vec_in = flags & 1, vec_m = flags & 2, vec_out = flags & 4;
+  const int t0 = blockIdx.x * PACK_T, jt = blockIdx.y * PACK_J;
+  const bool full = t0 + PACK_T <= rows && jt + PACK_J <= c && vec_m && vec_out && (vec_in || !ROWS);
+  for (long long b = blockIdx.z; b < B; b += gridDim.z) {
+    if (full)
+      pack_tile<ACC, ROWS, true>(chunk + b * cb, m, out + b * ob, tile, rows, c, p, cs, oj, ok, t0, jt,
+                                 vec_in, vec_m, vec_out);
+    else
+      pack_tile<ACC, ROWS, false>(chunk + b * cb, m, out + b * ob, tile, rows, c, p, cs, oj, ok, t0, jt,
+                                  vec_in, vec_m, vec_out);
+  }
+}
+
+struct PackArgs {
+  const float2* chunk;
+  const float2* m;
+  float2* out;
+  long long B;
+  int rows, c, p;
+  long long cb, cs, ob, oj, ok;
+};
+
+template <bool ACC, bool ROWS>
+cudaError_t launch_pack(const PackArgs& a, cudaStream_t stream) {
+  const long long gx = (a.rows + PACK_T - 1) / PACK_T, gy = (a.c + PACK_J - 1) / PACK_J;
+  if (gx > 2147483647LL || gy > 65535) return cudaErrorInvalidConfiguration;
+  const unsigned gz = (unsigned)(a.B < 65535 ? a.B : 65535);
+  // 16-byte runs need even strides along the run's neighbours and aligned bases
+  const bool even_m = a.rows % 2 == 0, even_in = a.cb % 2 == 0 && a.cs % 2 == 0;
+  const bool even_out = a.ob % 2 == 0 && a.oj % 2 == 0 && a.ok % 2 == 0;
+  const int flags = (ROWS && even_in && aligned16(a.chunk) ? 1 : 0) | (even_m && aligned16(a.m) ? 2 : 0) |
+                    (even_out && aligned16(a.out) ? 4 : 0);
+  chunk_twiddle_pack<ACC, ROWS><<<dim3((unsigned)gx, (unsigned)gy, gz), PACK_THREADS, 0, stream>>>(
+      a.chunk, a.m, a.out, a.B, a.rows, a.c, a.p, a.cb, a.cs, a.ob, a.oj, a.ok, flags);
+  return cudaGetLastError();
+}
+
+template <bool ROWS>
+cudaError_t launch_pack(const PackArgs& a, bool acc, cudaStream_t stream) {
+  return acc ? launch_pack<true, ROWS>(a, stream) : launch_pack<false, ROWS>(a, stream);
 }
 
 }  // namespace
@@ -528,18 +675,20 @@ int stage_right_c64(const void* a, const void* w, void* out, long long B, int M,
   return (int)launch_right<4, 2>(ap, wp, op, rows, M, K, N, vec2, s);
 }
 
-// out[b, j, k, t] = chunk[b, t, j] * m[k, t]; chunk (B, rows, c) with
-// element strides (sb, sr, 1), m (p, rows), out (B, c, p, rows) contiguous.
-int chunk_twiddle_pack_c64(const void* chunk, const void* m, void* out,
-                           long long B, int rows, int c, int p, long long sb,
-                           long long sr, void* stream) {
+// out[b, j, k, t] (+)= chunk[b, t, j] * m[k, t], complex64: chunk (B, rows, c)
+// with batch stride cb and, along its non-unit axis, stride cs -- the row
+// stride when its columns are unit-stride (rows_unit = 0), the column
+// stride when its rows are (rows_unit = 1); m (p, rows) contiguous; out
+// (B, c, p, rows) with element strides (ob, oj, ok, 1). accumulate = 0
+// writes out, 1 adds to it.
+int chunk_twiddle_pack_c64(const void* chunk, const void* m, void* out, int accumulate, int rows_unit,
+                           long long B, int rows, int c, int p, long long cb, long long cs, long long ob,
+                           long long oj, long long ok, void* stream) {
   if (B <= 0 || rows <= 0 || c <= 0 || p <= 0) return (int)cudaSuccess;
-  const dim3 block(32, 8);
-  const long long gz = B < 65535 ? B : 65535;
-  const dim3 grid((rows + 31) / 32, (c + 31) / 32, (unsigned)gz);
-  chunk_twiddle_pack<<<grid, block, 0, (cudaStream_t)stream>>>(
-      (const float2*)chunk, (const float2*)m, (float2*)out, B, rows, c, p, sb, sr);
-  return (int)cudaGetLastError();
+  const PackArgs a{(const float2*)chunk, (const float2*)m, (float2*)out, B, rows, c, p, cb, cs, ob, oj, ok};
+  const bool acc = accumulate != 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  return (int)(rows_unit ? launch_pack<true>(a, acc, s) : launch_pack<false>(a, acc, s));
 }
 
 const char* fft_stage_error_string(int err) {

@@ -11,7 +11,8 @@ on interleaved complex64 operands (:func:`stage_left_c64`,
 :func:`stage_left` and :func:`stage_right` keep the reference's planar
 (re, im) signatures and pack around the same kernels), and
 :func:`chunk_twiddle_pack_c64` is the fused exchange's per-chunk
-callback (relayout + W_P-column x twiddle multiply in one launch).
+callback (relayout + W_P-column x twiddle multiply in one launch, into
+a fresh tensor or added to an accumulator).
 
 Each wrapper takes the plain PyTorch version (:mod:`.ref`) for tensors
 on the CPU. For CUDA tensors it launches its kernel or raises: it
@@ -28,7 +29,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -39,8 +40,10 @@ Planar = Tuple[torch.Tensor, torch.Tensor]
 #: kernel name -> launches since the last :func:`reset_launches`
 LAUNCHES: Dict[str, int] = {"stage_left": 0, "stage_right": 0, "chunk_twiddle_pack_c64": 0}
 #: kernel name -> {launch shape: launches} since the last :func:`reset_launches`;
-#: the shape is (B, M, K, N) for the stages, (B, rows, c, p) for the pack
-SHAPES: Dict[str, Dict[Tuple[int, ...], int]] = {name: {} for name in LAUNCHES}
+#: the shape is (B, M, K, N) for the stages, (B, rows, c, p, mode, layout) for
+#: the pack: mode "fresh" or "accumulate" (``out=``), layout "cols" or "rows"
+#: (the chunk's unit-stride axis)
+SHAPES: Dict[str, Dict[tuple, int]] = {name: {} for name in LAUNCHES}
 
 
 def reset_launches() -> None:
@@ -57,7 +60,7 @@ def _lib() -> ctypes.CDLL:
     lib.stage_left_c64.restype = i32
     lib.stage_right_c64.argtypes = [ptr] * 3 + [i64, i32, i32, i32, ptr]
     lib.stage_right_c64.restype = i32
-    lib.chunk_twiddle_pack_c64.argtypes = [ptr, ptr, ptr, i64, i32, i32, i32, i64, i64, ptr]
+    lib.chunk_twiddle_pack_c64.argtypes = [ptr, ptr, ptr, i32, i32, i64, i32, i32, i32] + [i64] * 5 + [ptr]
     lib.chunk_twiddle_pack_c64.restype = i32
     lib.fft_stage_error_string.argtypes = [i32]
     lib.fft_stage_error_string.restype = ctypes.c_char_p
@@ -193,19 +196,51 @@ def stage_right(a: Planar, w: Planar) -> Planar:
     return ref.to_planes(stage_right_c64(torch.complex(*a), torch.complex(*w)))
 
 
-def chunk_twiddle_pack_c64(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def _pack_layout(chunk: torch.Tensor) -> Tuple[str, int]:
+    """("cols", row stride) for a chunk whose columns are unit-stride --
+    the kernel transposes it through shared memory -- or ("rows", column
+    stride) for one whose rows are (a transposed block's own chunk), read
+    straight along t. Any other layout raises: the wrapper never copies."""
+    rows, c = chunk.shape[-2:]
+    if c == 1 or chunk.stride(-1) == 1:
+        return "cols", chunk.stride(-2)
+    if rows == 1 or chunk.stride(-2) == 1:
+        return "rows", chunk.stride(-1)
+    raise ValueError(
+        f"chunk_twiddle_pack_c64: the chunk must be unit-stride along its rows or its "
+        f"columns, got strides {tuple(chunk.stride())}"
+    )
+
+
+def _flat(name: str, x: torch.Tensor, tail: int) -> torch.Tensor:
+    """``x`` with its leading axes collapsed to one (a view, never a copy)."""
+    try:
+        return x.view(-1, *x.shape[x.ndim - tail :])
+    except RuntimeError:
+        raise ValueError(
+            f"chunk_twiddle_pack_c64: the {name}'s leading axes must collapse to one stride"
+        ) from None
+
+
+def chunk_twiddle_pack_c64(
+    chunk: torch.Tensor, m: torch.Tensor, *, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """Fused twiddle+pack for one arriving exchange chunk (complex64).
 
     ``chunk``: (..., rows, c) -- the raw received piece (rows of the
     source block x my column block); ``m``: (p, rows) -- the W_P column
     for this source times the four-step twiddle slice for these rows.
-    Returns (..., c, p, rows): the chunk's contribution to the fused DFT
-    stage's accumulator (see
-    :func:`repro_torch.core.transpose.transpose_then_fft`), in a single
-    launch instead of a relayout copy + twiddle multiply. The kernel
-    reads the chunk with its row stride, so a strided view of a larger
-    block needs no copy; its last axis must be contiguous.
+    Without ``out`` it returns a fresh (..., c, p, rows) tensor, the
+    chunk's contribution to the fused DFT stage's accumulator (see
+    :func:`repro_torch.core.transpose.transpose_then_fft`); with ``out``
+    ((..., c, p, rows), last axis unit-stride, any other strides -- e.g.
+    one sub-chunk's slot of a larger accumulator) it adds that
+    contribution to ``out`` in place and returns ``out``. One launch
+    either way. The chunk may be a strided view unit-stride along its
+    columns (read with its row stride) or along its rows (a transposed
+    block's own chunk); any other layout raises.
     """
+    name = "chunk_twiddle_pack_c64"
     if chunk.dtype != torch.complex64 or m.dtype != torch.complex64:
         raise ValueError(
             f"chunk_twiddle_pack_c64 is a complex64 kernel (pairs of f32, not "
@@ -217,26 +252,32 @@ def chunk_twiddle_pack_c64(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor
     p = m.shape[0]
     if tuple(m.shape) != (p, rows):
         raise ValueError(f"m must be (p, rows)=({p}, {rows}), got {tuple(m.shape)}")
-    if not _on_cuda("chunk_twiddle_pack_c64", chunk, m):
-        return ref.chunk_twiddle_pack_ref(chunk, m)
-    _check_launchable("chunk_twiddle_pack_c64", torch.complex64, (m,))
-    if chunk.is_conj() or chunk.is_neg():
-        raise ValueError("chunk_twiddle_pack_c64: chunk must not be a lazy conj/neg view")
-    if chunk.stride(-1) != 1:
-        raise ValueError("chunk_twiddle_pack_c64: the chunk's last axis must be contiguous")
-    try:
-        flat = chunk.view(-1, rows, c)
-    except RuntimeError:
-        raise ValueError(
-            "chunk_twiddle_pack_c64: the chunk's leading axes must collapse to "
-            "one stride (call .contiguous())"
-        ) from None
+    if out is not None:
+        if tuple(out.shape) != lead + (c, p, rows):
+            raise ValueError(f"out must be {lead + (c, p, rows)}, got {tuple(out.shape)}")
+        if out.dtype != torch.complex64:
+            raise ValueError(f"{name}: out must be complex64, got {out.dtype}")
+    operands = (chunk, m) if out is None else (chunk, m, out)
+    if not _on_cuda(name, *operands):
+        return ref.chunk_twiddle_pack_ref(chunk, m, out=out)
+    _check_launchable(name, torch.complex64, (m,))
+    for label, x in (("chunk", chunk), ("out", out)):
+        if x is not None and (x.is_conj() or x.is_neg()):
+            raise ValueError(f"{name}: {label} must not be a lazy conj/neg view")
+    layout, cs = _pack_layout(chunk)
+    flat = _flat("chunk", chunk, 2)
     B = flat.shape[0]
-    out = torch.empty((B, c, p, rows), dtype=torch.complex64, device=chunk.device)
+    mode = "fresh" if out is None else "accumulate"
+    if out is None:
+        out = torch.empty(lead + (c, p, rows), dtype=torch.complex64, device=chunk.device)
+    elif rows > 1 and out.stride(-1) != 1:
+        raise ValueError(f"{name}: out's last axis must be unit-stride, got strides {tuple(out.stride())}")
+    oflat = _flat("out", out, 3)
     if out.numel():
         _launch(
-            "chunk_twiddle_pack_c64", (B, rows, c, p), _lib().chunk_twiddle_pack_c64, chunk.device,
-            flat.data_ptr(), m.data_ptr(), out.data_ptr(), B, rows, c, p,
-            flat.stride(0), flat.stride(1),
+            name, (B, rows, c, p, mode, layout), _lib().chunk_twiddle_pack_c64, chunk.device,
+            flat.data_ptr(), m.data_ptr(), oflat.data_ptr(), int(mode == "accumulate"),
+            int(layout == "rows"), B, rows, c, p, flat.stride(0), cs,
+            oflat.stride(0), oflat.stride(1), oflat.stride(2),
         )
-    return out.reshape(lead + (c, p, rows))
+    return out

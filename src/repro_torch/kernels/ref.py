@@ -6,7 +6,7 @@ the card."""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 
@@ -42,13 +42,17 @@ def stage_right_ref(a: Planar, w: Planar) -> Planar:
     return to_planes(stage_right_c64_ref(_to_c(*a), _to_c(*w)))
 
 
-def chunk_twiddle_pack_ref(chunk: torch.Tensor, m: torch.Tensor) -> torch.Tensor:
+def chunk_twiddle_pack_ref(
+    chunk: torch.Tensor, m: torch.Tensor, *, out: Optional[torch.Tensor] = None
+) -> torch.Tensor:
     """out[..., j, k, t] = chunk[..., t, j] * m[k, t]: the relayout of one
     arriving chunk (..., rows, c) -> (..., c, rows) followed by the
     broadcast multiply with ``m`` (p, rows) -- the two-op path of the
-    fused exchange's chunk callback."""
+    fused exchange's chunk callback. With ``out`` (..., c, p, rows) the
+    product is added to it in place (``out.add_``) and ``out`` returned."""
     ct = chunk.transpose(-1, -2)  # (..., c, rows)
-    return ct[..., None, :] * m  # (..., c, p, rows)
+    prod = ct[..., None, :] * m  # (..., c, p, rows)
+    return prod if out is None else out.add_(prod)
 
 
 def fft_last_axis_ref(x: torch.Tensor, *, inverse: bool = False) -> torch.Tensor:

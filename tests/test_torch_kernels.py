@@ -175,6 +175,77 @@ def test_chunk_twiddle_pack_rejects_wrong_dtype_and_shape():
         ref_fft_stage.chunk_twiddle_pack_c64(jnp.asarray(chunk.numpy()), jnp.zeros((8, 5), jnp.complex64))
 
 
+# accumulate-form cases: leading batch axes, odd c, p in {2, 3, 4}
+ACC_CASES = [((2, 3), 6, 5, 2), ((3,), 8, 7, 3), ((), 4, 9, 4), ((1,), 5, 3, 4)]
+#: how the accumulate tests lay out their operands: a contiguous chunk and
+#: accumulator, one sub-chunk's column slot of a wider accumulator, and a
+#: chunk unit-stride along its rows (a transposed block's own chunk)
+ACC_LAYOUTS = ("contiguous", "slot", "rows-unit")
+
+
+def _acc_operands(lead, rows, c, p, layout, device="cpu"):
+    """(chunk, m, out, the accumulator's numpy start, the whole buffer
+    out is a view of) as the accumulate tests use them."""
+    chunk, m = _c64(6, lead + (rows, c)), _c64(7, (p, rows))
+    acc0 = _c64(8, lead + (c, p, rows))
+    tc = torch.from_numpy(chunk).to(device)
+    if layout == "rows-unit":
+        tc = torch.from_numpy(np.ascontiguousarray(np.swapaxes(chunk, -1, -2))).to(device).transpose(-1, -2)
+        assert tc.stride(-2) == 1
+    if layout == "slot":  # columns [rows, 2 rows) of a (..., c, p, 3 rows) buffer
+        whole = torch.from_numpy(_c64(9, lead + (c, p, 3 * rows))).to(device)
+        whole[..., rows : 2 * rows] = torch.from_numpy(acc0).to(device)
+        out = whole[..., rows : 2 * rows]
+    else:
+        whole = out = torch.from_numpy(acc0.copy()).to(device)
+    return tc, torch.from_numpy(m).to(device), out, acc0, whole
+
+
+@pytest.mark.parametrize("layout", ACC_LAYOUTS)
+@pytest.mark.parametrize("lead,rows,c,p", ACC_CASES)
+def test_chunk_twiddle_pack_accumulates_like_reference(lead, rows, c, p, layout):
+    """out= adds the reference pack's result into the accumulator in
+    place, whatever the accumulator's and the chunk's strides."""
+    ref_fft_stage, _, jnp = _reference()
+    chunk, m, out, acc0, whole = _acc_operands(lead, rows, c, p, layout)
+    before = whole.clone()
+    got = fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out)
+    assert got is out
+    exp = acc0 + np.asarray(ref_fft_stage.chunk_twiddle_pack_c64(
+        jnp.asarray(chunk.numpy()), jnp.asarray(m.numpy())))
+    np.testing.assert_allclose(out.numpy(), exp, rtol=1e-5, atol=1e-5)
+    if layout == "slot":  # the slots either side are untouched
+        torch.testing.assert_close(whole[..., :rows], before[..., :rows], rtol=0, atol=0)
+        torch.testing.assert_close(whole[..., 2 * rows :], before[..., 2 * rows :], rtol=0, atol=0)
+    # the fresh form of a unit-stride-row chunk agrees with the reference too
+    fresh = fft_stage.chunk_twiddle_pack_c64(chunk, m).numpy()
+    np.testing.assert_allclose(fresh, exp - acc0, rtol=1e-5, atol=1e-5)
+
+
+def test_chunk_twiddle_pack_accumulate_is_the_plain_add():
+    """On the CPU the accumulate form is exactly out.add_(fresh): the sum
+    the fused exchange formed before it existed, bit for bit."""
+    chunk, m, out, acc0, _ = _acc_operands((2,), 6, 5, 3, "slot")
+    exp = torch.from_numpy(acc0).add_(ref.chunk_twiddle_pack_ref(chunk, m))
+    fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out)
+    torch.testing.assert_close(out, exp, rtol=0, atol=0)
+
+
+def test_chunk_twiddle_pack_rejects_bad_accumulators_and_layouts():
+    chunk = torch.zeros((2, 4, 6), dtype=torch.complex64)
+    m = torch.zeros((3, 4), dtype=torch.complex64)
+    with pytest.raises(ValueError, match=r"out must be \(2, 6, 3, 4\), got \(2, 6, 3, 5\)"):
+        fft_stage.chunk_twiddle_pack_c64(chunk, m, out=torch.zeros((2, 6, 3, 5), dtype=torch.complex64))
+    with pytest.raises(ValueError, match="out must be complex64"):
+        fft_stage.chunk_twiddle_pack_c64(chunk, m, out=torch.zeros((2, 6, 3, 4), dtype=torch.complex128))
+    # the kernel's layout rule: unit stride along the columns or the rows, never a copy
+    assert fft_stage._pack_layout(chunk) == ("cols", 6)
+    assert fft_stage._pack_layout(chunk.mT.contiguous().mT) == ("rows", 4)
+    assert fft_stage._pack_layout(torch.zeros((8, 1), dtype=torch.complex64)[::2]) == ("cols", 2)
+    with pytest.raises(ValueError, match="unit-stride along its rows or its columns"):
+        fft_stage._pack_layout(torch.zeros((8, 12), dtype=torch.complex64)[::2, ::2])
+
+
 def test_stage_wrappers_reject_bad_shapes_and_mixed_devices():
     w, a, t = _t(_planar(1, (8, 4))), _t(_planar(2, (2, 4, 3))), _t(_planar(3, (8, 3)))
     with pytest.raises(ValueError, match="t planes must be"):
@@ -295,6 +366,48 @@ class TestKernelsOnCard:
         got = fft_stage.chunk_twiddle_pack_c64(chunk, m)
         exp = ref.chunk_twiddle_pack_ref(chunk, m)
         np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(), rtol=1e-5, atol=1e-5)
+
+    @pytest.mark.parametrize("layout", ACC_LAYOUTS)
+    @pytest.mark.parametrize("lead,rows,c,p", ACC_CASES + [((2,), 101, 67, 3), ((3,), 130, 257, 2),
+                                                          ((), 257, 96, 4), ((2,), 66, 129, 2)])
+    def test_chunk_twiddle_pack_modes_and_layouts(self, cuda_device, lead, rows, c, p, layout):
+        """Both modes and both chunk layouts against the plain version at
+        ragged shapes (odd rows fall to the scalar tail), each one counted
+        launch with its mode and layout in SHAPES."""
+        chunk, m, out, _, whole = _acc_operands(lead, rows, c, p, layout, cuda_device)
+        unit = "rows" if layout == "rows-unit" and rows > 1 and c > 1 else "cols"
+        B = int(np.prod(lead, dtype=int))
+        fft_stage.reset_launches()
+        fresh = fft_stage.chunk_twiddle_pack_c64(chunk, m)
+        exp = ref.chunk_twiddle_pack_ref(chunk, m)
+        assert fresh.is_contiguous()
+        np.testing.assert_allclose(fresh.cpu().numpy(), exp.cpu().numpy(), rtol=1e-5, atol=1e-5)
+        expect = out.clone().add_(exp)
+        before = whole.clone()
+        assert fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out) is out
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(out.cpu().numpy(), expect.cpu().numpy(), rtol=1e-5, atol=1e-5)
+        if layout == "slot":
+            assert torch.equal(whole[..., :rows], before[..., :rows])
+            assert torch.equal(whole[..., 2 * rows :], before[..., 2 * rows :])
+        assert fft_stage.LAUNCHES["chunk_twiddle_pack_c64"] == 2
+        assert fft_stage.SHAPES["chunk_twiddle_pack_c64"] == {
+            (B, rows, c, p, "fresh", unit): 1, (B, rows, c, p, "accumulate", unit): 1}
+
+    def test_chunk_twiddle_pack_raises_for_unlaunchable_layouts(self, cuda_device):
+        m = torch.from_numpy(_c64(7, (2, 4))).to(cuda_device)
+        both = torch.from_numpy(_c64(6, (8, 12))).to(cuda_device)[::2, ::2]  # (4, 6), strided both ways
+        before = fft_stage.LAUNCHES["chunk_twiddle_pack_c64"]
+        with pytest.raises(ValueError, match="unit-stride along its rows or its columns"):
+            fft_stage.chunk_twiddle_pack_c64(both, m)
+        chunk = both.contiguous()
+        out = torch.zeros((4, 2, 6), dtype=torch.complex64, device=cuda_device).permute(2, 1, 0)  # (6, 2, 4)
+        with pytest.raises(ValueError, match="last axis must be unit-stride"):
+            fft_stage.chunk_twiddle_pack_c64(chunk, m, out=out)
+        with pytest.raises(ValueError, match="lazy conj"):
+            fft_stage.chunk_twiddle_pack_c64(chunk, m, out=torch.zeros((6, 2, 4), dtype=torch.complex64,
+                                                                      device=cuda_device).conj())
+        assert fft_stage.LAUNCHES["chunk_twiddle_pack_c64"] == before
 
     def test_wrappers_raise_instead_of_falling_back(self, cuda_device):
         w = _t(_planar(1, (8, 4)), cuda_device)

@@ -292,31 +292,72 @@ def test_port_matches_reference_pencil_plans_8dev(reference, i):
         assert _rel(z, x.ravel()) < TOL, impl
 
 
+def _launchable_pack(seen):
+    """A stand-in for the pack wrapper that checks each call's operands
+    as the CUDA wrapper would and records (chunk shape, fresh)."""
+    from repro_torch.kernels import ref
+
+    def pack(chunk, m, *, out=None):
+        assert chunk.stride(-1) == 1 or chunk.stride(-2) == 1, chunk.stride()
+        chunk.view(-1, *chunk.shape[-2:])
+        if out is not None:
+            assert out.stride(-1) == 1
+            out.view(-1, *out.shape[-3:])
+        seen.append((tuple(chunk.shape), out is None))
+        if out is None:  # the kernel's fresh result is contiguous
+            return ref.chunk_twiddle_pack_ref(chunk, m).contiguous()
+        return ref.chunk_twiddle_pack_ref(chunk, m, out=out)
+
+    return pack
+
+
 def test_pencil_chunks_reach_the_pack_kernel_launchable(monkeypatch):
-    """The pack kernel reads a chunk with its row stride but needs
-    unit-stride columns and leading axes that collapse to one stride;
-    the pencil fft2's swap_last2 hands the fused exchange a transposed
-    block, so every chunk is checked here as the CUDA wrapper would
-    check it (the CPU takes the plain version)."""
-    from repro_torch.kernels import fft_stage, ref
+    """The pack kernel reads a chunk unit-stride along its columns (with
+    its row stride) or along its rows (with its column stride), and an
+    accumulator slot whose last axis is unit-stride; both need leading
+    axes that collapse to one stride. The pencil fft2's swap_last2 hands
+    the fused exchange a transposed block, whose own chunk is unit-stride
+    along its rows, so every call is checked here as the CUDA wrapper
+    would check it (the CPU takes the plain version)."""
+    from repro_torch.kernels import fft_stage
 
     seen = []
-
-    def launchable(chunk, m):
-        assert chunk.stride(-1) == 1
-        chunk.view(-1, *chunk.shape[-2:])
-        seen.append(tuple(chunk.shape))
-        return ref.chunk_twiddle_pack_ref(chunk, m)
-
-    monkeypatch.setattr(fft_stage, "chunk_twiddle_pack_c64", launchable)
+    monkeypatch.setattr(fft_stage, "chunk_twiddle_pack_c64", _launchable_pack(seen))
     x2, x3 = _c64(9, (16, 32)), _c64(10, (8, 8, 16))
     for grid in ((2, 2), (2, 4)):
         plan = plan_fft(x2.shape, _mesh(grid), decomp="pencil", backend="scatter", local_impl="kernel")
         assert _rel(plan.execute(torch.from_numpy(x2)).numpy(), np.fft.fft2(x2)) < TOL
         plan3 = plan_fft(x3.shape, _mesh(grid), ndim=3, decomp="pencil", backend="scatter", local_impl="kernel")
         assert _rel(plan3.execute(torch.from_numpy(x3)).numpy(), _reversed(np.fft.fftn(x3))) < TOL
-    # each fused exchange packs P_axis chunks a block: 2 * P * (P_row + P_col) a plan
+    # each fused exchange packs P_axis chunks a block: 2 * P * (P_row + P_col) a
+    # plan, one of each block's P_axis fresh (the own chunk), the rest accumulating
     assert len(seen) == 2 * 4 * (2 + 2) + 2 * 8 * (2 + 4)
+    assert sum(fresh for _, fresh in seen) == 2 * 4 * 2 + 2 * 8 * 2
+
+
+def test_every_fused_pencil_direction_hands_the_pack_kernel_launchable_operands(monkeypatch):
+    """The same check over the inverse c2c plans and the real (r2c / c2r)
+    pencil plans, both directions, 3-D with and without transpose_back."""
+    from repro_torch.kernels import fft_stage
+
+    seen = []
+    monkeypatch.setattr(fft_stage, "chunk_twiddle_pack_c64", _launchable_pack(seen))
+    x2, x3 = _c64(11, (16, 32)), _c64(12, (8, 8, 16))
+    r2, r3 = _f32(13, (2, 16, 24)), _f32(14, (8, 8, 10))
+    kw = dict(decomp="pencil", backend="scatter", local_impl="kernel")
+    for grid in ((2, 2), (2, 4)):
+        mesh = _mesh(grid)
+        for x, ndim in ((x2, 2), (x3, 3)):
+            plan = plan_fft(x.shape, mesh, ndim=ndim, **kw)
+            assert _rel(plan.inverse(plan.execute(torch.from_numpy(x))).numpy(), x) < TOL
+        plan = plan_fft(r2.shape, mesh, real=True, **kw)
+        y = plan.execute(torch.from_numpy(r2))
+        assert _rel(y.numpy()[..., : plan.hermitian_len], np.fft.rfft2(r2)) < TOL
+        assert _rel(plan.inverse(y).numpy(), r2) < TOL
+        for tb in (False, True):
+            plan = plan_fft(r3.shape, mesh, ndim=3, real=True, transpose_back=tb, **kw)
+            assert _rel(plan.inverse(plan.execute(torch.from_numpy(r3))).numpy(), r3) < TOL
+    assert seen and any(not fresh for _, fresh in seen)
 
 
 def test_input_spec_names_each_directions_layout():

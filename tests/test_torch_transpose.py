@@ -141,6 +141,112 @@ def test_transpose_then_fft_c128_keeps_double_precision():
 
 
 # ---------------------------------------------------------------------------
+# the fused exchange's accumulate: chunk_fns with a keyword-only out=
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("name", ["scatter", "pairwise_xor"])
+def test_fused_exchange_accumulates_through_the_pack_wrapper(monkeypatch, name, q):
+    """transpose_then_fft(fused=True, impl="kernel") equals numpy's FFT
+    with one fresh pack per rank (its own chunk, whole) and every
+    arriving sub-chunk added into its slot of that rank's accumulator
+    through out=: no per-arrival fresh tensor and no torch.cat."""
+    from repro_torch.kernels import fft_stage, ref
+
+    p = 4
+    fresh, slots, cats = [], [], []
+
+    def pack(chunk, m, *, out=None):
+        if out is None:  # the kernel's fresh result is contiguous
+            fresh.append(ref.chunk_twiddle_pack_ref(chunk, m).contiguous())
+            return fresh[-1]
+        slots.append(out)
+        assert ref.chunk_twiddle_pack_ref(chunk, m, out=out) is out
+        return out
+
+    def cat(*args, **kwargs):
+        cats.append(args)
+        return real_cat(*args, **kwargs)
+
+    real_cat = torch.cat
+    monkeypatch.setattr(fft_stage, "chunk_twiddle_pack_c64", pack)
+    monkeypatch.setattr(torch, "cat", cat)
+    mesh = SimMesh(p, device="cpu")
+    x = _c64(60 + q, (2, 8 * p, 4 * p))  # (batch, R, C); r = 8 rows a rank
+    ys = tr.transpose_then_fft(_blocks(x, p), mesh, "model", strategy=name, impl="kernel", fused=True,
+                               n_chunks=q * p)
+    monkeypatch.setattr(torch, "cat", real_cat)
+    got = _gather_cols(ys)
+    exp = np.fft.fft(np.swapaxes(x, -1, -2), axis=-1)
+    assert np.abs(got - exp).max() / np.abs(exp).max() < 5e-5
+    r = 8
+    assert len(fresh) == p and all(f.shape == (2, 4, p, r) for f in fresh)
+    assert len(slots) == p * (p - 1) * q and all(s.shape == (2, 4, p, r // q) for s in slots)
+    storages = {f.untyped_storage().data_ptr() for f in fresh}
+    assert {s.untyped_storage().data_ptr() for s in slots} == storages  # views of the accumulators
+    assert cats == []
+
+
+@pytest.mark.parametrize("q", [1, 2])
+@pytest.mark.parametrize("name", ["scatter", "pairwise_xor"])
+def test_accumulating_reduce_is_bit_identical_to_fresh_plus_add(name, q):
+    """On the CPU the out= path sums the same terms in the same order as
+    the fresh-result-plus-add_ path a plain chunk_fn takes."""
+    from repro_torch.kernels import ref
+
+    p = 4
+    mesh = SimMesh(p, device="cpu")
+    xs = _blocks(_c64(70 + q, (2, 8 * p, 4 * p)), p)
+    w = torch.from_numpy(_c64(72, (p, p, 8)))  # per source: an m of (p, r)
+
+    def acc_fn(chunk, src, offset, *, out=None):
+        return ref.chunk_twiddle_pack_ref(chunk, w[src][:, offset : offset + chunk.shape[-2]], out=out)
+
+    def fresh_fn(chunk, src, offset):
+        return ref.chunk_twiddle_pack_ref(chunk, w[src][:, offset : offset + chunk.shape[-2]])
+
+    backend = backends.get(name)
+    got = backend.stream_reduce(xs, mesh, "model", acc_fn, n_chunks=q * p)
+    exp = backend.stream_reduce(xs, mesh, "model", fresh_fn, n_chunks=q * p)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+
+
+def test_chunk_fns_without_a_keyword_only_out_keep_fresh_results():
+    """A caller's chunk_fn without a keyword-only out -- plain, with a
+    positional out, or with **kwargs -- is handed every sub-chunk, its
+    own chunk's too, never an out=, and its fresh results are summed."""
+    p, q = 4, 2
+    mesh = SimMesh(p, device="cpu")
+    x = _c64(80, (4 * p, 4 * p))
+    xs = _blocks(x, p)
+    r, c = 4, 4
+    blocks = x.reshape(p, r, p * c)
+    for fn_kind in ("plain", "positional out", "kwargs"):
+        seen = []
+
+        def body(chunk, src, offset, kw):
+            assert not kw
+            seen.append((src, offset, chunk.shape[-2]))
+            return chunk.transpose(-1, -2) * (src + 1)
+
+        fns = {
+            "plain": lambda chunk, src, offset: body(chunk, src, offset, {}),
+            "positional out": lambda chunk, src, offset, out=None: body(chunk, src, offset, {} if out is None else {"out": out}),
+            "kwargs": lambda chunk, src, offset, **kw: body(chunk, src, offset, kw),
+        }
+        assert not tr._chunk_fn_accumulates(fns[fn_kind])
+        got = backends.get("scatter").stream_reduce(xs, mesh, "model", fns[fn_kind], n_chunks=q * p)
+        assert len(seen) == p * p * q and all(rows == r // q for _, _, rows in seen)
+        for me in range(p):
+            exp = sum((s + 1) * blocks[s][:, me * c : (me + 1) * c].T for s in range(p))
+            np.testing.assert_allclose(got[me].numpy(), exp, rtol=1e-6, atol=1e-6)
+    assert tr._chunk_fn_accumulates(lambda chunk, src, offset, *, out=None: chunk)
+    assert not tr._chunk_fn_accumulates(max)  # no signature: a plain chunk_fn
+
+
+# ---------------------------------------------------------------------------
 # SimMesh primitives
 # ---------------------------------------------------------------------------
 
