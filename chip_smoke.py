@@ -57,7 +57,21 @@ Phases, each printing a line; any failure exits non-zero with no result:
    cube: the reversed layout with the Hermitian axis padded over P_col
    (513 -> 514), its first 513 entries held against
    torch.fft.rfftn(x).permute(2, 1, 0), and its inverse; timed beside
-   phase 6's slab rfft3.
+   phase 6's slab rfft3;
+10. measured planner -- planner.ensure_calibrated(SimMesh(4)) (a device
+   copy's fit, stored under "<card> (SimMesh)"), then
+   plan_fft((16384, 16384), SimMesh(4), planner="measure",
+   local_impl="kernel"): the race's timing table, why_text() and launch
+   counts (it fails unless the race launched all three kernels); the
+   winner held against torch.fft.fft2(x).mT; profile()'s per-stage rows
+   of the winner and of phase 4's plan beside their plan.execute times,
+   and roofline().as_dict().
+
+Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
+and sizes up to 64 MiB; on one card a rank's message to itself, a
+copy), prints the backend="auto" pick under the fitted constants, and
+races planner="measure" on the c2c main path: it fails unless every
+rank names the same winner, whose result equals SimMesh's to 1e-6.
 
 Phases 4-9 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -102,6 +116,9 @@ KERNEL_PHASE_SHAPES = {
 PACK = "chunk_twiddle_pack_c64"
 PACK_MODES = ("fresh", "accumulate")
 NCCL_TIMEOUT_S = 300  # the process group's timeout in the NCCL phase
+#: phase 7's second calibration sweep: past the default's 4 MiB to the
+#: tens of MiB the slab exchanges send (128 MiB per message at P = 4)
+NCCL_FIT_SIZES = (4096, 65536, 1 << 20, 4 << 20, 16 << 20, 64 << 20)
 MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
 PACK_RTOL, PACK_ATOL = 1e-5, 1e-5  # one complex multiply per element
@@ -647,6 +664,53 @@ def pencil_rfft3_phase(torch, seed, fft_stage, plan_fft, SimMesh, slab_ms: float
     return launches, shapes
 
 
+def profile_lines(torch, label: str, plan, x) -> None:
+    """``plan.profile``'s rows (median of 3 fenced runs after a warm-up)
+    beside ``plan.execute``'s time on the same input, and the roofline."""
+    res = plan.profile(x, reps=3, warmup=1)
+    ms = host_ms(torch, lambda: plan.execute(x))
+    print(f"{label} profile {plan.backend}: plan.execute {ms:.2f} ms (median of 3); spans sum "
+          f"{res.observed_s * 1e3:.2f} ms (each span fenced), exchanges {res.exchange_observed_s * 1e3:.2f} ms, "
+          f"model {res.predicted_s * 1e3:.3f} ms", flush=True)
+    for r in res.rows:
+        model = f" model {r.predicted_s * 1e3:.3f} ms, wire {r.wire_bytes:.0f} B" if r.predicted_s is not None else ""
+        print(f"{label} profile {plan.backend} #{r.index} {r.stage}: {r.observed_s * 1e3:.3f} ms{model}", flush=True)
+    print(f"{label} roofline {plan.backend}: {json.dumps(plan.roofline().as_dict())}", flush=True)
+
+
+def measured_phase(torch, seed, fft_stage, plan_fft, SimMesh):
+    """Phase 10: the SimMesh calibration and the measured race on the c2c
+    main path's transform."""
+    from repro_torch.core import planner
+
+    mesh = SimMesh(P)
+    fit = planner.ensure_calibrated(mesh)
+    print(f"measured planner: calibrate [{planner.device_kind(mesh)}]: alpha={fit.alpha_s * 1e6:.3f} us "
+          f"beta={fit.beta_bytes_s / 1e9:.2f} GB/s (a device copy: no message leaves the card)", flush=True)
+    x = main_input(torch, seed)
+    t0 = time.perf_counter()
+    plan, launches, peak = counted(torch, fft_stage, "measured race", lambda: plan_fft(
+        (N, N), mesh, planner="measure", local_impl="kernel"))
+    table = ", ".join(f"{k} {v * 1e3:.3f}" for k, v in sorted(plan.measured.items(), key=lambda kv: kv[1]))
+    print(f"measured planner: race {time.perf_counter() - t0:.1f} s, winner {plan.backend}, launches {launches}, "
+          f"peak memory {peak:.2f} GiB; table ms: {table}", flush=True)
+    print(plan.why_text(), flush=True)
+    check(not plan.race_failures, f"candidates failed in the race: {plan.race_failures}")
+    y = plan.execute(x)
+    oracle = torch.fft.fft2(x).mT
+    err = rel_err(torch, y, oracle)
+    print(f"measured winner {plan.backend} vs torch.fft.fft2(x).mT: rel_err={err:.3e} (tol {MAIN_PATH_REL_TOL})",
+          flush=True)
+    check(err <= MAIN_PATH_REL_TOL, "the measured winner disagrees with torch.fft.fft2")
+    check(tuple(y.shape) == (N, N) and bool(torch.isfinite(torch.view_as_real(y)).all()),
+          "the measured winner's output is not finite with the expected shape")
+    del y, oracle
+    profile_lines(torch, "measured planner", plan, x)
+    if plan.backend != "scatter":
+        profile_lines(torch, "measured planner", plan_fft((N, N), mesh, backend="scatter", local_impl="kernel"), x)
+    return launches
+
+
 NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
 NCCL_PENCIL_VARIANTS = ((("scatter", "scatter"), "auto"), (("alltoall", "alltoall"), False))
 
@@ -709,10 +773,49 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
             report[f"pencil c2c grid={grid[0]}x{grid[1]} {plan.backend} pipeline={pipeline}"] = dict(
                 fused=plan.fused, launches=launches, rel_err_vs_sim=err, sim=f"SimMesh({grid})",
                 ms=host_ms(torch, lambda: plan.execute(block)), peak_gib=peak)
+        report["measured planner"] = nccl_measured(torch, mesh, sim, x, fft_stage, plan_fft)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
         dist.destroy_process_group()
+
+
+def nccl_measured(torch, mesh, sim, x, fft_stage, plan_fft) -> dict:
+    """Phase 7's planner part, one rank: fit alpha/beta over NCCL (the
+    default sizes, then NCCL_FIT_SIZES, which is stored), the estimate
+    pick under the stored fit, and the measured race on the c2c main
+    path, whose winner every rank must name and whose result must equal
+    SimMesh's."""
+    import torch.distributed as dist
+
+    from repro_torch.core import CommParams, planner
+
+    fits = {}
+    for label, calibrate in (("default sizes", lambda: CommParams.calibrate(mesh)),
+                             ("sizes to 64 MiB", lambda: planner.ensure_calibrated(
+                                 mesh, sizes=NCCL_FIT_SIZES, force=True))):
+        t0 = time.perf_counter()
+        fit = calibrate()
+        fits[label] = dict(alpha_us=fit.alpha_s * 1e6, beta_gb_s=fit.beta_bytes_s / 1e9,
+                           s=time.perf_counter() - t0)
+    est = plan_fft((N, N), mesh, backend="auto", local_impl="kernel")
+    out = dict(device_kind=planner.device_kind(mesh), fits=fits, estimate=est.backend,
+               estimate_us={k: v * 1e6 for k, v in est.predict().items()})
+    t0 = time.perf_counter()
+    race, launches, _ = counted(torch, fft_stage, "NCCL measured race", lambda: plan_fft(
+        (N, N), mesh, planner="measure", local_impl="kernel", use_wisdom=False),
+        None if mesh.p > 1 else ("stage_left", "stage_right"))
+    winners = [None] * mesh.p
+    dist.all_gather_object(winners, race.backend)
+    check(len(set(winners)) == 1, f"rank {mesh.rank}: the ranks' measured winners differ: {winners}")
+    block = mesh.split(x, ("model", None))[0]
+    got = mesh.gather([race.execute(block)], ("model", None))
+    err = rel_err(torch, got, plan_fft((N, N), sim, backend=race.backend, local_impl="kernel").execute(x))
+    check(err <= 1e-6, f"rank {mesh.rank}: the measured winner {race.backend} disagrees with SimMesh")
+    out.update(winner=race.backend, winners=winners, race_s=time.perf_counter() - t0, launches=launches,
+               measured_ms={k: v * 1e3 for k, v in race.measured.items()}, failed=race.race_failures,
+               rel_err_vs_sim=err, why=race.why_text())
+    return out
 
 
 def nccl_phase(torch, seed: int):
@@ -729,10 +832,25 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict):
+            if isinstance(r, dict) and key != "measured planner":
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
+    for rep in reports:
+        m = rep["measured planner"]
+        who = f"NCCL rank {rep['rank']}/{rep['P']}"
+        for label, fit in m["fits"].items():
+            print(f"{who} calibrate [{m['device_kind']}] {label}: alpha={fit['alpha_us']:.3f} us "
+                  f"beta={fit['beta_gb_s']:.2f} GB/s (sweep {fit['s']:.2f} s)", flush=True)
+        table = ", ".join(f"{k} {v:.2f}" for k, v in sorted(m["estimate_us"].items(), key=lambda kv: kv[1]))
+        print(f"{who} estimate pick under the fit: {m['estimate']} (model us: {table})", flush=True)
+        table = ", ".join(f"{k} {v:.3f}" for k, v in sorted(m["measured_ms"].items(), key=lambda kv: kv[1]))
+        print(f"{who} measured pick: {m['winner']} (every rank: {m['winners']}), rel_err vs SimMesh="
+              f"{m['rel_err_vs_sim']:.3e} (tol 1e-06), race {m['race_s']:.1f} s, launches {m['launches']}, "
+              f"table ms (largest over the ranks): {table}; failed {m['failed'] or 'none'}", flush=True)
+        if rep["rank"] == 0:
+            print(m["why"], flush=True)
+    check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     return reports[0]
 
 
@@ -802,6 +920,8 @@ def main(argv=None) -> int:
     by_path["pencil_rfft3"], shapes = pencil_rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_rfft3_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil rfft3", shapes)
+    by_path["measured_race"] = measured_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
+    torch.cuda.empty_cache()
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

@@ -259,6 +259,16 @@ class _AxisMesh:
                 shape[dim] *= self.shape[axis]
         return tuple(shape)
 
+    def caller_shape(self, global_shape: Sequence[int], tail: Sequence[Optional[str]]) -> Tuple[int, ...]:
+        """The inverse of :meth:`global_shape`: the shape of the array a
+        caller passes for a global array of ``global_shape`` under
+        ``tail`` (the global shape itself, or the rank's block's)."""
+        shape = list(global_shape)
+        if self.caller_holds_block:
+            for dim, axis in self._shard_dims(len(shape), tail):
+                shape[dim] //= self.shape[axis]
+        return tuple(shape)
+
 
 class SimMesh(_AxisMesh):
     """``p`` ranks over one named axis, or a grid of them, all on
@@ -340,6 +350,11 @@ class SimMesh(_AxisMesh):
             raise ValueError(f"all_to_all: axis of size {size} does not split into {p} pieces")
         pieces = [torch.chunk(b, p, dim=split_axis) for b in blocks]
         return [torch.cat([pieces[src][dst] for src in range(p)], dim=concat_axis) for dst in range(p)]
+
+    def all_max(self, values: Sequence[float]) -> List[float]:
+        """The largest of each value over the ranks that call it: every
+        rank of this process runs the same code, so its own values."""
+        return [float(v) for v in values]
 
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x: torch.Tensor, tail: Sequence[Optional[str]]) -> Blocks:
@@ -509,6 +524,17 @@ class ProcessGroupMesh(_AxisMesh):
         out = torch.empty_like(inp)
         dist.all_to_all_single(_wire(out), _wire(inp), group=self.group)
         return [torch.cat(list(out.unbind(0)), dim=concat_axis)]
+
+    def all_max(self, values: Sequence[float]) -> List[float]:
+        """The largest of each value over the group's ranks (one
+        ``all_reduce``; every rank must call it with as many values): how
+        ranks agree on a decision that leads into collectives, so none
+        of them takes a branch the others do not."""
+        import torch.distributed as dist
+
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64, device=self.device)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t.tolist()
 
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x, tail: Sequence[Optional[str]]) -> Blocks:

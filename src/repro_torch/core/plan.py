@@ -28,14 +28,21 @@ takes and returns global arrays) or a
 :class:`~repro_torch.core.mesh.ProcessGroupMesh` (each rank passes and
 gets back its own block of the layout :meth:`Plan.input_spec` names).
 
-Ported so far: c2c (ndim 1, 2, 3) and r2c / c2r (``real=True``, ndim
-2, 3) transforms, slab and pencil, under ``planner="estimate"``. The
-rest of the reference's surface raises ``NotImplementedError`` naming
-its ROADMAP item.
+Ported: c2c (ndim 1, 2, 3) and r2c / c2r (``real=True``, ndim 2, 3)
+transforms, slab and pencil, under ``planner="estimate"`` and
+``planner="measure"`` (:mod:`repro_torch.core.planner`), with the
+plan's decision provenance (:meth:`Plan.why`), per-stage model
+(:meth:`Plan.predict_stages`), traced profile (:meth:`Plan.profile`) and
+roofline (:meth:`Plan.roofline`). ``faults=`` raises
+``NotImplementedError`` naming its ROADMAP item. ``FFTPlan`` /
+``make_plan`` remain as the reference's deprecation shims.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import math
+import warnings
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -46,6 +53,7 @@ from repro_torch.core import backends
 from repro_torch.core import comm_model as cm
 from repro_torch.core import grid as _grid
 from repro_torch.core import pencil as _pencil
+from repro_torch.core.distributed_fft import FFTConfig
 from repro_torch.core.mesh import Mesh, fft_axis
 
 #: Pair-key separator for pencil backend pairs ("scatter+bisection") --
@@ -103,6 +111,13 @@ class InputSpec(NamedTuple):
 
 def pair_key(backend_row: str, backend_col: str) -> str:
     return f"{backend_row}{PAIR_SEP}{backend_col}"
+
+
+def pipeline_is_default(pipeline) -> bool:
+    """Whether a ``pipeline=`` value is the default ("auto") setting.
+    Identity-checked for True/None: ``1 == True`` in Python, but
+    ``pipeline=1`` is an explicit one-chunk request, not the default."""
+    return pipeline == "auto" or pipeline is True or pipeline is None
 
 
 def split_pair(key) -> Tuple[str, str]:
@@ -169,7 +184,19 @@ class Plan:
                 "1-D real transform is not implemented: complexify and use ndim=1 c2c"
             )
         if isinstance(backend, str) and "@" in backend:
-            raise _not_ported(f"measured-planner variant id {backend!r}", "A9 (core/planner.py)")
+            # measured-planner candidate ids ("scatter@u", "scatter@f16",
+            # Plan.backend of a variant winner) are valid backend specs:
+            # the suffix is a pipeline override, so backend=plan.backend
+            # always round-trips
+            from repro_torch.core.planner import parse_variant
+
+            backend, pipe_override = parse_variant(backend)
+            if not pipeline_is_default(pipeline):
+                raise ValueError(
+                    f"backend variant suffix and pipeline={pipeline!r} "
+                    f"both specify the pipeline; pass one or the other"
+                )
+            pipeline = pipe_override
         if not (
             pipeline in ("auto", True, False, None)
             or (isinstance(pipeline, int) and not isinstance(pipeline, bool) and pipeline >= 0)
@@ -210,12 +237,32 @@ class Plan:
         self.padded_hermitian_len: Optional[int] = None
         self.local_impl = local_impl
         self.transpose_back = transpose_back
+        if params is None:
+            # a fitted device kind (planner.ensure_calibrated, or an
+            # imported wisdom file's calibration section) prices every
+            # default-params plan with its measured constants
+            from repro_torch.core import planner as _planner
+
+            params = _planner.calibration_for(_planner.device_kind(mesh))
         self.params = params or cm.CommParams()
         self.chunk_compute_s = chunk_compute_s
         self.pipeline = "auto" if (pipeline is True or pipeline is None) else pipeline
         #: resolved by _resolve_pipeline once the backend(s) are known
         self.fused: bool = False
         self.n_chunks: Optional[int] = None
+        # set by the measured planner (repro_torch.core.planner.plan_measured)
+        self.planner = "estimate"
+        self.measured: Optional[Dict[str, float]] = None
+        #: candidate id -> "ExcType: msg" for candidates that raised
+        #: mid-race (timed inf, excluded from the argmin)
+        self.race_failures: Dict[str, str] = {}
+        self.wisdom_hit = False
+        self.wisdom_key: Optional[str] = None
+        #: which channel picked the backend: "pinned" (the caller named
+        #: it), "model-argmin" (alpha-beta auto), or -- set by
+        #: plan_measured -- "measured-race" / "wisdom-hit" /
+        #: "observed-overlay". Rendered by :meth:`why`.
+        self.selection_channel = "pinned"
         #: direction -> lowered stage schedule (the single pipeline truth)
         self._schedules: Dict[bool, sch.Schedule] = {}
         self.grid: Optional[_grid.ProcessGrid] = None
@@ -348,6 +395,7 @@ class Plan:
                 f"(per-axis pairs are decomp='pencil')"
             )
         if backend == "auto":
+            self.selection_channel = "model-argmin"
             backend = backends.cheapest(
                 self._cost_bytes(), p, self.params,
                 chunk_compute_s=self._auto_chunk_compute_s(),
@@ -377,6 +425,7 @@ class Plan:
         if self.real:
             self.hermitian_len, self.padded_hermitian_len = checked
         if isinstance(backend, str) and backend == "auto":
+            self.selection_channel = "model-argmin"
             br, bc = backends.cheapest_pair(
                 self._cost_bytes(), g.p_rows, g.p_cols, self.params,
                 chunk_compute_s=self._auto_chunk_compute_s(),
@@ -606,7 +655,9 @@ class Plan:
             built = sch.build_schedule(
                 self.global_shape, ndim=self.ndim, inverse=inv, real=self.real,
                 decomp="slab", axis_name=self.axis_name, p=self.shards,
-                backend=self.backend, fused=self.fused, n_chunks=self.n_chunks,
+                # backend_obj, not self.backend: a measured variant winner
+                # reports its candidate id ("scatter@u") on .backend
+                backend=self.backend_obj.name, fused=self.fused, n_chunks=self.n_chunks,
                 transpose_back=self.transpose_back, pad=self.pad,
             )
         self._schedules[inv] = built
@@ -617,6 +668,20 @@ class Plan:
         reference plan's hash for the same arguments."""
         return self.schedule(inverse).schedule_hash()
 
+    def predict_stages(self, inverse: Optional[bool] = None, dtype=None):
+        """Per-stage cost decomposition: ``[(Exchange, predicted seconds,
+        wire bytes), ...]`` over the direction's schedule at the plan's
+        own backends and pipeline. The seconds sum to
+        ``predict()[self.backend]`` and the bytes to :meth:`comm_bytes`."""
+        r_item, c_item = self._byte_sizes(dtype)
+        cc = self._auto_chunk_compute_s(dtype)
+        base = sch.with_pipeline(self.schedule(inverse), self.fused, self.n_chunks)
+        return [
+            (st, sch.stage_seconds(st, self.params, cc, r_item, c_item),
+             sch.exchange_wire_bytes(st, r_item, c_item))
+            for st in base.exchanges()
+        ]
+
     def describe(self, inverse: Optional[bool] = None, dtype=None) -> str:
         """The plan (with its grid) and a stage dump of the direction's
         schedule with per-stage predicted microseconds and wire bytes."""
@@ -625,6 +690,140 @@ class Plan:
             params=self.params, chunk_compute_s=self._auto_chunk_compute_s(dtype),
             real_itemsize=r_item, complex_itemsize=c_item,
         )
+
+    def why(self) -> dict:
+        """Decision provenance: why this backend won -- the selection
+        channel (``pinned`` / ``model-argmin`` / ``measured-race`` /
+        ``wisdom-hit`` / ``observed-overlay``), the timing table the
+        decision took the argmin of (measured seconds for a measured
+        plan, alpha-beta model seconds otherwise), the wisdom key
+        consulted, and the calibration constants in force (fitted for
+        this device kind, or the module defaults)."""
+        from repro_torch.core import planner as _planner
+
+        if self.planner == "measure" and self.measured:
+            # failed candidates carry timing inf: they are reported under
+            # "failed", not in the table or the argmin
+            timings = {
+                k: float(v) for k, v in self.measured.items()
+                if isinstance(v, (int, float)) and math.isfinite(v)
+            }
+            timings_kind = "measured"
+        else:
+            timings = {k: float(v) for k, v in self.predict().items()}
+            timings_kind = "model"
+        argmin = min(sorted(timings), key=timings.__getitem__) if timings else None
+        dev = _planner.device_kind(self.mesh)
+        cell = _planner.calibration_cell(dev)
+        return {
+            "channel": self.selection_channel,
+            "backend": self.backend,
+            "decomp": self.decomp,
+            "planner": self.planner,
+            "fused": self.fused,
+            "n_chunks": self.n_chunks,
+            "timings_kind": timings_kind,
+            "timings": timings,
+            "argmin": argmin,
+            "failed": dict(self.race_failures),
+            "wisdom_key": self.wisdom_key,
+            "wisdom_hit": self.wisdom_hit,
+            "calibration": {
+                "device_kind": dev,
+                "alpha_s": float(self.params.alpha_s),
+                "beta_bytes_s": float(self.params.beta_bytes_s),
+                "source": (cell or {}).get("source", "default"),
+                "calibrated": cell is not None,
+            },
+        }
+
+    def why_text(self) -> str:
+        """One-paragraph rendering of :meth:`why`: channel, winner, the
+        top of the timing table, and the calibration constants in force."""
+        w = self.why()
+        cal = w["calibration"]
+        table = sorted(w["timings"].items(), key=lambda kv: kv[1])
+        shown = ", ".join(f"{k}={v * 1e6:.1f}us" for k, v in table[:4])
+        if len(table) > 4:
+            shown += f", ... ({len(table) - 4} more)"
+        lines = [
+            f"why: backend={w['backend']} via {w['channel']} (decomp={w['decomp']}, planner={w['planner']})",
+            f"  {w['timings_kind']} table argmin={w['argmin']}: {shown}" if table else "  (no timing table)",
+            f"  calibration[{cal['device_kind']}]: alpha={cal['alpha_s'] * 1e6:.2f}us "
+            f"beta={cal['beta_bytes_s'] / 1e9:.1f}GB/s "
+            f"({cal['source'] if cal['calibrated'] else 'default'})",
+        ]
+        if w["failed"]:
+            lines.append(
+                "  failed candidates (excluded from argmin): "
+                + ", ".join(f"{k} ({v})" for k, v in sorted(w["failed"].items()))
+            )
+        if w["wisdom_key"]:
+            lines.append(f"  wisdom_key: {w['wisdom_key']}")
+        return "\n".join(lines)
+
+    def zeros_input(self, dtype=None, opposite: bool = False) -> torch.Tensor:
+        """Zeros of the (possibly opposite) direction's input layout on
+        the mesh's device: the global array on a ``SimMesh``, the rank's
+        block on a ``ProcessGroupMesh``."""
+        spec = self.input_spec(dtype, opposite=opposite)
+        shape = self.mesh.caller_shape(spec.shape, spec.tail)
+        return torch.zeros(shape, dtype=spec.dtype, device=self.mesh.device)
+
+    def profile(self, x=None, *, reps: int = 3, warmup: int = 1, inverse: Optional[bool] = None,
+                trace=None, record: bool = True) -> "ProfileResult":
+        """Execute the direction through the trace-mode executor and
+        return one observed row per span next to :meth:`predict_stages`'
+        model -- the paper's comm-vs-compute breakdown, measured on this
+        plan.
+
+        ``x=None`` profiles :meth:`zeros_input`. Spans land in ``trace``
+        (a fresh :class:`repro_torch.obs.trace.TraceRecorder` if None;
+        the result keeps it for export). ``warmup`` untraced-into-``trace``
+        runs come first (the first call builds the kernels), then ``reps``
+        timed runs, aggregated by median. ``record=True`` folds the total
+        observed seconds into the planner's wisdom observed channel
+        (:func:`repro_torch.core.planner.record_observed`; a no-op unless
+        this plan came from ``planner="measure"``).
+
+        Every span ends in a fence of the card, which also keeps stages
+        from overlapping, so the observed sum exceeds ``execute``'s time:
+        read the rows as an attribution of cost, not a throughput."""
+        from repro_torch.obs.trace import TraceRecorder
+
+        inv = (self.direction == "inverse") if inverse is None else bool(inverse)
+        opposite = inv != (self.direction == "inverse")
+        x = self.zeros_input(opposite=opposite) if x is None else self.mesh.place(x)
+        built = self.schedule(inv)
+        rec = trace if trace is not None else TraceRecorder()
+        for _ in range(max(0, warmup)):
+            sch.run_schedule(x, built, self.mesh, impl=self.local_impl, trace=TraceRecorder())
+        per_rep = []
+        for _ in range(max(1, reps)):
+            m = rec.mark()
+            sch.run_schedule(x, built, self.mesh, impl=self.local_impl, trace=rec)
+            per_rep.append(rec.spans_since(m))
+        preds = self.predict_stages(inv, x.dtype)
+        rows = []
+        k_ex = 0
+        for pos, sp in enumerate(per_rep[0]):
+            durs = sorted(spans[pos].dur for spans in per_rep)
+            pred_s = wire = None
+            if sp.cat == "exchange":
+                pred_s = preds[k_ex][1]
+                wire = sp.args.get("wire_bytes")
+                k_ex += 1
+            rows.append(ProfileRow(
+                index=int(sp.args.get("index", pos)), stage=sp.name,
+                kind=str(sp.args.get("stage", type(sp).__name__)), observed_s=durs[len(durs) // 2],
+                predicted_s=pred_s, wire_bytes=wire, args=dict(sp.args),
+            ))
+        result = ProfileResult(rows=tuple(rows), schedule=built, trace=rec, reps=len(per_rep))
+        if record:
+            from repro_torch.core import planner
+
+            planner.record_observed(self, result.observed_s)
+        return result
 
     # -- execution -------------------------------------------------------------
     def _run(self, x, inverse: bool) -> torch.Tensor:
@@ -642,15 +841,31 @@ class Plan:
         ``ndim=1`` (raises before executing anything)."""
         return self._run(x, self.direction != "inverse")
 
-    # -- not ported yet --------------------------------------------------------
-    def profile(self, *args, **kwargs):
-        raise _not_ported("Plan.profile", "A11 (obs/ + the trace-mode executor)")
+    # -- analysis --------------------------------------------------------------
+    def lower(self, inverse: Optional[bool] = None, dtype=None) -> sch.Schedule:
+        """The direction's schedule, validated against that direction's
+        input layout (its partition spec walked through every stage by
+        :func:`~repro_torch.core.schedule.simulate_specs`); allocates
+        nothing. The port has no compiler IR to lower to: the schedule
+        is what executes (the reference returns jax's lowered program)."""
+        inv = (self.direction == "inverse") if inverse is None else bool(inverse)
+        spec = self.input_spec(dtype, opposite=inv != (self.direction == "inverse"))
+        built = self.schedule(inv)
+        sch.simulate_specs(built, len(spec.shape))
+        return built
 
-    def lower(self, *args, **kwargs):
-        raise _not_ported("Plan.lower", "A9 (what Plan.lower/roofline report)")
-
-    def roofline(self, *args, **kwargs):
-        raise _not_ported("Plan.roofline", "A9 (what Plan.lower/roofline report)")
+    def roofline(self, inverse: Optional[bool] = None) -> cm.Roofline:
+        """The roofline terms of the direction, per rank, from its
+        schedule (:func:`repro_torch.core.comm_model.roofline_from_schedule`:
+        analytic operations at the local impl's peak, one read and one
+        write of each stage's block, and :meth:`comm_bytes`)."""
+        inv = (self.direction == "inverse") if inverse is None else bool(inverse)
+        spec = self.input_spec(opposite=inv != (self.direction == "inverse"))
+        r_item, c_item = self._byte_sizes()
+        return cm.roofline_from_schedule(
+            self.lower(inv), input_shape=spec.shape, impl=self.local_impl,
+            real_itemsize=r_item, complex_itemsize=c_item, chips=self.mesh.p,
+        )
 
     def __repr__(self) -> str:
         where = f"grid={self.grid.p_rows}x{self.grid.p_cols}" if self.decomp == "pencil" else f"P={self.shards}"
@@ -660,6 +875,70 @@ class Plan:
             f"backend={self.backend!r}, direction={self.direction!r}, "
             f"dtype={str(self.dtype).replace('torch.', '')})"
         )
+
+
+@dataclasses.dataclass(frozen=True)
+class ProfileRow:
+    """One traced span's observed wall clock vs the model's prediction.
+    ``predicted_s`` / ``wire_bytes`` are None for non-Exchange rows (the
+    alpha-beta model prices exchanges only). ``args`` is the span's
+    attribute payload (backend, role, p, fused, n_chunks, ... for
+    exchanges)."""
+
+    index: int
+    stage: str
+    kind: str
+    observed_s: float
+    predicted_s: Optional[float] = None
+    wire_bytes: Optional[float] = None
+    args: Dict[str, object] = dataclasses.field(default_factory=dict)
+
+
+@dataclasses.dataclass(frozen=True)
+class ProfileResult:
+    """``Plan.profile`` output: per-span rows + the recorder holding the
+    raw spans (exportable via ``result.trace.write_chrome_trace``)."""
+
+    rows: Tuple[ProfileRow, ...]
+    schedule: sch.Schedule
+    trace: object
+    reps: int
+
+    @property
+    def observed_s(self) -> float:
+        return sum(r.observed_s for r in self.rows)
+
+    @property
+    def exchange_observed_s(self) -> float:
+        return sum(r.observed_s for r in self.rows if r.kind == "Exchange")
+
+    @property
+    def predicted_s(self) -> float:
+        return sum(r.predicted_s or 0.0 for r in self.rows)
+
+    def exchange_rows(self) -> Tuple[ProfileRow, ...]:
+        return tuple(r for r in self.rows if r.kind == "Exchange")
+
+    def table(self) -> str:
+        """The observed-vs-predicted stage table."""
+        s = self.schedule
+        head = (
+            f"profile {s.kind} [{s.decomp}{', r2c' if s.real else ''}{', inverse' if s.inverse else ''}] "
+            f"shape={s.global_shape} hash={s.schedule_hash()} reps={self.reps}"
+        )
+        lines = [head, f"  {'#':>2}  {'stage':<52} {'observed us':>12} {'model us':>10} {'wire bytes':>12}"]
+        for r in self.rows:
+            pred = f"{r.predicted_s * 1e6:.2f}" if r.predicted_s is not None else "-"
+            wire = f"{r.wire_bytes:.0f}" if r.wire_bytes is not None else "-"
+            lines.append(f"  {r.index:>2}  {r.stage:<52} {r.observed_s * 1e6:>12.2f} {pred:>10} {wire:>12}")
+        lines.append(
+            f"  total observed {self.observed_s * 1e6:.2f} us "
+            f"(exchanges {self.exchange_observed_s * 1e6:.2f} us, model {self.predicted_s * 1e6:.2f} us)"
+        )
+        return "\n".join(lines)
+
+    def __str__(self) -> str:
+        return self.table()
 
 
 def plan_fft(
@@ -676,6 +955,8 @@ def plan_fft(
     params: Optional[cm.CommParams] = None,
     chunk_compute_s: float = 0.0,
     planner: str = "estimate",
+    timer=None,
+    use_wisdom: bool = True,
     decomp: str = "slab",
     row_axis: Optional[str] = None,
     col_axis: Optional[str] = None,
@@ -695,8 +976,10 @@ def plan_fft(
 
     ``local_impl``: ``"torch"`` (the library FFT), ``"matmul"`` (four-step
     matmuls) or ``"kernel"`` (the Hopper kernels; their plain versions on
-    the CPU). ``params=None`` means ``CommParams()`` (NVIDIA's H100
-    data-sheet rates, placeholder latency). ``backend="auto"`` is the
+    the CPU). ``params=None`` means the constants stored for the mesh's
+    device kind (:func:`repro_torch.core.planner.ensure_calibrated`),
+    else ``CommParams()`` (NVIDIA's H100 data-sheet rates, placeholder
+    latency). ``backend="auto"`` is the
     alpha-beta cost-model argmin; any name in
     ``repro_torch.core.backends.available()`` pins it.
 
@@ -721,19 +1004,103 @@ def plan_fft(
     shape and a slab plan of at least equal parallelism does not predict
     cheaper; else slab).
 
-    Not ported yet, each raising ``NotImplementedError``:
-    ``planner="measure"`` and ``faults=``.
+    ``planner`` picks the selection discipline (FFTW's ESTIMATE /
+    MEASURE): ``"estimate"`` (default) as above; ``"measure"`` times every
+    candidate on the mesh (:func:`repro_torch.core.planner.plan_measured`)
+    and pins the measured argmin, consulting the wisdom store first --
+    ``use_wisdom=False`` forces a race, ``timer(plan) -> seconds``
+    replaces the clock (tests). A backend such as ``"scatter@u"`` (unfused)
+    or ``"scatter@f8"`` (fused, 8 chunks) pins the pipeline too.
+
+    Not ported yet, raising ``NotImplementedError``: ``faults=``.
     """
     if planner not in ("estimate", "measure"):
         raise ValueError(f"planner must be 'estimate' or 'measure', got {planner!r}")
-    if planner == "measure":
-        raise _not_ported('planner="measure"', "A9 (core/planner.py)")
+    if planner == "estimate" and (timer is not None or use_wisdom is not True):
+        # a forgotten planner="measure" would otherwise fall back to the
+        # model with the injected timer never called
+        raise ValueError("timer= and use_wisdom= require planner='measure'")
     if faults is not None:
         raise _not_ported("faults= (chaos injection)", "A12 (runtime/faults.py)")
+    if planner == "measure":
+        from repro_torch.core import planner as _planner
+
+        return _planner.plan_measured(
+            global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
+            axis_name=axis_name, local_impl=local_impl, transpose_back=transpose_back,
+            dtype=dtype, params=params, chunk_compute_s=chunk_compute_s, timer=timer,
+            use_wisdom=use_wisdom, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
+            real=real, pad=pad, pipeline=pipeline,
+        )
     return Plan(
         global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
         axis_name=axis_name, local_impl=local_impl,
         transpose_back=transpose_back, dtype=dtype, params=params,
         chunk_compute_s=chunk_compute_s, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
         real=real, pad=pad, pipeline=pipeline,
+    )
+
+
+# ---------------------------------------------------------------------------
+# Legacy shims (the reference keeps them one release): FFTPlan + make_plan
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class FFTPlan:
+    """Deprecated: thin shim over :class:`Plan` keeping the old field
+    layout (``cfg.strategy`` is the backend; the pipeline is the plan's
+    default). Use :func:`plan_fft` instead."""
+
+    global_shape: Tuple[int, ...]
+    mesh: Mesh
+    axis_name: str
+    cfg: FFTConfig = FFTConfig()
+    ndim_transform: int = 2
+
+    def __post_init__(self):
+        plan = Plan(
+            self.global_shape, self.mesh, ndim=self.ndim_transform, backend=self.cfg.strategy,
+            axis_name=self.axis_name, local_impl=self.cfg.local_impl, transpose_back=self.cfg.transpose_back,
+        )
+        object.__setattr__(self, "_plan", plan)
+
+    def input_spec(self, dtype=torch.complex64) -> InputSpec:
+        return self._plan.input_spec(dtype)
+
+    def execute(self, x) -> torch.Tensor:
+        return self._plan.execute(x)
+
+    def inverse(self, x) -> torch.Tensor:
+        return self._plan.inverse(x)
+
+    def lower(self, inverse: bool = False) -> sch.Schedule:
+        return self._plan.lower(inverse)
+
+    def comm_bytes(self, dtype=torch.complex64) -> float:
+        return self._plan.comm_bytes(dtype)
+
+
+def make_plan(
+    global_shape: Tuple[int, ...],
+    mesh: Mesh,
+    *,
+    axis_name: Optional[str] = None,
+    strategy: str = "alltoall",
+    local_impl: str = "torch",
+    transpose_back: bool = False,
+    ndim_transform: int = 2,
+) -> FFTPlan:
+    """Deprecated: use :func:`plan_fft` (``strategy`` -> ``backend``,
+    ``ndim_transform`` -> ``ndim``)."""
+    warnings.warn(
+        "make_plan is deprecated; use repro_torch.core.plan_fft(shape, mesh, "
+        "ndim=..., backend=...) instead",
+        DeprecationWarning,
+        stacklevel=2,
+    )
+    return FFTPlan(
+        global_shape=tuple(global_shape), mesh=mesh, axis_name=axis_name or fft_axis(mesh),
+        cfg=FFTConfig(strategy=strategy, local_impl=local_impl, transpose_back=transpose_back),
+        ndim_transform=ndim_transform,
     )

@@ -24,9 +24,10 @@ stays 1-D.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -476,6 +477,69 @@ def with_backends(sched: Schedule, *, slab: Optional[str] = None,
         return st if nm is None else dataclasses.replace(st, backend=nm)
 
     return dataclasses.replace(sched, stages=tuple(rw(st) for st in sched.stages))
+
+
+def apply_variant(sched: Schedule, candidate: str, *, pipeline="auto") -> Schedule:
+    """Measured-planner candidate id (``name``, ``name@u``,
+    ``name@f<k>``, ``"row+col"`` pair key, with or without variant
+    suffix) -> the rewritten schedule that candidate would execute. A
+    plain name resolves to ``pipeline`` (default: fused)."""
+    from repro_torch.core.plan import pipeline_is_default, split_pair
+    from repro_torch.core.planner import parse_variant
+
+    base, pipe = parse_variant(candidate)
+    if pipe is None and not pipeline_is_default(pipeline):
+        pipe = pipeline
+    fused = True if pipe is None else pipe not in (False, 0)
+    n_chunks = pipe if isinstance(pipe, int) and not isinstance(pipe, bool) and pipe > 0 else None
+    if sched.decomp == "pencil":
+        br, bc = split_pair(base)
+        out = with_backends(sched, row=br, col=bc)
+    else:
+        out = with_backends(sched, slab=base)
+    return with_pipeline(out, fused, n_chunks)
+
+
+def stage_blocks(sched: Schedule, input_shape) -> List[Tuple[object, Tuple[int, ...], Tuple[int, ...], bool, bool]]:
+    """One rank's block through the stage list, for a caller's global
+    input of ``input_shape``: ``(stage, shape in, shape out, complex in,
+    complex out)`` per stage. The ring size of each sharded axis is its
+    exchanges' ``p``; an Exchange turns (..., a, b) into (..., b/p, a*p),
+    as :func:`repro_torch.core.transpose.distributed_transpose` does."""
+    sizes = {st.axis: st.p for st in sched.exchanges()}
+    shape = list(input_shape)
+    for i, axis in enumerate(sched.in_tail):
+        if axis is not None:
+            shape[len(shape) - len(sched.in_tail) + i] //= sizes.get(axis, 1)
+    cplx = not (sched.real and not sched.inverse)
+    out = []
+    for st in sched.stages:
+        before, was = tuple(shape), cplx
+        if isinstance(st, LocalR2C):
+            shape[-1] = rfft_len(shape[-1])
+            cplx = True
+        elif isinstance(st, LocalC2R):
+            shape[-1] = st.n_last
+            cplx = False
+        elif isinstance(st, HermitianPack):
+            shape[-1] = st.hp
+        elif isinstance(st, Trim):
+            shape[-1] = st.h
+        elif isinstance(st, Relayout):
+            if st.op == "swap_last2":
+                shape[-1], shape[-2] = shape[-2], shape[-1]
+            elif st.op == "swap_outer":
+                shape[-3], shape[-2] = shape[-2], shape[-3]
+            elif st.op == "flatten2":
+                shape = shape[:-2] + [shape[-2] * shape[-1]]
+            else:  # unflatten2
+                shape = shape[:-1] + list(st.dims)
+        elif isinstance(st, Exchange):
+            a, b = shape[-2:]
+            shape[-2:] = [b // st.p, a * st.p]
+            cplx = cplx or st.fft
+        out.append((st, before, tuple(shape), was, cplx))
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -1017,19 +1081,134 @@ def _library_reference(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
     raise ValueError(f"no whole-transform reference for schedule kind {k!r}")  # pragma: no cover
 
 
-def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch") -> torch.Tensor:
+def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch", trace=None) -> torch.Tensor:
     """Run a schedule on the caller's array -- the global array on a
     :class:`~repro_torch.core.mesh.SimMesh`, the rank's own block on a
     :class:`~repro_torch.core.mesh.ProcessGroupMesh` -- moved to the
     mesh's device: cut it into the local blocks of the schedule's input
     spec, interpret the stages, and hand back the blocks of its output
     spec the same way. ``kind="global"`` backends instead run the whole
-    transform as one library call on the gathered global array."""
+    transform as one library call on the gathered global array.
+
+    With ``trace`` (a :class:`repro_torch.obs.trace.TraceRecorder`) the
+    stages run segment by segment, each fenced and stamped with a span
+    (:func:`_run_schedule_traced`); the default ``trace=None`` path is
+    the plain executor."""
+    if trace is not None:
+        return _run_schedule_traced(x, sched, mesh, impl=impl, trace=trace)
     if sched.global_backend is not None:
         out = _library_reference(mesh.global_input(x, sched.in_tail), sched)
         return mesh.global_output(out, sched.out_tail)
     vs = execute_schedule(mesh.local_blocks(x, sched.in_tail), sched, mesh, impl=impl)
     return mesh.caller_array(vs, sched.out_tail)
+
+
+def _segments(sched: Schedule) -> Tuple[Tuple[int, Tuple[object, ...]], ...]:
+    """Cut the stage list into trace segments: every stage is its own
+    segment except a Twiddle, which rides its following Exchange (the
+    executor fuses them; the merged span reports on the Exchange)."""
+    segs = []
+    stages = sched.stages
+    i = 0
+    while i < len(stages):
+        if isinstance(stages[i], Twiddle):
+            segs.append((i, stages[i : i + 2]))
+            i += 2
+        else:
+            segs.append((i, stages[i : i + 1]))
+            i += 1
+    return tuple(segs)
+
+
+def _itemsizes(x: torch.Tensor) -> Tuple[int, int]:
+    """(real, complex) itemsizes implied by the runtime dtype."""
+    item = x.dtype.itemsize
+    return (item // 2, item) if x.is_complex() else (item, 2 * item)
+
+
+def exchange_span_args(st: Exchange, real_itemsize: int, complex_itemsize: int) -> Dict[str, object]:
+    """The attribute payload every Exchange span carries -- the same
+    byte walk the cost model uses, so observed spans and
+    ``schedule_comm_bytes`` can never disagree."""
+    return {
+        "stage": "Exchange",
+        "backend": st.backend,
+        "role": st.role,
+        "axis": st.axis,
+        "p": st.p,
+        "payload": st.payload,
+        "fft": st.fft,
+        "inverse": st.inverse,
+        "fused": st.fused,
+        "n_chunks": st.n_chunks,
+        "block_bytes": exchange_block_bytes(st, real_itemsize, complex_itemsize),
+        "wire_bytes": exchange_wire_bytes(st, real_itemsize, complex_itemsize),
+    }
+
+
+def _run_schedule_traced(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl, trace) -> torch.Tensor:
+    """Trace-mode executor: the stage list run one segment at a time
+    (:func:`_segments`, each a slice of the stage list over the same
+    blocks), a wall-clock span around each. On the card every span ends
+    in ``torch.cuda.synchronize``, so it measures its stage's work and
+    not the launch queue; the fences also keep stages from overlapping,
+    so the spans of a run add up to more than ``plan.execute`` takes.
+    The input's conjugation and the output's conjugation / scale get
+    spans of their own (``Conj(in)``, ``Epilogue(conj/scale)``), and on
+    a ``SimMesh`` so does assembling the global output from the ranks'
+    blocks (``Gather(out)``). On a ``ProcessGroupMesh`` each rank records
+    its spans under ``pid=rank``."""
+    r_item, c_item = _itemsizes(x)
+    device = mesh.device
+    pid = mesh.rank if mesh.caller_holds_block else trace.pid
+
+    def fence() -> None:
+        if device.type == "cuda":
+            torch.cuda.synchronize(device)
+
+    @contextlib.contextmanager
+    def span(name: str, cat: str = "stage", **args):
+        with trace.span(name, cat=cat, **args) as sp:
+            sp.pid = pid
+            yield
+            fence()
+
+    if sched.global_backend is not None:
+        with span(f"global:{sched.kind}", stage="Global", backend=sched.global_backend,
+                  schedule=sched.schedule_hash()):
+            out = _library_reference(mesh.global_input(x, sched.in_tail), sched)
+            out = mesh.global_output(out, sched.out_tail)
+        return out
+    vs = mesh.local_blocks(x, sched.in_tail)
+    fence()
+    if sched.conj:
+        with span("Conj(in)", stage="Conj"):
+            vs = [torch.conj_physical(v) for v in vs]
+    for start, seg in _segments(sched):
+        report = seg[-1]  # the Exchange of a Twiddle+Exchange pair
+        if isinstance(report, Exchange):
+            cat = "exchange"
+            args = exchange_span_args(report, r_item, c_item)
+            if len(seg) > 1:
+                args["twiddle"] = True
+        else:
+            cat = "stage"
+            args = {"stage": type(report).__name__}
+        args["index"] = start + len(seg) - 1
+        with span(_stage_label(report), cat=cat, **args):
+            vs = _execute_stages(vs, seg, mesh, impl=impl)
+    if sched.conj or sched.scale is not None:
+        with span("Epilogue(conj/scale)", stage="Epilogue"):
+            for k in range(len(vs)):
+                if sched.conj:
+                    vs[k] = torch.conj_physical(vs[k])
+                if sched.scale is not None:
+                    vs[k] = vs[k] / sched.scale
+    if mesh.caller_holds_block:
+        return mesh.caller_array(vs, sched.out_tail)
+    with span("Gather(out)", stage="Gather"):
+        out = mesh.caller_array(vs, sched.out_tail)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -9,8 +9,10 @@ lists the cases that ran. The cases: every backend, fused and unfused
 (and sub-chunked), for c2c fft2 and real rfft2 round trips through
 ``plan_fft``; fft3 / rfft3 and the functional rfft2 / irfft2; the
 Poisson solve; that the streaming exchanges post every message before
-the first chunk callback; and, last, that a peer which never posts its
-receive fails within the group's timeout instead of hanging.
+the first chunk callback; at P = 2 the measured planner, calibration
+and the traced executor (``_planner_cases``); and, last, that a peer
+which never posts its receive fails within the group's timeout instead
+of hanging.
 
 One more spawn at P = 4 builds the 2-D grids (2,2), (1,4) and (4,1)
 from per-axis subgroups and runs the pencil plans on each, against
@@ -128,6 +130,97 @@ def _cases(mesh, sim, ran):
         ran.append(f"posted up front {name}")
 
 
+#: What _planner_cases adds to ``ran`` (the P = 2 spawn only).
+PLANNER_CASES = ["measured race agreed", "wisdom hit agreed", "ping-pong bytes", "calibration agreed",
+                 "traced spans per rank"]
+
+
+def _planner_cases(mesh, sim, ran):
+    """The measured planner over gloo: every decision that leads into
+    collectives is agreed, so the ranks race, hit and pin together even
+    where each rank's own clock disagrees; the ping-pong behind
+    calibrate moves the bytes it claims; traced spans carry the rank."""
+    import torch.distributed as dist
+
+    import repro_torch.core.comm_model as cm
+    from repro_torch.core import plan_fft, planner
+    from repro_torch.obs import TraceRecorder
+
+    rank = mesh.rank
+
+    def gathered(obj):
+        out = [None] * mesh.p
+        dist.all_gather_object(out, obj)
+        return out
+
+    planner.forget_wisdom()
+    calls = []
+
+    def timer(plan):  # rank 0 finds scatter fastest, rank 1 slowest; bisection fails on rank 1 only
+        calls.append(plan.backend)
+        if rank == 1 and plan.backend == "bisection":
+            raise RuntimeError("rank 1 only")
+        return {"scatter": (1.0, 5.0), "alltoall": (3.0, 2.0)}.get(plan.backend, (4.0, 4.0))[rank]
+
+    x = _c64(21, (16, 16))
+    plan = plan_fft((16, 16), mesh, planner="measure", timer=timer, local_impl="kernel")
+    tables = gathered((plan.backend, plan.measured))
+    assert tables[0] == tables[1] and plan.backend == "alltoall", tables
+    assert plan.measured["scatter"] == 5.0 and plan.measured["bisection"] == float("inf")
+    assert plan.race_failures["bisection"] == ("failed on another rank" if rank == 0 else "RuntimeError: rank 1 only")
+    got = mesh.gather([plan.execute(mesh.split(x, ("model", None))[0])], ("model", None))
+    if not _rel(got, plan_fft((16, 16), sim, backend="alltoall", local_impl="kernel").execute(x)) <= REL_TOL:
+        raise AssertionError(f"rank {rank}: the measured winner disagrees with SimMesh")
+    ran.append("measured race agreed")
+
+    n_calls = len(calls)
+    again = plan_fft((16, 16), mesh, planner="measure", timer=timer, local_impl="kernel")
+    assert again.selection_channel == "wisdom-hit" and len(calls) == n_calls
+    if rank == 1:
+        planner.forget_wisdom()  # rank 0 still holds its entry, but must not take the hit alone
+    third = plan_fft((16, 16), mesh, planner="measure", timer=timer, local_impl="kernel")
+    assert third.selection_channel == "measured-race" and len(calls) == 2 * n_calls
+    assert gathered(third.backend) == ["alltoall", "alltoall"]
+    ran.append("wisdom hit agreed")
+
+    sent = []
+    post = mesh.ppermute_start
+
+    def spy(pieces, perm):
+        sent.append(pieces[0].numel() * pieces[0].element_size())
+        return post(pieces, perm)
+
+    mesh.ppermute_start = spy  # the ping-pong runs over the mesh's own ppermute
+    try:
+        t = cm._pingpong_timer(mesh, None, warmup=1, iters=2, rounds=3)(4096)
+    finally:
+        del mesh.ppermute_start
+    assert sent == [4096] * (2 * 3 * (1 + 2)) and t > 0 and gathered(t) == [t, t]
+    fwd = mesh.ppermute_start([torch.full((1024,), float(rank + 1))], [(0, 1), (1, 0)]).wait()[0]
+    back = mesh.ppermute_start([fwd], [(0, 1), (1, 0)]).wait()[0]
+    assert torch.equal(fwd, torch.full((1024,), float(2 - rank))) and torch.equal(back, torch.full((1024,), rank + 1.0))
+    ran.append("ping-pong bytes")
+
+    planner.forget_calibration()
+    import warnings
+
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", RuntimeWarning)  # a short gloo sweep may not pin beta
+        fit = planner.ensure_calibrated(mesh, sizes=(4096, 1 << 16, 1 << 20))
+    assert gathered((fit.alpha_s, fit.beta_bytes_s)) == [(fit.alpha_s, fit.beta_bytes_s)] * 2
+    assert planner.calibration_for("cpu") == fit and planner.calibration_for("cpu (SimMesh)") is None
+    assert plan_fft((16, 16), mesh).params == fit
+    planner.forget_calibration()
+    ran.append("calibration agreed")
+
+    rec = TraceRecorder()
+    res = plan_fft((16, 16), mesh, backend="scatter", local_impl="kernel").profile(trace=rec, reps=2, warmup=0)
+    assert [r.stage for r in res.rows] == ["LocalFFT(axis=-1)", "Exchange(slab:model, scatter, p=2, fft, fused)"]
+    assert {s.pid for s in rec.spans} == {rank}
+    ran.append("traced spans per rank")
+    planner.forget_wisdom()
+
+
 def _hang_case(ran):
     """Rank 0 sends to rank 1, which never posts its receive: the send
     fails within the group's timeout."""
@@ -160,6 +253,8 @@ def _worker(rank, world, init_method, out_path):
     try:
         ran = []
         _cases(mesh, SimMesh(world, device="cpu"), ran)
+        if world == 2:
+            _planner_cases(mesh, SimMesh(world, device="cpu"), ran)
         _hang_case(ran)
         if rank == 0:
             with open(out_path, "w") as fh:
@@ -186,7 +281,9 @@ def test_process_group_mesh_matches_sim_mesh(p, tmp_path):
     for case in ("fft3 real=True", "ifft3 real=False", "functional irfft2", "solve_poisson",
                  "posted up front scatter", "posted up front pairwise_xor"):
         assert case in ran
-    assert len(ran) == 4 * 15 + 4 + 2 + 1 + 1 + 2 + 1, ran
+    planner_cases = PLANNER_CASES if p == 2 else []
+    assert ran[-1 - len(planner_cases):-1] == planner_cases, ran
+    assert len(ran) == 4 * 15 + 4 + 2 + 1 + 1 + 2 + len(planner_cases) + 1, ran
     assert ran[-1].startswith("unreceived send fails"), ran
 
 
