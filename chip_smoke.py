@@ -65,25 +65,50 @@ Phases, each printing a line; any failure exits non-zero with no result:
    counts (it fails unless the race launched all three kernels); the
    winner held against torch.fft.fft2(x).mT; profile()'s per-stage rows
    of the winner and of phase 4's plan beside their plan.execute times,
-   and roofline().as_dict().
+   and roofline().as_dict();
+11. serving under faults -- SpectralEngine(SimMesh(4), max_batch=8,
+   plan_kwargs=dict(backend="scatter", local_impl="kernel")) on 4096^2
+   complex64 fft and float32 poisson requests made on the card, every
+   bucket (1, 2, 4, 8) warmed before any fault is armed: a clean stream
+   of 32 fft + 8 poisson requests coalesced and then solo (p50 / p99
+   latency, transforms/s, mean batch, the pool / stack / execute
+   dispatch spans); a poisoned coalesced batch of 4 (3 resolve, 1 is
+   quarantined); the breaker under an injected clock (two failures open
+   the key, the degraded xla_auto dispatch launches no kernel, one probe
+   re-closes it); and FaultPlan.rate(0.05, seed=7) over 64 requests.
+   Every result is held against torch.fft.fft2(x).mT or a float64
+   Poisson solve; the clean streams must launch all three kernels, the
+   pack in both modes;
+12. elastic recovery -- the reference's ELASTIC_CODE at 4096^2 with
+   unfused alltoall and the kernels: SimMesh(4) fails at step 3 of 6,
+   run_with_recovery resumes on elastic_mesh(max_devices=2) from the
+   step-3 checkpoint, and the result must equal an uninterrupted
+   SimMesh(2) run bitwise and SimMesh(4)'s to 1e-6.
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
 copy), prints the backend="auto" pick under the fitted constants, and
 races planner="measure" on the c2c main path: it fails unless every
 rank names the same winner, whose result equals SimMesh's to 1e-6.
+Then its fault part: a FaultPlan.error armed on rank 0 only must make
+every rank raise at the same Exchange, far inside the NCCL timeout, and
+the clean run after it must equal SimMesh; on P > 1 cards the ranks
+shrink P -> P/2 over dist.new_group (rank 0 checkpointing the gathered
+state), and the survivors' result must equal an uninterrupted P/2 run
+and SimMesh(P/2) bitwise (one card: P = 1 cannot shrink; phase 12 does).
 
-Phases 4-9 each zero the kernels' launch counters just before they run
+Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
 kernel of its path was never launched (at P = 1 a plan does not fuse,
 so phase 7 launches the two stages only), phase 4 if its exchange did
 not pack P own chunks fresh and P(P-1) arrivals accumulating, and
-phases 8-9 if the path's peak memory reaches 40 GiB. Phases 4-6 and 8-9
-print the shapes each kernel was launched at and time each kernel once
-at every shape not timed before. Kernel times are CUDA-event medians of
+phases 8, 9 and 11 if the path's peak memory reaches 40 GiB. Phases 4-6,
+8-9 and 11 print the shapes each kernel was launched at and time each
+kernel once at every shape not timed before. Kernel times are CUDA-event medians of
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
-(``chunk_twiddle_pack_c64 accumulate``); the last line is
+(``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
+counts of every counted path, phases 11-12's included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -120,6 +145,15 @@ NCCL_TIMEOUT_S = 300  # the process group's timeout in the NCCL phase
 #: tens of MiB the slab exchanges send (128 MiB per message at P = 4)
 NCCL_FIT_SIZES = (4096, 65536, 1 << 20, 4 << 20, 16 << 20, 64 << 20)
 MAIN_PATH_REL_TOL = 1e-4  # two fp32 four-step passes at K = 512, float64-built tables
+SERVE_N = 4096  # phases 11-12: 4096^2 complex64 requests (128 MiB) and float32 fields (64 MiB)
+SERVE_BATCH = 8  # the engine's max_batch: buckets 1, 2, 4, 8 (a full fft bucket is 1 GiB)
+SERVE_FFT, SERVE_POISSON = 32, 8  # phase 11's clean stream
+CHAOS_REQUESTS, CHAOS_RATE, CHAOS_WAVE = 64, 0.05, 4  # serve_sweep.py's chaos row, at 4096^2, waves of 4
+SERVE_KW = dict(backend="scatter", local_impl="kernel")
+ELASTIC_STEPS, ELASTIC_FAIL_AT = 6, 3  # the reference's ELASTIC_CODE (tests/test_faults.py)
+#: unfused alltoall: local FFTs and pure data movement, so a state is the
+#: same at any rank count (the reference's ELASTIC_CODE setting)
+ELASTIC_KW = dict(backend="alltoall", pipeline=False, local_impl="kernel")
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
 PACK_RTOL, PACK_ATOL = 1e-5, 1e-5  # one complex multiply per element
 FFT_REL_TOL = 2e-5  # fft_last_axis vs the library FFT, relative to max
@@ -127,6 +161,19 @@ FFT_REL_TOL = 2e-5  # fft_last_axis vs the library FFT, relative to max
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+class FakeClock:
+    """An injected clock phase 11's breaker advances by hand."""
+
+    def __init__(self):
+        self.t = 0.0
+
+    def __call__(self):
+        return self.t
+
+    def advance(self, dt):
+        self.t += dt
 
 
 def check(cond: bool, msg: str) -> None:
@@ -711,6 +758,280 @@ def measured_phase(torch, seed, fft_stage, plan_fft, SimMesh):
     return launches
 
 
+def warm_buckets(torch, eng, buckets, ops=("fft",)) -> None:
+    """Plan each bucket's fft (complex64) and Poisson (float32, real)
+    shape into the engine's pool and run zeros through both directions,
+    before any request is timed or any fault armed."""
+    for b in buckets:
+        for op in ops:
+            real = op == "poisson"
+            eng.pool.warm((b, SERVE_N, SERVE_N), 2, torch.float32 if real else torch.complex64, real)
+
+
+def serving_phase(torch, seed, fft_stage, SimMesh):
+    """Phase 11: SpectralEngine(SimMesh(4), max_batch=8) with the fused
+    scatter ring and the kernels: clean serving (coalescing on, then
+    off), a poisoned batch, the breaker's degradation and re-probe, and
+    a 5 % chaos rate. Returns (launches by path, launch shapes)."""
+    from repro_torch.runtime import CircuitBreaker, FaultPlan, InjectedFault, RetryPolicy
+    from repro_torch.serve import SpectralEngine
+
+    n, mesh, buckets = SERVE_N, SimMesh(P), (1, 2, 4, SERVE_BATCH)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    xs = [torch.randn((n, n), dtype=torch.complex64, device="cuda", generator=g) for _ in range(SERVE_FFT)]
+    fs = [torch.randn((n, n), dtype=torch.float32, device="cuda", generator=g) for _ in range(SERVE_POISSON)]
+    by_path, shapes, peaks = {}, {}, []
+
+    def check_result(label, op, inp, y):
+        exp = poisson_oracle(torch, inp) if op == "poisson" else torch.fft.fft2(inp).mT
+        err = rel_err(torch, y.double() if op == "poisson" else y, exp)
+        check(tuple(y.shape) == (n, n) and err <= MAIN_PATH_REL_TOL,
+              f"{label}: a {op} result disagrees with torch.fft (rel_err {err:.3e})")
+        return err
+
+    def stream(eng):
+        futs = []
+        for i, x in enumerate(xs):
+            futs.append(("fft", x, eng.submit("fft", x)))
+            if i % 4 == 3:
+                futs.append(("poisson", fs[i // 4], eng.submit("poisson", fs[i // 4])))
+        eng.flush()
+        for _, _, f in futs:
+            f.block()
+        return futs
+
+    # 1. clean serving: serve_sweep's two arms
+    for coalesce in (True, False):
+        arm = "coalesced" if coalesce else "solo"
+        eng = SpectralEngine(mesh, max_batch=SERVE_BATCH, max_wait_s=0.005, coalesce=coalesce, plan_kwargs=SERVE_KW)
+        warm_buckets(torch, eng, buckets if coalesce else (1,), ("fft", "poisson"))
+        eng.reset_stats()
+        t0 = time.perf_counter()
+        futs, launches, peak = counted(torch, fft_stage, f"serving ({arm})", lambda: stream(eng))
+        elapsed = time.perf_counter() - t0
+        peaks.append(peak)
+        check(all(launches[f"{PACK} {mode}"] > 0 for mode in PACK_MODES),
+              f"serving ({arm}) did not launch the pack in both modes: {launches}")
+        for name, by_shape in launch_shapes(fft_stage).items():
+            for shape, k in by_shape.items():
+                shapes.setdefault(name, {})[shape] = shapes.get(name, {}).get(shape, 0) + k
+        errs = [check_result(f"serving ({arm})", op, inp, f.result()) for op, inp, f in futs]
+        s = eng.stats()
+        lat, st = s["latency_s"], s["stages_s"]
+        print(f"serving ({arm}): {len(futs)} requests ({SERVE_FFT} fft {n}^2 complex64, {SERVE_POISSON} poisson "
+              f"float32) in {elapsed * 1e3:.1f} ms, {len(futs) / elapsed:.1f} transforms/s, latency p50 "
+              f"{lat['p50'] * 1e3:.2f} ms p99 {lat['p99'] * 1e3:.2f} ms, mean batch {s['mean_batch']:.2f} "
+              f"({s['batches']} batches, padded {s['padded']}), dispatch spans p50/p99 ms: "
+              + ", ".join(f"{k} {v['p50'] * 1e3:.3f}/{v['p99'] * 1e3:.3f}" for k, v in st.items())
+              + f"; max rel_err {max(errs):.3e} (tol {MAIN_PATH_REL_TOL}), launches {launches}, "
+              f"peak memory {peak:.2f} GiB", flush=True)
+        by_path[f"serving_{arm}"] = launches
+        del futs, eng
+        torch.cuda.empty_cache()
+    print_shapes("serving", shapes)
+
+    # 2. poison: one coalesced batch of 4, two injected faults, no retries
+    eng = SpectralEngine(mesh, max_batch=SERVE_BATCH, max_wait_s=100.0, retry=RetryPolicy(max_retries=0),
+                         plan_kwargs=SERVE_KW)
+    warm_buckets(torch, eng, (1, 4))
+    eng.set_faults(FaultPlan.error(match="Exchange", times=2))
+    futs = [eng.submit("fft", x) for x in xs[:4]]
+    eng.drain()
+    failed = [i for i, f in enumerate(futs) if f.failed()]
+    check(len(failed) == 1, f"poison: {len(failed)} requests quarantined, not 1")
+    for i, f in enumerate(futs):
+        if i not in failed:
+            check_result("poison", "fft", xs[i], f.result())
+    try:
+        futs[failed[0]].result()
+        check(False, "poison: the quarantined future did not re-raise")
+    except InjectedFault:
+        pass
+    m = eng.metrics()
+    check((m["errors"], m["batch_splits"], m["quarantined"]) == (2, 1, 1), f"poison counters: {m}")
+    print(f"serving poison: 4 coalesced requests, FaultPlan.error(match='Exchange', times=2), no retries: "
+          f"3 resolved correctly, request {failed[0]} quarantined; errors={m['errors']} "
+          f"batch_splits={m['batch_splits']} quarantined={m['quarantined']}", flush=True)
+    del futs, eng
+
+    # 3. the breaker: two failures open the key, the next dispatch is degraded
+    # to xla_auto (no kernel), and after reset_after_s one probe re-closes it
+    clk = FakeClock()
+    eng = SpectralEngine(mesh, max_batch=1, clock=clk, retry=RetryPolicy(max_retries=0),
+                         breaker=CircuitBreaker(failure_threshold=2, reset_after_s=5.0, clock=clk),
+                         plan_kwargs=SERVE_KW)
+    warm_buckets(torch, eng, (1,))
+    eng.set_faults(FaultPlan.error(match="Exchange", times=2))
+
+    def one(x):
+        fut = eng.submit("fft", x)
+        eng.drain()
+        return fut
+
+    check(all(one(x).failed() for x in xs[:2]) and eng.breaker.stats()["opened"] == 1,
+          "breaker: two injected failures did not open the key")
+    deg, dl, _ = counted(torch, fft_stage, "serving degraded", lambda: one(xs[2]), expect=())
+    check(deg.degraded and deg.backend == "xla_auto", "breaker: the open key was not degraded to xla_auto")
+    check(not any(dl.values()), f"breaker: the degraded dispatch launched port kernels: {dl}")
+    err_deg = check_result("degraded", "fft", xs[2], deg.result())
+    eng.set_faults(None)
+    clk.advance(6.0)
+    probe, pl, _ = counted(torch, fft_stage, "serving probe", lambda: one(xs[3]))
+    err_probe = check_result("probe", "fft", xs[3], probe.result())
+    b = eng.breaker.stats()
+    check(probe.degraded is False and b["reclosed"] == 1 and b["probes"] == 1 and b["open"] == 0,
+          f"breaker: the probe did not re-close the key: {b}")
+    by_path["serving_degraded"] = dl
+    print(f"serving breaker: failure_threshold=2 reset_after_s=5 (injected clock): breaker_opened={b['opened']} "
+          f"reclosed={b['reclosed']} probes={b['probes']}; degraded dispatch (xla_auto) rel_err {err_deg:.3e}, "
+          f"launches {dl}; probe rel_err {err_probe:.3e}, launches {pl}", flush=True)
+    del deg, probe, eng
+
+    # 4. chaos: serve_sweep's chaos row, a seeded 5 % of Exchange executions poisoned
+    eng = SpectralEngine(mesh, max_batch=SERVE_BATCH, max_wait_s=0.005, retry=RetryPolicy(max_retries=1),
+                         plan_kwargs=SERVE_KW)
+    warm_buckets(torch, eng, buckets)
+    eng.reset_stats()
+    eng.set_faults(FaultPlan.rate(CHAOS_RATE, seed=7))
+
+    def chaos():
+        done, failed = [], 0
+        for wave in range(CHAOS_REQUESTS // CHAOS_WAVE):
+            lo = (wave * CHAOS_WAVE) % len(xs)
+            futs = [(x, eng.submit("fft", x)) for x in xs[lo:lo + CHAOS_WAVE]]
+            eng.flush()
+            for x, f in futs:
+                try:
+                    f.block()
+                    done.append((x, f))
+                except InjectedFault:
+                    failed += 1  # quarantined: isolated to its own future
+        return done, failed
+
+    t0 = time.perf_counter()
+    (done, failed), launches, peak = counted(torch, fft_stage, "serving chaos", chaos, ("stage_left", "stage_right"))
+    elapsed = time.perf_counter() - t0
+    peaks.append(peak)
+    errs = [check_result("chaos", "fft", x, f.result()) for x, f in done]
+    s = eng.stats()
+    fl = s["faults"]
+    check(len(done) + failed == CHAOS_REQUESTS, "chaos: a request neither completed nor failed")
+    print(f"serving chaos: FaultPlan.rate({CHAOS_RATE}, seed=7), RetryPolicy(max_retries=1), {CHAOS_REQUESTS} fft "
+          f"requests in waves of {CHAOS_WAVE}: completed {len(done)} failed {failed} in {elapsed * 1e3:.1f} ms "
+          f"({len(done) / elapsed:.1f} completed/s), latency p50 {s['latency_s']['p50'] * 1e3:.2f} ms p99 "
+          f"{s['latency_s']['p99'] * 1e3:.2f} ms (completed only), mean batch {s['mean_batch']:.2f}; errors="
+          f"{fl['errors']} retries={fl['retries']} batch_splits={fl['batch_splits']} quarantined={fl['quarantined']} "
+          f"failed_requests={fl['failed_requests']} degraded_dispatches={fl['degraded_dispatches']} breaker="
+          f"{fl['breaker']}; max rel_err {max(errs):.3e}, launches {launches}", flush=True)
+    by_path["serving_chaos"] = launches
+    del done, eng, xs, fs
+    check_peak("serving", max(peaks), "the heaviest counted run")
+    return by_path, shapes
+
+
+def elastic_run(torch, ckdir, alive, x0, forcing, injector=None, make_mesh=None) -> dict:
+    """The reference's ELASTIC_CODE: ELASTIC_STEPS forced steps of
+    ``state = ifft2(fft2(state + forcing)) / 2`` through a PlanPool plan
+    on ``make_mesh(alive["n"])`` (default ``elastic_mesh``), checkpointed
+    after each step; ``injector`` fails a step and the crash takes half
+    the ranks, and ``run_with_recovery`` resumes on the survivors from
+    the newest checkpoint. On a ProcessGroupMesh each rank steps its own
+    block, rank 0 checkpoints the gathered state and a ``mesh.all_max``
+    barrier follows; a rank ``elastic_mesh`` leaves out returns at once."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.runtime import SimulatedFailure, elastic_mesh, run_with_recovery
+    from repro_torch.serve import PlanPool
+
+    make_mesh = make_mesh or (lambda k: elastic_mesh(("model",), max_devices=k, timeout_s=NCCL_TIMEOUT_S))
+    ckpt = CheckpointManager(ckdir, keep=2)
+    out = {}
+
+    def loop(resume):
+        mesh = make_mesh(alive["n"])
+        if mesh is None:
+            out["left"] = True
+            return
+        plan, _ = PlanPool(mesh, plan_kwargs=ELASTIC_KW).get(tuple(x0.shape), 2, x0.dtype, False)
+        tail = plan.input_spec().tail
+        blocks = mesh.caller_holds_block
+        own = (lambda a: mesh.split(a, tail)[0]) if blocks else (lambda a: a)
+        whole = (lambda v: mesh.gather([v], tail)) if blocks else (lambda v: v)
+        state, start = x0, 0
+        latest, restored = ckpt.restore_latest({"x": x0})
+        if latest is not None:
+            state, start = restored["x"], latest
+            out.setdefault("resumed_at", (start, mesh.p))
+        v = own(state)
+        for step in range(start, ELASTIC_STEPS):
+            if injector is not None:
+                try:
+                    injector.maybe_fail(step)
+                except SimulatedFailure:
+                    alive["n"] //= 2
+                    raise
+            v = plan.inverse(plan.execute(v + own(forcing[step]))) * 0.5
+            full = whole(v)
+            if not blocks or mesh.rank == 0:
+                ckpt.save(step + 1, {"x": full}, blocking=True)
+            mesh.all_max([0.0])  # the checkpoint is on disk before any rank reads it
+        out["x"] = whole(v)
+
+    out["restarts"] = run_with_recovery(loop, max_restarts=2, sleep=lambda s: None)
+    return out
+
+
+def elastic_inputs(torch, seed, device="cuda"):
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 42)
+    draw = lambda: torch.randn((SERVE_N, SERVE_N), dtype=torch.complex64, device=device, generator=g)  # noqa: E731
+    return draw(), [draw() for _ in range(ELASTIC_STEPS)]
+
+
+def elastic_phase(torch, seed, fft_stage):
+    """Phase 12: the elastic scenario at 4096^2 on the card: SimMesh(4)
+    fails at step 3, resumes on elastic_mesh(max_devices=2) from the
+    step-3 checkpoint, and must equal an uninterrupted SimMesh(2) run
+    bitwise (and SimMesh(4)'s to 1e-6). Returns the resumed run's launches."""
+    from repro_torch.runtime import FailureInjector
+
+    x0, forcing = elastic_inputs(torch, seed)
+    with tempfile.TemporaryDirectory() as tmp:
+        inj = FailureInjector(ELASTIC_FAIL_AT)
+        t0 = time.perf_counter()
+        got, launches, peak = counted(torch, fft_stage, "elastic recovery",
+                                      lambda: elastic_run(torch, f"{tmp}/resume", {"n": P}, x0, forcing, inj),
+                                      ("stage_left", "stage_right"))
+        resumed_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        ref2 = elastic_run(torch, f"{tmp}/p2", {"n": P // 2}, x0, forcing)
+        ref2_s = time.perf_counter() - t0
+        ref4 = elastic_run(torch, f"{tmp}/p4", {"n": P}, x0, forcing)
+    check(inj.fired_steps == [ELASTIC_FAIL_AT] and got["restarts"] == 1, "elastic: the injected failure did not fire once")
+    check(got["resumed_at"] == (ELASTIC_FAIL_AT, P // 2), f"elastic: resumed at {got.get('resumed_at')}")
+    check(ref2["restarts"] == 0 and "resumed_at" not in ref2, "elastic: the uninterrupted run restarted")
+    y = got["x"]
+    check(tuple(y.shape) == (SERVE_N, SERVE_N) and bool(torch.isfinite(torch.view_as_real(y)).all()),
+          "elastic: the resumed state is not finite with the expected shape")
+    bitwise2, bitwise4 = torch.equal(y, ref2["x"]), torch.equal(y, ref4["x"])
+    err4 = rel_err(torch, y, ref4["x"])
+    state = x0.to(torch.complex128)
+    for f in forcing:
+        state = torch.fft.ifft2(torch.fft.fft2(state + f)) * 0.5
+    err64 = rel_err(torch, y.to(torch.complex128), state)
+    print(f"elastic recovery: {SERVE_N}^2 complex64, {ELASTIC_STEPS} steps, {ELASTIC_KW}: FailureInjector("
+          f"{ELASTIC_FAIL_AT}) fired at {inj.fired_steps}, restarts {got['restarts']}, resumed at step/ranks "
+          f"{got['resumed_at']} (elastic_mesh(max_devices={P // 2})); vs uninterrupted SimMesh({P // 2}): bitwise "
+          f"{bitwise2}; vs uninterrupted SimMesh({P}): bitwise {bitwise4}, rel_err {err4:.3e} (tol 1e-06); vs the "
+          f"complex128 torch.fft run: rel_err {err64:.3e} (tol {MAIN_PATH_REL_TOL}); resumed run {resumed_s:.2f} s, "
+          f"uninterrupted SimMesh({P // 2}) {ref2_s:.2f} s (checkpoints included), launches {launches}, "
+          f"peak memory {peak:.2f} GiB", flush=True)
+    check(bitwise2, f"elastic: the resumed state differs from the uninterrupted SimMesh({P // 2}) run")
+    check(err4 <= 1e-6, f"elastic: the resumed state differs from SimMesh({P})'s by {err4:.3e}")
+    check(err64 <= MAIN_PATH_REL_TOL, f"elastic: the resumed state differs from torch.fft's by {err64:.3e}")
+    return launches
+
+
 NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
 NCCL_PENCIL_VARIANTS = ((("scatter", "scatter"), "auto"), (("alltoall", "alltoall"), False))
 
@@ -774,6 +1095,7 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
                 fused=plan.fused, launches=launches, rel_err_vs_sim=err, sim=f"SimMesh({grid})",
                 ms=host_ms(torch, lambda: plan.execute(block)), peak_gib=peak)
         report["measured planner"] = nccl_measured(torch, mesh, sim, x, fft_stage, plan_fft)
+        report["faults"] = nccl_faults(torch, mesh, sim, x, plan_fft, seed, out_dir)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -818,6 +1140,62 @@ def nccl_measured(torch, mesh, sim, x, fft_stage, plan_fft) -> dict:
     return out
 
 
+def nccl_faults(torch, mesh, sim, x, plan_fft, seed: int, tmp: str) -> dict:
+    """Phase 7's fault part, one rank. Agreement: a FaultPlan that fires
+    on rank 0 only (an empty one elsewhere) makes every rank raise at the
+    same Exchange, far inside NCCL_TIMEOUT_S; the exhausted plan then
+    runs clean and equals SimMesh. Elastic (P > 1): the ranks go from P
+    to P/2 over dist.new_group (called on every rank), rank 0
+    checkpointing the gathered state; the survivors' result must equal
+    an uninterrupted P/2 ProcessGroupMesh run and SimMesh(P/2) bitwise,
+    and the others wait at the final barrier."""
+    import torch.distributed as dist
+
+    from repro_torch.core import SimMesh
+    from repro_torch.runtime import FailureInjector, FaultPlan, InjectedFault
+
+    kw = dict(backend="scatter", local_impl="kernel")
+    fp = FaultPlan.error(match="Exchange") if mesh.rank == 0 else FaultPlan()
+    plan = plan_fft((N, N), mesh, faults=fp, **kw)
+    block = mesh.split(x, ("model", None))[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    raised = None
+    try:
+        plan.execute(block)
+    except InjectedFault as e:
+        raised = f"{type(e).__name__}: {e}"
+    waited = time.perf_counter() - t0
+    check(raised is not None and "on rank 0" in raised, f"rank {mesh.rank}: the agreed fault did not raise: {raised}")
+    check(waited < NCCL_TIMEOUT_S / 10, f"rank {mesh.rank}: raising took {waited:.1f} s")
+    got = mesh.gather([plan.execute(block)], ("model", None))
+    err = rel_err(torch, got, plan_fft((N, N), sim, **kw).execute(x))
+    check(err <= 1e-6, f"rank {mesh.rank}: the clean run after the fault disagrees with SimMesh")
+    out = dict(raised=raised, waited_s=waited, events=len(fp.events), clean_rel_err_vs_sim=err)
+    del got, block
+    if mesh.p == 1:
+        out["elastic"] = "P = 1: one rank cannot shrink (phase 12 shrinks SimMesh(4) to SimMesh(2))"
+        return out
+    x0, forcing = elastic_inputs(torch, seed, mesh.device)
+    inj = FailureInjector(ELASTIC_FAIL_AT)
+    half = mesh.p // 2
+    got = elastic_run(torch, f"{tmp}/elastic-resume", {"n": mesh.p}, x0, forcing, inj)
+    ref = elastic_run(torch, f"{tmp}/elastic-p{half}", {"n": half}, x0, forcing)
+    el = dict(survivor="x" in got, fired=inj.fired_steps, restarts=got["restarts"])
+    if el["survivor"]:
+        sim_half = elastic_run(torch, f"{tmp}/elastic-sim{half}-rank{mesh.rank}", {"n": half}, x0, forcing,
+                               make_mesh=lambda k: SimMesh(k, device=mesh.device))
+        el.update(resumed_at=list(got["resumed_at"]), bitwise_vs_process_group=torch.equal(got["x"], ref["x"]),
+                  bitwise_vs_sim=torch.equal(got["x"], sim_half["x"]))
+        check(el["resumed_at"] == [ELASTIC_FAIL_AT, half] and el["bitwise_vs_process_group"] and el["bitwise_vs_sim"],
+              f"rank {mesh.rank}: the resumed state differs from the uninterrupted P = {half} runs: {el}")
+    else:
+        check(got.get("left") and ref.get("left"), f"rank {mesh.rank}: a non-survivor ran the shrunk loop")
+    dist.barrier()  # the non-survivors wait here for the survivors
+    out["elastic"] = el
+    return out
+
+
 def nccl_phase(torch, seed: int):
     """Phase 7: one ProcessGroupMesh rank per visible card over NCCL."""
     import torch.multiprocessing as mp
@@ -832,7 +1210,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key != "measured planner":
+            if isinstance(r, dict) and key not in ("measured planner", "faults"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -850,6 +1228,12 @@ def nccl_phase(torch, seed: int):
               f"table ms (largest over the ranks): {table}; failed {m['failed'] or 'none'}", flush=True)
         if rep["rank"] == 0:
             print(m["why"], flush=True)
+    for rep in reports:
+        f = rep["faults"]
+        print(f"NCCL rank {rep['rank']}/{rep['P']} fault agreement: FaultPlan.error on rank 0 only -> {f['raised']} "
+              f"after {f['waited_s'] * 1e3:.1f} ms (timeout {NCCL_TIMEOUT_S} s), own events {f['events']}; clean run "
+              f"after it rel_err vs SimMesh={f['clean_rel_err_vs_sim']:.3e} (tol 1e-06); elastic: {f['elastic']}",
+              flush=True)
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     return reports[0]
 
@@ -859,6 +1243,7 @@ def main(argv=None) -> int:
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
 
+    t_start = time.perf_counter()
     import torch
 
     if not torch.cuda.is_available():
@@ -922,11 +1307,18 @@ def main(argv=None) -> int:
     time_shapes("pencil rfft3", shapes)
     by_path["measured_race"] = measured_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
+    serving, shapes = serving_phase(torch, args.seed, fft_stage, SimMesh)
+    by_path.update(serving)
+    torch.cuda.empty_cache()
+    time_shapes("serving", shapes)
+    by_path["elastic_recovery"] = elastic_phase(torch, args.seed, fft_stage)
+    torch.cuda.empty_cache()
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]
         row["launches_by_path"] = {path: counts[key] for path, counts in by_path.items()}
 
+    print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -33,9 +33,9 @@ transforms, slab and pencil, under ``planner="estimate"`` and
 ``planner="measure"`` (:mod:`repro_torch.core.planner`), with the
 plan's decision provenance (:meth:`Plan.why`), per-stage model
 (:meth:`Plan.predict_stages`), traced profile (:meth:`Plan.profile`) and
-roofline (:meth:`Plan.roofline`). ``faults=`` raises
-``NotImplementedError`` naming its ROADMAP item. ``FFTPlan`` /
-``make_plan`` remain as the reference's deprecation shims.
+roofline (:meth:`Plan.roofline`), and the chaos hook ``faults=``
+(:mod:`repro_torch.runtime.faults`). ``FFTPlan`` / ``make_plan`` remain
+as the reference's deprecation shims.
 """
 
 from __future__ import annotations
@@ -131,10 +131,6 @@ def split_pair(key) -> Tuple[str, str]:
         row, _, col = key.partition(PAIR_SEP)
         return row, col
     return key, key
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to repro_torch yet (ROADMAP {item})")
 
 
 class Plan:
@@ -258,6 +254,12 @@ class Plan:
         self.race_failures: Dict[str, str] = {}
         self.wisdom_hit = False
         self.wisdom_key: Optional[str] = None
+        #: chaos hook (:class:`repro_torch.runtime.faults.FaultPlan`).
+        #: While armed, execute/inverse run the segmented chaos executor,
+        #: which consults it before every Exchange; once exhausted (or
+        #: None) the plain executor runs. On a ProcessGroupMesh attach
+        #: one on every rank or on none (``FaultPlan()`` arms nothing).
+        self.faults = None
         #: which channel picked the backend: "pinned" (the caller named
         #: it), "model-argmin" (alpha-beta auto), or -- set by
         #: plan_measured -- "measured-race" / "wisdom-hit" /
@@ -827,13 +829,15 @@ class Plan:
 
     # -- execution -------------------------------------------------------------
     def _run(self, x, inverse: bool) -> torch.Tensor:
-        return sch.run_schedule(x, self.schedule(inverse), self.mesh, impl=self.local_impl)
+        return sch.run_schedule(x, self.schedule(inverse), self.mesh, impl=self.local_impl,
+                                faults=self.faults)
 
     def execute(self, x) -> torch.Tensor:
         """Run the planned direction on ``x``, moved to the mesh's
         device: the global array on a ``SimMesh``, the rank's own block
         (of :meth:`input_spec`'s layout) on a ``ProcessGroupMesh`` (the
-        result likewise)."""
+        result likewise). While :attr:`faults` is armed (agreed across
+        the ranks), through the chaos executor."""
         return self._run(x, self.direction == "inverse")
 
     def inverse(self, x) -> torch.Tensor:
@@ -1012,7 +1016,11 @@ def plan_fft(
     replaces the clock (tests). A backend such as ``"scatter@u"`` (unfused)
     or ``"scatter@f8"`` (fused, 8 chunks) pins the pipeline too.
 
-    Not ported yet, raising ``NotImplementedError``: ``faults=``.
+    ``faults=`` installs a chaos hook
+    (:class:`repro_torch.runtime.faults.FaultPlan`) on the plan after
+    planning (a measured race is never poisoned); ``execute`` /
+    ``inverse`` then consult it before every Exchange stage (see
+    :attr:`Plan.faults`).
     """
     if planner not in ("estimate", "measure"):
         raise ValueError(f"planner must be 'estimate' or 'measure', got {planner!r}")
@@ -1020,25 +1028,26 @@ def plan_fft(
         # a forgotten planner="measure" would otherwise fall back to the
         # model with the injected timer never called
         raise ValueError("timer= and use_wisdom= require planner='measure'")
-    if faults is not None:
-        raise _not_ported("faults= (chaos injection)", "A12 (runtime/faults.py)")
     if planner == "measure":
         from repro_torch.core import planner as _planner
 
-        return _planner.plan_measured(
+        plan = _planner.plan_measured(
             global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
             axis_name=axis_name, local_impl=local_impl, transpose_back=transpose_back,
             dtype=dtype, params=params, chunk_compute_s=chunk_compute_s, timer=timer,
             use_wisdom=use_wisdom, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
             real=real, pad=pad, pipeline=pipeline,
         )
-    return Plan(
-        global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
-        axis_name=axis_name, local_impl=local_impl,
-        transpose_back=transpose_back, dtype=dtype, params=params,
-        chunk_compute_s=chunk_compute_s, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
-        real=real, pad=pad, pipeline=pipeline,
-    )
+    else:
+        plan = Plan(
+            global_shape, mesh, ndim=ndim, direction=direction, backend=backend,
+            axis_name=axis_name, local_impl=local_impl,
+            transpose_back=transpose_back, dtype=dtype, params=params,
+            chunk_compute_s=chunk_compute_s, decomp=decomp, row_axis=row_axis, col_axis=col_axis,
+            real=real, pad=pad, pipeline=pipeline,
+        )
+    plan.faults = faults  # after planning: a measured race is never poisoned
+    return plan
 
 
 # ---------------------------------------------------------------------------

@@ -990,14 +990,25 @@ def _execute_stages(vs, stages: Tuple[object, ...], mesh: Mesh, *, impl="torch")
     return vs
 
 
-def execute_schedule(vs, sched: Schedule, mesh: Mesh, *, impl="torch"):
+def execute_schedule(vs, sched: Schedule, mesh: Mesh, *, impl="torch", faults=None):
     """Interpret a schedule over the local blocks -- the single body
     behind every distributed transform (use :func:`run_schedule` for a
-    caller's array)."""
+    caller's array). With ``faults`` (an armed fault plan) it is the
+    chaos executor: the stages run segment by segment
+    (:func:`_segments`, no spans, no fences), and the fault plan is
+    consulted (:func:`_consult_faults`) before every Exchange segment, so
+    an injected fault surfaces as a host exception at dispatch time; the
+    numerics of a run in which nothing fires are the plain executor's."""
     vs = list(vs)
     if sched.conj:
         vs = [torch.conj_physical(v) for v in vs]
-    vs = _execute_stages(vs, sched.stages, mesh, impl=impl)
+    if faults is None:
+        vs = _execute_stages(vs, sched.stages, mesh, impl=impl)
+    else:
+        for start, seg in _segments(sched):
+            if isinstance(seg[-1], Exchange):  # a Twiddle rides its Exchange
+                _consult_faults(faults, _stage_label(seg[-1]), start + len(seg) - 1, mesh)
+            vs = _execute_stages(vs, seg, mesh, impl=impl)
     for k in range(len(vs)):
         if sched.conj:
             vs[k] = torch.conj_physical(vs[k])
@@ -1081,7 +1092,8 @@ def _library_reference(x: torch.Tensor, sched: Schedule) -> torch.Tensor:
     raise ValueError(f"no whole-transform reference for schedule kind {k!r}")  # pragma: no cover
 
 
-def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch", trace=None) -> torch.Tensor:
+def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch", trace=None,
+                 faults=None) -> torch.Tensor:
     """Run a schedule on the caller's array -- the global array on a
     :class:`~repro_torch.core.mesh.SimMesh`, the rank's own block on a
     :class:`~repro_torch.core.mesh.ProcessGroupMesh` -- moved to the
@@ -1093,14 +1105,69 @@ def run_schedule(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl="torch", 
     With ``trace`` (a :class:`repro_torch.obs.trace.TraceRecorder`) the
     stages run segment by segment, each fenced and stamped with a span
     (:func:`_run_schedule_traced`); the default ``trace=None`` path is
-    the plain executor."""
+    the plain executor.
+
+    With ``faults`` (an *armed* :class:`repro_torch.runtime.faults.FaultPlan`)
+    the stages run segment by segment, consulting the fault plan before
+    every Exchange segment (and before a ``global:`` library dispatch),
+    so a matching spec raises, stalls or reports device loss at exactly
+    the stage it names (the chaos executor, :func:`execute_schedule`). An
+    exhausted (``active() == False``) plan runs the plain executor. On a
+    ``ProcessGroupMesh`` every rank passes a fault plan or none does:
+    the ranks agree on "armed" (one ``mesh.all_max``) and, at each
+    consulted stage, on whether any rank's plan fired
+    (:func:`_consult_faults`), so all of them take the same path and
+    raise together."""
+    if faults is not None and not mesh.all_max([faults.active()])[0]:
+        faults = None
+    if faults is not None and sched.global_backend is not None:
+        _consult_faults(faults, f"global:{sched.kind}", 0, mesh)
     if trace is not None:
-        return _run_schedule_traced(x, sched, mesh, impl=impl, trace=trace)
+        return _run_schedule_traced(x, sched, mesh, impl=impl, trace=trace, faults=faults)
     if sched.global_backend is not None:
         out = _library_reference(mesh.global_input(x, sched.in_tail), sched)
         return mesh.global_output(out, sched.out_tail)
-    vs = execute_schedule(mesh.local_blocks(x, sched.in_tail), sched, mesh, impl=impl)
+    vs = execute_schedule(mesh.local_blocks(x, sched.in_tail), sched, mesh, impl=impl, faults=faults)
     return mesh.caller_array(vs, sched.out_tail)
+
+
+#: Fault codes the ranks agree on (the largest wins): none, an injected
+#: error, a device loss.
+_NO_FAULT, _ERROR, _DEVICE_LOSS = 0, 1, 2
+
+
+def _consult_faults(faults, label: str, index: int, mesh: Mesh) -> None:
+    """``faults.on_stage(label, index=index)``, agreed across the ranks
+    of a ``ProcessGroupMesh``: each rank consults its own plan (events,
+    counters and stalls stay on the rank whose plan fired), then one
+    ``mesh.all_max([code, alive, rank])`` tells every rank whether any
+    plan fired, and each raises the same type -- ``DeviceLossFault`` if
+    any rank lost a device (``alive``: the largest count reported),
+    else ``InjectedFault`` -- naming the (highest) rank that fired. On a
+    ``SimMesh`` (one controller) the plan's own exception propagates."""
+    from repro_torch.runtime.faults import DeviceLossFault, InjectedFault
+
+    code, alive, local = _NO_FAULT, -1, None
+    try:
+        faults.on_stage(label, index=index)
+    except DeviceLossFault as e:
+        code, local = _DEVICE_LOSS, e
+        alive = -1 if e.alive is None else e.alive
+    except InjectedFault as e:
+        code, local = _ERROR, e
+    if not mesh.caller_holds_block:
+        if local is not None:
+            raise local
+        return
+    code, alive, who = (int(v) for v in mesh.all_max([code, alive, mesh.rank if code else -1]))
+    if code == _DEVICE_LOSS:
+        raise DeviceLossFault(
+            f"injected device loss at {label} on rank {who}"
+            f"{'' if alive < 0 else f' ({alive} alive)'}",
+            alive=None if alive < 0 else alive,
+        ) from local
+    if code == _ERROR:
+        raise InjectedFault(f"injected fault at {label} on rank {who}") from local
 
 
 def _segments(sched: Schedule) -> Tuple[Tuple[int, Tuple[object, ...]], ...]:
@@ -1146,7 +1213,8 @@ def exchange_span_args(st: Exchange, real_itemsize: int, complex_itemsize: int) 
     }
 
 
-def _run_schedule_traced(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl, trace) -> torch.Tensor:
+def _run_schedule_traced(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl, trace,
+                         faults=None) -> torch.Tensor:
     """Trace-mode executor: the stage list run one segment at a time
     (:func:`_segments`, each a slice of the stage list over the same
     blocks), a wall-clock span around each. On the card every span ends
@@ -1157,7 +1225,10 @@ def _run_schedule_traced(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl, 
     spans of their own (``Conj(in)``, ``Epilogue(conj/scale)``), and on
     a ``SimMesh`` so does assembling the global output from the ranks'
     blocks (``Gather(out)``). On a ``ProcessGroupMesh`` each rank records
-    its spans under ``pid=rank``."""
+    its spans under ``pid=rank``. With ``faults`` each Exchange segment
+    consults it first, outside the span (``run_schedule`` consults it
+    before a ``global:`` dispatch), so an injected raise leaves no
+    half-open span in the recorder."""
     r_item, c_item = _itemsizes(x)
     device = mesh.device
     pid = mesh.rank if mesh.caller_holds_block else trace.pid
@@ -1195,6 +1266,8 @@ def _run_schedule_traced(x: torch.Tensor, sched: Schedule, mesh: Mesh, *, impl, 
             cat = "stage"
             args = {"stage": type(report).__name__}
         args["index"] = start + len(seg) - 1
+        if faults is not None and isinstance(report, Exchange):
+            _consult_faults(faults, _stage_label(report), args["index"], mesh)
         with span(_stage_label(report), cat=cat, **args):
             vs = _execute_stages(vs, seg, mesh, impl=impl)
     if sched.conj or sched.scale is not None:

@@ -72,26 +72,39 @@ def test_chip_smoke_fails_without_a_gpu_or_a_checkout(tmp_path):
 
 
 def test_new_modules_are_covered():
-    """The r2c transforms, the apps and the process-group mesh are among
-    the modules the two checks above import with jax blocked."""
+    """The r2c transforms, the apps, the process-group mesh, the fault
+    layer, the checkpoints and the serving engine are among the modules
+    the two checks above import with jax blocked."""
     mods = _modules()
     for m in ("repro_torch.core.real", "repro_torch.core.mesh", "repro_torch.apps",
               "repro_torch.apps.spectral", "repro_torch.apps.poisson", "repro_torch.apps.derivatives",
-              "repro_torch.apps.convolve"):
+              "repro_torch.apps.convolve", "repro_torch.runtime", "repro_torch.runtime.faults",
+              "repro_torch.runtime.monitor", "repro_torch.runtime.elastic", "repro_torch.checkpoint",
+              "repro_torch.checkpoint.manager", "repro_torch.serve", "repro_torch.serve.queue",
+              "repro_torch.serve.spectral"):
         assert m in mods, m
     assert "class ProcessGroupMesh" in (PKG / "core" / "mesh.py").read_text()
 
 
 def test_new_entry_points_ask_for_the_card(tmp_path):
-    """Called without device=, the process-group entry point and the
-    plans the apps run on pick the card, and raise without one."""
+    """Called without device=, the process-group entry point, the plans
+    the apps run on, elastic_mesh and the serving engine pick the card,
+    and raise without one."""
     import torch
 
     from repro_torch.core import SimMesh, init_process_mesh
+    from repro_torch.runtime import elastic_mesh
+    from repro_torch.serve import SpectralEngine
 
     if torch.cuda.is_available():
         assert SimMesh(2).device.type == "cuda"
+        assert elastic_mesh().device.type == "cuda"
+        assert SpectralEngine(SimMesh(2)).pool.mesh.device.type == "cuda"
         return
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        elastic_mesh()
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        SpectralEngine(SimMesh(2))
     with pytest.raises(RuntimeError, match="device='cpu'"):
         init_process_mesh(0, 1, f"file://{tmp_path / 'rendezvous'}")
     with pytest.raises(RuntimeError, match="device='cpu'"):

@@ -127,8 +127,14 @@ def test_plan_errors_name_the_axis_and_the_roadmap_item():
     with pytest.raises(NotImplementedError, match="1-D real transform"):
         plan_fft((64,), mesh, ndim=1, real=True)
     grid = SimMesh((2, 2), axis_names=("rows", "cols"), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        plan_fft((16, 16), mesh, faults=object())
+    # faults= (ROADMAP A12, ported): the chaos hook fires at the Exchange it names
+    from repro_torch.runtime import FaultPlan, InjectedFault
+
+    fp = FaultPlan.error(match="Exchange")
+    chaos = plan_fft((16, 16), mesh, faults=fp)
+    with pytest.raises(InjectedFault, match=r"Exchange\(slab:model"):
+        chaos.execute(torch.zeros(16, 16, dtype=torch.complex64))
+    assert chaos.faults is fp and fp.injected == 1 and not fp.active()
     # decomp="pencil" / "auto" (ROADMAP A8) plan: pencil on a grid, slab on one axis
     for kwargs, decomp in ((dict(decomp="pencil"), "pencil"), (dict(decomp="auto"), "pencil"),
                            (dict(decomp="pencil", real=True), "pencil")):

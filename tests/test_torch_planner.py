@@ -385,8 +385,14 @@ def test_plan_fft_argument_guards():
         plan_fft((16, 16), mesh, backend="scatter@u", pipeline=4)
     with pytest.raises(RuntimeError, match="every candidate failed"):
         plan_fft((16, 16), mesh, planner="measure", timer=lambda p: 1 / 0)
-    with pytest.raises(NotImplementedError, match="ROADMAP A12"):
-        plan_fft((16, 16), mesh, planner="measure", faults=object(), timer=lambda p: 1.0)
+    # faults= (ROADMAP A12, ported) rides the measured plan, attached after the race
+    from repro_torch.runtime import FaultPlan, InjectedFault
+
+    fp = FaultPlan.error(match="Exchange")
+    chaos = plan_fft((16, 16), mesh, planner="measure", faults=fp, timer=lambda p: 1.0)
+    assert chaos.faults is fp and chaos.planner == "measure" and fp.injected == 0
+    with pytest.raises(InjectedFault):
+        chaos.execute(torch.zeros(16, 16, dtype=torch.complex64))
 
 
 def test_calibration_store_prices_default_plans_under_its_device_kind():
