@@ -83,7 +83,13 @@ Phases, each printing a line; any failure exits non-zero with no result:
    unfused alltoall and the kernels: SimMesh(4) fails at step 3 of 6,
    run_with_recovery resumes on elastic_mesh(max_devices=2) from the
    step-3 checkpoint, and the result must equal an uninterrupted
-   SimMesh(2) run bitwise and SimMesh(4)'s to 1e-6.
+   SimMesh(2) run bitwise and SimMesh(4)'s to 1e-6;
+13. overlap rings -- repro_torch.core.overlap's ring_all_gather,
+   collective_matmul_ag, ring_reduce_scatter and ring_scatter_reduce on
+   SimMesh(4) at Qwen2.5-32B's MLP widths (4096 tokens, d_model 5120,
+   d_ff 27648, float32), each held against its dense torch answer
+   (1e-5 relative) and timed beside it, and the gradient through
+   ring_all_gather against 2x.
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -96,6 +102,19 @@ the clean run after it must equal SimMesh; on P > 1 cards the ranks
 shrink P -> P/2 over dist.new_group (rank 0 checkpointing the gathered
 state), and the survivors' result must equal an uninterrupted P/2 run
 and SimMesh(P/2) bitwise (one card: P = 1 cannot shrink; phase 12 does).
+Then SPMD serving: the host time of one agreement (mesh.host_max over
+the group's gloo half, beside mesh.all_max over NCCL, idle and with
+matmuls queued on the stream); phase 11's clean stream through
+SpectralEngine on the ProcessGroupMesh, every rank submitting its own
+block of each request, coalescing on and off, every block held against
+SpectralEngine(SimMesh(P)) on the same stream (1e-6) and every rank
+making the same batches; a poisoned batch and a breaker trip with the
+faults on rank 0 only and each rank's clock offset differently, whose
+counters must agree on every rank; and on P > 1 cards the engine's
+remesh onto the P/2 survivors, bitwise equal to SimMesh(P/2)'s engine.
+Last, phase 13's rings over NCCL, each timed beside the library
+collective that computes the same result (all_gather_into_tensor,
+reduce_scatter_tensor, all-gather + torch.matmul).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -108,7 +127,8 @@ kernel once at every shape not timed before. Kernel times are CUDA-event medians
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
-counts of every counted path, phases 11-12's included; the last line is
+counts of every counted path, phases 7 (SPMD serving) and 11-12's
+included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -157,6 +177,12 @@ ELASTIC_KW = dict(backend="alltoall", pipeline=False, local_impl="kernel")
 STAGE_RTOL, STAGE_ATOL = 2e-4, 2e-3  # the reference's per-stage tolerances
 PACK_RTOL, PACK_ATOL = 1e-5, 1e-5  # one complex multiply per element
 FFT_REL_TOL = 2e-5  # fft_last_axis vs the library FFT, relative to max
+#: the overlap rings' widths: Qwen2.5-32B's MLP (src/repro/configs/qwen2_5_32b.py:
+#: d_model 5120, d_ff 27648) over 4096 tokens, float32
+RING_TOKENS, RING_D_MODEL, RING_D_FF = 4096, 5120, 27648
+RING_REL_TOL = 1e-5  # fp32 sums in another order, relative to the largest entry
+RING_REPS = 5
+AGREE_BUSY_N, AGREE_BUSY_MATMULS = 8192, 3  # float32 matmuls queued before an agreement (~20 ms each)
 
 
 class SmokeFailure(RuntimeError):
@@ -768,6 +794,33 @@ def warm_buckets(torch, eng, buckets, ops=("fft",)) -> None:
             eng.pool.warm((b, SERVE_N, SERVE_N), 2, torch.float32 if real else torch.complex64, real)
 
 
+def serve_inputs(torch, seed, device="cuda"):
+    """Phase 11's stream: SERVE_FFT complex64 and SERVE_POISSON float32
+    SERVE_N^2 fields from a generator at ``seed`` (the same on every rank)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed)
+    n = SERVE_N
+    xs = [torch.randn((n, n), dtype=torch.complex64, device=device, generator=g) for _ in range(SERVE_FFT)]
+    fs = [torch.randn((n, n), dtype=torch.float32, device=device, generator=g) for _ in range(SERVE_POISSON)]
+    return xs, fs
+
+
+def serve_stream(eng, xs, fs, own=lambda a: a):
+    """Submit phase 11's clean stream (a Poisson field after every fourth
+    fft request), flush and block every request; returns (op, input,
+    future) in submission order. ``own`` turns an input into what the
+    caller submits: the global field, or on a ProcessGroupMesh its block."""
+    futs = []
+    for i, x in enumerate(xs):
+        futs.append(("fft", x, eng.submit("fft", own(x))))
+        if i % 4 == 3:
+            futs.append(("poisson", fs[i // 4], eng.submit("poisson", own(fs[i // 4]))))
+    eng.flush()
+    for _, _, f in futs:
+        f.block()
+    return futs
+
+
 def serving_phase(torch, seed, fft_stage, SimMesh):
     """Phase 11: SpectralEngine(SimMesh(4), max_batch=8) with the fused
     scatter ring and the kernels: clean serving (coalescing on, then
@@ -777,10 +830,7 @@ def serving_phase(torch, seed, fft_stage, SimMesh):
     from repro_torch.serve import SpectralEngine
 
     n, mesh, buckets = SERVE_N, SimMesh(P), (1, 2, 4, SERVE_BATCH)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    xs = [torch.randn((n, n), dtype=torch.complex64, device="cuda", generator=g) for _ in range(SERVE_FFT)]
-    fs = [torch.randn((n, n), dtype=torch.float32, device="cuda", generator=g) for _ in range(SERVE_POISSON)]
+    xs, fs = serve_inputs(torch, seed)
     by_path, shapes, peaks = {}, {}, []
 
     def check_result(label, op, inp, y):
@@ -790,17 +840,6 @@ def serving_phase(torch, seed, fft_stage, SimMesh):
               f"{label}: a {op} result disagrees with torch.fft (rel_err {err:.3e})")
         return err
 
-    def stream(eng):
-        futs = []
-        for i, x in enumerate(xs):
-            futs.append(("fft", x, eng.submit("fft", x)))
-            if i % 4 == 3:
-                futs.append(("poisson", fs[i // 4], eng.submit("poisson", fs[i // 4])))
-        eng.flush()
-        for _, _, f in futs:
-            f.block()
-        return futs
-
     # 1. clean serving: serve_sweep's two arms
     for coalesce in (True, False):
         arm = "coalesced" if coalesce else "solo"
@@ -808,7 +847,7 @@ def serving_phase(torch, seed, fft_stage, SimMesh):
         warm_buckets(torch, eng, buckets if coalesce else (1,), ("fft", "poisson"))
         eng.reset_stats()
         t0 = time.perf_counter()
-        futs, launches, peak = counted(torch, fft_stage, f"serving ({arm})", lambda: stream(eng))
+        futs, launches, peak = counted(torch, fft_stage, f"serving ({arm})", lambda: serve_stream(eng, xs, fs))
         elapsed = time.perf_counter() - t0
         peaks.append(peak)
         check(all(launches[f"{PACK} {mode}"] > 0 for mode in PACK_MODES),
@@ -1032,6 +1071,321 @@ def elastic_phase(torch, seed, fft_stage):
     return launches
 
 
+def ring_inputs(torch, seed, p, device):
+    """The rings' inputs, the same on every rank: tokens x (RING_TOKENS,
+    RING_D_MODEL), an up-projection w (RING_D_MODEL, RING_D_FF), and one
+    (RING_TOKENS, RING_D_MODEL) partial sum per rank (a down-projection's
+    output before its reduction)."""
+    g = torch.Generator(device=device)
+    g.manual_seed(seed + 7)
+    x = torch.randn((RING_TOKENS, RING_D_MODEL), device=device, generator=g)
+    w = torch.randn((RING_D_MODEL, RING_D_FF), device=device, generator=g) / math.sqrt(RING_D_MODEL)
+    parts = [torch.randn((RING_TOKENS, RING_D_MODEL), device=device, generator=g) for _ in range(p)]
+    return x, w, parts
+
+
+def events_ms(torch, fn, reps: int = RING_REPS) -> float:
+    """Median CUDA-event ms of ``reps`` single calls after one warm-up: a
+    fixed count, so every rank of a group enters its collectives as often."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def ring_cases(torch, mesh, seed) -> list:
+    """The four rings of repro_torch.core.overlap at Qwen2.5-32B's MLP
+    widths on ``mesh`` (SimMesh: every rank's blocks on this card; over
+    NCCL: this rank's): each held against its dense answer (RING_REL_TOL,
+    relative to the largest entry) and timed (median of RING_REPS, CUDA
+    events) beside the one library call that computes the same result --
+    the torch.distributed collective on a process group, the dense torch
+    equivalent on a SimMesh -- with the peak memory it adds to what is
+    live; then one backward
+    through ring_all_gather, whose gradient must be 2x. Returns a row per
+    function."""
+    import torch.distributed as dist
+
+    from repro_torch.core import collective_matmul_ag, ring_all_gather, ring_reduce_scatter, ring_scatter_reduce
+
+    ax, p, dev, pg = "model", mesh.p, mesh.device, mesh.caller_holds_block
+    x, w, parts = ring_inputs(torch, seed, p, dev)
+    mine = mesh.local_ranks()
+    rows_of, cols_of = mesh.split(x, (ax, None)), mesh.split(x, (None, ax))
+    own_parts = [parts[r] for r in mine]
+    total = torch.stack(parts).sum(0)
+    scattered = [total.chunk(p)[r] for r in mine]
+    y = torch.matmul(x, w)
+    del parts, total
+
+    def lib_gather():
+        out = torch.empty_like(x)
+        dist.all_gather_into_tensor(out, rows_of[0], group=mesh.group)
+        return [out]
+
+    def lib_matmul():
+        t, kc = cols_of[0].shape
+        out = torch.empty((p * t, kc), device=dev)  # the blocks stacked along dim 0
+        dist.all_gather_into_tensor(out, cols_of[0].contiguous(), group=mesh.group)
+        return [torch.matmul(out.view(p, t, kc).permute(1, 0, 2).reshape(x.shape), w)]
+
+    def lib_scatter():
+        out = torch.empty((RING_TOKENS // p, RING_D_MODEL), device=dev)
+        dist.reduce_scatter_tensor(out, own_parts[0], group=mesh.group)
+        return [out]
+
+    if pg:
+        libs = [(lib_gather, "dist.all_gather_into_tensor"),
+                (lib_matmul, "dist.all_gather_into_tensor + torch.matmul"),
+                (lib_scatter, "dist.reduce_scatter_tensor"), (lib_scatter, "dist.reduce_scatter_tensor")]
+    else:
+        dense_scatter = (lambda: list(torch.stack(own_parts).sum(0).chunk(p)), "torch.stack + sum + chunk")
+        libs = [(lambda: [torch.cat(rows_of)] * p, "torch.cat"),
+                (lambda: [torch.matmul(torch.cat(cols_of, dim=-1), w)] * p, "torch.cat + torch.matmul"),
+                dense_scatter, dense_scatter]
+    cases = [
+        ("ring_all_gather", lambda: ring_all_gather(rows_of, mesh, ax, axis=0), [x] * len(mine)),
+        ("collective_matmul_ag", lambda: collective_matmul_ag(cols_of, w, mesh, ax), [y] * len(mine)),
+        ("ring_reduce_scatter", lambda: ring_reduce_scatter(own_parts, mesh, ax, axis=0), scattered),
+        ("ring_scatter_reduce", lambda: ring_scatter_reduce(own_parts, mesh, ax, lambda c, src: c, split_axis=0),
+         scattered),
+    ]
+    def peak_gib(fn):
+        """The peak device memory ``fn`` adds to what is live already."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (torch.cuda.max_memory_allocated() - base) / 2**30
+
+    out = []
+    for (name, fn, exp), (lib, lib_name) in zip(cases, libs):
+        got, peak = peak_gib(fn)
+        err = max(rel_err(torch, a, b) for a, b in zip(got, exp))
+        del got
+        lib_got, lib_peak = peak_gib(lib)
+        lib_err = max(rel_err(torch, a, b) for a, b in zip(lib_got, exp))
+        del lib_got
+        check(err <= RING_REL_TOL, f"{mesh!r}: {name} disagrees with its dense answer (rel_err {err:.3e})")
+        check(lib_err <= RING_REL_TOL, f"{mesh!r}: {lib_name} disagrees with the dense answer (rel_err {lib_err:.3e})")
+        out.append(dict(name=name, ms=events_ms(torch, fn), library=lib_name, library_ms=events_ms(torch, lib),
+                        rel_err=err, library_rel_err=lib_err, peak_gib=peak, library_peak_gib=lib_peak))
+    xs = [b.clone().requires_grad_(True) for b in rows_of]
+    (sum((o ** 2).sum() for o in ring_all_gather(xs, mesh, ax, axis=0)) / p).backward()  # the ranks' mean
+    err = max(rel_err(torch, a.grad, 2 * b) for a, b in zip(xs, rows_of))
+    check(err <= RING_REL_TOL, f"{mesh!r}: the gradient through ring_all_gather is not 2x (rel_err {err:.3e})")
+    out.append(dict(name="ring_all_gather backward", rel_err=err))
+    return out
+
+
+def print_rings(who: str, rows) -> None:
+    for r in rows:
+        if "ms" not in r:
+            print(f"{who} {r['name']}: d(mean of sum(gather(x)^2))/dx vs 2x rel_err {r['rel_err']:.3e} "
+                  f"(tol {RING_REL_TOL})", flush=True)
+            continue
+        print(f"{who} {r['name']} at T={RING_TOKENS} d_model={RING_D_MODEL} d_ff={RING_D_FF} float32: "
+              f"{r['ms']:.3f} ms vs {r['library']} {r['library_ms']:.3f} ms (median of {RING_REPS}, CUDA events); "
+              f"rel_err vs dense {r['rel_err']:.3e} (library {r['library_rel_err']:.3e}, tol {RING_REL_TOL}); "
+              f"peak memory above the inputs {r['peak_gib']:.3f} GiB (library {r['library_peak_gib']:.3f})",
+              flush=True)
+
+
+def rings_phase(torch, seed, SimMesh) -> None:
+    """Phase 13: the overlap rings on SimMesh(4), every rank on this card."""
+    print_rings(f"rings SimMesh({P})", ring_cases(torch, SimMesh(P), seed))
+
+
+def agreement_probe(torch, mesh) -> dict:
+    """Host ms of one agreement over the group's CPU backend
+    (mesh.host_max, what the serving engine uses) and over the card's
+    (mesh.all_max), each idle (median of 20) and with AGREE_BUSY_MATMULS matmuls
+    queued on the stream: an agreement that waits for the stream takes
+    the queued work's time."""
+    a = torch.randn((AGREE_BUSY_N, AGREE_BUSY_N), device=mesh.device)
+
+    def host_ms_of(fn):
+        t0 = time.perf_counter()
+        fn()
+        return (time.perf_counter() - t0) * 1e3
+
+    def busy():
+        for _ in range(AGREE_BUSY_MATMULS):
+            torch.matmul(a, a)
+
+    out = {}
+    for name, fn in (("host_max", lambda: mesh.host_max([1.0])), ("all_max", lambda: mesh.all_max([1.0]))):
+        torch.cuda.synchronize()
+        out[f"{name}_idle_ms"] = statistics.median(host_ms_of(fn) for _ in range(20))
+        busy()
+        out[f"{name}_busy_ms"] = host_ms_of(fn)
+        torch.cuda.synchronize()
+    out["queued_ms"] = events_ms(torch, busy, reps=3)
+    return out
+
+
+def same_on_every_rank(mesh, obj, what: str):
+    """All-gather ``obj`` from every rank; fail unless all are equal."""
+    import torch.distributed as dist
+
+    objs = [None] * mesh.p
+    dist.all_gather_object(objs, obj)
+    check(all(o == objs[0] for o in objs), f"rank {mesh.rank}: the ranks' {what} differ: {objs}")
+    return objs
+
+
+def nccl_serving(torch, mesh, fft_stage, seed) -> dict:
+    """Phase 7's serving part, one rank: phase 11's clean stream through
+    SpectralEngine on this ProcessGroupMesh (every rank submits its own
+    block of each request), coalescing on and off, each completed block
+    held against the same stream through SpectralEngine(SimMesh(P)) on
+    this card; every rank must make the same batches. Then a poisoned
+    batch with the fault on rank 0 only and a breaker trip (each rank's
+    clock offset differently; only the last rank's passes the cool-down),
+    whose counters must be the same on every rank; and on P > 1 cards the
+    engine's remesh onto the P/2 survivors, equal to SimMesh(P/2)'s
+    engine bitwise."""
+    import torch.distributed as dist
+
+    from repro_torch.core import SimMesh
+    from repro_torch.runtime import CircuitBreaker, FaultPlan, RetryPolicy, elastic_mesh
+    from repro_torch.serve import SpectralEngine
+
+    p, tail, buckets = mesh.p, ("model", None), (1, 2, 4, SERVE_BATCH)
+    xs, fs = serve_inputs(torch, seed, mesh.device)
+    own = lambda a: mesh.split(a, tail)[0]  # noqa: E731
+    out = {"agreement": agreement_probe(torch, mesh)}
+    for coalesce in (True, False):
+        arm = "coalesced" if coalesce else "solo"
+        kw = dict(max_batch=SERVE_BATCH, max_wait_s=0.005, coalesce=coalesce, plan_kwargs=SERVE_KW)
+        ref = SpectralEngine(SimMesh(p, device=mesh.device), **kw)
+        warm_buckets(torch, ref, buckets if coalesce else (1,), ("fft", "poisson"))
+        exp = [own(f.result()).clone() for _, _, f in serve_stream(ref, xs, fs)]
+        del ref
+        eng = SpectralEngine(mesh, **kw)
+        warm_buckets(torch, eng, buckets if coalesce else (1,), ("fft", "poisson"))
+        eng.reset_stats()
+        dist.barrier()
+        t0 = time.perf_counter()
+        futs, launches, peak = counted(torch, fft_stage, f"NCCL serving ({arm})", lambda: serve_stream(eng, xs, fs, own),
+                                       None if p > 1 else ("stage_left", "stage_right"))
+        elapsed = time.perf_counter() - t0
+        err = max(rel_err(torch, f.result(), e) for (_, _, f), e in zip(futs, exp))
+        check(err <= 1e-6, f"rank {mesh.rank}: NCCL serving ({arm}) disagrees with SimMesh({p})'s engine ({err:.3e})")
+        s = eng.stats()
+        ag = s["agreements"]
+        same_on_every_rank(mesh, ([f.batch_size for _, _, f in futs], s["batches"], ag["count"]), f"{arm} batches")
+        out[arm] = dict(
+            requests=len(futs), elapsed_ms=elapsed * 1e3, tps=len(futs) / elapsed, latency_s=s["latency_s"],
+            mean_batch=s["mean_batch"], batches=s["batches"], padded=s["padded"], agreements=ag["count"],
+            agreements_per_dispatch=ag["per_dispatch"], agreement_ms=ag["host_s"] / max(ag["count"], 1) * 1e3,
+            stages_s=s["stages_s"], launches=launches, peak_gib=peak, rel_err_vs_sim=err)
+        del futs, exp, eng
+        torch.cuda.empty_cache()
+
+    # poison on rank 0 only: one coalesced batch of 4, two faults, no retries
+    eng = SpectralEngine(mesh, max_batch=SERVE_BATCH, max_wait_s=100.0, retry=RetryPolicy(max_retries=0),
+                         plan_kwargs=SERVE_KW)
+    warm_buckets(torch, eng, (1, 4))
+    eng.set_faults(FaultPlan.error(match="Exchange", times=2) if mesh.rank == 0 else FaultPlan())
+    futs = [eng.submit("fft", own(x)) for x in xs[:4]]
+    eng.drain()
+    failed = [i for i, f in enumerate(futs) if f.failed()]
+    errs = [rel_err(torch, f.result(), own(torch.fft.fft2(xs[i]).mT)) for i, f in enumerate(futs) if i not in failed]
+    m = eng.metrics()
+    poison = dict(failed=failed, errors=m["errors"], batch_splits=m["batch_splits"], quarantined=m["quarantined"])
+    same_on_every_rank(mesh, poison, "poison counters")
+    check(len(failed) == 1 and (m["errors"], m["batch_splits"], m["quarantined"]) == (2, 1, 1)
+          and max(errs) <= MAIN_PATH_REL_TOL, f"rank {mesh.rank}: poison on rank 0: {poison}, rel_errs {errs}")
+    out["poison"] = dict(poison, max_rel_err=max(errs))
+    del futs, eng
+
+    # the breaker: faults on rank 0 only, clocks offset by rank
+    clk = FakeClock()
+    clk.advance(10.0 * mesh.rank)
+    eng = SpectralEngine(mesh, max_batch=1, clock=clk, retry=RetryPolicy(max_retries=0), plan_kwargs=SERVE_KW,
+                         breaker=CircuitBreaker(failure_threshold=2, reset_after_s=5.0, clock=clk))
+    warm_buckets(torch, eng, (1,))
+    eng.set_faults(FaultPlan.error(match="Exchange", times=2) if mesh.rank == 0 else FaultPlan())
+
+    def one(x):
+        fut = eng.submit("fft", own(x))
+        eng.drain()
+        return fut
+
+    check(all(one(x).failed() for x in xs[:2]), f"rank {mesh.rank}: breaker: the faults did not quarantine")
+    deg, dl, _ = counted(torch, fft_stage, "NCCL serving degraded", lambda: one(xs[2]), expect=())
+    check(deg.degraded and deg.backend == "xla_auto" and not any(dl.values()),
+          f"rank {mesh.rank}: breaker: the open key was not degraded to xla_auto without kernels: {dl}")
+    err_deg = rel_err(torch, deg.result(), own(torch.fft.fft2(xs[2]).mT))
+    clk.advance(6.0 if mesh.rank == p - 1 else 1.0)  # only the last rank's clock passes the cool-down
+    probe = one(xs[3])
+    b = eng.breaker.stats()
+    same_on_every_rank(mesh, (b, eng.metrics()["degraded_dispatches"]), "breaker states")
+    check(probe.degraded is False and (b["opened"], b["reclosed"], b["probes"], b["open"]) == (1, 1, 1, 0)
+          and err_deg <= MAIN_PATH_REL_TOL, f"rank {mesh.rank}: breaker: {b}, degraded rel_err {err_deg:.3e}")
+    out["breaker"] = dict(b, degraded_launches=dl, degraded_rel_err=err_deg)
+    del deg, probe, eng
+
+    if p == 1:
+        out["remesh"] = "P = 1: one rank cannot shrink"
+        return out
+    half = p // 2
+    eng = SpectralEngine(mesh, max_batch=SERVE_BATCH, max_wait_s=100.0, plan_kwargs=SERVE_KW)
+    small = elastic_mesh(("model",), max_devices=half, timeout_s=NCCL_TIMEOUT_S)  # every rank calls it
+    if small is not None:
+        eng.remesh(small)
+        check(eng.mesh is small and all(f"|P={half}|" in k for k in eng.pool.keys()),
+              f"rank {mesh.rank}: remesh kept the old mesh's plans: {eng.pool.keys()}")
+        warm_buckets(torch, eng, (SERVE_BATCH,))
+        futs = [eng.submit("fft", small.split(x, tail)[0]) for x in xs[:SERVE_BATCH]]
+        eng.drain()
+        ref = SpectralEngine(SimMesh(half, device=mesh.device), max_batch=SERVE_BATCH, max_wait_s=100.0,
+                             plan_kwargs=SERVE_KW)
+        refs = [ref.submit("fft", x) for x in xs[:SERVE_BATCH]]
+        ref.drain()
+        bitwise = all(torch.equal(f.result(), small.split(r.result(), tail)[0]) for f, r in zip(futs, refs))
+        check(bitwise, f"rank {mesh.rank}: serving after remesh onto {half} ranks differs from SimMesh({half})'s")
+        out["remesh"] = dict(survivors=half, requests=len(futs), bitwise_vs_sim=bitwise,
+                             batch_sizes=[f.batch_size for f in futs])
+        del futs, refs, ref
+    else:
+        out["remesh"] = "left out"
+    dist.barrier()  # the others wait here for the survivors
+    return out
+
+
+def print_nccl_serving(rep) -> None:
+    who, sv = f"NCCL rank {rep['rank']}/{rep['P']}", rep["serving"]
+    a = sv["agreement"]
+    print(f"{who} agreement (one host value): mesh.host_max (gloo) {a['host_max_idle_ms']:.3f} ms idle, "
+          f"{a['host_max_busy_ms']:.3f} ms with {a['queued_ms']:.1f} ms of matmuls queued; mesh.all_max (NCCL) "
+          f"{a['all_max_idle_ms']:.3f} ms idle, {a['all_max_busy_ms']:.3f} ms with the same queued", flush=True)
+    for arm in ("coalesced", "solo"):
+        r = sv[arm]
+        lat, st = r["latency_s"], r["stages_s"]
+        print(f"{who} SPMD serving ({arm}): {r['requests']} requests ({SERVE_FFT} fft {SERVE_N}^2 complex64, "
+              f"{SERVE_POISSON} poisson float32, each rank its block) in {r['elapsed_ms']:.1f} ms, "
+              f"{r['tps']:.1f} transforms/s, latency p50 {lat['p50'] * 1e3:.2f} ms p99 {lat['p99'] * 1e3:.2f} ms, "
+              f"mean batch {r['mean_batch']:.2f} ({r['batches']} batches, padded {r['padded']}); agreements "
+              f"{r['agreements']} ({r['agreements_per_dispatch']:.2f} per dispatch, {r['agreement_ms']:.3f} ms each); "
+              f"dispatch spans p50/p99 ms: "
+              + ", ".join(f"{k} {v['p50'] * 1e3:.3f}/{v['p99'] * 1e3:.3f}" for k, v in st.items())
+              + f"; rel_err vs SimMesh({rep['P']})'s engine {r['rel_err_vs_sim']:.3e} (tol 1e-06), launches "
+              f"{r['launches']}, peak memory {r['peak_gib']:.2f} GiB", flush=True)
+    print(f"{who} SPMD serving poison (FaultPlan.error(times=2) on rank 0 only): {sv['poison']}", flush=True)
+    print(f"{who} SPMD serving breaker (faults on rank 0 only, clocks offset by rank): {sv['breaker']}", flush=True)
+    print(f"{who} SPMD serving remesh: {sv['remesh']}", flush=True)
+
+
 NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
 NCCL_PENCIL_VARIANTS = ((("scatter", "scatter"), "auto"), (("alltoall", "alltoall"), False))
 
@@ -1096,6 +1450,11 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
                 ms=host_ms(torch, lambda: plan.execute(block)), peak_gib=peak)
         report["measured planner"] = nccl_measured(torch, mesh, sim, x, fft_stage, plan_fft)
         report["faults"] = nccl_faults(torch, mesh, sim, x, plan_fft, seed, out_dir)
+        del x
+        torch.cuda.empty_cache()
+        report["serving"] = nccl_serving(torch, mesh, fft_stage, seed)
+        torch.cuda.empty_cache()
+        report["rings"] = ring_cases(torch, mesh, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -1210,7 +1569,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key not in ("measured planner", "faults"):
+            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -1234,7 +1593,14 @@ def nccl_phase(torch, seed: int):
               f"after {f['waited_s'] * 1e3:.1f} ms (timeout {NCCL_TIMEOUT_S} s), own events {f['events']}; clean run "
               f"after it rel_err vs SimMesh={f['clean_rel_err_vs_sim']:.3e} (tol 1e-06); elastic: {f['elastic']}",
               flush=True)
+    for rep in reports:
+        print_nccl_serving(rep)
+    for rep in reports:
+        print_rings(f"NCCL rank {rep['rank']}/{rep['P']} rings", rep["rings"])
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
+    for what in ("poison", "breaker"):  # the counters, not each rank's own error against torch.fft
+        counters = [{k: v for k, v in rep["serving"][what].items() if not k.endswith("rel_err")} for rep in reports]
+        check(all(c == counters[0] for c in counters), f"the ranks' SPMD serving {what} counters differ: {counters}")
     return reports[0]
 
 
@@ -1299,6 +1665,8 @@ def main(argv=None) -> int:
     grid = auto_grid_shape(torch.cuda.device_count())
     by_path["nccl_pencil_c2c"] = nccl[f"pencil c2c grid={grid[0]}x{grid[1]} scatter+scatter pipeline=auto"][
         "launches"]
+    for arm in ("coalesced", "solo"):
+        by_path[f"nccl_serving_{arm}"] = nccl["serving"][arm]["launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil c2c", shapes)
@@ -1312,6 +1680,8 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     time_shapes("serving", shapes)
     by_path["elastic_recovery"] = elastic_phase(torch, args.seed, fft_stage)
+    torch.cuda.empty_cache()
+    rings_phase(torch, args.seed, SimMesh)
     torch.cuda.empty_cache()
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]

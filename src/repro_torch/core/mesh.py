@@ -356,6 +356,8 @@ class SimMesh(_AxisMesh):
         rank of this process runs the same code, so its own values."""
         return [float(v) for v in values]
 
+    host_max = all_max  # host values (ProcessGroupMesh.host_max): the same here
+
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x: torch.Tensor, tail: Sequence[Optional[str]]) -> Blocks:
         """Global array -> per-rank blocks, sharding the dims the trailing
@@ -434,10 +436,12 @@ class ProcessGroupMesh(_AxisMesh):
             raise ValueError(f"grid {tuple(grid)} has {self.p} ranks, but the group has {world}")
         self.rank = dist.get_rank(group)
         self.device = resolve_device(device)
-        backend = str(dist.get_backend(group))
-        if (backend == "nccl") != (self.device.type == "cuda"):
-            raise ValueError(f"a {backend} group moves blocks on the "
-                             f"{'card' if backend == 'nccl' else 'CPU'}, not on {self.device}")
+        self._backend = str(dist.get_backend(group))
+        #: device type -> backend of the group ("cpu:gloo,cuda:nccl" names both)
+        self._backends = (dict(part.split(":") for part in self._backend.split(","))
+                          if ":" in self._backend else {"cuda" if self._backend == "nccl" else "cpu": self._backend})
+        if self.device.type not in self._backends:
+            raise ValueError(f"a {self._backend} group moves no blocks on {self.device}")
         #: group rank -> global rank (what point-to-point calls address)
         self._global = dist.get_process_group_ranks(group or dist.group.WORLD)
         self._rings: Dict[str, _AxisMesh] = {}
@@ -536,6 +540,26 @@ class ProcessGroupMesh(_AxisMesh):
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t.tolist()
 
+    def host_max(self, values: Sequence[float]) -> List[float]:
+        """:meth:`all_max` over the group's CPU backend (gloo): the
+        control plane of decisions taken on the host (the serving
+        engine's admission, breaker and retry clocks). On the card
+        :meth:`all_max` all-reduces a device tensor, so the host waits
+        until the stream reaches it; this never touches the stream, so
+        batches already queued keep running while the ranks agree. A
+        group joined with :func:`init_process_mesh` has a CPU backend on
+        the card too (``cpu:gloo,cuda:nccl``)."""
+        import torch.distributed as dist
+
+        if "cpu" not in self._backends:
+            raise ValueError(
+                f"the group's backend {self._backend!r} has no CPU half for host agreements: "
+                "join with init_process_mesh (cpu:gloo,cuda:nccl on the card)"
+            )
+        t = torch.tensor([float(v) for v in values], dtype=torch.float64)
+        dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
+        return t.tolist()
+
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x, tail: Sequence[Optional[str]]) -> Blocks:
         """Global array -> this rank's block (a view of ``x`` on the
@@ -595,6 +619,8 @@ def init_process_mesh(rank: int, world_size: int, init_method: str, *, axis_name
     ``("rows", "cols")``) with one subgroup per ring of each axis.
     ``device=None`` is this rank's card (``cuda:rank % device_count``,
     made current) over NCCL; ``device="cpu"`` runs gloo.
+    On the card the group runs NCCL for device tensors and gloo for
+    host ones (``cpu:gloo,cuda:nccl``; :meth:`ProcessGroupMesh.host_max`).
     ``init_method`` is the rendezvous address, e.g.
     ``tcp://localhost:29500``: nothing here discovers a cluster. Every
     message and collective of the group and its subgroups fails after
@@ -610,7 +636,7 @@ def init_process_mesh(rank: int, world_size: int, init_method: str, *, axis_name
         torch.cuda.set_device(dev)
     kwargs = dict(device_id=dev) if dev.type == "cuda" else {}  # NCCL: one communicator, made now
     dist.init_process_group(
-        "nccl" if dev.type == "cuda" else "gloo", init_method=init_method, rank=rank,
+        "cpu:gloo,cuda:nccl" if dev.type == "cuda" else "gloo", init_method=init_method, rank=rank,
         world_size=world_size, timeout=datetime.timedelta(seconds=timeout_s), **kwargs,
     )
     return ProcessGroupMesh(axis_name, device=dev, grid=grid, axis_names=axis_names, timeout_s=timeout_s)

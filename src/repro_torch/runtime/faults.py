@@ -246,7 +246,11 @@ class CircuitBreaker:
     after ``reset_after_s`` the next ``allow`` admits ONE half-open
     probe, whose success re-closes the key (failure re-opens it and
     restarts the timeout). Counters (``opened``/``reclosed``/``probes``)
-    feed the serving engine's ``metrics()``."""
+    feed the serving engine's ``metrics()``. ``allow`` and
+    ``record_failure`` take the time as ``now`` where the caller gives
+    it (the serving engine on a process group passes this breaker's
+    clock agreed over the ranks, so every rank opens, probes and closes
+    a key together); otherwise they read ``clock``."""
 
     def __init__(
         self,
@@ -259,7 +263,7 @@ class CircuitBreaker:
             raise ValueError(f"failure_threshold must be >= 1, got {failure_threshold}")
         self.failure_threshold = failure_threshold
         self.reset_after_s = reset_after_s
-        self._clock = clock
+        self.clock = clock
         self._state: Dict[Hashable, str] = {}
         self._failures: Dict[Hashable, int] = {}
         self._opened_at: Dict[Hashable, float] = {}
@@ -273,14 +277,15 @@ class CircuitBreaker:
     def states(self) -> Dict[Hashable, str]:
         return dict(self._state)
 
-    def allow(self, key: Hashable) -> bool:
+    def allow(self, key: Hashable, now: Optional[float] = None) -> bool:
         """Whether the next dispatch for ``key`` may use the primary
         plan (False: degrade). Transitions open -> half-open when the
         reset timeout has elapsed, admitting exactly one probe."""
         st = self.state(key)
         if st == "closed":
             return True
-        if st == "open" and self._clock() - self._opened_at[key] >= self.reset_after_s:
+        now = self.clock() if now is None and st == "open" else now
+        if st == "open" and now - self._opened_at[key] >= self.reset_after_s:
             self._state[key] = "half-open"
             self.probes += 1
             return True
@@ -292,13 +297,13 @@ class CircuitBreaker:
         self._state[key] = "closed"
         self._failures[key] = 0
 
-    def record_failure(self, key: Hashable) -> None:
+    def record_failure(self, key: Hashable, now: Optional[float] = None) -> None:
         n = self._failures.get(key, 0) + 1
         self._failures[key] = n
         st = self.state(key)
         if st == "half-open" or (st == "closed" and n >= self.failure_threshold):
             self._state[key] = "open"
-            self._opened_at[key] = self._clock()
+            self._opened_at[key] = self.clock() if now is None else now
             self._failures[key] = 0
             self.opened += 1
 

@@ -9,6 +9,7 @@ from repro_torch.serve.spectral import (
     SpectralEngine,
     SpectralFuture,
     SpectralRequest,
+    StreamMismatch,
     plan_key,
 )
 
@@ -23,5 +24,6 @@ __all__ = [
     "SpectralEngine",
     "SpectralFuture",
     "SpectralRequest",
+    "StreamMismatch",
     "plan_key",
 ]

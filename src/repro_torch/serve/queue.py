@@ -15,7 +15,10 @@ Two pieces, both deque-backed (O(1) at either end):
   the control arm of the serving benchmark.
 
 The clock is injectable so admission behavior is testable without
-sleeping.
+sleeping. ``push``, ``ready`` and ``next_deadline`` also take ``now``
+explicitly: the spectral engine on a process group passes the time its
+ranks agreed on, so every rank's queue makes the same batches whatever
+its own clock reads.
 """
 
 from __future__ import annotations
@@ -96,6 +99,11 @@ class CoalescingQueue:
 
     def depth(self) -> int:
         return sum(len(g) for g in self._groups.values())
+
+    def size(self, key: Hashable) -> int:
+        """Items queued under ``key``."""
+        group = self._groups.get(key)
+        return len(group) if group else 0
 
     def __len__(self) -> int:
         return self.depth()

@@ -45,10 +45,28 @@ the plan front-end:
   dispatched the batch, and is never served degraded.
 
 The engine serves on a :class:`~repro_torch.core.mesh.SimMesh` (the
-caller's arrays are global). Serving across processes needs the ranks to
-agree on admission, which is clock-driven per rank, so a
-``ProcessGroupMesh`` raises (ROADMAP A13b); :class:`PlanPool` works on
-both meshes.
+caller's arrays are global) and, SPMD, on a
+:class:`~repro_torch.core.mesh.ProcessGroupMesh`: every rank runs the
+same program, submits the same request sequence (op, dtype, lengths,
+ndim) with its own block of each operand -- the counterpart of a sharded
+``jax.Array``'s addressable shard -- and gets its own block of each
+output. Pool keys and plans are the global shape's. Each host decision
+that leads into collectives is agreed, one ``mesh.host_max`` (a CPU
+all-reduce that never waits on the card's stream) per decision: a
+submission that completes a full batch, each ``poll``, flush and forced
+dispatch, the retry budget's clock and the breaker's clock. Submissions
+wait on the rank until the next agreement, which admits them into the
+queue at its agreed time after checking that every rank submitted as
+many requests with the same keys (a rank whose stream differs makes
+every rank raise :class:`StreamMismatch` before anything dispatches).
+Every rank thus batches, retries, quarantines, degrades and probes
+together whatever its own clock says; injected faults are agreed by the
+executor. A partial batch's max-wait is read at the next agreement (a
+``poll``, a full batch, a flush), not at any submission. ``result()`` /
+``block()`` of a still-queued future is collective on a process group
+(every rank calls it at the same point of its program, as it does every
+other engine call). ``stats()`` counts the agreements and their host
+time.
 
 Request ops (all flow through any :class:`repro_torch.core.Plan`):
 ``fft``, ``rfft``, ``ifft`` (c2c spectrum in the plan's own layout),
@@ -60,6 +78,7 @@ from __future__ import annotations
 import collections
 import dataclasses
 import time
+import zlib
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -398,7 +417,11 @@ class SpectralFuture:
     A request that failed every retry is *quarantined*: its future
     carries the recorded exception in ``error`` and both ``result()``
     and ``block()`` re-raise it -- the failure is isolated to this
-    handle; coalesced siblings resolve normally."""
+    handle; coalesced siblings resolve normally.
+
+    On a process group the value is the rank's own block of the output,
+    and forcing a still-queued request's dispatch is collective: every
+    rank calls ``result()`` / ``block()`` on the same request."""
 
     def __init__(self, engine: "SpectralEngine", request: SpectralRequest):
         self._engine = engine
@@ -466,13 +489,16 @@ class SpectralFuture:
 # ---------------------------------------------------------------------------
 
 
-def _refuse_process_group(mesh) -> None:
-    if mesh.caller_holds_block:
-        raise NotImplementedError(
-            "SpectralEngine on a ProcessGroupMesh needs the ranks to agree on "
-            "admission (ROADMAP A13b, SPMD serving over a process group); serve on "
-            "a SimMesh, or drive a PlanPool on each rank"
-        )
+class StreamMismatch(RuntimeError):
+    """The ranks of a process group reached an engine decision with
+    different request streams (another decision point, request count or
+    request key); every rank raises the same one."""
+
+
+#: The host decisions the ranks agree on; an agreement carries its
+#: point's index, so ranks at different points raise instead of mixing
+#: answers.
+_DECISIONS = ("submit", "poll", "flush", "force", "retry", "breaker")
 
 
 class SpectralEngine:
@@ -503,7 +529,6 @@ class SpectralEngine:
         retry: Optional[RetryPolicy] = None,
         breaker: Optional[CircuitBreaker] = None,
     ):
-        _refuse_process_group(mesh)
         self.mesh = mesh
         self.max_batch = max_batch
         self.coalesce = coalesce
@@ -523,6 +548,8 @@ class SpectralEngine:
         self._window_len = window
         self.reset_stats()
         self._outstanding: List[SpectralFuture] = []
+        #: (key, future) of the submissions since the last agreement (process group)
+        self._unadmitted: List[Tuple[tuple, SpectralFuture]] = []
         if wisdom is not None:
             self.warm_start(wisdom, compile=warm_compile)
         if faults is not None:
@@ -556,6 +583,9 @@ class SpectralEngine:
         self.quarantined = 0  # requests that exhausted every attempt
         self.failed_requests = 0  # quarantined futures observed via block()
         self.degraded_dispatches = 0  # dispatches routed to xla_auto
+        # host agreements on a process group (mesh.host_max) and their host seconds
+        self.agreements = 0
+        self.agreement_s = 0.0
 
     # -- warm start -------------------------------------------------------
     def warm_start(self, source: Optional[str] = None, *, compile: bool = True) -> int:
@@ -605,9 +635,12 @@ class SpectralEngine:
         the old mesh, invalidates every pooled plan, drops the
         degraded-plan cache, resets the circuit breaker (its keys embed
         the old P), and -- with ``warm`` -- re-warms the pool from
-        wisdom at the new P. Returns the number of plans warmed."""
-        _refuse_process_group(mesh)
-        self.flush()
+        wisdom at the new P. Returns the number of plans warmed. On a
+        process group the flush is collective over the old group, so
+        call it on every old rank or drain first: with nothing queued,
+        the survivors alone remesh."""
+        if self.queue.depth() or self._unadmitted:
+            self.flush()
         self.mesh = mesh
         self.pool.remesh(mesh)
         self._degraded.clear()
@@ -676,26 +709,99 @@ class SpectralEngine:
         elif y is not None:
             raise ValueError(f"op {op!r} takes one operand")
         lengths = None if lengths is None else tuple(float(v) for v in lengths)
+        shape = tuple(x.shape)
+        if self.mesh.caller_holds_block:  # a rank's block: the key holds the global shape
+            shape = self.mesh.global_shape(shape, self._operand_tail(op, ndim))
+        key = (op, shape, _dtype_name(x.dtype), ndim, real, lengths)
         now = self._clock()
         req = SpectralRequest(op, operands, ndim, real, lengths, now)
         fut = SpectralFuture(self, req)
-        key = (op, tuple(x.shape), _dtype_name(x.dtype), ndim, real, lengths)
-        self.queue.push(key, fut, now=now)
         self.requests += 1
         self._outstanding.append(fut)
+        if self.mesh.caller_holds_block:
+            self._unadmitted.append((key, fut))
+            self.queue_depth.record(self.queue.depth() + len(self._unadmitted))
+            full = self.max_batch if self.coalesce else 1
+            if self.queue.size(key) + sum(k == key for k, _ in self._unadmitted) >= full:
+                self._dispatch_batches(self.queue.ready(self._agree("submit", now)))
+            return fut
+        self.queue.push(key, fut, now=now)
         self.queue_depth.record(self.queue.depth())
         self._dispatch_batches(self.queue.ready(now))  # full batches only
         return fut
+
+    # -- agreement (process group) ----------------------------------------
+    def _agree(self, decision: str, t: float) -> float:
+        """The largest of the ranks' times ``t`` for one host
+        ``decision``, in one ``mesh.host_max`` that also carries the
+        decision point, this rank's request count and a checksum of the
+        keys submitted since the last agreement; raises
+        :class:`StreamMismatch` on every rank when any of those differ
+        between ranks (dropping those submissions). Otherwise admits them
+        into the queue at the agreed time, which it returns."""
+        point = _DECISIONS.index(decision) + 1
+        seq = self.requests
+        unadmitted, self._unadmitted = self._unadmitted, []
+        crc = zlib.crc32(repr([key for key, _ in unadmitted]).encode())
+        t0 = time.perf_counter()
+        hi_point, lo_point, hi_seq, lo_seq, hi_crc, lo_crc, agreed = self.mesh.host_max(
+            [point, -point, seq, -seq, crc, -crc, t])
+        self.agreement_s += time.perf_counter() - t0
+        self.agreements += 1
+        if (hi_point, hi_seq, hi_crc) != (-lo_point, -lo_seq, -lo_crc):
+            points = sorted({_DECISIONS[int(hi_point) - 1], _DECISIONS[int(-lo_point) - 1]})
+            raise StreamMismatch(
+                f"the ranks' request streams differ: decision points {points}, request counts "
+                f"{int(-lo_seq)}..{int(hi_seq)}, key checksums {int(-lo_crc)}..{int(hi_crc)}; every rank "
+                "must submit the same op, dtype, global shape, ndim and lengths in the same order"
+            )
+        for key, fut in unadmitted:
+            self.queue.push(key, fut, now=agreed)
+        return agreed
+
+    def _decision_time(self, decision: str) -> float:
+        """The engine's clock for a host decision: agreed over the ranks
+        on a process group."""
+        now = self._clock()
+        return self._agree(decision, now) if self.mesh.caller_holds_block else now
+
+    def _breaker_time(self, key) -> Optional[float]:
+        """The time ``breaker.allow(key)`` decides by: the breaker's own
+        clock on a SimMesh (None: it reads it) or where the key is not
+        open (no time is read); agreed over the ranks otherwise."""
+        if not self.mesh.caller_holds_block or self.breaker.state(key) != "open":
+            return None
+        return self._agree("breaker", self.breaker.clock())
+
+    def _operand_tail(self, op: str, ndim: int) -> Tuple[Optional[str], ...]:
+        """Trailing partition spec of a request's operand: the data
+        side's (``input_spec().tail``), or for ``ifft`` the spectrum's in
+        the forward output's layout (see :meth:`_plan_shape`)."""
+        kw = self.pool.plan_kwargs
+        if self.pool.decomp == "pencil":
+            grid = grid_from_mesh(self.mesh, kw.get("row_axis"), kw.get("col_axis"))
+            row, col = grid.row_axis, grid.col_axis
+            if op == "ifft" and ndim == 3 and not kw.get("transpose_back", False):
+                row, col = col, row
+            return (row, col) + (None,) * (ndim - 2)
+        return (kw.get("axis_name") or fft_axis(self.mesh),) + (None,) * (ndim - 1)
 
     # -- pumping ----------------------------------------------------------
     def poll(self, now: Optional[float] = None) -> int:
         """Dispatch every batch the admission policy has made ready
         (full batches plus max-wait-expired partials); returns the
-        number of batches dispatched."""
+        number of batches dispatched. On a process group the ranks'
+        ``now`` (default: their clocks) is agreed."""
+        if self.mesh.caller_holds_block:
+            now = self._agree("poll", self._clock() if now is None else now)
         return self._dispatch_batches(self.queue.ready(now))
 
     def flush(self) -> int:
-        """Dispatch everything queued, policy or not."""
+        """Dispatch everything queued, policy or not (on a process group,
+        after an agreement that admits what was submitted since the
+        last one)."""
+        if self.mesh.caller_holds_block:
+            self._agree("flush", self._clock())
         return self._dispatch_batches(self.queue.flush())
 
     def drain(self, *, raise_errors: bool = False) -> None:
@@ -718,16 +824,17 @@ class SpectralEngine:
     def _force_dispatch(self) -> None:
         """A caller is blocked on a queued future: advance the clock to
         the queue's admission deadline (the max-wait flush that would
-        happen anyway) instead of sleeping for it."""
-        now = self._clock()
+        happen anyway) instead of sleeping for it. On a process group
+        the ranks agree on ``now`` and dispatch together."""
+        now = self._decision_time("force")
         deadline = self.queue.next_deadline(now)
         if deadline is None or not self._dispatch_batches(self.queue.ready(max(now, deadline))):
             self.flush()  # defensive: never spin on a stuck queue
 
     # -- dispatch ---------------------------------------------------------
     def _plan_shape(self, op: str, shape: Tuple[int, ...], ndim: int) -> Tuple[int, ...]:
-        """The *planned* (data-side) shape behind a request: identical to
-        the request shape except for ``ifft``, whose input is a spectrum
+        """The *planned* (data-side) shape behind a request's global
+        shape: identical to it except for ``ifft``, whose input is a spectrum
         in the plan's own forward-output layout -- slab fft2 without
         transpose_back is transposed, pencil fft3 without transpose_back
         is axis-reversed -- so the trailing dims map back accordingly.
@@ -767,9 +874,9 @@ class SpectralEngine:
             for fut in futs:
                 self._dispatch(key, [fut])
             return
-        t0 = self._clock()
+        t0 = self._decision_time("retry")
         attempt = 0
-        while attempt < self.retry.max_retries and self._clock() - t0 <= self.retry.deadline_s:
+        while attempt < self.retry.max_retries and self._decision_time("retry") - t0 <= self.retry.deadline_s:
             attempt += 1
             self.retries += 1
             try:
@@ -800,7 +907,7 @@ class SpectralEngine:
         op = key[0]
         fn, arity = _OPS[op]
         req0 = futs[0].request
-        shape, ndim, real, lengths = req0.shape, req0.ndim, req0.real, req0.lengths
+        shape, ndim, real, lengths = key[1], req0.ndim, req0.real, req0.lengths
         k = len(futs)
         bucket = self._bucket(k)
         self.dispatch_monitor.start()
@@ -808,10 +915,13 @@ class SpectralEngine:
         plan_shape = (bucket,) + self._plan_shape(op, shape, ndim)
         dtype = req0.operands[0].dtype
         plan, hit = self.pool.get(plan_shape, ndim, dtype, real)
+        if self.mesh.caller_holds_block and plan.input_spec(opposite=op == "ifft").tail != self._operand_tail(op, ndim):
+            raise ValueError(f"the {plan.decomp} plan's operand layout is not the one the blocks were "
+                             f"submitted in; pin decomp= in plan_kwargs to serve {op} on a process group")
         pool_key = self.pool.key(plan_shape, ndim, dtype, real)
         bkey = (plan.backend, pool_key)
         degraded = False
-        if not self.breaker.allow(bkey):
+        if not self.breaker.allow(bkey, now=self._breaker_time(bkey)):
             plan = self._degraded_plan(pool_key, plan_shape, ndim, dtype, real)
             self.degraded_dispatches += 1
             degraded = True
@@ -829,7 +939,8 @@ class SpectralEngine:
             # only the primary plan feeds the breaker -- a failing degraded
             # dispatch must not re-open a breaker that already tripped
             if not degraded:
-                self.breaker.record_failure(bkey)
+                agreed = self._agree("breaker", self.breaker.clock()) if self.mesh.caller_holds_block else None
+                self.breaker.record_failure(bkey, now=agreed)
             raise
         event = None
         if self.mesh.device.type == "cuda":
@@ -879,6 +990,11 @@ class SpectralEngine:
             "stages_s": {name: w.summary((50, 99)) for name, w in self.stage_windows.items()},
             "dispatch": self.dispatch_monitor.straggler_report(),
             "pool": self.pool.stats(),
+            "agreements": {
+                "count": self.agreements,
+                "host_s": self.agreement_s,
+                "per_dispatch": (self.agreements / self.batches) if self.batches else 0.0,
+            },
             "faults": {
                 "errors": self.errors,
                 "retries": self.retries,
@@ -910,7 +1026,7 @@ class SpectralEngine:
             "completed": self.latency.count,
             "batches": self.batches,
             "padded": self.padded,
-            "queue_depth": self.queue.depth(),
+            "queue_depth": self.queue.depth() + len(self._unadmitted),
             "queue_depth_p99": self.queue_depth.percentiles((99,))["p99"],
             "latency_p50_s": lat["p50"],
             "latency_p99_s": lat["p99"],
@@ -935,6 +1051,8 @@ class SpectralEngine:
         out["quarantined"] = self.quarantined
         out["failed_requests"] = self.failed_requests
         out["degraded_dispatches"] = self.degraded_dispatches
+        out["agreements"] = self.agreements
+        out["agreement_s"] = self.agreement_s
         for name, v in self.breaker.stats().items():
             out[f"breaker_{name}"] = v
         return out

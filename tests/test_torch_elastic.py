@@ -9,8 +9,8 @@ processes:
 - fault plans that differ per rank make every rank raise together (the
   agreement of ``schedule._consult_faults``), well inside the group's
   timeout, and an armed plan on one rank computes correctly;
-- ``SpectralEngine`` refuses a ``ProcessGroupMesh`` (ROADMAP A13b),
-  ``PlanPool`` serves on it;
+- ``PlanPool`` serves on a ``ProcessGroupMesh`` (the engine's SPMD
+  serving is held by ``tests/test_torch_serve_spmd.py``);
 - elastic 4 -> 2 over ``dist.new_group`` (called on all four ranks),
   rank 0 checkpointing the gathered state, is bitwise equal to an
   uninterrupted P = 2 ``ProcessGroupMesh`` run and to ``SimMesh(2)``.
@@ -198,7 +198,6 @@ def _agreement_cases(mesh, ran):
     from repro_torch.core import schedule as sch
     from repro_torch.obs import TraceRecorder
     from repro_torch.runtime import DeviceLossFault, FaultPlan, InjectedFault
-    from repro_torch.serve import SpectralEngine
 
     rank, p = mesh.rank, mesh.p
     sim = SimMesh(p, device="cpu")
@@ -259,12 +258,7 @@ def _agreement_cases(mesh, ran):
     assert _rel(got, torch.fft.fft2(x)) < 1e-5
     ran.append("grid clean")
 
-    # serving across processes is not ported (A13b); the pool is
-    try:
-        SpectralEngine(mesh)
-        raise AssertionError("SpectralEngine accepted a ProcessGroupMesh")
-    except NotImplementedError as e:
-        assert "A13b" in str(e)
+    # the plan pool on a process group (tests/test_torch_serve_spmd.py serves on one)
     pool = PlanPool(mesh, plan_kwargs=kw)
     pool.warm((N, N), 2, torch.complex64, False)
     pooled, hit = pool.get((N, N), 2, torch.complex64, False)
