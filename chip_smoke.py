@@ -89,7 +89,27 @@ Phases, each printing a line; any failure exits non-zero with no result:
    SimMesh(4) at Qwen2.5-32B's MLP widths (4096 tokens, d_model 5120,
    d_ff 27648, float32), each held against its dense torch answer
    (1e-5 relative) and timed beside it, and the gradient through
-   ring_all_gather against 2x.
+   ring_all_gather against 2x;
+14. LM serving -- repro_torch's dense decoder LM with Qwen2.5-32B, after
+   the earlier phases' memory is freed (fails unless the card has the
+   weights + KV cache + 6 GiB free, before it starts and again before
+   the full-depth model): (1) at full width, 2 layers, float32, a
+   300-token prefill + 4 decode steps against Model.logits of the whole
+   sequence (1e-4 relative to the largest logit), attention_chunked
+   against attention_naive at that shape (1e-5), and one request's greedy
+   tokens alone equal to its tokens among 8 slots; (2) all 64 layers in
+   bfloat16, built as launch/serve.py builds them (launch.build_engine),
+   prefill + 1 decode step against the whole sequence's logits (3e-2);
+   (3) that engine on the launcher's prompt stream (rng(0), 16 requests
+   of 4-512 tokens, 64 new tokens each, ServeConfig()'s 8 slots and
+   max_seq 2048, greedy): tokens/s, time to first token p50 / p99, the
+   decode step's device ms (CUDA events) beside the host's ms to issue
+   it and its kernels' ms (torch.profiler), each beside its bound, and
+   peak memory (fails above 72 GiB); (4) launch.serve.main at its reduced
+   default on the card; (5) attention_chunked at a 512-token prefill
+   (bfloat16) timed beside F.scaled_dot_product_attention, which the
+   port never calls. None of the FFT kernels runs here (``lm_serving``:
+   0 launches each).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -127,8 +147,8 @@ kernel once at every shape not timed before. Kernel times are CUDA-event medians
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
-counts of every counted path, phases 7 (SPMD serving) and 11-12's
-included; the last line is
+counts of every counted path, phases 7 (SPMD serving), 11-12 and 14
+(``lm_serving``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -183,6 +203,21 @@ RING_TOKENS, RING_D_MODEL, RING_D_FF = 4096, 5120, 27648
 RING_REL_TOL = 1e-5  # fp32 sums in another order, relative to the largest entry
 RING_REPS = 5
 AGREE_BUSY_N, AGREE_BUSY_MATMULS = 8192, 3  # float32 matmuls queued before an agreement (~20 ms each)
+#: phase 14: Qwen2.5-32B (src/repro/configs/qwen2_5_32b.py: 64 layers,
+#: d_model 5120, 40 / 8 heads, d_ff 27648, vocab 152064)
+LM_ARCH = "qwen2.5-32b"
+LM_SEQ, LM_DECODE = 300, 4  # check 1: a 300-token prefill, then 4 decode steps
+LM_F32_LAYERS = 2
+LM_F32_REL_TOL = 1e-4  # float32, TF32 off, float32 cache: prefill + decode vs the full sequence's logits
+LM_ATTN_REL_TOL = 1e-5  # attention_chunked vs attention_naive, float32
+LM_ISOLATION_LENGTHS, LM_ISOLATION_NEW = (37, 5, 120, 64, 9, 300, 18, 77), 8  # check 1's slot isolation
+LM_BF16_SEQ = 128  # check 2's prompt at full depth
+LM_BF16_REL_TOL = 3e-2  # bfloat16, 64 layers: prefill + decode vs the full sequence's logits
+LM_REQUESTS, LM_PROMPT_LEN, LM_MAX_NEW = 16, 512, 64  # the stream, on launch/serve.py's prompts
+LM_PEAK_LIMIT_GIB = 72.0
+LM_HEADROOM_GIB = 6.0  # free memory needed beyond the weights and the KV cache
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, bf16 tensor cores, dense (H100 SXM data sheet)
+LM_TOP_KERNELS = 8  # the decode step's longest kernels, printed by name
 
 
 class SmokeFailure(RuntimeError):
@@ -1204,6 +1239,256 @@ def rings_phase(torch, seed, SimMesh) -> None:
     print_rings(f"rings SimMesh({P})", ring_cases(torch, SimMesh(P), seed))
 
 
+def lm_rel_err(got, exp) -> float:
+    return ((got.float() - exp.float()).abs().max() / exp.float().abs().max()).item()
+
+
+def lm_kv_bytes(cfg, scfg) -> int:
+    """The engine's bfloat16 KV cache: K and V for every layer and slot."""
+    return 2 * 2 * cfg.num_layers * scfg.max_batch * scfg.max_seq * cfg.num_kv_heads * cfg.head_dim_
+
+
+def lm_check_free(torch, label: str, need: float) -> None:
+    """Free what the earlier phases left (reference cycles first: the
+    cache can only return blocks nothing refers to), then fail unless
+    ``need`` bytes are free on the card."""
+    import gc
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    free, total = torch.cuda.mem_get_info()
+    print(f"LM serving {label}: {free / 2**30:.2f} GiB free of {total / 2**30:.2f}, need {need / 2**30:.2f} "
+          f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated by this process)", flush=True)
+    check(free >= need, f"LM serving {label}: {free} bytes free on the card, the phase needs {int(need)}")
+
+
+def lm_width_checks(torch, seed) -> None:
+    """Check 1: Qwen2.5-32B at full width, LM_F32_LAYERS layers, float32
+    (TF32 off since phase 1)."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_F32_LAYERS, dtype="float32")
+    model = Model(cfg)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + LM_DECODE), device="cuda", generator=g)
+    full = model.logits(params, {"tokens": toks})
+    state = model.init_decode_state(1, LM_SEQ + LM_DECODE, cache_dtype=torch.float32)
+    state, pl = model.prefill(params, {"tokens": toks[:, :LM_SEQ]}, state)
+    errs = [lm_rel_err(pl, full[:, LM_SEQ - 1])]
+    for t in range(LM_DECODE):
+        lg, state = model.decode_step(params, toks[:, LM_SEQ + t:LM_SEQ + t + 1], state)
+        errs.append(lm_rel_err(lg, full[:, LM_SEQ + t]))
+    print(f"LM serving {LM_ARCH} full width, {LM_F32_LAYERS} layers, float32 (float32 cache): prefill of {LM_SEQ} + "
+          f"{LM_DECODE} decode steps vs logits of the full sequence, rel_err (to max |logit| "
+          f"{full.abs().max().item():.3f}) {', '.join(f'{e:.3e}' for e in errs)} (tol {LM_F32_REL_TOL})", flush=True)
+    check(max(errs) <= LM_F32_REL_TOL, f"LM prefill/decode vs full logits: {max(errs):.3e} > {LM_F32_REL_TOL}")
+
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    q = torch.randn((1, LM_SEQ, h, hd), device="cuda", generator=g)
+    k, v = (torch.randn((1, LM_SEQ, kvh, hd), device="cuda", generator=g) for _ in range(2))
+    spec = A.AttnSpec(causal=True)
+    err = lm_rel_err(A.attention_chunked(q, k, v, spec, kv_chunk=cfg.attn_kv_chunk), A.attention_naive(q, k, v, spec))
+    print(f"LM serving attention_chunked vs attention_naive at q {tuple(q.shape)} k/v {tuple(k.shape)} float32: "
+          f"rel_err {err:.3e} (tol {LM_ATTN_REL_TOL})", flush=True)
+    check(err <= LM_ATTN_REL_TOL, f"attention_chunked vs attention_naive: {err:.3e} > {LM_ATTN_REL_TOL}")
+
+    # slot isolation (tests/test_serve.py::test_batched_matches_single), ServeConfig()'s 8 slots
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device="cuda", generator=g).int().cpu().numpy()
+               for n in LM_ISOLATION_LENGTHS]
+    solo = ServeEngine(model, params, ServeConfig()).run(prompts[:1], max_new=LM_ISOLATION_NEW)
+    among = ServeEngine(model, params, ServeConfig()).run(prompts, max_new=LM_ISOLATION_NEW)
+    print(f"LM serving slot isolation at full width: request 0 alone {solo[0]}, among {len(prompts)} slots "
+          f"{among[0]}", flush=True)
+    check(among[0] == solo[0], "LM serving: a request's greedy tokens among 8 slots differ from its solo tokens")
+
+
+def lm_stream(torch, eng, prompts, max_new: int):
+    """Serve ``prompts`` on ``eng`` through ServeEngine.run, timing each
+    add_request (host clock, to its first token on the host) and each
+    decode step (CUDA events, and the host's time to issue it). Returns
+    (results, wall s, start, [(prompt len, add ms, end)], [(active slots,
+    live KV entries, device ms, issue ms)])."""
+    arrivals, steps = [], []
+    add, decode = eng.add_request, eng._decode
+
+    def timed_add(prompt, n):
+        t0 = time.perf_counter()
+        slot = add(prompt, n)
+        t1 = time.perf_counter()
+        if slot is not None:
+            arrivals.append((len(prompt), (t1 - t0) * 1e3, t1))
+        return slot
+
+    def timed_decode(params, tokens, state):
+        active = [i for i, r in enumerate(eng.slots) if r is not None]
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        t0 = time.perf_counter()
+        out = decode(params, tokens, state)
+        issue = (time.perf_counter() - t0) * 1e3
+        end.record()
+        steps.append((len(active), int(eng.slot_pos[active].sum()), start, end, issue))
+        return out
+
+    eng.add_request, eng._decode = timed_add, timed_decode  # the engine's own calls, timed
+    try:
+        t0 = time.perf_counter()
+        results = eng.run(prompts, max_new=max_new)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    finally:
+        eng.add_request, eng._decode = add, decode
+    return results, wall, t0, arrivals, [(a, live, s.elapsed_time(e), issue) for a, live, s, e, issue in steps]
+
+
+def lm_decode_kernels(torch, eng):
+    """One decode step of all slots under torch.profiler: (its kernels'
+    device ms, [(kernel, launches, ms)] for the LM_TOP_KERNELS longest),
+    or (None, []) when the profiler sees no device time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    tokens = torch.zeros((eng.scfg.max_batch, 1), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        eng._decode(eng.params, tokens, eng.state)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    us = sum(e.self_device_time_total for e in kernels)
+    top = sorted(kernels, key=lambda e: -e.self_device_time_total)[:LM_TOP_KERNELS]
+    return (us / 1e3 if us else None), [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top]
+
+
+def lm_full_depth(torch, seed, cfg, scfg, launch):
+    """Checks 2 and 3: Qwen2.5-32B at all its layers in bfloat16, built the
+    way repro_torch.launch.serve builds it, then the launcher's stream."""
+    t0 = time.perf_counter()
+    eng = launch.build_engine(cfg, scfg, seed=seed)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    model, params = eng.model, eng.params
+    nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
+    print(f"LM serving {LM_ARCH}: {cfg.num_layers} layers in bfloat16 initialised on the card in {init_s:.1f} s, "
+          f"{nbytes / 2**30:.2f} GiB of weights, KV cache {lm_kv_bytes(cfg, scfg) / 2**30:.2f} GiB "
+          f"({scfg.max_batch} slots x {scfg.max_seq})", flush=True)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_BF16_SEQ + 1), device="cuda", generator=g)
+    full = model.logits(params, {"tokens": toks})
+    state = model.init_decode_state(1, LM_BF16_SEQ + 1)
+    state, pl = model.prefill(params, {"tokens": toks[:, :LM_BF16_SEQ]}, state)
+    lg, _ = model.decode_step(params, toks[:, LM_BF16_SEQ:], state)
+    errs = (lm_rel_err(pl, full[:, LM_BF16_SEQ - 1]), lm_rel_err(lg, full[:, LM_BF16_SEQ]))
+    print(f"LM serving {LM_ARCH} full depth, bfloat16: prefill of {LM_BF16_SEQ} + 1 decode step vs logits of "
+          f"the full sequence, rel_err {errs[0]:.3e}, {errs[1]:.3e} (tol {LM_BF16_REL_TOL})", flush=True)
+    check(max(errs) <= LM_BF16_REL_TOL, f"LM full depth prefill/decode vs logits: {max(errs):.3e} > {LM_BF16_REL_TOL}")
+    del full, state
+
+    prompts = launch.prompt_stream(cfg, LM_REQUESTS, LM_PROMPT_LEN)
+    results, wall, t0, arrivals, steps = lm_stream(torch, eng, prompts, LM_MAX_NEW)
+    check(sorted(results) == list(range(LM_REQUESTS)), f"LM stream: results for {sorted(results)}")
+    check(all(len(v) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in v) for v in results.values()),
+          "LM stream: a request did not get its max_new tokens in the vocabulary")
+    return nbytes, results, wall, t0, arrivals, steps, lm_decode_kernels(torch, eng)
+
+
+def lm_leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from lm_leaves(v)
+    else:
+        yield tree
+
+
+def lm_yardstick(torch, seed, A) -> None:
+    """Check 5: the port's attention_chunked at a 512-token prefill of
+    Qwen2.5-32B beside F.scaled_dot_product_attention (which the port
+    never calls)."""
+    import torch.nn.functional as F
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 2)
+    q = torch.randn((1, 512, 40, 128), device="cuda", generator=g, dtype=torch.bfloat16)
+    k, v = (torch.randn((1, 512, 8, 128), device="cuda", generator=g, dtype=torch.bfloat16) for _ in range(2))
+    spec = A.AttnSpec(causal=True)
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                              is_causal=True, enable_gqa=True).transpose(1, 2)
+
+    err = lm_rel_err(A.attention_chunked(q, k, v, spec), sdpa())
+    ms = median_ms(torch, lambda: A.attention_chunked(q, k, v, spec))
+    lib_ms = median_ms(torch, sdpa)
+    flops = 2 * 2 * 40 * 512 * 512 * 128 / 2  # QK^T and PV, the causal half
+    print(f"LM serving yardstick: attention_chunked q {tuple(q.shape)} k/v {tuple(k.shape)} bfloat16 causal "
+          f"{ms:.4f} ms vs F.scaled_dot_product_attention(is_causal=True, enable_gqa=True) {lib_ms:.4f} ms "
+          f"(median, CUDA events; bound {flops / PEAK_FLOPS_BF16 * 1e3:.4f} ms in operations); rel_err vs it "
+          f"{err:.3e}", flush=True)
+
+
+def lm_serving_phase(torch, seed, fft_stage, cm):
+    """Phase 14: the LM serving path with Qwen2.5-32B on one card."""
+    import contextlib
+    import io
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as A
+    from repro_torch.runtime.monitor import percentiles
+
+    cfg, scfg = get_config(LM_ARCH), ServeConfig()
+    need = 2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30
+    lm_check_free(torch, "before check 1", need)
+    lm_width_checks(torch, seed)
+    lm_check_free(torch, "before the full-depth model", need)
+    (nbytes, results, wall, t0, arrivals, steps, (kernel_ms, top)), launches, peak = counted(
+        torch, fft_stage, "LM serving", lambda: lm_full_depth(torch, seed, cfg, scfg, launch), expect=())
+    torch.cuda.empty_cache()
+
+    tok = sum(len(v) for v in results.values())
+    a = percentiles([ms for _, ms, _ in arrivals], (50, 99))
+    t = percentiles([(end - t0) * 1e3 for _, _, end in arrivals], (50, 99))
+    full = [s for s in steps if s[0] == scfg.max_batch]
+    dev_ms = statistics.median(s[2] for s in full)
+    issue_ms = statistics.median(s[3] for s in full)
+    kv_live = statistics.median(s[1] for s in full) * 2 * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim_
+    decode_bound = (nbytes + kv_live) / cm.HBM_BW * 1e3
+    s_med = statistics.median(n for n, _, _ in arrivals)
+    prefill_bound = max(2 * cfg.param_count() * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
+    print(f"LM serving stream: {LM_REQUESTS} requests (prompts 4-{LM_PROMPT_LEN} tokens from rng(0), median "
+          f"{s_med:.0f}), max_new {LM_MAX_NEW}, {scfg.max_batch} slots, max_seq {scfg.max_seq}, greedy: {tok} tokens "
+          f"in {wall:.2f} s, {tok / wall:.1f} tok/s aggregate, {len(steps)} decode steps", flush=True)
+    print(f"LM serving time to first token: add_request to its first token on the host p50 {a['p50']:.1f} ms p99 "
+          f"{a['p99']:.1f} ms (prefill bound at the median prompt {prefill_bound:.2f} ms); from the stream's start "
+          f"p50 {t['p50']:.1f} ms p99 {t['p99']:.1f} ms", flush=True)
+    kernels = ("not measured (the profiler saw no device time)" if kernel_ms is None
+               else f"{kernel_ms:.2f} ms (torch.profiler, one step)")
+    print(f"LM serving decode step with {scfg.max_batch} active slots ({len(full)} steps): device {dev_ms:.2f} ms "
+          f"(CUDA events, median), host {issue_ms:.2f} ms to issue it, its kernels {kernels}; bound "
+          f"{decode_bound:.2f} ms ({nbytes / 1e9:.2f} GB of weights + {kv_live / 1e9:.3f} GB of live KV at "
+          f"{cm.HBM_BW / 1e12:.2f} TB/s)", flush=True)
+    for name, count, ms in top:
+        print(f"  decode step kernel {name}: {count} launches, {ms:.2f} ms", flush=True)
+    print(f"LM serving peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}); FFT kernel launches {launches}",
+          flush=True)
+    check(peak <= LM_PEAK_LIMIT_GIB, f"LM serving peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        launch.main(["--arch", LM_ARCH])
+    print(f"LM serving launcher (reduced, on the card): {out.getvalue().strip()}", flush=True)
+    check(out.getvalue().startswith("served "), "repro_torch.launch.serve printed no served line")
+    lm_yardstick(torch, seed, A)
+    return launches
+
+
 def agreement_probe(torch, mesh) -> dict:
     """Host ms of one agreement over the group's CPU backend
     (mesh.host_max, what the serving engine uses) and over the card's
@@ -1683,6 +1968,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     rings_phase(torch, args.seed, SimMesh)
     torch.cuda.empty_cache()
+    by_path["lm_serving"] = lm_serving_phase(torch, args.seed, fft_stage, cm)
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

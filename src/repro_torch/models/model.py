@@ -1,0 +1,301 @@
+"""Model assembly: embeddings -> layer groups -> head, ported from
+``repro.models.model`` for the dense decoder LMs.
+
+Params of structurally identical layers are stacked along a leading
+``(L, ...)`` axis, as in the reference (its ``lax.scan`` layout), so the
+reference's parameter tree carries across unchanged
+(:func:`params_from_numpy`); here a Python loop walks the layers, and a
+per-layer Python ``bool`` from ``Group.flags`` picks the attention mask.
+
+Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
+    Model(cfg).init(generator, dtype=None) -> (params, specs)
+    .hidden(params, batch)                    trunk only (B, S, d)
+    .logits(params, batch)                    full logits (small shapes)
+    .init_decode_state(b, s_max) / .prefill / .decode_step
+
+The decode state's caches are written in place. Not ported yet: MoE,
+MLA, SSM, hybrid and encoder-decoder models (ROADMAP A15.2), a mesh of
+more than one rank (A15.1b), ``loss`` and MTP (A15.3).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.core.mesh import resolve_device
+from repro_torch.models import blocks, common
+from repro_torch.models.attention import KVCache
+from repro_torch.models.common import Params, Specs
+
+
+def _map(fn: Callable, tree):
+    """``fn`` on every leaf of a tree of dicts (specs: of name tuples)."""
+    if isinstance(tree, dict):
+        return {k: _map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _stack_specs(specs, extra=(None,)):
+    return _map(lambda t: tuple(extra) + tuple(t), specs)
+
+
+def _layer(tree, i: int):
+    """Layer ``i``'s params: views into the stacked ``(L, ...)`` leaves."""
+    return _map(lambda a: a[i], tree)
+
+
+@dataclasses.dataclass(frozen=True)
+class Group:
+    name: str
+    kind: str  # dec | dec_moe | hymba | xlstm_pair | enc
+    count: int
+    flags: Optional[Tuple[bool, ...]]  # per-layer is_global; None -> static
+    static_global: bool = True
+    cross: bool = False  # whisper decoder
+
+
+def build_groups(cfg: ModelConfig) -> List[Group]:
+    """Every family's layer groups, as the reference builds them."""
+    L = cfg.num_layers
+    if cfg.family == "ssm":  # xlstm
+        every = cfg.ssm.slstm_every
+        if every and every != 2:
+            raise NotImplementedError("xlstm grouping implemented for slstm_every in (0, 2)")
+        if every == 2:
+            return [Group("pairs", "xlstm_pair", L // 2, None)]
+        return [Group("mlstm", "xlstm_m", L, None)]
+
+    def flags_for(pattern: str) -> Optional[Tuple[bool, ...]]:
+        if cfg.window_size <= 0:
+            return None  # full attention everywhere -> static global
+        if pattern == "alternate":
+            return tuple(i % 2 == 1 for i in range(L))
+        if pattern == "ends":
+            return tuple(i in (0, L // 2, L - 1) for i in range(L))
+        return tuple(False for _ in range(L))  # SWA everywhere
+
+    flags = flags_for(cfg.global_pattern)
+    static = cfg.window_size <= 0
+    groups: List[Group] = []
+    if cfg.is_encdec:
+        groups.append(Group("encoder", "enc", cfg.encoder_layers, None))
+        groups.append(Group("decoder", "dec", L, None, static_global=True, cross=True))
+        return groups
+    if cfg.family == "hybrid":
+        return [Group("hymba", "hymba", L, flags, static_global=static)]
+    if cfg.moe is not None:
+        fk = cfg.moe.first_k_dense
+        if fk:
+            groups.append(Group("dense_prefix", "dec", fk, None, static_global=static))
+        gflags = None if flags is None else flags[fk:]
+        groups.append(Group("moe", "dec_moe", L - fk, gflags, static_global=static))
+        return groups
+    return [Group("layers", "dec", L, flags, static_global=static)]
+
+
+def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
+    if cfg.moe is not None or cfg.mla is not None:
+        return f"{cfg.name}: MoE and MLA models are ROADMAP A15.2"
+    if cfg.family in ("ssm", "hybrid"):
+        return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2"
+    if cfg.is_encdec:
+        return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2"
+    if mesh is not None and mesh.p > 1:
+        return f"a mesh of {mesh.p} ranks: tensor-parallel serving is ROADMAP A15.1b"
+    return None
+
+
+def _float_to(dtype):
+    return lambda a: a.to(dtype) if a.is_floating_point() else a
+
+
+class Model:
+    def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None):
+        why = _not_ported(cfg, mesh)
+        if why is not None:
+            raise NotImplementedError(f"not ported yet: {why}")
+        self.cfg = cfg
+        self.mesh = mesh
+        self.attn_impl = attn_impl
+        self.device = resolve_device(device)
+        self.groups = build_groups(cfg)
+        self.dtype = getattr(torch, cfg.dtype)
+
+    def _cast(self, params):
+        """Float params in the compute dtype. Idempotent: on a tree already
+        cast (``init(dtype=)``, ``params_from_numpy(dtype=)``) it returns
+        the same tensors, so the port casts once, at load."""
+        if self.dtype == torch.float32:
+            return params
+        return _map(_float_to(self.dtype), params)
+
+    # ------------------------------------------------------------------ init
+    def init(self, generator: torch.Generator, *, dtype=None) -> Tuple[Params, Specs]:
+        """Random weights from ``generator`` (on the model's device),
+        float32 as the reference makes them, or cast into ``dtype``. The
+        stacked layer leaves are made one layer at a time in float32 and
+        copied into the ``(L, ...)`` stack, so a bfloat16 model never holds
+        a float32 copy of more than one layer."""
+        cfg, dev = self.cfg, self.device
+        cast = _float_to(dtype) if dtype is not None else (lambda a: a)
+
+        def empty_stack(a, count):
+            out_dtype = dtype if dtype is not None and a.is_floating_point() else a.dtype
+            return torch.empty((count,) + a.shape, dtype=out_dtype, device=dev)
+
+        pe, se = common.init_embed(generator, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, dev)
+        params: Dict[str, Any] = {"embed": _map(cast, pe)}
+        specs: Dict[str, Any] = {"embed": se}
+        del pe  # the float32 tables, before the layer stacks are made
+        pn, sn = common.init_norm(cfg.d_model, cfg.norm_kind, dev)
+        params["final_norm"], specs["final_norm"] = _map(cast, pn), sn
+        if cfg.meta_tokens:
+            meta = common.trunc_normal((cfg.meta_tokens, cfg.d_model), 1.0, generator=generator, device=dev)
+            params["meta"], specs["meta"] = cast(meta), (None, "fsdp")
+        for g in self.groups:
+            stacked = None
+            for i in range(g.count):
+                p, s = blocks.init_decoder_block(generator, cfg, dev)
+                if stacked is None:
+                    stacked = _map(lambda a: empty_stack(a, g.count), p)
+                    specs[g.name] = _stack_specs(s)
+                _copy_into(stacked, p, i)
+                del p  # one layer's float32 draw at a time
+            params[g.name] = stacked
+        return params, specs
+
+    # ------------------------------------------------------------- embedding
+    def _embed_in(self, params, batch) -> torch.Tensor:
+        cfg = self.cfg
+        if "embeds" in batch:
+            x = batch["embeds"].to(self.device, self.dtype)
+        else:
+            x = common.embed_tokens(params["embed"], batch["tokens"].to(self.device), self.dtype)
+        x = self._scale_tied(x)
+        if cfg.rope_theta <= 0:
+            x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, self.device)
+        if cfg.meta_tokens:
+            m = params["meta"].to(self.dtype).expand((x.shape[0],) + params["meta"].shape)
+            x = torch.cat([m, x], dim=1)
+        return x
+
+    def _scale_tied(self, x) -> torch.Tensor:
+        """Tied embeddings (gemma2) scale by sqrt(d_model), rounded to the
+        compute dtype first."""
+        if not self.cfg.tie_embeddings:
+            return x
+        return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=self.device)
+
+    def _through_caches(self, params, x, state, block) -> torch.Tensor:
+        """``x`` through every layer, ``block(p, x, cache, is_global) ->
+        (x, cache)`` on layer views of the stacked params and caches; the
+        caches' K/V are written in place, their lengths here."""
+        for g in self.groups:
+            cache = state[g.name]
+            for i in range(g.count):
+                x, new = block(_layer(params[g.name], i), x, KVCache(cache.k[i], cache.v[i], cache.length[i]),
+                               self._flag(g, i))
+                cache.length[i] = new.length
+        return x
+
+    def _logits(self, params, x) -> torch.Tensor:
+        out = common.unembed(params["embed"], x, self.cfg.tie_embeddings)
+        return common.softcap(out.float(), self.cfg.final_logit_softcap)
+
+    def _flag(self, g: Group, i: int) -> bool:
+        return g.static_global if g.flags is None else g.flags[i]
+
+    # ---------------------------------------------------------------- trunk
+    @torch.inference_mode()
+    def hidden(self, params, batch) -> torch.Tensor:
+        """The final hidden states (B, S, d), normalized (meta tokens cut)."""
+        cfg = self.cfg
+        params = self._cast(params)
+        x = self._embed_in(params, batch)
+        positions = torch.arange(x.shape[1], device=self.device)
+        for g in self.groups:
+            for i in range(g.count):
+                x = blocks.apply_decoder_block(
+                    _layer(params[g.name], i), x, cfg, is_global=self._flag(g, i),
+                    positions=positions, impl=self.attn_impl,
+                )
+        x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
+        return x[:, cfg.meta_tokens:] if cfg.meta_tokens else x
+
+    @torch.inference_mode()
+    def logits(self, params, batch) -> torch.Tensor:
+        """Full float32 logits -- small shapes only (tests / serving)."""
+        return self._logits(self._cast(params), self.hidden(params, batch))
+
+    # --------------------------------------------------------------- decode
+    def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
+        """``{"pos": int, <group>: KVCache}`` with (L, B, S, KVH, D) caches,
+        (L, B) lengths. The cache is bfloat16 by default even for a float32
+        model, as the reference's is."""
+        cfg, dev = self.cfg, self.device
+        s_tot = s_max + cfg.meta_tokens
+        state: Dict[str, Any] = {"pos": 0}
+        for g in self.groups:
+            shape = (g.count, b, s_tot, cfg.num_kv_heads, cfg.head_dim_)
+            state[g.name] = KVCache(
+                k=torch.zeros(shape, dtype=cache_dtype, device=dev),
+                v=torch.zeros(shape, dtype=cache_dtype, device=dev),
+                length=torch.zeros((g.count, b), dtype=torch.int32, device=dev),
+            )
+        return state
+
+    @torch.inference_mode()
+    def prefill(self, params, batch, state) -> Tuple[Dict, torch.Tensor]:
+        """Run the prompt through the model, filling ``state``'s caches in
+        place. Returns (state, last-position logits (B, V))."""
+        cfg = self.cfg
+        params = self._cast(params)
+        x = self._through_caches(params, self._embed_in(params, batch), state, lambda p, x, c, flag: (
+            blocks.prefill_decoder_block(p, x, cfg, c, is_global=flag, impl=self.attn_impl)))
+        x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
+        state["pos"] = x.shape[1]
+        return state, self._logits(params, x[:, -1:])[:, 0]
+
+    @torch.inference_mode()
+    def decode_step(self, params, tokens, state) -> Tuple[torch.Tensor, Dict]:
+        """tokens: (B, 1) -> (logits (B, V), state advanced in place)."""
+        cfg = self.cfg
+        params = self._cast(params)
+        x = self._scale_tied(common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype))
+        if cfg.rope_theta <= 0:
+            x = x + self._abs_pos(state["pos"])
+        x = self._through_caches(params, x, state, lambda p, x, c, flag: (
+            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag)))
+        x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
+        state["pos"] = state["pos"] + 1
+        return self._logits(params, x)[:, 0], state
+
+    def _abs_pos(self, pos: int) -> torch.Tensor:
+        half = self.cfg.d_model // 2
+        dim = torch.arange(half, dtype=torch.float32, device=self.device)
+        ang = float(pos) / torch.pow(10000.0, 2 * dim / self.cfg.d_model)
+        return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
+
+
+def _copy_into(stacked, tree, i: int) -> None:
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            _copy_into(stacked[k], v, i)
+    else:
+        stacked[i].copy_(tree)
+
+
+def params_from_numpy(tree, device=None, dtype=None):
+    """The reference's parameter tree (numpy or JAX arrays, the same keys
+    and stacked ``(L, ...)`` layout) as the port's tensors on ``device``
+    (default ``cuda``); float leaves cast to ``dtype`` when given -- the
+    reference's per-call ``_cast``, done once at load."""
+    dev = resolve_device(device)
+    cast = _float_to(dtype) if dtype is not None else (lambda a: a)
+    return _map(lambda a: cast(torch.from_numpy(np.array(a)).to(dev)), tree)

@@ -1,8 +1,8 @@
-"""repro_torch.serve -- the spectral serving engine, ported from
-``repro.serve`` (the LM engine ``ServeEngine`` is not ported yet,
-ROADMAP A15)."""
+"""repro_torch.serve -- the serving engines, ported from ``repro.serve``:
+the spectral one and the LM one (``ServeEngine``)."""
 
 from repro_torch.runtime.faults import CircuitBreaker, FaultPlan, RetryPolicy
+from repro_torch.serve.engine import Request, ServeEngine
 from repro_torch.serve.queue import Admission, CoalescingQueue, PendingQueue
 from repro_torch.serve.spectral import (
     PlanPool,
@@ -20,7 +20,9 @@ __all__ = [
     "FaultPlan",
     "PendingQueue",
     "PlanPool",
+    "Request",
     "RetryPolicy",
+    "ServeEngine",
     "SpectralEngine",
     "SpectralFuture",
     "SpectralRequest",

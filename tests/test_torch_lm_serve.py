@@ -1,0 +1,201 @@
+"""The port's LM ``ServeEngine`` and ``launch/serve.py`` against the
+reference's: the streams of ``tests/test_serve.py`` run through both
+engines on the reference's weights give identical greedy tokens, as does
+an idle slot whose cache length runs past the cache (two ``run()`` calls
+on one engine). The reference is imported inside fixtures, so the
+``cuda``-marked case also runs on a GPU machine without jax
+(``pytest -m cuda tests/test_torch_lm_serve.py``)."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.configs import ServeConfig, get_config
+from repro_torch.launch import serve as launch
+from repro_torch.models.model import Model, params_from_numpy
+from repro_torch.serve import ServeEngine
+
+ARCH = "qwen2.5-32b"
+
+
+@pytest.fixture(scope="module")
+def ref():
+    """The reference engine's module, model and weights (float32)."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import ServeConfig as RServeConfig
+    from repro.configs import get_config as r_get_config
+    from repro.models import Model as RModel
+    from repro.serve import ServeEngine as RServeEngine
+
+    cfg = dataclasses.replace(r_get_config(ARCH, reduced=True), dtype="float32")
+    model = RModel(cfg, attn_impl="chunked")
+    params, _ = model.init(jax.random.PRNGKey(0))
+    return RServeEngine, RServeConfig, model, params
+
+
+@pytest.fixture(scope="module")
+def port(ref):
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
+    return Model(cfg, attn_impl="chunked", device="cpu"), params_from_numpy(ref[3], device="cpu")
+
+
+def both(ref, port, prompts_runs, **scfg):
+    """Serve each list of prompts in ``prompts_runs`` in turn on one
+    reference engine and one port engine; returns both result lists."""
+    r_engine_cls, r_scfg_cls, rmodel, rparams = ref
+    r_eng = r_engine_cls(rmodel, rparams, r_scfg_cls(**scfg))
+    eng = ServeEngine(port[0], port[1], ServeConfig(**scfg))
+    got, exp = [], []
+    for prompts, max_new in prompts_runs:
+        exp.append(r_eng.run(prompts, max_new=max_new))
+        got.append(eng.run(prompts, max_new=max_new))
+    return got, exp, eng
+
+
+def _vocab(port):
+    return port[0].cfg.vocab_size
+
+
+def test_single_request(ref, port):
+    prompt = np.arange(5, dtype=np.int32) % _vocab(port)
+    (got,), (exp,), _ = both(ref, port, [([prompt], 6)], max_batch=2, max_seq=64)
+    assert got == exp and len(got) == 1
+    (tokens,) = got.values()
+    assert len(tokens) == 6 and all(0 <= t < _vocab(port) for t in tokens)
+
+
+def test_batched_matches_single(ref, port):
+    """A request decoded alongside others equals its solo decode (slot
+    isolation: per-row cache lengths), in both packages."""
+    v = _vocab(port)
+    pa = (np.arange(7) * 3 % v).astype(np.int32)
+    pb = (np.arange(4) * 5 % v).astype(np.int32)
+    (solo,), (r_solo,), _ = both(ref, port, [([pa], 5)], max_batch=2, max_seq=64)
+    (pair,), (r_pair,), _ = both(ref, port, [([pa, pb], 5)], max_batch=2, max_seq=64)
+    assert solo == r_solo and pair == r_pair
+    assert pair[0] == list(solo.values())[0]
+
+
+def test_more_requests_than_slots(ref, port):
+    prompts = [(np.arange(3 + i) % _vocab(port)).astype(np.int32) for i in range(5)]
+    (got,), (exp,), _ = both(ref, port, [(prompts, 4)], max_batch=2, max_seq=64)
+    assert got == exp and len(got) == 5 and all(len(v) == 4 for v in got.values())
+
+
+def test_greedy_deterministic(port):
+    p = (np.arange(6) % _vocab(port)).astype(np.int32)
+    r1 = ServeEngine(port[0], port[1], ServeConfig(max_batch=1, max_seq=64)).run([p], max_new=5)
+    r2 = ServeEngine(port[0], port[1], ServeConfig(max_batch=1, max_seq=64)).run([p], max_new=5)
+    assert list(r1.values()) == list(r2.values())
+
+
+def test_idle_slot_past_the_cache_matches_reference(ref, port):
+    """Every step decodes all slots, so an idle slot's cache length keeps
+    growing: in the second run slot 1 idles past max_seq. JAX drops its
+    out-of-bounds cache writes; the port must too (torch would raise)."""
+    v = _vocab(port)
+    first = [(np.arange(5) * 7 % v).astype(np.int32), (np.arange(4) * 3 % v).astype(np.int32)]
+    second = [(np.arange(3) * 11 % v).astype(np.int32)]
+    got, exp, eng = both(ref, port, [(first, 8), (second, 12)], max_batch=2, max_seq=16)
+    assert got == exp
+    lengths = eng.state["layers"].length
+    assert int(lengths[:, 1].min()) > 16  # the idle row ran past the 16-entry cache
+    assert torch.isfinite(eng.state["layers"].k.float()).all()
+
+
+def test_temperature_sampling_is_seeded(port):
+    """Sampling draws from softmax(logits / T) with a torch.Generator
+    seeded as the reference seeds its key: repeatable, not the
+    reference's stream."""
+    p = (np.arange(6) % _vocab(port)).astype(np.int32)
+    runs = [ServeEngine(port[0], port[1], ServeConfig(max_batch=2, max_seq=64, temperature=1.0)).run(
+        [p, p[:4]], max_new=6) for _ in range(2)]
+    assert runs[0] == runs[1]
+    greedy = ServeEngine(port[0], port[1], ServeConfig(max_batch=2, max_seq=64)).run([p, p[:4]], max_new=6)
+    assert all(runs[0][u][0] == greedy[u][0] for u in greedy)  # the first token is greedy, as there
+    assert runs[0] != greedy
+
+
+def test_launcher_runs_on_the_cpu(capsys):
+    launch.main(["--arch", ARCH, "--device", "cpu", "--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 3 requests, 12 tokens in ") and out[0].endswith(" tok/s aggregate)")
+    assert [line.split(":")[0] for line in out[1:]] == ["  req 0", "  req 1", "  req 2"]
+
+
+def test_launcher_prompts_are_the_references(ref):
+    """The same rng(0) stream of lengths and tokens as the reference
+    launcher draws."""
+    cfg = get_config(ARCH, reduced=True)
+    rng = np.random.default_rng(0)
+    exp = [rng.integers(0, cfg.vocab_size, rng.integers(4, 16 + 1)).astype(np.int32) for _ in range(8)]
+    got = launch.prompt_stream(cfg, 8, 16)
+    assert len(got) == 8 and all(np.array_equal(a, b) and a.dtype == np.int32 for a, b in zip(got, exp))
+
+
+def test_launcher_no_reduced_reaches_the_full_config(monkeypatch):
+    """``--reduced`` defaults to true, as in the reference, but here
+    ``--no-reduced`` reaches the full config."""
+    seen = []
+
+    def fake_build(cfg, scfg, **kw):
+        seen.append((cfg, scfg, kw))
+        raise SystemExit(0)
+
+    monkeypatch.setattr(launch, "build_engine", fake_build)
+    for argv, full in ((["--arch", ARCH, "--no-reduced"], True), (["--arch", ARCH], False)):
+        with pytest.raises(SystemExit):
+            launch.main(argv)
+        assert (seen[-1][0] == get_config(ARCH)) is full
+    assert seen[-1][1] == ServeConfig(max_batch=4, max_seq=128) and seen[-1][2] == {"device": None}
+
+
+@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b", "xlstm-1.3b", "hymba-1.5b",
+                                  "whisper-medium"])
+def test_unported_families_are_refused(arch):
+    with pytest.raises(NotImplementedError, match="A15.2"):
+        Model(get_config(arch, reduced=True), device="cpu")
+
+
+def test_a_mesh_of_several_ranks_is_refused():
+    from repro_torch.core import SimMesh
+
+    with pytest.raises(NotImplementedError, match="A15.1b"):
+        Model(get_config(ARCH, reduced=True), SimMesh(2, device="cpu"), device="cpu")
+    assert Model(get_config(ARCH, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
+
+
+def test_no_fallback_to_the_cpu(monkeypatch):
+    """Model, and so the engine and the launcher, run on cuda unless the
+    caller passes device="cpu"; without a GPU they raise."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Model(get_config(ARCH, reduced=True))
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        launch.main(["--arch", ARCH])
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+def test_engine_on_the_card_matches_the_cpu(cuda_device):
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params, _ = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda_device)
+    v = cfg.vocab_size
+    prompts = [(np.arange(7) * 3 % v).astype(np.int32), (np.arange(4) * 5 % v).astype(np.int32)]
+    exp = ServeEngine(cpu, params, ServeConfig(max_batch=2, max_seq=64)).run(prompts, max_new=5)
+    def to_card(tree):
+        return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(cuda_device)
+
+    got = ServeEngine(card, to_card(params), ServeConfig(max_batch=2, max_seq=64)).run(prompts, max_new=5)
+    assert got == exp
