@@ -109,7 +109,28 @@ Phases, each printing a line; any failure exits non-zero with no result:
    default on the card; (5) attention_chunked at a 512-token prefill
    (bfloat16) timed beside F.scaled_dot_product_attention, which the
    port never calls. None of the FFT kernels runs here (``lm_serving``:
-   0 launches each).
+   0 launches each);
+15. MoE + MLA serving -- DeepSeek-V3 (MLA, 256 experts top-8 + a shared
+   one) and Mixtral-8x22B (8 experts top-2) at full width, each after
+   phase 14's free-memory check: (1) 2 layers in float32 (DeepSeek: one
+   dense + one MoE) at capacity_factor = E / k, where the capacity is
+   every token and nothing drops: check 1 of phase 14 (1e-4 of the whole
+   sequence's logits, isolation exact) and one MoE layer's einsum
+   dispatch against the dense one (1e-5); (2) the depth cut to fit the
+   card (DeepSeek 5 layers: its 3 dense + 2 MoE; Mixtral 12 of 56; the
+   MTP head off) in bfloat16, built by launch.build_engine at the stock
+   capacity_factor 1.25; on 8 prompts, with no drops (a capacity_factor
+   = E / k Model on the same weights), prefill + 1 decode step and the
+   whole sequence's logits, each against a float32 oracle (a float32
+   Model on those bf16 weights): the median error of prefill + decode
+   within 1.5 x the bf16 forward's own (which must stay under 0.1), and
+   phase 14's comparison printed beside; (3) phase 14's stream on that engine at
+   the stock factor, with the dropped share of each MoE layer's
+   assignments in the first full-slot decode step, the decode step
+   beside two bounds (all the weights: the einsum dispatch reads every
+   expert; and only the experts that step routed to), peak memory
+   (fails above 72 GiB); (4) launch.serve.main --arch at its reduced
+   default. No FFT kernel runs here (``moe_serving_<arch>``: 0 each).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -147,8 +168,8 @@ kernel once at every shape not timed before. Kernel times are CUDA-event medians
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
-counts of every counted path, phases 7 (SPMD serving), 11-12 and 14
-(``lm_serving``) included; the last line is
+counts of every counted path, phases 7 (SPMD serving), 11-12, 14
+(``lm_serving``) and 15 (``moe_serving_<arch>``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -218,6 +239,23 @@ LM_PEAK_LIMIT_GIB = 72.0
 LM_HEADROOM_GIB = 6.0  # free memory needed beyond the weights and the KV cache
 PEAK_FLOPS_BF16 = 989e12  # FLOP/s, bf16 tensor cores, dense (H100 SXM data sheet)
 LM_TOP_KERNELS = 8  # the decode step's longest kernels, printed by name
+#: phase 15: MoE + MLA serving at full width, depth cut to fit one card.
+#: DeepSeek-V3 (src/repro/configs/deepseek_v3_671b.py: 61 layers, d_model
+#: 7168, 128 heads, MLA q / kv ranks 1536 / 512, rope 64, nope 128, v 128,
+#: 256 routed experts top-8 + 1 shared, expert d_ff 2048, dense d_ff 18432,
+#: vocab 129280) at its 3 dense + 2 MoE layers; Mixtral-8x22B
+#: (src/repro/configs/mixtral_8x22b.py: 56 layers, d_model 6144, 48 / 8
+#: heads, d_ff 16384, 8 experts top-2, vocab 32768) at 12 layers
+MOE_CUTS = {"deepseek-v3-671b": dict(num_layers=5), "mixtral-8x22b": dict(num_layers=12)}
+MOE_F32_CUTS = {"deepseek-v3-671b": dict(num_layers=2, first_k_dense=1), "mixtral-8x22b": dict(num_layers=2)}
+MOE_DISPATCH_REL_TOL = 1e-5  # einsum vs dense dispatch, float32, nothing dropped
+#: check 2 of phase 15, bfloat16 at the cut depth against a float32 oracle
+#: (the same bfloat16 weights through a float32 Model): over MOE_BF16_ROWS
+#: prompts the median error of prefill + decode may exceed the median error
+#: of the bfloat16 whole-sequence forward itself by this factor (a routing
+#: flip in one row moves that row's logits by 0.2-0.35), and that error
+#: must stay under MOE_BF16_FLOOR_LIMIT
+MOE_BF16_ROWS, MOE_BF16_NOISE_RATIO, MOE_BF16_FLOOR_LIMIT = 8, 1.5, 0.1
 
 
 class SmokeFailure(RuntimeError):
@@ -1243,9 +1281,17 @@ def lm_rel_err(got, exp) -> float:
     return ((got.float() - exp.float()).abs().max() / exp.float().abs().max()).item()
 
 
+def lm_cache_bytes_per_token(cfg) -> int:
+    """The engine's bfloat16 cache of one token over every layer: K and V,
+    or MLA's latent and rope key."""
+    if cfg.mla is not None:
+        return 2 * cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
+    return 2 * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim_
+
+
 def lm_kv_bytes(cfg, scfg) -> int:
-    """The engine's bfloat16 KV cache: K and V for every layer and slot."""
-    return 2 * 2 * cfg.num_layers * scfg.max_batch * scfg.max_seq * cfg.num_kv_heads * cfg.head_dim_
+    """The engine's bfloat16 cache for every layer and slot."""
+    return lm_cache_bytes_per_token(cfg) * scfg.max_batch * scfg.max_seq
 
 
 def lm_check_free(torch, label: str, need: float) -> None:
@@ -1257,26 +1303,15 @@ def lm_check_free(torch, label: str, need: float) -> None:
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
-    print(f"LM serving {label}: {free / 2**30:.2f} GiB free of {total / 2**30:.2f}, need {need / 2**30:.2f} "
+    print(f"{label}: {free / 2**30:.2f} GiB free of {total / 2**30:.2f}, need {need / 2**30:.2f} "
           f"({torch.cuda.memory_allocated() / 2**30:.2f} GiB still allocated by this process)", flush=True)
-    check(free >= need, f"LM serving {label}: {free} bytes free on the card, the phase needs {int(need)}")
+    check(free >= need, f"{label}: {free} bytes free on the card, the phase needs {int(need)}")
 
 
-def lm_width_checks(torch, seed) -> None:
-    """Check 1: Qwen2.5-32B at full width, LM_F32_LAYERS layers, float32
-    (TF32 off since phase 1)."""
-    import dataclasses
-
-    from repro_torch.configs import ServeConfig, get_config
-    from repro_torch.models import attention as A
-    from repro_torch.models.model import Model
-    from repro_torch.serve import ServeEngine
-
-    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_F32_LAYERS, dtype="float32")
-    model = Model(cfg)
-    g = torch.Generator(device="cuda")
-    g.manual_seed(seed)
-    params, _ = model.init(g)
+def lm_agreement(torch, model, params, g):
+    """A LM_SEQ-token prefill + LM_DECODE decode steps (float32 cache)
+    against Model.logits of the whole sequence: (rel errs, max |logit|)."""
+    cfg = model.cfg
     toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + LM_DECODE), device="cuda", generator=g)
     full = model.logits(params, {"tokens": toks})
     state = model.init_decode_state(1, LM_SEQ + LM_DECODE, cache_dtype=torch.float32)
@@ -1285,9 +1320,42 @@ def lm_width_checks(torch, seed) -> None:
     for t in range(LM_DECODE):
         lg, state = model.decode_step(params, toks[:, LM_SEQ + t:LM_SEQ + t + 1], state)
         errs.append(lm_rel_err(lg, full[:, LM_SEQ + t]))
+    return errs, full.abs().max().item()
+
+
+def lm_isolation(torch, model, params, g, label: str) -> None:
+    """tests/test_serve.py::test_batched_matches_single at ServeConfig()'s
+    8 slots: request 0's greedy tokens alone and among the others."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.serve import ServeEngine
+
+    prompts = [torch.randint(0, model.cfg.vocab_size, (n,), device="cuda", generator=g).int().cpu().numpy()
+               for n in LM_ISOLATION_LENGTHS]
+    solo = ServeEngine(model, params, ServeConfig()).run(prompts[:1], max_new=LM_ISOLATION_NEW)
+    among = ServeEngine(model, params, ServeConfig()).run(prompts, max_new=LM_ISOLATION_NEW)
+    print(f"{label} slot isolation at full width: request 0 alone {solo[0]}, among {len(prompts)} slots "
+          f"{among[0]}", flush=True)
+    check(among[0] == solo[0], f"{label}: a request's greedy tokens among 8 slots differ from its solo tokens")
+
+
+def lm_width_checks(torch, seed) -> None:
+    """Check 1: Qwen2.5-32B at full width, LM_F32_LAYERS layers, float32
+    (TF32 off since phase 1)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(LM_ARCH), num_layers=LM_F32_LAYERS, dtype="float32")
+    model = Model(cfg)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    errs, top = lm_agreement(torch, model, params, g)
     print(f"LM serving {LM_ARCH} full width, {LM_F32_LAYERS} layers, float32 (float32 cache): prefill of {LM_SEQ} + "
           f"{LM_DECODE} decode steps vs logits of the full sequence, rel_err (to max |logit| "
-          f"{full.abs().max().item():.3f}) {', '.join(f'{e:.3e}' for e in errs)} (tol {LM_F32_REL_TOL})", flush=True)
+          f"{top:.3f}) {', '.join(f'{e:.3e}' for e in errs)} (tol {LM_F32_REL_TOL})", flush=True)
     check(max(errs) <= LM_F32_REL_TOL, f"LM prefill/decode vs full logits: {max(errs):.3e} > {LM_F32_REL_TOL}")
 
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
@@ -1298,15 +1366,7 @@ def lm_width_checks(torch, seed) -> None:
     print(f"LM serving attention_chunked vs attention_naive at q {tuple(q.shape)} k/v {tuple(k.shape)} float32: "
           f"rel_err {err:.3e} (tol {LM_ATTN_REL_TOL})", flush=True)
     check(err <= LM_ATTN_REL_TOL, f"attention_chunked vs attention_naive: {err:.3e} > {LM_ATTN_REL_TOL}")
-
-    # slot isolation (tests/test_serve.py::test_batched_matches_single), ServeConfig()'s 8 slots
-    prompts = [torch.randint(0, cfg.vocab_size, (n,), device="cuda", generator=g).int().cpu().numpy()
-               for n in LM_ISOLATION_LENGTHS]
-    solo = ServeEngine(model, params, ServeConfig()).run(prompts[:1], max_new=LM_ISOLATION_NEW)
-    among = ServeEngine(model, params, ServeConfig()).run(prompts, max_new=LM_ISOLATION_NEW)
-    print(f"LM serving slot isolation at full width: request 0 alone {solo[0]}, among {len(prompts)} slots "
-          f"{among[0]}", flush=True)
-    check(among[0] == solo[0], "LM serving: a request's greedy tokens among 8 slots differ from its solo tokens")
+    lm_isolation(torch, model, params, g, "LM serving")
 
 
 def lm_stream(torch, eng, prompts, max_new: int):
@@ -1366,37 +1426,55 @@ def lm_decode_kernels(torch, eng):
     return (us / 1e3 if us else None), [(e.key[:90], e.count, e.self_device_time_total / 1e3) for e in top]
 
 
-def lm_full_depth(torch, seed, cfg, scfg, launch):
-    """Checks 2 and 3: Qwen2.5-32B at all its layers in bfloat16, built the
-    way repro_torch.launch.serve builds it, then the launcher's stream."""
+def lm_build(torch, seed, cfg, scfg, launch, label: str):
+    """The engine as repro_torch.launch.serve builds it, in bfloat16:
+    (engine, bytes of weights)."""
     t0 = time.perf_counter()
     eng = launch.build_engine(cfg, scfg, seed=seed)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    model, params = eng.model, eng.params
-    nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
-    print(f"LM serving {LM_ARCH}: {cfg.num_layers} layers in bfloat16 initialised on the card in {init_s:.1f} s, "
+    nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(eng.params))
+    print(f"{label} {cfg.name}: {cfg.num_layers} layers in bfloat16 initialised on the card in {init_s:.1f} s, "
           f"{nbytes / 2**30:.2f} GiB of weights, KV cache {lm_kv_bytes(cfg, scfg) / 2**30:.2f} GiB "
           f"({scfg.max_batch} slots x {scfg.max_seq})", flush=True)
+    return eng, nbytes
+
+
+def lm_bf16_agreement(torch, seed, model, params) -> None:
+    """Check 2 of phase 14: a LM_BF16_SEQ-token prefill + 1 decode step
+    of the bfloat16 model against the whole sequence's logits."""
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 1)
+    cfg = model.cfg
     toks = torch.randint(0, cfg.vocab_size, (1, LM_BF16_SEQ + 1), device="cuda", generator=g)
     full = model.logits(params, {"tokens": toks})
     state = model.init_decode_state(1, LM_BF16_SEQ + 1)
     state, pl = model.prefill(params, {"tokens": toks[:, :LM_BF16_SEQ]}, state)
     lg, _ = model.decode_step(params, toks[:, LM_BF16_SEQ:], state)
     errs = (lm_rel_err(pl, full[:, LM_BF16_SEQ - 1]), lm_rel_err(lg, full[:, LM_BF16_SEQ]))
-    print(f"LM serving {LM_ARCH} full depth, bfloat16: prefill of {LM_BF16_SEQ} + 1 decode step vs logits of "
+    print(f"LM serving {cfg.name} full depth, bfloat16: prefill of {LM_BF16_SEQ} + 1 decode step vs logits of "
           f"the full sequence, rel_err {errs[0]:.3e}, {errs[1]:.3e} (tol {LM_BF16_REL_TOL})", flush=True)
     check(max(errs) <= LM_BF16_REL_TOL, f"LM full depth prefill/decode vs logits: {max(errs):.3e} > {LM_BF16_REL_TOL}")
-    del full, state
 
+
+def lm_serve_stream(torch, eng, cfg, launch):
+    """Check 3: the launcher's stream on ``eng``, then one decode step
+    under the profiler."""
     prompts = launch.prompt_stream(cfg, LM_REQUESTS, LM_PROMPT_LEN)
-    results, wall, t0, arrivals, steps = lm_stream(torch, eng, prompts, LM_MAX_NEW)
+    stream = lm_stream(torch, eng, prompts, LM_MAX_NEW)
+    results = stream[0]
     check(sorted(results) == list(range(LM_REQUESTS)), f"LM stream: results for {sorted(results)}")
     check(all(len(v) == LM_MAX_NEW and all(0 <= t < cfg.vocab_size for t in v) for v in results.values()),
           "LM stream: a request did not get its max_new tokens in the vocabulary")
-    return nbytes, results, wall, t0, arrivals, steps, lm_decode_kernels(torch, eng)
+    return stream, lm_decode_kernels(torch, eng)
+
+
+def lm_full_depth(torch, seed, cfg, scfg, launch):
+    """Checks 2 and 3: Qwen2.5-32B at all its layers in bfloat16, built the
+    way repro_torch.launch.serve builds it, then the launcher's stream."""
+    eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "LM serving")
+    lm_bf16_agreement(torch, seed, eng.model, eng.params)
+    return nbytes, lm_serve_stream(torch, eng, cfg, launch)
 
 
 def lm_leaves(tree):
@@ -1433,60 +1511,250 @@ def lm_yardstick(torch, seed, A) -> None:
           f"{err:.3e}", flush=True)
 
 
-def lm_serving_phase(torch, seed, fft_stage, cm):
-    """Phase 14: the LM serving path with Qwen2.5-32B on one card."""
-    import contextlib
-    import io
-
-    from repro_torch.configs import ServeConfig, get_config
-    from repro_torch.launch import serve as launch
-    from repro_torch.models import attention as A
+def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm, routed=None) -> float:
+    """Print the stream's tokens/s, time to first token, the full-slot
+    decode step's device / host / kernel ms beside its bound (the weights
+    and the live cache read once; ``routed``: (bytes of the weights a
+    step's routing needs, what they are) for a second bound), and check
+    the peak memory. Returns the median full-slot step's device ms."""
     from repro_torch.runtime.monitor import percentiles
 
-    cfg, scfg = get_config(LM_ARCH), ServeConfig()
-    need = 2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30
-    lm_check_free(torch, "before check 1", need)
-    lm_width_checks(torch, seed)
-    lm_check_free(torch, "before the full-depth model", need)
-    (nbytes, results, wall, t0, arrivals, steps, (kernel_ms, top)), launches, peak = counted(
-        torch, fft_stage, "LM serving", lambda: lm_full_depth(torch, seed, cfg, scfg, launch), expect=())
-    torch.cuda.empty_cache()
-
+    results, wall, t0, arrivals, steps = stream
+    kernel_ms, top = kernels
     tok = sum(len(v) for v in results.values())
     a = percentiles([ms for _, ms, _ in arrivals], (50, 99))
     t = percentiles([(end - t0) * 1e3 for _, _, end in arrivals], (50, 99))
     full = [s for s in steps if s[0] == scfg.max_batch]
     dev_ms = statistics.median(s[2] for s in full)
     issue_ms = statistics.median(s[3] for s in full)
-    kv_live = statistics.median(s[1] for s in full) * 2 * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim_
+    kv_live = statistics.median(s[1] for s in full) * lm_cache_bytes_per_token(cfg)
     decode_bound = (nbytes + kv_live) / cm.HBM_BW * 1e3
     s_med = statistics.median(n for n, _, _ in arrivals)
-    prefill_bound = max(2 * cfg.param_count() * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
-    print(f"LM serving stream: {LM_REQUESTS} requests (prompts 4-{LM_PROMPT_LEN} tokens from rng(0), median "
+    prefill_bound = max(2 * cfg.active_param_count() * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
+    print(f"{label} stream: {LM_REQUESTS} requests (prompts 4-{LM_PROMPT_LEN} tokens from rng(0), median "
           f"{s_med:.0f}), max_new {LM_MAX_NEW}, {scfg.max_batch} slots, max_seq {scfg.max_seq}, greedy: {tok} tokens "
           f"in {wall:.2f} s, {tok / wall:.1f} tok/s aggregate, {len(steps)} decode steps", flush=True)
-    print(f"LM serving time to first token: add_request to its first token on the host p50 {a['p50']:.1f} ms p99 "
+    print(f"{label} time to first token: add_request to its first token on the host p50 {a['p50']:.1f} ms p99 "
           f"{a['p99']:.1f} ms (prefill bound at the median prompt {prefill_bound:.2f} ms); from the stream's start "
           f"p50 {t['p50']:.1f} ms p99 {t['p99']:.1f} ms", flush=True)
-    kernels = ("not measured (the profiler saw no device time)" if kernel_ms is None
-               else f"{kernel_ms:.2f} ms (torch.profiler, one step)")
-    print(f"LM serving decode step with {scfg.max_batch} active slots ({len(full)} steps): device {dev_ms:.2f} ms "
-          f"(CUDA events, median), host {issue_ms:.2f} ms to issue it, its kernels {kernels}; bound "
+    kern = ("not measured (the profiler saw no device time)" if kernel_ms is None
+            else f"{kernel_ms:.2f} ms (torch.profiler, one step)")
+    also = "" if routed is None else (f"; {routed[1]}: bound {(routed[0] + kv_live) / cm.HBM_BW * 1e3:.2f} ms "
+                                      f"({routed[0] / 1e9:.2f} GB)")
+    print(f"{label} decode step with {scfg.max_batch} active slots ({len(full)} steps): device {dev_ms:.2f} ms "
+          f"(CUDA events, median), host {issue_ms:.2f} ms to issue it, its kernels {kern}; bound "
           f"{decode_bound:.2f} ms ({nbytes / 1e9:.2f} GB of weights + {kv_live / 1e9:.3f} GB of live KV at "
-          f"{cm.HBM_BW / 1e12:.2f} TB/s)", flush=True)
+          f"{cm.HBM_BW / 1e12:.2f} TB/s){also}", flush=True)
     for name, count, ms in top:
         print(f"  decode step kernel {name}: {count} launches, {ms:.2f} ms", flush=True)
-    print(f"LM serving peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}); FFT kernel launches {launches}",
+    print(f"{label} peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}); FFT kernel launches {launches}",
           flush=True)
-    check(peak <= LM_PEAK_LIMIT_GIB, f"LM serving peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+    check(peak <= LM_PEAK_LIMIT_GIB, f"{label} peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+    return dev_ms
+
+
+def lm_launcher(arch: str, launch, label: str) -> None:
+    """repro_torch.launch.serve.main at its reduced default, on the card."""
+    import contextlib
+    import io
 
     out = io.StringIO()
     with contextlib.redirect_stdout(out):
-        launch.main(["--arch", LM_ARCH])
-    print(f"LM serving launcher (reduced, on the card): {out.getvalue().strip()}", flush=True)
-    check(out.getvalue().startswith("served "), "repro_torch.launch.serve printed no served line")
+        launch.main(["--arch", arch])
+    print(f"{label} launcher --arch {arch} (reduced, on the card): {out.getvalue().strip()}", flush=True)
+    check(out.getvalue().startswith("served "), f"repro_torch.launch.serve --arch {arch} printed no served line")
+
+
+def lm_serving_phase(torch, seed, fft_stage, cm):
+    """Phase 14: the LM serving path with Qwen2.5-32B on one card."""
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import attention as A
+
+    cfg, scfg = get_config(LM_ARCH), ServeConfig()
+    need = 2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30
+    lm_check_free(torch, "LM serving before check 1", need)
+    lm_width_checks(torch, seed)
+    lm_check_free(torch, "LM serving before the full-depth model", need)
+    (nbytes, (stream, kernels)), launches, peak = counted(
+        torch, fft_stage, "LM serving", lambda: lm_full_depth(torch, seed, cfg, scfg, launch), expect=())
+    torch.cuda.empty_cache()
+    lm_stream_report(torch, "LM serving", cfg, scfg, nbytes, stream, kernels, peak, launches, cm)
+    lm_launcher(LM_ARCH, launch, "LM serving")
     lm_yardstick(torch, seed, A)
     return launches
+
+
+def moe_cfg(arch: str, *, no_drop: bool = False, dtype=None, **cut):
+    """``arch``'s full-width config with depth cut (``num_layers``,
+    ``first_k_dense``), the MTP head off (a training head serving never
+    runs), and with ``no_drop`` capacity_factor = E / k (capacity = every
+    token: nothing drops)."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    moe = dataclasses.replace(cfg.moe, **{k: v for k, v in cut.items() if k == "first_k_dense"})
+    if no_drop:
+        moe = dataclasses.replace(moe, capacity_factor=moe.num_experts / moe.top_k)
+    cfg = dataclasses.replace(cfg, num_layers=cut["num_layers"], mtp_depth=0, moe=moe)
+    return dataclasses.replace(cfg, dtype=dtype) if dtype else cfg
+
+
+def moe_width_checks(torch, seed, arch: str) -> None:
+    """Check 1 of phase 15: ``arch`` at full width, MOE_F32_CUTS' depth,
+    float32, no drops: prefill + decode against the whole sequence,
+    isolation, and one MoE layer's einsum dispatch against the dense one."""
+    import dataclasses
+
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, _layer
+
+    label = f"MoE serving {arch}"
+    cfg = moe_cfg(arch, no_drop=True, dtype="float32", **MOE_F32_CUTS[arch])
+    lm_check_free(torch, f"{label} before check 1", 4 * cfg.param_count() + LM_HEADROOM_GIB * 2**30)
+    model = Model(cfg)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    errs, top = lm_agreement(torch, model, params, g)
+    print(f"{label} full width, {cfg.num_layers} layers ({[(gr.name, gr.count) for gr in model.groups]}), float32 "
+          f"(float32 cache), capacity_factor {cfg.moe.capacity_factor:g} (E/k: no drops): prefill of {LM_SEQ} + "
+          f"{LM_DECODE} decode steps vs logits of the full sequence, rel_err (to max |logit| {top:.3f}) "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (tol {LM_F32_REL_TOL})", flush=True)
+    check(max(errs) <= LM_F32_REL_TOL, f"{label} prefill/decode vs full logits: {max(errs):.3e} > {LM_F32_REL_TOL}")
+    lm_isolation(torch, model, params, g, label)
+
+    ffn = _layer(params["moe"], 0)["ffn"]
+    x = torch.randn((1, LM_SEQ, cfg.d_model), device="cuda", generator=g)
+    dense_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dense"))
+    einsum_cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="einsum"))
+    with torch.inference_mode():
+        (got, aux), (exp, aux_d) = moe.apply_moe(ffn, x, einsum_cfg), moe.apply_moe(ffn, x, dense_cfg)
+    err = lm_rel_err(got, exp)
+    print(f"{label} one MoE layer at x {tuple(x.shape)} float32: einsum dispatch (capacity "
+          f"{moe._capacity(LM_SEQ, cfg.moe.top_k, cfg.moe.num_experts, cfg.moe.capacity_factor)}) vs dense dispatch "
+          f"rel_err {err:.3e} (tol {MOE_DISPATCH_REL_TOL}), aux {aux.item():.6f} / {aux_d.item():.6f}", flush=True)
+    check(err <= MOE_DISPATCH_REL_TOL, f"{label} einsum vs dense dispatch: {err:.3e} > {MOE_DISPATCH_REL_TOL}")
+
+
+def moe_bf16_agreement(torch, seed, model, params, label: str) -> None:
+    """Check 2 of phase 15: ``model`` (bfloat16, no drops) on
+    MOE_BF16_ROWS prompts of LM_BF16_SEQ + 1 tokens, one at a time: its
+    prefill + 1 decode step and its whole-sequence logits, each against a
+    float32 oracle (a float32 Model on the same weights, each weight cast
+    at its use). With random experts the bfloat16 forward itself is a few
+    1e-2 from the oracle, so the path is held to it (MOE_BF16_NOISE_RATIO
+    on the medians); phase 14's comparison with the bfloat16 whole
+    sequence is printed beside."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    oracle = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    path, own, vs_whole = [], [], []
+    for _ in range(MOE_BF16_ROWS):
+        toks = torch.randint(0, model.cfg.vocab_size, (1, LM_BF16_SEQ + 1), device="cuda", generator=g)
+        exact = oracle.logits(params, {"tokens": toks})
+        whole = model.logits(params, {"tokens": toks})
+        state = model.init_decode_state(1, LM_BF16_SEQ + 1)
+        state, pl = model.prefill(params, {"tokens": toks[:, :LM_BF16_SEQ]}, state)
+        lg, _ = model.decode_step(params, toks[:, LM_BF16_SEQ:], state)
+        for got, at in ((pl, LM_BF16_SEQ - 1), (lg, LM_BF16_SEQ)):
+            path.append(lm_rel_err(got, exact[:, at]))
+            own.append(lm_rel_err(whole[:, at], exact[:, at]))
+            vs_whole.append(lm_rel_err(got, whole[:, at]))
+        del exact, whole, state
+    med_path, med_own = statistics.median(path), statistics.median(own)
+
+    def row(errs):
+        return ", ".join(f"{e:.3e}" for e in errs)
+
+    print(f"{label} {model.cfg.num_layers} layers, bfloat16, capacity_factor E/k (no drops), {MOE_BF16_ROWS} prompts "
+          f"of {LM_BF16_SEQ} + 1 decode step, rel_err (prefill, decode per prompt) vs a float32 oracle on the same "
+          f"weights: prefill + decode {row(path)} (median {med_path:.3e}); the bfloat16 whole sequence {row(own)} "
+          f"(median {med_own:.3e}); tol: median {MOE_BF16_NOISE_RATIO} x the whole sequence's, which must stay "
+          f"under {MOE_BF16_FLOOR_LIMIT}. Prefill + decode vs the bfloat16 whole sequence (phase 14's check, "
+          f"{LM_BF16_REL_TOL} there): {row(vs_whole)}", flush=True)
+    check(med_own <= MOE_BF16_FLOOR_LIMIT, f"{label}: the bfloat16 forward's median error {med_own:.3e} > "
+          f"{MOE_BF16_FLOOR_LIMIT}")
+    check(med_path <= MOE_BF16_NOISE_RATIO * med_own, f"{label}: prefill + decode median error {med_path:.3e} > "
+          f"{MOE_BF16_NOISE_RATIO} x the bfloat16 forward's {med_own:.3e}")
+
+
+def moe_full_depth(torch, seed, arch: str, scfg, launch):
+    """Checks 2 and 3 of phase 15: ``arch`` at MOE_CUTS' depth in
+    bfloat16, built as launch/serve.py builds it; the agreement with no
+    drops (a Model at capacity_factor E/k on the same weights), then the
+    launcher's stream at the stock factor, recording which assignments
+    one full-slot decode step kept in each MoE layer."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+
+    label = f"MoE serving {arch}"
+    cfg = moe_cfg(arch, **MOE_CUTS[arch])
+    eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "MoE serving")
+    moe_bf16_agreement(torch, seed, Model(moe_cfg(arch, no_drop=True, **MOE_CUTS[arch])), eng.params, label)
+    routed, recording = [], [False]
+    dispatch, decode = moe._dispatch_indices, eng._decode
+
+    def recorded_dispatch(idx, e, cap):
+        out = dispatch(idx, e, cap)
+        if recording[0]:
+            routed.append((idx, out[2]))
+        return out
+
+    def first_full_step(params, tokens, state):
+        recording[0] = not routed and all(r is not None for r in eng.slots)
+        try:
+            return decode(params, tokens, state)
+        finally:
+            recording[0] = False
+
+    moe._dispatch_indices, eng._decode = recorded_dispatch, first_full_step
+    try:
+        stream, kernels = lm_serve_stream(torch, eng, cfg, launch)
+    finally:
+        moe._dispatch_indices, eng._decode = dispatch, decode
+    return cfg, nbytes, stream, kernels, routed
+
+
+def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
+    """Phase 15: MoE + MLA serving, DeepSeek-V3 and Mixtral-8x22B at full
+    width on one card; returns each model's FFT kernel launches."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import moe
+
+    scfg, by_path = ServeConfig(), {}
+    for arch in MOE_CUTS:
+        label = f"MoE serving {arch}"
+        moe_width_checks(torch, seed, arch)
+        cfg = moe_cfg(arch, **MOE_CUTS[arch])
+        lm_check_free(torch, f"{label} before the cut-depth model",
+                      2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30)
+        (cfg, nbytes, stream, kernels, routed), launches, peak = counted(
+            torch, fft_stage, label, lambda: moe_full_depth(torch, seed, arch, scfg, launch), expect=())
+        torch.cuda.empty_cache()
+        mo = cfg.moe
+        check(len(routed) == cfg.num_layers - mo.first_k_dense, f"{label}: {len(routed)} dispatches recorded")
+        dropped = [1 - keep.float().mean().item() for _, keep in routed]
+        experts = [int(idx.unique().numel()) for idx, _ in routed]
+        eff = mo.expert_d_ff or cfg.d_ff
+        per_expert = 3 * cfg.d_model * eff * 2  # gate, up, down in bfloat16
+        needed = nbytes - sum(mo.num_experts - n for n in experts) * per_expert
+        print(f"{label} dropped share of one full-slot decode step's {scfg.max_batch * mo.top_k} assignments "
+              f"(capacity {moe._capacity(scfg.max_batch, mo.top_k, mo.num_experts, mo.capacity_factor)}) per MoE "
+              f"layer: {', '.join(f'{d:.4f}' for d in dropped)}; distinct experts routed {experts} of "
+              f"{mo.num_experts}", flush=True)
+        lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm,
+                         routed=(needed, "reading only the routed experts"))
+        lm_launcher(arch, launch, label)
+        by_path[f"moe_serving_{arch}"] = launches
+    return by_path
 
 
 def agreement_probe(torch, mesh) -> dict:
@@ -1969,6 +2237,7 @@ def main(argv=None) -> int:
     rings_phase(torch, args.seed, SimMesh)
     torch.cuda.empty_cache()
     by_path["lm_serving"] = lm_serving_phase(torch, args.seed, fft_stage, cm)
+    by_path.update(moe_serving_phase(torch, args.seed, fft_stage, cm))
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

@@ -12,8 +12,12 @@ reference's ``lax.scan`` does. Numerics follow the reference's:
   =float32`` there; products of bfloat16 values are exact in float32);
 - ``p`` is rounded to ``v``'s dtype before the PV product.
 
-Not ported yet: MLA (ROADMAP A15.2), the flash backward (A15.3) and
-``flash_decode_combine`` (A15.1b).
+MLA (DeepSeek-V3's multi-head latent attention): prefill expands the
+latent to per-head K/V and attends as MHA; decode scores against the
+*latent* cache through the absorbed up-projection, as the reference's.
+
+Not ported yet: the flash backward (A15.3) and ``flash_decode_combine``
+(A15.1b).
 """
 
 from __future__ import annotations
@@ -23,7 +27,7 @@ from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
-from repro_torch.configs.base import ModelConfig
+from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import common
 from repro_torch.models.common import Params, Specs
 
@@ -258,6 +262,20 @@ def init_kv_cache(b: int, s_max: int, kvh: int, hd: int, dtype=torch.bfloat16, d
     )
 
 
+def _write_rows(pos: torch.Tensor, *pairs) -> None:
+    """``cache[row, pos[row]] = new[row]`` in place for each (cache, new)
+    pair, for the rows whose position lies inside the cache; a row at or
+    past the end (an idle serving slot keeps stepping) is not written, as
+    JAX drops an out-of-bounds ``.at[].set`` (torch would raise)."""
+    first = pairs[0][0]
+    rows = torch.arange(first.shape[0], device=first.device)
+    at = pos.clamp(max=first.shape[1] - 1).long()
+    inside = pos < first.shape[1]
+    for cache, new in pairs:
+        keep = inside.reshape((-1,) + (1,) * (new.dim() - 1))
+        cache[rows, at] = torch.where(keep, new.to(cache.dtype), cache[rows, at])
+
+
 def decode_attention(
     p: Params,
     x: torch.Tensor,  # (B, 1, d)
@@ -270,19 +288,12 @@ def decode_attention(
     """One decode step: write K/V at each row's cache.length, attend over
     the cache. Rows may be at different positions (serving slots).
 
-    The write goes into ``cache.k`` / ``cache.v`` in place; the returned
-    cache shares them, with ``length + 1``. A row whose length has run
-    past the cache (an idle serving slot keeps stepping) is not written,
-    as JAX drops an out-of-bounds ``.at[].set`` (torch would raise).
+    The write goes into ``cache.k`` / ``cache.v`` in place (``_write_rows``);
+    the returned cache shares them, with ``length + 1``.
     """
     pos = cache.length  # (B,)
-    b, s_max = x.shape[0], cache.k.shape[1]
     q, k, v = qkv_proj(p, x, cfg, positions=pos[:, None])
-    rows = torch.arange(b, device=x.device)
-    at = pos.clamp(max=s_max - 1).long()
-    inside = (pos < s_max)[:, None, None]
-    cache.k[rows, at] = torch.where(inside, k[:, 0].to(cache.k.dtype), cache.k[rows, at])
-    cache.v[rows, at] = torch.where(inside, v[:, 0].to(cache.v.dtype), cache.v[rows, at])
+    _write_rows(pos, (cache.k, k[:, 0]), (cache.v, v[:, 0]))
     o = attention_chunked(
         q, cache.k, cache.v, spec, q_offset=pos, kv_chunk=kv_chunk, kv_valid_len=pos + 1
     )
@@ -307,3 +318,143 @@ def prefill_attention(
     o = attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk)
     length = torch.full((b,), s, dtype=torch.int32, device=x.device)
     return out_proj(p, o), KVCache(cache.k, cache.v, length)
+
+
+# ---------------------------------------------------------------------------
+# MLA (DeepSeek-V3 multi-head latent attention)
+# ---------------------------------------------------------------------------
+
+
+def init_mla(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Params, Specs]:
+    m: MLAConfig = cfg.mla
+    d, h = cfg.d_model, cfg.num_heads
+    qd = m.nope_head_dim + m.rope_head_dim
+
+    def w(shape):
+        return common.dense_init(shape, generator=generator, device=device)
+
+    p = {
+        "wdq": w((d, m.q_lora_rank)),
+        "wuq": w((m.q_lora_rank, h * qd)),
+        "wdkv": w((d, m.kv_lora_rank + m.rope_head_dim)),
+        "wukv": w((m.kv_lora_rank, h * (m.nope_head_dim + m.v_head_dim))),
+        "wo": w((h * m.v_head_dim, d)),
+    }
+    p["q_norm"], _ = common.init_norm(m.q_lora_rank, "rmsnorm", device)
+    p["kv_norm"], _ = common.init_norm(m.kv_lora_rank, "rmsnorm", device)
+    s = {
+        "wdq": ("fsdp", None),
+        "wuq": (None, "heads"),
+        "wdkv": ("fsdp", None),
+        "wukv": (None, "heads"),
+        "wo": ("heads", "fsdp"),
+        "q_norm": {"scale": (None,)},
+        "kv_norm": {"scale": (None,)},
+    }
+    return p, s
+
+
+def _mla_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) rotated, ckv (B,S,r)
+    normalized, k_rope (B,S,1,rope) rotated)."""
+    m: MLAConfig = cfg.mla
+    dt = x.dtype
+    b, s, _ = x.shape
+    cq = common.apply_norm(p["q_norm"], x @ p["wdq"].to(dt), "rmsnorm")
+    q = (cq @ p["wuq"].to(dt)).reshape(b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
+    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+    q_rope = common.rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p["wdkv"].to(dt)
+    ckv = common.apply_norm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank], "rmsnorm")
+    k_rope = common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, ckv, k_rope
+
+
+def _mla_expanded(p: Params, x: torch.Tensor, cfg: ModelConfig, spec: AttnSpec, positions, impl: str):
+    """Attention with the latent expanded to per-head K/V (MHA): returns
+    (output (B, S, d), ckv, k_rope) -- the fresh latent, for a cache."""
+    m: MLAConfig = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.num_heads
+    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
+    kv = (ckv @ p["wukv"].to(x.dtype)).reshape(b, s, h, m.nope_head_dim + m.v_head_dim)
+    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.rope_head_dim)], dim=-1)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    o = attention(q, k, v, spec, impl=impl).reshape(b, s, h * m.v_head_dim)
+    return o @ p["wo"].to(x.dtype), ckv, k_rope
+
+
+def apply_mla(
+    p: Params,
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    spec: AttnSpec,
+    *,
+    positions: Optional[torch.Tensor] = None,
+    impl: str = "chunked",
+) -> torch.Tensor:
+    """Training/prefill MLA: expand the latent to per-head K/V, run MHA."""
+    if positions is None:
+        positions = torch.arange(x.shape[1], device=x.device)
+    return _mla_expanded(p, x, cfg, spec, positions, impl)[0]
+
+
+class MLACache(NamedTuple):
+    ckv: torch.Tensor  # (B, S_max, kv_lora_rank)
+    k_rope: torch.Tensor  # (B, S_max, rope_head_dim)
+    length: torch.Tensor  # (B,) int32
+
+
+def init_mla_cache(b: int, s_max: int, m: MLAConfig, dtype=torch.bfloat16, device=None) -> MLACache:
+    return MLACache(
+        ckv=torch.zeros((b, s_max, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((b, s_max, m.rope_head_dim), dtype=dtype, device=device),
+        length=torch.zeros((b,), dtype=torch.int32, device=device),
+    )
+
+
+def prefill_mla(
+    p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec, *, impl: str = "chunked",
+) -> Tuple[torch.Tensor, MLACache]:
+    """Full-sequence MLA pass that writes the latent cache[0:S] in place.
+    It attends the fresh latent, not the cache's (bfloat16) copy of it."""
+    b, s, _ = x.shape
+    out, ckv, k_rope = _mla_expanded(p, x, cfg, spec, torch.arange(s, device=x.device), impl)
+    cache.ckv[:, :s] = ckv.to(cache.ckv.dtype)
+    cache.k_rope[:, :s] = k_rope[:, :, 0, :].to(cache.k_rope.dtype)
+    return out, MLACache(cache.ckv, cache.k_rope, torch.full((b,), s, dtype=torch.int32, device=x.device))
+
+
+def decode_mla(
+    p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec
+) -> Tuple[torch.Tensor, MLACache]:
+    """Absorbed-matrix MLA decode: scores against the *latent* cache.
+
+    score_h = (W_uk[h]^T q_nope[h]) . ckv + q_rope[h] . k_rope, so the
+    cache stays rank-(kv_lora + rope_d) per token. The write goes into
+    the cache in place (a row past its end is not written, as in
+    :func:`decode_attention`); every row attends positions <= its own.
+    ``spec`` is unused, as in the reference (no window, no softcap).
+    """
+    m: MLAConfig = cfg.mla
+    h = cfg.num_heads
+    pos = cache.length  # (B,)
+    b, dt = x.shape[0], x.dtype
+    q_nope, q_rope, ckv_t, k_rope_t = _mla_qkv(p, x, cfg, positions=pos[:, None])
+    _write_rows(pos, (cache.ckv, ckv_t[:, 0]), (cache.k_rope, k_rope_t[:, 0, 0, :]))
+    ckv_c, kr_c = cache.ckv.to(dt), cache.k_rope.to(dt)
+
+    wukv = p["wukv"].reshape(m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim)
+    wuk = wukv[..., :m.nope_head_dim].to(dt)  # (r, h, nope)
+    wuv = wukv[..., m.nope_head_dim:].to(dt)  # (r, h, v)
+    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, wuk)  # the absorbed query
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
+    s_rope = torch.einsum("bshe,bte->bhst", q_rope, kr_c)
+    scores = (s_lat + s_rope).float() / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    t_idx = torch.arange(scores.shape[-1], device=x.device)
+    scores = torch.where((t_idx <= pos[:, None])[:, None, None, :], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    lat_sum = torch.einsum("bhst,btr->bshr", pr.to(dt), ckv_c)
+    o = torch.einsum("bshr,rhe->bshe", lat_sum, wuv).reshape(b, -1, h * m.v_head_dim)
+    return o @ p["wo"].to(dt), MLACache(cache.ckv, cache.k_rope, pos + 1)

@@ -14,7 +14,7 @@ statistics.
 from __future__ import annotations
 
 import math
-from typing import Tuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
@@ -23,18 +23,44 @@ Params = dict
 Specs = dict
 
 
+def _std(shape, scale: float) -> float:
+    return scale / math.sqrt(shape[0] if len(shape) > 1 else 1)
+
+
+def _unit_draw(shape, std: float, generator: torch.Generator, device) -> torch.Tensor:
+    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=generator)
+    return out.mul_(std)
+
+
 def trunc_normal(shape, scale: float, *, generator: torch.Generator, device,
                  dtype=torch.float32) -> torch.Tensor:
     """Truncated-normal init with fan-in scaling (MaxText default): std =
     scale / sqrt(shape[0]) (1 for a vector), truncated at +-3 std."""
-    std = scale / math.sqrt(shape[0] if len(shape) > 1 else 1)
-    out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
-    torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=generator)
-    return out.mul_(std).to(dtype)
+    return _unit_draw(shape, _std(shape, scale), generator, device).to(dtype)
 
 
 def dense_init(shape, *, generator: torch.Generator, device, scale: float = 1.0) -> torch.Tensor:
     return trunc_normal(shape, scale, generator=generator, device=device)
+
+
+class Deferred(NamedTuple):
+    """A ``dense_init`` draw of ``shape`` made later, one slice of the
+    leading axis at a time, in float32 straight into the tensor that keeps
+    it (of any float dtype): a DeepSeek-V3 MoE layer's experts are 46 GB
+    in float32, so ``Model.init`` never makes them whole."""
+
+    shape: Tuple[int, ...]
+    scale: float = 1.0
+
+    def fill(self, out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+        std = _std(self.shape, self.scale)
+        for j in range(self.shape[0]):
+            out[j].copy_(_unit_draw(self.shape[1:], std, generator, out.device))
+        return out
+
+    def draw(self, generator: torch.Generator, device) -> torch.Tensor:
+        return self.fill(torch.empty(self.shape, device=device), generator)
 
 
 # ---------------------------------------------------------------------------

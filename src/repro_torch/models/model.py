@@ -1,5 +1,6 @@
 """Model assembly: embeddings -> layer groups -> head, ported from
-``repro.models.model`` for the dense decoder LMs.
+``repro.models.model`` for the decoder LMs, dense or MoE (DeepSeek-V3's
+dense prefix then its MoE group), with GQA or MLA attention.
 
 Params of structurally identical layers are stacked along a leading
 ``(L, ...)`` axis, as in the reference (its ``lax.scan`` layout), so the
@@ -9,13 +10,15 @@ per-layer Python ``bool`` from ``Group.flags`` picks the attention mask.
 
 Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
     Model(cfg).init(generator, dtype=None) -> (params, specs)
-    .hidden(params, batch)                    trunk only (B, S, d)
+    .hidden(params, batch)                    (trunk (B, S, d), aux loss)
     .logits(params, batch)                    full logits (small shapes)
     .init_decode_state(b, s_max) / .prefill / .decode_step
 
-The decode state's caches are written in place. Not ported yet: MoE,
-MLA, SSM, hybrid and encoder-decoder models (ROADMAP A15.2), a mesh of
-more than one rank (A15.1b), ``loss`` and MTP (A15.3).
+The decode state's caches are written in place. ``init`` makes the MTP
+head's weights when ``cfg.mtp_depth`` asks for them (the reference's
+tree); nothing here runs them. Not ported yet: SSM and hybrid models
+(ROADMAP A15.2b), encoder-decoder models (A15.2c), a mesh of more than
+one rank (A15.1b), ``loss`` and MTP (A15.3).
 """
 
 from __future__ import annotations
@@ -30,8 +33,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core.mesh import resolve_device
 from repro_torch.models import blocks, common
-from repro_torch.models.attention import KVCache
-from repro_torch.models.common import Params, Specs
+from repro_torch.models.common import Deferred, Params, Specs
 
 
 def _map(fn: Callable, tree):
@@ -100,12 +102,10 @@ def build_groups(cfg: ModelConfig) -> List[Group]:
 
 
 def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
-    if cfg.moe is not None or cfg.mla is not None:
-        return f"{cfg.name}: MoE and MLA models are ROADMAP A15.2"
     if cfg.family in ("ssm", "hybrid"):
-        return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2"
+        return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2b"
     if cfg.is_encdec:
-        return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2"
+        return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2c"
     if mesh is not None and mesh.p > 1:
         return f"a mesh of {mesh.p} ranks: tensor-parallel serving is ROADMAP A15.1b"
     return None
@@ -140,14 +140,30 @@ class Model:
         """Random weights from ``generator`` (on the model's device),
         float32 as the reference makes them, or cast into ``dtype``. The
         stacked layer leaves are made one layer at a time in float32 and
-        copied into the ``(L, ...)`` stack, so a bfloat16 model never holds
-        a float32 copy of more than one layer."""
+        copied into the ``(L, ...)`` stack, the MoE experts one expert at
+        a time (``common.Deferred``), so a bfloat16 model never holds a
+        float32 copy of more than one layer's dense leaves or one
+        expert's matrix."""
         cfg, dev = self.cfg, self.device
         cast = _float_to(dtype) if dtype is not None else (lambda a: a)
 
         def empty_stack(a, count):
-            out_dtype = dtype if dtype is not None and a.is_floating_point() else a.dtype
-            return torch.empty((count,) + a.shape, dtype=out_dtype, device=dev)
+            src = torch.float32 if isinstance(a, Deferred) else a.dtype
+            out_dtype = dtype if dtype is not None and src.is_floating_point else src
+            return torch.empty((count,) + tuple(a.shape), dtype=out_dtype, device=dev)
+
+        def stacked_blocks(count: int, use_moe: bool):
+            """``count`` decoder blocks' params in (count, ...) stacks, drawn
+            one layer at a time, and one block's specs."""
+            def draw():
+                return blocks.init_decoder_block(generator, cfg, dev, use_moe=use_moe)
+
+            layer, s = draw()  # its leaves give the stacks' shapes (a group may have no layer)
+            out = _map(lambda a: empty_stack(a, count), layer)
+            for i in range(count):
+                _copy_into(out, layer if i == 0 else draw()[0], i, generator)
+                layer = None  # one layer's float32 draw at a time
+            return out, s
 
         pe, se = common.init_embed(generator, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, dev)
         params: Dict[str, Any] = {"embed": _map(cast, pe)}
@@ -159,15 +175,17 @@ class Model:
             meta = common.trunc_normal((cfg.meta_tokens, cfg.d_model), 1.0, generator=generator, device=dev)
             params["meta"], specs["meta"] = cast(meta), (None, "fsdp")
         for g in self.groups:
-            stacked = None
-            for i in range(g.count):
-                p, s = blocks.init_decoder_block(generator, cfg, dev)
-                if stacked is None:
-                    stacked = _map(lambda a: empty_stack(a, g.count), p)
-                    specs[g.name] = _stack_specs(s)
-                _copy_into(stacked, p, i)
-                del p  # one layer's float32 draw at a time
-            params[g.name] = stacked
+            params[g.name], s = stacked_blocks(g.count, g.kind == "dec_moe")
+            specs[g.name] = _stack_specs(s)
+        if cfg.mtp_depth > 0:
+            block, sb = stacked_blocks(1, cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers)
+            params["mtp"] = {
+                "proj": cast(common.dense_init((2 * cfg.d_model, cfg.d_model), generator=generator, device=dev)),
+                "block": _layer(block, 0),
+                "norm_h": _map(cast, common.init_norm(cfg.d_model, cfg.norm_kind, dev)[0]),
+                "norm_e": _map(cast, common.init_norm(cfg.d_model, cfg.norm_kind, dev)[0]),
+            }
+            specs["mtp"] = {"proj": ("fsdp", None), "block": sb, "norm_h": sn, "norm_e": sn}
         return params, specs
 
     # ------------------------------------------------------------- embedding
@@ -193,14 +211,16 @@ class Model:
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=self.device)
 
     def _through_caches(self, params, x, state, block) -> torch.Tensor:
-        """``x`` through every layer, ``block(p, x, cache, is_global) ->
-        (x, cache)`` on layer views of the stacked params and caches; the
-        caches' K/V are written in place, their lengths here."""
+        """``x`` through every layer, ``block(p, x, cache, is_global,
+        use_moe) -> (x, cache)`` on layer views of the stacked params and
+        of the group's cache, whatever its type (``KVCache``,
+        ``MLACache``); the caches are written in place, their lengths
+        here."""
         for g in self.groups:
             cache = state[g.name]
             for i in range(g.count):
-                x, new = block(_layer(params[g.name], i), x, KVCache(cache.k[i], cache.v[i], cache.length[i]),
-                               self._flag(g, i))
+                x, new = block(_layer(params[g.name], i), x, type(cache)(*(leaf[i] for leaf in cache)),
+                               self._flag(g, i), g.kind == "dec_moe")
                 cache.length[i] = new.length
         return x
 
@@ -213,41 +233,42 @@ class Model:
 
     # ---------------------------------------------------------------- trunk
     @torch.inference_mode()
-    def hidden(self, params, batch) -> torch.Tensor:
-        """The final hidden states (B, S, d), normalized (meta tokens cut)."""
+    def hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
+        """(the final hidden states (B, S, d), normalized, meta tokens cut;
+        aux, the sum of the MoE blocks' router losses, a float32 scalar)."""
         cfg = self.cfg
         params = self._cast(params)
         x = self._embed_in(params, batch)
         positions = torch.arange(x.shape[1], device=self.device)
+        aux = torch.zeros((), device=self.device)
         for g in self.groups:
             for i in range(g.count):
-                x = blocks.apply_decoder_block(
-                    _layer(params[g.name], i), x, cfg, is_global=self._flag(g, i),
-                    positions=positions, impl=self.attn_impl,
+                x, a = blocks.apply_decoder_block(
+                    _layer(params[g.name], i), x, cfg, is_global=self._flag(g, i), use_moe=g.kind == "dec_moe",
+                    positions=positions, impl=self.attn_impl, mesh=self.mesh,
                 )
+                aux = aux + a
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
-        return x[:, cfg.meta_tokens:] if cfg.meta_tokens else x
+        return (x[:, cfg.meta_tokens:] if cfg.meta_tokens else x), aux
 
     @torch.inference_mode()
     def logits(self, params, batch) -> torch.Tensor:
         """Full float32 logits -- small shapes only (tests / serving)."""
-        return self._logits(self._cast(params), self.hidden(params, batch))
+        return self._logits(self._cast(params), self.hidden(params, batch)[0])
 
     # --------------------------------------------------------------- decode
     def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
-        """``{"pos": int, <group>: KVCache}`` with (L, B, S, KVH, D) caches,
-        (L, B) lengths. The cache is bfloat16 by default even for a float32
-        model, as the reference's is."""
+        """``{"pos": int, <group>: cache}``: a ``KVCache`` of (L, B, S, KVH,
+        D) K and V, or for MLA an ``MLACache`` of (L, B, S, kv_lora_rank)
+        latents and (L, B, S, rope_head_dim) rope keys; (L, B) lengths.
+        The cache is bfloat16 by default even for a float32 model, as the
+        reference's is."""
         cfg, dev = self.cfg, self.device
         s_tot = s_max + cfg.meta_tokens
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:
-            shape = (g.count, b, s_tot, cfg.num_kv_heads, cfg.head_dim_)
-            state[g.name] = KVCache(
-                k=torch.zeros(shape, dtype=cache_dtype, device=dev),
-                v=torch.zeros(shape, dtype=cache_dtype, device=dev),
-                length=torch.zeros((g.count, b), dtype=torch.int32, device=dev),
-            )
+            one = blocks.init_block_cache(cfg, b, s_tot, cache_dtype, "meta")
+            state[g.name] = type(one)(*(torch.zeros((g.count,) + a.shape, dtype=a.dtype, device=dev) for a in one))
         return state
 
     @torch.inference_mode()
@@ -256,8 +277,9 @@ class Model:
         place. Returns (state, last-position logits (B, V))."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._through_caches(params, self._embed_in(params, batch), state, lambda p, x, c, flag: (
-            blocks.prefill_decoder_block(p, x, cfg, c, is_global=flag, impl=self.attn_impl)))
+        x = self._through_caches(params, self._embed_in(params, batch), state, lambda p, x, c, flag, use_moe: (
+            blocks.prefill_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, impl=self.attn_impl,
+                                         mesh=self.mesh)))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = x.shape[1]
         return state, self._logits(params, x[:, -1:])[:, 0]
@@ -270,8 +292,8 @@ class Model:
         x = self._scale_tied(common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype))
         if cfg.rope_theta <= 0:
             x = x + self._abs_pos(state["pos"])
-        x = self._through_caches(params, x, state, lambda p, x, c, flag: (
-            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag)))
+        x = self._through_caches(params, x, state, lambda p, x, c, flag, use_moe: (
+            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, mesh=self.mesh)))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = state["pos"] + 1
         return self._logits(params, x)[:, 0], state
@@ -283,10 +305,14 @@ class Model:
         return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
 
 
-def _copy_into(stacked, tree, i: int) -> None:
+def _copy_into(stacked, tree, i: int, generator: torch.Generator) -> None:
+    """Layer ``i`` of the stacks from ``tree``'s tensors, its ``Deferred``
+    leaves drawn straight into the stack."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _copy_into(stacked[k], v, i)
+            _copy_into(stacked[k], v, i, generator)
+    elif isinstance(tree, Deferred):
+        tree.fill(stacked[i], generator)
     else:
         stacked[i].copy_(tree)
 

@@ -2,8 +2,10 @@
 inputs and the reference's own weights (``params_from_numpy`` of its
 ``Model.init(PRNGKey(0))``): norms, rope, MLPs, softcap, the attention
 cases of ``tests/test_attention.py``, and logits / prefill / decode of
-the four dense archs, reduced, in float32 (1e-5 relative to the largest
-entry) and one bfloat16 case (2e-2)."""
+the four dense archs and the two MoE archs (Mixtral, DeepSeek-V3 with
+MLA), reduced, in float32 (1e-5 relative to the largest entry; the MoE
+router's aux loss and ``Model.init``'s specs as well) and one bfloat16
+case (2e-2)."""
 
 import dataclasses
 import math
@@ -27,6 +29,7 @@ from repro_torch.models.attention import AttnSpec
 from repro_torch.models.model import Model, params_from_numpy
 
 DENSE = ["qwen2.5-32b", "phi3-medium-14b", "gemma2-9b", "nemotron-4-15b"]
+MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
 REL_TOL = 1e-5
 
 
@@ -281,17 +284,31 @@ def _batch(cfg, seed, b=2, s=12, extra=4):
     return rng.integers(0, cfg.vocab_size, (b, s + extra)).astype(np.int32)
 
 
-@pytest.fixture(scope="module", params=DENSE)
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: tree}
+
+
+def _cache_leaves(state):
+    """Each layer group's cache tensors (K/V or the MLA latent and rope
+    keys) and its (L, B) lengths."""
+    return [(name, c[:-1], c.length) for name, c in state.items() if name != "pos"]
+
+
+@pytest.fixture(scope="module", params=DENSE + MOE)
 def arch_run(request):
     """One arch, reduced, float32: the reference's weights and its
-    logits, prefill and four decode steps on a fixed token stream."""
+    logits, aux, specs, prefill and four decode steps on a fixed token
+    stream."""
     arch = request.param
     rcfg = dataclasses.replace(r_get_config(arch, reduced=True), dtype="float32")
     rmodel = RModel(rcfg, attn_impl="chunked")
-    rparams, _ = rmodel.init(jax.random.PRNGKey(0))
+    rparams, rspecs = rmodel.init(jax.random.PRNGKey(0))
     toks = _batch(rcfg, seed=13)
     s = toks.shape[1] - 4
-    ref = {"logits": np.asarray(jax.jit(rmodel.logits)(rparams, {"tokens": jnp.asarray(toks)}))}
+    ref = {"logits": np.asarray(jax.jit(rmodel.logits)(rparams, {"tokens": jnp.asarray(toks)})), "specs": rspecs}
+    ref["aux"] = float(jax.jit(rmodel.hidden)(rparams, {"tokens": jnp.asarray(toks)})[1])
     state = rmodel.init_decode_state(2, 32, cache_dtype=jnp.float32)
     state, pl = jax.jit(rmodel.prefill)(rparams, {"tokens": jnp.asarray(toks[:, :s])}, state)
     ref["prefill"] = np.asarray(pl)
@@ -312,19 +329,87 @@ def test_logits_match_reference(arch_run):
     assert rel(got, ref["logits"]) <= REL_TOL
 
 
+def test_hidden_aux_and_specs_match_reference(arch_run):
+    """``hidden`` returns (x, aux) as the reference's does: aux is the sum
+    of the MoE blocks' router losses (0 for a dense model); ``init``'s
+    specs and shapes are the reference's, MoE, MLA and MTP leaves too."""
+    model, params, toks, ref = arch_run
+    x, aux = model.hidden(params, {"tokens": _t(toks)})
+    assert x.shape == ref["logits"].shape[:2] + (model.cfg.d_model,)
+    assert aux.dtype == torch.float32 and aux.shape == ()
+    if model.cfg.moe is None:
+        assert float(aux) == ref["aux"] == 0.0
+    else:
+        assert ref["aux"] > 0 and abs(float(aux) - ref["aux"]) <= REL_TOL * ref["aux"]
+    got, specs = model.init(torch.Generator().manual_seed(0))
+    assert _flat(specs) == _flat(ref["specs"])
+    assert {k: tuple(v.shape) for k, v in _flat(got).items()} == {k: tuple(v.shape) for k, v in _flat(params).items()}
+
+
 def test_prefill_and_decode_match_reference(arch_run):
     model, params, toks, ref = arch_run
     s = toks.shape[1] - 4
     state = model.init_decode_state(2, 32, cache_dtype=torch.float32)
     state, pl = model.prefill(params, {"tokens": _t(toks[:, :s])}, state)
     assert rel(pl, ref["prefill"]) <= REL_TOL
-    assert state["pos"] == s and state["layers"].length.tolist() == [[s, s]] * model.cfg.num_layers
+    assert state["pos"] == s
+    assert [length.tolist() for _, _, length in _cache_leaves(state)] == [[[s, s]] * g.count for g in model.groups]
     for t in range(4):
         lg, state = model.decode_step(params, _t(toks[:, s + t:s + t + 1]), state)
         assert rel(lg, ref["decode"][t]) <= REL_TOL, t
-        # and the full sequence's logits at that position
-        assert rel(lg, ref["logits"][:, s + t]) <= 1e-4, t
+        # and the full sequence's logits at that position, where no
+        # capacity drop couples the tokens (MoE: test_moe_without_drops...)
+        if model.cfg.moe is None:
+            assert rel(lg, ref["logits"][:, s + t]) <= 1e-4, t
     assert state["pos"] == s + 4
+
+
+def test_moe_config_without_moe_layers_matches_reference():
+    """first_k_dense = num_layers: the MoE group has no layer (an empty
+    stack in both packages) and the model is dense."""
+    rcfg = dataclasses.replace(r_get_config("deepseek-v3-671b", reduced=True), dtype="float32")
+    rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(rcfg.moe, first_k_dense=rcfg.num_layers))
+    rmodel = RModel(rcfg)
+    rparams, rspecs = rmodel.init(jax.random.PRNGKey(3))
+    model = Model(rcfg, device="cpu")
+    assert [(g.name, g.count) for g in model.groups] == [("dense_prefix", 3), ("moe", 0)]
+    params, specs = model.init(torch.Generator().manual_seed(3))
+    assert _flat(specs) == _flat(rspecs)
+    assert {k: tuple(v.shape) for k, v in _flat(params).items()} == {k: tuple(v.shape) for k, v in _flat(rparams).items()}
+    toks = _batch(rcfg, seed=16)
+    got = model.logits(params_from_numpy(rparams, device="cpu"), {"tokens": _t(toks)})
+    assert rel(got, jax.jit(rmodel.logits)(rparams, {"tokens": jnp.asarray(toks)})) <= REL_TOL
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_without_drops_decodes_like_the_full_sequence(arch):
+    """At the stock capacity factor the experts drop assignments, which
+    couples a token to the others in its dispatch (both packages); at
+    ``capacity_factor = E / k`` nothing drops, and prefill + decode equal
+    the whole sequence's logits, as for a dense model -- and the
+    reference's decode."""
+    rcfg = dataclasses.replace(r_get_config(arch, reduced=True), dtype="float32")
+    rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
+        rcfg.moe, capacity_factor=rcfg.moe.num_experts / rcfg.moe.top_k))
+    rmodel = RModel(rcfg)
+    rparams, _ = rmodel.init(jax.random.PRNGKey(2))
+    toks = _batch(rcfg, seed=15)
+    s = toks.shape[1] - 4
+    model = Model(rcfg, device="cpu")
+    params = params_from_numpy(rparams, device="cpu")
+    full = model.logits(params, {"tokens": _t(toks)})
+    assert rel(full, jax.jit(rmodel.logits)(rparams, {"tokens": jnp.asarray(toks)})) <= REL_TOL
+    state = model.init_decode_state(2, 32, cache_dtype=torch.float32)
+    state, pl = model.prefill(params, {"tokens": _t(toks[:, :s])}, state)
+    assert rel(pl, full[:, s - 1]) <= 1e-4
+    rstate = rmodel.init_decode_state(2, 32, cache_dtype=jnp.float32)
+    rstate, _ = jax.jit(rmodel.prefill)(rparams, {"tokens": jnp.asarray(toks[:, :s])}, rstate)
+    r_decode_step = jax.jit(rmodel.decode_step)
+    for t in range(4):
+        lg, state = model.decode_step(params, _t(toks[:, s + t:s + t + 1]), state)
+        rlg, rstate = r_decode_step(rparams, jnp.asarray(toks[:, s + t:s + t + 1]), rstate)
+        assert rel(lg, full[:, s + t]) <= 1e-4, t
+        assert rel(lg, rlg) <= REL_TOL, t
 
 
 def test_prefill_attends_fresh_kv_and_decode_reads_the_bf16_cache(arch_run):
@@ -333,7 +418,7 @@ def test_prefill_attends_fresh_kv_and_decode_reads_the_bf16_cache(arch_run):
     model, params, toks, ref = arch_run
     s = toks.shape[1] - 4
     state = model.init_decode_state(2, 32)
-    assert state["layers"].k.dtype == torch.bfloat16
+    assert all(t.dtype == torch.bfloat16 for _, leaves, _ in _cache_leaves(state) for t in leaves)
     state, pl = model.prefill(params, {"tokens": _t(toks[:, :s])}, state)
     assert rel(pl, ref["prefill"]) <= REL_TOL
     lg, _ = model.decode_step(params, _t(toks[:, s:s + 1]), state)

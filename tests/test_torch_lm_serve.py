@@ -2,7 +2,8 @@
 reference's: the streams of ``tests/test_serve.py`` run through both
 engines on the reference's weights give identical greedy tokens, as does
 an idle slot whose cache length runs past the cache (two ``run()`` calls
-on one engine). The reference is imported inside fixtures, so the
+on one engine) -- for Qwen2.5 and for the MoE archs (Mixtral, DeepSeek-V3
+with its MLA latent cache), capacity drops included. The reference is imported inside fixtures, so the
 ``cuda``-marked case also runs on a GPU machine without jax
 (``pytest -m cuda tests/test_torch_lm_serve.py``)."""
 
@@ -18,27 +19,49 @@ from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serve import ServeEngine
 
 ARCH = "qwen2.5-32b"
+MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
 
 
-@pytest.fixture(scope="module")
-def ref():
-    """The reference engine's module, model and weights (float32)."""
+def _reference(arch, **moe):
+    """The reference engine's module, model and weights (float32);
+    ``moe`` overrides MoEConfig fields."""
     jax = pytest.importorskip("jax")
     from repro.configs import ServeConfig as RServeConfig
     from repro.configs import get_config as r_get_config
     from repro.models import Model as RModel
     from repro.serve import ServeEngine as RServeEngine
 
-    cfg = dataclasses.replace(r_get_config(ARCH, reduced=True), dtype="float32")
+    cfg = dataclasses.replace(r_get_config(arch, reduced=True), dtype="float32")
+    if moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     model = RModel(cfg, attn_impl="chunked")
     params, _ = model.init(jax.random.PRNGKey(0))
     return RServeEngine, RServeConfig, model, params
 
 
+def _port_of(ref):
+    """The port's model on the reference's config and weights."""
+    return Model(ref[2].cfg, attn_impl="chunked", device="cpu"), params_from_numpy(ref[3], device="cpu")
+
+
+@pytest.fixture(scope="module")
+def ref():
+    return _reference(ARCH)
+
+
 @pytest.fixture(scope="module")
 def port(ref):
-    cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
-    return Model(cfg, attn_impl="chunked", device="cpu"), params_from_numpy(ref[3], device="cpu")
+    return _port_of(ref)
+
+
+@pytest.fixture(scope="module", params=MOE)
+def moe_ref(request):
+    return _reference(request.param)
+
+
+@pytest.fixture(scope="module")
+def moe_port(moe_ref):
+    return _port_of(moe_ref)
 
 
 def both(ref, port, prompts_runs, **scfg):
@@ -152,11 +175,73 @@ def test_launcher_no_reduced_reaches_the_full_config(monkeypatch):
     assert seen[-1][1] == ServeConfig(max_batch=4, max_seq=128) and seen[-1][2] == {"device": None}
 
 
-@pytest.mark.parametrize("arch", ["mixtral-8x22b", "deepseek-v3-671b", "xlstm-1.3b", "hymba-1.5b",
-                                  "whisper-medium"])
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b", "whisper-medium"])
 def test_unported_families_are_refused(arch):
-    with pytest.raises(NotImplementedError, match="A15.2"):
+    item = "A15.2c" if arch == "whisper-medium" else "A15.2b"
+    with pytest.raises(NotImplementedError, match=item):
         Model(get_config(arch, reduced=True), device="cpu")
+
+
+# ------------------------------------------------------------------- MoE
+
+
+def test_moe_single_request(moe_ref, moe_port):
+    prompt = np.arange(5, dtype=np.int32) % _vocab(moe_port)
+    (got,), (exp,), _ = both(moe_ref, moe_port, [([prompt], 6)], max_batch=2, max_seq=64)
+    assert got == exp and len(got) == 1 and len(list(got.values())[0]) == 6
+
+
+def test_moe_batched(moe_ref, moe_port):
+    """A pair of requests: the reference's tokens, capacity drops
+    included (at the stock factor a token's slot depends on the other
+    rows of its dispatch, idle rows too)."""
+    v = _vocab(moe_port)
+    pa = (np.arange(7) * 3 % v).astype(np.int32)
+    pb = (np.arange(4) * 5 % v).astype(np.int32)
+    (pair,), (r_pair,), _ = both(moe_ref, moe_port, [([pa, pb], 5)], max_batch=2, max_seq=64)
+    assert pair == r_pair and len(pair) == 2
+
+
+def test_moe_more_requests_than_slots(moe_ref, moe_port):
+    prompts = [(np.arange(3 + i) % _vocab(moe_port)).astype(np.int32) for i in range(5)]
+    (got,), (exp,), _ = both(moe_ref, moe_port, [(prompts, 4)], max_batch=2, max_seq=64)
+    assert got == exp and len(got) == 5 and all(len(v) == 4 for v in got.values())
+
+
+def test_moe_idle_slot_past_the_cache(moe_ref, moe_port):
+    """As test_idle_slot_past_the_cache_matches_reference, on the MoE
+    archs: DeepSeek-V3's idle row runs past its MLA latent cache."""
+    v = _vocab(moe_port)
+    first = [(np.arange(5) * 7 % v).astype(np.int32), (np.arange(4) * 3 % v).astype(np.int32)]
+    second = [(np.arange(3) * 11 % v).astype(np.int32)]
+    got, exp, eng = both(moe_ref, moe_port, [(first, 8), (second, 12)], max_batch=2, max_seq=16)
+    assert got == exp
+    for name, cache in eng.state.items():
+        if name != "pos":
+            assert int(cache.length[:, 1].min()) > 16, name
+            assert all(torch.isfinite(t.float()).all() for t in cache[:-1])
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_slots_isolated_without_drops(arch):
+    """At ``capacity_factor = E / k`` nothing drops, so a request's greedy
+    tokens among other slots equal its solo tokens, in both packages."""
+    mo = get_config(arch, reduced=True).moe
+    r = _reference(arch, capacity_factor=mo.num_experts / mo.top_k)
+    port = _port_of(r)
+    v = _vocab(port)
+    pa = (np.arange(7) * 3 % v).astype(np.int32)
+    pb = (np.arange(4) * 5 % v).astype(np.int32)
+    (solo, pair), (r_solo, r_pair), _ = both(r, port, [([pa], 5), ([pa, pb], 5)], max_batch=2, max_seq=64)
+    assert solo == r_solo and pair == r_pair
+    assert pair[1] == solo[0]  # uid 1: pa again, beside pb
+
+
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_launcher_runs_on_the_cpu(arch, capsys):
+    launch.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 3 requests, 12 tokens in ") and out[0].endswith(" tok/s aggregate)")
 
 
 def test_a_mesh_of_several_ranks_is_refused():
@@ -198,4 +283,24 @@ def test_engine_on_the_card_matches_the_cpu(cuda_device):
         return {k: to_card(v) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(cuda_device)
 
     got = ServeEngine(card, to_card(params), ServeConfig(max_batch=2, max_seq=64)).run(prompts, max_new=5)
+    assert got == exp
+
+
+def _tree_to(tree, device):
+    return {k: _tree_to(v, device) for k, v in tree.items()} if isinstance(tree, dict) else tree.to(device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", MOE)
+def test_moe_engine_on_the_card_matches_the_cpu(cuda_device, arch):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params, _ = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda_device)
+    v = cfg.vocab_size
+    prompts = [(np.arange(7) * 3 % v).astype(np.int32), (np.arange(4) * 5 % v).astype(np.int32),
+               (np.arange(9) * 7 % v).astype(np.int32)]
+    exp = ServeEngine(cpu, params, ServeConfig(max_batch=2, max_seq=16)).run(prompts, max_new=12)
+    got = ServeEngine(card, _tree_to(params, cuda_device), ServeConfig(max_batch=2, max_seq=16)).run(
+        prompts, max_new=12)
     assert got == exp
