@@ -130,7 +130,21 @@ Phases, each printing a line; any failure exits non-zero with no result:
    beside two bounds (all the weights: the einsum dispatch reads every
    expert; and only the experts that step routed to), peak memory
    (fails above 72 GiB); (4) launch.serve.main --arch at its reduced
-   default. No FFT kernel runs here (``moe_serving_<arch>``: 0 each).
+   default. No FFT kernel runs here (``moe_serving_<arch>``: 0 each);
+16. expert parallelism on SimMesh(4) -- each of phase 15's models split
+   four ways on this card, on phase 15's weights (the same tensors: a
+   rank's experts are views of the stacks): (1) on check 1's float32
+   2-layer model, a 300-token prompt through the ring (4 divides it), its
+   interleave=True form and the einsum dispatch over the ranks, each
+   within 1e-5 of the one-rank logits, the einsum dispatch's aux within
+   1e-6 of the one-rank aux, and each run must take the dispatch named
+   (``moe.DISPATCHES``); (2) phase 14's stream at the stock factor on
+   Model(cfg, SimMesh(4)) behind a ServeEngine: phase 14's report, the
+   share of greedy tokens equal to phase 15's one-card engine, the
+   dispatches that ran, and for DeepSeek-V3 one 512-token prefill and one
+   MoE layer timed through the ring, the interleaved ring, the einsum
+   dispatch and the one-rank model (``ep_sim_serving_<arch>``: 0 FFT
+   launches each).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -153,9 +167,23 @@ making the same batches; a poisoned batch and a breaker trip with the
 faults on rank 0 only and each rank's clock offset differently, whose
 counters must agree on every rank; and on P > 1 cards the engine's
 remesh onto the P/2 survivors, bitwise equal to SimMesh(P/2)'s engine.
-Last, phase 13's rings over NCCL, each timed beside the library
+Then phase 13's rings over NCCL, each timed beside the library
 collective that computes the same result (all_gather_into_tensor,
-reduce_scatter_tensor, all-gather + torch.matmul).
+reduce_scatter_tensor, all-gather + torch.matmul). Last, expert
+parallelism over NCCL (``nccl_moe``; alone: ``nccl_moe_phase``): for
+each MoE arch at full width, 2 layers, float32, nothing dropped, the
+one-card model first, then Model(cfg, ProcessGroupMesh) from the same
+seed (each rank keeps its experts): the whole sequence's logits (256
+tokens: the ring), prefill + 2 decode steps (the einsum dispatch over
+the ranks) within 1e-5 of one card's, and a short stream through the
+SPMD ServeEngine whose greedy tokens must equal one card's and every
+rank's. On P > 1 cards it then serves DeepSeek-V3 at 12 layers (3 dense
++ 9 MoE) and Mixtral-8x22B at 48 layers in bf16 on phase 14's stream at
+the stock factor: every rank's tokens identical, peak memory under 72
+GiB a card, tokens/s, time to first token, the decode step's device and
+host ms, and DeepSeek-V3's prefill through the ring, the interleaved
+ring and the einsum dispatch (one card: P = 1, the model is whole and
+the dispatch runs on one rank; ``nccl_moe``: 0 FFT launches).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -168,14 +196,16 @@ kernel once at every shape not timed before. Kernel times are CUDA-event medians
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
-counts of every counted path, phases 7 (SPMD serving), 11-12, 14
-(``lm_serving``) and 15 (``moe_serving_<arch>``) included; the last line is
+counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``),
+11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``) and 16
+(``ep_sim_serving_<arch>``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import os
@@ -256,6 +286,19 @@ MOE_DISPATCH_REL_TOL = 1e-5  # einsum vs dense dispatch, float32, nothing droppe
 #: flip in one row moves that row's logits by 0.2-0.35), and that error
 #: must stay under MOE_BF16_FLOOR_LIMIT
 MOE_BF16_ROWS, MOE_BF16_NOISE_RATIO, MOE_BF16_FLOOR_LIMIT = 8, 1.5, 0.1
+#: phase 16: phase 15's models expert-parallel on SimMesh(EP_P), every
+#: rank on this card; phase 7's MoE part: the same over NCCL, one rank a card
+EP_P = 4
+EP_REL_TOL = 1e-5  # float32, nothing dropped: a dispatch over the ranks vs the one-rank model's logits
+EP_PREFILL, EP_REPS = 512, 3  # the dispatches' prefill timing: one 512-token prompt, median of 3
+#: phase 7's MoE part: a float32 2-layer check (MOE_F32_CUTS) on a prompt
+#: every rank count up to 8 divides, then (P > 1) the served depths: with
+#: the routed experts split P = 4 ways and the rest replicated, bf16
+#: weights are 57.9 GiB a card (DeepSeek-V3, 3 dense + 9 MoE layers) and
+#: 62.6 GiB (Mixtral-8x22B, 48 of 56 layers; all 56 would be 72.9)
+NCCL_MOE_SEQ, NCCL_MOE_DECODE = 256, 2
+NCCL_MOE_PROMPTS, NCCL_MOE_NEW = (64, 37, 128, 20), 4  # the float32 engine's stream, 4 slots
+NCCL_MOE_CUTS = {"deepseek-v3-671b": dict(num_layers=12), "mixtral-8x22b": dict(num_layers=48)}
 
 
 class SmokeFailure(RuntimeError):
@@ -1298,8 +1341,6 @@ def lm_check_free(torch, label: str, need: float) -> None:
     """Free what the earlier phases left (reference cycles first: the
     cache can only return blocks nothing refers to), then fail unless
     ``need`` bytes are free on the card."""
-    import gc
-
     gc.collect()
     torch.cuda.empty_cache()
     free, total = torch.cuda.mem_get_info()
@@ -1404,7 +1445,8 @@ def lm_stream(torch, eng, prompts, max_new: int):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     finally:
-        eng.add_request, eng._decode = add, decode
+        del eng.add_request  # the class's method again (an instance's bound copy would be a cycle that keeps eng)
+        eng._decode = decode
     return results, wall, t0, arrivals, [(a, live, s.elapsed_time(e), issue) for a, live, s, e, issue in steps]
 
 
@@ -1511,6 +1553,21 @@ def lm_yardstick(torch, seed, A) -> None:
           f"{err:.3e}", flush=True)
 
 
+def stream_summary(stream, scfg) -> dict:
+    """lm_stream's numbers as one dict: tokens/s, time to first token
+    (add_request on the host) p50 / p99, and the full-slot decode step's
+    device ms (CUDA events) and host ms to issue it, medians."""
+    from repro_torch.runtime.monitor import percentiles
+
+    results, wall, _, arrivals, steps = stream
+    tok = sum(len(v) for v in results.values())
+    a = percentiles([ms for _, ms, _ in arrivals], (50, 99))
+    full = [st for st in steps if st[0] == scfg.max_batch]
+    return dict(tokens=tok, wall_s=wall, tok_s=tok / wall, ttft_p50_ms=a["p50"], ttft_p99_ms=a["p99"],
+                steps=len(steps), decode_device_ms=statistics.median(st[2] for st in full),
+                decode_host_ms=statistics.median(st[3] for st in full))
+
+
 def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm, routed=None) -> float:
     """Print the stream's tokens/s, time to first token, the full-slot
     decode step's device / host / kernel ms beside its bound (the weights
@@ -1521,12 +1578,11 @@ def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, lau
 
     results, wall, t0, arrivals, steps = stream
     kernel_ms, top = kernels
-    tok = sum(len(v) for v in results.values())
-    a = percentiles([ms for _, ms, _ in arrivals], (50, 99))
+    sm = stream_summary(stream, scfg)
+    tok, dev_ms, issue_ms = sm["tokens"], sm["decode_device_ms"], sm["decode_host_ms"]
+    a = {"p50": sm["ttft_p50_ms"], "p99": sm["ttft_p99_ms"]}
     t = percentiles([(end - t0) * 1e3 for _, _, end in arrivals], (50, 99))
     full = [s for s in steps if s[0] == scfg.max_batch]
-    dev_ms = statistics.median(s[2] for s in full)
-    issue_ms = statistics.median(s[3] for s in full)
     kv_live = statistics.median(s[1] for s in full) * lm_cache_bytes_per_token(cfg)
     decode_bound = (nbytes + kv_live) / cm.HBM_BW * 1e3
     s_med = statistics.median(n for n, _, _ in arrivals)
@@ -1637,6 +1693,142 @@ def moe_width_checks(torch, seed, arch: str) -> None:
           f"{moe._capacity(LM_SEQ, cfg.moe.top_k, cfg.moe.num_experts, cfg.moe.capacity_factor)}) vs dense dispatch "
           f"rel_err {err:.3e} (tol {MOE_DISPATCH_REL_TOL}), aux {aux.item():.6f} / {aux_d.item():.6f}", flush=True)
     check(err <= MOE_DISPATCH_REL_TOL, f"{label} einsum vs dense dispatch: {err:.3e} > {MOE_DISPATCH_REL_TOL}")
+    ep_width_checks(torch, g, model, params, f"EP SimMesh({EP_P}) {arch}")
+
+
+def ep_interleaved(moe, on: bool):
+    """A context in which the ring runs its per-arrival FFN
+    (``_ring_exchange_ffn(interleave=True)``) when ``on``: the reference's
+    own test patches its module the same way."""
+    import contextlib
+    import functools
+
+    @contextlib.contextmanager
+    def patched():
+        orig = moe._ring_exchange_ffn
+        if on:
+            moe._ring_exchange_ffn = functools.partial(orig, interleave=True)
+        try:
+            yield
+        finally:
+            moe._ring_exchange_ffn = orig
+
+    return patched()
+
+
+EP_DISPATCHES = (("ring", "ring", False), ("ring interleave=True", "ring", True), ("einsum", "einsum", False))
+
+
+def ep_model(cfg, mesh, dispatch: str):
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    return Model(dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch=dispatch)), mesh)
+
+
+def ep_width_checks(torch, g, model, params, label: str) -> None:
+    """Check 1 of phase 16: the float32 model of phase 15's check 1 (no
+    drops) on SimMesh(EP_P), on the same weights (each rank's experts a
+    view of the stacks): the ring over a LM_SEQ-token sequence (EP_P
+    divides it), its interleave=True form and the einsum dispatch over the
+    ranks, each within EP_REL_TOL of the one-rank logits; the einsum
+    dispatch's aux against the one-rank aux."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models import moe
+
+    cfg = model.cfg
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (1, LM_SEQ), device="cuda", generator=g)}
+    one = model.logits(params, batch)
+    one_aux = model.hidden(params, batch)[1].item()
+    mesh, errs = SimMesh(EP_P), {}
+    for name, dispatch, interleave in EP_DISPATCHES:
+        moe.DISPATCHES.clear()
+        with ep_interleaved(moe, interleave):
+            errs[name] = lm_rel_err(ep_model(cfg, mesh, dispatch).logits(params, batch), one)
+        errs[name + " ran"] = dict(moe.DISPATCHES)
+    aux = ep_model(cfg, mesh, "einsum").hidden(params, batch)[1].item()
+    aux_err = abs(aux - one_aux) / abs(one_aux)
+    print(f"{label} full width, {cfg.num_layers} layers, float32, capacity_factor {cfg.moe.capacity_factor:g} (no "
+          f"drops), {LM_SEQ}-token prompt: logits vs the one-rank model on the same weights, rel_err "
+          + ", ".join(f"{n} {errs[n]:.3e} (ran {errs[n + ' ran']})" for n, _, _ in EP_DISPATCHES)
+          + f" (tol {EP_REL_TOL}); einsum aux {aux:.6f} vs one rank {one_aux:.6f} (rel {aux_err:.2e}, tol 1e-6)",
+          flush=True)
+    for name, dispatch, _ in EP_DISPATCHES:
+        check(errs[name] <= EP_REL_TOL, f"{label} {name}: {errs[name]:.3e} > {EP_REL_TOL}")
+        check(set(errs[name + " ran"]) == {(dispatch, EP_P)}, f"{label} {name} ran {errs[name + ' ran']}")
+    check(aux_err <= 1e-6, f"{label}: the einsum dispatch's aux {aux} differs from the one-rank {one_aux}")
+
+
+def ep_prefill_ms(torch, mesh, cfg, params, seed: int, one_rank: bool = False) -> dict:
+    """The prefill of one EP_PREFILL-token prompt (the same tokens on
+    every rank) through each dispatch of EP_DISPATCHES on ``mesh``, and
+    the first MoE layer's apply_moe on that many random tokens, each
+    CUDA-event ms, median of EP_REPS (every rank runs the same calls, so
+    each enters its collectives as often); with ``one_rank`` also the
+    model without a mesh (the weights must be whole: a SimMesh's)."""
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model, _layer
+
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(seed + 3)
+    toks = torch.randint(0, cfg.vocab_size, (1, EP_PREFILL), device=mesh.device, generator=g)
+    x = torch.randn((1, EP_PREFILL, cfg.d_model), device=mesh.device, generator=g).to(getattr(torch, cfg.dtype))
+    ffn = _layer(params["moe"], 0)["ffn"]
+
+    def timed(model, on):
+        return (events_ms(torch, lambda: model.prefill(params, {"tokens": toks}, model.init_decode_state(1, EP_PREFILL)),
+                          reps=EP_REPS),
+                events_ms(torch, lambda: moe.apply_moe(ffn, x, model.cfg, mesh=on), reps=EP_REPS))
+
+    out = {}
+    for name, dispatch, interleave in EP_DISPATCHES:
+        with ep_interleaved(moe, interleave):
+            out[name], out[name + " one MoE layer"] = timed(ep_model(cfg, mesh, dispatch), mesh)
+    if one_rank:
+        out["one rank"], out["one rank one MoE layer"] = timed(Model(cfg), None)
+    return out
+
+
+def print_prefill_ms(label: str, ms: dict) -> None:
+    print(f"{label} expert exchange at one {EP_PREFILL}-token prefill (CUDA events, median of {EP_REPS}): "
+          + ", ".join(f"{n} {ms[n]:.2f} ms (one MoE layer {ms[n + ' one MoE layer']:.2f})" for n, _, _ in EP_DISPATCHES)
+          + (f"; one rank {ms['one rank']:.2f} ms (one MoE layer {ms['one rank one MoE layer']:.2f})"
+             if "one rank" in ms else ""), flush=True)
+
+
+def ep_sim_serving(torch, seed, fft_stage, cm, eng, cfg, scfg, nbytes, launch, one_card: dict) -> dict:
+    """Phase 16's serving: phase 15's bfloat16 weights (the same tensors)
+    behind Model(cfg, SimMesh(EP_P)), phase 14's stream at the stock
+    factor (the ring for a prompt EP_P divides, the einsum dispatch over
+    the ranks otherwise and for every decode step); the share of greedy
+    tokens equal to phase 15's one-card engine; for MLA (DeepSeek-V3) the
+    dispatches' prefill ms. Returns its FFT kernel launches."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    label = f"EP SimMesh({EP_P}) {cfg.name}"
+    mesh = SimMesh(EP_P)
+    eng.state = None  # phase 15's caches
+    ep = ServeEngine(Model(cfg, mesh), eng.params, scfg)
+    moe.DISPATCHES.clear()
+    (stream, kernels), launches, peak = counted(
+        torch, fft_stage, label, lambda: lm_serve_stream(torch, ep, cfg, launch), expect=())
+    ran = dict(moe.DISPATCHES)
+    del ep
+    torch.cuda.empty_cache()
+    lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm)
+    results = stream[0]
+    same = sum(a == b for u, toks in one_card.items() for a, b in zip(results[u], toks))
+    total = sum(len(t) for t in one_card.values())
+    print(f"{label} greedy tokens equal to phase 15's one-card engine on the same stream and weights: {same} of "
+          f"{total} ({same / total:.4f}); dispatches that ran {ran}", flush=True)
+    check(any(d == "einsum" and p == EP_P for d, p in ran), f"{label}: no einsum dispatch over {EP_P} ranks ran: {ran}")
+    if cfg.mla is not None:
+        print_prefill_ms(label, ep_prefill_ms(torch, mesh, cfg, eng.params, seed, one_rank=True))
+    return launches
 
 
 def moe_bf16_agreement(torch, seed, model, params, label: str) -> None:
@@ -1719,12 +1911,13 @@ def moe_full_depth(torch, seed, arch: str, scfg, launch):
         stream, kernels = lm_serve_stream(torch, eng, cfg, launch)
     finally:
         moe._dispatch_indices, eng._decode = dispatch, decode
-    return cfg, nbytes, stream, kernels, routed
+    return cfg, nbytes, stream, kernels, routed, eng
 
 
 def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
-    """Phase 15: MoE + MLA serving, DeepSeek-V3 and Mixtral-8x22B at full
-    width on one card; returns each model's FFT kernel launches."""
+    """Phases 15 and 16: MoE + MLA serving, DeepSeek-V3 and Mixtral-8x22B
+    at full width on one card, then expert-parallel on SimMesh(EP_P) on
+    the same weights; returns each model's FFT kernel launches."""
     from repro_torch.configs import ServeConfig
     from repro_torch.launch import serve as launch
     from repro_torch.models import moe
@@ -1736,7 +1929,7 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
         cfg = moe_cfg(arch, **MOE_CUTS[arch])
         lm_check_free(torch, f"{label} before the cut-depth model",
                       2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30)
-        (cfg, nbytes, stream, kernels, routed), launches, peak = counted(
+        (cfg, nbytes, stream, kernels, routed, eng), launches, peak = counted(
             torch, fft_stage, label, lambda: moe_full_depth(torch, seed, arch, scfg, launch), expect=())
         torch.cuda.empty_cache()
         mo = cfg.moe
@@ -1754,6 +1947,9 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
                          routed=(needed, "reading only the routed experts"))
         lm_launcher(arch, launch, label)
         by_path[f"moe_serving_{arch}"] = launches
+        by_path[f"ep_sim_serving_{arch}"] = ep_sim_serving(torch, seed, fft_stage, cm, eng, cfg, scfg, nbytes, launch,
+                                                           stream[0])
+        del eng
     return by_path
 
 
@@ -1939,6 +2135,172 @@ def print_nccl_serving(rep) -> None:
     print(f"{who} SPMD serving remesh: {sv['remesh']}", flush=True)
 
 
+def nccl_moe_f32(torch, mesh, seed: int, arch: str) -> dict:
+    """Phase 7's MoE check, one rank: ``arch`` at MOE_F32_CUTS' depth in
+    float32 with nothing dropped, first on this card alone (Model(cfg)),
+    then freed, then Model(cfg, mesh) from the same seed (every expert
+    drawn, the rank's kept): the whole sequence's logits (NCCL_MOE_SEQ
+    tokens: the ring), a prefill of them + NCCL_MOE_DECODE decode steps
+    (the einsum dispatch over the ranks), each within EP_REL_TOL of the
+    one-card model's; and a short stream through the SPMD ServeEngine,
+    whose greedy tokens must equal the one-card engine's and every
+    rank's."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.models import moe
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    cfg = moe_cfg(arch, no_drop=True, dtype="float32", **MOE_F32_CUTS[arch])
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(seed + 5)
+    toks = torch.randint(0, cfg.vocab_size, (1, NCCL_MOE_SEQ + NCCL_MOE_DECODE), device=mesh.device, generator=g)
+    prompts = [torch.randint(0, cfg.vocab_size, (n,), device=mesh.device, generator=g).int().cpu().numpy()
+               for n in NCCL_MOE_PROMPTS]
+    scfg = ServeConfig(max_batch=4, max_seq=256)
+
+    def run(model):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        params, _ = model.init(gen)
+        init_s = time.perf_counter() - t0
+        moe.DISPATCHES.clear()
+        whole = model.logits(params, {"tokens": toks[:, :NCCL_MOE_SEQ]})
+        state = model.init_decode_state(1, NCCL_MOE_SEQ + NCCL_MOE_DECODE, cache_dtype=torch.float32)
+        state, pl = model.prefill(params, {"tokens": toks[:, :NCCL_MOE_SEQ]}, state)
+        steps = [pl]
+        for t in range(NCCL_MOE_DECODE):
+            lg, state = model.decode_step(params, toks[:, NCCL_MOE_SEQ + t:NCCL_MOE_SEQ + t + 1], state)
+            steps.append(lg)
+        ran = dict(moe.DISPATCHES)
+        tokens = ServeEngine(model, params, scfg).run(prompts, max_new=NCCL_MOE_NEW)
+        nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
+        return whole, steps, tokens, ran, init_s, nbytes
+
+    one_whole, one_steps, one_tokens, _, one_init, one_bytes = run(Model(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    whole, steps, tokens, ran, init_s, nbytes = run(Model(cfg, mesh))
+    errs = [lm_rel_err(whole, one_whole)] + [lm_rel_err(a, b) for a, b in zip(steps, one_steps)]
+    who = f"rank {mesh.rank}: NCCL EP {arch} float32"
+    check(max(errs) <= EP_REL_TOL, f"{who}: logits vs the one-card model {errs} > {EP_REL_TOL}")
+    check(tokens == one_tokens, f"{who}: the SPMD engine's greedy tokens {tokens} differ from one card's {one_tokens}")
+    same_on_every_rank(mesh, tokens, f"{arch} float32 SPMD engine tokens")
+    if mesh.p > 1:
+        took = {"einsum", cfg.moe.dispatch}  # the ring config's decode steps fall back to the einsum dispatch
+        check({d for d, p in ran if p == mesh.p} == took, f"{who}: dispatches that ran {ran}")
+    return dict(errs=errs, ran={f"{d} x{p}": n for (d, p), n in ran.items()}, tokens=sum(map(len, tokens.values())),
+                init_s=init_s, one_init_s=one_init, gib=nbytes / 2**30, one_gib=one_bytes / 2**30)
+
+
+def nccl_moe_served(torch, mesh, seed: int, arch: str) -> dict:
+    """Phase 7's MoE serving, one rank (P > 1): ``arch`` at NCCL_MOE_CUTS'
+    depth in bfloat16, built by launch.build_engine on the mesh (every
+    rank draws the same weights and keeps its experts), on phase 14's
+    stream at the stock capacity factor: every rank's tokens identical,
+    peak memory under LM_PEAK_LIMIT_GIB; for MLA (DeepSeek-V3) the
+    dispatches' prefill ms."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch import serve as launch
+    from repro_torch.models import moe
+
+    cfg, scfg = moe_cfg(arch, **NCCL_MOE_CUTS[arch]), ServeConfig()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    eng = launch.build_engine(cfg, scfg, seed=seed, mesh=mesh)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(eng.params))
+    moe.DISPATCHES.clear()
+    stream = lm_stream(torch, eng, launch.prompt_stream(cfg, LM_REQUESTS, LM_PROMPT_LEN), LM_MAX_NEW)
+    ran = {f"{d} x{p}": n for (d, p), n in moe.DISPATCHES.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    results = stream[0]
+    same_on_every_rank(mesh, results, f"{arch} served tokens")
+    check(sorted(results) == list(range(LM_REQUESTS)) and all(len(v) == LM_MAX_NEW for v in results.values()),
+          f"rank {mesh.rank}: {arch} served {sorted(results)}")
+    check(peak <= LM_PEAK_LIMIT_GIB, f"rank {mesh.rank}: {arch} peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+    out = dict(stream_summary(stream, scfg), layers=cfg.num_layers, gib=nbytes / 2**30, peak_gib=peak,
+               init_s=init_s, ran=ran, agreements=eng.agreements, agreement_ms=eng.agreement_s * 1e3)
+    if cfg.mla is not None:
+        out["prefill_ms"] = ep_prefill_ms(torch, mesh, cfg, eng.params, seed)
+    del eng
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_moe(torch, mesh, fft_stage, seed: int) -> dict:
+    """Phase 7's MoE part, one rank: the float32 check of each MoE arch,
+    then (P > 1) the served models; the FFT kernels' launches (0)."""
+    def run():
+        out = {"f32": {arch: nccl_moe_f32(torch, mesh, seed, arch) for arch in MOE_CUTS}, "served": {}}
+        if mesh.p > 1:
+            for arch in NCCL_MOE_CUTS:
+                out["served"][arch] = nccl_moe_served(torch, mesh, seed, arch)
+        return out
+
+    out, launches, _ = counted(torch, fft_stage, "NCCL MoE", run, expect=())
+    out["launches"] = launches
+    return out
+
+
+def print_nccl_moe(rep) -> None:
+    who, m = f"NCCL rank {rep['rank']}/{rep['P']} EP", rep["moe"]
+    for arch, r in m["f32"].items():
+        print(f"{who} {arch} full width, 2 layers, float32, no drops: Model(cfg, ProcessGroupMesh) vs one card on the "
+              f"same seed: whole-sequence logits ({NCCL_MOE_SEQ} tokens), prefill, {NCCL_MOE_DECODE} decode steps "
+              f"rel_err {', '.join(f'{e:.3e}' for e in r['errs'])} (tol {EP_REL_TOL}); SPMD engine tokens equal to one "
+              f"card's ({r['tokens']} tokens); weights {r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card, "
+              f"init {r['init_s']:.1f} s vs {r['one_init_s']:.1f}; dispatches {r['ran']}", flush=True)
+    for arch, r in m["served"].items():
+        print(f"{who} {arch} {r['layers']} layers bf16, stock factor, phase 14's stream: {r['tokens']} tokens in "
+              f"{r['wall_s']:.2f} s, {r['tok_s']:.1f} tok/s, time to first token p50 {r['ttft_p50_ms']:.1f} ms p99 "
+              f"{r['ttft_p99_ms']:.1f} ms; decode step ({r['steps']} steps, full slots) device {r['decode_device_ms']:.2f} "
+              f"ms, host {r['decode_host_ms']:.2f} ms to issue; weights {r['gib']:.2f} GiB a rank, peak "
+              f"{r['peak_gib']:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}), init {r['init_s']:.1f} s; {r['agreements']} "
+              f"agreements, {r['agreement_ms']:.1f} ms; dispatches {r['ran']}; tokens identical on every rank",
+              flush=True)
+        if "prefill_ms" in r:
+            print_prefill_ms(f"{who} {arch}", r["prefill_ms"])
+
+
+def moe_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
+    """Phase 7's MoE part alone, one rank (see nccl_moe_phase)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import init_process_mesh
+    from repro_torch.kernels import fft_stage
+
+    mesh = init_process_mesh(rank, world, init_method, timeout_s=NCCL_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump({"rank": rank, "P": world, "moe": nccl_moe(torch, mesh, fft_stage, seed)}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_moe_phase(torch, seed: int) -> dict:
+    """Phase 7's MoE part alone, one rank per visible card: a measurement
+    of expert parallelism on a host with four cards
+    (``python3 -c "import sys, torch; sys.path.insert(0, 'src'); import
+    chip_smoke as cs; cs.nccl_moe_phase(torch, 0)"``)."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(moe_rank, args=(world, f"file://{os.path.join(tmp, 'rendezvous')}", seed, tmp), nprocs=world,
+                 join=True)
+        reports = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    print(nvidia_smi(), flush=True)
+    for rep in reports:
+        print_nccl_moe(rep)
+    return reports[0]["moe"]
+
+
 NCCL_VARIANTS = (("scatter", "auto"), ("scatter", False), ("alltoall", False))  # (backend, pipeline)
 NCCL_PENCIL_VARIANTS = ((("scatter", "scatter"), "auto"), (("alltoall", "alltoall"), False))
 
@@ -2008,6 +2370,8 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         report["serving"] = nccl_serving(torch, mesh, fft_stage, seed)
         torch.cuda.empty_cache()
         report["rings"] = ring_cases(torch, mesh, seed)
+        torch.cuda.empty_cache()
+        report["moe"] = nccl_moe(torch, mesh, fft_stage, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -2122,7 +2486,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving"):
+            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -2150,6 +2514,8 @@ def nccl_phase(torch, seed: int):
         print_nccl_serving(rep)
     for rep in reports:
         print_rings(f"NCCL rank {rep['rank']}/{rep['P']} rings", rep["rings"])
+    for rep in reports:
+        print_nccl_moe(rep)
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     for what in ("poison", "breaker"):  # the counters, not each rank's own error against torch.fft
         counters = [{k: v for k, v in rep["serving"][what].items() if not k.endswith("rel_err")} for rep in reports]
@@ -2220,6 +2586,7 @@ def main(argv=None) -> int:
         "launches"]
     for arm in ("coalesced", "solo"):
         by_path[f"nccl_serving_{arm}"] = nccl["serving"][arm]["launches"]
+    by_path["nccl_moe"] = nccl["moe"]["launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil c2c", shapes)

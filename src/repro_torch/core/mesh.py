@@ -567,15 +567,23 @@ class ProcessGroupMesh(_AxisMesh):
         return [self._block(self.place(x), self.rank, tail)]
 
     def gather(self, blocks: Sequence[torch.Tensor], tail: Sequence[Optional[str]]) -> torch.Tensor:
-        """This rank's block -> the global array, on every rank (one
-        ``all_gather`` over the mesh's group; for tests and checks,
-        never on the hot path)."""
+        """This rank's block -> the global array, on every rank: one
+        ``all_gather_into_tensor`` over the mesh's group where ``tail``
+        shards one dim of a 1-D mesh (the MoE dispatches' gathers), else
+        one list ``all_gather`` and a copy of each block into place."""
         import torch.distributed as dist
 
         self._check(blocks)
         b = blocks[0].resolve_conj().contiguous()
-        if not self._shard_dims(b.ndim, tail):
+        dims = self._shard_dims(b.ndim, tail)
+        if not dims:
             return b
+        if len(self.dims) == 1:
+            dim = dims[0][0]
+            front = b.movedim(dim, 0).contiguous()
+            out = torch.empty((self.p * front.shape[0],) + tuple(front.shape[1:]), dtype=b.dtype, device=b.device)
+            dist.all_gather_into_tensor(_wire(out), _wire(front), group=self.group)
+            return out.movedim(0, dim).contiguous()
         outs = [torch.empty_like(b) for _ in range(self.p)]
         dist.all_gather([_wire(o) for o in outs], _wire(b), group=self.group)
         return self._assemble(lambda rank: outs[rank], b.ndim, tail)

@@ -11,7 +11,8 @@ entries of jax's ``PartitionSpec``.
 
 ``named``, ``constrain``, ``tree_shardings`` and ``batch_sharding`` build
 GSPMD objects; their counterparts come with tensor-parallel serving
-(ROADMAP A15.1b).
+(ROADMAP A15.1c). ``resolve`` already places the MoE experts
+(``models.model``, ``models.moe``).
 """
 
 from __future__ import annotations

@@ -36,10 +36,12 @@ def prompt_stream(cfg: ModelConfig, requests: int, prompt_len: int, seed: int = 
     ]
 
 
-def build_engine(cfg: ModelConfig, scfg: ServeConfig, *, device=None, seed: int = 0) -> ServeEngine:
-    """``Model(cfg)`` with random weights from a generator seeded with
-    ``seed``, made in the model's compute dtype, behind a ServeEngine."""
-    model = Model(cfg, attn_impl="chunked", device=device)
+def build_engine(cfg: ModelConfig, scfg: ServeConfig, *, device=None, seed: int = 0, mesh=None) -> ServeEngine:
+    """``Model(cfg, mesh)`` with random weights from a generator seeded
+    with ``seed``, made in the model's compute dtype, behind a
+    ServeEngine (on a ``ProcessGroupMesh``: every rank calls it, and each
+    keeps its experts of the same weights)."""
+    model = Model(cfg, mesh, attn_impl="chunked", device=device)
     g = torch.Generator(device=model.device)
     g.manual_seed(seed)
     params, _ = model.init(g, dtype=model.dtype)

@@ -17,7 +17,7 @@ latent to per-head K/V and attends as MHA; decode scores against the
 *latent* cache through the absorbed up-projection, as the reference's.
 
 Not ported yet: the flash backward (A15.3) and ``flash_decode_combine``
-(A15.1b).
+(A15.1c).
 """
 
 from __future__ import annotations

@@ -53,10 +53,15 @@ class Deferred(NamedTuple):
     shape: Tuple[int, ...]
     scale: float = 1.0
 
-    def fill(self, out: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    def fill(self, out: torch.Tensor, generator: torch.Generator, first: int = 0) -> torch.Tensor:
+        """Draw all ``shape[0]`` slices in order and write slices ``first``
+        .. ``first + len(out)`` into ``out`` (a rank's block of the
+        experts: the same values as the whole draw's, whatever it keeps)."""
         std = _std(self.shape, self.scale)
         for j in range(self.shape[0]):
-            out[j].copy_(_unit_draw(self.shape[1:], std, generator, out.device))
+            draw = _unit_draw(self.shape[1:], std, generator, out.device)
+            if first <= j < first + out.shape[0]:
+                out[j - first].copy_(draw)
         return out
 
     def draw(self, generator: torch.Generator, device) -> torch.Tensor:

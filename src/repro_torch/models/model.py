@@ -16,9 +16,22 @@ Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
 
 The decode state's caches are written in place. ``init`` makes the MTP
 head's weights when ``cfg.mtp_depth`` asks for them (the reference's
-tree); nothing here runs them. Not ported yet: SSM and hybrid models
-(ROADMAP A15.2b), encoder-decoder models (A15.2c), a mesh of more than
-one rank (A15.1b), ``loss`` and MTP (A15.3).
+tree); nothing here runs them.
+
+On a mesh of several ranks (``SimMesh`` or, SPMD, one
+``ProcessGroupMesh`` rank per process) a MoE model runs expert-parallel:
+the activations, the attention, the dense layers, the router and the
+shared expert are replicated on every rank, and the routed experts are
+placed over the ``model`` axis by their ``"experts"`` specs
+(``core.sharding.resolve``; experts that do not divide the axis stay
+whole). On a ``ProcessGroupMesh`` a rank holds only its experts
+(``init`` draws every expert in the one-rank order and keeps the rank's;
+``params_from_numpy(mesh=, specs=)`` cuts the reference's arrays); on a
+``SimMesh`` the stacks stay whole. ``models.moe.apply_moe`` moves the
+tokens between the ranks. Not ported yet: SSM and hybrid models
+(ROADMAP A15.2b), encoder-decoder models (A15.2c), a dense model on a
+mesh of several ranks (tensor parallelism, A15.1c), ``loss`` and MTP
+(A15.3).
 """
 
 from __future__ import annotations
@@ -31,6 +44,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.core import sharding
 from repro_torch.core.mesh import resolve_device
 from repro_torch.models import blocks, common
 from repro_torch.models.common import Deferred, Params, Specs
@@ -106,9 +120,26 @@ def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
         return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2b"
     if cfg.is_encdec:
         return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2c"
-    if mesh is not None and mesh.p > 1:
-        return f"a mesh of {mesh.p} ranks: tensor-parallel serving is ROADMAP A15.1b"
+    if mesh is not None and mesh.p > 1 and cfg.moe is None:
+        return (f"{cfg.name} on a mesh of {mesh.p} ranks: a dense model needs tensor-parallel attention and "
+                "dense layers, ROADMAP A15.1c (MoE models run expert-parallel)")
     return None
+
+
+def _expert_rows(mesh, spec, shape) -> Optional[Tuple[int, int, int]]:
+    """(dim, first, count): the block of an expert leaf (its spec names
+    ``"experts"`` at ``dim``) that this process keeps on a
+    ``ProcessGroupMesh`` -- its ``model`` coordinate's E/P experts, where
+    ``core.sharding.resolve`` places the experts on that axis (they
+    divide it); None where it keeps the whole leaf (no mesh, a
+    ``SimMesh``, or experts that stay whole)."""
+    if mesh is None or not mesh.caller_holds_block or "experts" not in tuple(spec):
+        return None
+    dim = tuple(spec).index("experts")
+    if sharding.resolve(mesh, *spec, shape=shape)[dim] != "model":
+        return None
+    n = shape[dim] // mesh.shape["model"]
+    return dim, mesh.axis_index("model") * n, n
 
 
 def _float_to(dtype):
@@ -124,6 +155,8 @@ class Model:
         self.mesh = mesh
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
+        if mesh is not None and mesh.device != self.device:
+            raise ValueError(f"the mesh's ranks are on {mesh.device}, the model on {self.device}")
         self.groups = build_groups(cfg)
         self.dtype = getattr(torch, cfg.dtype)
 
@@ -147,10 +180,14 @@ class Model:
         cfg, dev = self.cfg, self.device
         cast = _float_to(dtype) if dtype is not None else (lambda a: a)
 
-        def empty_stack(a, count):
+        def empty_stack(a, spec, count):
             src = torch.float32 if isinstance(a, Deferred) else a.dtype
             out_dtype = dtype if dtype is not None and src.is_floating_point else src
-            return torch.empty((count,) + tuple(a.shape), dtype=out_dtype, device=dev)
+            shape = list(a.shape)
+            rows = _expert_rows(self.mesh, spec, shape)
+            if rows is not None:
+                shape[rows[0]] = rows[2]
+            return torch.empty([count] + shape, dtype=out_dtype, device=dev)
 
         def stacked_blocks(count: int, use_moe: bool):
             """``count`` decoder blocks' params in (count, ...) stacks, drawn
@@ -159,9 +196,9 @@ class Model:
                 return blocks.init_decoder_block(generator, cfg, dev, use_moe=use_moe)
 
             layer, s = draw()  # its leaves give the stacks' shapes (a group may have no layer)
-            out = _map(lambda a: empty_stack(a, count), layer)
+            out = _map2(lambda a, spec: empty_stack(a, spec, count), layer, s)
             for i in range(count):
-                _copy_into(out, layer if i == 0 else draw()[0], i, generator)
+                _copy_into(out, layer if i == 0 else draw()[0], s, i, generator, self.mesh)
                 layer = None  # one layer's float32 draw at a time
             return out, s
 
@@ -305,23 +342,48 @@ class Model:
         return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
 
 
-def _copy_into(stacked, tree, i: int, generator: torch.Generator) -> None:
+def _map2(fn: Callable, tree, specs):
+    """``fn(leaf, spec)`` on every leaf of a tree and its specs."""
+    if isinstance(tree, dict):
+        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
+    return fn(tree, specs)
+
+
+def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, mesh) -> None:
     """Layer ``i`` of the stacks from ``tree``'s tensors, its ``Deferred``
-    leaves drawn straight into the stack."""
+    leaves drawn straight into the stack: every expert drawn in order, the
+    ones this process keeps (``_expert_rows``) written."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _copy_into(stacked[k], v, i, generator)
+            _copy_into(stacked[k], v, specs[k], i, generator, mesh)
     elif isinstance(tree, Deferred):
-        tree.fill(stacked[i], generator)
+        rows = _expert_rows(mesh, specs, tree.shape)
+        tree.fill(stacked[i], generator, first=0 if rows is None else rows[1])
     else:
         stacked[i].copy_(tree)
 
 
-def params_from_numpy(tree, device=None, dtype=None):
+def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None):
     """The reference's parameter tree (numpy or JAX arrays, the same keys
     and stacked ``(L, ...)`` layout) as the port's tensors on ``device``
     (default ``cuda``); float leaves cast to ``dtype`` when given -- the
-    reference's per-call ``_cast``, done once at load."""
+    reference's per-call ``_cast``, done once at load. On a
+    ``ProcessGroupMesh`` of several ranks pass the tree's ``specs``
+    (``Model.init``'s, the reference's): each expert leaf keeps this
+    rank's experts only, as ``Model(cfg, mesh).init`` places them."""
     dev = resolve_device(device)
     cast = _float_to(dtype) if dtype is not None else (lambda a: a)
-    return _map(lambda a: cast(torch.from_numpy(np.array(a)).to(dev)), tree)
+
+    def load(a, spec=()):
+        rows = _expert_rows(mesh, spec, np.shape(a))
+        a = np.asarray(a)
+        if rows is not None:
+            dim, first, n = rows
+            a = a[(slice(None),) * dim + (slice(first, first + n),)]
+        return cast(torch.from_numpy(np.array(a)).to(dev))
+
+    if mesh is not None and mesh.caller_holds_block and mesh.p > 1:
+        if specs is None:
+            raise ValueError("params_from_numpy on a ProcessGroupMesh needs the tree's specs to place the experts")
+        return _map2(load, tree, specs)
+    return _map(load, tree)

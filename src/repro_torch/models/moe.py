@@ -9,14 +9,37 @@ token priority within each expert, as the reference assigns them.
 ``dispatch='einsum'``
     Scatter the tokens into an (E, cap, d) buffer, run every expert's FFN
     on its slots as one batched product, gather back (the reference's
-    GSPMD path; on one rank its sharding constraint is a no-op).
-``dispatch='dense'``
-    Every expert on every token, weighted by the gates (small configs).
+    GSPMD path). Under a mesh the capacity is counted per data-parallel
+    group (the product of the ``pod`` / ``data`` axes, 1 when it does not
+    divide the tokens), every rank routes and dispatches all of them
+    (the activations are replicated), runs the FFN on its block of the
+    (G, E, cap, d) buffer -- the experts over the ``model`` axis when
+    they divide it, else the capacity dim (the reference's
+    ``_buf_constrain``) -- and one all-gather of the expert outputs over
+    the mesh (``mesh.gather``) brings every block to every rank for the
+    combine: the synchronized collective, the paper's baseline.
 ``dispatch='ring'``
-    Falls back to ``einsum`` without a mesh or on one rank, as the
-    reference does. MoE over several ranks (the reference's ring exchange
-    ``_ring_exchange_ffn`` and its per-group GSPMD dispatch) is ROADMAP
-    A15.1b.
+    The paper's N-scatter applied to the expert all-to-all
+    (``_ring_exchange_ffn``). Each rank of the ``model`` axis takes its
+    S/P slice of the sequence (and its batch block over a data axis),
+    routes and counts capacity on its own tokens, and builds a (P,
+    E_loc, cap, d) buffer grouped by the rank that owns the experts; the
+    P-1 chunks go straight to their ranks as independent sends, one
+    batched FFN runs over what arrived (or one per arrival with
+    ``interleave=True``), and the results come home on the mirrored
+    ring; the rank's output slice is then gathered back to the
+    replicated (B, S, d). Falls back to ``einsum`` without a mesh, on one
+    rank, or when P does not divide the experts or the sequence (so a
+    decode step, S = 1, always takes the einsum dispatch), as the
+    reference does.
+``dispatch='dense'``
+    Every expert on every token, weighted by the gates (small configs);
+    it needs every expert on the rank.
+
+The expert leaves of a rank: on a ``SimMesh`` the stacks stay whole and
+each rank's experts are a view of them; on a ``ProcessGroupMesh`` a rank
+holds only its block (``Model.init`` / ``params_from_numpy`` place them,
+from the ``"experts"`` specs through ``core.sharding.resolve``).
 
 Both scatters are deterministic on the card (no atomics): each kept
 assignment owns its buffer slot, so the dispatch writes them (dropped
@@ -26,15 +49,22 @@ expert outputs to (T, k, d) and sums over k.
 
 from __future__ import annotations
 
+import collections
 import math
-from typing import Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
+from repro_torch.core import sharding
 from repro_torch.models import common, mlp
 from repro_torch.models.common import Params, Specs
+
+#: (dispatch that ran, ranks of the mesh) -> calls of ``apply_moe``: which
+#: dispatch each call took after the reference's fallbacks ("ring",
+#: "einsum", "dense"); clear it before a run to read that run's.
+DISPATCHES: collections.Counter = collections.Counter()
 
 
 def init_moe(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Params, Specs]:
@@ -134,37 +164,183 @@ def _capacity(tokens: int, k: int, e: int, cf: float) -> int:
     return max(1, math.ceil(tokens * k * cf / e))
 
 
-def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The reference's GSPMD capacity dispatch on one rank: one
-    data-parallel group, every expert on its (cap, d) slots."""
+def _groups(mesh, t: int) -> int:
+    """The einsum dispatch's data-parallel groups: the product of the
+    mesh's ``pod`` / ``data`` axes, or 1 when that does not divide the
+    ``t`` tokens (the reference's ``g``)."""
+    g = 1
+    if mesh is not None:
+        for ax in ("pod", "data"):
+            g *= mesh.shape.get(ax, 1)
+        if t % g:
+            g = 1
+    return g
+
+
+def _experts_of(p, mesh, rank: int, split: bool, e: int):
+    """(wg, wu, wd) of the experts ``rank`` runs: every expert unless
+    ``split``, else its block of the ``model`` axis -- a view of the whole
+    stack on a ``SimMesh``, the leaves themselves on a
+    ``ProcessGroupMesh``, which holds only its block."""
+    ws = (p.get("wg"), p["wu"], p["wd"])
+    n = e // mesh.shape["model"] if split else e
+    held = p["wu"].shape[0]
+    if held == n and (mesh.caller_holds_block or not split):
+        return ws
+    if held != e or mesh.caller_holds_block:
+        raise ValueError(f"the expert leaves hold {held} experts, rank {rank} runs {n} of {e}: build the params "
+                         "for this mesh (Model.init, params_from_numpy(mesh=, specs=))")
+    c = mesh.coords(rank)["model"]
+    return tuple(None if w is None else w[c * n:(c + 1) * n] for w in ws)
+
+
+def _block_ffn(ws, xb: torch.Tensor, kind: str) -> torch.Tensor:
+    """One rank's (G', E', C', d) block of the dispatch buffer through its
+    experts (E', d, f); G' = 1 runs as one (E', C', d) batched product."""
+    if xb.shape[0] == 1:
+        return _expert_ffn(*ws, xb[0], kind)[None]
+    return _expert_ffn(*ws, xb, kind)
+
+
+def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The reference's GSPMD capacity dispatch: capacity per data-parallel
+    group, every expert on its (cap, d) slots. Over several ranks each
+    runs its block of the (G, E, cap, d) buffer and ``mesh.gather`` (an
+    all-gather) brings the expert outputs to every rank."""
     mo = cfg.moe
+    e = mo.num_experts
     t = x2d.shape[0]
-    cap = _capacity(t, mo.top_k, mo.num_experts, mo.capacity_factor)
-    w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
-    buf, routing = _local_dispatch(x2d, idx, mo.num_experts, cap)
-    y = _expert_ffn(p.get("wg"), p["wu"], p["wd"], buf, cfg.mlp_kind)  # (E, C, d)
-    return _local_combine(y, w, routing, t), aux
+    g = _groups(mesh, t)
+    tl = t // g
+    cap = _capacity(tl, mo.top_k, e, mo.capacity_factor)
+    routed = []
+    for xl in x2d.reshape(g, tl, -1).unbind(0):
+        w, idx, aux = router_topk(xl, p["router"], mo.top_k)
+        buf, routing = _local_dispatch(xl, idx, e, cap)
+        routed.append((w, buf, routing, aux))
+    buf = torch.stack([r[1] for r in routed]) if g > 1 else routed[0][1][None]  # (G, E, C, d)
+    spec = sharding.resolve(mesh, "batch", "experts", "expert_cap", None, shape=buf.shape) if mesh else ()
+    if mesh is None or mesh.p == 1 or not any(spec):  # one rank, or no dim divides: every slot here
+        y = _block_ffn((p.get("wg"), p["wu"], p["wd"]), buf, cfg.mlp_kind)
+    else:
+        split = spec[1] is not None
+        blocks = [_block_ffn(_experts_of(p, mesh, rank, split, e), b, cfg.mlp_kind)
+                  for rank, b in zip(mesh.local_ranks(), mesh.split(buf, spec))]
+        y = mesh.gather(blocks, spec)  # every expert's outputs on every rank
+    out = torch.cat([_local_combine(y[i], w, routing, tl) for i, (w, _, routing, _) in enumerate(routed)])
+    return out, torch.stack([r[3] for r in routed]).mean()
 
 
 def _apply_moe_dense(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     mo = cfg.moe
+    if p["wu"].shape[0] != mo.num_experts:
+        raise ValueError(f"the dense dispatch runs every expert; this rank holds {p['wu'].shape[0]} of "
+                         f"{mo.num_experts}")
     w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
     all_y = _expert_ffn(p.get("wg"), p["wu"], p["wd"], x2d[None], cfg.mlp_kind)  # (E, T, d)
     gate = torch.einsum("tk,tke->te", w, F.one_hot(idx, mo.num_experts).float())  # (T, E)
     return torch.einsum("te,etd->td", gate.to(x2d.dtype), all_y), aux
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, S, d). Returns (out (B, S, d), aux loss scalar)."""
+def _ring_exchange_ffn(ws: Sequence[tuple], bufs: Sequence[torch.Tensor], kind: str, ring, *,
+                       interleave: bool = False) -> List[torch.Tensor]:
+    """bufs: one (P, E_loc, C, d) dispatch buffer per local rank of the
+    1-D ring view ``ring``, grouped by destination rank; ws: each local
+    rank's (wg, wu, wd) of its E_loc experts. Chunk s ships *directly* to
+    rank me+s (P-1 independent sends, all posted before any is waited
+    on: the paper's N-scatter decomposition), the results return on the
+    mirrored ring. Returns each rank's (P, E_loc, C, d) expert outputs,
+    in its buffer's order.
+
+    Default (interleave=False): one batched FFN over all received chunks,
+    (E_loc, P*C, d). With interleave=True the FFN runs on each chunk as
+    it lands and its result is sent home at once (the paper's literal
+    'compute each chunk as it lands'); the bytes on the wire are the
+    same."""
+    pn = ring.p
+    ranks = ring.local_ranks()
+
+    def post(s: int, pieces, sign: int):
+        return ring.ppermute_start(pieces, [(i, (i + sign * s) % pn) for i in range(pn)])
+
+    outs = [torch.empty_like(b) for b in bufs]
+    sends = [post(s, [b[(me + s) % pn] for b, me in zip(bufs, ranks)], 1) for s in range(1, pn)]
+    if interleave:
+        for out, w, b, me in zip(outs, ws, bufs, ranks):
+            out[me] = _expert_ffn(*w, b[me], kind)
+        backs = []
+        for s, pend in enumerate(sends, 1):
+            backs.append(post(s, [_expert_ffn(*w, r, kind) for w, r in zip(ws, pend.wait())], -1))
+    else:
+        # phase 1: the own chunk, then chunk s = the tokens of rank me-s
+        recv = [[b[me]] for b, me in zip(bufs, ranks)]
+        for pend in sends:
+            for got, r in zip(recv, pend.wait()):
+                got.append(r)
+        # phase 2: one batched FFN, (E_loc, P*C, d)
+        e_loc, cap, d = bufs[0].shape[1:]
+        done = [_expert_ffn(*w, torch.cat(got, dim=1), kind).view(e_loc, pn, cap, d) for w, got in zip(ws, recv)]
+        for out, dn, me in zip(outs, done, ranks):
+            out[me] = dn[:, 0]
+        # phase 3: the results home on the mirrored ring
+        backs = [post(s, [dn[:, s] for dn in done], -1) for s in range(1, pn)]
+    for s, pend in enumerate(backs, 1):
+        for out, back, me in zip(outs, pend.wait(), ranks):
+            out[(me + s) % pn] = back
+    return outs
+
+
+def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, axis_name: str = "model"):
+    """x: (B, S, d), replicated. Each rank takes its island of the
+    sequence: its S/P slice over ``axis_name`` (and its batch block over a
+    data axis), the sequence-parallel expert parallelism of DeepSeek. The
+    aux is the mean of the islands of the ``model`` ring of data
+    coordinate 0: the reference's ``lax.pmean`` over the axis, whose
+    ``out_specs=P()`` keeps that group's value."""
     mo = cfg.moe
     b, s, d = x.shape
-    if mesh is not None and mesh.p > 1:
-        raise NotImplementedError(f"not ported yet: MoE over {mesh.p} ranks is ROADMAP A15.1b")
-    x2d = x.reshape(b * s, d)
-    if mo.dispatch == "dense":
-        out, aux = _apply_moe_dense(p, x2d, cfg)
-    else:  # "einsum", and "ring" on one rank: the reference's fallback
-        out, aux = _apply_moe_gspmd(p, x2d, cfg)
+    e, pn = mo.num_experts, mesh.shape[axis_name]
+    e_loc = e // pn
+    tail = (sharding.resolve(mesh, "batch")[0], axis_name, None)  # the reference's x_spec
+    islands = []
+    for xl in mesh.split(x, tail):
+        bl, sl, _ = xl.shape
+        t = bl * sl
+        x2d = xl.reshape(t, d)
+        cap = _capacity(t, mo.top_k, e, mo.capacity_factor)
+        w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
+        buf, routing = _local_dispatch(x2d, idx, e, cap)
+        islands.append((buf.reshape(pn, e_loc, cap, d), w, routing, aux, xl.shape))
+    local = mesh.local_ranks()
+    outs: List[Optional[torch.Tensor]] = [None] * len(local)
+    for ring, idx in mesh.rings(axis_name):
+        ws = [_experts_of(p, mesh, local[k], True, e) for k in idx]
+        ys = _ring_exchange_ffn(ws, [islands[k][0] for k in idx], cfg.mlp_kind, ring)
+        for k, y in zip(idx, ys):
+            _, w, routing, _, shape = islands[k]
+            outs[k] = _local_combine(y.reshape(e, -1, d), w, routing, shape[0] * shape[1]).reshape(shape)
+    out = mesh.gather(outs, tail)
+    auxes = mesh.gather([isl[3].reshape(1, 1) for isl in islands], tail[:2])  # (data, P)
+    return out, auxes[0].mean()
+
+
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """x: (B, S, d), the same on every rank of ``mesh``. Returns (out (B,
+    S, d), aux loss scalar), the same on every rank."""
+    mo = cfg.moe
+    b, s, d = x.shape
+    dispatch = mo.dispatch
+    if dispatch == "ring":
+        pn = mesh.shape.get("model", 1) if mesh is not None else 1
+        if mesh is None or pn == 1 or mo.num_experts % pn or s % pn:
+            dispatch = "einsum"  # the reference's divisibility fallback
+    DISPATCHES[(dispatch, 1 if mesh is None else mesh.p)] += 1
+    if dispatch == "ring":
+        out, aux = _apply_moe_ring(p, x, cfg, mesh)
+    elif dispatch == "dense":
+        out, aux = _apply_moe_dense(p, x.reshape(b * s, d), cfg)
+    else:
+        out, aux = _apply_moe_gspmd(p, x.reshape(b * s, d), cfg, mesh)
     out = out.reshape(b, s, d)
     if mo.num_shared:
         out = out + mlp.apply_mlp(p["shared"], x, cfg.mlp_kind)

@@ -11,12 +11,23 @@ Greedy decoding matches the reference token for token. Temperature
 sampling draws from the same distribution with a ``torch.Generator``
 seeded with the reference's integer, so its stream differs from the
 reference's ``jax.random`` one.
+
+On a model built on a ``ProcessGroupMesh`` (expert-parallel MoE) the
+engine runs SPMD: every rank gets the same request stream and runs the
+same program, and the ranks agree twice through ``mesh.host_max`` (a
+CPU all-reduce over the group's gloo half): on each admission (the
+prompt's checksum and length, ``max_new`` and the slot) and on each
+step's sampled tokens. A rank whose stream or tokens differ makes every
+rank raise :class:`~repro_torch.serve.spectral.StreamMismatch` at that
+agreement.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional
+import time
+import zlib
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -24,6 +35,11 @@ import torch
 from repro_torch.configs.base import ServeConfig
 from repro_torch.models.model import Model
 from repro_torch.serve.queue import PendingQueue
+from repro_torch.serve.spectral import StreamMismatch
+
+#: The engine's agreement points on a process group; an agreement
+#: carries its point, so ranks at different points raise.
+_POINTS = ("admit", "step")
 
 
 @dataclasses.dataclass
@@ -60,6 +76,31 @@ class ServeEngine:
         self._uid = 0
         self._decode = model.decode_step
         self._prefill = model.prefill
+        mesh = model.mesh
+        self._spmd = mesh is not None and mesh.caller_holds_block
+        self.agreements = 0  # host agreements on a process group, and their host seconds
+        self.agreement_s = 0.0
+
+    def _agree(self, point: str, values: Sequence[int]) -> None:
+        """On a process group: one ``mesh.host_max`` over ``point`` and
+        ``values`` and their negations (a fixed width, so any two points
+        pair up); raises :class:`StreamMismatch` on every rank unless
+        every rank passed the same ones."""
+        if not self._spmd:
+            return
+        width = 1 + max(self.scfg.max_batch, 4)
+        vals = [float(_POINTS.index(point) + 1)] + [float(v) for v in values]
+        vals += [0.0] * (width - len(vals))
+        t0 = time.perf_counter()
+        got = self.model.mesh.host_max(vals + [-v for v in vals])
+        self.agreement_s += time.perf_counter() - t0
+        self.agreements += 1
+        hi, lo = got[:width], [-v for v in got[width:]]
+        if hi != lo:
+            points = sorted({_POINTS[int(hi[0]) - 1], _POINTS[int(lo[0]) - 1]})
+            raise StreamMismatch(
+                f"the ranks' serving streams differ at {points}: largest {hi[1:]}, smallest {lo[1:]}; every rank "
+                "must add the same prompts in the same order and sample the same tokens")
 
     # ------------------------------------------------------------- requests
     @torch.inference_mode()
@@ -69,6 +110,7 @@ class ServeEngine:
         except ValueError:
             return None
         req = Request(self._uid, np.asarray(prompt, np.int32), max_new)
+        self._agree("admit", [zlib.crc32(req.prompt.tobytes()), req.prompt.shape[0], max_new, slot])
         self._uid += 1
         scratch = self.model.init_decode_state(1, self.scfg.max_seq)
         tokens = torch.as_tensor(req.prompt[None, :], device=self.model.device)
@@ -103,6 +145,7 @@ class ServeEngine:
         else:
             nxt = torch.argmax(logits, dim=-1)
         nxt = nxt.cpu().numpy()
+        self._agree("step", nxt.tolist())
         finished = []
         for i in active:
             r = self.slots[i]

@@ -4,7 +4,7 @@ weights, indices, aux loss), the stable-sort capacity assignment in a
 case that drops, ``apply_moe`` by the einsum and the dense dispatch
 (1e-5 relative to the largest entry, the shared expert included), the
 two dispatches equal when the capacity drops nothing, the ``"ring"``
-fallback, the combine's fixed summation order, and ``init_moe``'s specs
+fallback and the dispatches over two ranks, the combine's fixed summation order, and ``init_moe``'s specs
 and its expert draws made one expert at a time."""
 
 import dataclasses
@@ -148,7 +148,11 @@ def test_einsum_drops_and_equals_dense_without_drops(weights):
 
 def test_ring_falls_back_to_einsum(weights):
     """The reference's fallback: "ring" runs the einsum dispatch without
-    a mesh or on one rank; MoE over several ranks is ROADMAP A15.1b."""
+    a mesh or on one rank. On two ranks of a ``model`` axis it runs the
+    ring, which equals the one-rank output where nothing drops; on two of
+    a ``data`` axis (no ring) it is the reference's einsum dispatch with
+    g = 2 groups, each batch row its own capacity (tests/test_torch_lm_ep.py
+    holds both against the reference under a jax mesh)."""
     rp, _, p = weights["deepseek-v3-671b"]
     x = _t(_x(5, 2, 12, 64))
     cfg = _cfg()
@@ -159,9 +163,15 @@ def test_ring_falls_back_to_einsum(weights):
         assert torch.equal(out, einsum) and torch.equal(a, aux)
     rout, _ = r_apply(rp, jnp.asarray(x.numpy()), cfg=cfg)
     assert rel(einsum, rout) <= REL_TOL
-    for mesh in (SimMesh(2, "model", device="cpu"), SimMesh(2, "data", device="cpu")):
-        with pytest.raises(NotImplementedError, match="A15.1b"):
-            MOE.apply_moe(p, x, cfg, mesh=mesh)
+    mo = cfg.moe
+    full = _cfg(capacity_factor=mo.num_experts / mo.top_k)
+    ring, _ = MOE.apply_moe(p, x, full, mesh=SimMesh(2, "model", device="cpu"))
+    assert rel(ring, MOE.apply_moe(p, x, full)[0]) <= REL_TOL
+    groups, g_aux = MOE.apply_moe(p, x, cfg, mesh=SimMesh(2, "data", device="cpu"))
+    per_row = [r_apply(rp, jnp.asarray(x.numpy()[i:i + 1]), cfg=cfg) for i in range(2)]
+    assert rel(groups, np.concatenate([np.asarray(o) for o, _ in per_row])) <= REL_TOL
+    assert abs(float(g_aux) - np.mean([float(a) for _, a in per_row])) <= REL_TOL * float(g_aux)
+    assert rel(groups, einsum) > 1e-3  # 2 x 12 tokens' capacity drops other assignments than 24's
 
 
 def test_combine_sums_the_top_k_in_a_fixed_order():

@@ -245,11 +245,15 @@ def test_moe_launcher_runs_on_the_cpu(arch, capsys):
 
 
 def test_a_mesh_of_several_ranks_is_refused():
+    """A dense model on several ranks needs tensor parallelism (A15.1c);
+    a MoE model runs expert-parallel there (tests/test_torch_lm_ep.py)."""
     from repro_torch.core import SimMesh
 
-    with pytest.raises(NotImplementedError, match="A15.1b"):
+    with pytest.raises(NotImplementedError, match="A15.1c"):
         Model(get_config(ARCH, reduced=True), SimMesh(2, device="cpu"), device="cpu")
     assert Model(get_config(ARCH, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
+    for arch in MOE:
+        assert Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu").mesh.p == 2
 
 
 def test_no_fallback_to_the_cpu(monkeypatch):
