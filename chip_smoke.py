@@ -144,7 +144,19 @@ Phases, each printing a line; any failure exits non-zero with no result:
    dispatches that ran, and for DeepSeek-V3 one 512-token prefill and one
    MoE layer timed through the ring, the interleaved ring, the einsum
    dispatch and the one-rank model (``ep_sim_serving_<arch>``: 0 FFT
-   launches each).
+   launches each);
+17. tensor parallelism on SimMesh(4) -- heads, d_ff and vocabulary split
+   four ways on this card, each rank's block a view: (1) float32 at full
+   width, 2 layers, on the one-rank model's weights: hidden of a 300-token
+   prompt (the Megatron sequence-parallel rings), its prefill and 2 decode
+   steps (the psum form), each within 1e-5 of the one-rank model, for
+   Qwen2.5-32B (heads partition, and attn_partition="context"),
+   Gemma2-9B, and phase 15's two check-1 models (run beside phase 16's
+   check 1: tensor- and expert-parallel); (2) Qwen2.5-32B at 8 of 64
+   layers in bfloat16, phase 14's stream on one rank and on
+   Model(cfg, SimMesh(4)) on the same weights: phase 14's report, the
+   share of greedy tokens equal to one rank's, and one 512-token prompt's
+   prefill beside hidden on both (``tp_sim_serving``: 0 FFT launches).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -178,12 +190,18 @@ tokens: the ring), prefill + 2 decode steps (the einsum dispatch over
 the ranks) within 1e-5 of one card's, and a short stream through the
 SPMD ServeEngine whose greedy tokens must equal one card's and every
 rank's. On P > 1 cards it then serves DeepSeek-V3 at 12 layers (3 dense
-+ 9 MoE) and Mixtral-8x22B at 48 layers in bf16 on phase 14's stream at
++ 9 MoE) and Mixtral-8x22B at all 56 layers in bf16, both tensor- and
+expert-parallel, on phase 14's stream at
 the stock factor: every rank's tokens identical, peak memory under 72
 GiB a card, tokens/s, time to first token, the decode step's device and
 host ms, and DeepSeek-V3's prefill through the ring, the interleaved
 ring and the einsum dispatch (one card: P = 1, the model is whole and
-the dispatch runs on one rank; ``nccl_moe``: 0 FFT launches).
+the dispatch runs on one rank; ``nccl_moe``: 0 FFT launches). Last,
+tensor parallelism over NCCL (``nccl_tp``; alone: ``nccl_tp_phase``):
+phase 17's float32 dense checks against one card, every rank's outputs
+bitwise equal (the MoE check above holds its logits so too), and on
+P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
+one decode step's collectives by name (``nccl_tp``: 0 FFT launches).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -196,9 +214,9 @@ kernel once at every shape not timed before. Kernel times are CUDA-event medians
 runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
-counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``),
-11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``) and 16
-(``ep_sim_serving_<arch>``) included; the last line is
+counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
+``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
+(``ep_sim_serving_<arch>``) and 17 (``tp_sim_serving``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -298,7 +316,20 @@ EP_PREFILL, EP_REPS = 512, 3  # the dispatches' prefill timing: one 512-token pr
 #: 62.6 GiB (Mixtral-8x22B, 48 of 56 layers; all 56 would be 72.9)
 NCCL_MOE_SEQ, NCCL_MOE_DECODE = 256, 2
 NCCL_MOE_PROMPTS, NCCL_MOE_NEW = (64, 37, 128, 20), 4  # the float32 engine's stream, 4 slots
-NCCL_MOE_CUTS = {"deepseek-v3-671b": dict(num_layers=12), "mixtral-8x22b": dict(num_layers=48)}
+NCCL_MOE_CUTS = {"deepseek-v3-671b": dict(num_layers=12), "mixtral-8x22b": dict(num_layers=56)}
+#: phase 17: tensor parallelism on SimMesh(TP_P), every rank on this card;
+#: phase 7's TP part: the same over NCCL. Float32 checks at TP_F32_LAYERS
+#: layers (the dense archs here; the MoE archs on phase 15's check-1
+#: weights), within TP_REL_TOL of the one-rank model on the same weights.
+#: With heads, d_ff and vocabulary split as well, Mixtral-8x22B's 56
+#: layers take 65.5 GiB a card of bf16 weights over four cards (the
+#: experts 63.0, the rest 9.93 / 4).
+TP_P = 4
+TP_REL_TOL = 1e-5  # float32: psums and rings add the ranks' partials in another order than one rank's GEMM
+TP_F32 = (("qwen2.5-32b", {}), ("qwen2.5-32b", {"attn_partition": "context"}), ("gemma2-9b", {}))
+TP_F32_LAYERS, TP_DECODE = 2, 2
+TP_SERVE_LAYERS = 8  # phase 17's bf16 serving: Qwen2.5-32B at full width, 8 of 64 layers
+TP_PREFILL, TP_REPS = 512, 3  # one 512-token prompt: prefill (psum form) beside hidden (the rings)
 
 
 class SmokeFailure(RuntimeError):
@@ -1694,6 +1725,7 @@ def moe_width_checks(torch, seed, arch: str) -> None:
           f"rel_err {err:.3e} (tol {MOE_DISPATCH_REL_TOL}), aux {aux.item():.6f} / {aux_d.item():.6f}", flush=True)
     check(err <= MOE_DISPATCH_REL_TOL, f"{label} einsum vs dense dispatch: {err:.3e} > {MOE_DISPATCH_REL_TOL}")
     ep_width_checks(torch, g, model, params, f"EP SimMesh({EP_P}) {arch}")
+    tp_width_check(torch, g, model, params, f"TP SimMesh({TP_P}) {arch}")
 
 
 def ep_interleaved(moe, on: bool):
@@ -1953,6 +1985,126 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
     return by_path
 
 
+def tp_runs(torch, model, params, toks, n: int) -> list:
+    """``model``'s hidden states of the first ``n`` tokens, then a prefill
+    of them and TP_DECODE decode steps (float32 cache): [hidden, prefill
+    logits, decode logits...]."""
+    out = [model.hidden(params, {"tokens": toks[:, :n]})[0]]
+    state = model.init_decode_state(1, toks.shape[1], cache_dtype=torch.float32)
+    state, pl = model.prefill(params, {"tokens": toks[:, :n]}, state)
+    out.append(pl)
+    for t in range(n, toks.shape[1]):
+        lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+        out.append(lg)
+    return out
+
+
+def tp_width_check(torch, g, model, params, label: str, **kw) -> None:
+    """Check 1 of phase 17: ``model``'s float32 weights (the same tensors;
+    each rank's block a view) on Model(cfg, SimMesh(TP_P)) -- ``kw``
+    overrides the config, e.g. the attention partition -- against the
+    one-rank model: hidden (LM_SEQ tokens, which TP_P divides: the
+    sequence-parallel rings), a prefill and TP_DECODE decode steps (the
+    psum form), each within TP_REL_TOL."""
+    import dataclasses
+
+    from repro_torch.core import SimMesh
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + TP_DECODE), device="cuda", generator=g)
+    one = tp_runs(torch, model, params, toks, LM_SEQ)
+    tp = Model(dataclasses.replace(cfg, **kw), SimMesh(TP_P))
+    check(tp.seq_parallel(LM_SEQ), f"{label}: hidden over {LM_SEQ} tokens does not take the sequence-parallel rings")
+    errs = [lm_rel_err(a, b) for a, b in zip(tp_runs(torch, tp, params, toks, LM_SEQ), one)]
+    print(f"{label}{' ' + str(kw) if kw else ''} full width, {cfg.num_layers} layers, float32 (float32 cache): vs the one-rank model on "
+          f"the same weights, rel_err hidden ({LM_SEQ} tokens, sequence-parallel rings) {errs[0]:.3e}, prefill "
+          f"{errs[1]:.3e}, {TP_DECODE} decode steps {', '.join(f'{e:.3e}' for e in errs[2:])} (tol {TP_REL_TOL})",
+          flush=True)
+    check(max(errs) <= TP_REL_TOL, f"{label} {kw}: {max(errs):.3e} > {TP_REL_TOL}")
+
+
+def tp_dense_checks(torch, seed) -> None:
+    """Check 1 of phase 17 for the dense archs: TP_F32's configs at full
+    width, TP_F32_LAYERS layers, float32, each on its own weights."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    for arch, kw in TP_F32:
+        cfg = dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS, dtype="float32")
+        model = Model(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        params, _ = model.init(g)
+        tp_width_check(torch, g, model, params, f"TP SimMesh({TP_P}) {arch}", **kw)
+        del model, params
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def tp_prefill_ms(torch, models, params, seed: int) -> dict:
+    """One TP_PREFILL-token prompt through each of ``models`` (label ->
+    Model): prefill (the psum form) and hidden (the sequence-parallel
+    rings where the model splits), CUDA-event ms, median of TP_REPS."""
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 4)
+    first = next(iter(models.values()))
+    toks = torch.randint(0, first.cfg.vocab_size, (1, TP_PREFILL), device=first.device, generator=g)
+    out = {}
+    for name, m in models.items():
+        out[f"{name} prefill"] = events_ms(torch, lambda: m.prefill(params, {"tokens": toks},
+                                                                    m.init_decode_state(1, TP_PREFILL)), reps=TP_REPS)
+        out[f"{name} hidden"] = events_ms(torch, lambda: m.hidden(params, {"tokens": toks}), reps=TP_REPS)
+    return out
+
+
+def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
+    """Phase 17: tensor parallelism on SimMesh(TP_P), one card. Check 1
+    (the dense archs; the MoE archs ran beside phase 16's check 1), then
+    Qwen2.5-32B at full width and TP_SERVE_LAYERS layers in bfloat16:
+    phase 14's stream on one rank and on Model(cfg, SimMesh(TP_P)) on the
+    same weights (views), the TP engine's report and its share of greedy
+    tokens equal to one rank's; one TP_PREFILL-token prompt's prefill
+    beside hidden. Returns the FFT kernels' launches (0)."""
+    import dataclasses
+
+    from repro_torch.configs import ServeConfig, get_config
+    from repro_torch.core import SimMesh
+    from repro_torch.launch import serve as launch
+    from repro_torch.models.model import Model
+    from repro_torch.serve import ServeEngine
+
+    tp_dense_checks(torch, seed)
+    cfg, scfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TP_SERVE_LAYERS), ServeConfig()
+    label = f"TP SimMesh({TP_P}) {cfg.name}"
+    lm_check_free(torch, f"{label} before serving", 2 * cfg.param_count() + 2 * lm_kv_bytes(cfg, scfg)
+                  + LM_HEADROOM_GIB * 2**30)
+    eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "TP serving one rank")
+    one = lm_serve_stream(torch, eng, cfg, launch)[0]
+    eng.state = None  # the one-rank engine's caches
+    tp = ServeEngine(Model(cfg, SimMesh(TP_P)), eng.params, scfg)
+    (stream, kernels), launches, peak = counted(
+        torch, fft_stage, label, lambda: lm_serve_stream(torch, tp, cfg, launch), expect=())
+    tp.state = None
+    torch.cuda.empty_cache()
+    print(f"{label} one rank on the same weights and stream: {stream_summary(one, scfg)}", flush=True)
+    lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm)
+    same = sum(a == b for u, toks in one[0].items() for a, b in zip(stream[0][u], toks))
+    total = sum(len(t) for t in one[0].values())
+    print(f"{label} greedy tokens equal to one rank's on the same stream and weights: {same} of {total} "
+          f"({same / total:.4f})", flush=True)
+    ms = tp_prefill_ms(torch, {"one rank": eng.model, f"SimMesh({TP_P})": tp.model}, eng.params, seed)
+    print(f"{label} one {TP_PREFILL}-token prompt, bfloat16, {TP_SERVE_LAYERS} layers (CUDA events, median of "
+          f"{TP_REPS}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+          + f" (prefill: the psum form, one psum a sublayer; hidden: the sequence-parallel rings)", flush=True)
+    del eng, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"tp_sim_serving": launches}
+
+
 def agreement_probe(torch, mesh) -> dict:
     """Host ms of one agreement over the group's CPU backend
     (mesh.host_max, what the serving engine uses) and over the card's
@@ -2184,6 +2336,7 @@ def nccl_moe_f32(torch, mesh, seed: int, arch: str) -> dict:
     errs = [lm_rel_err(whole, one_whole)] + [lm_rel_err(a, b) for a, b in zip(steps, one_steps)]
     who = f"rank {mesh.rank}: NCCL EP {arch} float32"
     check(max(errs) <= EP_REL_TOL, f"{who}: logits vs the one-card model {errs} > {EP_REL_TOL}")
+    same_on_every_rank(mesh, [digest(t) for t in [whole] + steps], f"{arch} float32 logits (bitwise)")
     check(tokens == one_tokens, f"{who}: the SPMD engine's greedy tokens {tokens} differ from one card's {one_tokens}")
     same_on_every_rank(mesh, tokens, f"{arch} float32 SPMD engine tokens")
     if mesh.p > 1:
@@ -2193,18 +2346,71 @@ def nccl_moe_f32(torch, mesh, seed: int, arch: str) -> dict:
                 init_s=init_s, one_init_s=one_init, gib=nbytes / 2**30, one_gib=one_bytes / 2**30)
 
 
+def digest(t) -> str:
+    """The bytes of a tensor, hashed: ranks compare results bitwise."""
+    import hashlib
+
+    return hashlib.sha1(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()
+
+
+def collectives_per_step(torch, eng) -> dict:
+    """The torch.distributed calls one decode step of all slots makes
+    (the engine's host agreements are outside it), by name."""
+    import collections
+
+    import torch.distributed as dist
+
+    counts = collections.Counter()
+    names = ("all_reduce", "all_gather_into_tensor", "all_gather", "all_to_all_single", "batch_isend_irecv")
+    orig = {n: getattr(dist, n) for n in names}
+
+    def counting(n):
+        def call(*a, **k):
+            counts[n] += 1
+            return orig[n](*a, **k)
+        return call
+
+    tokens = torch.zeros((eng.scfg.max_batch, 1), dtype=torch.int32, device=eng.model.device)
+    for n in names:
+        setattr(dist, n, counting(n))
+    try:
+        eng._decode(eng.params, tokens, eng.state)
+        torch.cuda.synchronize()
+    finally:
+        for n in names:
+            setattr(dist, n, orig[n])
+    return dict(counts)
+
+
 def nccl_moe_served(torch, mesh, seed: int, arch: str) -> dict:
     """Phase 7's MoE serving, one rank (P > 1): ``arch`` at NCCL_MOE_CUTS'
-    depth in bfloat16, built by launch.build_engine on the mesh (every
-    rank draws the same weights and keeps its experts), on phase 14's
-    stream at the stock capacity factor: every rank's tokens identical,
-    peak memory under LM_PEAK_LIMIT_GIB; for MLA (DeepSeek-V3) the
-    dispatches' prefill ms."""
-    from repro_torch.configs import ServeConfig
-    from repro_torch.launch import serve as launch
+    depth in bfloat16 (tensor- and expert-parallel), on phase 14's
+    stream at the stock capacity factor (``nccl_served``); for MLA
+    (DeepSeek-V3) the dispatches' prefill ms."""
     from repro_torch.models import moe
 
-    cfg, scfg = moe_cfg(arch, **NCCL_MOE_CUTS[arch]), ServeConfig()
+    moe.DISPATCHES.clear()
+    cfg = moe_cfg(arch, **NCCL_MOE_CUTS[arch])
+    out = nccl_served(torch, mesh, seed, cfg)
+    out["ran"] = {f"{d} x{p}": n for (d, p), n in moe.DISPATCHES.items()}
+    if cfg.mla is not None:
+        out["prefill_ms"] = ep_prefill_ms(torch, mesh, cfg, out.pop("params"), seed)
+    out.pop("params", None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def nccl_served(torch, mesh, seed: int, cfg) -> dict:
+    """One rank (P > 1): ``cfg`` in bfloat16 built by launch.build_engine
+    on the mesh (every rank draws the same weights and keeps its blocks),
+    on phase 14's stream: every rank's tokens identical, peak memory
+    under LM_PEAK_LIMIT_GIB, the collectives of one decode step. The
+    engine's weights come back under "params" for a caller's timing."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch import serve as launch
+
+    scfg = ServeConfig()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
@@ -2212,22 +2418,18 @@ def nccl_moe_served(torch, mesh, seed: int, arch: str) -> dict:
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
     nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(eng.params))
-    moe.DISPATCHES.clear()
     stream = lm_stream(torch, eng, launch.prompt_stream(cfg, LM_REQUESTS, LM_PROMPT_LEN), LM_MAX_NEW)
-    ran = {f"{d} x{p}": n for (d, p), n in moe.DISPATCHES.items()}
     peak = torch.cuda.max_memory_allocated() / 2**30
     results = stream[0]
-    same_on_every_rank(mesh, results, f"{arch} served tokens")
+    same_on_every_rank(mesh, results, f"{cfg.name} served tokens")
     check(sorted(results) == list(range(LM_REQUESTS)) and all(len(v) == LM_MAX_NEW for v in results.values()),
-          f"rank {mesh.rank}: {arch} served {sorted(results)}")
-    check(peak <= LM_PEAK_LIMIT_GIB, f"rank {mesh.rank}: {arch} peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+          f"rank {mesh.rank}: {cfg.name} served {sorted(results)}")
+    check(peak <= LM_PEAK_LIMIT_GIB, f"rank {mesh.rank}: {cfg.name} peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
     out = dict(stream_summary(stream, scfg), layers=cfg.num_layers, gib=nbytes / 2**30, peak_gib=peak,
-               init_s=init_s, ran=ran, agreements=eng.agreements, agreement_ms=eng.agreement_s * 1e3)
-    if cfg.mla is not None:
-        out["prefill_ms"] = ep_prefill_ms(torch, mesh, cfg, eng.params, seed)
+               init_s=init_s, agreements=eng.agreements, agreement_ms=eng.agreement_s * 1e3,
+               collectives=collectives_per_step(torch, eng), params=eng.params)
+    eng.state = None
     del eng
-    gc.collect()
-    torch.cuda.empty_cache()
     return out
 
 
@@ -2260,10 +2462,119 @@ def print_nccl_moe(rep) -> None:
               f"{r['ttft_p99_ms']:.1f} ms; decode step ({r['steps']} steps, full slots) device {r['decode_device_ms']:.2f} "
               f"ms, host {r['decode_host_ms']:.2f} ms to issue; weights {r['gib']:.2f} GiB a rank, peak "
               f"{r['peak_gib']:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}), init {r['init_s']:.1f} s; {r['agreements']} "
-              f"agreements, {r['agreement_ms']:.1f} ms; dispatches {r['ran']}; tokens identical on every rank",
-              flush=True)
+              f"agreements, {r['agreement_ms']:.1f} ms; dispatches {r['ran']}; one decode step's collectives "
+              f"{r['collectives']}; tokens identical on every rank", flush=True)
         if "prefill_ms" in r:
             print_prefill_ms(f"{who} {arch}", r["prefill_ms"])
+
+
+def nccl_tp_f32(torch, mesh, seed: int, arch: str, kw: dict) -> dict:
+    """Phase 7's TP check, one rank: ``arch`` at full width,
+    TP_F32_LAYERS layers, float32 (``kw`` overrides the config), on this
+    card alone (Model(cfg)), then freed, then Model(cfg, mesh) from the
+    same seed (each rank keeps its blocks): hidden (LM_SEQ tokens: the
+    rings), a prefill and TP_DECODE decode steps within TP_REL_TOL of
+    the one-card model's, every rank's results bitwise equal."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    cfg = dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS, dtype="float32", **kw)
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(seed + 6)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + TP_DECODE), device=mesh.device, generator=g)
+
+    def run(model):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        params, _ = model.init(gen)
+        nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
+        return tp_runs(torch, model, params, toks, LM_SEQ), nbytes
+
+    one, one_bytes = run(Model(cfg))
+    gc.collect()
+    torch.cuda.empty_cache()
+    got, nbytes = run(Model(cfg, mesh))
+    errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
+    check(max(errs) <= TP_REL_TOL, f"rank {mesh.rank}: NCCL TP {arch} {kw} float32 vs one card {errs} > {TP_REL_TOL}")
+    same_on_every_rank(mesh, [digest(t) for t in got], f"{arch} {kw} float32 outputs (bitwise)")
+    return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30)
+
+
+def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
+    """Phase 7's TP part, one rank: the float32 checks of TP_F32, then
+    (P > 1) Qwen2.5-32B at all 64 layers served tensor-parallel; the FFT
+    kernels' launches (0)."""
+    from repro_torch.configs import get_config
+
+    def run():
+        out = {"f32": {f"{arch} {kw or ''}".strip(): nccl_tp_f32(torch, mesh, seed, arch, kw) for arch, kw in TP_F32},
+               "served": {}}
+        if mesh.p > 1:
+            r = nccl_served(torch, mesh, seed, get_config(LM_ARCH))
+            r.pop("params")
+            gc.collect()
+            torch.cuda.empty_cache()
+            out["served"][LM_ARCH] = r
+        return out
+
+    out, launches, _ = counted(torch, fft_stage, "NCCL TP", run, expect=())
+    out["launches"] = launches
+    return out
+
+
+def print_nccl_tp(rep) -> None:
+    who, m = f"NCCL rank {rep['rank']}/{rep['P']} TP", rep["tp"]
+    for name, r in m["f32"].items():
+        print(f"{who} {name} full width, {TP_F32_LAYERS} layers, float32: Model(cfg, ProcessGroupMesh) vs one card on "
+              f"the same seed: hidden ({LM_SEQ} tokens), prefill, {TP_DECODE} decode steps rel_err "
+              f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {TP_REL_TOL}), bitwise equal on every rank; weights "
+              f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card", flush=True)
+    for arch, r in m["served"].items():
+        print(f"{who} {arch} {r['layers']} layers bf16, phase 14's stream: {r['tokens']} tokens in {r['wall_s']:.2f} s, "
+              f"{r['tok_s']:.1f} tok/s, time to first token p50 {r['ttft_p50_ms']:.1f} ms p99 {r['ttft_p99_ms']:.1f} ms; "
+              f"decode step ({r['steps']} steps, full slots) device {r['decode_device_ms']:.2f} ms, host "
+              f"{r['decode_host_ms']:.2f} ms to issue; weights {r['gib']:.2f} GiB a rank, peak {r['peak_gib']:.2f} GiB "
+              f"(limit {LM_PEAK_LIMIT_GIB}), init {r['init_s']:.1f} s; {r['agreements']} agreements, "
+              f"{r['agreement_ms']:.1f} ms; one decode step's collectives {r['collectives']}; tokens identical on "
+              f"every rank", flush=True)
+
+
+def tp_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
+    """Phase 7's TP part alone, one rank (see nccl_tp_phase)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import init_process_mesh
+    from repro_torch.kernels import fft_stage
+
+    mesh = init_process_mesh(rank, world, init_method, timeout_s=NCCL_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump({"rank": rank, "P": world, "tp": nccl_tp(torch, mesh, fft_stage, seed)}, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def nccl_tp_phase(torch, seed: int) -> dict:
+    """Phase 7's tensor-parallel part alone, one rank per visible card:
+    the measurement of tensor parallelism on a host with four cards
+    (``python3 -c "import sys, torch; sys.path.insert(0, 'src'); import
+    chip_smoke as cs; cs.nccl_tp_phase(torch, 0)"``; ``nccl_moe_phase``
+    serves the MoE models, tensor- and expert-parallel)."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(tp_rank, args=(world, f"file://{os.path.join(tmp, 'rendezvous')}", seed, tmp), nprocs=world,
+                 join=True)
+        reports = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
+    print(nvidia_smi(), flush=True)
+    for rep in reports:
+        print_nccl_tp(rep)
+    return reports[0]["tp"]
 
 
 def moe_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
@@ -2372,6 +2683,8 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         report["rings"] = ring_cases(torch, mesh, seed)
         torch.cuda.empty_cache()
         report["moe"] = nccl_moe(torch, mesh, fft_stage, seed)
+        torch.cuda.empty_cache()
+        report["tp"] = nccl_tp(torch, mesh, fft_stage, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -2486,7 +2799,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe"):
+            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe", "tp"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -2516,6 +2829,7 @@ def nccl_phase(torch, seed: int):
         print_rings(f"NCCL rank {rep['rank']}/{rep['P']} rings", rep["rings"])
     for rep in reports:
         print_nccl_moe(rep)
+        print_nccl_tp(rep)
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     for what in ("poison", "breaker"):  # the counters, not each rank's own error against torch.fft
         counters = [{k: v for k, v in rep["serving"][what].items() if not k.endswith("rel_err")} for rep in reports]
@@ -2587,6 +2901,7 @@ def main(argv=None) -> int:
     for arm in ("coalesced", "solo"):
         by_path[f"nccl_serving_{arm}"] = nccl["serving"][arm]["launches"]
     by_path["nccl_moe"] = nccl["moe"]["launches"]
+    by_path["nccl_tp"] = nccl["tp"]["launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil c2c", shapes)
@@ -2605,6 +2920,7 @@ def main(argv=None) -> int:
     torch.cuda.empty_cache()
     by_path["lm_serving"] = lm_serving_phase(torch, args.seed, fft_stage, cm)
     by_path.update(moe_serving_phase(torch, args.seed, fft_stage, cm))
+    by_path.update(tp_serving_phase(torch, args.seed, fft_stage, cm))
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

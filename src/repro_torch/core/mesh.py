@@ -358,6 +358,27 @@ class SimMesh(_AxisMesh):
 
     host_max = all_max  # host values (ProcessGroupMesh.host_max): the same here
 
+    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
+        default): every rank of a ring gets the sum of the ring's blocks,
+        added in rank order -- one tensor, the same object for each."""
+        return self._reduce(blocks, axis_name, torch.add)
+
+    def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.pmax`` over ``axis_name``, as :meth:`psum`."""
+        return self._reduce(blocks, axis_name, torch.maximum)
+
+    def _reduce(self, blocks, axis_name, op) -> Blocks:
+        self._check(blocks)
+        out = list(blocks)
+        for ring in self.ring_ranks(axis_name or self.axis_name):
+            acc = blocks[ring[0]]
+            for r in ring[1:]:
+                acc = op(acc, blocks[r])
+            for r in ring:
+                out[r] = acc
+        return out
+
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x: torch.Tensor, tail: Sequence[Optional[str]]) -> Blocks:
         """Global array -> per-rank blocks, sharding the dims the trailing
@@ -559,6 +580,28 @@ class ProcessGroupMesh(_AxisMesh):
         t = torch.tensor([float(v) for v in values], dtype=torch.float64)
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t.tolist()
+
+    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
+        default): one ``all_reduce`` (SUM) of a copy of the rank's block on
+        the axis's ring group (a grid's rings have theirs, made with the
+        mesh). The collective hands every rank of the ring the same bits."""
+        return self._all_reduce(blocks, axis_name, "SUM")
+
+    def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.pmax`` over ``axis_name``, as :meth:`psum` (MAX)."""
+        return self._all_reduce(blocks, axis_name, "MAX")
+
+    def _all_reduce(self, blocks, axis_name, op: str) -> Blocks:
+        import torch.distributed as dist
+
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        if ring.p == 1:  # a ring of one: nothing to reduce
+            return [blocks[0]]
+        t = blocks[0].resolve_conj().clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=ring.group)
+        return [t]
 
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x, tail: Sequence[Optional[str]]) -> Blocks:

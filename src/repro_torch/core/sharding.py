@@ -9,15 +9,28 @@ shape-only ``FakeMesh``), and a partition spec is a plain tuple with one
 entry per dim: ``None``, an axis name, or a tuple of axis names -- the
 entries of jax's ``PartitionSpec``.
 
-``named``, ``constrain``, ``tree_shardings`` and ``batch_sharding`` build
-GSPMD objects; their counterparts come with tensor-parallel serving
-(ROADMAP A15.1c). ``resolve`` already places the MoE experts
-(``models.model``, ``models.moe``).
+The reference's other half (``named``, ``constrain``, ``tree_shardings``,
+``batch_sharding``) builds GSPMD shardings and constraints; the compiler
+then moves the data. The port places explicitly instead:
+:func:`placement` resolves a leaf's spec for the mesh and :func:`block`
+names the block a ``ProcessGroupMesh`` rank keeps (``Model.init``,
+``models.model.params_from_numpy``). ``constrain`` has no counterpart:
+the activations' layout is whatever the model code computes, and the
+collectives that move them sit in the model code (``models.common.TP``).
+
+Two rules differ from GSPMD's. Heads are placed whole: the reference
+resolves the flattened ``(d, H*hd)`` leaves by their size, so a model
+with 2 KV heads of 16 on 4 ranks splits ``wk`` into half heads, which
+GSPMD survives and explicit attention cannot; here a ``"heads"`` or
+``"kv_heads"`` dim takes the ``model`` axis only where the head count
+(``units``) divides it. And only the ``model`` axis places weights in
+this slice: a ``data`` axis (``"fsdp"``) replicates them (FSDP comes
+with training, ROADMAP A15.3).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence, Tuple, Union
+from typing import Mapping, Optional, Sequence, Tuple, Union
 
 Axis = Union[str, None]
 Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
@@ -73,6 +86,52 @@ def resolve(mesh, *logical: Axis, shape: Optional[Sequence[int]] = None) -> Spec
         used.update(axes)
         out.append(_entry(axes))
     return tuple(out)
+
+
+#: logical names whose units are heads: placed whole (see the module docstring)
+HEAD_NAMES = ("heads", "kv_heads")
+
+
+def placement(mesh, spec: Sequence[Axis], shape: Sequence[int],
+              units: Optional[Mapping[str, int]] = None) -> Spec:
+    """The port's placement of a leaf of ``shape`` whose logical spec is
+    ``spec``: ``"model"`` on the dim :func:`resolve` gives the ``model``
+    axis, where the dim's whole units -- ``units[name]`` (the head count
+    of a ``"heads"`` / ``"kv_heads"`` dim), else its size -- divide the
+    axis; None everywhere else (replicated). No mesh, or a ``model`` axis
+    of one rank, places nothing."""
+    p = mesh.shape.get("model", 1) if mesh is not None else 1
+    if p == 1:
+        return (None,) * len(spec)
+    out = []
+    for name, entry, n in zip(spec, resolve(mesh, *spec, shape=shape), shape):
+        if entry != "model" and not (isinstance(entry, tuple) and "model" in entry):
+            out.append(None)
+            continue
+        if name in HEAD_NAMES and (units is None or name not in units):
+            raise ValueError(f"placing a {name!r} dim needs its head count (units={{{name!r}: ...}}): heads are "
+                             "placed whole")
+        whole = units[name] if units is not None and name in units else n
+        out.append("model" if whole % p == 0 else None)
+    return tuple(out)
+
+
+def block(mesh, spec: Sequence[Axis], shape: Sequence[int],
+          units: Optional[Mapping[str, int]] = None) -> Optional[Tuple[int, int, int]]:
+    """(dim, first, count): the block of a leaf that the caller keeps on a
+    mesh where it holds its own block (a ``ProcessGroupMesh``): its
+    ``model`` coordinate's slice of the dim :func:`placement` puts on
+    that axis. None where it keeps the whole leaf: no mesh, a
+    ``SimMesh`` (every rank's block is a view of the whole leaf), or a
+    leaf placed nowhere."""
+    if mesh is None or not mesh.caller_holds_block:
+        return None
+    where = placement(mesh, spec, shape, units)
+    if "model" not in where:
+        return None
+    dim = where.index("model")
+    n = shape[dim] // mesh.shape["model"]
+    return dim, mesh.axis_index("model") * n, n
 
 
 def sanitize_spec(mesh, spec: Sequence, shape: Sequence[int]) -> Spec:

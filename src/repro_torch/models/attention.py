@@ -16,20 +16,49 @@ MLA (DeepSeek-V3's multi-head latent attention): prefill expands the
 latent to per-head K/V and attends as MHA; decode scores against the
 *latent* cache through the absorbed up-projection, as the reference's.
 
-Not ported yet: the flash backward (A15.3) and ``flash_decode_combine``
-(A15.1c).
+Tensor parallelism (``tp``, a ``common.TP`` over the mesh's ``model``
+axis; the reference's GSPMD constraints, ``attention.py:29-83``), by
+whole heads (``core.sharding.placement``):
+
+- **heads partition**: ``wq`` / ``bq`` column blocks of H/P heads, ``wo``
+  a row block, one psum of the partial outputs. ``wk`` / ``wv`` / ``bk``
+  / ``bv`` and the KV cache are split by KV heads where P divides their
+  count; elsewhere they stay whole on every rank, and each rank reads the
+  KV heads its Q heads read (GQA group ``h // (H / KVH)``).
+- **context partition** (:func:`use_context_parallel`: ``attn_partition``
+  "context", or "auto" where P does not divide the heads), for the
+  full-sequence passes: Q sequence-sharded (an all-to-all from the head
+  blocks, or each rank's rows of the whole Q), K / V whole (an all-gather
+  of the KV head blocks), every head on the rank's S/P queries, then back
+  to the row-parallel ``wo`` (an all-to-all) or, where the heads stay
+  whole, ``wo`` on the rank's rows and an all-gather. Where P does not
+  divide S it falls back to the heads partition if P divides the heads,
+  else every rank computes every head (the reference pads; the outputs
+  are the same). Decode (no constraint in the reference) keeps the cache
+  whole under the context partition; each rank attends for its Q heads,
+  or for every head where the heads stay whole.
+- **MLA**: ``wdq`` / ``wdkv`` and the latent cache whole on every rank,
+  ``wuq`` / ``wukv`` column blocks by head (the absorbed decode absorbs
+  the rank's heads), ``wo`` a row block, one psum (the reference
+  constrains MLA to the heads partition).
+
+:func:`flash_decode_combine` merges partial online softmaxes over a
+sequence-sharded KV (``pmax`` then two ``psum`` s); no serving path calls
+it, in the reference or here.
+
+Not ported yet: the flash backward (A15.3).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple, Union
+from typing import List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import MLAConfig, ModelConfig
 from repro_torch.models import common
-from repro_torch.models.common import Params, Specs
+from repro_torch.models.common import TP, Acts, Params, Specs
 
 NEG_INF = -1e30
 
@@ -204,45 +233,141 @@ def init_attention(generator: torch.Generator, cfg: ModelConfig, device) -> Tupl
     return p, s
 
 
-def qkv_proj(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    dt = x.dtype
-    b, s, _ = x.shape
+def use_context_parallel(cfg: ModelConfig, tp: TP) -> bool:
+    """The reference's ``_use_context_parallel``: ``attn_partition``
+    "context" or "heads" as asked, "auto" the context partition where the
+    ``model`` axis does not divide the heads; never on one rank."""
+    if tp.p == 1:
+        return False
+    if cfg.attn_partition == "context":
+        return True
+    if cfg.attn_partition == "heads":
+        return False
+    return cfg.num_heads % tp.p != 0
+
+
+class _Split(NamedTuple):
+    heads: bool  # wq / bq / wo in blocks of H/P heads
+    kv: bool  # wk / wv / bk / bv in blocks of KVH/P heads
+    cache: bool  # the KV cache in blocks of KVH/P heads
+    context: bool  # the context partition for the full-sequence passes
+
+
+def _split(cfg: ModelConfig, tp: TP) -> _Split:
+    ctx = use_context_parallel(cfg, tp)
+    kv = tp.splits(cfg.num_kv_heads)
+    return _Split(tp.splits(cfg.num_heads), kv, kv and not ctx, ctx)
+
+
+def cache_heads(cfg: ModelConfig, tp: TP) -> int:
+    """The KV heads of the cache this process holds."""
+    return cfg.num_kv_heads // tp.p if _split(cfg, tp).cache and tp.holds_block else cfg.num_kv_heads
+
+
+def _heads_block(tp: TP, w: torch.Tensor, dim: int, c: int, units: int, width: int) -> torch.Tensor:
+    """Coordinate ``c``'s block of ``units`` heads of ``width`` along ``dim``."""
+    return tp.block(w, dim % w.ndim, c, units * width, units)
+
+
+def _gqa_qkv(p: Params, x: Acts, cfg: ModelConfig, positions: torch.Tensor, tp: TP, coords: Sequence[int]):
+    """Each coordinate's (q (B, S, H', hd), k, v (B, S, KVH', hd)), rope
+    applied: its Q heads and its K / V heads (every KV head where they
+    stay whole), over the whole sequence."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    q = x @ p["wq"].to(dt)
-    k = x @ p["wk"].to(dt)
-    v = x @ p["wv"].to(dt)
-    if cfg.qkv_bias:
-        q = q + p["bq"].to(dt)
-        k = k + p["bk"].to(dt)
-        v = v + p["bv"].to(dt)
-    q = q.reshape(b, s, h, hd)
-    k = k.reshape(b, s, kvh, hd)
-    v = v.reshape(b, s, kvh, hd)
-    if cfg.rope_theta > 0:
-        q = common.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
-        k = common.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
-    return q, k, v
+    cols = tp.col(x, lambda c: [_heads_block(tp, p[n], -1, c, u, hd) for n, u in (("wq", h), ("wk", kvh), ("wv", kvh))],
+                  coords)
+    out = []
+    for c, (q, k, v) in zip(coords, cols):
+        dt = q.dtype
+        if cfg.qkv_bias:
+            q = q + _heads_block(tp, p["bq"], 0, c, h, hd).to(dt)
+            k = k + _heads_block(tp, p["bk"], 0, c, kvh, hd).to(dt)
+            v = v + _heads_block(tp, p["bv"], 0, c, kvh, hd).to(dt)
+        b, s = q.shape[:2]
+        q = q.reshape(b, s, -1, hd)
+        k = k.reshape(b, s, -1, hd)
+        v = v.reshape(b, s, -1, hd)
+        if cfg.rope_theta > 0:
+            q = common.rope(q, positions, cfg.rope_theta, cfg.rope_fraction)
+            k = common.rope(k, positions, cfg.rope_theta, cfg.rope_fraction)
+        out.append((q, k, v))
+    return out
 
 
-def out_proj(p: Params, attn_out: torch.Tensor) -> torch.Tensor:
-    b, s, h, hd = attn_out.shape
-    return attn_out.reshape(b, s, h * hd) @ p["wo"].to(attn_out.dtype)
+def _kv_for(t: torch.Tensor, c: int, cfg: ModelConfig, tp: TP) -> torch.Tensor:
+    """The K or V heads (dim 2 of ``t``) that coordinate ``c``'s Q heads
+    read: ``t`` itself where it holds every Q head or is the rank's own
+    KV block; of a whole ``t``, the KV heads of the rank's GQA groups
+    (``h // (H / KVH)``): a view where they are contiguous whole groups
+    or one group, else one KV head per Q head (a copy)."""
+    h, kvh = cfg.num_heads, cfg.num_kv_heads
+    if not tp.splits(h) or t.shape[2] != kvh:
+        return t
+    n, g = h // tp.p, h // kvh
+    if g % n == 0:
+        return t.narrow(2, c * n // g, 1)
+    if n % g == 0:
+        return t.narrow(2, c * n // g, n // g)
+    return t.index_select(2, torch.tensor([(c * n + i) // g for i in range(n)], device=t.device))
+
+
+def _out(p: Params, o: torch.Tensor, c: int, cfg: ModelConfig, tp: TP, width: int) -> torch.Tensor:
+    """Coordinate ``c``'s (B, S, H', width) attention output through its
+    row block of ``wo``."""
+    b, s = o.shape[:2]
+    return o.reshape(b, s, -1) @ _heads_block(tp, p["wo"], 0, c, cfg.num_heads, width).to(o.dtype)
+
+
+def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: str, tp: TP,
+                    cache: Optional["KVCache"] = None) -> Acts:
+    """The full-sequence pass (positions 0..S-1) in the heads or the
+    context partition; with ``cache``, its rows [0, S) written in place
+    from the fresh K / V (the rank's KV heads, or all of them once)."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    sp = _split(cfg, tp)
+    whole = x if isinstance(x, torch.Tensor) else x[0]
+    s = whole.shape[1] * (tp.p if tp.seq else 1)
+    context = sp.context and s % tp.p == 0
+    coords = tp.owners(sp.heads or context)
+    qkv = _gqa_qkv(p, x, cfg, torch.arange(s, device=whole.device), tp, coords)
+    kv_whole = None
+    if context or (cache is not None and not sp.cache):
+        if sp.kv:
+            kv_whole = (tp.gather([k for _, k, _ in qkv], 2), tp.gather([v for _, _, v in qkv], 2))
+        else:
+            kv_whole = qkv[0][1:]
+    if cache is not None:
+        if sp.cache:
+            for c, (_, k, v) in zip(coords, qkv):
+                tp.block(cache.k, 2, c, kvh)[:, :s] = k.to(cache.k.dtype)
+                tp.block(cache.v, 2, c, kvh)[:, :s] = v.to(cache.v.dtype)
+        else:
+            cache.k[:, :s] = kv_whole[0].to(cache.k.dtype)
+            cache.v[:, :s] = kv_whole[1].to(cache.v.dtype)
+    if not context:
+        outs = [attention(q, _kv_for(k, c, cfg, tp), _kv_for(v, c, cfg, tp), spec, impl=impl,
+                          kv_chunk=cfg.attn_kv_chunk) for c, (q, k, v) in zip(coords, qkv)]
+        return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)],
+                         "partial" if sp.heads else "whole")
+    sl = s // tp.p
+    if sp.heads:  # the head blocks -> each rank's S/P queries of every head
+        qs = tp.all_to_all([q for q, _, _ in qkv], 1, 2)
+    else:
+        qs = [q.narrow(1, c * sl, sl) for c, (q, _, _) in zip(coords, qkv)]
+    k, v = kv_whole
+    outs = [attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk, q_offset=c * sl)
+            for c, q in zip(coords, qs)]
+    if sp.heads:  # back to the head blocks over the whole sequence, for the row-parallel wo
+        outs = tp.all_to_all(outs, 2, 1)
+        return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)], "partial")
+    return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)], "seq")
 
 
 def apply_attention(
-    p: Params,
-    x: torch.Tensor,
-    cfg: ModelConfig,
-    spec: AttnSpec,
-    *,
-    positions: Optional[torch.Tensor] = None,
-    impl: str = "chunked",
-) -> torch.Tensor:
-    if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    q, k, v = qkv_proj(p, x, cfg, positions)
-    o = attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk)
-    return out_proj(p, o)
+    p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, *, impl: str = "chunked", tp: TP = common.SINGLE,
+) -> Acts:
+    """The training / trunk pass over positions 0..S-1."""
+    return _full_attention(p, x, cfg, spec, impl, tp)
 
 
 # --- decode with cache -------------------------------------------------------
@@ -284,20 +409,37 @@ def decode_attention(
     spec: AttnSpec,
     *,
     kv_chunk: int = 512,
+    tp: TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, KVCache]:
     """One decode step: write K/V at each row's cache.length, attend over
     the cache. Rows may be at different positions (serving slots).
 
-    The write goes into ``cache.k`` / ``cache.v`` in place (``_write_rows``);
-    the returned cache shares them, with ``length + 1``.
+    The write goes into ``cache.k`` / ``cache.v`` in place (``_write_rows``):
+    each rank's KV heads where the cache is split, else all of them once
+    (the new token's K / V gathered over the ranks where their weights are
+    split); the returned cache shares them, with ``length + 1``.
     """
+    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
+    sp = _split(cfg, tp)
     pos = cache.length  # (B,)
-    q, k, v = qkv_proj(p, x, cfg, positions=pos[:, None])
-    _write_rows(pos, (cache.k, k[:, 0]), (cache.v, v[:, 0]))
-    o = attention_chunked(
-        q, cache.k, cache.v, spec, q_offset=pos, kv_chunk=kv_chunk, kv_valid_len=pos + 1
-    )
-    return out_proj(p, o), KVCache(cache.k, cache.v, pos + 1)
+    coords = tp.owners(sp.heads)
+    qkv = _gqa_qkv(p, x, cfg, pos[:, None], tp, coords)
+
+    def view(t, c):
+        return tp.block(t, 2, c, kvh) if sp.cache else t
+
+    if sp.cache:
+        for c, (_, k, v) in zip(coords, qkv):
+            _write_rows(pos, (view(cache.k, c), k[:, 0]), (view(cache.v, c), v[:, 0]))
+    else:
+        k, v = ((tp.gather([t[i] for t in qkv], 2) for i in (1, 2)) if sp.kv else qkv[0][1:])
+        _write_rows(pos, (cache.k, k[:, 0]), (cache.v, v[:, 0]))
+    parts = []
+    for c, (q, _, _) in zip(coords, qkv):
+        o = attention_chunked(q, _kv_for(view(cache.k, c), c, cfg, tp), _kv_for(view(cache.v, c), c, cfg, tp), spec,
+                              q_offset=pos, kv_chunk=kv_chunk, kv_valid_len=pos + 1)
+        parts.append(_out(p, o, c, cfg, tp, hd))
+    return tp.reduce(parts, "partial" if sp.heads else "whole"), KVCache(cache.k, cache.v, pos + 1)
 
 
 def prefill_attention(
@@ -308,16 +450,28 @@ def prefill_attention(
     spec: AttnSpec,
     *,
     impl: str = "chunked",
+    tp: TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, KVCache]:
     """Causal full-sequence pass that also writes cache[0:S] in place.
     It attends the fresh K/V, not the cache's (bfloat16) copy of them."""
     b, s, _ = x.shape
-    q, k, v = qkv_proj(p, x, cfg, positions=torch.arange(s, device=x.device))
-    cache.k[:, :s] = k.to(cache.k.dtype)
-    cache.v[:, :s] = v.to(cache.v.dtype)
-    o = attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk)
-    length = torch.full((b,), s, dtype=torch.int32, device=x.device)
-    return out_proj(p, o), KVCache(cache.k, cache.v, length)
+    out = _full_attention(p, x, cfg, spec, impl, tp, cache)
+    return out, KVCache(cache.k, cache.v, torch.full((b,), s, dtype=torch.int32, device=x.device))
+
+
+def flash_decode_combine(partial_out: Sequence[torch.Tensor], partial_m: Sequence[torch.Tensor],
+                         partial_l: Sequence[torch.Tensor], mesh, axis_name: str) -> List[torch.Tensor]:
+    """Distributed decode over a sequence-sharded KV, the reference's
+    two-psum combine: each rank's partial online softmax -- its (B, 1, H,
+    Dv) unnormalized output, (B, H) max and (B, H) sum over its slice of
+    the keys, one of each per ``mesh.local_ranks()`` -- rescaled by the
+    global max (``mesh.pmax``) and summed (``mesh.psum``) over
+    ``axis_name``. Returns each rank's normalized (B, 1, H, Dv) output."""
+    m_glob = mesh.pmax(list(partial_m), axis_name)
+    scale = [torch.exp(m - g) for m, g in zip(partial_m, m_glob)]
+    num = mesh.psum([o * sc[:, None, :, None] for o, sc in zip(partial_out, scale)], axis_name)
+    den = mesh.psum([l * sc for l, sc in zip(partial_l, scale)], axis_name)
+    return [n / torch.clamp(d[:, None, :, None], min=1e-30) for n, d in zip(num, den)]
 
 
 # ---------------------------------------------------------------------------
@@ -354,50 +508,66 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Para
     return p, s
 
 
+def _mla_ranks(p: Params, x: Acts, cfg: ModelConfig, positions: torch.Tensor, tp: TP, coords: Sequence[int]):
+    """Each coordinate's (q_nope (B,S,H',nope), q_rope (B,S,H',rope)
+    rotated, ckv (B,S,r) normalized, k_rope (B,S,1,rope) rotated): its
+    heads' queries, and the latent, which every rank computes whole."""
+    m: MLAConfig = cfg.mla
+    h, qd = cfg.num_heads, m.nope_head_dim + m.rope_head_dim
+    out = []
+    for c, (cq, ckv_full) in zip(coords, tp.col(x, lambda c: [p["wdq"], p["wdkv"]], coords)):
+        dt = cq.dtype
+        cq = common.apply_norm(p["q_norm"], cq, "rmsnorm")
+        q = cq @ _heads_block(tp, p["wuq"], 1, c, h, qd).to(dt)
+        q = q.reshape(q.shape[0], q.shape[1], -1, qd)
+        q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
+        q_rope = common.rope(q_rope, positions, cfg.rope_theta)
+        ckv = common.apply_norm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank], "rmsnorm")
+        k_rope = common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+        out.append((q_nope, q_rope, ckv, k_rope))
+    return out
+
+
 def _mla_qkv(p: Params, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
-    """(q_nope (B,S,H,nope), q_rope (B,S,H,rope) rotated, ckv (B,S,r)
-    normalized, k_rope (B,S,1,rope) rotated)."""
-    m: MLAConfig = cfg.mla
-    dt = x.dtype
-    b, s, _ = x.shape
-    cq = common.apply_norm(p["q_norm"], x @ p["wdq"].to(dt), "rmsnorm")
-    q = (cq @ p["wuq"].to(dt)).reshape(b, s, cfg.num_heads, m.nope_head_dim + m.rope_head_dim)
-    q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
-    q_rope = common.rope(q_rope, positions, cfg.rope_theta)
-    ckv_full = x @ p["wdkv"].to(dt)
-    ckv = common.apply_norm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank], "rmsnorm")
-    k_rope = common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
-    return q_nope, q_rope, ckv, k_rope
+    """One rank's (q_nope, q_rope, ckv, k_rope) of :func:`_mla_ranks`."""
+    return _mla_ranks(p, x, cfg, positions, common.SINGLE, [0])[0]
 
 
-def _mla_expanded(p: Params, x: torch.Tensor, cfg: ModelConfig, spec: AttnSpec, positions, impl: str):
-    """Attention with the latent expanded to per-head K/V (MHA): returns
-    (output (B, S, d), ckv, k_rope) -- the fresh latent, for a cache."""
+def _mla_expanded(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, positions, impl: str, tp: TP):
+    """Attention with the latent expanded to per-head K/V (MHA), each
+    rank on its heads: returns (output in x's layout, ckv, k_rope) -- the
+    fresh latent, for a cache."""
     m: MLAConfig = cfg.mla
-    b, s, _ = x.shape
-    h = cfg.num_heads
-    q_nope, q_rope, ckv, k_rope = _mla_qkv(p, x, cfg, positions)
-    kv = (ckv @ p["wukv"].to(x.dtype)).reshape(b, s, h, m.nope_head_dim + m.v_head_dim)
-    k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
-    k = torch.cat([k_nope, k_rope.expand(b, s, h, m.rope_head_dim)], dim=-1)
-    q = torch.cat([q_nope, q_rope], dim=-1)
-    o = attention(q, k, v, spec, impl=impl).reshape(b, s, h * m.v_head_dim)
-    return o @ p["wo"].to(x.dtype), ckv, k_rope
+    h, e = cfg.num_heads, m.nope_head_dim + m.v_head_dim
+    split = tp.splits(h)
+    coords = tp.owners(split)
+    parts = []
+    ranks = _mla_ranks(p, x, cfg, positions, tp, coords)
+    for c, (q_nope, q_rope, ckv, k_rope) in zip(coords, ranks):
+        b, s, n = q_nope.shape[:3]
+        kv = (ckv @ _heads_block(tp, p["wukv"], 1, c, h, e).to(ckv.dtype)).reshape(b, s, n, e)
+        k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
+        k = torch.cat([k_nope, k_rope.expand(b, s, n, m.rope_head_dim)], dim=-1)
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        parts.append(_out(p, attention(q, k, v, spec, impl=impl), c, cfg, tp, m.v_head_dim))
+    return tp.reduce(parts, "partial" if split else "whole"), ranks[0][2], ranks[0][3]
 
 
 def apply_mla(
     p: Params,
-    x: torch.Tensor,
+    x: Acts,
     cfg: ModelConfig,
     spec: AttnSpec,
     *,
     positions: Optional[torch.Tensor] = None,
     impl: str = "chunked",
-) -> torch.Tensor:
+    tp: TP = common.SINGLE,
+) -> Acts:
     """Training/prefill MLA: expand the latent to per-head K/V, run MHA."""
     if positions is None:
-        positions = torch.arange(x.shape[1], device=x.device)
-    return _mla_expanded(p, x, cfg, spec, positions, impl)[0]
+        whole = x if isinstance(x, torch.Tensor) else x[0]
+        positions = torch.arange(whole.shape[1] * (tp.p if tp.seq else 1), device=whole.device)
+    return _mla_expanded(p, x, cfg, spec, positions, impl, tp)[0]
 
 
 class MLACache(NamedTuple):
@@ -416,18 +586,19 @@ def init_mla_cache(b: int, s_max: int, m: MLAConfig, dtype=torch.bfloat16, devic
 
 def prefill_mla(
     p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec, *, impl: str = "chunked",
+    tp: TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, MLACache]:
     """Full-sequence MLA pass that writes the latent cache[0:S] in place.
     It attends the fresh latent, not the cache's (bfloat16) copy of it."""
     b, s, _ = x.shape
-    out, ckv, k_rope = _mla_expanded(p, x, cfg, spec, torch.arange(s, device=x.device), impl)
+    out, ckv, k_rope = _mla_expanded(p, x, cfg, spec, torch.arange(s, device=x.device), impl, tp)
     cache.ckv[:, :s] = ckv.to(cache.ckv.dtype)
     cache.k_rope[:, :s] = k_rope[:, :, 0, :].to(cache.k_rope.dtype)
     return out, MLACache(cache.ckv, cache.k_rope, torch.full((b,), s, dtype=torch.int32, device=x.device))
 
 
 def decode_mla(
-    p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec
+    p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec, *, tp: TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, MLACache]:
     """Absorbed-matrix MLA decode: scores against the *latent* cache.
 
@@ -435,26 +606,32 @@ def decode_mla(
     cache stays rank-(kv_lora + rope_d) per token. The write goes into
     the cache in place (a row past its end is not written, as in
     :func:`decode_attention`); every row attends positions <= its own.
-    ``spec`` is unused, as in the reference (no window, no softcap).
+    Each rank absorbs its heads' up-projection. ``spec`` is unused, as in
+    the reference (no window, no softcap).
     """
     m: MLAConfig = cfg.mla
-    h = cfg.num_heads
+    h, e = cfg.num_heads, m.nope_head_dim + m.v_head_dim
     pos = cache.length  # (B,)
     b, dt = x.shape[0], x.dtype
-    q_nope, q_rope, ckv_t, k_rope_t = _mla_qkv(p, x, cfg, positions=pos[:, None])
-    _write_rows(pos, (cache.ckv, ckv_t[:, 0]), (cache.k_rope, k_rope_t[:, 0, 0, :]))
+    split = tp.splits(h)
+    coords = tp.owners(split)
+    ranks = _mla_ranks(p, x, cfg, pos[:, None], tp, coords)
+    _write_rows(pos, (cache.ckv, ranks[0][2][:, 0]), (cache.k_rope, ranks[0][3][:, 0, 0, :]))
     ckv_c, kr_c = cache.ckv.to(dt), cache.k_rope.to(dt)
-
-    wukv = p["wukv"].reshape(m.kv_lora_rank, h, m.nope_head_dim + m.v_head_dim)
-    wuk = wukv[..., :m.nope_head_dim].to(dt)  # (r, h, nope)
-    wuv = wukv[..., m.nope_head_dim:].to(dt)  # (r, h, v)
-    q_lat = torch.einsum("bshe,rhe->bshr", q_nope, wuk)  # the absorbed query
-    s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
-    s_rope = torch.einsum("bshe,bte->bhst", q_rope, kr_c)
-    scores = (s_lat + s_rope).float() / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-    t_idx = torch.arange(scores.shape[-1], device=x.device)
-    scores = torch.where((t_idx <= pos[:, None])[:, None, None, :], scores, NEG_INF)
-    pr = torch.softmax(scores, dim=-1)
-    lat_sum = torch.einsum("bhst,btr->bshr", pr.to(dt), ckv_c)
-    o = torch.einsum("bshr,rhe->bshe", lat_sum, wuv).reshape(b, -1, h * m.v_head_dim)
-    return o @ p["wo"].to(dt), MLACache(cache.ckv, cache.k_rope, pos + 1)
+    t_idx = torch.arange(ckv_c.shape[1], device=x.device)
+    parts = []
+    for c, (q_nope, q_rope, _, _) in zip(coords, ranks):
+        n = q_nope.shape[2]
+        wukv = _heads_block(tp, p["wukv"], 1, c, h, e).reshape(m.kv_lora_rank, n, e)
+        wuk = wukv[..., :m.nope_head_dim].to(dt)  # (r, h, nope)
+        wuv = wukv[..., m.nope_head_dim:].to(dt)  # (r, h, v)
+        q_lat = torch.einsum("bshe,rhe->bshr", q_nope, wuk)  # the absorbed query
+        s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
+        s_rope = torch.einsum("bshe,bte->bhst", q_rope, kr_c)
+        scores = (s_lat + s_rope).float() / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+        scores = torch.where((t_idx <= pos[:, None])[:, None, None, :], scores, NEG_INF)
+        pr = torch.softmax(scores, dim=-1)
+        lat_sum = torch.einsum("bhst,btr->bshr", pr.to(dt), ckv_c)
+        o = torch.einsum("bshr,rhe->bshe", lat_sum, wuv)
+        parts.append(_out(p, o, c, cfg, tp, m.v_head_dim))
+    return tp.reduce(parts, "partial" if split else "whole"), MLACache(cache.ckv, cache.k_rope, pos + 1)

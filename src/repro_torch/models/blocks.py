@@ -8,6 +8,11 @@ sliding-window and global layers. ``apply_decoder_block`` returns ``(x,
 aux)``, aux the MoE router's load-balance loss (0 for a dense FFN).
 Decode and prefill take one layer's cache (``KVCache`` or ``MLACache``,
 views into the model's stacked cache) and write it in place.
+
+Over a mesh (``tp``, ``common.TP``) the attention and the dense FFN are
+tensor-parallel and the norms and residuals run on the activations as
+they lie: replicated, or under Megatron sequence parallelism
+(``Model.hidden``) on each rank's sequence block.
 """
 
 from __future__ import annotations
@@ -61,53 +66,66 @@ def init_decoder_block(generator: torch.Generator, cfg: ModelConfig, device, *, 
     return p, s
 
 
-def _ffn(p: Params, x: torch.Tensor, cfg: ModelConfig, use_moe: bool, mesh):
+def _ffn(p: Params, x: common.Acts, cfg: ModelConfig, use_moe: bool, tp: common.TP):
     """(x + the FFN's output, the router's aux loss or None for a dense
-    FFN: decode and prefill drop it, so they make no zero for it)."""
-    h2 = common.apply_norm(p["ln2"], x, cfg.norm_kind)
+    FFN: decode and prefill drop it, so they make no zero for it). A MoE
+    FFN runs on the whole sequence (gathered from sequence blocks, and
+    its output cut back to them): its experts keep their own placement."""
+    h2 = tp.each(lambda a: common.apply_norm(p["ln2"], a, cfg.norm_kind), x)
     if use_moe:
-        f, aux = moe.apply_moe(p["ffn"], h2, cfg, mesh=mesh)
+        f, aux = moe.apply_moe(p["ffn"], tp.whole(h2), cfg, mesh=tp.mesh, tp=tp.with_seq(False))
+        if tp.seq:
+            f = tp.scatter_seq(f)
     else:
-        f, aux = mlp.apply_mlp(p["ffn"], h2, cfg.mlp_kind), None
-    return x + _maybe_post(p.get("ln2p"), f, cfg), aux
+        f, aux = mlp.apply_mlp(p["ffn"], h2, cfg.mlp_kind, tp, cfg.d_ff), None
+    return _residual(p.get("ln2p"), x, f, cfg, tp), aux
+
+
+def _residual(post, x: common.Acts, a: common.Acts, cfg: ModelConfig, tp: common.TP) -> common.Acts:
+    return tp.each(lambda xi, ai: xi + _maybe_post(post, ai, cfg), x, a)
 
 
 def apply_decoder_block(
     p: Params,
-    x: torch.Tensor,
+    x: common.Acts,
     cfg: ModelConfig,
     *,
     is_global: bool,
     use_moe: bool = False,
-    positions=None,
     impl: str = "chunked",
-    mesh=None,
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
+    tp: common.TP = common.SINGLE,
+) -> Tuple[common.Acts, torch.Tensor]:
+    """``x`` in ``tp``'s layout (sequence blocks under Megatron sequence
+    parallelism), positions 0..S-1."""
+    h = tp.each(lambda a: common.apply_norm(p["ln1"], a, cfg.norm_kind), x)
     spec = _attn_spec(cfg, is_global=is_global)
     if cfg.mla is not None:
-        a = attn.apply_mla(p["attn"], h, cfg, spec, positions=positions, impl=impl)
+        a = attn.apply_mla(p["attn"], h, cfg, spec, impl=impl, tp=tp)
     else:
-        a = attn.apply_attention(p["attn"], h, cfg, spec, positions=positions, impl=impl)
-    x, aux = _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, mesh)
-    return x, torch.zeros((), device=x.device) if aux is None else aux
+        a = attn.apply_attention(p["attn"], h, cfg, spec, impl=impl, tp=tp)
+    x, aux = _ffn(p, _residual(p.get("ln1p"), x, a, cfg, tp), cfg, use_moe, tp)
+    dev = (x if isinstance(x, torch.Tensor) else x[0]).device
+    return x, torch.zeros((), device=dev) if aux is None else aux
 
 
-def init_block_cache(cfg: ModelConfig, b: int, s_max: int, dtype=torch.bfloat16, device=None) -> Cache:
+def init_block_cache(cfg: ModelConfig, b: int, s_max: int, dtype=torch.bfloat16, device=None,
+                     tp: common.TP = common.SINGLE) -> Cache:
+    """One layer's cache; a GQA cache holds this process's KV heads
+    (``attention.cache_heads``)."""
     if cfg.mla is not None:
         return attn.init_mla_cache(b, s_max, cfg.mla, dtype, device)
-    return attn.init_kv_cache(b, s_max, cfg.num_kv_heads, cfg.head_dim_, dtype, device)
+    return attn.init_kv_cache(b, s_max, attn.cache_heads(cfg, tp), cfg.head_dim_, dtype, device)
 
 
 def decode_decoder_block(
     p: Params, x: torch.Tensor, cfg: ModelConfig, cache: Cache, *, is_global: bool, use_moe: bool = False,
-    mesh=None,
+    tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, Cache]:
     h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
     spec = _attn_spec(cfg, is_global=is_global)
     decode = attn.decode_mla if cfg.mla is not None else attn.decode_attention
-    a, new_cache = decode(p["attn"], h, cache, cfg, spec)
-    return _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, mesh)[0], new_cache
+    a, new_cache = decode(p["attn"], h, cache, cfg, spec, tp=tp)
+    return _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, tp)[0], new_cache
 
 
 def prefill_decoder_block(
@@ -119,11 +137,11 @@ def prefill_decoder_block(
     is_global: bool,
     use_moe: bool = False,
     impl: str = "chunked",
-    mesh=None,
+    tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, Cache]:
     """Full-sequence forward that also fills the layer's cache."""
     h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
     spec = _attn_spec(cfg, is_global=is_global)
     prefill = attn.prefill_mla if cfg.mla is not None else attn.prefill_attention
-    a, new_cache = prefill(p["attn"], h, cache, cfg, spec, impl=impl)
-    return _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, mesh)[0], new_cache
+    a, new_cache = prefill(p["attn"], h, cache, cfg, spec, impl=impl, tp=tp)
+    return _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, tp)[0], new_cache

@@ -14,13 +14,17 @@ statistics.
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 Params = dict
 Specs = dict
+#: a layer's activations: one (B, S, d) tensor the same on every rank, or
+#: under Megatron sequence parallelism one (B, S/P, d) block per local rank
+Acts = Union[torch.Tensor, List[torch.Tensor]]
 
 
 def _std(shape, scale: float) -> float:
@@ -162,13 +166,35 @@ def init_embed(generator: torch.Generator, vocab: int, d: int, tie: bool, device
     return p, s
 
 
-def embed_tokens(p: Params, tokens: torch.Tensor, dtype) -> torch.Tensor:
-    return p["table"].to(dtype)[tokens.long()]
+def embed_tokens(p: Params, tokens: torch.Tensor, dtype, tp: Optional["TP"] = None,
+                 vocab: Optional[int] = None) -> torch.Tensor:
+    """Look the tokens up. Vocab-parallel (``tp`` splits the ``vocab``
+    rows): each rank looks up in its rows, zeroes the tokens outside
+    them, and one psum adds the ranks' lookups -- one of them nonzero, so
+    the sum is the one-rank lookup bit for bit."""
+    if tp is None or not tp.splits(vocab):
+        return p["table"].to(dtype)[tokens.long()]
+    n = vocab // tp.p
+    parts = []
+    for c in tp.ranks:
+        local = tokens.long() - c * n
+        inside = (local >= 0) & (local < n)
+        rows = tp.block(p["table"], 0, c, vocab).to(dtype)[local.clamp(0, n - 1)]
+        parts.append(torch.where(inside[..., None], rows, torch.zeros((), dtype=dtype, device=rows.device)))
+    return tp.psum(parts)
 
 
-def unembed(p: Params, x: torch.Tensor, tie: bool) -> torch.Tensor:
-    w = p["table"].T if tie else p["unembed"]
-    return x @ w.to(x.dtype)
+def unembed(p: Params, x: torch.Tensor, tie: bool, tp: Optional["TP"] = None,
+            vocab: Optional[int] = None) -> List[torch.Tensor]:
+    """Logits, one (..., V/P) block per local rank where ``tp`` splits the
+    vocabulary (the reference's vocab-sharded constraint), else one
+    (..., V). A tied table (gemma2) gives the same rows' block."""
+    if tp is None or not tp.splits(vocab):
+        w = p["table"].T if tie else p["unembed"]
+        return [x @ w.to(x.dtype)]
+    if tie:
+        return [x @ tp.block(p["table"], 0, c, vocab).T.to(x.dtype) for c in tp.ranks]
+    return [x @ tp.block(p["unembed"], 1, c, vocab).to(x.dtype) for c in tp.ranks]
 
 
 def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
@@ -176,3 +202,163 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
         return x
     return cap * torch.tanh(x / cap)
 
+
+
+# ---------------------------------------------------------------------------
+# Tensor parallelism over the mesh's ``model`` axis
+# ---------------------------------------------------------------------------
+
+
+class TP:
+    """The ``model`` axis as the layers see it (Megatron-style tensor
+    parallelism: heads, ``d_ff`` and the vocabulary over the axis).
+
+    ``ranks`` are the ``model`` coordinates this process computes: all P
+    on a ``SimMesh`` (lock step; one ring serves every ``data``
+    coordinate, since this slice replicates over ``data``), its own on a
+    ``ProcessGroupMesh``. A layer computes one part per coordinate from
+    the rank's blocks of its weights (:meth:`block`: a view of the whole
+    leaf on a ``SimMesh``, the leaf itself where the process holds its
+    block) and sums them with :meth:`psum`. Without a mesh, or on a
+    ``model`` axis of one rank, ``ranks`` is ``[0]`` and every block is the
+    whole leaf: the one-rank model, op for op.
+
+    ``seq`` is the layout of the activations between the layers: False,
+    one tensor the same on every rank (the reference's prefill and
+    decode); True, Megatron sequence parallelism (the reference's
+    ``seq_parallel`` residual constraint in ``Model.hidden``): each
+    rank's (B, S/P, d) block, which a column-parallel projection gathers
+    with PR 18's ring all-gather, multiplying each arriving chunk
+    (:meth:`col`), and a row-parallel output returns to with the ring
+    reduce-scatter (:meth:`reduce`)."""
+
+    def __init__(self, mesh=None, seq: bool = False):
+        self.mesh = mesh
+        self.p = mesh.shape.get("model", 1) if mesh is not None else 1
+        self.ring = mesh.rings("model")[0][0] if self.p > 1 else None  # a 1-D view over ``model``
+        self.ranks: List[int] = self.ring.local_ranks() if self.p > 1 else [0]
+        self.holds_block = mesh is not None and mesh.caller_holds_block
+        self.seq = seq and self.p > 1
+
+    def with_seq(self, seq: bool) -> "TP":
+        """The same axis with the activations in the other layout."""
+        out = TP.__new__(TP)
+        out.__dict__.update(self.__dict__, seq=seq and self.p > 1)
+        return out
+
+    def splits(self, units: Optional[int]) -> bool:
+        """Whether a dim of ``units`` whole units is split over the axis
+        (``core.sharding.placement``'s rule)."""
+        return self.p > 1 and units is not None and units % self.p == 0
+
+    def block(self, w: torch.Tensor, dim: int, c: int, full: int, units: Optional[int] = None) -> torch.Tensor:
+        """Coordinate ``c``'s block of a leaf whose size along ``dim`` is
+        ``full`` (``units`` whole units, default ``full``): the leaf where
+        the dim is not split, else its slice -- a view on a ``SimMesh``,
+        the leaf itself where the process holds its block."""
+        if not self.splits(full if units is None else units):
+            return w
+        n = full // self.p
+        if self.holds_block and w.shape[dim] == n:
+            return w
+        if not self.holds_block and w.shape[dim] == full:
+            return w.narrow(dim, c * n, n)
+        raise ValueError(f"a leaf of shape {tuple(w.shape)} holds {w.shape[dim]} of dim {dim}'s {full} on "
+                         f"{self.mesh}: build the params for this mesh (Model.init, params_from_numpy(mesh=, "
+                         "specs=, cfg=))")
+
+    # -- collectives over the axis ---------------------------------------------
+    def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
+        """The sum of the local ranks' parts over the axis (``lax.psum``),
+        the same tensor on every rank."""
+        return parts[0] if self.p == 1 else self.ring.psum(list(parts), "model")[0]
+
+    def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
+        """The local ranks' blocks along ``dim`` -> the whole tensor, on
+        every rank (an all-gather)."""
+        if self.p == 1:
+            return parts[0]
+        dim %= parts[0].ndim
+        return self.ring.gather(list(parts), (None,) * dim + ("model",) + (None,) * (parts[0].ndim - dim - 1))
+
+    def all_to_all(self, parts: Sequence[torch.Tensor], split_axis: int, concat_axis: int) -> List[torch.Tensor]:
+        return self.ring.all_to_all(list(parts), split_axis, concat_axis)
+
+    # -- the activations' layout -----------------------------------------------
+    def each(self, fn: Callable, *xs: Acts) -> Acts:
+        """``fn`` elementwise over activations in either layout."""
+        return [fn(*a) for a in zip(*xs)] if self.seq else fn(*xs)
+
+    def scatter_seq(self, x: torch.Tensor) -> List[torch.Tensor]:
+        """A replicated (B, S, d) tensor -> the local ranks' sequence blocks."""
+        s = x.shape[1] // self.p
+        return [x.narrow(1, c * s, s) for c in self.ranks]
+
+    def whole(self, x: Acts) -> torch.Tensor:
+        """Activations in either layout -> the whole (B, S, d) tensor."""
+        return self.gather(x, 1) if self.seq else x
+
+    def owners(self, split: bool) -> List[int]:
+        """The coordinates whose outputs a sublayer computes: every local
+        one where it is split over the axis or the activations are
+        sequence blocks; else the first (each rank's would be the same
+        whole output, and :meth:`reduce` keeps one)."""
+        return self.ranks if split or self.seq else self.ranks[:1]
+
+    def col(self, x: Acts, ws_of: Callable[[int], Sequence[torch.Tensor]],
+            coords: Optional[Sequence[int]] = None) -> List[List[torch.Tensor]]:
+        """Column-parallel products over the whole sequence: for each
+        coordinate ``c`` of ``coords`` (default every local one),
+        ``[x @ w for w in ws_of(c)]`` (the weights cast to x's dtype).
+        Replicated ``x``: a weight that is the same tensor for every
+        coordinate (a leaf kept whole) is multiplied once.
+        Sequence blocks: one ring all-gather over the axis whose chunk
+        function multiplies each arriving (B, S/P, d) chunk by the rank's
+        weights and puts it at its place in the sequence (zeros elsewhere:
+        the ring sums what the chunk function returns, and adding zeros
+        is exact)."""
+        if not self.seq:
+            done = {}
+
+            def prod(w):
+                if id(w) not in done:
+                    done[id(w)] = (w, x @ w.to(x.dtype))  # the leaf held, so its id stays its own
+                return done[id(w)][1]
+
+            return [[prod(w) for w in ws_of(c)] for c in (self.ranks if coords is None else coords)]
+        from repro_torch.core.overlap import ring_all_gather
+
+        s, p, ring = x[0].shape[1], self.p, self.ring
+
+        def chunk_fn(chunk: torch.Tensor, src: int) -> torch.Tensor:
+            y = torch.cat([chunk @ w.to(chunk.dtype) for w in ws_of(ring.axis_index("model"))], dim=-1)
+            return F.pad(y, (0, 0, src * s, (p - 1 - src) * s))
+
+        sizes = [w.shape[-1] for w in ws_of(self.ranks[0])]
+        outs = ring_all_gather(list(x), ring, "model", chunk_fn, axis=1)
+        return [list(torch.split(o, sizes, dim=-1)) for o in outs]
+
+    def reduce(self, parts: Sequence[torch.Tensor], kind: str = "partial") -> Acts:
+        """The local ranks' outputs of a sublayer back to the layout.
+        ``kind``: "partial", each a row-parallel partial sum over the whole
+        sequence (psum; with sequence blocks a ring reduce-scatter);
+        "whole", each already the whole output (a sublayer that could not
+        be split: every rank computed all of it, one part per
+        :meth:`owners`); "seq", each the whole
+        output of the rank's sequence block (the context partition with
+        every head on every rank: an all-gather, or the blocks as they
+        are)."""
+        if kind == "seq":
+            return list(parts) if self.seq else self.gather(parts, 1)
+        if not self.seq:
+            return self.psum(parts) if kind == "partial" else parts[0]
+        if kind == "partial":
+            from repro_torch.core.overlap import ring_reduce_scatter
+
+            return ring_reduce_scatter(list(parts), self.ring, "model", axis=1)
+        s = parts[0].shape[1] // self.p
+        return [o.narrow(1, c * s, s) for o, c in zip(parts, self.ranks)]
+
+
+#: the one-rank model's axis: ``TP()``
+SINGLE = TP()

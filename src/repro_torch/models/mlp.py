@@ -1,10 +1,16 @@
 """Feed-forward variants: SwiGLU / GeGLU / squared-ReLU / GELU, ported
 from ``repro.models.mlp``. GELU is ``jax.nn.gelu``'s default, the tanh
-approximation."""
+approximation.
+
+Tensor-parallel over ``tp`` (``common.TP``) where the mesh's ``model``
+axis divides ``d_ff`` (the reference's ``"mlp"`` specs): ``wg`` / ``wu``
+column blocks, ``wd`` a row block, one psum of the partial outputs (with
+sequence blocks, the ring all-gather in and the ring reduce-scatter out).
+"""
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -39,10 +45,16 @@ def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     raise ValueError(kind)
 
 
-def apply_mlp(p: Params, x: torch.Tensor, kind: str) -> torch.Tensor:
-    dt = x.dtype
-    if kind in GATED:
-        h = _act(x @ p["wg"].to(dt), kind) * (x @ p["wu"].to(dt))
-    else:
-        h = _act(x @ p["wu"].to(dt), kind)
-    return h @ p["wd"].to(dt)
+def apply_mlp(p: Params, x: common.Acts, kind: str, tp: common.TP = common.SINGLE,
+              d_ff: Optional[int] = None) -> common.Acts:
+    """``d_ff``: the global hidden width (needed where the process holds
+    its block; default the leaves' own)."""
+    d_ff = p["wd"].shape[0] if d_ff is None else d_ff
+    names = ("wg", "wu") if kind in GATED else ("wu",)
+    coords = tp.owners(tp.splits(d_ff))
+    hs = tp.col(x, lambda c: [tp.block(p[k], 1, c, d_ff) for k in names], coords)
+    parts = []
+    for c, h in zip(coords, hs):
+        a = _act(h[0], kind) * h[1] if kind in GATED else _act(h[0], kind)
+        parts.append(a @ tp.block(p["wd"], 0, c, d_ff).to(a.dtype))
+    return tp.reduce(parts, "partial" if tp.splits(d_ff) else "whole")

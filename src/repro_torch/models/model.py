@@ -19,19 +19,31 @@ head's weights when ``cfg.mtp_depth`` asks for them (the reference's
 tree); nothing here runs them.
 
 On a mesh of several ranks (``SimMesh`` or, SPMD, one
-``ProcessGroupMesh`` rank per process) a MoE model runs expert-parallel:
-the activations, the attention, the dense layers, the router and the
-shared expert are replicated on every rank, and the routed experts are
-placed over the ``model`` axis by their ``"experts"`` specs
-(``core.sharding.resolve``; experts that do not divide the axis stay
-whole). On a ``ProcessGroupMesh`` a rank holds only its experts
-(``init`` draws every expert in the one-rank order and keeps the rank's;
-``params_from_numpy(mesh=, specs=)`` cuts the reference's arrays); on a
-``SimMesh`` the stacks stay whole. ``models.moe.apply_moe`` moves the
-tokens between the ranks. Not ported yet: SSM and hybrid models
-(ROADMAP A15.2b), encoder-decoder models (A15.2c), a dense model on a
-mesh of several ranks (tensor parallelism, A15.1c), ``loss`` and MTP
-(A15.3).
+``ProcessGroupMesh`` rank per process) every decoder runs
+tensor-parallel over the ``model`` axis (``common.TP``): the attention
+heads, the dense ``d_ff`` (the MLP, DeepSeek-V3's dense prefix, the
+shared expert) and the vocabulary (embedding and unembedding) are split
+by their specs through ``core.sharding.placement`` (heads whole: a
+count the axis does not divide stays whole); the router and the norms
+are whole; a MoE model's routed experts keep their ``"experts"``
+placement, and ``models.moe.apply_moe`` moves the tokens between the
+ranks. The activations are replicated after every psum; ``logits``,
+``prefill`` and ``decode_step`` return the whole (gathered) logits.
+``hidden`` runs the reference's Megatron sequence parallelism where
+``cfg.seq_parallel`` and the axis divides the sequence: the residual
+stream between the layers is each rank's sequence block, gathered into
+each column-parallel projection by the ring all-gather
+(``core.overlap``) and returned from each row-parallel one by the ring
+reduce-scatter. The ``data`` axis replicates the weights (FSDP comes
+with training, A15.3).
+
+On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
+every leaf in the one-rank order, one layer at a time, and keeps the
+rank's; ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's
+arrays) and its KV heads of the cache; on a ``SimMesh`` the stacks stay
+whole and a rank's block is a view. Not ported yet: SSM and hybrid
+models (ROADMAP A15.2b), encoder-decoder models (A15.2c), ``loss`` and
+MTP (A15.3).
 """
 
 from __future__ import annotations
@@ -115,31 +127,25 @@ def build_groups(cfg: ModelConfig) -> List[Group]:
     return [Group("layers", "dec", L, flags, static_global=static)]
 
 
-def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
+def _not_ported(cfg: ModelConfig) -> Optional[str]:
     if cfg.family in ("ssm", "hybrid"):
         return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2b"
     if cfg.is_encdec:
         return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2c"
-    if mesh is not None and mesh.p > 1 and cfg.moe is None:
-        return (f"{cfg.name} on a mesh of {mesh.p} ranks: a dense model needs tensor-parallel attention and "
-                "dense layers, ROADMAP A15.1c (MoE models run expert-parallel)")
     return None
 
 
-def _expert_rows(mesh, spec, shape) -> Optional[Tuple[int, int, int]]:
-    """(dim, first, count): the block of an expert leaf (its spec names
-    ``"experts"`` at ``dim``) that this process keeps on a
-    ``ProcessGroupMesh`` -- its ``model`` coordinate's E/P experts, where
-    ``core.sharding.resolve`` places the experts on that axis (they
-    divide it); None where it keeps the whole leaf (no mesh, a
-    ``SimMesh``, or experts that stay whole)."""
-    if mesh is None or not mesh.caller_holds_block or "experts" not in tuple(spec):
-        return None
-    dim = tuple(spec).index("experts")
-    if sharding.resolve(mesh, *spec, shape=shape)[dim] != "model":
-        return None
-    n = shape[dim] // mesh.shape["model"]
-    return dim, mesh.axis_index("model") * n, n
+def head_units(cfg: ModelConfig) -> Dict[str, int]:
+    """The head counts ``core.sharding.placement`` places whole."""
+    return {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
+
+
+def _keep(a: torch.Tensor, where: Optional[Tuple[int, int, int]]) -> torch.Tensor:
+    """``a``, or a copy of its ``(dim, first, count)`` block (a view would
+    keep the whole leaf alive)."""
+    if where is None:
+        return a
+    return a.narrow(*where).clone(memory_format=torch.contiguous_format)
 
 
 def _float_to(dtype):
@@ -148,7 +154,7 @@ def _float_to(dtype):
 
 class Model:
     def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None):
-        why = _not_ported(cfg, mesh)
+        why = _not_ported(cfg)
         if why is not None:
             raise NotImplementedError(f"not ported yet: {why}")
         self.cfg = cfg
@@ -159,6 +165,8 @@ class Model:
             raise ValueError(f"the mesh's ranks are on {mesh.device}, the model on {self.device}")
         self.groups = build_groups(cfg)
         self.dtype = getattr(torch, cfg.dtype)
+        self.tp = common.TP(mesh)
+        self.units = head_units(cfg)
 
     def _cast(self, params):
         """Float params in the compute dtype. Idempotent: on a tree already
@@ -176,15 +184,23 @@ class Model:
         copied into the ``(L, ...)`` stack, the MoE experts one expert at
         a time (``common.Deferred``), so a bfloat16 model never holds a
         float32 copy of more than one layer's dense leaves or one
-        expert's matrix."""
+        expert's matrix. On a ``ProcessGroupMesh`` every leaf is drawn
+        as on one rank and the rank keeps its block
+        (``core.sharding.block``): bitwise the one-rank model's slice."""
         cfg, dev = self.cfg, self.device
         cast = _float_to(dtype) if dtype is not None else (lambda a: a)
+
+        def where(spec, shape):
+            return sharding.block(self.mesh, spec, shape, self.units)
+
+        def keep(tree, specs):
+            return _map2(lambda a, spec: cast(_keep(a, where(spec, a.shape))), tree, specs)
 
         def empty_stack(a, spec, count):
             src = torch.float32 if isinstance(a, Deferred) else a.dtype
             out_dtype = dtype if dtype is not None and src.is_floating_point else src
             shape = list(a.shape)
-            rows = _expert_rows(self.mesh, spec, shape)
+            rows = where(spec, shape)
             if rows is not None:
                 shape[rows[0]] = rows[2]
             return torch.empty([count] + shape, dtype=out_dtype, device=dev)
@@ -198,16 +214,16 @@ class Model:
             layer, s = draw()  # its leaves give the stacks' shapes (a group may have no layer)
             out = _map2(lambda a, spec: empty_stack(a, spec, count), layer, s)
             for i in range(count):
-                _copy_into(out, layer if i == 0 else draw()[0], s, i, generator, self.mesh)
+                _copy_into(out, layer if i == 0 else draw()[0], s, i, generator, where)
                 layer = None  # one layer's float32 draw at a time
             return out, s
 
         pe, se = common.init_embed(generator, cfg.vocab_size, cfg.d_model, cfg.tie_embeddings, dev)
-        params: Dict[str, Any] = {"embed": _map(cast, pe)}
+        params: Dict[str, Any] = {"embed": keep(pe, se)}
         specs: Dict[str, Any] = {"embed": se}
         del pe  # the float32 tables, before the layer stacks are made
         pn, sn = common.init_norm(cfg.d_model, cfg.norm_kind, dev)
-        params["final_norm"], specs["final_norm"] = _map(cast, pn), sn
+        params["final_norm"], specs["final_norm"] = keep(pn, sn), sn
         if cfg.meta_tokens:
             meta = common.trunc_normal((cfg.meta_tokens, cfg.d_model), 1.0, generator=generator, device=dev)
             params["meta"], specs["meta"] = cast(meta), (None, "fsdp")
@@ -219,8 +235,8 @@ class Model:
             params["mtp"] = {
                 "proj": cast(common.dense_init((2 * cfg.d_model, cfg.d_model), generator=generator, device=dev)),
                 "block": _layer(block, 0),
-                "norm_h": _map(cast, common.init_norm(cfg.d_model, cfg.norm_kind, dev)[0]),
-                "norm_e": _map(cast, common.init_norm(cfg.d_model, cfg.norm_kind, dev)[0]),
+                "norm_h": keep(*common.init_norm(cfg.d_model, cfg.norm_kind, dev)),
+                "norm_e": keep(*common.init_norm(cfg.d_model, cfg.norm_kind, dev)),
             }
             specs["mtp"] = {"proj": ("fsdp", None), "block": sb, "norm_h": sn, "norm_e": sn}
         return params, specs
@@ -231,7 +247,8 @@ class Model:
         if "embeds" in batch:
             x = batch["embeds"].to(self.device, self.dtype)
         else:
-            x = common.embed_tokens(params["embed"], batch["tokens"].to(self.device), self.dtype)
+            x = common.embed_tokens(params["embed"], batch["tokens"].to(self.device), self.dtype, self.tp,
+                                    cfg.vocab_size)
         x = self._scale_tied(x)
         if cfg.rope_theta <= 0:
             x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, self.device)
@@ -262,30 +279,43 @@ class Model:
         return x
 
     def _logits(self, params, x) -> torch.Tensor:
-        out = common.unembed(params["embed"], x, self.cfg.tie_embeddings)
-        return common.softcap(out.float(), self.cfg.final_logit_softcap)
+        """Float32 logits, softcapped on each rank's vocabulary block (it
+        is elementwise), then gathered whole over the ``model`` axis."""
+        cfg = self.cfg
+        parts = common.unembed(params["embed"], x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
+        parts = [common.softcap(o.float(), cfg.final_logit_softcap) for o in parts]
+        return self.tp.gather(parts, -1) if self.tp.splits(cfg.vocab_size) else parts[0]
 
     def _flag(self, g: Group, i: int) -> bool:
         return g.static_global if g.flags is None else g.flags[i]
 
     # ---------------------------------------------------------------- trunk
+    def seq_parallel(self, s: int) -> bool:
+        """Whether ``hidden`` runs Megatron sequence parallelism on ``s``
+        positions: ``cfg.seq_parallel`` and the ``model`` axis divides them
+        (else the psum form, as prefill and decode)."""
+        return self.cfg.seq_parallel and self.tp.p > 1 and s % self.tp.p == 0
+
     @torch.inference_mode()
     def hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
-        """(the final hidden states (B, S, d), normalized, meta tokens cut;
-        aux, the sum of the MoE blocks' router losses, a float32 scalar)."""
+        """(the final hidden states (B, S, d), normalized, meta tokens cut,
+        whole on every rank; aux, the sum of the MoE blocks' router
+        losses, a float32 scalar)."""
         cfg = self.cfg
         params = self._cast(params)
         x = self._embed_in(params, batch)
-        positions = torch.arange(x.shape[1], device=self.device)
+        tp = self.tp.with_seq(self.seq_parallel(x.shape[1]))
+        if tp.seq:
+            x = tp.scatter_seq(x)
         aux = torch.zeros((), device=self.device)
         for g in self.groups:
             for i in range(g.count):
                 x, a = blocks.apply_decoder_block(
                     _layer(params[g.name], i), x, cfg, is_global=self._flag(g, i), use_moe=g.kind == "dec_moe",
-                    positions=positions, impl=self.attn_impl, mesh=self.mesh,
+                    impl=self.attn_impl, tp=tp,
                 )
                 aux = aux + a
-        x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
+        x = tp.whole(tp.each(lambda a: common.apply_norm(params["final_norm"], a, cfg.norm_kind), x))
         return (x[:, cfg.meta_tokens:] if cfg.meta_tokens else x), aux
 
     @torch.inference_mode()
@@ -304,7 +334,7 @@ class Model:
         s_tot = s_max + cfg.meta_tokens
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:
-            one = blocks.init_block_cache(cfg, b, s_tot, cache_dtype, "meta")
+            one = blocks.init_block_cache(cfg, b, s_tot, cache_dtype, "meta", self.tp)
             state[g.name] = type(one)(*(torch.zeros((g.count,) + a.shape, dtype=a.dtype, device=dev) for a in one))
         return state
 
@@ -316,7 +346,7 @@ class Model:
         params = self._cast(params)
         x = self._through_caches(params, self._embed_in(params, batch), state, lambda p, x, c, flag, use_moe: (
             blocks.prefill_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, impl=self.attn_impl,
-                                         mesh=self.mesh)))
+                                         tp=self.tp)))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = x.shape[1]
         return state, self._logits(params, x[:, -1:])[:, 0]
@@ -326,11 +356,12 @@ class Model:
         """tokens: (B, 1) -> (logits (B, V), state advanced in place)."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._scale_tied(common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype))
+        x = self._scale_tied(common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype, self.tp,
+                                                 cfg.vocab_size))
         if cfg.rope_theta <= 0:
             x = x + self._abs_pos(state["pos"])
         x = self._through_caches(params, x, state, lambda p, x, c, flag, use_moe: (
-            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, mesh=self.mesh)))
+            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, tp=self.tp)))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = state["pos"] + 1
         return self._logits(params, x)[:, 0], state
@@ -349,33 +380,39 @@ def _map2(fn: Callable, tree, specs):
     return fn(tree, specs)
 
 
-def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, mesh) -> None:
+def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: Callable) -> None:
     """Layer ``i`` of the stacks from ``tree``'s tensors, its ``Deferred``
     leaves drawn straight into the stack: every expert drawn in order, the
-    ones this process keeps (``_expert_rows``) written."""
+    ones this process keeps written; of the other leaves the block this
+    process keeps (``where(spec, shape)``, ``core.sharding.block``)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _copy_into(stacked[k], v, specs[k], i, generator, mesh)
-    elif isinstance(tree, Deferred):
-        rows = _expert_rows(mesh, specs, tree.shape)
+            _copy_into(stacked[k], v, specs[k], i, generator, where)
+        return
+    rows = where(specs, tree.shape)
+    if isinstance(tree, Deferred):
+        if rows is not None and rows[0] != 0:
+            raise ValueError(f"a deferred draw keeps a block of its leading dim, not of dim {rows[0]}")
         tree.fill(stacked[i], generator, first=0 if rows is None else rows[1])
     else:
-        stacked[i].copy_(tree)
+        stacked[i].copy_(tree if rows is None else tree.narrow(*rows))
 
 
-def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None):
+def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
     """The reference's parameter tree (numpy or JAX arrays, the same keys
     and stacked ``(L, ...)`` layout) as the port's tensors on ``device``
     (default ``cuda``); float leaves cast to ``dtype`` when given -- the
     reference's per-call ``_cast``, done once at load. On a
     ``ProcessGroupMesh`` of several ranks pass the tree's ``specs``
-    (``Model.init``'s, the reference's): each expert leaf keeps this
-    rank's experts only, as ``Model(cfg, mesh).init`` places them."""
+    (``Model.init``'s, the reference's) and, where they place heads, the
+    model's ``cfg`` (its head counts): each leaf keeps this rank's block,
+    as ``Model(cfg, mesh).init`` places it."""
     dev = resolve_device(device)
     cast = _float_to(dtype) if dtype is not None else (lambda a: a)
+    units = None if cfg is None else head_units(cfg)
 
     def load(a, spec=()):
-        rows = _expert_rows(mesh, spec, np.shape(a))
+        rows = sharding.block(mesh, spec, np.shape(a), units)
         a = np.asarray(a)
         if rows is not None:
             dim, first, n = rows
@@ -384,6 +421,6 @@ def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None):
 
     if mesh is not None and mesh.caller_holds_block and mesh.p > 1:
         if specs is None:
-            raise ValueError("params_from_numpy on a ProcessGroupMesh needs the tree's specs to place the experts")
+            raise ValueError("params_from_numpy on a ProcessGroupMesh needs the tree's specs to place its blocks")
         return _map2(load, tree, specs)
     return _map(load, tree)

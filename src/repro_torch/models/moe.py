@@ -36,10 +36,12 @@ token priority within each expert, as the reference assigns them.
     Every expert on every token, weighted by the gates (small configs);
     it needs every expert on the rank.
 
-The expert leaves of a rank: on a ``SimMesh`` the stacks stay whole and
-each rank's experts are a view of them; on a ``ProcessGroupMesh`` a rank
+The router is whole on every rank; the shared expert is a
+tensor-parallel MLP (``mlp.apply_mlp`` over the ``model`` axis). The
+expert leaves of a rank: on a ``SimMesh`` the stacks stay whole and each
+rank's experts are a view of them; on a ``ProcessGroupMesh`` a rank
 holds only its block (``Model.init`` / ``params_from_numpy`` place them,
-from the ``"experts"`` specs through ``core.sharding.resolve``).
+from the ``"experts"`` specs through ``core.sharding.block``).
 
 Both scatters are deterministic on the card (no atomics): each kept
 assignment owns its buffer slot, so the dispatch writes them (dropped
@@ -324,9 +326,12 @@ def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, axis_name: str =
     return out, auxes[0].mean()
 
 
-def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
+              tp: Optional[common.TP] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, S, d), the same on every rank of ``mesh``. Returns (out (B,
-    S, d), aux loss scalar), the same on every rank."""
+    S, d), aux loss scalar), the same on every rank. The router stays
+    whole; the shared expert is a tensor-parallel MLP over ``tp`` (default
+    the mesh's ``model`` axis)."""
     mo = cfg.moe
     b, s, d = x.shape
     dispatch = mo.dispatch
@@ -343,5 +348,6 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None) -> Tup
         out, aux = _apply_moe_gspmd(p, x.reshape(b * s, d), cfg, mesh)
     out = out.reshape(b, s, d)
     if mo.num_shared:
-        out = out + mlp.apply_mlp(p["shared"], x, cfg.mlp_kind)
+        tp = common.TP(mesh) if tp is None else tp
+        out = out + mlp.apply_mlp(p["shared"], x, cfg.mlp_kind, tp, (mo.expert_d_ff or cfg.d_ff) * mo.num_shared)
     return out, aux

@@ -12,8 +12,8 @@ sampling draws from the same distribution with a ``torch.Generator``
 seeded with the reference's integer, so its stream differs from the
 reference's ``jax.random`` one.
 
-On a model built on a ``ProcessGroupMesh`` (expert-parallel MoE) the
-engine runs SPMD: every rank gets the same request stream and runs the
+On a model built on a ``ProcessGroupMesh`` (tensor-parallel, and a MoE
+model's experts expert-parallel) the engine runs SPMD: every rank gets the same request stream and runs the
 same program, and the ranks agree twice through ``mesh.host_max`` (a
 CPU all-reduce over the group's gloo half): on each admission (the
 prompt's checksum and length, ``max_new`` and the slot) and on each

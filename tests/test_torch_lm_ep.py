@@ -428,7 +428,7 @@ def _engine_cases(mesh, ran, ref_dir):
         cfg = _no_drop(arch) if no_drop else _cfg(arch)
         model = Model(cfg, mesh, attn_impl="chunked", device="cpu")
         specs = Model(cfg, attn_impl="chunked", device="cpu").init(torch.Generator().manual_seed(0))[1]
-        params = params_from_numpy(_unflat(arrays, arch), device="cpu", mesh=mesh, specs=specs)
+        params = params_from_numpy(_unflat(arrays, arch), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
         eng = ServeEngine(model, params, ServeConfig(**SCFG))
         got = {str(k): v for k, v in eng.run(_prompts(), max_new=MAX_NEW).items()}
         assert got == tokens[_run_key(arch, no_drop)], (arch, no_drop, got)
@@ -456,19 +456,23 @@ def _mismatch_case(mesh, ran):
 
 def _init_case(mesh, ran):
     """Model(cfg, mesh).init keeps this rank's experts, bitwise the
-    one-rank model's slice; everything else whole and equal."""
+    one-rank model's slice; every other leaf its tensor-parallel block
+    (``core.sharding.block``: heads, d_ff, vocabulary) or, placed nowhere,
+    whole and equal."""
+    from repro_torch.models.model import head_units
+
     for arch in (DS, MX):
         cfg = _cfg(arch)
         own, specs = Model(cfg, mesh, device="cpu").init(torch.Generator().manual_seed(3))
         whole, _ = Model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
         n = cfg.moe.num_experts // P
         for key, (a, b) in _pairs(own, whole):
-            if key.endswith(("/wg", "/wu", "/wd")) and "ffn" in key and b.shape != a.shape:
-                assert "experts" in _spec_at(specs, key), key
-                dim = 1 if key.startswith("moe/") else 0
-                assert torch.equal(a, b.narrow(dim, mesh.rank * n, n)), key
-            else:
-                assert torch.equal(a, b), key
+            spec = _spec_at(specs, key)
+            where = sharding.block(mesh, spec, b.shape, head_units(cfg))
+            if "experts" in spec:
+                dim = spec.index("experts")
+                assert where == (dim, mesh.rank * n, n), key
+            assert torch.equal(a, b if where is None else b.narrow(*where)), key
     ran.append("init keeps the rank's experts")
 
 

@@ -245,12 +245,23 @@ def test_moe_launcher_runs_on_the_cpu(arch, capsys):
 
 
 def test_a_mesh_of_several_ranks_is_refused():
-    """A dense model on several ranks needs tensor parallelism (A15.1c);
-    a MoE model runs expert-parallel there (tests/test_torch_lm_ep.py)."""
+    """What a mesh of several ranks still refuses: the families not
+    ported yet (SSM and hybrid, A15.2b). A dense model builds and runs
+    there, tensor-parallel (tests/test_torch_lm_tp.py holds it to the
+    reference), as a MoE model runs expert-parallel
+    (tests/test_torch_lm_ep.py)."""
     from repro_torch.core import SimMesh
 
-    with pytest.raises(NotImplementedError, match="A15.1c"):
-        Model(get_config(ARCH, reduced=True), SimMesh(2, device="cpu"), device="cpu")
+    cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
+    model = Model(cfg, SimMesh(2, device="cpu"), device="cpu")
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    batch = {"tokens": torch.arange(6)[None] * 37 % cfg.vocab_size}
+    got, exp = model.logits(params, batch), Model(cfg, device="cpu").logits(params, batch)
+    assert got.shape == (1, 6, cfg.vocab_size)
+    assert float((got - exp).abs().max() / exp.abs().max()) <= 1e-5
+    for arch in ("xlstm-1.3b", "hymba-1.5b"):
+        with pytest.raises(NotImplementedError, match="A15.2b"):
+            Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu")
     assert Model(get_config(ARCH, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
     for arch in MOE:
         assert Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu").mesh.p == 2

@@ -1,0 +1,480 @@
+"""Tensor-parallel attention, dense layers and vocabulary over the port's
+meshes against the reference's ``Model(cfg, mesh)`` under a jax mesh.
+
+Three subprocesses over 8 host devices run the reference (GSPMD) on the
+reduced configs in float32 and saves its weights and outputs; the port
+runs the same weights and tokens on a ``SimMesh`` of the same
+``("data", "model")`` axes:
+
+- ``qwen2.5-32b`` on (1, 4): 4 heads split, its 2 KV heads do not divide
+  4, so ``wk`` / ``wv`` and the cache stay whole; the same with
+  ``attn_partition="context"``; and on the (2, 2) grid, whose ``model``
+  axis of 2 splits the KV heads and the cache too;
+- ``gemma2-9b`` on (1, 2): heads and KV heads split, softcaps,
+  alternating windows, tied embeddings;
+- ``mixtral-8x22b`` and ``deepseek-v3-671b`` on (1, 4), tensor- and
+  expert-parallel, drops included at the stock factor (DeepSeek-V3: MLA
+  and the dense prefix);
+- the reference's ``flash_decode_combine`` under ``shard_map``
+  (``tests/test_attention.py``'s case) against the port's over
+  ``SimMesh(4)``.
+
+``logits`` at S = 16 runs the Megatron sequence-parallel rings, prefill
+and two decode steps the psum form; each within 1e-5 of the reference,
+relative to the largest entry. One gloo spawn at P = 4 runs every
+process-group case: ``psum`` / ``pmax`` bitwise equal on every rank (on
+the 1-D mesh and the model rings of a (2, 2) grid); a rank holds exactly
+its blocks, bitwise the one-rank model's slice after ``init`` and the
+reference's after ``params_from_numpy``; ``logits``, prefill and decode
+within 1e-5 of the one-rank model in both attention partitions, every
+rank's logits bitwise equal; and the SPMD ``ServeEngine`` serving Qwen's
+reduced config gives the reference engine's greedy tokens on every rank.
+"""
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+from conftest import REPO, SRC
+from repro_torch.configs import ServeConfig, get_config
+from repro_torch.core import SimMesh, overlap, sharding
+from repro_torch.models import attention as A
+from repro_torch.models.model import Model, head_units, params_from_numpy
+
+REL_TOL = 1e-5
+P = 4
+QWEN = "qwen2.5-32b"
+DATA_MODEL = ("data", "model")
+#: (name, arch, ("data", "model") dims, config overrides); REF_GROUPS
+#: splits them over three reference subprocesses that run at once
+CASES = (
+    ("qwen", QWEN, (1, 4), {}),
+    ("qwen_context", QWEN, (1, 4), {"attn_partition": "context"}),
+    ("qwen_grid", QWEN, (2, 2), {}),
+    ("gemma", "gemma2-9b", (1, 2), {}),
+    ("mixtral", "mixtral-8x22b", (1, 4), {}),
+    ("deepseek", "deepseek-v3-671b", (1, 4), {}),
+)
+REF_GROUPS = (("deepseek",), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"))
+
+REF_CODE = r"""
+import dataclasses, math
+import numpy as np, jax, jax.numpy as jnp
+from jax.sharding import Mesh, PartitionSpec as P
+from repro.configs import get_config
+from repro.core.compat import make_mesh, shard_map
+from repro.models import Model
+from repro.models import attention as A
+
+def flat(tree, prefix):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+dev = jax.devices()
+out = {}
+rng = np.random.default_rng(0)
+toks = rng.integers(0, 256, (2, 18)).astype(np.int32)
+out["toks"] = toks
+saved = set()
+for name, arch, (d, m), kw in CASES:
+    if name not in GROUP:
+        continue
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32", **kw)
+    model = Model(cfg, Mesh(np.array(dev[:d * m]).reshape(d, m), ("data", "model")), attn_impl="chunked")
+    params = jax.jit(lambda key: model.init(key)[0])(jax.random.PRNGKey(0))  # eager init: ~3 x the time
+    if arch not in saved:
+        out.update(flat(params, f"w/{arch}"))
+        saved.add(arch)
+    out[f"{name}/logits"] = np.asarray(jax.jit(model.logits)(params, {"tokens": jnp.asarray(toks[:, :16])}))
+    state = model.init_decode_state(2, 18, cache_dtype=jnp.float32)
+    state, pl = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(toks[:, :16])}, state)
+    steps = [np.asarray(pl)]
+    decode = jax.jit(model.decode_step)
+    for t in (16, 17):
+        lg, state = decode(params, jnp.asarray(toks[:, t:t + 1]), state)
+        steps.append(np.asarray(lg))
+    out[f"{name}/steps"] = np.stack(steps)
+
+if "flash" not in GROUP:
+    np.savez(OUT, **out)
+    print("PASS")
+    raise SystemExit
+# tests/test_attention.py::test_flash_decode_combine_seqshard's case
+mesh = make_mesh((4,), ("data",))
+B, S, H, D = 2, 64, 4, 16
+q, k, v = (rng.standard_normal(s).astype(np.float32) for s in ((B, 1, H, D), (B, S, H, D), (B, S, H, D)))
+out.update({"flash/q": q, "flash/k": k, "flash/v": v})
+
+def shard_fn(q, k, v):
+    s = jnp.einsum("bqhd,bkhd->bhqk", q / math.sqrt(D), k)[:, :, 0]
+    m = s.max(-1)
+    p = jnp.exp(s - m[..., None])
+    l = p.sum(-1)
+    return A.flash_decode_combine(jnp.einsum("bhk,bkhd->bhd", p, v)[:, None], m, l, "data")
+
+out["flash/out"] = np.asarray(jax.jit(shard_map(shard_fn, mesh=mesh, in_specs=(P(), P(None, "data"), P(None, "data")),
+                                                out_specs=P(), check_vma=False))(q, k, v))
+np.savez(OUT, **out)
+print("PASS")
+"""
+
+
+def rel(got, exp) -> float:
+    got = np.asarray(got.float() if isinstance(got, torch.Tensor) else got, np.float64)
+    exp = np.asarray(exp.float() if isinstance(exp, torch.Tensor) else exp, np.float64)
+    return float(np.abs(got - exp).max() / np.abs(exp).max())
+
+
+def _cfg(arch, **kw):
+    return dataclasses.replace(get_config(arch, reduced=True), dtype="float32", **kw)
+
+
+def _mesh(*dims):
+    return SimMesh(dims, axis_names=DATA_MODEL, device="cpu")
+
+
+def _unflat(arrays, prefix=""):
+    """The tree of ``arrays``' keys under ``prefix`` (all of them for "")."""
+    tree = {}
+    head = prefix + "/" if prefix else ""
+    for k in arrays:
+        if k.startswith(head):
+            *path, leaf = k[len(head):].split("/")
+            node = tree
+            for key in path:
+                node = node.setdefault(key, {})
+            node[leaf] = np.asarray(arrays[k])
+    return tree
+
+
+def _flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}/{key}").items()}
+    return {prefix.lstrip("/"): np.asarray(tree)}
+
+
+def _run(model, params, toks):
+    """logits of the first 16 tokens, and a prefill of them + two decode
+    steps (float32 cache)."""
+    logits = model.logits(params, {"tokens": toks[:, :16]})
+    state = model.init_decode_state(2, 18, cache_dtype=torch.float32)
+    state, pl = model.prefill(params, {"tokens": toks[:, :16]}, state)
+    steps = [pl]
+    for t in (16, 17):
+        lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+        steps.append(lg)
+    return logits, steps
+
+
+@pytest.fixture(scope="module")
+def ref_process(tmp_path_factory):
+    """REF_CODE started in one subprocess over 8 host devices per
+    REF_GROUPS entry; they run while the reference engine and the gloo
+    spawn run in this process."""
+    d = tmp_path_factory.mktemp("tp")
+    env = dict(os.environ, XLA_FLAGS="--xla_force_host_platform_device_count=8",
+               PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    procs = []
+    for i, group in enumerate(REF_GROUPS):
+        code = f"OUT = {str(d / f'ref{i}.npz')!r}\nCASES = {CASES!r}\nGROUP = {group!r}\n" + REF_CODE
+        with open(d / f"out{i}.txt", "w") as out, open(d / f"err{i}.txt", "w") as err:  # files: no pipe to fill
+            procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env, stdout=out, stderr=err))
+    yield procs, d
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
+@pytest.fixture(scope="module")
+def ref(ref_process):
+    procs, d = ref_process
+    arrays = {}
+    for i, proc in enumerate(procs):
+        proc.wait(timeout=600)
+        out, err = (d / f"out{i}.txt").read_text(), (d / f"err{i}.txt").read_text()
+        assert proc.returncode == 0 and "PASS" in out, f"STDOUT:\n{out}\nSTDERR:\n{err[-4000:]}"
+        arrays.update(np.load(d / f"ref{i}.npz"))
+    return arrays
+
+
+# ---------------------------------------------------------------------------
+# one gloo spawn at P = 4 (first: the reference subprocess runs meanwhile)
+# ---------------------------------------------------------------------------
+
+SCFG = dict(max_batch=2, max_seq=32)
+MAX_NEW = 4
+
+
+def _prompts():
+    """Lengths 8 and 5: through the sequence-parallel rings' divisible and
+    indivisible prefill lengths alike (prefill runs the psum form)."""
+    return [(np.arange(n) * (3 + n + i) % 256).astype(np.int32) for i, n in enumerate((8, 5, 8, 5))]
+
+
+@pytest.fixture(scope="module")
+def engine_refs(tmp_path_factory, ref_process):
+    """The reference engine's greedy tokens on Qwen's reduced config (no
+    mesh: the reference's launcher builds none) and its weights and
+    specs, saved for the spawn."""
+    jax = pytest.importorskip("jax")
+    from repro.configs import ServeConfig as RServeConfig
+    from repro.configs import get_config as r_get_config
+    from repro.models import Model as RModel
+    from repro.serve import ServeEngine as RServeEngine
+
+    model = RModel(dataclasses.replace(r_get_config(QWEN, reduced=True), dtype="float32"), attn_impl="chunked")
+    params, specs = model.init(jax.random.PRNGKey(0))
+    res = RServeEngine(model, params, RServeConfig(**SCFG)).run(_prompts(), max_new=MAX_NEW)
+    out = tmp_path_factory.mktemp("tp_engine")
+    np.savez(out / "weights.npz", **_flat(params))
+    (out / "tokens.json").write_text(json.dumps({str(k): v for k, v in res.items()}))
+    (out / "specs.json").write_text(json.dumps(specs))
+    return str(out)
+
+
+def _gathered(obj):
+    import torch.distributed as dist
+
+    out = [None] * dist.get_world_size()
+    dist.all_gather_object(out, obj)
+    return out
+
+
+def _collective_cases(mesh, ran):
+    """psum / pmax bitwise equal on every rank and within 1e-6 of
+    SimMesh's rank-order sum; the same over the model rings of a (2, 2)
+    grid (its data rows sum apart)."""
+    from repro_torch.core import ProcessGroupMesh
+
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal((3, 40)).astype(np.float32)) for r in range(P)]
+    mine = xs[mesh.rank]
+    for op in ("psum", "pmax"):
+        got = getattr(mesh, op)([mine])[0]
+        assert got is not mine and torch.equal(mine, xs[mesh.rank])  # the caller's block is left as it was
+        exp = getattr(SimMesh(P, device="cpu"), op)(xs)[0]
+        assert rel(got, exp) <= 1e-6, op
+        assert all(torch.equal(torch.from_numpy(g), got) for g in _gathered(got.numpy())), op
+    grid = ProcessGroupMesh(device="cpu", grid=(2, 2), axis_names=DATA_MODEL, timeout_s=60)
+    got = grid.psum([mine], "model")[0]
+    exp = SimMesh((2, 2), axis_names=DATA_MODEL, device="cpu").psum(xs, "model")[mesh.rank]
+    assert rel(got, exp) <= 1e-6
+    row = [g for r, g in enumerate(_gathered(got.numpy())) if r // 2 == mesh.rank // 2]
+    assert all(np.array_equal(g, got.numpy()) for g in row)
+    ran.append("psum / pmax")
+
+
+def _placement_cases(mesh, ran, ref_dir):
+    """Model(cfg, mesh).init keeps this rank's block of every leaf its
+    placement splits, bitwise the one-rank model's slice; the reference's
+    weights through params_from_numpy likewise. Qwen's 2 KV heads stay
+    whole (4 does not divide them), its 4 heads split one a rank."""
+    from repro_torch.core import sharding as S
+
+    cfg = _cfg(QWEN)
+    units = head_units(cfg)
+    own, specs = Model(cfg, mesh, device="cpu").init(torch.Generator().manual_seed(3))
+    whole, _ = Model(cfg, device="cpu").init(torch.Generator().manual_seed(3))
+    cut = 0
+    for key, (a, b) in _pairs(own, whole):
+        where = S.block(mesh, _spec_at(specs, key), b.shape, units)
+        cut += where is not None
+        assert torch.equal(a, b if where is None else b.narrow(*where)), key
+    attn = own["layers"]["attn"]
+    assert attn["wq"].shape == (2, 64, 16) and attn["wk"].shape == (2, 64, 32) and attn["wo"].shape == (2, 16, 64)
+    assert own["embed"]["table"].shape == (64, 64) and own["layers"]["ffn"]["wd"].shape == (2, 40, 64)
+    assert cut == 8, cut  # table, unembed, wq, bq, wo, wg, wu, wd: no other leaf
+    arrays = np.load(f"{ref_dir}/weights.npz")
+    rspecs = _tuples(json.loads(open(f"{ref_dir}/specs.json").read()))
+    tree = _unflat(arrays)
+    got = params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs, cfg=cfg)
+    for key, (a, b) in _pairs(got, tree):
+        where = S.block(mesh, _spec_at(rspecs, key), b.shape, units)
+        exp = b if where is None else b[(slice(None),) * where[0] + (slice(where[1], where[1] + where[2]),)]
+        assert np.array_equal(a.numpy(), exp), key
+    with pytest.raises(ValueError, match="head count"):
+        params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs)
+    ran.append("each rank holds its blocks")
+
+
+def _model_cases(mesh, ran):
+    """Model(cfg, ProcessGroupMesh) against the one-rank model on the
+    same weights, heads and context partition: logits (the rings over
+    gloo), prefill and two decode steps within 1e-5, every rank's logits
+    bitwise equal."""
+    toks = torch.from_numpy(np.random.default_rng(1).integers(0, 256, (2, 18)))
+    for kw in ({}, {"attn_partition": "context"}):
+        cfg = _cfg(QWEN, **kw)
+        whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+        own = params_from_numpy(_np(whole), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
+        got = _run(Model(cfg, mesh, device="cpu"), own, toks)
+        exp = _run(Model(cfg, device="cpu"), whole, toks)
+        for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
+            assert rel(g, e) <= REL_TOL, kw
+        assert all(np.array_equal(g, got[1][-1].numpy()) for g in _gathered(got[1][-1].numpy())), kw
+    ran.append("the model over gloo")
+
+
+def _engine_case(mesh, ran, ref_dir):
+    """The SPMD ServeEngine on the reference's weights: its greedy tokens
+    equal the reference engine's on every rank."""
+    from repro_torch.serve import ServeEngine
+
+    cfg = _cfg(QWEN)
+    arrays = np.load(f"{ref_dir}/weights.npz")
+    specs = _tuples(json.loads(open(f"{ref_dir}/specs.json").read()))
+    params = params_from_numpy(_unflat(arrays), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
+    eng = ServeEngine(Model(cfg, mesh, attn_impl="chunked", device="cpu"), params, ServeConfig(**SCFG))
+    got = {str(k): v for k, v in eng.run(_prompts(), max_new=MAX_NEW).items()}
+    assert got == json.loads(open(f"{ref_dir}/tokens.json").read()), got
+    assert eng.agreements >= len(_prompts()) + MAX_NEW
+    assert all(g == got for g in _gathered(got))
+    ran.append("SPMD engine equals the reference")
+
+
+def _np(tree):
+    return {k: (_np(v) if isinstance(v, dict) else v.numpy()) for k, v in tree.items()}
+
+
+def _tuples(specs):
+    """JSON's lists back into spec tuples."""
+    if isinstance(specs, dict):
+        return {k: _tuples(v) for k, v in specs.items()}
+    return tuple(specs)
+
+
+def _pairs(a, b, prefix=""):
+    if isinstance(a, dict):
+        for k in a:
+            yield from _pairs(a[k], b[k], f"{prefix}{k}/")
+    else:
+        yield prefix.rstrip("/"), (a, b)
+
+
+def _spec_at(specs, key):
+    for k in key.split("/"):
+        specs = specs[k]
+    return specs
+
+
+def _worker(rank, world, init_method, tmp, ref_dir):
+    import torch.distributed as dist
+
+    from repro_torch.core import init_process_mesh
+
+    torch.set_num_threads(1)
+    mesh = init_process_mesh(rank, world, init_method, device="cpu", timeout_s=60)
+    try:
+        ran = []
+        _collective_cases(mesh, ran)
+        _placement_cases(mesh, ran, ref_dir)
+        _model_cases(mesh, ran)
+        _engine_case(mesh, ran, ref_dir)
+        with open(f"{tmp}/ran{rank}.json", "w") as fh:
+            json.dump(ran, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def test_tensor_parallel_over_a_process_group(tmp_path, engine_refs):
+    import torch.multiprocessing as mp
+
+    mp.spawn(_worker, args=(P, f"file://{tmp_path / 'rendezvous'}", str(tmp_path), engine_refs), nprocs=P, join=True)
+    for rank in range(P):
+        ran = json.loads((tmp_path / f"ran{rank}.json").read_text())
+        assert ran == ["psum / pmax", "each rank holds its blocks", "the model over gloo",
+                       "SPMD engine equals the reference"], (rank, ran)
+
+
+# ---------------------------------------------------------------------------
+# SimMesh against the reference under a jax mesh
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("name,arch,dims,kw", CASES, ids=[c[0] for c in CASES])
+def test_model_on_a_mesh_matches_reference(ref, monkeypatch, name, arch, dims, kw):
+    """logits (S = 16: the sequence-parallel rings, one reduce-scatter per
+    sublayer), prefill and two decode steps (the psum form), float32
+    caches, against the reference's Model(cfg, mesh)."""
+    scatters = []
+    orig = overlap.ring_reduce_scatter
+    monkeypatch.setattr(overlap, "ring_reduce_scatter", lambda *a, **k: scatters.append(1) or orig(*a, **k))
+    cfg = _cfg(arch, **kw)
+    model = Model(cfg, _mesh(*dims), attn_impl="chunked", device="cpu")
+    params = params_from_numpy(_unflat(ref, f"w/{arch}"), device="cpu")
+    assert model.seq_parallel(16) and model.tp.p == dims[1]
+    logits, steps = _run(model, params, torch.from_numpy(ref["toks"]))
+    assert rel(logits, ref[f"{name}/logits"]) <= REL_TOL
+    for got, exp in zip(steps, ref[f"{name}/steps"]):
+        assert rel(got, exp) <= REL_TOL
+    moe_layers = 0 if cfg.moe is None else cfg.num_layers - cfg.moe.first_k_dense
+    assert len(scatters) == 2 * cfg.num_layers - moe_layers  # attention + dense FFN; a MoE FFN gathers the sequence
+
+
+def test_flash_decode_combine_matches_reference(ref):
+    """Each of 4 ranks' partial online softmax over its 16 keys, combined
+    by pmax + two psums over a SimMesh axis named "data", against the
+    reference's shard_map and the port's one-rank attention."""
+    q, k, v = (torch.from_numpy(ref[f"flash/{n}"]) for n in "qkv")
+    mesh = SimMesh(P, axis_name="data", device="cpu")
+    outs, ms, ls = [], [], []
+    for kb, vb in zip(mesh.split(k, (None, "data", None, None)), mesh.split(v, (None, "data", None, None))):
+        s = torch.einsum("bqhd,bkhd->bhqk", q / np.sqrt(q.shape[-1]), kb)[:, :, 0]
+        m = s.amax(-1)
+        p = torch.exp(s - m[..., None])
+        outs.append(torch.einsum("bhk,bkhd->bhd", p, vb)[:, None])
+        ms.append(m)
+        ls.append(p.sum(-1))
+    got = A.flash_decode_combine(outs, ms, ls, mesh, "data")
+    one = A.attention_naive(q, k, v, A.AttnSpec(causal=False))
+    for g in got:
+        assert rel(g, ref["flash/out"]) <= REL_TOL and rel(g, one) <= REL_TOL
+
+
+def test_heads_are_placed_whole():
+    """The half-head trap: the reference resolves Qwen's reduced wk (2 KV
+    heads of 16, flattened to 32 columns) to a model split at P = 4, half
+    a head a rank; the port's placement keeps it whole and splits wq's 4
+    heads, and without the head counts it refuses to place a head dim."""
+    cfg, mesh = _cfg(QWEN), _mesh(1, P)
+    units = head_units(cfg)
+    assert sharding.resolve(mesh, "fsdp", "kv_heads", shape=(64, 32)) == ("data", "model")
+    assert sharding.placement(mesh, ("fsdp", "kv_heads"), (64, 32), units) == (None, None)
+    assert sharding.placement(mesh, ("fsdp", "heads"), (64, 64), units) == (None, "model")
+    assert sharding.placement(mesh, ("vocab", "fsdp"), (256, 64)) == ("model", None)
+    assert sharding.placement(mesh, ("fsdp", "mlp"), (64, 160)) == (None, "model")
+    assert sharding.placement(_mesh(1, 3), ("fsdp", "mlp"), (64, 160)) == (None, None)
+    with pytest.raises(ValueError, match="head count"):
+        sharding.placement(mesh, ("fsdp", "kv_heads"), (64, 32))
+
+    class OneRankOfFour(SimMesh):  # a rank's view of a 4-rank group, as tests/test_torch_lm_ep.py's
+        caller_holds_block = True
+
+        def axis_index(self, axis_name):
+            return 2
+
+    whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    got = params_from_numpy(_np(whole), device="cpu", mesh=OneRankOfFour(P, device="cpu"), specs=specs, cfg=cfg)
+    attn = got["layers"]["attn"]
+    assert torch.equal(attn["wk"], whole["layers"]["attn"]["wk"])
+    assert torch.equal(attn["wq"], whole["layers"]["attn"]["wq"][..., 32:48])
+    assert torch.equal(attn["bq"], whole["layers"]["attn"]["bq"][..., 32:48])
+    assert torch.equal(got["embed"]["unembed"], whole["embed"]["unembed"][:, 128:192])
+
+
+def test_psum_and_pmax_sum_each_ring_in_rank_order():
+    """SimMesh's psum / pmax over one axis of a grid: each ring of the
+    axis reduced apart, its ranks' blocks in rank order."""
+    mesh = _mesh(2, 2)
+    xs = [torch.full((3,), float(v)) for v in (1.0, 2.0, 4.0, 8.0)]  # ranks (0,0) (0,1) (1,0) (1,1)
+    assert [float(t[0]) for t in mesh.psum(xs, "model")] == [3.0, 3.0, 12.0, 12.0]
+    assert [float(t[0]) for t in mesh.psum(xs, "data")] == [5.0, 10.0, 5.0, 10.0]
+    assert [float(t[0]) for t in mesh.pmax(xs, "model")] == [2.0, 2.0, 8.0, 8.0]
+    assert [float(t[0]) for t in SimMesh(4, device="cpu").psum(xs)] == [15.0] * 4
