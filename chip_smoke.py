@@ -156,7 +156,25 @@ Phases, each printing a line; any failure exits non-zero with no result:
    layers in bfloat16, phase 14's stream on one rank and on
    Model(cfg, SimMesh(4)) on the same weights: phase 14's report, the
    share of greedy tokens equal to one rank's, and one 512-token prompt's
-   prefill beside hidden on both (``tp_sim_serving``: 0 FFT launches).
+   prefill beside hidden on both (``tp_sim_serving``: 0 FFT launches);
+18. SSM and hybrid serving -- xLSTM-1.3B (24 mLSTM + sLSTM pairs) and
+   Hymba-1.5B (attention beside Mamba heads, 128 meta tokens), each after
+   phase 14's free-memory check: (1) at full width in float32 with the
+   depth cut (xLSTM 2 layers, one pair; hymba 4, layer 1 windowed), a
+   300-token (xLSTM) / 1200-token (hymba: 1328 positions with the meta
+   tokens, past the 1024 window) prefill + 4 decode steps against the
+   whole sequence's logits (2e-4, the reference's own chunkwise-vs-steps
+   tolerance), and phase 14's slot isolation; (2) all 48 / 32 layers in
+   bfloat16, built by launch.build_engine: on 8 prompts a prefill of 128
+   + 1 decode step and the whole sequence, each against a float32 oracle
+   on the same weights, phase 15's gate -- for xLSTM layer by layer, each
+   layer on the oracle's input (its random-weight stack amplifies any
+   rounding through the depth); (3) phase 14's stream, its
+   report, the bound counting the recurrent state read and written once
+   a step; (4) one 512-token prompt through each mixer alone on one layer
+   (the mLSTM block, the sLSTM time loop, the Mamba block, hymba's
+   attention); (5) launch.serve.main --arch at its reduced default
+   (``ssm_serving_<arch>``: 0 FFT launches each).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -216,7 +234,8 @@ with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
 counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
 ``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
-(``ep_sim_serving_<arch>``) and 17 (``tp_sim_serving``) included; the last line is
+(``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``) and 18
+(``ssm_serving_<arch>``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -330,6 +349,28 @@ TP_F32 = (("qwen2.5-32b", {}), ("qwen2.5-32b", {"attn_partition": "context"}), (
 TP_F32_LAYERS, TP_DECODE = 2, 2
 TP_SERVE_LAYERS = 8  # phase 17's bf16 serving: Qwen2.5-32B at full width, 8 of 64 layers
 TP_PREFILL, TP_REPS = 512, 3  # one 512-token prompt: prefill (psum form) beside hidden (the rings)
+#: phase 18: SSM and hybrid serving on one card at full width and depth.
+#: xLSTM-1.3B (src/repro/configs/xlstm_1p3b.py: 48 layers as 24 mLSTM +
+#: sLSTM pairs, d_model 2048, mLSTM 4 heads of 1024 (expand 2), sLSTM 4
+#: heads, vocab 50304); Hymba-1.5B (src/repro/configs/hymba_1p5b.py: 32
+#: layers, d_model 1600, 25 / 5 heads of 64, d_ff 5504, Mamba d_inner 3200
+#: and state 16, window 1024 but layers 0, 16 and 31 global, 128 meta
+#: tokens, vocab 32001)
+SSM_ARCHS = ("xlstm-1.3b", "hymba-1.5b")
+#: check 1, float32 at full width: xLSTM one pair on a prompt its chunk
+#: (64) does not divide; hymba layers 0, 2, 3 global and 1 windowed, on a
+#: prompt past the window with the meta tokens (1328 positions)
+SSM_F32_LAYERS = {"xlstm-1.3b": 2, "hymba-1.5b": 4}
+SSM_F32_SEQ = {"xlstm-1.3b": 300, "hymba-1.5b": 1200}
+SSM_F32_REL_TOL = 2e-4  # the reference's own chunkwise-vs-decode-steps tolerance (tests/test_ssm.py:28-30)
+SSM_MIXER_SEQ, SSM_MIXER_REPS = 512, 3  # check 4: one prompt through each mixer alone, one layer
+#: check 2 layer by layer: the reference's random-weight xLSTM amplifies
+#: rounding through its depth (tools/ssm_depth_probe.py, reduced width, on
+#: the CPU: the reference's own bf16 logits 1.19 from its float32 ones at
+#: 48 layers; two float32 orders 8.8e-7 apart at 2 layers, 3.1e-3 at 48),
+#: so no whole-model bf16 gate can hold; each layer runs in bf16 on the
+#: float32 oracle's input and phase 15's gate holds per layer
+SSM_BF16_LAYERWISE = ("xlstm-1.3b",)
 
 
 class SmokeFailure(RuntimeError):
@@ -1357,7 +1398,9 @@ def lm_rel_err(got, exp) -> float:
 
 def lm_cache_bytes_per_token(cfg) -> int:
     """The engine's bfloat16 cache of one token over every layer: K and V,
-    or MLA's latent and rope key."""
+    or MLA's latent and rope key (none for xLSTM: its state is recurrent)."""
+    if cfg.family == "ssm":
+        return 0
     if cfg.mla is not None:
         return 2 * cfg.num_layers * (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim)
     return 2 * 2 * cfg.num_layers * cfg.num_kv_heads * cfg.head_dim_
@@ -1380,18 +1423,18 @@ def lm_check_free(torch, label: str, need: float) -> None:
     check(free >= need, f"{label}: {free} bytes free on the card, the phase needs {int(need)}")
 
 
-def lm_agreement(torch, model, params, g):
-    """A LM_SEQ-token prefill + LM_DECODE decode steps (float32 cache)
+def lm_agreement(torch, model, params, g, seq: int = LM_SEQ):
+    """A ``seq``-token prefill + LM_DECODE decode steps (float32 cache)
     against Model.logits of the whole sequence: (rel errs, max |logit|)."""
     cfg = model.cfg
-    toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + LM_DECODE), device="cuda", generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + LM_DECODE), device="cuda", generator=g)
     full = model.logits(params, {"tokens": toks})
-    state = model.init_decode_state(1, LM_SEQ + LM_DECODE, cache_dtype=torch.float32)
-    state, pl = model.prefill(params, {"tokens": toks[:, :LM_SEQ]}, state)
-    errs = [lm_rel_err(pl, full[:, LM_SEQ - 1])]
+    state = model.init_decode_state(1, seq + LM_DECODE, cache_dtype=torch.float32)
+    state, pl = model.prefill(params, {"tokens": toks[:, :seq]}, state)
+    errs = [lm_rel_err(pl, full[:, seq - 1])]
     for t in range(LM_DECODE):
-        lg, state = model.decode_step(params, toks[:, LM_SEQ + t:LM_SEQ + t + 1], state)
-        errs.append(lm_rel_err(lg, full[:, LM_SEQ + t]))
+        lg, state = model.decode_step(params, toks[:, seq + t:seq + t + 1], state)
+        errs.append(lm_rel_err(lg, full[:, seq + t]))
     return errs, full.abs().max().item()
 
 
@@ -1599,12 +1642,16 @@ def stream_summary(stream, scfg) -> dict:
                 decode_host_ms=statistics.median(st[3] for st in full))
 
 
-def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm, routed=None) -> float:
+def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm, routed=None,
+                     state=None, active=None) -> float:
     """Print the stream's tokens/s, time to first token, the full-slot
     decode step's device / host / kernel ms beside its bound (the weights
-    and the live cache read once; ``routed``: (bytes of the weights a
-    step's routing needs, what they are) for a second bound), and check
-    the peak memory. Returns the median full-slot step's device ms."""
+    and the live cache read once, and ``state``: (bytes a step must move
+    besides, what they are); ``routed``: (bytes of the weights a step's
+    routing needs, what they are) for a second bound), and check the peak
+    memory; ``active``: the params a token touches (default
+    ``cfg.active_param_count()``), for the prefill bound. Returns the
+    median full-slot step's device ms."""
     from repro_torch.runtime.monitor import percentiles
 
     results, wall, t0, arrivals, steps = stream
@@ -1615,9 +1662,11 @@ def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, lau
     t = percentiles([(end - t0) * 1e3 for _, _, end in arrivals], (50, 99))
     full = [s for s in steps if s[0] == scfg.max_batch]
     kv_live = statistics.median(s[1] for s in full) * lm_cache_bytes_per_token(cfg)
-    decode_bound = (nbytes + kv_live) / cm.HBM_BW * 1e3
+    extra = 0 if state is None else state[0]
+    decode_bound = (nbytes + kv_live + extra) / cm.HBM_BW * 1e3
     s_med = statistics.median(n for n, _, _ in arrivals)
-    prefill_bound = max(2 * cfg.active_param_count() * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
+    active = cfg.active_param_count() if active is None else active
+    prefill_bound = max(2 * active * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
     print(f"{label} stream: {LM_REQUESTS} requests (prompts 4-{LM_PROMPT_LEN} tokens from rng(0), median "
           f"{s_med:.0f}), max_new {LM_MAX_NEW}, {scfg.max_batch} slots, max_seq {scfg.max_seq}, greedy: {tok} tokens "
           f"in {wall:.2f} s, {tok / wall:.1f} tok/s aggregate, {len(steps)} decode steps", flush=True)
@@ -1628,9 +1677,10 @@ def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, lau
             else f"{kernel_ms:.2f} ms (torch.profiler, one step)")
     also = "" if routed is None else (f"; {routed[1]}: bound {(routed[0] + kv_live) / cm.HBM_BW * 1e3:.2f} ms "
                                       f"({routed[0] / 1e9:.2f} GB)")
+    besides = "" if state is None else f" + {state[0] / 1e9:.3f} GB: {state[1]}"
     print(f"{label} decode step with {scfg.max_batch} active slots ({len(full)} steps): device {dev_ms:.2f} ms "
           f"(CUDA events, median), host {issue_ms:.2f} ms to issue it, its kernels {kern}; bound "
-          f"{decode_bound:.2f} ms ({nbytes / 1e9:.2f} GB of weights + {kv_live / 1e9:.3f} GB of live KV at "
+          f"{decode_bound:.2f} ms ({nbytes / 1e9:.2f} GB of weights + {kv_live / 1e9:.3f} GB of live KV{besides} at "
           f"{cm.HBM_BW / 1e12:.2f} TB/s){also}", flush=True)
     for name, count, ms in top:
         print(f"  decode step kernel {name}: {count} launches, {ms:.2f} ms", flush=True)
@@ -1863,15 +1913,16 @@ def ep_sim_serving(torch, seed, fft_stage, cm, eng, cfg, scfg, nbytes, launch, o
     return launches
 
 
-def moe_bf16_agreement(torch, seed, model, params, label: str) -> None:
-    """Check 2 of phase 15: ``model`` (bfloat16, no drops) on
+def bf16_oracle_agreement(torch, seed, model, params, label: str, what: str) -> None:
+    """Check 2 of phases 15 and 18: ``model`` (bfloat16; MoE: no drops) on
     MOE_BF16_ROWS prompts of LM_BF16_SEQ + 1 tokens, one at a time: its
     prefill + 1 decode step and its whole-sequence logits, each against a
     float32 oracle (a float32 Model on the same weights, each weight cast
     at its use). With random experts the bfloat16 forward itself is a few
     1e-2 from the oracle, so the path is held to it (MOE_BF16_NOISE_RATIO
     on the medians); phase 14's comparison with the bfloat16 whole
-    sequence is printed beside."""
+    sequence is printed beside. ``what``: the model's setting, for the
+    printed line."""
     import dataclasses
 
     from repro_torch.models.model import Model
@@ -1897,7 +1948,7 @@ def moe_bf16_agreement(torch, seed, model, params, label: str) -> None:
     def row(errs):
         return ", ".join(f"{e:.3e}" for e in errs)
 
-    print(f"{label} {model.cfg.num_layers} layers, bfloat16, capacity_factor E/k (no drops), {MOE_BF16_ROWS} prompts "
+    print(f"{label} {model.cfg.num_layers} layers, bfloat16, {what}{MOE_BF16_ROWS} prompts "
           f"of {LM_BF16_SEQ} + 1 decode step, rel_err (prefill, decode per prompt) vs a float32 oracle on the same "
           f"weights: prefill + decode {row(path)} (median {med_path:.3e}); the bfloat16 whole sequence {row(own)} "
           f"(median {med_own:.3e}); tol: median {MOE_BF16_NOISE_RATIO} x the whole sequence's, which must stay "
@@ -1921,7 +1972,8 @@ def moe_full_depth(torch, seed, arch: str, scfg, launch):
     label = f"MoE serving {arch}"
     cfg = moe_cfg(arch, **MOE_CUTS[arch])
     eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "MoE serving")
-    moe_bf16_agreement(torch, seed, Model(moe_cfg(arch, no_drop=True, **MOE_CUTS[arch])), eng.params, label)
+    bf16_oracle_agreement(torch, seed, Model(moe_cfg(arch, no_drop=True, **MOE_CUTS[arch])), eng.params, label,
+                          "capacity_factor E/k (no drops), ")
     routed, recording = [], [False]
     dispatch, decode = moe._dispatch_indices, eng._decode
 
@@ -2103,6 +2155,197 @@ def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return {"tp_sim_serving": launches}
+
+
+def ssm_cfg(arch: str, layers: int = 0, dtype: str = ""):
+    """``arch``'s full-width config, depth cut to ``layers`` and in
+    ``dtype`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    return dataclasses.replace(cfg, num_layers=layers or cfg.num_layers, dtype=dtype or cfg.dtype)
+
+
+def ssm_state_bytes(state) -> int:
+    """The bytes of a decode state's recurrent leaves: every leaf but the
+    KV caches' (the mLSTM (C, n, m), the conv windows, the sLSTM and
+    Mamba states)."""
+    from repro_torch.models.attention import KVCache
+
+    def walk(t):
+        if isinstance(t, KVCache):
+            return 0
+        if isinstance(t, tuple):
+            return sum(walk(a) for a in t)
+        return t.numel() * t.element_size()
+
+    return sum(walk(v) for k, v in state.items() if k != "pos")
+
+
+def ssm_width_checks(torch, seed, arch: str) -> None:
+    """Check 1 of phase 18: ``arch`` at full width, SSM_F32_LAYERS' depth,
+    float32 (TF32 off since phase 1): a SSM_F32_SEQ-token prefill +
+    LM_DECODE decode steps against the whole sequence's logits, and
+    phase 14's slot isolation."""
+    from repro_torch.models.model import Model
+
+    label = f"SSM serving {arch}"
+    model = Model(ssm_cfg(arch, SSM_F32_LAYERS[arch], "float32"))
+    cfg, seq = model.cfg, SSM_F32_SEQ[arch]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    errs, top = lm_agreement(torch, model, params, g, seq)
+    layers = [model._flag(grp, i) for grp in model.groups for i in range(grp.count)]
+    where = (f", layers global {layers} (window {cfg.window_size}), {cfg.meta_tokens} meta tokens"
+             if cfg.window_size else "")
+    print(f"{label} full width, {cfg.num_layers} layers{where}, float32 (float32 state and cache): prefill of {seq} + "
+          f"{LM_DECODE} decode steps vs logits of the full sequence, rel_err (to max |logit| {top:.3f}) "
+          f"{', '.join(f'{e:.3e}' for e in errs)} (tol {SSM_F32_REL_TOL})", flush=True)
+    check(max(errs) <= SSM_F32_REL_TOL, f"{label} prefill/decode vs full logits: {max(errs):.3e} > {SSM_F32_REL_TOL}")
+    lm_isolation(torch, model, params, g, label)
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_full_depth(torch, seed, arch: str, scfg, launch):
+    """Checks 2 and 3 of phase 18: ``arch`` at all its layers in bfloat16,
+    built as launch/serve.py builds it: the float32-oracle agreement, then
+    the launcher's stream."""
+    cfg = ssm_cfg(arch)
+    eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "SSM serving")
+    if arch in SSM_BF16_LAYERWISE:
+        ssm_bf16_layerwise(torch, seed, eng.model, eng.params, f"SSM serving {arch}")
+    else:
+        bf16_oracle_agreement(torch, seed, eng.model, eng.params, f"SSM serving {arch}", "")
+    stream, kernels = lm_serve_stream(torch, eng, cfg, launch)
+    return cfg, nbytes, stream, kernels, eng
+
+
+def ssm_bf16_layerwise(torch, seed, model, params, label: str) -> None:
+    """Check 2 of phase 18 layer by layer (SSM_BF16_LAYERWISE): on
+    MOE_BF16_ROWS prompts of LM_BF16_SEQ + 1 tokens (one batch: nothing
+    couples the rows of a recurrent model), every layer of the bfloat16
+    ``model`` runs on the float32 oracle's input to that layer (rounded to
+    bf16), so no layer inherits another's rounding: its prefill of the
+    first LM_BF16_SEQ positions + 1 decode step (its own state) and its
+    whole-sequence pass, each layer's increment (output - input) against
+    the oracle layer's at the last two positions of each prompt; phase
+    15's gate over every (prompt, layer, position). The bf16 model's own
+    residual stream rides along through the depth, and its distance from
+    the oracle's is printed (the growth that rules out a whole-model
+    gate)."""
+    import dataclasses
+
+    from repro_torch.models.model import Model, _layer, _state_layer, _write_back
+
+    oracle = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    rows = MOE_BF16_ROWS
+    toks = torch.randint(0, model.cfg.vocab_size, (rows, LM_BF16_SEQ + 1), device="cuda", generator=g)
+    path, own, drift = [], [], []
+    with torch.inference_mode():
+        x32 = oracle._embed_in(params, {"tokens": toks})
+        x16 = x32.to(model.dtype)  # the bf16 model's own stream
+        state = model.init_decode_state(rows, LM_BF16_SEQ + 1)
+        for grp in model.groups:
+            for i in range(grp.count):
+                p, flag = _layer(params[grp.name], i), model._flag(grp, i)
+                y32 = oracle._trunk_block(grp, p, x32, flag)[0]
+                xin = x32.to(model.dtype)
+                whole = model._trunk_block(grp, p, xin, flag)[0]
+                view = _state_layer(state[grp.name], i)
+                pre, new = model._prefill_block(grp, p, xin[:, :-1], view, flag)
+                _write_back(view, new)
+                dec, _ = model._decode_block(grp, p, xin[:, -1:], view, flag)
+                d32 = y32 - x32
+                for got, at in ((pre[:, -1], -2), (dec[:, 0], -1)):
+                    for r in range(rows):
+                        path.append(lm_rel_err(got[r].float() - xin[r, at].float(), d32[r, at]))
+                        own.append(lm_rel_err(whole[r, at].float() - xin[r, at].float(), d32[r, at]))
+                x16 = model._trunk_block(grp, p, x16, flag)[0]
+                drift.append(statistics.median(lm_rel_err(x16[r], y32[r]) for r in range(rows)))
+                x32 = y32
+    med_path, med_own = statistics.median(path), statistics.median(own)
+    shown = [(d, e) for d, e in enumerate(drift, 1) if d & (d - 1) == 0 or d == len(drift)]
+    print(f"{label} {model.cfg.num_layers} layers, bfloat16, layer by layer on a float32 oracle's input (same "
+          f"weights), {rows} prompts of {LM_BF16_SEQ} + 1 decode step: each layer's increment at the prompt's last "
+          f"position (prefill) and the next (decode), rel_err vs the oracle layer's over {len(path)} (prompt, "
+          f"layer, position): prefill + decode median {med_path:.3e} (max {max(path):.3e}); the bf16 "
+          f"whole-sequence pass of the layer median {med_own:.3e} (max {max(own):.3e}); tol: median "
+          f"{MOE_BF16_NOISE_RATIO} x the whole pass's, which must stay under {MOE_BF16_FLOOR_LIMIT}. The bf16 "
+          f"model's own stream vs the oracle's (median over the prompts, not gated), by block: "
+          + ", ".join(f"{d}: {e:.3e}" for d, e in shown), flush=True)
+    check(med_own <= MOE_BF16_FLOOR_LIMIT, f"{label}: the bf16 layers' median error {med_own:.3e} > "
+          f"{MOE_BF16_FLOOR_LIMIT}")
+    check(med_path <= MOE_BF16_NOISE_RATIO * med_own, f"{label}: prefill + decode layers' median error "
+          f"{med_path:.3e} > {MOE_BF16_NOISE_RATIO} x the whole pass's {med_own:.3e}")
+
+
+def ssm_mixers_ms(torch, seed, eng) -> dict:
+    """Check 4 of phase 18: one SSM_MIXER_SEQ-token prompt (and hymba's
+    meta tokens) through each mixer of ``eng``'s first layer alone, on its
+    bfloat16 weights and a fresh state: CUDA-event ms, median of
+    SSM_MIXER_REPS."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import blocks, ssm
+    from repro_torch.models.model import _layer, _state_layer
+
+    model = eng.model
+    cfg, grp = model.cfg, model.groups[0]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 5)
+    x = torch.randn((1, SSM_MIXER_SEQ + cfg.meta_tokens, cfg.d_model), device="cuda", generator=g).to(model.dtype)
+    p = _layer(eng.params[grp.name], 0)
+    st = _state_layer(model.init_decode_state(1, SSM_MIXER_SEQ)[grp.name], 0)
+    if grp.kind == "hymba":
+        spec = blocks._attn_spec(cfg, is_global=True)
+        fns = {"Mamba block (chunked doubling scan)": lambda: ssm.apply_mamba(p["mamba"], x, cfg, st.mamba),
+               "attention (prefill, chunked)": lambda: A.prefill_attention(p["attn"], x, st.kv, cfg, spec)}
+    else:
+        fns = {"mLSTM block (chunkwise)": lambda: ssm.apply_mlstm_block(p["m"], x, cfg, st.m),
+               "sLSTM block (time loop)": lambda: ssm.apply_slstm_block(p["s"], x, cfg, st.s)}
+    return {name: events_ms(torch, fn, reps=SSM_MIXER_REPS) for name, fn in fns.items()}
+
+
+def ssm_serving_phase(torch, seed, fft_stage, cm) -> dict:
+    """Phase 18: SSM and hybrid serving, xLSTM-1.3B and Hymba-1.5B at full
+    width and depth on one card; returns each model's FFT kernel launches."""
+    from repro_torch.configs import ServeConfig
+    from repro_torch.launch import serve as launch
+
+    scfg, by_path, t0 = ServeConfig(), {}, time.perf_counter()
+    for arch in SSM_ARCHS:
+        label = f"SSM serving {arch}"
+        ssm_width_checks(torch, seed, arch)
+        cfg = ssm_cfg(arch)
+        lm_check_free(torch, f"{label} before the full-depth model",
+                      2 * cfg.param_count() + lm_kv_bytes(cfg, scfg) + LM_HEADROOM_GIB * 2**30)
+        (cfg, nbytes, stream, kernels, eng), launches, peak = counted(
+            torch, fft_stage, label, lambda: ssm_full_depth(torch, seed, arch, scfg, launch), expect=())
+        torch.cuda.empty_cache()
+        state = ssm_state_bytes(eng.state)
+        print(f"{label} decode state at {scfg.max_batch} slots x {scfg.max_seq}: {state / 2**30:.3f} GiB recurrent "
+              f"(float32) + {lm_kv_bytes(cfg, scfg) / 2**30:.3f} GiB KV cache (bfloat16); {nbytes / 2 / 1e9:.3f} B "
+              f"params (ModelConfig.param_count() {cfg.param_count() / 1e9:.3f} B)", flush=True)
+        lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, launches, cm,
+                         state=(2 * state, "the recurrent state read and written once"), active=nbytes // 2)
+        ms = ssm_mixers_ms(torch, seed, eng)
+        print(f"{label} one {SSM_MIXER_SEQ}-token prompt{' (+ meta tokens)' if cfg.meta_tokens else ''}, bfloat16, "
+              f"each mixer alone on one layer (CUDA events, median of {SSM_MIXER_REPS}): "
+              + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
+              + f"; x {cfg.num_layers // 2 if cfg.family == 'ssm' else cfg.num_layers} layers", flush=True)
+        lm_launcher(arch, launch, label)
+        by_path[f"ssm_serving_{arch}"] = launches
+        del eng, stream
+        gc.collect()
+        torch.cuda.empty_cache()
+    print(f"SSM serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
 
 
 def agreement_probe(torch, mesh) -> dict:
@@ -2921,6 +3164,7 @@ def main(argv=None) -> int:
     by_path["lm_serving"] = lm_serving_phase(torch, args.seed, fft_stage, cm)
     by_path.update(moe_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(tp_serving_phase(torch, args.seed, fft_stage, cm))
+    by_path.update(ssm_serving_phase(torch, args.seed, fft_stage, cm))
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

@@ -1,13 +1,17 @@
-"""The decoder block, dense or MoE, with GQA or MLA attention, ported
-from ``repro.models.blocks`` (``cross=False``; the cross-attention,
-hymba and xLSTM blocks are ROADMAP A15.2b / A15.2c).
+"""The decoder block, dense or MoE, with GQA or MLA attention, and the
+hymba (parallel attention + Mamba heads) and xLSTM (mLSTM + sLSTM pair)
+blocks with their states, ported from ``repro.models.blocks``
+(``cross=False``; the cross-attention is ROADMAP A15.2c).
 
 ``is_global`` is a Python ``bool`` per layer (``Group.flags``), where the
 reference traces a flag through ``lax.cond``: gemma2's alternation of
 sliding-window and global layers. ``apply_decoder_block`` returns ``(x,
 aux)``, aux the MoE router's load-balance loss (0 for a dense FFN).
 Decode and prefill take one layer's cache (``KVCache`` or ``MLACache``,
-views into the model's stacked cache) and write it in place.
+views into the model's stacked cache) and write it in place; the hymba
+and xLSTM blocks take one layer's state tree (``HymbaState``,
+``XLSTMPairState``, ``ssm.MLSTMBlockState``) and return the new one
+(the KV cache and the mLSTM cell written in place, the rest fresh).
 
 Over a mesh (``tp``, ``common.TP``) the attention and the dense FFN are
 tensor-parallel and the norms and residuals run on the activations as
@@ -17,13 +21,13 @@ they lie: replicated, or under Megatron sequence parallelism
 
 from __future__ import annotations
 
-from typing import Tuple, Union
+from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import attention as attn
-from repro_torch.models import common, mlp, moe
+from repro_torch.models import common, mlp, moe, ssm
 from repro_torch.models.attention import AttnSpec, KVCache, MLACache
 from repro_torch.models.common import Params
 
@@ -145,3 +149,117 @@ def prefill_decoder_block(
     prefill = attn.prefill_mla if cfg.mla is not None else attn.prefill_attention
     a, new_cache = prefill(p["attn"], h, cache, cfg, spec, impl=impl, tp=tp)
     return _ffn(p, x + _maybe_post(p.get("ln1p"), a, cfg), cfg, use_moe, tp)[0], new_cache
+
+
+# ---------------------------------------------------------------------------
+# hymba block: parallel attention + mamba heads
+# ---------------------------------------------------------------------------
+
+
+class HymbaState(NamedTuple):
+    kv: KVCache
+    mamba: ssm.MambaState
+
+
+def init_hymba_block(generator: torch.Generator, cfg: ModelConfig, device):
+    pa, sa = attn.init_attention(generator, cfg, device)
+    pm, sm = ssm.init_mamba(generator, cfg, device)
+    pf, sf = mlp.init_mlp(generator, cfg.d_model, cfg.d_ff, cfg.mlp_kind, device)
+    p = {"attn": pa, "mamba": pm, "ffn": pf}
+    s = {"attn": sa, "mamba": sm, "ffn": sf}
+    for name in ("ln1", "ln2", "na", "nm"):
+        p[name], s[name] = init_n(cfg, device)
+    for name in ("beta_a", "beta_m"):
+        p[name], s[name] = torch.ones((cfg.d_model,), device=device), (None,)
+    return p, s
+
+
+def _hymba_rest(p, x, a, mo, cfg: ModelConfig, tp: common.TP):
+    """x + the two heads' normalized, beta-weighted mean, then the FFN."""
+    dt = x.dtype
+    mix = 0.5 * (common.apply_norm(p["na"], a, cfg.norm_kind) * p["beta_a"].to(dt)
+                 + common.apply_norm(p["nm"], mo, cfg.norm_kind) * p["beta_m"].to(dt))
+    x = x + mix
+    h2 = common.apply_norm(p["ln2"], x, cfg.norm_kind)
+    return x + mlp.apply_mlp(p["ffn"], h2, cfg.mlp_kind, tp, cfg.d_ff)
+
+
+def apply_hymba_block(p, x, cfg: ModelConfig, *, is_global: bool, impl: str = "chunked",
+                      state: Optional[HymbaState] = None, tp: common.TP = common.SINGLE):
+    """Returns (x, the Mamba head's new state, or None without ``state``);
+    the positions are 0..S-1, meta tokens included."""
+    h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
+    a = attn.apply_attention(p["attn"], h, cfg, _attn_spec(cfg, is_global=is_global), impl=impl, tp=tp)
+    mo, mstate = ssm.apply_mamba(p["mamba"], h, cfg, state.mamba if state is not None else None)
+    return _hymba_rest(p, x, a, mo, cfg, tp), mstate
+
+
+def prefill_hymba_block(p, x, cfg: ModelConfig, state: HymbaState, *, is_global: bool, impl: str = "chunked",
+                        tp: common.TP = common.SINGLE):
+    h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
+    spec = _attn_spec(cfg, is_global=is_global)
+    a, kv = attn.prefill_attention(p["attn"], h, state.kv, cfg, spec, impl=impl, tp=tp)
+    mo, mstate = ssm.apply_mamba(p["mamba"], h, cfg, state.mamba)
+    return _hymba_rest(p, x, a, mo, cfg, tp), HymbaState(kv, mstate)
+
+
+def decode_hymba_block(p, x, cfg: ModelConfig, state: HymbaState, *, is_global: bool,
+                       tp: common.TP = common.SINGLE):
+    h = common.apply_norm(p["ln1"], x, cfg.norm_kind)
+    a, kv = attn.decode_attention(p["attn"], h, state.kv, cfg, _attn_spec(cfg, is_global=is_global), tp=tp)
+    mo, mstate = ssm.decode_mamba(p["mamba"], h, cfg, state.mamba)
+    return _hymba_rest(p, x, a, mo, cfg, tp), HymbaState(kv, mstate)
+
+
+# ---------------------------------------------------------------------------
+# xlstm pair block (mLSTM + sLSTM), and the mLSTM-only layer
+# ---------------------------------------------------------------------------
+
+
+class XLSTMPairState(NamedTuple):
+    m: ssm.MLSTMBlockState
+    s: ssm.SLSTMState
+
+
+def init_xlstm_pair(generator: torch.Generator, cfg: ModelConfig, device):
+    pm, sm = ssm.init_mlstm_block(generator, cfg, device)
+    ps, ss_ = ssm.init_slstm_block(generator, cfg, device)
+    p = {"m": pm, "s": ps, "lnm": init_n(cfg, device)[0], "lns": init_n(cfg, device)[0]}
+    s = {"m": sm, "s": ss_, "lnm": init_n(cfg, device)[1], "lns": init_n(cfg, device)[1]}
+    return p, s
+
+
+def apply_xlstm_pair(p, x, cfg: ModelConfig, state: Optional[XLSTMPairState] = None):
+    hm = common.apply_norm(p["lnm"], x, cfg.norm_kind)
+    om, ms = ssm.apply_mlstm_block(p["m"], hm, cfg, state.m if state is not None else None)
+    x = x + om
+    hs = common.apply_norm(p["lns"], x, cfg.norm_kind)
+    os_, ss_ = ssm.apply_slstm_block(p["s"], hs, cfg, state.s if state is not None else None)
+    x = x + os_
+    return x, (XLSTMPairState(ms, ss_) if state is not None else None)
+
+
+def decode_xlstm_pair(p, x, cfg: ModelConfig, state: XLSTMPairState):
+    hm = common.apply_norm(p["lnm"], x, cfg.norm_kind)
+    om, ms = ssm.decode_mlstm_block(p["m"], hm, cfg, state.m)
+    x = x + om
+    hs = common.apply_norm(p["lns"], x, cfg.norm_kind)
+    os_, ss_ = ssm.decode_slstm_block(p["s"], hs, cfg, state.s)
+    return x + os_, XLSTMPairState(ms, ss_)
+
+
+def init_xlstm_m(generator: torch.Generator, cfg: ModelConfig, device):
+    """An mLSTM-only layer (xLSTM with ``slstm_every=0``)."""
+    p, s = ssm.init_mlstm_block(generator, cfg, device)
+    pn, sn = init_n(cfg, device)
+    return {"m": p, "lnm": pn}, {"m": s, "lnm": sn}
+
+
+def apply_xlstm_m(p, x, cfg: ModelConfig, state: Optional[ssm.MLSTMBlockState] = None):
+    o, st = ssm.apply_mlstm_block(p["m"], common.apply_norm(p["lnm"], x, cfg.norm_kind), cfg, state)
+    return x + o, st
+
+
+def decode_xlstm_m(p, x, cfg: ModelConfig, state: ssm.MLSTMBlockState):
+    o, st = ssm.decode_mlstm_block(p["m"], common.apply_norm(p["lnm"], x, cfg.norm_kind), cfg, state)
+    return x + o, st

@@ -1,6 +1,9 @@
 """Model assembly: embeddings -> layer groups -> head, ported from
 ``repro.models.model`` for the decoder LMs, dense or MoE (DeepSeek-V3's
-dense prefix then its MoE group), with GQA or MLA attention.
+dense prefix then its MoE group), with GQA or MLA attention, and the
+SSM and hybrid families: xLSTM (mLSTM + sLSTM pairs, or mLSTM layers
+alone at ``slstm_every=0``) and hymba (attention beside Mamba heads in
+every layer, behind the meta tokens).
 
 Params of structurally identical layers are stacked along a leading
 ``(L, ...)`` axis, as in the reference (its ``lax.scan`` layout), so the
@@ -14,7 +17,11 @@ Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
     .logits(params, batch)                    full logits (small shapes)
     .init_decode_state(b, s_max) / .prefill / .decode_step
 
-The decode state's caches are written in place. ``init`` makes the MTP
+The decode state is one stacked tree a group: a ``KVCache`` /
+``MLACache``, or for the SSM and hybrid groups the reference's
+``HymbaState`` / ``XLSTMPairState`` / ``MLSTMBlockState`` of (L, B, ...)
+tensors. Each layer works on views of its slice and its new state is
+written back in place. ``init`` makes the MTP
 head's weights when ``cfg.mtp_depth`` asks for them (the reference's
 tree); nothing here runs them.
 
@@ -41,9 +48,10 @@ On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
 every leaf in the one-rank order, one layer at a time, and keeps the
 rank's; ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's
 arrays) and its KV heads of the cache; on a ``SimMesh`` the stacks stay
-whole and a rank's block is a view. Not ported yet: SSM and hybrid
-models (ROADMAP A15.2b), encoder-decoder models (A15.2c), ``loss`` and
-MTP (A15.3).
+whole and a rank's block is a view. SSM and hybrid models run on one
+rank (a mesh of one rank, or none). Not ported yet: SSM and hybrid
+models over a mesh of several ranks (ROADMAP A15.2d), encoder-decoder
+models (A15.2c), ``loss`` and MTP (A15.3).
 """
 
 from __future__ import annotations
@@ -58,7 +66,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sharding
 from repro_torch.core.mesh import resolve_device
-from repro_torch.models import blocks, common
+from repro_torch.models import attention, blocks, common, ssm
 from repro_torch.models.common import Deferred, Params, Specs
 
 
@@ -76,6 +84,34 @@ def _stack_specs(specs, extra=(None,)):
 def _layer(tree, i: int):
     """Layer ``i``'s params: views into the stacked ``(L, ...)`` leaves."""
     return _map(lambda a: a[i], tree)
+
+
+def _state_layer(state, i: int):
+    """Layer ``i``'s views of a stacked decode state (``NamedTuple`` s of
+    (L, ...) tensors, nested any way)."""
+    if isinstance(state, tuple):
+        return type(state)(*(_state_layer(s, i) for s in state))
+    return state[i]
+
+
+def _write_back(view, new) -> None:
+    """A layer's new state into its views, leaf by leaf; a leaf the layer
+    updated in place (the same tensor) is left as it is."""
+    if isinstance(view, tuple):
+        for v, n in zip(view, new):
+            _write_back(v, n)
+    elif new is not view:
+        view.copy_(new)
+
+
+def _stack_state(one, count: int):
+    """``count`` copies of one layer's state, stacked along a new leading
+    axis (every leaf a tensor of its own: the layers write in place)."""
+    if isinstance(one, tuple):
+        return type(one)(*(_stack_state(a, count) for a in one))
+    out = one.new_empty((count,) + tuple(one.shape))
+    out[:] = one
+    return out
 
 
 @dataclasses.dataclass(frozen=True)
@@ -127,12 +163,21 @@ def build_groups(cfg: ModelConfig) -> List[Group]:
     return [Group("layers", "dec", L, flags, static_global=static)]
 
 
-def _not_ported(cfg: ModelConfig) -> Optional[str]:
-    if cfg.family in ("ssm", "hybrid"):
-        return f"{cfg.name}: SSM and hybrid models are ROADMAP A15.2b"
+def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
+    if cfg.family in ("ssm", "hybrid") and mesh is not None and mesh.p > 1:
+        return f"{cfg.name}: SSM and hybrid models over a mesh of several ranks are ROADMAP A15.2d"
     if cfg.is_encdec:
         return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2c"
     return None
+
+
+def _group_init_fn(g: Group, cfg: ModelConfig, generator: torch.Generator, device) -> Callable:
+    """One layer's ``(params, specs)`` draw for group ``g``."""
+    if g.kind in ("dec", "dec_moe"):
+        return lambda: blocks.init_decoder_block(generator, cfg, device, use_moe=g.kind == "dec_moe")
+    init = {"hymba": blocks.init_hymba_block, "xlstm_pair": blocks.init_xlstm_pair,
+            "xlstm_m": blocks.init_xlstm_m}[g.kind]
+    return lambda: init(generator, cfg, device)
 
 
 def head_units(cfg: ModelConfig) -> Dict[str, int]:
@@ -154,7 +199,7 @@ def _float_to(dtype):
 
 class Model:
     def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None):
-        why = _not_ported(cfg)
+        why = _not_ported(cfg, mesh)
         if why is not None:
             raise NotImplementedError(f"not ported yet: {why}")
         self.cfg = cfg
@@ -205,12 +250,9 @@ class Model:
                 shape[rows[0]] = rows[2]
             return torch.empty([count] + shape, dtype=out_dtype, device=dev)
 
-        def stacked_blocks(count: int, use_moe: bool):
-            """``count`` decoder blocks' params in (count, ...) stacks, drawn
-            one layer at a time, and one block's specs."""
-            def draw():
-                return blocks.init_decoder_block(generator, cfg, dev, use_moe=use_moe)
-
+        def stacked_blocks(count: int, draw: Callable):
+            """``count`` blocks' params in (count, ...) stacks, drawn one
+            layer at a time by ``draw``, and one block's specs."""
             layer, s = draw()  # its leaves give the stacks' shapes (a group may have no layer)
             out = _map2(lambda a, spec: empty_stack(a, spec, count), layer, s)
             for i in range(count):
@@ -228,10 +270,11 @@ class Model:
             meta = common.trunc_normal((cfg.meta_tokens, cfg.d_model), 1.0, generator=generator, device=dev)
             params["meta"], specs["meta"] = cast(meta), (None, "fsdp")
         for g in self.groups:
-            params[g.name], s = stacked_blocks(g.count, g.kind == "dec_moe")
+            params[g.name], s = stacked_blocks(g.count, _group_init_fn(g, cfg, generator, dev))
             specs[g.name] = _stack_specs(s)
         if cfg.mtp_depth > 0:
-            block, sb = stacked_blocks(1, cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers)
+            use_moe = cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers
+            block, sb = stacked_blocks(1, lambda: blocks.init_decoder_block(generator, cfg, dev, use_moe=use_moe))
             params["mtp"] = {
                 "proj": cast(common.dense_init((2 * cfg.d_model, cfg.d_model), generator=generator, device=dev)),
                 "block": _layer(block, 0),
@@ -265,17 +308,16 @@ class Model:
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=self.device)
 
     def _through_caches(self, params, x, state, block) -> torch.Tensor:
-        """``x`` through every layer, ``block(p, x, cache, is_global,
-        use_moe) -> (x, cache)`` on layer views of the stacked params and
-        of the group's cache, whatever its type (``KVCache``,
-        ``MLACache``); the caches are written in place, their lengths
-        here."""
+        """``x`` through every layer, ``block(g, p, x, state, is_global) ->
+        (x, state)`` on layer views of the stacked params and of the
+        group's state tree, whatever its type (``KVCache``, ``MLACache``,
+        the SSM and hybrid states); each layer's new state is written
+        back into the stacks in place (``_write_back``)."""
         for g in self.groups:
-            cache = state[g.name]
             for i in range(g.count):
-                x, new = block(_layer(params[g.name], i), x, type(cache)(*(leaf[i] for leaf in cache)),
-                               self._flag(g, i), g.kind == "dec_moe")
-                cache.length[i] = new.length
+                view = _state_layer(state[g.name], i)
+                x, new = block(g, _layer(params[g.name], i), x, view, self._flag(g, i))
+                _write_back(view, new)
         return x
 
     def _logits(self, params, x) -> torch.Tensor:
@@ -310,11 +352,9 @@ class Model:
         aux = torch.zeros((), device=self.device)
         for g in self.groups:
             for i in range(g.count):
-                x, a = blocks.apply_decoder_block(
-                    _layer(params[g.name], i), x, cfg, is_global=self._flag(g, i), use_moe=g.kind == "dec_moe",
-                    impl=self.attn_impl, tp=tp,
-                )
-                aux = aux + a
+                x, a = self._trunk_block(g, _layer(params[g.name], i), x, self._flag(g, i), tp)
+                if a is not None:
+                    aux = aux + a
         x = tp.whole(tp.each(lambda a: common.apply_norm(params["final_norm"], a, cfg.norm_kind), x))
         return (x[:, cfg.meta_tokens:] if cfg.meta_tokens else x), aux
 
@@ -325,18 +365,37 @@ class Model:
 
     # --------------------------------------------------------------- decode
     def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
-        """``{"pos": int, <group>: cache}``: a ``KVCache`` of (L, B, S, KVH,
-        D) K and V, or for MLA an ``MLACache`` of (L, B, S, kv_lora_rank)
-        latents and (L, B, S, rope_head_dim) rope keys; (L, B) lengths.
-        The cache is bfloat16 by default even for a float32 model, as the
-        reference's is."""
-        cfg, dev = self.cfg, self.device
-        s_tot = s_max + cfg.meta_tokens
+        """``{"pos": int, <group>: state}``, each leaf stacked (L, ...): a
+        ``KVCache`` of (L, B, S, KVH, D) K and V, or for MLA an
+        ``MLACache`` of (L, B, S, kv_lora_rank) latents and (L, B, S,
+        rope_head_dim) rope keys, with (L, B) lengths; hymba a
+        ``HymbaState`` (its KV cache over the meta tokens too, and the
+        Mamba heads' float32 (B, di, N) state and (B, conv_dim - 1, di)
+        conv window); xLSTM an ``XLSTMPairState`` (or for mLSTM layers
+        alone an ``MLSTMBlockState``) of float32 mLSTM (C, n, m), the
+        width-4 conv window and the sLSTM (h, c, n, m). The KV cache is
+        bfloat16 by default even for a float32 model, as the reference's
+        is."""
+        s_tot = s_max + self.cfg.meta_tokens
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:
-            one = blocks.init_block_cache(cfg, b, s_tot, cache_dtype, "meta", self.tp)
-            state[g.name] = type(one)(*(torch.zeros((g.count,) + a.shape, dtype=a.dtype, device=dev) for a in one))
+            state[g.name] = _stack_state(self._layer_state(g, b, s_tot, cache_dtype), g.count)
         return state
+
+    def _layer_state(self, g: Group, b: int, s_tot: int, cache_dtype):
+        """One layer's initial decode state for group ``g``."""
+        cfg, dev = self.cfg, self.device
+        if g.kind in ("dec", "dec_moe"):
+            return blocks.init_block_cache(cfg, b, s_tot, cache_dtype, dev, self.tp)
+        di = int(cfg.ssm.expand * cfg.d_model)
+        if g.kind == "hymba":
+            return blocks.HymbaState(
+                kv=attention.init_kv_cache(b, s_tot, cfg.num_kv_heads, cfg.head_dim_, cache_dtype, dev),
+                mamba=ssm.init_mamba_state(b, di, cfg.ssm.state_dim, cfg.ssm.conv_dim, dev))
+        dh = di // cfg.num_heads
+        mb = ssm.MLSTMBlockState(cell=ssm.init_mlstm_state(b, cfg.num_heads, dh, dh, device=dev),
+                                 conv=torch.zeros((b, ssm.MLSTM_CONV - 1, di), device=dev))
+        return blocks.XLSTMPairState(m=mb, s=ssm.init_slstm_state(b, cfg.d_model, dev)) if g.kind == "xlstm_pair" else mb
 
     @torch.inference_mode()
     def prefill(self, params, batch, state) -> Tuple[Dict, torch.Tensor]:
@@ -344,9 +403,7 @@ class Model:
         place. Returns (state, last-position logits (B, V))."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._through_caches(params, self._embed_in(params, batch), state, lambda p, x, c, flag, use_moe: (
-            blocks.prefill_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, impl=self.attn_impl,
-                                         tp=self.tp)))
+        x = self._through_caches(params, self._embed_in(params, batch), state, self._prefill_block)
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = x.shape[1]
         return state, self._logits(params, x[:, -1:])[:, 0]
@@ -360,11 +417,43 @@ class Model:
                                                  cfg.vocab_size))
         if cfg.rope_theta <= 0:
             x = x + self._abs_pos(state["pos"])
-        x = self._through_caches(params, x, state, lambda p, x, c, flag, use_moe: (
-            blocks.decode_decoder_block(p, x, cfg, c, is_global=flag, use_moe=use_moe, tp=self.tp)))
+        x = self._through_caches(params, x, state, self._decode_block)
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = state["pos"] + 1
         return self._logits(params, x)[:, 0], state
+
+    def _trunk_block(self, g: Group, p, x, flag: bool, tp=None):
+        """One layer of ``hidden``: (x, the MoE router's aux loss, or None
+        where the block has no router)."""
+        cfg, impl, tp = self.cfg, self.attn_impl, self.tp if tp is None else tp
+        if g.kind == "hymba":
+            return blocks.apply_hymba_block(p, x, cfg, is_global=flag, impl=impl, tp=tp)[0], None
+        if g.kind == "xlstm_pair":
+            return blocks.apply_xlstm_pair(p, x, cfg)[0], None
+        if g.kind == "xlstm_m":
+            return blocks.apply_xlstm_m(p, x, cfg)[0], None
+        return blocks.apply_decoder_block(p, x, cfg, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl, tp=tp)
+
+    def _prefill_block(self, g: Group, p, x, st, flag: bool):
+        cfg, impl = self.cfg, self.attn_impl
+        if g.kind == "hymba":
+            return blocks.prefill_hymba_block(p, x, cfg, st, is_global=flag, impl=impl, tp=self.tp)
+        if g.kind == "xlstm_pair":
+            return blocks.apply_xlstm_pair(p, x, cfg, st)
+        if g.kind == "xlstm_m":
+            return blocks.apply_xlstm_m(p, x, cfg, st)
+        return blocks.prefill_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl,
+                                            tp=self.tp)
+
+    def _decode_block(self, g: Group, p, x, st, flag: bool):
+        cfg = self.cfg
+        if g.kind == "hymba":
+            return blocks.decode_hymba_block(p, x, cfg, st, is_global=flag, tp=self.tp)
+        if g.kind == "xlstm_pair":
+            return blocks.decode_xlstm_pair(p, x, cfg, st)
+        if g.kind == "xlstm_m":
+            return blocks.decode_xlstm_m(p, x, cfg, st)
+        return blocks.decode_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", tp=self.tp)
 
     def _abs_pos(self, pos: int) -> torch.Tensor:
         half = self.cfg.d_model // 2

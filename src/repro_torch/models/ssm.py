@@ -1,0 +1,546 @@
+"""Recurrent sequence mixers, ported from ``repro.models.ssm``: xLSTM's
+mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar memory,
+sequential), and the Mamba selective SSM of hymba's parallel heads --
+their forward and decode (the serving path), on one rank.
+
+mLSTM chunkwise form (intra-chunk work is matmuls, inter-chunk a short
+loop over the carried state):
+
+    weight(s->t) = exp(g_t + b_s),  g = cumsum(logsigmoid(f~)),  b = i~ - g
+    h_t ~ alpha_t (q_t . C_prev) + sum_{s<=t} exp(b_s - M_t) (q_t.k_s) v_s
+
+with M_t = max(m_prev, cummax b), alpha_t = exp(m_prev - M_t); the carried
+(C, n) are stored pre-scaled by exp(-m) for stability.
+
+Where the reference scans with ``lax.scan`` the port loops in Python (over
+chunks, or over time for the sLSTM); Mamba's ``lax.associative_scan`` of
+the linear recurrence h_t = d_t h_{t-1} + i_t is :func:`linear_scan`, a
+log-depth doubling scan. Numerics follow the reference's: ``k / sqrt(dk)``
+in the compute dtype, gates and recurrences in float32, the sentinels the
+finite values -+1e30, the states float32 (a conv state enters the conv in
+the activations' dtype).
+
+Every mixer has a full-sequence entry point (state in and out when given)
+and a decode step. The mLSTM decode step can update its (C, n, m) in
+place (``inplace=True``, which ``decode_mlstm_block`` uses), in the
+reference's order of operations: bitwise the out-of-place form. Mamba's
+custom backward is ROADMAP A15.3; over a mesh of several ranks these
+mixers are A15.2d.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.configs.base import ModelConfig, SSMConfig
+from repro_torch.models import common
+from repro_torch.models.common import Params, Specs
+
+#: the finite sentinels of the reference (not infinities)
+BIG = 1e30
+
+#: the mLSTM block's causal conv width, fixed whatever ``ssm.conv_dim`` says
+MLSTM_CONV = 4
+
+
+def _silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference lowers it, x * (1 / (1 + exp(-x))),
+    each op rounded to x's dtype: in bfloat16 bitwise the reference's
+    (``F.silu`` rounds once and differs in a third of the values)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` (a Python float: multiplying by it
+    rounds once, as by the reference's constant in that dtype)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def _gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s tanh form op by op, its constants rounded to x's
+    dtype: in bfloat16 bitwise the reference's."""
+    c, k = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
+def _softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: logaddexp(x, 0) = max(x, 0) + log1p(exp(-|x|))."""
+    return torch.clamp_min(x, 0) + torch.log1p(torch.exp(-x.abs()))
+
+
+# ---------------------------------------------------------------------------
+# mLSTM core
+# ---------------------------------------------------------------------------
+
+
+class MLSTMState(NamedTuple):
+    c: torch.Tensor  # (B, H, dk, dv) scaled by exp(-m)
+    n: torch.Tensor  # (B, H, dk)
+    m: torch.Tensor  # (B, H)
+
+
+def init_mlstm_state(b: int, h: int, dk: int, dv: int, dtype=torch.float32, device=None) -> MLSTMState:
+    return MLSTMState(
+        c=torch.zeros((b, h, dk, dv), dtype=dtype, device=device),
+        n=torch.zeros((b, h, dk), dtype=dtype, device=device),
+        m=torch.full((b, h), -BIG, dtype=dtype, device=device),
+    )
+
+
+def mlstm_chunkwise(
+    q: torch.Tensor,  # (B, H, S, dk)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, H, S, dv)
+    i_pre: torch.Tensor,  # (B, H, S) input-gate pre-activations
+    f_pre: torch.Tensor,  # (B, H, S) forget-gate pre-activations
+    state: Optional[MLSTMState] = None,
+    *,
+    chunk: int = 64,
+) -> Tuple[torch.Tensor, MLSTMState]:
+    b, h, s, dk = q.shape
+    dv = v.shape[-1]
+    k = k / math.sqrt(dk)
+    chunk = min(chunk, s)
+    orig_s = s
+    if s % chunk:
+        # pad with identity steps: i~ = -1e30 (no write), f~ = +1e30 (no decay)
+        pad = chunk - s % chunk
+        q, k, v = (F.pad(a, (0, 0, 0, pad)) for a in (q, k, v))
+        i_pre = F.pad(i_pre, (0, pad), value=-BIG)
+        f_pre = F.pad(f_pre, (0, pad), value=BIG)
+        s = s + pad
+    if state is None:
+        state = init_mlstm_state(b, h, dk, dv, device=q.device)
+    c_prev, n_prev, m_prev = state
+    tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
+    outs = []
+    for start in range(0, s, chunk):
+        at = slice(start, start + chunk)
+        qf, kf, vf = (a[:, :, at].float() for a in (q, k, v))
+        ic, fc = i_pre[:, :, at].float(), f_pre[:, :, at].float()
+        logf = F.logsigmoid(fc)  # (B,H,L)
+        g = torch.cumsum(logf, dim=-1)  # inclusive
+        bvec = ic - g
+        mloc = torch.cummax(bvec, dim=-1).values
+        m_t = torch.maximum(m_prev[..., None], mloc)  # (B,H,L) = M_t
+        alpha = torch.exp(m_prev[..., None] - m_t)
+
+        scores = qf @ kf.transpose(-1, -2)  # (B,H,L,L)
+        dmat = torch.exp(bvec[:, :, None, :] - m_t[..., None])  # w[t,s]
+        w = torch.where(tri, scores * dmat, 0.0)
+        inter_h = (qf @ c_prev) * alpha[..., None]
+        inter_n = (qf @ n_prev[..., None])[..., 0] * alpha
+        num = w @ vf + inter_h  # (B,H,L,dv)
+        den = w.sum(-1) + inter_n  # (B,H,L)
+        m_total = g + m_t  # true log-scale at t
+        outs.append(num / torch.maximum(den.abs(), torch.exp(-m_total))[..., None])
+
+        # chunk-end state
+        g_l = g[..., -1:]  # (B,H,1)
+        m_new = torch.maximum(m_prev + g_l[..., 0], (g_l + bvec).amax(-1))
+        sc = torch.exp(g_l + bvec - m_new[..., None])  # (B,H,L)
+        decay = torch.exp(m_prev + g_l[..., 0] - m_new)
+        c_prev = decay[..., None, None] * c_prev + (kf * sc[..., None]).transpose(-1, -2) @ vf
+        n_prev = decay[..., None] * n_prev + (sc[..., None, :] @ kf)[..., 0, :]
+        m_prev = m_new
+    out = torch.cat(outs, dim=2)[:, :, :orig_s]
+    return out.to(q.dtype), MLSTMState(c_prev, n_prev, m_prev)
+
+
+def mlstm_decode_step(
+    q: torch.Tensor,  # (B, H, dk)
+    k: torch.Tensor,
+    v: torch.Tensor,  # (B, H, dv)
+    i_pre: torch.Tensor,  # (B, H)
+    f_pre: torch.Tensor,
+    state: MLSTMState,
+    *,
+    inplace: bool = False,
+) -> Tuple[torch.Tensor, MLSTMState]:
+    """One step. ``inplace``: ``state``'s tensors take the new state
+    (C <- fw C + iw (k v^T), n likewise, m <- m_new) and are returned."""
+    dk = q.shape[-1]
+    k = k / math.sqrt(dk)
+    logf = F.logsigmoid(f_pre.float())
+    lm = logf + state.m
+    m_new = torch.maximum(lm, i_pre.float())
+    fw = torch.exp(lm - m_new)
+    iw = torch.exp(i_pre - m_new)
+    kf, vf, qf = (a.float() for a in (k, v, q))
+    write = iw[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+    if inplace:
+        c = state.c.mul_(fw[..., None, None]).add_(write)
+        n = state.n.mul_(fw[..., None]).add_(iw[..., None] * kf)
+        m = state.m.copy_(m_new)
+    else:
+        c = fw[..., None, None] * state.c + write
+        n = fw[..., None] * state.n + iw[..., None] * kf
+        m = m_new
+    num = (qf[..., None, :] @ c)[..., 0, :]
+    den = (qf * n).sum(-1)
+    hout = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return hout.to(q.dtype), MLSTMState(c, n, m)
+
+
+# ---------------------------------------------------------------------------
+# mLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+
+def _dense(generator, device):
+    return lambda shape: common.dense_init(shape, generator=generator, device=device)
+
+
+def init_mlstm_block(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Params, Specs]:
+    d = cfg.d_model
+    sc: SSMConfig = cfg.ssm
+    di = int(sc.expand * d)
+    h = cfg.num_heads
+    w = _dense(generator, device)
+    gn, gn_spec = common.init_groupnorm(h, di, device)
+    p = {
+        "wup": w((d, 2 * di)),
+        "conv": w((MLSTM_CONV, di)),  # causal depthwise
+        "wq": w((di, di)),
+        "wk": w((di, di)),
+        "wv": w((di, di)),
+        "wif": w((di, 2 * h)),
+        "gn": gn,
+        "wdown": w((di, d)),
+    }
+    s = {
+        "wup": ("fsdp", "mlp"),
+        "conv": (None, "mlp"),
+        "wq": ("mlp", None),
+        "wk": ("mlp", None),
+        "wv": ("mlp", None),
+        "wif": ("mlp", None),
+        "gn": gn_spec,
+        "wdown": ("mlp", "fsdp"),
+    }
+    return p, s
+
+
+def _causal_conv(x: torch.Tensor, w: torch.Tensor, state: Optional[torch.Tensor] = None):
+    """Depthwise causal conv along S. x: (B,S,D), w: (W,D).
+    Returns (out, new_state) with state = last W-1 inputs (x's dtype)."""
+    wlen = w.shape[0]
+    if state is None:
+        pad = x.new_zeros((x.shape[0], wlen - 1, x.shape[2]))
+    else:
+        pad = state.to(x.dtype)
+    xp = torch.cat([pad, x], dim=1)
+    s = x.shape[1]
+    out = sum(xp[:, i:i + s] * w[i].to(x.dtype) for i in range(wlen))
+    new_state = xp[:, -(wlen - 1):] if wlen > 1 else torch.zeros_like(pad)
+    return out, new_state
+
+
+class MLSTMBlockState(NamedTuple):
+    cell: MLSTMState
+    conv: torch.Tensor  # (B, W-1, di)
+
+
+def _mlstm_qkvif(p, xm_conv, xm, h):
+    dt = xm.dtype
+    b, s_len, di = xm.shape
+    dh = di // h
+    q = xm_conv @ p["wq"].to(dt)
+    k = xm_conv @ p["wk"].to(dt)
+    v = xm @ p["wv"].to(dt)
+    gates = xm_conv.float() @ p["wif"].float()
+    i_pre, f_pre = gates[..., :h], gates[..., h:]  # (B,S,H)
+
+    def to_heads(a):
+        return a.reshape(b, s_len, h, dh).transpose(1, 2)
+
+    return to_heads(q), to_heads(k), to_heads(v), i_pre.transpose(1, 2), f_pre.transpose(1, 2)
+
+
+def _mlstm_in(p, x, cfg, conv_state):
+    """(q, k, v, i~, f~, the new conv state, the output gate's input z)."""
+    di = int(cfg.ssm.expand * x.shape[-1])
+    up = x @ p["wup"].to(x.dtype)
+    xm, z = up[..., :di], up[..., di:]
+    xc, conv_new = _causal_conv(xm, p["conv"], conv_state)
+    return _mlstm_qkvif(p, _silu(xc), xm, cfg.num_heads) + (conv_new, z)
+
+
+def _mlstm_out(p, hout, z, h):
+    """hout (B, S, H, dh) through the group norm, the gate and ``wdown``."""
+    y = common.apply_groupnorm(p["gn"], hout, h) * _silu(z)
+    return y @ p["wdown"].to(y.dtype)
+
+
+def apply_mlstm_block(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[MLSTMBlockState] = None
+) -> Tuple[torch.Tensor, Optional[MLSTMBlockState]]:
+    """Full-sequence mLSTM block (pre-norm residual handled by caller).
+    x: (B, S, d). If ``state`` given, runs statefully and returns new state."""
+    s_len = x.shape[1]
+    q, k, v, i_pre, f_pre, conv_state, z = _mlstm_in(p, x, cfg, state.conv if state is not None else None)
+    cell0 = state.cell if state is not None else None
+    hout, cell = mlstm_chunkwise(q, k, v, i_pre, f_pre, cell0, chunk=min(cfg.ssm.chunk, s_len))
+    out = _mlstm_out(p, hout.transpose(1, 2), z, cfg.num_heads)
+    return out, (MLSTMBlockState(cell, conv_state) if state is not None else None)
+
+
+def decode_mlstm_block(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: MLSTMBlockState
+) -> Tuple[torch.Tensor, MLSTMBlockState]:
+    """Single-token step. x: (B, 1, d). ``state.cell`` is updated in place."""
+    q, k, v, i_pre, f_pre, conv_state, z = _mlstm_in(p, x, cfg, state.conv)
+    hout, cell = mlstm_decode_step(
+        q[:, :, 0], k[:, :, 0], v[:, :, 0], i_pre[:, :, 0], f_pre[:, :, 0], state.cell, inplace=True
+    )
+    return _mlstm_out(p, hout[:, None], z, cfg.num_heads), MLSTMBlockState(cell, conv_state)
+
+
+# ---------------------------------------------------------------------------
+# sLSTM block (xLSTM)
+# ---------------------------------------------------------------------------
+
+
+class SLSTMState(NamedTuple):
+    h: torch.Tensor  # (B, D)
+    c: torch.Tensor
+    n: torch.Tensor
+    m: torch.Tensor
+
+
+def init_slstm_state(b: int, d: int, device=None) -> SLSTMState:
+    def z():
+        return torch.zeros((b, d), device=device)
+
+    return SLSTMState(z(), z(), z(), torch.full((b, d), -BIG, device=device))
+
+
+def init_slstm_block(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Params, Specs]:
+    d = cfg.d_model
+    sc: SSMConfig = cfg.ssm
+    hh = sc.slstm_heads
+    dh = d // hh
+    dff = int(d * 4 / 3)
+    w = _dense(generator, device)
+    gn, gn_spec = common.init_groupnorm(hh, d, device)
+    p = {
+        "wx": w((d, 4 * d)),  # z,i,f,o pre-acts
+        "r": w((hh, dh, 4 * dh)) / math.sqrt(dh),  # block-diag recurrent, fan-in hh
+        "gn": gn,
+        "wup": w((d, 2 * dff)),
+        "wdown": w((dff, d)),
+    }
+    s = {
+        "wx": ("fsdp", "mlp"),
+        "r": (None, None, None),
+        "gn": gn_spec,
+        "wup": ("fsdp", "mlp"),
+        "wdown": ("mlp", "fsdp"),
+    }
+    return p, s
+
+
+def _slstm_cell(p, xg: torch.Tensor, st: SLSTMState, hh: int) -> Tuple[torch.Tensor, SLSTMState]:
+    """One step. xg: (B, 4d) input pre-activations. The gates in the
+    per-head interleaved layout (hh, 4, dh); the per-step op count is what
+    a prompt's time goes to, so the recurrent product is one ``bmm`` and
+    the updates ``addcmul`` s."""
+    b, d4 = xg.shape
+    d = d4 // 4
+    dh = d // hh
+    rec = torch.bmm(st.h.view(b, hh, dh).transpose(0, 1), p["r"].float())  # (hh, B, 4 dh)
+    zt, it, ft, ot = (xg.view(b, hh, 4, dh) + rec.transpose(0, 1).view(b, hh, 4, dh)).unbind(2)
+
+    def heads(a):
+        return a.view(b, hh, dh)
+
+    lm = F.logsigmoid(ft) + heads(st.m)
+    m_new = torch.maximum(lm, it)
+    fw = torch.exp(lm - m_new)
+    iw = torch.exp(it - m_new)
+    c = torch.addcmul(fw * heads(st.c), iw, torch.tanh(zt))
+    n = torch.addcmul(iw, fw, heads(st.n))
+    h = torch.sigmoid(ot) * c / torch.maximum(n.abs(), torch.exp(-m_new))
+    h, c, n, m_new = (a.view(b, d) for a in (h, c, n, m_new))
+    return h, SLSTMState(h, c, n, m_new)
+
+
+def apply_slstm_block(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[SLSTMState] = None,
+) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
+    """The recurrence is a Python loop over the S time steps."""
+    hh = cfg.ssm.slstm_heads
+    b, s_len, d = x.shape
+    keep_state = state is not None
+    st = state if keep_state else init_slstm_state(b, d, x.device)
+    xg = x.float() @ p["wx"].float()
+    cell = {"r": p["r"].float()}  # cast once, not per step
+    hs = []
+    for xt in xg.unbind(1):
+        h, st = _slstm_cell(cell, xt, st, hh)
+        hs.append(h)
+    hseq = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,d)
+    hn = common.apply_groupnorm(p["gn"], hseq.reshape(b, s_len, hh, d // hh), hh)
+    up = hn @ p["wup"].to(x.dtype)
+    dff = up.shape[-1] // 2
+    y = _gelu(up[..., :dff]) * up[..., dff:]
+    out = y @ p["wdown"].to(x.dtype)
+    return out, (st if keep_state else None)
+
+
+def decode_slstm_block(p, x, cfg, state: SLSTMState):
+    return apply_slstm_block(p, x, cfg, state)
+
+
+# ---------------------------------------------------------------------------
+# Mamba (selective SSM) -- hymba's parallel head
+# ---------------------------------------------------------------------------
+
+
+class MambaState(NamedTuple):
+    h: torch.Tensor  # (B, di, N)
+    conv: torch.Tensor  # (B, W-1, di)
+
+
+def init_mamba_state(b: int, di: int, n: int, w: int, device=None) -> MambaState:
+    return MambaState(h=torch.zeros((b, di, n), device=device), conv=torch.zeros((b, w - 1, di), device=device))
+
+
+def init_mamba(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Params, Specs]:
+    d = cfg.d_model
+    sc: SSMConfig = cfg.ssm
+    di = int(sc.expand * d)
+    n = sc.state_dim
+    w = _dense(generator, device)
+    p = {
+        "win": w((d, 2 * di)),
+        "conv": w((sc.conv_dim, di)),
+        "wbc": w((di, 2 * n)),
+        "wdt": w((di, di)) * 0.01,
+        "dt_bias": torch.zeros((di,), device=device) + torch.log(torch.expm1(torch.tensor(0.01, device=device))),
+        "a_log": torch.log(torch.arange(1, n + 1, dtype=torch.float32, device=device)).expand(di, n).clone(),
+        "dskip": torch.ones((di,), device=device),
+        "wout": w((di, d)),
+    }
+    s = {
+        "win": ("fsdp", "mlp"),
+        "conv": (None, "mlp"),
+        "wbc": ("mlp", None),
+        "wdt": ("mlp", "mlp"),
+        "dt_bias": ("mlp",),
+        "a_log": ("mlp", None),
+        "dskip": ("mlp",),
+        "wout": ("mlp", "fsdp"),
+    }
+    return p, s
+
+
+def linear_scan(decay: torch.Tensor, inc: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The inclusive scan over axis 0 of the linear recurrence's combine
+    (d1, i1), (d2, i2) -> (d1 d2, i1 d2 + i2) -- ``lax.associative_scan``
+    of ``h_t = decay_t h_{t-1} + inc_t`` -- as a Hillis-Steele doubling
+    scan: ceil(log2 L) steps, each combining every element with the one
+    ``offset`` before it. Returns (cumulative decay, the h of h_{-1} = 0);
+    at L = 1 (a decode step) the inputs themselves."""
+    if decay.shape[0] == 1:
+        return decay, inc
+    d, i = decay.clone(), inc.clone()
+    offset = 1
+    while offset < d.shape[0]:
+        # each right-hand side is whole before its write: a step reads only the last step's values
+        i[offset:] = i[:-offset] * d[offset:] + i[offset:]
+        d[offset:] = d[:-offset] * d[offset:]
+        offset *= 2
+    return d, i
+
+
+def _chunk_fwd(decay, inc, h0):
+    """Within-chunk scan. decay/inc: (L, B, d, N); h0: (B, d, N)."""
+    dcum, icum = linear_scan(decay, inc)
+    return dcum * h0[None] + icum
+
+
+def _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk: int):
+    """Returns (y (B,S,d), h_last, the boundary states: a list of nc (B, d,
+    N), h at each chunk's start -- what the reference's backward recomputes
+    from; the forward alone keeps them unstacked)."""
+    s = xc.shape[1]
+    h, ys, bounds = h0, [], []
+    for start in range(0, s, chunk):
+        xci, dti, bi, ci = (v[:, start:start + chunk].transpose(0, 1) for v in (xc, dt, bmat, cmat))
+        decay = torch.exp(dti[..., None] * a)  # (L,B,d,N)
+        inc = (dti * xci)[..., None] * bi[:, :, None, :]
+        hs = _chunk_fwd(decay, inc, h)
+        ys.append((hs @ ci[..., None])[..., 0] + dskip * xci)
+        bounds.append(h)
+        h = hs[-1]
+    y = torch.cat(ys, dim=0).transpose(0, 1)
+    return y, h, bounds
+
+
+def mamba_core(xc, dt, bmat, cmat, a, dskip, h0, *, chunk: int):
+    """The selective scan y = SSM(xc; dt, B, C, A, D), forward only.
+    xc/dt: (B, S, d) f32; bmat/cmat: (B, S, N); a: (d, N); h0: (B, d, N).
+    S must be a multiple of ``chunk`` (caller pads). Returns (y, h_last)."""
+    y, h_last, _ = _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk)
+    return y, h_last
+
+
+def _mamba_scan_chunked(decay, inc, h0, chunk: int):
+    """h_t = decay_t * h_{t-1} + inc_t, over axis 1 (time).
+
+    decay/inc: (B, S, di, N). A loop over chunks, :func:`linear_scan`
+    within each -- bounded memory at long S."""
+    s = decay.shape[1]
+    chunk = min(chunk, s)
+    orig_s = s
+    if s % chunk:  # pad with identity elements (decay=1, inc=0)
+        pad = chunk - s % chunk
+        decay = F.pad(decay, (0, 0, 0, 0, 0, pad), value=1.0)
+        inc = F.pad(inc, (0, 0, 0, 0, 0, pad))
+        s = s + pad
+    dr, ir = decay.transpose(0, 1), inc.transpose(0, 1)  # (S, B, di, N)
+    h, hs = h0, []
+    for start in range(0, s, chunk):
+        dcum, icum = linear_scan(dr[start:start + chunk], ir[start:start + chunk])
+        hs.append(dcum * h[None] + icum)
+        h = hs[-1][-1]
+    return torch.cat(hs, dim=0).transpose(0, 1)[:, :orig_s], h
+
+
+def apply_mamba(
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[MambaState] = None,
+) -> Tuple[torch.Tensor, Optional[MambaState]]:
+    sc: SSMConfig = cfg.ssm
+    b, s_len, d = x.shape
+    di = int(sc.expand * d)
+    n = sc.state_dim
+    dt_ = x.dtype
+    keep_state = state is not None
+    up = x @ p["win"].to(dt_)
+    xi, z = up[..., :di], up[..., di:]
+    xc, conv_new = _causal_conv(xi, p["conv"], state.conv if keep_state else None)
+    xc = _silu(xc).float()
+    bc = xc @ p["wbc"].float()
+    bmat, cmat = bc[..., :n], bc[..., n:]
+    dt = _softplus(xc @ p["wdt"].float() + p["dt_bias"])
+    a = -torch.exp(p["a_log"].to(dt_))  # (di, N), in the compute dtype
+    h0 = state.h if keep_state else xc.new_zeros((b, di, n))
+    chunk = min(sc.chunk, s_len)
+    pad = (-s_len) % chunk
+    if pad:  # identity steps: dt = 0 -> decay = 1, inc = 0
+        xc_p, dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) for t in (xc, dt, bmat, cmat))
+    else:
+        xc_p, dt_p, b_p, c_p = xc, dt, bmat, cmat
+    y, hlast = mamba_core(xc_p, dt_p, b_p, c_p, a, p["dskip"], h0, chunk=chunk)
+    y = y[:, :s_len].to(dt_) * _silu(z)
+    out = y @ p["wout"].to(dt_)
+    return out, (MambaState(hlast, conv_new) if keep_state else None)
+
+
+def decode_mamba(p, x, cfg, state: MambaState):
+    return apply_mamba(p, x, cfg, state)

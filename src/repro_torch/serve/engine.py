@@ -53,13 +53,20 @@ class Request:
 
 def _set_slot(state, slot_state, idx: int) -> None:
     """Copy a batch=1 sub-state into batch row ``idx`` of the pool state,
-    in place. Cache leaves are (L, B, ...) stacked per layer, the slot's
-    (L, 1, ...); the shared ``pos`` counter is skipped."""
-    for name, pool in state.items():
-        if name == "pos":
-            continue
-        for dst, src in zip(pool, slot_state[name]):
+    in place, walking each group's state tree (``NamedTuple`` s nested
+    any way, as the reference maps over the whole pytree). Leaves are
+    (L, B, ...) stacked per layer, the slot's (L, 1, ...), cast to the
+    pool's dtype; the shared ``pos`` counter is skipped."""
+    def copy(dst, src):
+        if isinstance(dst, tuple):
+            for d, s in zip(dst, src):
+                copy(d, s)
+        else:
             dst[:, idx] = src[:, 0]
+
+    for name, pool in state.items():
+        if name != "pos":
+            copy(pool, slot_state[name])
 
 
 class ServeEngine:

@@ -2,9 +2,10 @@
 reference's: the streams of ``tests/test_serve.py`` run through both
 engines on the reference's weights give identical greedy tokens, as does
 an idle slot whose cache length runs past the cache (two ``run()`` calls
-on one engine) -- for Qwen2.5 and for the MoE archs (Mixtral, DeepSeek-V3
-with its MLA latent cache), capacity drops included. The reference is imported inside fixtures, so the
-``cuda``-marked case also runs on a GPU machine without jax
+on one engine) -- for Qwen2.5, for the MoE archs (Mixtral, DeepSeek-V3
+with its MLA latent cache), capacity drops included, and for the SSM and
+hybrid archs (xLSTM, hymba: nested state trees). The reference is imported inside fixtures, so the
+``cuda``-marked cases also run on a GPU machine without jax
 (``pytest -m cuda tests/test_torch_lm_serve.py``)."""
 
 import dataclasses
@@ -20,10 +21,12 @@ from repro_torch.serve import ServeEngine
 
 ARCH = "qwen2.5-32b"
 MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
+SSM = ["xlstm-1.3b", "hymba-1.5b"]
 
 
-def _reference(arch, **moe):
+def _reference(arch, jit_init=False, **moe):
     """The reference engine's module, model and weights (float32);
+    ``jit_init``: its init under jit (eager, the SSM archs' takes ~9 s);
     ``moe`` overrides MoEConfig fields."""
     jax = pytest.importorskip("jax")
     from repro.configs import ServeConfig as RServeConfig
@@ -35,7 +38,10 @@ def _reference(arch, **moe):
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     model = RModel(cfg, attn_impl="chunked")
-    params, _ = model.init(jax.random.PRNGKey(0))
+    if jit_init:
+        params = jax.jit(lambda key: model.init(key)[0])(jax.random.PRNGKey(0))
+    else:
+        params, _ = model.init(jax.random.PRNGKey(0))
     return RServeEngine, RServeConfig, model, params
 
 
@@ -62,6 +68,16 @@ def moe_ref(request):
 @pytest.fixture(scope="module")
 def moe_port(moe_ref):
     return _port_of(moe_ref)
+
+
+@pytest.fixture(scope="module", params=SSM)
+def ssm_ref(request):
+    return _reference(request.param, jit_init=True)
+
+
+@pytest.fixture(scope="module")
+def ssm_port(ssm_ref):
+    return _port_of(ssm_ref)
 
 
 def both(ref, port, prompts_runs, **scfg):
@@ -177,9 +193,20 @@ def test_launcher_no_reduced_reaches_the_full_config(monkeypatch):
 
 @pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b", "whisper-medium"])
 def test_unported_families_are_refused(arch):
-    item = "A15.2c" if arch == "whisper-medium" else "A15.2b"
-    with pytest.raises(NotImplementedError, match=item):
-        Model(get_config(arch, reduced=True), device="cpu")
+    """What is still refused: the encoder-decoder anywhere (A15.2c); the
+    SSM and hybrid archs over a mesh of several ranks (A15.2d), while on
+    one rank they build (tests/test_torch_lm_ssm.py holds them to the
+    reference)."""
+    from repro_torch.core import SimMesh
+
+    cfg = get_config(arch, reduced=True)
+    if arch == "whisper-medium":
+        with pytest.raises(NotImplementedError, match="A15.2c"):
+            Model(cfg, device="cpu")
+        return
+    with pytest.raises(NotImplementedError, match="A15.2d"):
+        Model(cfg, SimMesh(2, device="cpu"), device="cpu")
+    assert Model(cfg, device="cpu").groups[0].kind in ("xlstm_pair", "hymba")
 
 
 # ------------------------------------------------------------------- MoE
@@ -245,11 +272,11 @@ def test_moe_launcher_runs_on_the_cpu(arch, capsys):
 
 
 def test_a_mesh_of_several_ranks_is_refused():
-    """What a mesh of several ranks still refuses: the families not
-    ported yet (SSM and hybrid, A15.2b). A dense model builds and runs
-    there, tensor-parallel (tests/test_torch_lm_tp.py holds it to the
-    reference), as a MoE model runs expert-parallel
-    (tests/test_torch_lm_ep.py)."""
+    """What a mesh of several ranks still refuses: the SSM and hybrid
+    models (A15.2d), which run on one rank (a mesh of one rank too). A
+    dense model builds and runs there, tensor-parallel
+    (tests/test_torch_lm_tp.py holds it to the reference), as a MoE model
+    runs expert-parallel (tests/test_torch_lm_ep.py)."""
     from repro_torch.core import SimMesh
 
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
@@ -259,12 +286,44 @@ def test_a_mesh_of_several_ranks_is_refused():
     got, exp = model.logits(params, batch), Model(cfg, device="cpu").logits(params, batch)
     assert got.shape == (1, 6, cfg.vocab_size)
     assert float((got - exp).abs().max() / exp.abs().max()) <= 1e-5
-    for arch in ("xlstm-1.3b", "hymba-1.5b"):
-        with pytest.raises(NotImplementedError, match="A15.2b"):
+    for arch in SSM:
+        with pytest.raises(NotImplementedError, match="A15.2d"):
             Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu")
+        assert Model(get_config(arch, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
     assert Model(get_config(ARCH, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
     for arch in MOE:
         assert Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu").mesh.p == 2
+
+
+# ------------------------------------------------------------ SSM, hybrid
+
+
+def test_ssm_engine_matches_reference(ssm_ref, ssm_port):
+    """xLSTM's and hymba's nested decode states through the engine, on one
+    engine per package: a batched pair, then more requests than slots,
+    then one request beside an idle slot (hymba's meta tokens count in
+    ``slot_pos``: 8 of the 24 positions)."""
+    v = _vocab(ssm_port)
+    pair = [(np.arange(7) * 3 % v).astype(np.int32), (np.arange(4) * 5 % v).astype(np.int32)]
+    many = [(np.arange(n) * (i + 2) % v).astype(np.int32) for i, n in enumerate((4, 7, 4, 7, 4))]
+    alone = [(np.arange(7) * 11 % v).astype(np.int32)]
+    got, exp, eng = both(ssm_ref, ssm_port, [(pair, 5), (many, 4), (alone, 12)], max_batch=2, max_seq=24)
+    assert got == exp
+    assert [len(r) for r in got] == [2, 5, 1] and all(len(t) == 4 for t in got[1].values())
+    for leaf in (t for name, st in eng.state.items() if name != "pos" for t in _leaves(st)):
+        assert torch.isfinite(leaf.float()).all()
+
+
+def _leaves(tree):
+    return [leaf for sub in tree for leaf in _leaves(sub)] if isinstance(tree, tuple) else [tree]
+
+
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_launcher_runs_on_the_cpu(arch, capsys):
+    """launch/serve.py serves both archs unchanged."""
+    launch.main(["--arch", arch, "--device", "cpu", "--requests", "3", "--max-new", "4"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 3 requests, 12 tokens in ") and out[0].endswith(" tok/s aggregate)")
 
 
 def test_no_fallback_to_the_cpu(monkeypatch):
@@ -317,5 +376,21 @@ def test_moe_engine_on_the_card_matches_the_cpu(cuda_device, arch):
                (np.arange(9) * 7 % v).astype(np.int32)]
     exp = ServeEngine(cpu, params, ServeConfig(max_batch=2, max_seq=16)).run(prompts, max_new=12)
     got = ServeEngine(card, _tree_to(params, cuda_device), ServeConfig(max_batch=2, max_seq=16)).run(
+        prompts, max_new=12)
+    assert got == exp
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", SSM)
+def test_ssm_engine_on_the_card_matches_the_cpu(cuda_device, arch):
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    cpu = Model(cfg, device="cpu")
+    params, _ = cpu.init(torch.Generator().manual_seed(0))
+    card = Model(cfg, device=cuda_device)
+    v = cfg.vocab_size
+    prompts = [(np.arange(7) * 3 % v).astype(np.int32), (np.arange(4) * 5 % v).astype(np.int32),
+               (np.arange(9) * 7 % v).astype(np.int32)]
+    exp = ServeEngine(cpu, params, ServeConfig(max_batch=2, max_seq=32)).run(prompts, max_new=12)
+    got = ServeEngine(card, _tree_to(params, cuda_device), ServeConfig(max_batch=2, max_seq=32)).run(
         prompts, max_new=12)
     assert got == exp
