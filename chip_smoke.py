@@ -175,6 +175,26 @@ Phases, each printing a line; any failure exits non-zero with no result:
    (the mLSTM block, the sLSTM time loop, the Mamba block, hymba's
    attention); (5) launch.serve.main --arch at its reduced default
    (``ssm_serving_<arch>``: 0 FFT launches each).
+19. the encoder-decoder and the SSM and hybrid models over a mesh
+   (``encdec_mesh_phase``): (1) whisper-medium at full width, 2 encoder +
+   2 decoder layers, float32, 2 utterances of 1500 frames: a 32-token
+   prefill + 4 decode steps within 1e-4 of the whole decoder sequence,
+   each row's greedy tokens alone and in the batch identical, and
+   Model(cfg, SimMesh(4)) (heads and d_ff split, the odd vocabulary
+   whole) within 1e-5 of one rank; (2) all 24 + 24 layers in bfloat16:
+   phase 15's float32-oracle gate on 8 utterances, then 8 utterances of
+   1500 frames with the start-of-transcript prompt and a decode state of
+   448: time to first token (encoder, cross K/V, decoder prefill), 64
+   greedy tokens, the decode step's device / host / kernel ms beside its
+   bound (the decoder's weights, the unembedding, the cross K/V and the
+   live self K/V read once), tokens/s, peak memory
+   (``encdec_serving``); (3) xLSTM-1.3B (2 layers) and Hymba-1.5B (4)
+   at full width in float32 on SimMesh(4) against one rank within 2e-4
+   (logits of 300 / 1200 tokens, prefill, decode; the one-rank model with
+   every weight moved one ulp printed beside), then both at full depth
+   in bfloat16: a prefill of 8 prompts of 512 tokens and 8 decode steps,
+   one rank beside SimMesh(4), and the decode state one rank of a
+   4-rank group holds (``ssm_mesh_serving``).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -216,8 +236,9 @@ host ms, and DeepSeek-V3's prefill through the ring, the interleaved
 ring and the einsum dispatch (one card: P = 1, the model is whole and
 the dispatch runs on one rank; ``nccl_moe``: 0 FFT launches). Last,
 tensor parallelism over NCCL (``nccl_tp``; alone: ``nccl_tp_phase``):
-phase 17's float32 dense checks against one card, every rank's outputs
-bitwise equal (the MoE check above holds its logits so too), and on
+phase 17's float32 dense checks and phase 19's models' (whisper,
+xLSTM, hymba: logits, prefill, decode) against one card, every rank's
+outputs bitwise equal (the MoE check above holds its logits so too), and on
 P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
 one decode step's collectives by name (``nccl_tp``: 0 FFT launches).
 
@@ -234,8 +255,9 @@ with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
 counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
 ``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
-(``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``) and 18
-(``ssm_serving_<arch>``) included; the last line is
+(``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``), 18
+(``ssm_serving_<arch>``) and 19 (``encdec_serving``,
+``ssm_mesh_serving``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -347,6 +369,10 @@ TP_P = 4
 TP_REL_TOL = 1e-5  # float32: psums and rings add the ranks' partials in another order than one rank's GEMM
 TP_F32 = (("qwen2.5-32b", {}), ("qwen2.5-32b", {"attn_partition": "context"}), ("gemma2-9b", {}))
 TP_F32_LAYERS, TP_DECODE = 2, 2
+#: phase 7's TP part also runs phase 19's models' float32 checks (logits,
+#: prefill, decode) at 2 layers (hymba 4: layer 1 windowed), whisper's
+#: encoder over ENCDEC_FRAMES frames
+TP_F32_MORE = (("whisper-medium", {"encoder_layers": 2}), ("xlstm-1.3b", {}), ("hymba-1.5b", {"num_layers": 4}))
 TP_SERVE_LAYERS = 8  # phase 17's bf16 serving: Qwen2.5-32B at full width, 8 of 64 layers
 TP_PREFILL, TP_REPS = 512, 3  # one 512-token prompt: prefill (psum form) beside hidden (the rings)
 #: phase 18: SSM and hybrid serving on one card at full width and depth.
@@ -371,6 +397,22 @@ SSM_MIXER_SEQ, SSM_MIXER_REPS = 512, 3  # check 4: one prompt through each mixer
 #: so no whole-model bf16 gate can hold; each layer runs in bf16 on the
 #: float32 oracle's input and phase 15's gate holds per layer
 SSM_BF16_LAYERWISE = ("xlstm-1.3b",)
+#: phase 19: whisper-medium (src/repro/configs/whisper_medium.py: 24
+#: encoder + 24 decoder layers, d_model 1024, 16 heads, d_ff 4096, vocab
+#: 51865, gelu, layernorm, sinusoidal positions) served at the Model level
+#: (the launcher refuses encoder-decoders, as the reference's does), and
+#: phase 18's models over SimMesh(TP_P)
+ENCDEC_ARCH = "whisper-medium"
+ENCDEC_FRAMES = 1500  # 30 s of audio after whisper's conv stem (the reference's stub feeds frame embeddings)
+ENCDEC_SOT = (50258, 50259, 50359, 50363)  # <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>
+ENCDEC_BATCH, ENCDEC_MAX_SEQ, ENCDEC_NEW = 8, 448, 64  # 8 utterances, whisper's decoder context, new tokens
+ENCDEC_F32_LAYERS, ENCDEC_F32_SEQ = 2, 32  # check 1: 2 + 2 layers, a 32-token decoder prompt
+ENCDEC_REPS = 3
+SSM_TP_BATCH, SSM_TP_PREFILL, SSM_TP_DECODE = 8, 512, 8  # check 3 at full depth: 8 slots
+#: check 3's float32 gate is SSM_F32_REL_TOL (phase 18's), not TP_REL_TOL:
+#: over 300 tokens xLSTM's recurrences carry a one-ulp change of every
+#: weight to 6.7e-6 of its logits, and the split products to 1.3-1.7e-5
+#: (float32, TF32 off, NVIDIA H100 80GB HBM3)
 
 
 class SmokeFailure(RuntimeError):
@@ -1407,8 +1449,9 @@ def lm_cache_bytes_per_token(cfg) -> int:
 
 
 def lm_kv_bytes(cfg, scfg) -> int:
-    """The engine's bfloat16 cache for every layer and slot."""
-    return lm_cache_bytes_per_token(cfg) * scfg.max_batch * scfg.max_seq
+    """The engine's bfloat16 cache for every layer and slot, over its
+    max_seq positions and the meta tokens (hymba's 128) in front."""
+    return lm_cache_bytes_per_token(cfg) * scfg.max_batch * (scfg.max_seq + cfg.meta_tokens)
 
 
 def lm_check_free(torch, label: str, need: float) -> None:
@@ -1528,13 +1571,18 @@ def lm_decode_kernels(torch, eng):
     """One decode step of all slots under torch.profiler: (its kernels'
     device ms, [(kernel, launches, ms)] for the LM_TOP_KERNELS longest),
     or (None, []) when the profiler sees no device time."""
+    tokens = torch.zeros((eng.scfg.max_batch, 1), dtype=torch.int32, device="cuda")
+    return profiled_kernels(torch, lambda: eng._decode(eng.params, tokens, eng.state))
+
+
+def profiled_kernels(torch, fn):
+    """``fn()`` once under torch.profiler: lm_decode_kernels' numbers."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    tokens = torch.zeros((eng.scfg.max_batch, 1), dtype=torch.int32, device="cuda")
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        eng._decode(eng.params, tokens, eng.state)
+        fn()
         torch.cuda.synchronize()
     kernels = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     us = sum(e.self_device_time_total for e in kernels)
@@ -1594,8 +1642,9 @@ def lm_full_depth(torch, seed, cfg, scfg, launch):
 
 
 def lm_leaves(tree):
-    if isinstance(tree, dict):
-        for v in tree.values():
+    """The tensors of a tree of dicts, or of a state's (named) tuples."""
+    if isinstance(tree, (dict, tuple)):
+        for v in tree.values() if isinstance(tree, dict) else tree:
             yield from lm_leaves(v)
     else:
         yield tree
@@ -2037,13 +2086,17 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
     return by_path
 
 
-def tp_runs(torch, model, params, toks, n: int) -> list:
-    """``model``'s hidden states of the first ``n`` tokens, then a prefill
-    of them and TP_DECODE decode steps (float32 cache): [hidden, prefill
-    logits, decode logits...]."""
-    out = [model.hidden(params, {"tokens": toks[:, :n]})[0]]
-    state = model.init_decode_state(1, toks.shape[1], cache_dtype=torch.float32)
-    state, pl = model.prefill(params, {"tokens": toks[:, :n]}, state)
+def tp_runs(torch, model, params, toks, n: int, enc=None, logits: bool = False) -> list:
+    """``model``'s hidden states (``logits``: its logits) of the first
+    ``n`` tokens, then a prefill of them and the decode steps to the end
+    of ``toks`` (float32 cache): [hidden, prefill logits, decode
+    logits...]. ``enc``: the encoder-decoder's frame embeddings."""
+    def batch(t):
+        return {"tokens": t} if enc is None else {"enc_embeds": enc, "tokens": t}
+
+    out = [model.logits(params, batch(toks[:, :n])) if logits else model.hidden(params, batch(toks[:, :n]))[0]]
+    state = model.init_decode_state(toks.shape[0], toks.shape[1], cache_dtype=torch.float32)
+    state, pl = model.prefill(params, batch(toks[:, :n]), state)
     out.append(pl)
     for t in range(n, toks.shape[1]):
         lg, state = model.decode_step(params, toks[:, t:t + 1], state)
@@ -2345,6 +2398,387 @@ def ssm_serving_phase(torch, seed, fft_stage, cm) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     print(f"SSM serving phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return by_path
+
+
+def encdec_cfg(layers: int = 0, dtype: str = ""):
+    """whisper-medium at full width, both stacks cut to ``layers`` and in
+    ``dtype`` where given."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(ENCDEC_ARCH)
+    if layers:
+        cfg = dataclasses.replace(cfg, num_layers=layers, encoder_layers=layers)
+    return dataclasses.replace(cfg, dtype=dtype or cfg.dtype)
+
+
+def encdec_batch(enc, toks) -> dict:
+    return {"enc_embeds": enc, "tokens": toks}
+
+
+def encdec_greedy(torch, model, params, enc, prompt, steps: int, s_max: int):
+    """A prefill of ``prompt`` over ``enc``, then ``steps`` greedy decode
+    steps: (the tokens (B, steps + 1), [per-step logits])."""
+    state = model.init_decode_state(prompt.shape[0], s_max, cache_dtype=torch.float32)
+    state, lg = model.prefill(params, encdec_batch(enc, prompt), state)
+    toks, logits = [torch.argmax(lg, -1)], [lg]
+    for _ in range(steps):
+        lg, state = model.decode_step(params, toks[-1][:, None], state)
+        toks.append(torch.argmax(lg, -1))
+        logits.append(lg)
+    return torch.stack(toks, 1), logits
+
+
+def encdec_width_checks(torch, seed) -> None:
+    """Check 1 of phase 19: whisper-medium at full width (d_model 1024, 16
+    heads, d_ff 4096, vocab 51865), ENCDEC_F32_LAYERS encoder and decoder
+    layers, float32 (TF32 off since phase 1), 2 utterances of
+    ENCDEC_FRAMES frames: a prefill of ENCDEC_F32_SEQ decoder tokens +
+    LM_DECODE decode steps against the whole decoder sequence's logits;
+    each row's greedy tokens alone and beside the other; and
+    Model(cfg, SimMesh(TP_P)) on the same weights (heads and d_ff split
+    four ways, the odd vocabulary whole) against the one-rank model:
+    logits, prefill and TP_DECODE decode steps within TP_REL_TOL."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models.model import Model
+
+    label = f"encoder-decoder {ENCDEC_ARCH}"
+    model = Model(encdec_cfg(ENCDEC_F32_LAYERS, "float32"))
+    cfg, n = model.cfg, ENCDEC_F32_SEQ
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    enc = torch.randn((2, ENCDEC_FRAMES, cfg.d_model), device="cuda", generator=g)
+    toks = torch.randint(0, cfg.vocab_size, (2, n + LM_DECODE), device="cuda", generator=g)
+    full = model.logits(params, encdec_batch(enc, toks))
+    state = model.init_decode_state(2, n + LM_DECODE, cache_dtype=torch.float32)
+    state, pl = model.prefill(params, encdec_batch(enc, toks[:, :n]), state)
+    errs = [lm_rel_err(pl, full[:, n - 1])]
+    for t in range(LM_DECODE):
+        lg, state = model.decode_step(params, toks[:, n + t:n + t + 1], state)
+        errs.append(lm_rel_err(lg, full[:, n + t]))
+    print(f"{label} full width, {cfg.encoder_layers} + {cfg.num_layers} layers, float32 (float32 cache), 2 x "
+          f"{ENCDEC_FRAMES} frames: prefill of {n} + {LM_DECODE} decode steps vs logits of the whole decoder "
+          f"sequence, rel_err (to max |logit| {full.abs().max().item():.3f}) {', '.join(f'{e:.3e}' for e in errs)} "
+          f"(tol {LM_F32_REL_TOL}); cross K/V {tuple(state['cross'].k.shape)} {state['cross'].k.dtype}", flush=True)
+    check(max(errs) <= LM_F32_REL_TOL, f"{label} prefill/decode vs full logits: {max(errs):.3e} > {LM_F32_REL_TOL}")
+    both, _ = encdec_greedy(torch, model, params, enc, toks[:, :n], LM_ISOLATION_NEW, n + LM_ISOLATION_NEW + 1)
+    alone = [encdec_greedy(torch, model, params, enc[r:r + 1], toks[r:r + 1, :n], LM_ISOLATION_NEW,
+                           n + LM_ISOLATION_NEW + 1)[0][0] for r in range(2)]
+    print(f"{label} batch rows isolated: greedy tokens in the batch {both.tolist()}, each row alone "
+          f"{[a.tolist() for a in alone]}", flush=True)
+    check(all(torch.equal(both[r], alone[r]) for r in range(2)), f"{label}: a row's greedy tokens depend on the other")
+    tp = Model(cfg, SimMesh(TP_P))
+    check(not tp.tp.splits(cfg.vocab_size) and tp.tp.splits(cfg.num_heads), f"{label}: unexpected placement")
+    one = tp_runs(torch, model, params, toks[:, :n + TP_DECODE], n, enc, logits=True)
+    got = tp_runs(torch, tp, params, toks[:, :n + TP_DECODE], n, enc, logits=True)
+    errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
+    print(f"{label} Model(cfg, SimMesh({TP_P})) on the same weights (heads and d_ff split, vocabulary "
+          f"{cfg.vocab_size} whole): rel_err vs one rank, logits {errs[0]:.3e}, prefill {errs[1]:.3e}, "
+          f"{TP_DECODE} decode steps {', '.join(f'{e:.3e}' for e in errs[2:])} (tol {TP_REL_TOL})", flush=True)
+    check(max(errs) <= TP_REL_TOL, f"{label} SimMesh({TP_P}) vs one rank: {max(errs):.3e} > {TP_REL_TOL}")
+    del model, params, tp, state, full
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def encdec_oracle_agreement(torch, seed, model, params, label: str) -> None:
+    """Check 2's gate, bf16_oracle_agreement's form on the encoder-decoder:
+    MOE_BF16_ROWS utterances of ENCDEC_FRAMES frames, each with the start
+    sequence and one more token: the bfloat16 prefill + 1 decode step and
+    the bfloat16 whole decoder sequence, each against a float32 oracle on
+    the same weights (each weight cast at its use)."""
+    import dataclasses
+
+    from repro_torch.models.model import Model
+
+    oracle = Model(dataclasses.replace(model.cfg, dtype="float32"))
+    cfg = model.cfg
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 1)
+    n = len(ENCDEC_SOT)
+    path, own = [], []
+    for _ in range(MOE_BF16_ROWS):
+        enc = torch.randn((1, ENCDEC_FRAMES, cfg.d_model), device="cuda", generator=g).to(model.dtype)
+        nxt = torch.randint(0, cfg.vocab_size, (1, 1), device="cuda", generator=g)
+        toks = torch.cat([torch.tensor([ENCDEC_SOT], device="cuda"), nxt], 1)
+        exact = oracle.logits(params, encdec_batch(enc, toks))
+        whole = model.logits(params, encdec_batch(enc, toks))
+        state = model.init_decode_state(1, n + 1)
+        state, pl = model.prefill(params, encdec_batch(enc, toks[:, :n]), state)
+        lg, _ = model.decode_step(params, toks[:, n:], state)
+        for got, at in ((pl, n - 1), (lg, n)):
+            path.append(lm_rel_err(got, exact[:, at]))
+            own.append(lm_rel_err(whole[:, at], exact[:, at]))
+        del exact, whole, state
+    med_path, med_own = statistics.median(path), statistics.median(own)
+    print(f"{label} {cfg.encoder_layers} + {cfg.num_layers} layers, bfloat16, {MOE_BF16_ROWS} utterances of "
+          f"{ENCDEC_FRAMES} frames, the start sequence + 1 decode step, rel_err vs a float32 oracle on the same "
+          f"weights: prefill + decode {', '.join(f'{e:.3e}' for e in path)} (median {med_path:.3e}); the bfloat16 "
+          f"whole sequence median {med_own:.3e}; tol: median {MOE_BF16_NOISE_RATIO} x the whole sequence's, which "
+          f"must stay under {MOE_BF16_FLOOR_LIMIT}", flush=True)
+    check(med_own <= MOE_BF16_FLOOR_LIMIT, f"{label}: the bfloat16 forward's median error {med_own:.3e} > "
+          f"{MOE_BF16_FLOOR_LIMIT}")
+    check(med_path <= MOE_BF16_NOISE_RATIO * med_own, f"{label}: prefill + decode median error {med_path:.3e} > "
+          f"{MOE_BF16_NOISE_RATIO} x the bfloat16 forward's {med_own:.3e}")
+
+
+def encdec_serve(torch, seed, model, params) -> dict:
+    """Check 2's run: ENCDEC_BATCH utterances of ENCDEC_FRAMES frames (made
+    on the card from ``seed``), each with the start-of-transcript prompt,
+    a decode state of ENCDEC_MAX_SEQ; time to first token (the encoder,
+    the cross K/V and the decoder prefill; CUDA events, median of
+    ENCDEC_REPS), then ENCDEC_NEW new tokens greedily (the prefill's and
+    ENCDEC_NEW - 1 decode steps, each timed on the device and on the
+    host), then one more step under torch.profiler."""
+    cfg = model.cfg
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 7)
+    enc = torch.randn((ENCDEC_BATCH, ENCDEC_FRAMES, cfg.d_model), device="cuda", generator=g).to(model.dtype)
+    prompt = torch.tensor([ENCDEC_SOT] * ENCDEC_BATCH, device="cuda")
+
+    def first():
+        return model.prefill(params, encdec_batch(enc, prompt), model.init_decode_state(ENCDEC_BATCH, ENCDEC_MAX_SEQ))
+
+    ttft = events_ms(torch, first, reps=ENCDEC_REPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, lg = first()
+    toks, steps = [torch.argmax(lg, -1)], []
+    for _ in range(ENCDEC_NEW - 1):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        h0 = time.perf_counter()
+        lg, state = model.decode_step(params, toks[-1][:, None], state)
+        issue = (time.perf_counter() - h0) * 1e3
+        end.record()
+        toks.append(torch.argmax(lg, -1))
+        steps.append((state["pos"], start, end, issue))
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    out = torch.stack(toks, 1)
+    check(out.shape == (ENCDEC_BATCH, ENCDEC_NEW) and bool(((out >= 0) & (out < cfg.vocab_size)).all()),
+          f"encoder-decoder greedy tokens {tuple(out.shape)} out of range")
+    kernels = profiled_kernels(torch, lambda: model.decode_step(params, toks[-1][:, None], state))
+    return dict(ttft_ms=ttft, wall_s=wall, tokens=out.numel(), state=state,
+                steps=[(pos, s.elapsed_time(e), issue) for pos, s, e, issue in steps], kernels=kernels,
+                first=out[0, :8].tolist())
+
+
+def encdec_full_depth(torch, seed, cm, fft_stage) -> dict:
+    """Check 2 of phase 19: whisper-medium at all 24 + 24 layers in
+    bfloat16 (random weights from ``seed``, made on the card): the
+    float32-oracle gate, then encdec_serve; prints its report beside the
+    decode step's bound (the decoder's weights and the unembedding, the
+    cross K/V and the live self-attention K/V, each read once)."""
+    from repro_torch.models.model import Model
+
+    label = f"encoder-decoder {ENCDEC_ARCH}"
+    cfg = encdec_cfg()
+    cross = 2 * 2 * cfg.num_layers * ENCDEC_BATCH * ENCDEC_FRAMES * cfg.num_kv_heads * cfg.head_dim_
+    self_kv = lm_cache_bytes_per_token(cfg) * ENCDEC_BATCH * ENCDEC_MAX_SEQ
+    lm_check_free(torch, f"{label} before the full-depth model", 2 * cfg.param_count() + cross + self_kv
+                  + LM_HEADROOM_GIB * 2**30)
+
+    def run():
+        model = Model(cfg)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        t0 = time.perf_counter()
+        params, _ = model.init(g, dtype=torch.bfloat16)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        encdec_oracle_agreement(torch, seed, model, params, label)
+        rep = encdec_serve(torch, seed, model, params)
+        return model, params, init_s, rep
+
+    (model, params, init_s, rep), launches, peak = counted(torch, fft_stage, label, run, expect=())
+    def size(tree):
+        return sum(t.numel() * t.element_size() for t in lm_leaves(tree))
+
+    nbytes = size(params)
+    dec = params["decoder"]  # a step reads all of it but the cross wk / wv (their K/V are precomputed)
+    read = size(dec) - size(dec["cross"]["wk"]) - size(dec["cross"]["wv"]) + size(params["embed"]["unembed"])
+    enc_macs = size(params["encoder"]) / 2 * ENCDEC_BATCH * ENCDEC_FRAMES  # the products, one MAC a weight a frame
+    attn_macs = 2 * cfg.encoder_layers * ENCDEC_BATCH * ENCDEC_FRAMES ** 2 * cfg.d_model  # QK^T and PV
+    cross_held = sum(t.numel() * t.element_size() for t in rep["state"]["cross"])
+    check(cross_held == cross, f"{label}: cross K/V {cross_held} bytes, {cross} expected")
+    pos = statistics.median(p for p, _, _ in rep["steps"])
+    live = lm_cache_bytes_per_token(cfg) * ENCDEC_BATCH * pos
+    bound_ms = (read + cross + live) / cm.HBM_BW * 1e3
+    dev = statistics.median(ms for _, ms, _ in rep["steps"])
+    host = statistics.median(h for _, _, h in rep["steps"])
+    kernel_ms, top = rep["kernels"]
+    kern = ("not measured (the profiler saw no device time)" if kernel_ms is None
+            else f"{kernel_ms:.3f} ms (torch.profiler, one step)")
+    print(f"{label} {cfg.encoder_layers} + {cfg.num_layers} layers in bfloat16 initialised on the card in "
+          f"{init_s:.1f} s, {nbytes / 2**30:.2f} GiB of weights ({nbytes / 2 / 1e9:.3f} B params; "
+          f"ModelConfig.param_count() {cfg.param_count() / 1e9:.3f} B); cross K/V {cross / 2**30:.3f} GiB, self K/V "
+          f"{self_kv / 2**30:.3f} GiB ({ENCDEC_BATCH} x {ENCDEC_MAX_SEQ})", flush=True)
+    print(f"{label} {ENCDEC_BATCH} utterances of {ENCDEC_FRAMES} frames, prompt {list(ENCDEC_SOT)}: time to first "
+          f"token (encoder + cross K/V + decoder prefill) {rep['ttft_ms']:.2f} ms (CUDA events, median of "
+          f"{ENCDEC_REPS}; the encoder's weight products {2 * enc_macs / 1e12:.2f} TFLOP, "
+          f"{2 * enc_macs / PEAK_FLOPS_BF16 * 1e3:.2f} ms at the bf16 peak, and its attention "
+          f"{2 * attn_macs / 1e12:.2f} TFLOP in float32 products); {rep['tokens']} greedy tokens "
+          f"({ENCDEC_NEW} each) in {rep['wall_s']:.3f} s, {rep['tokens'] / rep['wall_s']:.1f} tok/s; row 0 "
+          f"starts {rep['first']}", flush=True)
+    print(f"{label} decode step with {ENCDEC_BATCH} rows ({len(rep['steps'])} steps): device {dev:.3f} ms (CUDA "
+          f"events, median), host {host:.3f} ms to issue it, its kernels {kern}; bound {bound_ms:.3f} ms "
+          f"({read / 1e9:.3f} GB of decoder weights but the cross wk / wv, and the unembedding + {cross / 1e9:.3f} "
+          f"GB of cross K/V + "
+          f"{live / 1e9:.4f} GB of live self K/V at {cm.HBM_BW / 1e12:.2f} TB/s)", flush=True)
+    for name, count, ms in top:
+        print(f"  decode step kernel {name}: {count} launches, {ms:.3f} ms", flush=True)
+    print(f"{label} peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}); FFT kernel launches {launches}",
+          flush=True)
+    check(peak <= LM_PEAK_LIMIT_GIB, f"{label} peak memory {peak:.2f} GiB > {LM_PEAK_LIMIT_GIB}")
+    del model, params, rep
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def ulp_perturbed(torch, params, seed: int):
+    """A copy of float32 ``params`` with every value moved by one float32
+    ulp (2^-24 relative), up or down at random: the one-rank model's
+    outputs on it are a float32 floor -- how far a one-ulp change at every
+    product, as reordered sums make, moves this model."""
+    g = torch.Generator(device=params["embed"]["table"].device)
+    g.manual_seed(seed + 9)
+
+    def move(t):
+        if isinstance(t, dict):
+            return {k: move(v) for k, v in t.items()}
+        if not t.is_floating_point():
+            return t
+        return t * (1 + (torch.randint(0, 2, t.shape, device=t.device, generator=g).to(t.dtype) * 2 - 1) * 2.0 ** -24)
+
+    return move(params)
+
+
+def rank_view(p: int):
+    """One rank's view of a ``p``-rank group on this card (a SimMesh that
+    holds its blocks): a Model on it makes one rank's state shapes."""
+    from repro_torch.core import SimMesh
+
+    class RankView(SimMesh):
+        caller_holds_block = True
+
+    return RankView(p)
+
+
+def state_bytes(state) -> int:
+    """The bytes of every tensor of a decode state."""
+    return sum(t.numel() * t.element_size() for k, v in state.items() if k != "pos" for t in lm_leaves(v))
+
+
+def ssm_mesh_width_check(torch, seed, arch: str) -> None:
+    """Check 3 of phase 19, float32: ``arch`` at full width and
+    SSM_F32_LAYERS' depth (TF32 off), on one rank and on
+    Model(cfg, SimMesh(TP_P)) on the same weights: logits of
+    SSM_F32_SEQ tokens, their prefill and TP_DECODE decode steps within
+    SSM_F32_REL_TOL, the one-rank model with every weight moved one ulp
+    (``ulp_perturbed``) printed beside: the recurrences carry any
+    reordered float32 sum, as every psum makes, past TP_REL_TOL over 300
+    tokens at xLSTM's width."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models.model import Model
+
+    label = f"SSM SimMesh({TP_P}) {arch}"
+    model = Model(ssm_cfg(arch, SSM_F32_LAYERS[arch], "float32"))
+    cfg, n = model.cfg, SSM_F32_SEQ[arch]
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (1, n + TP_DECODE), device="cuda", generator=g)
+    one = tp_runs(torch, model, params, toks, n, logits=True)
+    floor = max(lm_rel_err(a, b) for a, b in zip(tp_runs(torch, model, ulp_perturbed(torch, params, seed), toks, n,
+                                                         logits=True), one))
+    errs = [lm_rel_err(a, b) for a, b in zip(tp_runs(torch, Model(cfg, SimMesh(TP_P)), params, toks, n, logits=True),
+                                             one)]
+    print(f"{label} full width, {cfg.num_layers} layers, float32 (float32 state and cache): vs the one-rank model on "
+          f"the same weights, rel_err logits ({n} tokens) {errs[0]:.3e}, prefill {errs[1]:.3e}, {TP_DECODE} decode "
+          f"steps {', '.join(f'{e:.3e}' for e in errs[2:])} (tol {SSM_F32_REL_TOL}; within {TP_REL_TOL}: "
+          f"{max(errs) <= TP_REL_TOL}); the one-rank model itself with every weight moved one ulp: {floor:.3e}",
+          flush=True)
+    check(max(errs) <= SSM_F32_REL_TOL, f"{label}: {max(errs):.3e} > {SSM_F32_REL_TOL}")
+    del model, params, one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def ssm_mesh_serving(torch, seed, arch: str) -> None:
+    """Check 3 of phase 19 at full depth in bfloat16: ``arch`` on one rank
+    and on Model(cfg, SimMesh(TP_P)) on the same weights: a prefill of
+    SSM_TP_BATCH prompts of SSM_TP_PREFILL tokens (CUDA events, after one
+    untimed run), then SSM_TP_DECODE greedy decode steps of all of them
+    (device ms, median); the share of greedy tokens equal to one rank's,
+    and the decode state one rank of a TP_P-rank group holds."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models.model import Model
+
+    label = f"SSM SimMesh({TP_P}) {arch}"
+    cfg, b, n = ssm_cfg(arch), SSM_TP_BATCH, SSM_TP_PREFILL
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 8)
+    one = Model(cfg)
+    params, _ = one.init(g, dtype=torch.bfloat16)
+    toks = torch.randint(0, cfg.vocab_size, (b, n), device="cuda", generator=g)
+    out = {}
+    for name, model in (("one rank", one), (f"SimMesh({TP_P})", Model(cfg, SimMesh(TP_P)))):
+        def prefill():
+            return model.prefill(params, {"tokens": toks}, model.init_decode_state(b, n + SSM_TP_DECODE))
+
+        prefill()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        state, lg = prefill()
+        end.record()
+        end.synchronize()
+        steps, picked = [], [torch.argmax(lg, -1)]
+        for _ in range(SSM_TP_DECODE):
+            s0, s1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            s0.record()
+            lg, state = model.decode_step(params, picked[-1][:, None], state)
+            s1.record()
+            picked.append(torch.argmax(lg, -1))
+            steps.append((s0, s1))
+        torch.cuda.synchronize()
+        out[name] = dict(prefill=start.elapsed_time(end), decode=statistics.median(a.elapsed_time(e) for a, e in steps),
+                         toks=torch.stack(picked, 1), state=state_bytes(state))
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    rank = state_bytes(Model(cfg, rank_view(TP_P)).init_decode_state(b, n + SSM_TP_DECODE))
+    a, c = out["one rank"]["toks"], out[f"SimMesh({TP_P})"]["toks"]
+    print(f"{label} {cfg.num_layers} layers bfloat16, {b} prompts of {n} tokens: prefill (CUDA events) "
+          + ", ".join(f"{k} {v['prefill']:.1f} ms" for k, v in out.items()) + f"; decode step of {b} rows (median "
+          f"of {SSM_TP_DECODE}) " + ", ".join(f"{k} {v['decode']:.2f} ms" for k, v in out.items())
+          + f"; greedy tokens equal to one rank's {int((a == c).sum())} of {a.numel()}; decode state "
+          f"{out['one rank']['state'] / 2**30:.3f} GiB on one rank, {rank / 2**30:.3f} GiB a rank of a {TP_P}-rank "
+          f"group", flush=True)
+    del one, params, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def encdec_mesh_phase(torch, seed, fft_stage, cm) -> dict:
+    """Phase 19: the encoder-decoder and the SSM and hybrid models over a
+    mesh, one card: whisper-medium's checks 1 and 2, then xLSTM-1.3B and
+    Hymba-1.5B on SimMesh(TP_P) (check 3). Returns the FFT kernels'
+    launches (0) of check 2 and of check 3's serving."""
+    t0 = time.perf_counter()
+    encdec_width_checks(torch, seed)
+    by_path = {"encdec_serving": encdec_full_depth(torch, seed, cm, fft_stage)}
+    for arch in SSM_ARCHS:
+        ssm_mesh_width_check(torch, seed, arch)
+    _, by_path["ssm_mesh_serving"], _ = counted(
+        torch, fft_stage, "SSM SimMesh serving", lambda: [ssm_mesh_serving(torch, seed, a) for a in SSM_ARCHS],
+        expect=())
+    print(f"encoder-decoder and SSM mesh phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return by_path
 
 
@@ -2723,26 +3157,30 @@ def nccl_tp_f32(torch, mesh, seed: int, arch: str, kw: dict) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.models.model import Model
 
-    cfg = dataclasses.replace(get_config(arch), num_layers=TP_F32_LAYERS, dtype="float32", **kw)
+    cfg = dataclasses.replace(get_config(arch), **{"num_layers": TP_F32_LAYERS, "dtype": "float32", **kw})
     g = torch.Generator(device=mesh.device)
     g.manual_seed(seed + 6)
     toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + TP_DECODE), device=mesh.device, generator=g)
+    enc = (torch.randn((1, ENCDEC_FRAMES, cfg.d_model), device=mesh.device, generator=g) if cfg.is_encdec
+           else None)
+    logits = (arch, kw) in TP_F32_MORE  # the model-level checks of phase 19: logits, not hidden
 
     def run(model):
         gen = torch.Generator(device=mesh.device)
         gen.manual_seed(seed)
         params, _ = model.init(gen)
         nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
-        return tp_runs(torch, model, params, toks, LM_SEQ), nbytes
+        return tp_runs(torch, model, params, toks, LM_SEQ, enc, logits), nbytes
 
     one, one_bytes = run(Model(cfg))
     gc.collect()
     torch.cuda.empty_cache()
     got, nbytes = run(Model(cfg, mesh))
     errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
-    check(max(errs) <= TP_REL_TOL, f"rank {mesh.rank}: NCCL TP {arch} {kw} float32 vs one card {errs} > {TP_REL_TOL}")
+    tol = SSM_F32_REL_TOL if cfg.family in ("ssm", "hybrid") else TP_REL_TOL  # as phase 19's check 3
+    check(max(errs) <= tol, f"rank {mesh.rank}: NCCL TP {arch} {kw} float32 vs one card {errs} > {tol}")
     same_on_every_rank(mesh, [digest(t) for t in got], f"{arch} {kw} float32 outputs (bitwise)")
-    return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30)
+    return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30, tol=tol, layers=cfg.num_layers)
 
 
 def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
@@ -2752,8 +3190,8 @@ def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
     from repro_torch.configs import get_config
 
     def run():
-        out = {"f32": {f"{arch} {kw or ''}".strip(): nccl_tp_f32(torch, mesh, seed, arch, kw) for arch, kw in TP_F32},
-               "served": {}}
+        out = {"f32": {f"{arch} {kw or ''}".strip(): nccl_tp_f32(torch, mesh, seed, arch, kw)
+                       for arch, kw in TP_F32 + TP_F32_MORE}, "served": {}}
         if mesh.p > 1:
             r = nccl_served(torch, mesh, seed, get_config(LM_ARCH))
             r.pop("params")
@@ -2770,9 +3208,9 @@ def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
 def print_nccl_tp(rep) -> None:
     who, m = f"NCCL rank {rep['rank']}/{rep['P']} TP", rep["tp"]
     for name, r in m["f32"].items():
-        print(f"{who} {name} full width, {TP_F32_LAYERS} layers, float32: Model(cfg, ProcessGroupMesh) vs one card on "
-              f"the same seed: hidden ({LM_SEQ} tokens), prefill, {TP_DECODE} decode steps rel_err "
-              f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {TP_REL_TOL}), bitwise equal on every rank; weights "
+        print(f"{who} {name} full width, {r['layers']} layers, float32: Model(cfg, ProcessGroupMesh) vs one card on "
+              f"the same seed: hidden or logits ({LM_SEQ} tokens), prefill, {TP_DECODE} decode steps rel_err "
+              f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {r['tol']:.3e}), bitwise equal on every rank; weights "
               f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card", flush=True)
     for arch, r in m["served"].items():
         print(f"{who} {arch} {r['layers']} layers bf16, phase 14's stream: {r['tokens']} tokens in {r['wall_s']:.2f} s, "
@@ -3165,6 +3603,7 @@ def main(argv=None) -> int:
     by_path.update(moe_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(tp_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(ssm_serving_phase(torch, args.seed, fft_stage, cm))
+    by_path.update(encdec_mesh_phase(torch, args.seed, fft_stage, cm))
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

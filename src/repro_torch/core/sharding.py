@@ -93,13 +93,14 @@ HEAD_NAMES = ("heads", "kv_heads")
 
 
 def placement(mesh, spec: Sequence[Axis], shape: Sequence[int],
-              units: Optional[Mapping[str, int]] = None) -> Spec:
+              units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Spec:
     """The port's placement of a leaf of ``shape`` whose logical spec is
     ``spec``: ``"model"`` on the dim :func:`resolve` gives the ``model``
     axis, where the dim's whole units -- ``units[name]`` (the head count
-    of a ``"heads"`` / ``"kv_heads"`` dim), else its size -- divide the
-    axis; None everywhere else (replicated). No mesh, or a ``model`` axis
-    of one rank, places nothing."""
+    of a ``"heads"`` / ``"kv_heads"`` dim), else its size over ``parts``
+    (a dim that packs equal parts side by side, as Mamba's ``win`` packs
+    ``[x | z]``) -- divide the axis; None everywhere else (replicated). No
+    mesh, or a ``model`` axis of one rank, places nothing."""
     p = mesh.shape.get("model", 1) if mesh is not None else 1
     if p == 1:
         return (None,) * len(spec)
@@ -111,26 +112,28 @@ def placement(mesh, spec: Sequence[Axis], shape: Sequence[int],
         if name in HEAD_NAMES and (units is None or name not in units):
             raise ValueError(f"placing a {name!r} dim needs its head count (units={{{name!r}: ...}}): heads are "
                              "placed whole")
-        whole = units[name] if units is not None and name in units else n
+        whole = units[name] if units is not None and name in units else n // parts
         out.append("model" if whole % p == 0 else None)
     return tuple(out)
 
 
 def block(mesh, spec: Sequence[Axis], shape: Sequence[int],
-          units: Optional[Mapping[str, int]] = None) -> Optional[Tuple[int, int, int]]:
+          units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Optional[Tuple[int, int, int]]:
     """(dim, first, count): the block of a leaf that the caller keeps on a
     mesh where it holds its own block (a ``ProcessGroupMesh``): its
     ``model`` coordinate's slice of the dim :func:`placement` puts on
-    that axis. None where it keeps the whole leaf: no mesh, a
+    that axis -- of each part, where the dim packs ``parts`` (the caller
+    keeps the parts' slices side by side: ``first`` and ``count`` are
+    within a part). None where it keeps the whole leaf: no mesh, a
     ``SimMesh`` (every rank's block is a view of the whole leaf), or a
     leaf placed nowhere."""
     if mesh is None or not mesh.caller_holds_block:
         return None
-    where = placement(mesh, spec, shape, units)
+    where = placement(mesh, spec, shape, units, parts)
     if "model" not in where:
         return None
     dim = where.index("model")
-    n = shape[dim] // mesh.shape["model"]
+    n = shape[dim] // parts // mesh.shape["model"]
     return dim, mesh.axis_index("model") * n, n
 
 

@@ -203,6 +203,31 @@ def softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
     return cap * torch.tanh(x / cap)
 
 
+# ---------------------------------------------------------------------------
+# Activations, op by op as the reference's XLA rounds them
+# ---------------------------------------------------------------------------
+
+
+def silu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.silu`` as the reference lowers it, x * (1 / (1 + exp(-x))),
+    each op rounded to x's dtype: in bfloat16 bitwise the reference's
+    (``F.silu`` rounds once and differs in a third of the values)."""
+    return x * (1 / (1 + torch.exp(-x)))
+
+
+def _rounded(value: float, dtype) -> float:
+    """``value`` rounded to ``dtype`` (a Python float: multiplying by it
+    rounds once, as by the reference's constant in that dtype)."""
+    return torch.tensor(value, dtype=dtype).item()
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s tanh form op by op, its constants rounded to x's
+    dtype: in bfloat16 bitwise the reference's."""
+    c, k = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+
+
 
 # ---------------------------------------------------------------------------
 # Tensor parallelism over the mesh's ``model`` axis
@@ -267,11 +292,37 @@ class TP:
                          f"{self.mesh}: build the params for this mesh (Model.init, params_from_numpy(mesh=, "
                          "specs=, cfg=))")
 
+    def parts(self, w: torch.Tensor, dim: int, c: int, full: int, parts: int) -> List[torch.Tensor]:
+        """Coordinate ``c``'s blocks of a leaf whose dim ``dim`` (``full``
+        long) packs ``parts`` equal parts (``[x | z]``): one view a part,
+        of the whole part where the part's width is not split, else of
+        its c-th block (``core.sharding.block(parts=)``: a process that
+        holds its block holds the parts' blocks side by side)."""
+        width = full // parts
+        if not self.splits(width):
+            return list(torch.split(w, width, dim))
+        n = width // self.p
+        if self.holds_block and w.shape[dim] == parts * n:
+            return list(torch.split(w, n, dim))
+        if self.holds_block or w.shape[dim] != full:
+            raise ValueError(f"a leaf of shape {tuple(w.shape)} holds {w.shape[dim]} of dim {dim}'s {full} "
+                             f"({parts} parts) on {self.mesh}: build the params for this mesh")
+        return [w.narrow(dim, j * width + c * n, n) for j in range(parts)]
+
     # -- collectives over the axis ---------------------------------------------
     def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of the local ranks' parts over the axis (``lax.psum``),
         the same tensor on every rank."""
         return parts[0] if self.p == 1 else self.ring.psum(list(parts), "model")[0]
+
+    def psum_cat(self, parts: Sequence[Sequence[torch.Tensor]]) -> List[torch.Tensor]:
+        """Each local rank's list of partial sums (one dtype, the same
+        leading dims) -> the sums, by one psum of them side by side along
+        the last dim; on one rank the list as it is."""
+        if self.p == 1:
+            return list(parts[0])
+        sizes = [a.shape[-1] for a in parts[0]]
+        return list(torch.split(self.psum([torch.cat(list(ps), -1) for ps in parts]), sizes, -1))
 
     def gather(self, parts: Sequence[torch.Tensor], dim: int) -> torch.Tensor:
         """The local ranks' blocks along ``dim`` -> the whole tensor, on

@@ -1,6 +1,7 @@
 """Feed-forward variants: SwiGLU / GeGLU / squared-ReLU / GELU, ported
 from ``repro.models.mlp``. GELU is ``jax.nn.gelu``'s default, the tanh
-approximation.
+approximation; both activations are ``common.silu`` / ``common.gelu``,
+spelled op by op as the reference rounds them (bitwise in bfloat16).
 
 Tensor-parallel over ``tp`` (``common.TP``) where the mesh's ``model``
 axis divides ``d_ff`` (the reference's ``"mlp"`` specs): ``wg`` / ``wu``
@@ -36,9 +37,9 @@ def init_mlp(generator: torch.Generator, d: int, d_ff: int, kind: str, device) -
 
 def _act(h: torch.Tensor, kind: str) -> torch.Tensor:
     if kind == "swiglu":
-        return F.silu(h)
+        return common.silu(h)
     if kind in ("geglu", "gelu"):
-        return F.gelu(h, approximate="tanh")
+        return common.gelu(h)
     if kind == "relu2":
         r = F.relu(h)
         return r * r

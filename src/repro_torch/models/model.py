@@ -1,9 +1,11 @@
 """Model assembly: embeddings -> layer groups -> head, ported from
 ``repro.models.model`` for the decoder LMs, dense or MoE (DeepSeek-V3's
-dense prefix then its MoE group), with GQA or MLA attention, and the
-SSM and hybrid families: xLSTM (mLSTM + sLSTM pairs, or mLSTM layers
-alone at ``slstm_every=0``) and hymba (attention beside Mamba heads in
-every layer, behind the meta tokens).
+dense prefix then its MoE group), with GQA or MLA attention, the SSM
+and hybrid families: xLSTM (mLSTM + sLSTM pairs, or mLSTM layers alone
+at ``slstm_every=0``) and hymba (attention beside Mamba heads in every
+layer, behind the meta tokens), and the encoder-decoder (whisper: an
+encoder group over frame embeddings, then a decoder group whose layers
+cross-attend to the encoder's output).
 
 Params of structurally identical layers are stacked along a leading
 ``(L, ...)`` axis, as in the reference (its ``lax.scan`` layout), so the
@@ -16,6 +18,14 @@ Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
     .hidden(params, batch)                    (trunk (B, S, d), aux loss)
     .logits(params, batch)                    full logits (small shapes)
     .init_decode_state(b, s_max) / .prefill / .decode_step
+
+The encoder-decoder's batch is ``{"enc_embeds": (B, S_enc, d), "tokens":
+(B, S)}`` (the reference's stub of the conv front end: frame
+embeddings); both streams get sinusoidal positions. Its prefill runs the
+encoder once, keeps every decoder layer's cross K / V in
+``state["cross"]`` (a ``blocks.CrossKV`` of (L, B, S_enc, KVH, hd), in
+the model's dtype, unlike the bfloat16 self-attention cache) and fills
+the decoder's cache from the prompt; ``decode_step`` reads them.
 
 The decode state is one stacked tree a group: a ``KVCache`` /
 ``MLACache``, or for the SSM and hybrid groups the reference's
@@ -41,17 +51,22 @@ ranks. The activations are replicated after every psum; ``logits``,
 stream between the layers is each rank's sequence block, gathered into
 each column-parallel projection by the ring all-gather
 (``core.overlap``) and returned from each row-parallel one by the ring
-reduce-scatter. The ``data`` axis replicates the weights (FSDP comes
-with training, A15.3).
+reduce-scatter (whisper's encoder and decoder each decide on their own
+length). The SSM and hybrid models keep the residual stream whole on
+every rank (their recurrences need the whole sequence; the reference
+constrains it back to whole, or batch-only, inside their blocks): their
+mixers split by channel over the axis (``models.ssm``), hymba's
+attention and FFN as the decoders'. The ``data`` axis replicates the
+weights (FSDP comes with training, A15.3).
 
 On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
 every leaf in the one-rank order, one layer at a time, and keeps the
 rank's; ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's
-arrays) and its KV heads of the cache; on a ``SimMesh`` the stacks stay
-whole and a rank's block is a view. SSM and hybrid models run on one
-rank (a mesh of one rank, or none). Not ported yet: SSM and hybrid
-models over a mesh of several ranks (ROADMAP A15.2d), encoder-decoder
-models (A15.2c), ``loss`` and MTP (A15.3).
+arrays; a leaf of ``ssm.MESH_LAYOUT`` is placed as that table says), its
+KV heads of the caches (and of the cross K / V) and its channel blocks
+of the conv windows and Mamba states; on a ``SimMesh`` the stacks and
+the states stay whole and a rank's block is a view. Not ported yet:
+``loss`` and MTP (A15.3).
 """
 
 from __future__ import annotations
@@ -163,20 +178,12 @@ def build_groups(cfg: ModelConfig) -> List[Group]:
     return [Group("layers", "dec", L, flags, static_global=static)]
 
 
-def _not_ported(cfg: ModelConfig, mesh) -> Optional[str]:
-    if cfg.family in ("ssm", "hybrid") and mesh is not None and mesh.p > 1:
-        return f"{cfg.name}: SSM and hybrid models over a mesh of several ranks are ROADMAP A15.2d"
-    if cfg.is_encdec:
-        return f"{cfg.name}: encoder-decoder models are ROADMAP A15.2c"
-    return None
-
-
 def _group_init_fn(g: Group, cfg: ModelConfig, generator: torch.Generator, device) -> Callable:
     """One layer's ``(params, specs)`` draw for group ``g``."""
     if g.kind in ("dec", "dec_moe"):
-        return lambda: blocks.init_decoder_block(generator, cfg, device, use_moe=g.kind == "dec_moe")
+        return lambda: blocks.init_decoder_block(generator, cfg, device, use_moe=g.kind == "dec_moe", cross=g.cross)
     init = {"hymba": blocks.init_hymba_block, "xlstm_pair": blocks.init_xlstm_pair,
-            "xlstm_m": blocks.init_xlstm_m}[g.kind]
+            "xlstm_m": blocks.init_xlstm_m, "enc": blocks.init_encoder_block}[g.kind]
     return lambda: init(generator, cfg, device)
 
 
@@ -185,12 +192,46 @@ def head_units(cfg: ModelConfig) -> Dict[str, int]:
     return {"heads": cfg.num_heads, "kv_heads": cfg.num_kv_heads}
 
 
-def _keep(a: torch.Tensor, where: Optional[Tuple[int, int, int]]) -> torch.Tensor:
-    """``a``, or a copy of its ``(dim, first, count)`` block (a view would
-    keep the whole leaf alive)."""
+def _layout(path: str, spec) -> Tuple[tuple, int]:
+    """(the spec a leaf at ``path`` is placed by over a mesh, the parts its
+    split dim packs): its own spec and one part, but where
+    ``ssm.MESH_LAYOUT`` names the leaf by its last two keys."""
+    spec = tuple(spec)
+    over = ssm.MESH_LAYOUT.get("/".join(path.split("/")[-2:]))
+    if over is None:
+        return spec, 1
+    new, parts = over
+    return (spec if new is None else (None,) * (len(spec) - len(new)) + tuple(new)), parts
+
+
+def _where(mesh, spec, shape, units, path: str):
+    """(``core.sharding.block`` of the leaf at ``path``, its parts)."""
+    spec, parts = _layout(path, spec)
+    return sharding.block(mesh, spec, shape, units, parts), parts
+
+
+def _take(a, where: Optional[Tuple[int, int, int]], parts: int = 1):
+    """A tensor's or array's ``(dim, first, count)`` block of each of its
+    ``parts`` along ``dim`` (``core.sharding.block``), side by side."""
+    dim, first, count = where
+    width = a.shape[dim] // parts
+
+    def cut(j):
+        at = (slice(None),) * dim + (slice(j * width + first, j * width + first + count),)
+        return a[at]
+
+    if parts == 1:
+        return cut(0)
+    return torch.cat([cut(j) for j in range(parts)], dim) if isinstance(a, torch.Tensor) else \
+        np.concatenate([cut(j) for j in range(parts)], dim)
+
+
+def _keep(a: torch.Tensor, where: Optional[Tuple[int, int, int]], parts: int = 1) -> torch.Tensor:
+    """``a``, or a copy of its block (a view would keep the whole leaf
+    alive)."""
     if where is None:
         return a
-    return a.narrow(*where).clone(memory_format=torch.contiguous_format)
+    return _take(a, where, parts).clone(memory_format=torch.contiguous_format)
 
 
 def _float_to(dtype):
@@ -199,9 +240,6 @@ def _float_to(dtype):
 
 class Model:
     def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None):
-        why = _not_ported(cfg, mesh)
-        if why is not None:
-            raise NotImplementedError(f"not ported yet: {why}")
         self.cfg = cfg
         self.mesh = mesh
         self.attn_impl = attn_impl
@@ -235,26 +273,26 @@ class Model:
         cfg, dev = self.cfg, self.device
         cast = _float_to(dtype) if dtype is not None else (lambda a: a)
 
-        def where(spec, shape):
-            return sharding.block(self.mesh, spec, shape, self.units)
+        def where(spec, shape, path):
+            return _where(self.mesh, spec, shape, self.units, path)
 
-        def keep(tree, specs):
-            return _map2(lambda a, spec: cast(_keep(a, where(spec, a.shape))), tree, specs)
+        def keep(tree, specs, prefix=""):
+            return _map2(lambda a, spec, path: cast(_keep(a, *where(spec, a.shape, path))), tree, specs, prefix)
 
-        def empty_stack(a, spec, count):
+        def empty_stack(a, spec, path, count):
             src = torch.float32 if isinstance(a, Deferred) else a.dtype
             out_dtype = dtype if dtype is not None and src.is_floating_point else src
             shape = list(a.shape)
-            rows = where(spec, shape)
+            rows, parts = where(spec, shape, path)
             if rows is not None:
-                shape[rows[0]] = rows[2]
+                shape[rows[0]] = rows[2] * parts
             return torch.empty([count] + shape, dtype=out_dtype, device=dev)
 
         def stacked_blocks(count: int, draw: Callable):
             """``count`` blocks' params in (count, ...) stacks, drawn one
             layer at a time by ``draw``, and one block's specs."""
             layer, s = draw()  # its leaves give the stacks' shapes (a group may have no layer)
-            out = _map2(lambda a, spec: empty_stack(a, spec, count), layer, s)
+            out = _map2(lambda a, spec, path: empty_stack(a, spec, path, count), layer, s)
             for i in range(count):
                 _copy_into(out, layer if i == 0 else draw()[0], s, i, generator, where)
                 layer = None  # one layer's float32 draw at a time
@@ -300,6 +338,28 @@ class Model:
             x = torch.cat([m, x], dim=1)
         return x
 
+    def _embed_dec(self, params, tokens) -> torch.Tensor:
+        """The encoder-decoder's decoder tokens, with their sinusoidal
+        positions (the reference scales no tied table there)."""
+        cfg = self.cfg
+        x = common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype, self.tp, cfg.vocab_size)
+        return x + common.sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, self.device)
+
+    def _encode(self, params, embeds) -> torch.Tensor:
+        """The encoder group over the frame embeddings (sinusoidal
+        positions added), as ``hidden`` runs a trunk: Megatron sequence
+        parallelism where the axis divides the frames. Returns the whole
+        (B, S_enc, d) output on every rank (the reference applies no
+        norm after the encoder)."""
+        g = self.groups[0]
+        x = self._embed_in(params, {"embeds": embeds})
+        tp = self.tp.with_seq(self.seq_parallel(x.shape[1]))
+        if tp.seq:
+            x = tp.scatter_seq(x)
+        for i in range(g.count):
+            x = blocks.apply_encoder_block(_layer(params[g.name], i), x, self.cfg, impl=self.attn_impl, tp=tp)
+        return tp.whole(x)
+
     def _scale_tied(self, x) -> torch.Tensor:
         """Tied embeddings (gemma2) scale by sqrt(d_model), rounded to the
         compute dtype first."""
@@ -308,15 +368,19 @@ class Model:
         return x * torch.tensor(math.sqrt(self.cfg.d_model), dtype=self.dtype, device=self.device)
 
     def _through_caches(self, params, x, state, block) -> torch.Tensor:
-        """``x`` through every layer, ``block(g, p, x, state, is_global) ->
-        (x, state)`` on layer views of the stacked params and of the
-        group's state tree, whatever its type (``KVCache``, ``MLACache``,
-        the SSM and hybrid states); each layer's new state is written
+        """``x`` through every decoding layer, ``block(g, p, x, state,
+        is_global, cross_kv) -> (x, state)`` on layer views of the stacked
+        params, of the group's state tree, whatever its type (``KVCache``,
+        ``MLACache``, the SSM and hybrid states), and of the cross K / V
+        (None but in whisper's decoder); each layer's new state is written
         back into the stacks in place (``_write_back``)."""
         for g in self.groups:
+            if g.kind == "enc":
+                continue
             for i in range(g.count):
                 view = _state_layer(state[g.name], i)
-                x, new = block(g, _layer(params[g.name], i), x, view, self._flag(g, i))
+                cross = _state_layer(state["cross"], i) if g.cross else None
+                x, new = block(g, _layer(params[g.name], i), x, view, self._flag(g, i), cross)
                 _write_back(view, new)
         return x
 
@@ -334,25 +398,35 @@ class Model:
     # ---------------------------------------------------------------- trunk
     def seq_parallel(self, s: int) -> bool:
         """Whether ``hidden`` runs Megatron sequence parallelism on ``s``
-        positions: ``cfg.seq_parallel`` and the ``model`` axis divides them
-        (else the psum form, as prefill and decode)."""
-        return self.cfg.seq_parallel and self.tp.p > 1 and s % self.tp.p == 0
+        positions: ``cfg.seq_parallel``, the ``model`` axis divides them,
+        and the model is no SSM or hybrid (else the psum form, as prefill
+        and decode)."""
+        cfg = self.cfg
+        return cfg.seq_parallel and cfg.family not in ("ssm", "hybrid") and self.tp.p > 1 and s % self.tp.p == 0
 
     @torch.inference_mode()
     def hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the final hidden states (B, S, d), normalized, meta tokens cut,
         whole on every rank; aux, the sum of the MoE blocks' router
-        losses, a float32 scalar)."""
+        losses, a float32 scalar). The encoder-decoder's are its
+        decoder's, over ``batch["tokens"]``."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._embed_in(params, batch)
+        enc = None
+        if cfg.is_encdec:
+            enc = self._encode(params, batch["enc_embeds"])
+            x = self._embed_dec(params, batch["tokens"])
+        else:
+            x = self._embed_in(params, batch)
         tp = self.tp.with_seq(self.seq_parallel(x.shape[1]))
         if tp.seq:
             x = tp.scatter_seq(x)
         aux = torch.zeros((), device=self.device)
         for g in self.groups:
+            if g.kind == "enc":
+                continue
             for i in range(g.count):
-                x, a = self._trunk_block(g, _layer(params[g.name], i), x, self._flag(g, i), tp)
+                x, a = self._trunk_block(g, _layer(params[g.name], i), x, self._flag(g, i), tp, enc)
                 if a is not None:
                     aux = aux + a
         x = tp.whole(tp.each(lambda a: common.apply_norm(params["final_norm"], a, cfg.norm_kind), x))
@@ -375,38 +449,64 @@ class Model:
         alone an ``MLSTMBlockState``) of float32 mLSTM (C, n, m), the
         width-4 conv window and the sLSTM (h, c, n, m). The KV cache is
         bfloat16 by default even for a float32 model, as the reference's
-        is."""
+        is. No state for whisper's encoder; its decoder's cross K / V come
+        with ``prefill``. On a ``ProcessGroupMesh`` the KV heads, the
+        mLSTM heads and the ``di`` channels of the conv windows and the
+        Mamba state are the rank's."""
         s_tot = s_max + self.cfg.meta_tokens
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:
-            state[g.name] = _stack_state(self._layer_state(g, b, s_tot, cache_dtype), g.count)
+            if g.kind != "enc":
+                state[g.name] = _stack_state(self._layer_state(g, b, s_tot, cache_dtype), g.count)
         return state
 
     def _layer_state(self, g: Group, b: int, s_tot: int, cache_dtype):
         """One layer's initial decode state for group ``g``."""
-        cfg, dev = self.cfg, self.device
+        cfg, dev, tp = self.cfg, self.device, self.tp
         if g.kind in ("dec", "dec_moe"):
-            return blocks.init_block_cache(cfg, b, s_tot, cache_dtype, dev, self.tp)
+            return blocks.init_block_cache(cfg, b, s_tot, cache_dtype, dev, tp)
         di = int(cfg.ssm.expand * cfg.d_model)
+        own = di // tp.p if tp.holds_block and tp.splits(di) else di  # the rank's channels
         if g.kind == "hymba":
             return blocks.HymbaState(
-                kv=attention.init_kv_cache(b, s_tot, cfg.num_kv_heads, cfg.head_dim_, cache_dtype, dev),
-                mamba=ssm.init_mamba_state(b, di, cfg.ssm.state_dim, cfg.ssm.conv_dim, dev))
-        dh = di // cfg.num_heads
-        mb = ssm.MLSTMBlockState(cell=ssm.init_mlstm_state(b, cfg.num_heads, dh, dh, device=dev),
-                                 conv=torch.zeros((b, ssm.MLSTM_CONV - 1, di), device=dev))
+                kv=attention.init_kv_cache(b, s_tot, attention.cache_heads(cfg, tp), cfg.head_dim_, cache_dtype, dev),
+                mamba=ssm.MambaState(h=torch.zeros((b, own, cfg.ssm.state_dim), device=dev),
+                                     conv=torch.zeros((b, cfg.ssm.conv_dim - 1, own), device=dev)))
+        h, dh = cfg.num_heads, di // cfg.num_heads
+        heads = h // tp.p if tp.holds_block and tp.splits(h) else h  # the rank's mLSTM heads
+        mb = ssm.MLSTMBlockState(cell=ssm.init_mlstm_state(b, heads, dh, dh, device=dev),
+                                 conv=torch.zeros((b, ssm.MLSTM_CONV - 1, own), device=dev))
         return blocks.XLSTMPairState(m=mb, s=ssm.init_slstm_state(b, cfg.d_model, dev)) if g.kind == "xlstm_pair" else mb
 
     @torch.inference_mode()
     def prefill(self, params, batch, state) -> Tuple[Dict, torch.Tensor]:
         """Run the prompt through the model, filling ``state``'s caches in
-        place. Returns (state, last-position logits (B, V))."""
+        place (whisper: its encoder over ``batch["enc_embeds"]`` first,
+        and ``state["cross"]`` made). Returns (state, last-position logits
+        (B, V))."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._through_caches(params, self._embed_in(params, batch), state, self._prefill_block)
+        if cfg.is_encdec:
+            state["cross"] = self._cross_kv(params, self._encode(params, batch["enc_embeds"]))
+            x = self._embed_dec(params, batch["tokens"])
+        else:
+            x = self._embed_in(params, batch)
+        x = self._through_caches(params, x, state, self._prefill_block)
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = x.shape[1]
         return state, self._logits(params, x[:, -1:])[:, 0]
+
+    def _cross_kv(self, params, enc) -> blocks.CrossKV:
+        """Every decoder layer's cross K / V of ``enc``, stacked (L, ...):
+        each layer's written into the stacks as it is made."""
+        g = self.groups[1]
+        out = None
+        for i in range(g.count):
+            kv = blocks.cross_kv_proj(_layer(params[g.name], i), enc, self.cfg, self.tp)
+            if out is None:
+                out = blocks.CrossKV(*(t.new_empty((g.count,) + tuple(t.shape)) for t in kv))
+            out.k[i], out.v[i] = kv
+        return out
 
     @torch.inference_mode()
     def decode_step(self, params, tokens, state) -> Tuple[torch.Tensor, Dict]:
@@ -422,38 +522,42 @@ class Model:
         state["pos"] = state["pos"] + 1
         return self._logits(params, x)[:, 0], state
 
-    def _trunk_block(self, g: Group, p, x, flag: bool, tp=None):
+    def _trunk_block(self, g: Group, p, x, flag: bool, tp=None, enc=None):
         """One layer of ``hidden``: (x, the MoE router's aux loss, or None
-        where the block has no router)."""
+        where the block has no router); ``enc``: the encoder's output, for
+        a decoder layer's cross-attention."""
         cfg, impl, tp = self.cfg, self.attn_impl, self.tp if tp is None else tp
         if g.kind == "hymba":
             return blocks.apply_hymba_block(p, x, cfg, is_global=flag, impl=impl, tp=tp)[0], None
         if g.kind == "xlstm_pair":
-            return blocks.apply_xlstm_pair(p, x, cfg)[0], None
+            return blocks.apply_xlstm_pair(p, x, cfg, tp=tp)[0], None
         if g.kind == "xlstm_m":
-            return blocks.apply_xlstm_m(p, x, cfg)[0], None
-        return blocks.apply_decoder_block(p, x, cfg, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl, tp=tp)
+            return blocks.apply_xlstm_m(p, x, cfg, tp=tp)[0], None
+        cross = blocks.cross_kv_proj(p, enc, cfg, self.tp) if g.cross else None
+        return blocks.apply_decoder_block(p, x, cfg, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl, tp=tp,
+                                          cross_kv=cross)
 
-    def _prefill_block(self, g: Group, p, x, st, flag: bool):
-        cfg, impl = self.cfg, self.attn_impl
+    def _prefill_block(self, g: Group, p, x, st, flag: bool, cross=None):
+        cfg, impl, tp = self.cfg, self.attn_impl, self.tp
         if g.kind == "hymba":
-            return blocks.prefill_hymba_block(p, x, cfg, st, is_global=flag, impl=impl, tp=self.tp)
+            return blocks.prefill_hymba_block(p, x, cfg, st, is_global=flag, impl=impl, tp=tp)
         if g.kind == "xlstm_pair":
-            return blocks.apply_xlstm_pair(p, x, cfg, st)
+            return blocks.apply_xlstm_pair(p, x, cfg, st, tp)
         if g.kind == "xlstm_m":
-            return blocks.apply_xlstm_m(p, x, cfg, st)
+            return blocks.apply_xlstm_m(p, x, cfg, st, tp)
         return blocks.prefill_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl,
-                                            tp=self.tp)
+                                            tp=tp, cross_kv=cross)
 
-    def _decode_block(self, g: Group, p, x, st, flag: bool):
-        cfg = self.cfg
+    def _decode_block(self, g: Group, p, x, st, flag: bool, cross=None):
+        cfg, tp = self.cfg, self.tp
         if g.kind == "hymba":
-            return blocks.decode_hymba_block(p, x, cfg, st, is_global=flag, tp=self.tp)
+            return blocks.decode_hymba_block(p, x, cfg, st, is_global=flag, tp=tp)
         if g.kind == "xlstm_pair":
-            return blocks.decode_xlstm_pair(p, x, cfg, st)
+            return blocks.decode_xlstm_pair(p, x, cfg, st, tp)
         if g.kind == "xlstm_m":
-            return blocks.decode_xlstm_m(p, x, cfg, st)
-        return blocks.decode_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", tp=self.tp)
+            return blocks.decode_xlstm_m(p, x, cfg, st, tp)
+        return blocks.decode_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", tp=tp,
+                                           cross_kv=cross)
 
     def _abs_pos(self, pos: int) -> torch.Tensor:
         half = self.cfg.d_model // 2
@@ -462,29 +566,30 @@ class Model:
         return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
 
 
-def _map2(fn: Callable, tree, specs):
-    """``fn(leaf, spec)`` on every leaf of a tree and its specs."""
+def _map2(fn: Callable, tree, specs, path: str = ""):
+    """``fn(leaf, spec, path)`` on every leaf of a tree and its specs, the
+    leaf's path of keys ("a/b/c", under ``path``) beside it."""
     if isinstance(tree, dict):
-        return {k: _map2(fn, v, specs[k]) for k, v in tree.items()}
-    return fn(tree, specs)
+        return {k: _map2(fn, v, specs[k], f"{path}/{k}") for k, v in tree.items()}
+    return fn(tree, specs, path)
 
 
-def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: Callable) -> None:
+def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: Callable, path: str = "") -> None:
     """Layer ``i`` of the stacks from ``tree``'s tensors, its ``Deferred``
     leaves drawn straight into the stack: every expert drawn in order, the
     ones this process keeps written; of the other leaves the block this
-    process keeps (``where(spec, shape)``, ``core.sharding.block``)."""
+    process keeps (``where(spec, shape, path)``: ``_where``)."""
     if isinstance(tree, dict):
         for k, v in tree.items():
-            _copy_into(stacked[k], v, specs[k], i, generator, where)
+            _copy_into(stacked[k], v, specs[k], i, generator, where, f"{path}/{k}")
         return
-    rows = where(specs, tree.shape)
+    rows, parts = where(specs, tree.shape, path)
     if isinstance(tree, Deferred):
         if rows is not None and rows[0] != 0:
             raise ValueError(f"a deferred draw keeps a block of its leading dim, not of dim {rows[0]}")
         tree.fill(stacked[i], generator, first=0 if rows is None else rows[1])
     else:
-        stacked[i].copy_(tree if rows is None else tree.narrow(*rows))
+        stacked[i].copy_(tree if rows is None else _take(tree, rows, parts))
 
 
 def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
@@ -500,12 +605,11 @@ def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None, c
     cast = _float_to(dtype) if dtype is not None else (lambda a: a)
     units = None if cfg is None else head_units(cfg)
 
-    def load(a, spec=()):
-        rows = sharding.block(mesh, spec, np.shape(a), units)
+    def load(a, spec=(), path=""):
+        rows, parts = _where(mesh, spec, np.shape(a), units, path)
         a = np.asarray(a)
         if rows is not None:
-            dim, first, n = rows
-            a = a[(slice(None),) * dim + (slice(first, first + n),)]
+            a = _take(a, rows, parts)
         return cast(torch.from_numpy(np.array(a)).to(dev))
 
     if mesh is not None and mesh.caller_holds_block and mesh.p > 1:

@@ -1,7 +1,7 @@
 """Recurrent sequence mixers, ported from ``repro.models.ssm``: xLSTM's
 mLSTM (matrix memory, chunkwise-parallel) and sLSTM (scalar memory,
 sequential), and the Mamba selective SSM of hymba's parallel heads --
-their forward and decode (the serving path), on one rank.
+their forward and decode (the serving path), on one rank or over a mesh.
 
 mLSTM chunkwise form (intra-chunk work is matmuls, inter-chunk a short
 loop over the carried state):
@@ -24,14 +24,49 @@ Every mixer has a full-sequence entry point (state in and out when given)
 and a decode step. The mLSTM decode step can update its (C, n, m) in
 place (``inplace=True``, which ``decode_mlstm_block`` uses), in the
 reference's order of operations: bitwise the out-of-place form. Mamba's
-custom backward is ROADMAP A15.3; over a mesh of several ranks these
-mixers are A15.2d.
+custom backward is ROADMAP A15.3.
+
+Over a mesh (``tp``, ``common.TP`` over the ``model`` axis), each leaf
+placed by the reference's specs (``core.sharding.placement``) but where
+``MESH_LAYOUT`` says otherwise, the channel dims split where the axis
+divides them:
+
+- **Mamba** (the reference's channel constraint, ``ssm.py:622-630``):
+  ``win`` ``("fsdp", "mlp")`` packs ``[x | z]``, so a rank holds each
+  half's channel block (``MESH_LAYOUT``), the same channels as its blocks of
+  ``conv``, ``a_log``, ``dskip``, ``dt_bias`` and its (B, di/P, N) state
+  and (B, W-1, di/P) conv window; ``wbc`` and ``wdt`` are row blocks
+  (partial sums over the rank's channels, one psum, then each rank's
+  channels of dt); the scan is local to the rank's channels over the
+  whole sequence; ``wout`` a row block, one psum.
+- **mLSTM**, by heads: ``wup`` packs ``[x | z]`` (``MESH_LAYOUT``),
+  ``conv`` and the conv window by channel; the rank's conv output and x
+  are gathered whole, and ``wq`` / ``wk`` / ``wv`` / ``wif`` are placed
+  by whole heads (columns; ``wif`` as ``[i | f]`` halves), not by the
+  rows their ``("mlp", None)`` specs give: a row split would need the
+  whole cell on every rank (its q / k / v / gates partial sums, one
+  psum), where by heads each rank holds its heads' (C, n, m) -- a
+  quarter at P = 4 (xLSTM-1.3B's 4 heads) -- and no partial sum reaches
+  a gate's ``exp``. Each rank runs the cell on its heads, group-norms them,
+  gates its channels (its heads' channels are its ``z`` channels) and
+  multiplies its ``wdown`` row block, one psum. Where the axis does not
+  divide the heads the cell runs whole (once a process on a
+  ``SimMesh``).
+- **sLSTM** (the reference's ``shard_map`` island, ``ssm.py:355-372``:
+  the time loop local, replicated over ``model``): ``wx``'s columns are
+  per-head interleaved (``(hh, 4, dh)``: z, i, f, o of each head side
+  by side), so a column block is whole heads' four gates; each rank's
+  block of the pre-activations is gathered, and the loop runs on the
+  whole, once a process (every rank on a ``ProcessGroupMesh``). Its
+  gated FFN packs ``wup`` as ``[gelu | linear]`` halves of ``dff``
+  (``MESH_LAYOUT``), ``wdown`` row blocks, one psum -- where the axis divides
+  ``dff`` (xLSTM-1.3B's 2730 is whole at 4).
 """
 
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Optional, Tuple
+from typing import List, NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -46,25 +81,22 @@ BIG = 1e30
 #: the mLSTM block's causal conv width, fixed whatever ``ssm.conv_dim`` says
 MLSTM_CONV = 4
 
-
-def _silu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.silu`` as the reference lowers it, x * (1 / (1 + exp(-x))),
-    each op rounded to x's dtype: in bfloat16 bitwise the reference's
-    (``F.silu`` rounds once and differs in a third of the values)."""
-    return x * (1 / (1 + torch.exp(-x)))
-
-
-def _rounded(value: float, dtype) -> float:
-    """``value`` rounded to ``dtype`` (a Python float: multiplying by it
-    rounds once, as by the reference's constant in that dtype)."""
-    return torch.tensor(value, dtype=dtype).item()
-
-
-def _gelu(x: torch.Tensor) -> torch.Tensor:
-    """``jax.nn.gelu``'s tanh form op by op, its constants rounded to x's
-    dtype: in bfloat16 bitwise the reference's."""
-    c, k = _rounded(math.sqrt(2 / math.pi), x.dtype), _rounded(0.044715, x.dtype)
-    return x * (0.5 * (1.0 + torch.tanh(c * (x + k * (x * x * x)))))
+#: where a leaf of these blocks is placed over a mesh other than its spec
+#: says, by its last two keys: (the spec to place it by, None for its own;
+#: the equal parts its split dim packs side by side -- a rank's block is
+#: each part's block, ``core.sharding.block(parts=)``). ``[x | z]`` of
+#: Mamba and the mLSTM and the sLSTM FFN's ``[gelu | linear]`` halves; the
+#: mLSTM's q / k / v and gate weights by whole heads (columns; the gates
+#: ``[i | f]``), where the reference's ``("mlp", None)`` splits rows
+MESH_LAYOUT = {
+    "mamba/win": (None, 2),
+    "m/wup": (None, 2),
+    "s/wup": (None, 2),
+    "m/wq": (("fsdp", "heads"), 1),
+    "m/wk": (("fsdp", "heads"), 1),
+    "m/wv": (("fsdp", "heads"), 1),
+    "m/wif": (("fsdp", "heads"), 2),
+}
 
 
 def _softplus(x: torch.Tensor) -> torch.Tensor:
@@ -245,59 +277,114 @@ class MLSTMBlockState(NamedTuple):
     conv: torch.Tensor  # (B, W-1, di)
 
 
-def _mlstm_qkvif(p, xm_conv, xm, h):
-    dt = xm.dtype
-    b, s_len, di = xm.shape
+def _channels(tp: common.TP, di: int) -> Tuple[bool, List[int], int]:
+    """(whether ``tp`` splits the ``di`` channels, the coordinates this
+    process computes, each one's channel count)."""
+    split = tp.splits(di)
+    return split, tp.owners(split), di // tp.p if split else di
+
+
+def _joined(blocks: List[torch.Tensor], dim: int) -> torch.Tensor:
+    """The coordinates' blocks of a state leaf side by side (one: itself)."""
+    return blocks[0] if len(blocks) == 1 else torch.cat(blocks, dim)
+
+
+def _own(a: torch.Tensor, c: int, split: bool, m: int) -> torch.Tensor:
+    """Coordinate ``c``'s ``m`` channels (the last dim) of a whole ``a``;
+    all of them where the channels are not split."""
+    return a.narrow(-1, c * m, m) if split else a
+
+
+def _mlstm_in(p, x, cfg, conv_state, tp: common.TP):
+    """(q, k, v, i~, f~ of each head coordinate, the new conv state, each
+    channel coordinate's channels of the output gate's input z). Each
+    channel coordinate's block of ``[x | z]`` (``wup``'s parts) and of the
+    causal conv, gathered whole; each head coordinate's q / k / v and
+    gates from its heads' columns of ``wq`` / ``wk`` / ``wv`` / ``wif``,
+    over every channel (no partial sums: the gates enter ``exp``)."""
+    dt, h = x.dtype, cfg.num_heads
+    b, s_len, d = x.shape
+    di = int(cfg.ssm.expand * d)
     dh = di // h
-    q = xm_conv @ p["wq"].to(dt)
-    k = xm_conv @ p["wk"].to(dt)
-    v = xm @ p["wv"].to(dt)
-    gates = xm_conv.float() @ p["wif"].float()
-    i_pre, f_pre = gates[..., :h], gates[..., h:]  # (B,S,H)
+    split, coords, _ = _channels(tp, di)
+    ups = tp.col(x, lambda c: tp.parts(p["wup"], 1, c, 2 * di, 2), coords)
+    xcs, convs = [], []
+    for c, (xm, _) in zip(coords, ups):
+        xc, conv_new = _causal_conv(xm, tp.block(p["conv"], 1, c, di),
+                                    None if conv_state is None else tp.block(conv_state, 2, c, di))
+        xcs.append(common.silu(xc))
+        convs.append(conv_new)
+    xc, xm = (tp.gather(t, -1) if split else t[0] for t in (xcs, [xm for xm, _ in ups]))
 
     def to_heads(a):
-        return a.reshape(b, s_len, h, dh).transpose(1, 2)
+        return a.reshape(b, s_len, -1, dh).transpose(1, 2)
 
-    return to_heads(q), to_heads(k), to_heads(v), i_pre.transpose(1, 2), f_pre.transpose(1, 2)
-
-
-def _mlstm_in(p, x, cfg, conv_state):
-    """(q, k, v, i~, f~, the new conv state, the output gate's input z)."""
-    di = int(cfg.ssm.expand * x.shape[-1])
-    up = x @ p["wup"].to(x.dtype)
-    xm, z = up[..., :di], up[..., di:]
-    xc, conv_new = _causal_conv(xm, p["conv"], conv_state)
-    return _mlstm_qkvif(p, _silu(xc), xm, cfg.num_heads) + (conv_new, z)
+    heads = []
+    for c in tp.owners(tp.splits(h)):
+        cols = [tp.block(p[n], 1, c, di, h) for n in ("wq", "wk", "wv")]  # the coordinate's whole heads
+        gates = xc.float() @ torch.cat(tp.parts(p["wif"], 1, c, 2 * h, 2), -1).float()
+        i_pre, f_pre = gates.chunk(2, -1)  # (B,S,H')
+        heads.append((c, to_heads(xc @ cols[0].to(dt)), to_heads(xc @ cols[1].to(dt)), to_heads(xm @ cols[2].to(dt)),
+                      i_pre.transpose(1, 2), f_pre.transpose(1, 2)))
+    return heads, _joined(convs, 2), list(zip(coords, (z for _, z in ups)))
 
 
-def _mlstm_out(p, hout, z, h):
-    """hout (B, S, H, dh) through the group norm, the gate and ``wdown``."""
-    y = common.apply_groupnorm(p["gn"], hout, h) * _silu(z)
-    return y @ p["wdown"].to(y.dtype)
+def _cell_heads(tp: common.TP, cell: Optional[MLSTMState], c: int, h: int) -> Optional[MLSTMState]:
+    """Coordinate ``c``'s heads of a (B, H, ...) mLSTM state."""
+    return None if cell is None else MLSTMState(*(tp.block(t, 1, c, h) for t in cell))
+
+
+def _mlstm_out(p, houts, zs, h, tp: common.TP):
+    """Each head coordinate's hout (B, S, H', dh) through the group norm of
+    its heads, each channel coordinate's gate channels and ``wdown`` row
+    block, one psum."""
+    di = p["gn"]["scale"].shape[-1]
+    split, _, m = _channels(tp, di)
+    by_heads = tp.splits(h)
+    ys = {}
+    for c, hout in houts:
+        scale = {"scale": _own(p["gn"]["scale"], c, by_heads, m)}
+        ys[c] = common.apply_groupnorm(scale, hout, hout.shape[-2])
+    parts = []
+    for c, z in zs:
+        y = ys[c] if by_heads else _own(next(iter(ys.values())), c, split, m)
+        parts.append((y * common.silu(z)) @ tp.block(p["wdown"], 0, c, di).to(y.dtype))
+    return tp.reduce(parts, "partial" if split else "whole")
 
 
 def apply_mlstm_block(
-    p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[MLSTMBlockState] = None
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[MLSTMBlockState] = None,
+    tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, Optional[MLSTMBlockState]]:
     """Full-sequence mLSTM block (pre-norm residual handled by caller).
     x: (B, S, d). If ``state`` given, runs statefully and returns new state."""
-    s_len = x.shape[1]
-    q, k, v, i_pre, f_pre, conv_state, z = _mlstm_in(p, x, cfg, state.conv if state is not None else None)
-    cell0 = state.cell if state is not None else None
-    hout, cell = mlstm_chunkwise(q, k, v, i_pre, f_pre, cell0, chunk=min(cfg.ssm.chunk, s_len))
-    out = _mlstm_out(p, hout.transpose(1, 2), z, cfg.num_heads)
-    return out, (MLSTMBlockState(cell, conv_state) if state is not None else None)
+    s_len, h = x.shape[1], cfg.num_heads
+    heads, conv_state, zs = _mlstm_in(p, x, cfg, state.conv if state is not None else None, tp)
+    houts, cells = [], []
+    for c, q, k, v, i_pre, f_pre in heads:
+        cell0 = _cell_heads(tp, state.cell if state is not None else None, c, h)
+        hout, cell = mlstm_chunkwise(q, k, v, i_pre, f_pre, cell0, chunk=min(cfg.ssm.chunk, s_len))
+        houts.append((c, hout.transpose(1, 2)))
+        cells.append(cell)
+    out = _mlstm_out(p, houts, zs, h, tp)
+    if state is None:
+        return out, None
+    return out, MLSTMBlockState(MLSTMState(*(_joined(list(t), 1) for t in zip(*cells))), conv_state)
 
 
 def decode_mlstm_block(
-    p: Params, x: torch.Tensor, cfg: ModelConfig, state: MLSTMBlockState
+    p: Params, x: torch.Tensor, cfg: ModelConfig, state: MLSTMBlockState, tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, MLSTMBlockState]:
-    """Single-token step. x: (B, 1, d). ``state.cell`` is updated in place."""
-    q, k, v, i_pre, f_pre, conv_state, z = _mlstm_in(p, x, cfg, state.conv)
-    hout, cell = mlstm_decode_step(
-        q[:, :, 0], k[:, :, 0], v[:, :, 0], i_pre[:, :, 0], f_pre[:, :, 0], state.cell, inplace=True
-    )
-    return _mlstm_out(p, hout[:, None], z, cfg.num_heads), MLSTMBlockState(cell, conv_state)
+    """Single-token step. x: (B, 1, d). ``state.cell`` is updated in place
+    (each head coordinate's view of it)."""
+    h = cfg.num_heads
+    heads, conv_state, zs = _mlstm_in(p, x, cfg, state.conv, tp)
+    houts = []
+    for c, q, k, v, i_pre, f_pre in heads:
+        hout, _ = mlstm_decode_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], i_pre[:, :, 0], f_pre[:, :, 0],
+                                    _cell_heads(tp, state.cell, c, h), inplace=True)
+        houts.append((c, hout[:, None]))
+    return _mlstm_out(p, houts, zs, h, tp), MLSTMBlockState(state.cell, conv_state)
 
 
 # ---------------------------------------------------------------------------
@@ -371,13 +458,21 @@ def _slstm_cell(p, xg: torch.Tensor, st: SLSTMState, hh: int) -> Tuple[torch.Ten
 
 def apply_slstm_block(
     p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[SLSTMState] = None,
+    tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, Optional[SLSTMState]]:
-    """The recurrence is a Python loop over the S time steps."""
+    """The recurrence is a Python loop over the S time steps, on the whole
+    pre-activations: each coordinate's column block of ``wx`` (whole
+    heads' four gates where the axis divides the heads), gathered; the
+    loop runs once a process, replicated over the ``model`` axis. The
+    gated FFN after it is tensor-parallel over its ``dff`` (``wup``'s two
+    parts, ``wdown``'s rows, one psum) where the axis divides it."""
     hh = cfg.ssm.slstm_heads
     b, s_len, d = x.shape
     keep_state = state is not None
     st = state if keep_state else init_slstm_state(b, d, x.device)
-    xg = x.float() @ p["wx"].float()
+    split = tp.splits(4 * d)
+    xg = [a for (a,) in tp.col(x.float(), lambda c: [tp.block(p["wx"], 1, c, 4 * d).float()], tp.owners(split))]
+    xg = tp.gather(xg, -1) if split else xg[0]
     cell = {"r": p["r"].float()}  # cast once, not per step
     hs = []
     for xt in xg.unbind(1):
@@ -385,15 +480,16 @@ def apply_slstm_block(
         hs.append(h)
     hseq = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,d)
     hn = common.apply_groupnorm(p["gn"], hseq.reshape(b, s_len, hh, d // hh), hh)
-    up = hn @ p["wup"].to(x.dtype)
-    dff = up.shape[-1] // 2
-    y = _gelu(up[..., :dff]) * up[..., dff:]
-    out = y @ p["wdown"].to(x.dtype)
-    return out, (st if keep_state else None)
+    dff = int(d * 4 / 3)
+    fsplit = tp.splits(dff)
+    coords = tp.owners(fsplit)
+    ups = tp.col(hn, lambda c: tp.parts(p["wup"], 1, c, 2 * dff, 2), coords)
+    outs = [(common.gelu(a) * u) @ tp.block(p["wdown"], 0, c, dff).to(x.dtype) for c, (a, u) in zip(coords, ups)]
+    return tp.reduce(outs, "partial" if fsplit else "whole"), (st if keep_state else None)
 
 
-def decode_slstm_block(p, x, cfg, state: SLSTMState):
-    return apply_slstm_block(p, x, cfg, state)
+def decode_slstm_block(p, x, cfg, state: SLSTMState, tp: common.TP = common.SINGLE):
+    return apply_slstm_block(p, x, cfg, state, tp)
 
 
 # ---------------------------------------------------------------------------
@@ -514,33 +610,51 @@ def _mamba_scan_chunked(decay, inc, h0, chunk: int):
 
 def apply_mamba(
     p: Params, x: torch.Tensor, cfg: ModelConfig, state: Optional[MambaState] = None,
+    tp: common.TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, Optional[MambaState]]:
+    """Over a ``model`` axis that divides ``d_inner`` each coordinate
+    scans its channel block (the reference's channel constraint): its
+    blocks of ``[x | z]`` (``win``'s parts), the conv, ``a_log``,
+    ``dskip``, ``dt_bias`` and the state; ``bc = xc @ wbc`` and ``xc @
+    wdt`` need every channel, so each coordinate's partial sums over its
+    channels go through one psum and each keeps its channels of dt;
+    ``wout`` is a row block, one more psum."""
     sc: SSMConfig = cfg.ssm
     b, s_len, d = x.shape
     di = int(sc.expand * d)
     n = sc.state_dim
     dt_ = x.dtype
     keep_state = state is not None
-    up = x @ p["win"].to(dt_)
-    xi, z = up[..., :di], up[..., di:]
-    xc, conv_new = _causal_conv(xi, p["conv"], state.conv if keep_state else None)
-    xc = _silu(xc).float()
-    bc = xc @ p["wbc"].float()
+    split, coords, m = _channels(tp, di)
+    ups = tp.col(x, lambda c: tp.parts(p["win"], 1, c, 2 * di, 2), coords)
+    xcs, convs, sums = [], [], []
+    for c, (xi, _) in zip(coords, ups):
+        xc, conv_new = _causal_conv(xi, tp.block(p["conv"], 1, c, di),
+                                    tp.block(state.conv, 2, c, di) if keep_state else None)
+        xc = common.silu(xc).float()
+        xcs.append(xc)
+        convs.append(conv_new)
+        sums.append((xc @ tp.block(p["wbc"], 0, c, di).float(), xc @ tp.block(p["wdt"], 0, c, di).float()))
+    bc, dt_all = tp.psum_cat(sums) if split else sums[0]
     bmat, cmat = bc[..., :n], bc[..., n:]
-    dt = _softplus(xc @ p["wdt"].float() + p["dt_bias"])
-    a = -torch.exp(p["a_log"].to(dt_))  # (di, N), in the compute dtype
-    h0 = state.h if keep_state else xc.new_zeros((b, di, n))
     chunk = min(sc.chunk, s_len)
     pad = (-s_len) % chunk
-    if pad:  # identity steps: dt = 0 -> decay = 1, inc = 0
-        xc_p, dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) for t in (xc, dt, bmat, cmat))
-    else:
-        xc_p, dt_p, b_p, c_p = xc, dt, bmat, cmat
-    y, hlast = mamba_core(xc_p, dt_p, b_p, c_p, a, p["dskip"], h0, chunk=chunk)
-    y = y[:, :s_len].to(dt_) * _silu(z)
-    out = y @ p["wout"].to(dt_)
-    return out, (MambaState(hlast, conv_new) if keep_state else None)
+    outs, hs = [], []
+    for c, xc, (_, z) in zip(coords, xcs, ups):
+        dt = _softplus(_own(dt_all, c, split, m) + tp.block(p["dt_bias"], 0, c, di))
+        a = -torch.exp(tp.block(p["a_log"], 0, c, di).to(dt_))  # (di, N), in the compute dtype
+        h0 = tp.block(state.h, 1, c, di) if keep_state else xc.new_zeros((b, m, n))
+        if pad:  # identity steps: dt = 0 -> decay = 1, inc = 0
+            xc_p, dt_p, b_p, c_p = (F.pad(t, (0, 0, 0, pad)) for t in (xc, dt, bmat, cmat))
+        else:
+            xc_p, dt_p, b_p, c_p = xc, dt, bmat, cmat
+        y, hlast = mamba_core(xc_p, dt_p, b_p, c_p, a, tp.block(p["dskip"], 0, c, di), h0, chunk=chunk)
+        y = y[:, :s_len].to(dt_) * common.silu(z)
+        outs.append(y @ tp.block(p["wout"], 0, c, di).to(dt_))
+        hs.append(hlast)
+    out = tp.reduce(outs, "partial" if split else "whole")
+    return out, (MambaState(_joined(hs, 1), _joined(convs, 2)) if keep_state else None)
 
 
-def decode_mamba(p, x, cfg, state: MambaState):
-    return apply_mamba(p, x, cfg, state)
+def decode_mamba(p, x, cfg, state: MambaState, tp: common.TP = common.SINGLE):
+    return apply_mamba(p, x, cfg, state, tp)

@@ -14,7 +14,7 @@ import numpy as np
 import pytest
 import torch
 
-from repro_torch.configs import ServeConfig, get_config
+from repro_torch.configs import ARCHS, ServeConfig, get_config
 from repro_torch.launch import serve as launch
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serve import ServeEngine
@@ -191,22 +191,37 @@ def test_launcher_no_reduced_reaches_the_full_config(monkeypatch):
     assert seen[-1][1] == ServeConfig(max_batch=4, max_seq=128) and seen[-1][2] == {"device": None}
 
 
-@pytest.mark.parametrize("arch", ["xlstm-1.3b", "hymba-1.5b", "whisper-medium"])
-def test_unported_families_are_refused(arch):
-    """What is still refused: the encoder-decoder anywhere (A15.2c); the
-    SSM and hybrid archs over a mesh of several ranks (A15.2d), while on
-    one rank they build (tests/test_torch_lm_ssm.py holds them to the
-    reference)."""
+def _mesh_batch(cfg, seed: int = 0) -> dict:
+    """A small batch of the arch's inputs: frame embeddings and decoder
+    tokens (encoder-decoder), embeddings (a vision stub), or tokens."""
+    rng = np.random.default_rng(seed)
+    toks = torch.from_numpy(rng.integers(0, cfg.vocab_size, (2, 8)).astype(np.int64))
+    if cfg.is_encdec:
+        return {"enc_embeds": torch.from_numpy(rng.standard_normal((2, 12, cfg.d_model)).astype(np.float32)),
+                "tokens": toks}
+    if cfg.input_kind == "embeddings":
+        return {"embeds": torch.from_numpy(rng.standard_normal((2, 8, cfg.d_model)).astype(np.float32))}
+    return {"tokens": toks}
+
+
+@pytest.mark.parametrize("arch", sorted(ARCHS))
+def test_every_arch_builds_on_a_mesh(arch):
+    """Nothing is refused: every arch in configs/ (reduced, float32; MoE
+    with nothing dropped) builds on SimMesh(2), and its logits equal one
+    rank's on the same weights within 1e-5."""
     from repro_torch.core import SimMesh
 
-    cfg = get_config(arch, reduced=True)
-    if arch == "whisper-medium":
-        with pytest.raises(NotImplementedError, match="A15.2c"):
-            Model(cfg, device="cpu")
-        return
-    with pytest.raises(NotImplementedError, match="A15.2d"):
-        Model(cfg, SimMesh(2, device="cpu"), device="cpu")
-    assert Model(cfg, device="cpu").groups[0].kind in ("xlstm_pair", "hymba")
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    if cfg.moe is not None:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=cfg.moe.num_experts
+                                                               / cfg.moe.top_k))
+    model = Model(cfg, SimMesh(2, device="cpu"), device="cpu")
+    assert model.tp.p == 2
+    params, _ = model.init(torch.Generator().manual_seed(0))
+    batch = _mesh_batch(cfg)
+    got, exp = model.logits(params, batch), Model(cfg, device="cpu").logits(params, batch)
+    assert got.shape == exp.shape and torch.isfinite(got).all()
+    assert float((got - exp).abs().max() / exp.abs().max()) <= 1e-5
 
 
 # ------------------------------------------------------------------- MoE
@@ -272,11 +287,11 @@ def test_moe_launcher_runs_on_the_cpu(arch, capsys):
 
 
 def test_a_mesh_of_several_ranks_is_refused():
-    """What a mesh of several ranks still refuses: the SSM and hybrid
-    models (A15.2d), which run on one rank (a mesh of one rank too). A
-    dense model builds and runs there, tensor-parallel
-    (tests/test_torch_lm_tp.py holds it to the reference), as a MoE model
-    runs expert-parallel (tests/test_torch_lm_ep.py)."""
+    """A mesh of several ranks refuses nothing now: a dense model builds
+    and runs there, tensor-parallel (tests/test_torch_lm_tp.py holds it to
+    the reference), as a MoE model runs expert-parallel
+    (tests/test_torch_lm_ep.py) and the SSM and hybrid models split by
+    channel (their logits equal one rank's here)."""
     from repro_torch.core import SimMesh
 
     cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
@@ -287,8 +302,11 @@ def test_a_mesh_of_several_ranks_is_refused():
     assert got.shape == (1, 6, cfg.vocab_size)
     assert float((got - exp).abs().max() / exp.abs().max()) <= 1e-5
     for arch in SSM:
-        with pytest.raises(NotImplementedError, match="A15.2d"):
-            Model(get_config(arch, reduced=True), SimMesh(2, device="cpu"), device="cpu")
+        scfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+        params, _ = Model(scfg, device="cpu").init(torch.Generator().manual_seed(1))
+        got = Model(scfg, SimMesh(2, device="cpu"), device="cpu").logits(params, batch)
+        exp = Model(scfg, device="cpu").logits(params, batch)
+        assert float((got - exp).abs().max() / exp.abs().max()) <= 1e-5
         assert Model(get_config(arch, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
     assert Model(get_config(ARCH, reduced=True), SimMesh(1, device="cpu"), device="cpu").mesh.p == 1
     for arch in MOE:

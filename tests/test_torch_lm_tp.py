@@ -15,20 +15,28 @@ runs the same weights and tokens on a ``SimMesh`` of the same
 - ``mixtral-8x22b`` and ``deepseek-v3-671b`` on (1, 4), tensor- and
   expert-parallel, drops included at the stock factor (DeepSeek-V3: MLA
   and the dense prefix);
+- ``xlstm-1.3b``, ``hymba-1.5b`` and ``whisper-medium`` on (1, 2) and
+  (1, 4): the SSM mixers split by channel (Mamba's and the mLSTM's
+  ``[x | z]`` halves, the sLSTM's gathered pre-activations), hymba's
+  attention (4 heads, 2 KV heads: whole at 4) and the encoder-decoder's
+  encoder, cross-attention and vocabulary;
 - the reference's ``flash_decode_combine`` under ``shard_map``
   (``tests/test_attention.py``'s case) against the port's over
   ``SimMesh(4)``.
 
-``logits`` at S = 16 runs the Megatron sequence-parallel rings, prefill
-and two decode steps the psum form; each within 1e-5 of the reference,
+``logits`` at S = 16 runs the Megatron sequence-parallel rings (not the
+SSM and hybrid models: their residual stream stays whole), prefill and
+two decode steps the psum form; each within 1e-5 of the reference,
 relative to the largest entry. One gloo spawn at P = 4 runs every
 process-group case: ``psum`` / ``pmax`` bitwise equal on every rank (on
 the 1-D mesh and the model rings of a (2, 2) grid); a rank holds exactly
 its blocks, bitwise the one-rank model's slice after ``init`` and the
-reference's after ``params_from_numpy``; ``logits``, prefill and decode
-within 1e-5 of the one-rank model in both attention partitions, every
-rank's logits bitwise equal; and the SPMD ``ServeEngine`` serving Qwen's
-reduced config gives the reference engine's greedy tokens on every rank.
+reference's after ``params_from_numpy`` (for the SSM leaves each packed
+half's block: ``win`` / ``wup``); ``logits``, prefill and decode within
+1e-5 of the one-rank model in both attention partitions, and for xLSTM,
+hymba and whisper, every rank's logits bitwise equal; and the SPMD
+``ServeEngine`` serving Qwen's and hymba's reduced configs gives the
+reference engine's greedy tokens on every rank.
 """
 
 import dataclasses
@@ -60,8 +68,17 @@ CASES = (
     ("gemma", "gemma2-9b", (1, 2), {}),
     ("mixtral", "mixtral-8x22b", (1, 4), {}),
     ("deepseek", "deepseek-v3-671b", (1, 4), {}),
+    ("xlstm", "xlstm-1.3b", (1, 2), {}),
+    ("xlstm_4", "xlstm-1.3b", (1, 4), {}),
+    ("hymba", "hymba-1.5b", (1, 2), {}),
+    ("hymba_4", "hymba-1.5b", (1, 4), {}),
+    ("whisper", "whisper-medium", (1, 2), {}),
+    ("whisper_4", "whisper-medium", (1, 4), {}),
 )
-REF_GROUPS = (("deepseek",), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"))
+REF_GROUPS = (("deepseek",), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"),
+              ("xlstm", "xlstm_4", "hymba", "hymba_4", "whisper", "whisper_4"))
+#: whisper's frame embeddings (B, S_ENC, d_model of the reduced config)
+S_ENC = 16
 
 REF_CODE = r"""
 import dataclasses, math
@@ -82,7 +99,12 @@ out = {}
 rng = np.random.default_rng(0)
 toks = rng.integers(0, 256, (2, 18)).astype(np.int32)
 out["toks"] = toks
+out["enc"] = enc = rng.standard_normal((2, S_ENC, 64)).astype(np.float32)
 saved = set()
+
+def batch(cfg, t):
+    return {"enc_embeds": jnp.asarray(enc), "tokens": t} if cfg.is_encdec else {"tokens": t}
+
 for name, arch, (d, m), kw in CASES:
     if name not in GROUP:
         continue
@@ -92,9 +114,9 @@ for name, arch, (d, m), kw in CASES:
     if arch not in saved:
         out.update(flat(params, f"w/{arch}"))
         saved.add(arch)
-    out[f"{name}/logits"] = np.asarray(jax.jit(model.logits)(params, {"tokens": jnp.asarray(toks[:, :16])}))
+    out[f"{name}/logits"] = np.asarray(jax.jit(model.logits)(params, batch(cfg, jnp.asarray(toks[:, :16]))))
     state = model.init_decode_state(2, 18, cache_dtype=jnp.float32)
-    state, pl = jax.jit(model.prefill)(params, {"tokens": jnp.asarray(toks[:, :16])}, state)
+    state, pl = jax.jit(model.prefill)(params, batch(cfg, jnp.asarray(toks[:, :16])), state)
     steps = [np.asarray(pl)]
     decode = jax.jit(model.decode_step)
     for t in (16, 17):
@@ -160,12 +182,15 @@ def _flat(tree, prefix=""):
     return {prefix.lstrip("/"): np.asarray(tree)}
 
 
-def _run(model, params, toks):
+def _run(model, params, toks, enc=None):
     """logits of the first 16 tokens, and a prefill of them + two decode
-    steps (float32 cache)."""
-    logits = model.logits(params, {"tokens": toks[:, :16]})
+    steps (float32 cache); ``enc``: whisper's frame embeddings."""
+    def batch(t):
+        return {"tokens": t} if enc is None else {"enc_embeds": enc, "tokens": t}
+
+    logits = model.logits(params, batch(toks[:, :16]))
     state = model.init_decode_state(2, 18, cache_dtype=torch.float32)
-    state, pl = model.prefill(params, {"tokens": toks[:, :16]}, state)
+    state, pl = model.prefill(params, batch(toks[:, :16]), state)
     steps = [pl]
     for t in (16, 17):
         lg, state = model.decode_step(params, toks[:, t:t + 1], state)
@@ -183,7 +208,7 @@ def ref_process(tmp_path_factory):
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     procs = []
     for i, group in enumerate(REF_GROUPS):
-        code = f"OUT = {str(d / f'ref{i}.npz')!r}\nCASES = {CASES!r}\nGROUP = {group!r}\n" + REF_CODE
+        code = f"OUT = {str(d / f'ref{i}.npz')!r}\nCASES = {CASES!r}\nGROUP = {group!r}\nS_ENC = {S_ENC}\n" + REF_CODE
         with open(d / f"out{i}.txt", "w") as out, open(d / f"err{i}.txt", "w") as err:  # files: no pipe to fill
             procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=REPO, env=env, stdout=out, stderr=err))
     yield procs, d
@@ -211,6 +236,11 @@ def ref(ref_process):
 
 SCFG = dict(max_batch=2, max_seq=32)
 MAX_NEW = 4
+ENGINE_ARCHS = (QWEN, "hymba-1.5b")
+#: the reduced xLSTM with 4 mLSTM heads of 32: split one a rank at P = 4
+XLSTM_4_HEADS = {"num_heads": 4, "num_kv_heads": 4}
+#: the spawn's model cases beyond Qwen's: the SSM and hybrid models and whisper
+MESH_ARCHS = (("xlstm-1.3b", {}), ("xlstm-1.3b", XLSTM_4_HEADS), ("hymba-1.5b", {}), ("whisper-medium", {}))
 
 
 def _prompts():
@@ -221,22 +251,30 @@ def _prompts():
 
 @pytest.fixture(scope="module")
 def engine_refs(tmp_path_factory, ref_process):
-    """The reference engine's greedy tokens on Qwen's reduced config (no
-    mesh: the reference's launcher builds none) and its weights and
-    specs, saved for the spawn."""
+    """The reference engine's greedy tokens on the reduced configs of
+    ENGINE_ARCHS (no mesh: the reference's launcher builds none) and its
+    weights and specs, saved for the spawn, one directory an arch."""
     jax = pytest.importorskip("jax")
     from repro.configs import ServeConfig as RServeConfig
     from repro.configs import get_config as r_get_config
     from repro.models import Model as RModel
     from repro.serve import ServeEngine as RServeEngine
 
-    model = RModel(dataclasses.replace(r_get_config(QWEN, reduced=True), dtype="float32"), attn_impl="chunked")
-    params, specs = model.init(jax.random.PRNGKey(0))
-    res = RServeEngine(model, params, RServeConfig(**SCFG)).run(_prompts(), max_new=MAX_NEW)
     out = tmp_path_factory.mktemp("tp_engine")
-    np.savez(out / "weights.npz", **_flat(params))
-    (out / "tokens.json").write_text(json.dumps({str(k): v for k, v in res.items()}))
-    (out / "specs.json").write_text(json.dumps(specs))
+    for arch in ENGINE_ARCHS:
+        model = RModel(dataclasses.replace(r_get_config(arch, reduced=True), dtype="float32"), attn_impl="chunked")
+        box = {}
+
+        def init(key):
+            params, box["specs"] = model.init(key)
+            return params
+
+        params = jax.jit(init)(jax.random.PRNGKey(0))  # the specs read while tracing; eager init: ~3 x the time
+        res = RServeEngine(model, params, RServeConfig(**SCFG)).run(_prompts(), max_new=MAX_NEW)
+        (out / arch).mkdir()
+        np.savez(out / arch / "weights.npz", **_flat(params))
+        (out / arch / "tokens.json").write_text(json.dumps({str(k): v for k, v in res.items()}))
+        (out / arch / "specs.json").write_text(json.dumps(box["specs"]))
     return str(out)
 
 
@@ -291,8 +329,8 @@ def _placement_cases(mesh, ran, ref_dir):
     assert attn["wq"].shape == (2, 64, 16) and attn["wk"].shape == (2, 64, 32) and attn["wo"].shape == (2, 16, 64)
     assert own["embed"]["table"].shape == (64, 64) and own["layers"]["ffn"]["wd"].shape == (2, 40, 64)
     assert cut == 8, cut  # table, unembed, wq, bq, wo, wg, wu, wd: no other leaf
-    arrays = np.load(f"{ref_dir}/weights.npz")
-    rspecs = _tuples(json.loads(open(f"{ref_dir}/specs.json").read()))
+    arrays = np.load(f"{ref_dir}/{QWEN}/weights.npz")
+    rspecs = _tuples(json.loads(open(f"{ref_dir}/{QWEN}/specs.json").read()))
     tree = _unflat(arrays)
     got = params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs, cfg=cfg)
     for key, (a, b) in _pairs(got, tree):
@@ -301,7 +339,52 @@ def _placement_cases(mesh, ran, ref_dir):
         assert np.array_equal(a.numpy(), exp), key
     with pytest.raises(ValueError, match="head count"):
         params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs)
+    _ssm_placement_cases(mesh)
     ran.append("each rank holds its blocks")
+
+
+def _ssm_placement_cases(mesh):
+    """The SSM leaves of a rank at P = 4 (reduced: d_model 64, d_inner
+    128): Mamba's ``win`` and the mLSTM's ``wup`` hold each half's 32
+    channels, ``[x_c | z_c]``; the sLSTM's ``wx`` a contiguous quarter
+    (its columns are per-head (z, i, f, o)); its ``wup`` / ``wdown`` stay
+    whole (dff 85); the mLSTM's ``wq`` its heads' columns and ``wif`` its
+    heads of ``[i | f]`` (at 4 heads; the reduced 2 stay whole), its cell
+    state its heads; the Mamba state the rank's channels. ``init`` and
+    ``params_from_numpy`` keep the same."""
+    c = mesh.rank
+    for arch, kw in (("xlstm-1.3b", {}), ("xlstm-1.3b", XLSTM_4_HEADS), ("hymba-1.5b", {})):
+        cfg = _cfg(arch, **kw)
+        whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(7))
+        own, _ = Model(cfg, mesh, device="cpu").init(torch.Generator().manual_seed(7))
+        loaded = params_from_numpy(_np(whole), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
+        for key, (a, b) in _pairs(own, loaded):
+            assert torch.equal(a, b), (arch, key)
+        if arch == "hymba-1.5b":
+            win, w = own["hymba"]["mamba"]["win"], whole["hymba"]["mamba"]["win"]
+            assert win.shape == (3, 64, 64)
+            assert torch.equal(win, torch.cat([w[..., 32 * c:32 * c + 32], w[..., 128 + 32 * c:160 + 32 * c]], -1))
+            assert torch.equal(own["hymba"]["mamba"]["a_log"], whole["hymba"]["mamba"]["a_log"][:, 32 * c:32 * c + 32])
+            assert torch.equal(own["hymba"]["attn"]["wk"], whole["hymba"]["attn"]["wk"])  # 2 KV heads stay whole
+            st = Model(cfg, mesh, device="cpu").init_decode_state(2, 16)["hymba"]
+            assert st.mamba.h.shape == (3, 2, 32, 8) and st.mamba.conv.shape == (3, 2, 3, 32)
+            continue
+        m, s_ = own["pairs"]["m"], own["pairs"]["s"]
+        wm, ws = whole["pairs"]["m"], whole["pairs"]["s"]
+        assert torch.equal(m["wup"], torch.cat([wm["wup"][..., 32 * c:32 * c + 32],
+                                                wm["wup"][..., 128 + 32 * c:160 + 32 * c]], -1))
+        assert torch.equal(m["conv"], wm["conv"][..., 32 * c:32 * c + 32])
+        assert torch.equal(s_["wx"], ws["wx"][..., 64 * c:64 * c + 64])
+        assert torch.equal(s_["wup"], ws["wup"]) and torch.equal(s_["wdown"], ws["wdown"])
+        st = Model(cfg, mesh, device="cpu").init_decode_state(2, 16)["pairs"]
+        assert st.m.conv.shape == (1, 2, 3, 32)
+        if kw:  # 4 heads of 32: one a rank
+            assert torch.equal(m["wq"], wm["wq"][..., 32 * c:32 * c + 32])
+            assert torch.equal(m["wif"], wm["wif"][..., [c, 4 + c]])
+            assert st.m.cell.c.shape == (1, 2, 1, 32, 32)
+        else:  # 2 heads: whole on every rank
+            assert torch.equal(m["wq"], wm["wq"]) and torch.equal(m["wif"], wm["wif"])
+            assert st.m.cell.c.shape == (1, 2, 2, 64, 64)
 
 
 def _model_cases(mesh, ran):
@@ -319,23 +402,37 @@ def _model_cases(mesh, ran):
         for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
             assert rel(g, e) <= REL_TOL, kw
         assert all(np.array_equal(g, got[1][-1].numpy()) for g in _gathered(got[1][-1].numpy())), kw
+    enc = torch.from_numpy(np.random.default_rng(2).standard_normal((2, S_ENC, 64)).astype(np.float32))
+    for arch, kw in MESH_ARCHS:
+        cfg = _cfg(arch, **kw)
+        e = enc if cfg.is_encdec else None
+        whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+        own = params_from_numpy(_np(whole), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
+        got = _run(Model(cfg, mesh, device="cpu"), own, toks, e)
+        exp = _run(Model(cfg, device="cpu"), whole, toks, e)
+        for g, x in zip([got[0]] + got[1], [exp[0]] + exp[1]):
+            assert rel(g, x) <= REL_TOL, arch
+        mine = np.stack([got[0][:, -1].numpy()] + [t.numpy() for t in got[1]])
+        assert all(np.array_equal(g, mine) for g in _gathered(mine)), arch
     ran.append("the model over gloo")
 
 
 def _engine_case(mesh, ran, ref_dir):
     """The SPMD ServeEngine on the reference's weights: its greedy tokens
-    equal the reference engine's on every rank."""
+    equal the reference engine's on every rank, for Qwen (heads split)
+    and hymba (its Mamba channels split, its state trees each rank's)."""
     from repro_torch.serve import ServeEngine
 
-    cfg = _cfg(QWEN)
-    arrays = np.load(f"{ref_dir}/weights.npz")
-    specs = _tuples(json.loads(open(f"{ref_dir}/specs.json").read()))
-    params = params_from_numpy(_unflat(arrays), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
-    eng = ServeEngine(Model(cfg, mesh, attn_impl="chunked", device="cpu"), params, ServeConfig(**SCFG))
-    got = {str(k): v for k, v in eng.run(_prompts(), max_new=MAX_NEW).items()}
-    assert got == json.loads(open(f"{ref_dir}/tokens.json").read()), got
-    assert eng.agreements >= len(_prompts()) + MAX_NEW
-    assert all(g == got for g in _gathered(got))
+    for arch in ENGINE_ARCHS:
+        cfg = _cfg(arch)
+        arrays = np.load(f"{ref_dir}/{arch}/weights.npz")
+        specs = _tuples(json.loads(open(f"{ref_dir}/{arch}/specs.json").read()))
+        params = params_from_numpy(_unflat(arrays), device="cpu", mesh=mesh, specs=specs, cfg=cfg)
+        eng = ServeEngine(Model(cfg, mesh, attn_impl="chunked", device="cpu"), params, ServeConfig(**SCFG))
+        got = {str(k): v for k, v in eng.run(_prompts(), max_new=MAX_NEW).items()}
+        assert got == json.loads(open(f"{ref_dir}/{arch}/tokens.json").read()), (arch, got)
+        assert eng.agreements >= len(_prompts()) + MAX_NEW
+        assert all(g == got for g in _gathered(got))
     ran.append("SPMD engine equals the reference")
 
 
@@ -409,13 +506,19 @@ def test_model_on_a_mesh_matches_reference(ref, monkeypatch, name, arch, dims, k
     cfg = _cfg(arch, **kw)
     model = Model(cfg, _mesh(*dims), attn_impl="chunked", device="cpu")
     params = params_from_numpy(_unflat(ref, f"w/{arch}"), device="cpu")
-    assert model.seq_parallel(16) and model.tp.p == dims[1]
-    logits, steps = _run(model, params, torch.from_numpy(ref["toks"]))
+    recurrent = cfg.family in ("ssm", "hybrid")
+    assert model.seq_parallel(16) is not recurrent and model.tp.p == dims[1]
+    enc = torch.from_numpy(ref["enc"]) if cfg.is_encdec else None
+    logits, steps = _run(model, params, torch.from_numpy(ref["toks"]), enc)
     assert rel(logits, ref[f"{name}/logits"]) <= REL_TOL
     for got, exp in zip(steps, ref[f"{name}/steps"]):
         assert rel(got, exp) <= REL_TOL
     moe_layers = 0 if cfg.moe is None else cfg.num_layers - cfg.moe.first_k_dense
-    assert len(scatters) == 2 * cfg.num_layers - moe_layers  # attention + dense FFN; a MoE FFN gathers the sequence
+    # attention + dense FFN (+ whisper's cross-attention, and its encoder's layers in logits and again in
+    # prefill); a MoE FFN gathers the sequence; the SSM and hybrid models keep it whole
+    expect = 0 if recurrent else 2 * cfg.num_layers - moe_layers + cfg.is_encdec * (cfg.num_layers
+                                                                                     + 4 * cfg.encoder_layers)
+    assert len(scatters) == expect
 
 
 def test_flash_decode_combine_matches_reference(ref):
