@@ -194,7 +194,26 @@ Phases, each printing a line; any failure exits non-zero with no result:
    every weight moved one ulp printed beside), then both at full depth
    in bfloat16: a prefill of 8 prompts of 512 tokens and 8 decode steps,
    one rank beside SimMesh(4), and the decode state one rank of a
-   4-rank group holds (``ssm_mesh_serving``).
+   4-rank group holds (``ssm_mesh_serving``);
+20. training (``training_phase``): (1) float32, each custom backward
+   against autograd through its plain version, every gradient within
+   1e-5 of its largest entry -- the flash backward at Qwen2.5-32B's,
+   Gemma2-9B's (softcap 50) and Hymba-1.5B's heads (its window crossed)
+   against attention_naive, the Mamba backward at Hymba's d_inner and
+   state against a sequential scan, and Hymba-1.5B at full width, 4
+   layers, every leaf's gradient of Model.loss against the same weights
+   with attn_impl="naive" and the sequential scan, then the same
+   gradients with bf16 compute against the float32 ones, each leaf
+   within 0.1 in norm; (2) Hymba-1.5B
+   whole (32 layers, full width): init_train_state (float32 master
+   weights and AdamW state), bf16 compute, remat full, 6 steps of
+   make_train_step over SyntheticLM (2 x 4096 tokens) at TrainConfig's
+   default lr 3e-4: finite losses and gradient norms, the last three steps'
+   mean loss below the first three's, peak memory under 72 GiB; the
+   step's device ms (CUDA events) and host ms to issue it, tokens/s,
+   the model-FLOP share of the bf16 dense peak, each custom backward's
+   ms a layer; (3) launch/train.py's train() in-process, reduced, with
+   a failure injected at step 6: one restart, 12 finite losses.
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -241,6 +260,12 @@ xLSTM, hymba: logits, prefill, decode) against one card, every rank's
 outputs bitwise equal (the MoE check above holds its logits so too), and on
 P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
 one decode step's collectives by name (``nccl_tp``: 0 FFT launches).
+Last, training (``nccl_ddp``): make_ddp_compressed_step over a "data"
+axis, Hymba-1.5B at full width and 4 layers in float32, each rank its
+block of 8 x 512 tokens, 4 steps without compression and 4 with the
+int8 all-gather: every rank's parameters equal after every step, the
+int8 losses within 0.15 x the first of the uncompressed run's, the
+bytes a step's gradient reduction moves (P = 1 on one card: no message).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -256,8 +281,8 @@ with a row per kernel, the pack's accumulate mode a row of its own
 counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
 ``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
 (``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``), 18
-(``ssm_serving_<arch>``) and 19 (``encdec_serving``,
-``ssm_mesh_serving``) included; the last line is
+(``ssm_serving_<arch>``), 19 (``encdec_serving``,
+``ssm_mesh_serving``) and 20 (``training``) included; the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -413,6 +438,47 @@ SSM_TP_BATCH, SSM_TP_PREFILL, SSM_TP_DECODE = 8, 512, 8  # check 3 at full depth
 #: over 300 tokens xLSTM's recurrences carry a one-ulp change of every
 #: weight to 6.7e-6 of its logits, and the split products to 1.3-1.7e-5
 #: (float32, TF32 off, NVIDIA H100 80GB HBM3)
+
+#: phase 20: training on one card. Hymba-1.5B (phase 18's config) whole --
+#: 32 layers, full width, float32 master weights and AdamW state, bf16
+#: compute, remat "full" -- over SyntheticLM at train_4k's length: 2 x 4096
+#: tokens a step (4224 positions with the meta tokens), 6 steps at the
+#: train launcher's warmup. Check 1 holds the bf16 gradients to float32
+#: ones, so these steps only show that the whole model trains: 6 keep the
+#: first-three / last-three loss comparison and the phase near 90 s
+TRAIN_ARCH = "hymba-1.5b"
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 6
+#: TrainConfig's own default lr (the LM default), with launch/train.py's
+#: warmup rule max(steps // 20, 5): at the launcher's 3e-3 (its smoke-size
+#: default) the full-width model's loss rose 10.88 -> 11.69 in 10 steps
+#: (NVIDIA H100 80GB HBM3, 700.00 W)
+TRAIN_LR = 3e-4
+#: check 1, float32 (TF32 off): each custom backward against autograd
+#: through its plain version, every gradient within TRAIN_REL_TOL of its
+#: largest entry (a leaf's, for the model)
+TRAIN_REL_TOL = 1e-5
+#: check 1's model in bf16 compute (float32 master weights, as the step
+#: runs it) against its float32 gradients: each leaf's error within
+#: TRAIN_BF16_TOL of that leaf's gradient in the 2-norm. bf16 keeps 8 bits
+#: (unit roundoff 2^-9) and the error compounds over the layers' products:
+#: the reduced Hymba (4 layers, width 64, 2 x 128 tokens) on the CPU
+#: measured 0.025-0.038 a leaf; a dropped cast or a wrong bf16 product
+#: errs by the gradient's own size
+TRAIN_BF16_TOL = 0.1
+TRAIN_FLASH_SEQ = 1024
+TRAIN_HYMBA_POSITIONS = 2176  # past Hymba's window of 1024, meta tokens included
+TRAIN_MAMBA_SEQ, TRAIN_MAMBA_BATCH = 1024, 2
+TRAIN_F32_LAYERS, TRAIN_F32_SEQ = 4, 1200  # layer 1 windowed; 1328 positions
+TRAIN_BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores (H100 SXM data sheet)
+#: check 3: the launcher in-process, reduced, with an injected failure
+TRAIN_LAUNCH_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--batch", "4", "--seq", "64",
+                     "--ckpt-every", "4", "--fail-at", "6"]
+#: phase 7's training part: the compressed data-parallel step, Hymba-1.5B
+#: at full width and 4 layers in float32, each rank its block of a batch of
+#: 8 x 512, 4 steps a mode; the int8 run's loss within 0.15 x the first
+#: loss of the uncompressed one (tests/test_elastic.py's gate)
+DDP_LAYERS, DDP_BATCH, DDP_SEQ, DDP_STEPS = 4, 8, 512, 4
+DDP_DRIFT = 0.15
 
 
 class SmokeFailure(RuntimeError):
@@ -2782,6 +2848,399 @@ def encdec_mesh_phase(torch, seed, fft_stage, cm) -> dict:
     return by_path
 
 
+def train_grads(torch, fn, inputs):
+    """The gradients of ``fn(*inputs)`` (a scalar) with respect to
+    ``inputs``, recorded on fresh leaves."""
+    leaves = [t.detach().requires_grad_(True) for t in inputs]
+    with torch.enable_grad():
+        return torch.autograd.grad(fn(*leaves), leaves)
+
+
+def worst_rel(torch, got, exp) -> float:
+    """The largest of each pair's error relative to its largest entry."""
+    return max(((g.float() - e.float()).abs().max() / e.float().abs().max().clamp_min(1e-30)).item()
+               for g, e in zip(got, exp))
+
+
+def train_flash_checks(torch, g) -> list:
+    """Check 1 of phase 20, attention: the flash backward (chunked) against
+    autograd through attention_naive, float32, at three archs' heads."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import attention as A
+    from repro_torch.models.blocks import _attn_spec
+
+    gem, hym = get_config("gemma2-9b"), get_config(TRAIN_ARCH)
+    cases = [("Qwen2.5-32B", 40, 8, 128, TRAIN_FLASH_SEQ, A.AttnSpec()),
+             ("Gemma2-9B softcap 50", gem.num_heads, gem.num_kv_heads, gem.head_dim_, TRAIN_FLASH_SEQ,
+              A.AttnSpec(softcap=gem.attn_logit_softcap)),
+             (f"Hymba-1.5B window {hym.window_size} + {hym.meta_tokens} prefix", hym.num_heads, hym.num_kv_heads,
+              hym.head_dim_, TRAIN_HYMBA_POSITIONS, _attn_spec(hym, is_global=False))]
+    out = []
+    for label, h, kvh, hd, s, spec in cases:
+        q = torch.randn((1, s, h, hd), device="cuda", generator=g)
+        k = torch.randn((1, s, kvh, hd), device="cuda", generator=g)
+        v = torch.randn((1, s, kvh, hd), device="cuda", generator=g)
+        w = torch.randn((1, s, h, hd), device="cuda", generator=g)
+        got = train_grads(torch, lambda q, k, v: (A.attention(q, k, v, spec, impl="chunked") * w).sum(), (q, k, v))
+        exp = train_grads(torch, lambda q, k, v: (A.attention_naive(q, k, v, spec) * w).sum(), (q, k, v))
+        err = worst_rel(torch, got, exp)
+        print(f"training check 1: flash backward {label} ({h} / {kvh} heads of {hd}, {s} positions, kv chunk 512), "
+              f"float32: dq, dk, dv vs autograd through attention_naive, worst rel_err {err:.3e} "
+              f"(tol {TRAIN_REL_TOL})", flush=True)
+        check(err <= TRAIN_REL_TOL, f"training: flash backward {label} {err:.3e} > {TRAIN_REL_TOL}")
+        out.append((label, err))
+        del q, k, v, w, got, exp
+    return out
+
+
+def sequential_mamba(torch, xc, dt, bmat, cmat, a, dskip, h0, *, chunk=None):
+    """The selective scan one step at a time, no in-place write: the plain
+    version autograd differentiates (``chunk`` ignored)."""
+    ys, h = [], h0
+    for t in range(xc.shape[1]):
+        h = torch.exp(dt[:, t, :, None] * a) * h + (dt[:, t] * xc[:, t])[..., None] * bmat[:, t, None, :]
+        ys.append((h * cmat[:, t, None, :]).sum(-1) + dskip * xc[:, t])
+    return torch.stack(ys, 1), h
+
+
+def train_mamba_check(torch, g) -> float:
+    """Check 1 of phase 20, Mamba: the manual backward against autograd
+    through the sequential scan, float32, at Hymba's d_inner and state."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as S
+
+    cfg = get_config(TRAIN_ARCH)
+    b, s, di, n = TRAIN_MAMBA_BATCH, TRAIN_MAMBA_SEQ, int(cfg.ssm.expand * cfg.d_model), cfg.ssm.state_dim
+    xc = torch.randn((b, s, di), device="cuda", generator=g)
+    dt = torch.rand((b, s, di), device="cuda", generator=g) * 0.1
+    bm, cm = (torch.randn((b, s, n), device="cuda", generator=g) for _ in range(2))
+    a = -torch.arange(1, n + 1, dtype=torch.float32, device="cuda").expand(di, n).contiguous()
+    dskip = torch.ones((di,), device="cuda")
+    h0 = torch.randn((b, di, n), device="cuda", generator=g) * 0.1
+    wy, wh = torch.randn((b, s, di), device="cuda", generator=g), torch.randn((b, di, n), device="cuda", generator=g)
+
+    def loss(core):
+        def f(*xs):
+            y, hl = core(*xs, chunk=cfg.ssm.chunk)
+            return (y * wy).sum() + (hl * wh).sum()
+        return f
+
+    inputs = (xc, dt, bm, cm, a, dskip, h0)
+    got = train_grads(torch, loss(S.mamba_core), inputs)
+    exp = train_grads(torch, loss(lambda *xs, chunk: sequential_mamba(torch, *xs)), inputs)
+    err = worst_rel(torch, got, exp)
+    print(f"training check 1: Mamba backward (d_inner {di}, state {n}, {b} x {s} tokens, chunk {cfg.ssm.chunk}), "
+          f"float32: the 7 cotangents vs autograd through the sequential scan, worst rel_err {err:.3e} "
+          f"(tol {TRAIN_REL_TOL})", flush=True)
+    check(err <= TRAIN_REL_TOL, f"training: Mamba backward {err:.3e} > {TRAIN_REL_TOL}")
+    return err
+
+
+def train_model_check(torch, seed) -> float:
+    """Check 1 of phase 20, the model: Hymba-1.5B at full width and
+    TRAIN_F32_LAYERS layers (layer 1 windowed), float32: the gradient of
+    every leaf of Model.loss through the custom backward passes against
+    the same weights with attn_impl="naive" and the sequential scan; then
+    the same gradients with bf16 compute against the float32 ones
+    (TRAIN_BF16_TOL), the step's dtype held to a float32 oracle."""
+    from repro_torch.models import ssm as S
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves, unflatten
+
+    model = Model(ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, "float32"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    toks = torch.randint(0, model.cfg.vocab_size, (1, TRAIN_F32_SEQ + 1), device="cuda", generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = leaves(params)
+
+    def grads(m):
+        return train_grads(torch, lambda *ps: m.loss(unflatten(params, list(ps)), batch)[0], flat)
+
+    got = grads(model)
+    fused = S.mamba_core
+    S.mamba_core = lambda *xs, chunk: sequential_mamba(torch, *xs)
+    try:
+        exp = grads(Model(model.cfg, attn_impl="naive"))
+    finally:
+        S.mamba_core = fused
+    errs = [((a - e).abs().max() / e.abs().max().clamp_min(1e-30)).item() for a, e in zip(got, exp)
+            if e.abs().max() > 0]
+    err = max(errs)
+    layers = [model._flag(grp, i) for grp in model.groups for i in range(grp.count)]
+    print(f"training check 1: Hymba-1.5B full width, {TRAIN_F32_LAYERS} layers global {layers} (window "
+          f"{model.cfg.window_size}, {model.cfg.meta_tokens} meta tokens), float32, {TRAIN_F32_SEQ} tokens: every "
+          f"leaf's gradient of Model.loss ({len(flat)} leaves) vs attn_impl='naive' + the sequential scan, worst "
+          f"rel_err {err:.3e} (tol {TRAIN_REL_TOL}; median {statistics.median(errs):.3e})", flush=True)
+    check(err <= TRAIN_REL_TOL, f"training: Hymba-1.5B gradients {err:.3e} > {TRAIN_REL_TOL}")
+    del exp
+    bf16 = grads(Model(ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, "bfloat16")))
+    norm_errs = [((b - a).norm() / a.norm().clamp_min(1e-30)).item() for b, a in zip(bf16, got) if a.norm() > 0]
+    finite = all(bool(torch.isfinite(b).all()) for b in bf16)
+    bf_err = max(norm_errs) if finite else math.inf
+    print(f"training check 1: the same {len(flat)} leaves' gradients with bf16 compute (float32 master weights) vs "
+          f"float32: worst ||bf16 - f32|| / ||f32|| {bf_err:.3e} (tol {TRAIN_BF16_TOL}; median "
+          f"{statistics.median(norm_errs):.3e})", flush=True)
+    check(bf_err <= TRAIN_BF16_TOL, f"training: Hymba-1.5B bf16 gradients {bf_err:.3e} from float32 > {TRAIN_BF16_TOL}")
+    del model, params, got, bf16
+    return err
+
+
+def train_model_flops(cfg, n_params: int, tokens: int, positions: int, batch: int) -> float:
+    """6 N tokens (N without the embedding table, a lookup) plus the
+    attention's products, forward and backward (3 x 4 B H d a visible
+    (query, key) pair), causal and window counted as the mask needs:
+    what the model needs, remat's recompute not counted."""
+    from repro_torch.models.model import build_groups
+
+    def visible(window: int) -> int:
+        q = range(positions)
+        if window <= 0:
+            return sum(i + 1 for i in q)
+        return sum(min(i + 1, window) + min(cfg.meta_tokens, max(0, i + 1 - window)) for i in q)
+
+    pairs = sum(visible(0 if (grp.static_global if grp.flags is None else grp.flags[i]) else cfg.window_size)
+                for grp in build_groups(cfg) for i in range(grp.count))
+    return 6.0 * n_params * tokens + 12.0 * batch * cfg.num_heads * cfg.head_dim_ * pairs
+
+
+def train_layer_ms(torch, g, cfg) -> dict:
+    """One layer's flash and Mamba forward and custom backward at the
+    step's shapes, bf16 inputs as the step gives them (CUDA events, median
+    of 3)."""
+    from repro_torch.models import attention as A
+    from repro_torch.models import ssm as S
+    from repro_torch.models.blocks import _attn_spec
+
+    b, s = TRAIN_BATCH, TRAIN_SEQ + cfg.meta_tokens
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    spec = _attn_spec(cfg, is_global=False)
+    q, k, v = (torch.randn((b, s, n, hd), device="cuda", generator=g, dtype=torch.bfloat16).requires_grad_()
+               for n in (h, kvh, kvh))
+    out = {}
+    with torch.no_grad():
+        out["flash fwd"] = events_ms(torch, lambda: A.attention(q, k, v, spec, impl="chunked"), reps=3)
+    with torch.enable_grad():
+        o = A.attention(q, k, v, spec, impl="chunked")
+    do = torch.randn_like(o)
+    out["flash bwd"] = events_ms(torch, lambda: torch.autograd.grad(o, (q, k, v), do, retain_graph=True), reps=3)
+    del q, k, v, o, do
+    di, n = int(cfg.ssm.expand * cfg.d_model), cfg.ssm.state_dim
+    s = -(-s // cfg.ssm.chunk) * cfg.ssm.chunk  # apply_mamba pads to whole chunks
+    xs = [torch.randn((b, s, di), device="cuda", generator=g), torch.rand((b, s, di), device="cuda", generator=g) * 0.1,
+          torch.randn((b, s, n), device="cuda", generator=g), torch.randn((b, s, n), device="cuda", generator=g),
+          -torch.ones((di, n), device="cuda", dtype=torch.bfloat16), torch.ones((di,), device="cuda", dtype=torch.bfloat16),
+          torch.zeros((b, di, n), device="cuda")]
+    xs = [x.requires_grad_() for x in xs]
+    with torch.no_grad():
+        out["Mamba fwd"] = events_ms(torch, lambda: S.mamba_core(*xs, chunk=cfg.ssm.chunk), reps=3)
+    with torch.enable_grad():
+        y, _ = S.mamba_core(*xs, chunk=cfg.ssm.chunk)
+    dy = torch.randn_like(y)
+    out["Mamba bwd"] = events_ms(torch, lambda: torch.autograd.grad(y, xs, dy, retain_graph=True), reps=3)
+    return out
+
+
+def train_full_depth(torch, seed, cm) -> dict:
+    """Check 2 of phase 20: Hymba-1.5B whole (32 layers, full width),
+    float32 master weights and AdamW state, bf16 compute, remat full,
+    TRAIN_STEPS of make_train_step over SyntheticLM at TRAIN_SEQ."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(TRAIN_ARCH)
+    label = f"training {TRAIN_ARCH}"
+    lm_check_free(torch, f"{label} before the full-depth state", 16 * 1.97e9 + LM_HEADROOM_GIB * 2**30)
+    model = Model(cfg)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=max(TRAIN_STEPS // 20, 5), total_steps=TRAIN_STEPS,
+                       seed=seed)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    t0 = time.perf_counter()
+    state, _ = init_train_state(model, g, tcfg)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    flat = leaves(state.params)
+    n_all = sum(p.numel() for p in flat)
+    state_gb = sum(p.numel() * p.element_size() for p in flat + leaves(state.opt.mu) + leaves(state.opt.nu)) / 1e9
+    cast_gb = sum(p.numel() * 2 for p in flat) / 1e9
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
+    step = make_train_step(model, tcfg)
+    torch.cuda.reset_peak_memory_stats()
+    losses, gnorms, device_ms, host_ms_, wall_ms = [], [], [], [], []
+    for s in range(TRAIN_STEPS):
+        batch = make_batch_arrays(ds.batch_at(s))
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        state, m = step(state, batch)
+        end.record()
+        host_ms_.append((time.perf_counter() - t0) * 1e3)
+        end.synchronize()
+        wall_ms.append((time.perf_counter() - t0) * 1e3)
+        device_ms.append(start.elapsed_time(end))
+        losses.append(float(m["loss"]))
+        gnorms.append(float(m["grad_norm"]))
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    dev, host = statistics.median(device_ms[2:]), statistics.median(host_ms_[2:])
+    n_model = n_all - state.params["embed"]["table"].numel()
+    flops = train_model_flops(cfg, n_model, tokens, TRAIN_SEQ + cfg.meta_tokens, TRAIN_BATCH)
+    share = flops / (dev / 1e3) / TRAIN_BF16_PEAK
+    print(f"{label} whole: {cfg.num_layers} layers, full width, {n_all / 1e9:.3f} B params (leaves), float32 master "
+          f"weights + AdamW moments {state_gb:.2f} GB + float32 gradients {state_gb / 3:.2f} GB (+ {cast_gb:.2f} GB of "
+          f"bf16 weights cast each step), bf16 compute, "
+          f"remat {cfg.remat}; SyntheticLM {TRAIN_BATCH} x {TRAIN_SEQ} tokens ({TRAIN_SEQ + cfg.meta_tokens} positions "
+          f"with the meta tokens), lr {TRAIN_LR} warmup {tcfg.warmup_steps}; init {init_s:.1f} s", flush=True)
+    print(f"{label} losses {', '.join(f'{x:.4f}' for x in losses)}; grad norms {', '.join(f'{x:.3f}' for x in gnorms)}",
+          flush=True)
+    print(f"{label} step (median of steps 3-{TRAIN_STEPS}): device {dev:.1f} ms (CUDA events), host {host:.1f} ms to "
+          f"issue, wall {statistics.median(wall_ms[2:]):.1f} ms; first two steps device "
+          f"{', '.join(f'{x:.1f}' for x in device_ms[:2])} ms; {tokens / (dev / 1e3):.0f} tokens/s; model FLOPs "
+          f"{flops / 1e12:.2f} T a step (6 N tokens, N {n_model / 1e9:.3f} B without the embedding table, + attention "
+          f"products; remat's recompute not counted) = {100 * share:.2f} % of the bf16 dense peak "
+          f"({TRAIN_BF16_PEAK / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}; weights, "
+          f"moments and gradients {4 * state_gb / 3 / 1.073741824:.2f} GiB + cast weights {cast_gb / 1.073741824:.2f} "
+          f"GiB)", flush=True)
+    check(all(math.isfinite(x) for x in losses + gnorms), f"{label}: a loss or gradient norm is not finite")
+    first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
+    check(last < first, f"{label}: the loss did not fall ({first:.4f} -> {last:.4f} over the first / last three steps)")
+    check(peak < LM_PEAK_LIMIT_GIB, f"{label}: peak memory {peak:.2f} GiB >= {LM_PEAK_LIMIT_GIB}")
+    del state, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    ms = train_layer_ms(torch, g, cfg)
+    share = {k: 100 * v * cfg.num_layers / dev for k, v in ms.items()}
+    print(f"{label} one layer at the step's shapes, bf16 (CUDA events, median of 3): "
+          + ", ".join(f"{k} {v:.2f} ms ({share[k]:.1f} % of the step x {cfg.num_layers} layers)" for k, v in ms.items())
+          + f"; under remat each forward runs twice: flash {share['flash fwd'] * 2 + share['flash bwd']:.1f} %, "
+          f"Mamba {share['Mamba fwd'] * 2 + share['Mamba bwd']:.1f} % of the step", flush=True)
+    return dict(device_ms=dev, host_ms=host, tokens_s=tokens / (dev / 1e3), share=share, peak_gib=peak,
+                losses=losses)
+
+
+def train_launcher(torch) -> None:
+    """Check 3 of phase 20: launch/train.py's train(args) in-process on the
+    card, reduced, checkpoints every 4 steps, a failure injected at 6."""
+    from repro_torch.launch.train import build_argparser, train
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = build_argparser().parse_args(TRAIN_LAUNCH_ARGS + ["--ckpt-dir", tmp])
+        t0 = time.perf_counter()
+        hist = train(args)
+    losses = hist["loss"]
+    print(f"training launcher {' '.join(TRAIN_LAUNCH_ARGS)}: restarts {hist['restarts']}, {len(losses)} losses "
+          f"({losses[0]:.4f} -> {losses[-1]:.4f}), {time.perf_counter() - t0:.1f} s", flush=True)
+    check(hist["restarts"] == 1 and len(losses) >= 12 and all(math.isfinite(x) for x in losses),
+          f"training launcher: restarts {hist['restarts']}, losses {losses}")
+
+
+def training_phase(torch, seed, fft_stage, cm) -> dict:
+    """Phase 20: training on one card; returns its FFT kernel launches (0)."""
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+
+    def run():
+        t = time.perf_counter()
+        train_flash_checks(torch, g)
+        train_mamba_check(torch, g)
+        train_model_check(torch, seed)
+        print(f"training check 1: {time.perf_counter() - t:.1f} s", flush=True)
+        gc.collect()
+        torch.cuda.empty_cache()
+        t = time.perf_counter()
+        out = train_full_depth(torch, seed, cm)
+        print(f"training check 2: {time.perf_counter() - t:.1f} s", flush=True)
+        train_launcher(torch)
+        return out
+
+    _, launches, _ = counted(torch, fft_stage, "training", run, expect=())
+    print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return {"training": launches}
+
+
+def nccl_ddp(torch, mesh, fft_stage, seed: int) -> dict:
+    """Phase 7's training part, one rank: make_ddp_compressed_step on this
+    rank's ProcessGroupMesh over a "data" axis -- Hymba-1.5B at full width,
+    DDP_LAYERS layers, float32, each rank its block of DDP_BATCH x DDP_SEQ
+    -- DDP_STEPS steps without compression and with the int8 all-gather:
+    every rank's parameters equal after every step (a digest each), losses
+    finite, the int8 losses within DDP_DRIFT x the first of the plain
+    run's; the bytes one step's gradient reduction moves a rank. The
+    parameters are compared by a checksum of their bits a leaf (all
+    gathered to every rank)."""
+    import torch.distributed as dist
+
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import ProcessGroupMesh
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_ddp_state, make_ddp_compressed_step
+
+    def run():
+        dmesh = ProcessGroupMesh("data", device=mesh.device, timeout_s=NCCL_TIMEOUT_S)
+        model = Model(ssm_cfg(TRAIN_ARCH, DDP_LAYERS, "float32"), device=mesh.device)
+        ds = SyntheticLM(DataConfig(model.cfg.vocab_size, DDP_SEQ, DDP_BATCH, seed=seed))
+        out = {}
+        for comp in ("none", "int8"):
+            tcfg = TrainConfig(learning_rate=2e-3, warmup_steps=2, total_steps=12, grad_compression=comp)
+            g = torch.Generator(device=mesh.device)
+            g.manual_seed(seed)
+            state = init_ddp_state(model, g, tcfg, dmesh)
+            step = make_ddp_compressed_step(model, tcfg, dmesh)
+            losses, equal, ms = [], True, []
+            for s in range(DDP_STEPS):
+                batch = make_batch_arrays(ds.batch_at(s), dmesh)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                state, m = step(state, batch)
+                losses.append(float(m["loss"]))
+                ms.append((time.perf_counter() - t0) * 1e3)
+                mine = tuple(int(p.view(torch.int32).long().sum()) for p in leaves(state.params))  # the bits, summed
+                every = [None] * mesh.p
+                dist.all_gather_object(every, mine)
+                equal = equal and len(set(every)) == 1
+            numel = sum(p.numel() for p in leaves(state.params))
+            payload = (numel + 4 * len(leaves(state.params))) if comp == "int8" else 4 * numel
+            out[comp] = dict(losses=losses, equal=equal, step_ms=ms, payload_bytes=payload,
+                             gathered_bytes=payload * mesh.p if comp == "int8" else None)
+            check(equal, f"rank {mesh.rank}: the replicas' parameters differ after a {comp} DDP step")
+            check(all(math.isfinite(x) for x in losses), f"rank {mesh.rank}: a {comp} DDP loss is not finite")
+            del state, step
+        drift = max(abs(a - b) for a, b in zip(out["none"]["losses"], out["int8"]["losses"]))
+        out["drift"] = drift
+        check(drift < DDP_DRIFT * out["none"]["losses"][0],
+              f"rank {mesh.rank}: int8 DDP drifts {drift:.4f} from the uncompressed run")
+        return out
+
+    out, launches, _ = counted(torch, fft_stage, "NCCL DDP", run, expect=())
+    out["launches"] = launches
+    return out
+
+
+def print_nccl_ddp(rep) -> None:
+    who, m = f"NCCL rank {rep['rank']}/{rep['P']} DDP", rep["ddp"]
+    for comp in ("none", "int8"):
+        r = m[comp]
+        wire = (f"{r['payload_bytes'] / 1e6:.1f} MB of int8 + scales a rank into one all_gather_into_tensor a leaf "
+                f"({r['gathered_bytes'] / 1e6:.1f} MB gathered)" if comp == "int8" else
+                f"{r['payload_bytes'] / 1e6:.1f} MB of float32 a rank into one all_reduce a leaf")
+        if rep["P"] == 1:
+            wire += " (P = 1: no message moves)"
+        print(f"{who} {TRAIN_ARCH} full width, {DDP_LAYERS} layers, float32, {DDP_BATCH} x {DDP_SEQ} a step, "
+              f"grad_compression={comp}: losses {', '.join(f'{x:.4f}' for x in r['losses'])}; step ms (host clock) "
+              f"{', '.join(f'{x:.1f}' for x in r['step_ms'])}; gradient reduction {wire}; every rank's parameters "
+              f"equal after every step (a checksum of each leaf's bits): {r['equal']}", flush=True)
+    print(f"{who} int8 vs none: largest loss drift {m['drift']:.4f} (gate {DDP_DRIFT} x the first loss)", flush=True)
+
+
 def agreement_probe(torch, mesh) -> dict:
     """Host ms of one agreement over the group's CPU backend
     (mesh.host_max, what the serving engine uses) and over the card's
@@ -3366,6 +3825,8 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         report["moe"] = nccl_moe(torch, mesh, fft_stage, seed)
         torch.cuda.empty_cache()
         report["tp"] = nccl_tp(torch, mesh, fft_stage, seed)
+        torch.cuda.empty_cache()
+        report["ddp"] = nccl_ddp(torch, mesh, fft_stage, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -3480,7 +3941,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe", "tp"):
+            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe", "tp", "ddp"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -3511,6 +3972,7 @@ def nccl_phase(torch, seed: int):
     for rep in reports:
         print_nccl_moe(rep)
         print_nccl_tp(rep)
+        print_nccl_ddp(rep)
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     for what in ("poison", "breaker"):  # the counters, not each rank's own error against torch.fft
         counters = [{k: v for k, v in rep["serving"][what].items() if not k.endswith("rel_err")} for rep in reports]
@@ -3583,6 +4045,7 @@ def main(argv=None) -> int:
         by_path[f"nccl_serving_{arm}"] = nccl["serving"][arm]["launches"]
     by_path["nccl_moe"] = nccl["moe"]["launches"]
     by_path["nccl_tp"] = nccl["tp"]["launches"]
+    by_path["nccl_ddp"] = nccl["ddp"]["launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil c2c", shapes)
@@ -3604,6 +4067,7 @@ def main(argv=None) -> int:
     by_path.update(tp_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(ssm_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(encdec_mesh_phase(torch, args.seed, fft_stage, cm))
+    by_path.update(training_phase(torch, args.seed, fft_stage, cm))
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

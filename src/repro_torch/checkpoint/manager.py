@@ -13,9 +13,10 @@ checkpoint written by either package therefore restores in the other.
   written LAST, then ``os.replace``d into place only when complete; a
   crash mid-save never corrupts the latest good checkpoint and never
   collides with a concurrent saver.
-- *async*: the device -> host copy (``.cpu()``, which waits for the
-  device) happens in the calling thread; only the disk write runs on a
-  background thread (joined before the next save / restore).
+- *async*: the device -> host copy (a copy on the CPU too, which waits
+  for the device) happens in the calling thread; only the disk write
+  runs on a background thread (joined before the next save / restore),
+  so a step that updates the state in place meanwhile cannot reach it.
 - *keep-N*: bounded disk usage with the newest N checkpoints retained.
 - *corrupt-skip restore*: ``latest_step``/``restore_latest`` consider
   only checkpoints whose manifest parses and whose shard file exists,
@@ -90,9 +91,11 @@ def _map_leaves(tree, fn: Callable[[str, Any], Any], path=()):
 
 
 def _to_host(leaf) -> np.ndarray:
+    """A host copy of ``leaf``, never a view: the train steps update their
+    state in place while the background thread writes it out."""
     if isinstance(leaf, torch.Tensor):
-        return leaf.detach().resolve_conj().resolve_neg().cpu().numpy()
-    return np.asarray(leaf)
+        return leaf.detach().resolve_conj().resolve_neg().to("cpu", copy=True).numpy()
+    return np.array(leaf)
 
 
 class CheckpointManager:

@@ -368,6 +368,19 @@ class SimMesh(_AxisMesh):
         """``lax.pmax`` over ``axis_name``, as :meth:`psum`."""
         return self._reduce(blocks, axis_name, torch.maximum)
 
+    def all_gather(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.all_gather`` over ``axis_name`` (a 1-D mesh's own axis by
+        default): every rank of a ring gets the (P, ...) stack of the
+        ring's blocks in ring order -- one tensor, the same object for
+        each."""
+        self._check(blocks)
+        out = list(blocks)
+        for ring in self.ring_ranks(axis_name or self.axis_name):
+            stacked = torch.stack([blocks[r] for r in ring])
+            for r in ring:
+                out[r] = stacked
+        return out
+
     def _reduce(self, blocks, axis_name, op) -> Blocks:
         self._check(blocks)
         out = list(blocks)
@@ -591,6 +604,22 @@ class ProcessGroupMesh(_AxisMesh):
     def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
         """``lax.pmax`` over ``axis_name``, as :meth:`psum` (MAX)."""
         return self._all_reduce(blocks, axis_name, "MAX")
+
+    def all_gather(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """``lax.all_gather`` over ``axis_name``: the (P, ...) stack of the
+        ring's blocks in ring order, by one ``all_gather_into_tensor`` of
+        the rank's block (in its own dtype: int8 moves as int8) on the
+        axis's ring group."""
+        import torch.distributed as dist
+
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        b = blocks[0].resolve_conj().contiguous()
+        if ring.p == 1:
+            return [b[None]]
+        out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
+        dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
+        return [out.view((ring.p,) + tuple(b.shape))]
 
     def _all_reduce(self, blocks, axis_name, op: str) -> Blocks:
         import torch.distributed as dist

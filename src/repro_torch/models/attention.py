@@ -46,7 +46,9 @@ whole heads (``core.sharding.placement``):
 sequence-sharded KV (``pmax`` then two ``psum`` s); no serving path calls
 it, in the reference or here.
 
-Not ported yet: the flash backward (A15.3).
+:func:`flash_attention_train` (every full-sequence pass with ``impl="chunked"``
+and ``q_offset=0``) carries the reference's custom backward as a
+``torch.autograd.Function``: its forward is the serving scan, bit for bit.
 """
 
 from __future__ import annotations
@@ -124,36 +126,15 @@ def attention_naive(
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def attention_chunked(
-    q: torch.Tensor,
-    k: torch.Tensor,
-    v: torch.Tensor,
-    spec: AttnSpec,
-    *,
-    q_offset: Union[int, torch.Tensor] = 0,
-    kv_chunk: int = 512,
-    kv_valid_len: Optional[torch.Tensor] = None,
-) -> torch.Tensor:
-    """Flash-style online softmax over KV chunks (O(Sq) memory).
-
-    ``kv_valid_len``: number of valid cache entries, () or (B,) (decode
-    with a preallocated cache). The last chunk may be short: the
-    reference pads it with masked keys, which add exactly nothing.
-    """
-    b, sq, h, d = q.shape
-    skv, kvh = k.shape[1], k.shape[2]
-    g = h // kvh
-    dv = v.shape[-1]
-    kv_chunk = min(kv_chunk, skv)
-    dev = q.device
-
-    qg = (q / math.sqrt(d)).reshape(b, sq, kvh, g, d).float()  # scaled in q's dtype, then f32
-    q_idx = _q_idx(q_offset, sq, dev)
-    valid = None
-    if kv_valid_len is not None:
-        valid = torch.as_tensor(kv_valid_len, device=dev)
-        valid = valid[..., None, None] if valid.ndim else valid
-
+def _online_softmax(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, q_idx: torch.Tensor,
+                    valid: Optional[torch.Tensor], kv_chunk: int):
+    """The online-softmax scan over KV chunks: (m, l, acc) of the float32
+    queries ``qg`` (B, Sq, KVH, G, D), already scaled, against ``k`` /
+    ``v`` in their own dtype; ``valid`` the valid cache entries (None, or
+    broadcastable against the (Sq, K) / (B, Sq, K) mask)."""
+    b, sq, kvh, g, _ = qg.shape
+    skv, dv = k.shape[1], v.shape[-1]
+    dev = qg.device
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=dev)
@@ -176,15 +157,125 @@ def attention_chunked(
             "bhgqk,bkhe->bhgqe", p.to(vb.dtype).float(), vb.float()
         )
         m = m_new
+    return m, l, acc
+
+
+def attention_chunked(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    spec: AttnSpec,
+    *,
+    q_offset: Union[int, torch.Tensor] = 0,
+    kv_chunk: int = 512,
+    kv_valid_len: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Flash-style online softmax over KV chunks (O(Sq) memory).
+
+    ``kv_valid_len``: number of valid cache entries, () or (B,) (decode
+    with a preallocated cache). The last chunk may be short: the
+    reference pads it with masked keys, which add exactly nothing.
+    """
+    b, sq, h, d = q.shape
+    kvh = k.shape[2]
+    g = h // kvh
+    dev = q.device
+    qg = (q / math.sqrt(d)).reshape(b, sq, kvh, g, d).float()  # scaled in q's dtype, then f32
+    valid = None
+    if kv_valid_len is not None:
+        valid = torch.as_tensor(kv_valid_len, device=dev)
+        valid = valid[..., None, None] if valid.ndim else valid
+    _, l, acc = _online_softmax(qg, k, v, spec, _q_idx(q_offset, sq, dev), valid, min(kv_chunk, k.shape[1]))
     out = acc / torch.clamp(l[..., None], min=1e-30)
-    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv)
+    out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, v.shape[-1])
     return out.to(q.dtype)
 
 
+# ---------------------------------------------------------------------------
+# flash attention with a custom backward (train path: q_offset=0, no
+# valid_len), the reference's ``_make_flash`` custom VJP
+#
+# The forward keeps only (q, k, v, out, lse); the backward recomputes each
+# KV chunk's probabilities from the final logsumexp:
+#     p = exp(s - L);  dv += p^T dO;  dp = dO v^T
+#     ds = p * (dp - rowsum(dO*O)) [* dsoftcap];  dq += ds k;  dk += ds^T q
+# ---------------------------------------------------------------------------
+
+
+def _flash_fwd(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, kv_chunk: int):
+    """(out (B, KVH, G, Sq, Dv) float32, lse (B, KVH, G, Sq)) of the scaled
+    queries ``qg`` (B, Sq, KVH, G, D) in q's dtype: the serving scan."""
+    m, l, acc = _online_softmax(qg.float(), k, v, spec, torch.arange(qg.shape[1], device=qg.device), None,
+                                kv_chunk)
+    out = acc / torch.clamp(l[..., None], min=1e-30)
+    return out, m + torch.log(torch.clamp(l, min=1e-30))
+
+
+def _flash_bwd(qg, k, v, out, lse, dout, spec: AttnSpec, kv_chunk: int):
+    """(dqg, dk, dv) in the primals' dtypes. ``p``, ``dout`` and ``ds``
+    are rounded to the K / V dtype before each product, as the reference
+    rounds them; the products themselves are float32 (of upcast
+    operands), ``dq`` accumulates in float32."""
+    sq = qg.shape[1]
+    q_idx = torch.arange(sq, device=qg.device)
+    qf = qg.float()
+    dout = dout.float()
+    dmat = torch.sum(dout * out, dim=-1)  # (B,KVH,G,Sq)
+    dout_v = dout.to(v.dtype).float()
+    dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
+    dks, dvs = [], []
+    for start in range(0, k.shape[1], kv_chunk):
+        kb = k[:, start:start + kv_chunk].float()
+        vb = v[:, start:start + kv_chunk]
+        s_raw = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)
+        if spec.softcap > 0:
+            t = torch.tanh(s_raw / spec.softcap)
+            s = spec.softcap * t
+            dcap = 1.0 - t * t
+        else:
+            s, dcap = s_raw, None
+        k_idx = torch.arange(start, start + kb.shape[1], device=qg.device)
+        s = torch.where(_mask(q_idx, k_idx, spec)[None, None, None], s, NEG_INF)
+        p = torch.exp(s - lse[..., None])  # (B,KVH,G,Sq,K)
+        dvs.append(torch.einsum("bhgqk,bhgqe->bkhe", p.to(vb.dtype).float(), dout_v))
+        dp = torch.einsum("bhgqe,bkhe->bhgqk", dout, vb.float())
+        ds = p * (dp - dmat[..., None])
+        if dcap is not None:
+            ds = ds * dcap
+        dsv = ds.to(k.dtype).float()
+        dq = dq + torch.einsum("bhgqk,bkhd->bqhgd", dsv, kb)
+        dks.append(torch.einsum("bhgqk,bqhgd->bkhd", dsv, qf))
+    return dq.to(qg.dtype), torch.cat(dks, 1).to(k.dtype), torch.cat(dvs, 1).to(v.dtype)
+
+
+class _Flash(torch.autograd.Function):
+    """The reference's ``flash`` custom VJP on (qg, K, V) -> out float32
+    (B, KVH, G, Sq, Dv)."""
+
+    @staticmethod
+    def forward(ctx, qg, k, v, spec: AttnSpec, kv_chunk: int):
+        out, lse = _flash_fwd(qg, k, v, spec, kv_chunk)
+        ctx.save_for_backward(qg, k, v, out, lse)
+        ctx.spec, ctx.kv_chunk = spec, kv_chunk
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        qg, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = _flash_bwd(qg, k, v, out, lse, dout, ctx.spec, ctx.kv_chunk)
+        return dq, dk, dv, None, None
+
+
 def flash_attention_train(q, k, v, spec: AttnSpec, *, kv_chunk: int = 512) -> torch.Tensor:
-    """The forward pass of the reference's flash attention (q_offset=0):
-    the same online-softmax scan. Its custom backward is ROADMAP A15.3."""
-    return attention_chunked(q, k, v, spec, kv_chunk=kv_chunk)
+    """Memory-optimal flash for the train / prefill path (q_offset=0): the
+    serving scan forward, bit for bit ``attention_chunked``'s, and the
+    reference's custom backward (:class:`_Flash`)."""
+    b, sq, h, d = q.shape
+    kvh, dvd = k.shape[2], v.shape[-1]
+    kv_chunk = min(kv_chunk, k.shape[1])
+    qg = (q / math.sqrt(d)).reshape(b, sq, kvh, h // kvh, d)
+    out = _Flash.apply(qg, k, v, spec, kv_chunk)
+    return out.permute(0, 3, 1, 2, 4).reshape(b, sq, h, dvd).to(q.dtype)
 
 
 def attention(

@@ -15,6 +15,7 @@ per-layer Python ``bool`` from ``Group.flags`` picks the attention mask.
 
 Public surface (on ``device``, default ``cuda``; tests pass ``"cpu"``):
     Model(cfg).init(generator, dtype=None) -> (params, specs)
+    .loss(params, batch)                      train forward + CE (+MTP)
     .hidden(params, batch)                    (trunk (B, S, d), aux loss)
     .logits(params, batch)                    full logits (small shapes)
     .init_decode_state(b, s_max) / .prefill / .decode_step
@@ -33,7 +34,14 @@ The decode state is one stacked tree a group: a ``KVCache`` /
 tensors. Each layer works on views of its slice and its new state is
 written back in place. ``init`` makes the MTP
 head's weights when ``cfg.mtp_depth`` asks for them (the reference's
-tree); nothing here runs them.
+tree); ``loss`` runs them.
+
+Training (``loss``): ``hidden`` records the autograd graph (serving's
+``logits``, ``prefill`` and ``decode_step`` run under
+``torch.inference_mode``), each layer under ``_remat(cfg.remat)`` as the
+reference's scan body; the cross-entropy is chunked
+(``models.losses``), and the attention and Mamba scans have the
+reference's custom backward passes.
 
 On a mesh of several ranks (``SimMesh`` or, SPMD, one
 ``ProcessGroupMesh`` rank per process) every decoder runs
@@ -57,7 +65,7 @@ every rank (their recurrences need the whole sequence; the reference
 constrains it back to whole, or batch-only, inside their blocks): their
 mixers split by channel over the axis (``models.ssm``), hymba's
 attention and FFN as the decoders'. The ``data`` axis replicates the
-weights (FSDP comes with training, A15.3).
+weights (FSDP comes with training over a model axis, A15.3b).
 
 On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
 every leaf in the one-rank order, one layer at a time, and keeps the
@@ -65,23 +73,24 @@ rank's; ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's
 arrays; a leaf of ``ssm.MESH_LAYOUT`` is placed as that table says), its
 KV heads of the caches (and of the cross K / V) and its channel blocks
 of the conv windows and Mamba states; on a ``SimMesh`` the stacks and
-the states stay whole and a rank's block is a view. Not ported yet:
-``loss`` and MTP (A15.3).
+the states stay whole and a rank's block is a view.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
+from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sharding
 from repro_torch.core.mesh import resolve_device
-from repro_torch.models import attention, blocks, common, ssm
+from repro_torch.models import attention, blocks, common, losses, ssm
 from repro_torch.models.common import Deferred, Params, Specs
 
 
@@ -185,6 +194,36 @@ def _group_init_fn(g: Group, cfg: ModelConfig, generator: torch.Generator, devic
     init = {"hymba": blocks.init_hymba_block, "xlstm_pair": blocks.init_xlstm_pair,
             "xlstm_m": blocks.init_xlstm_m, "enc": blocks.init_encoder_block}[g.kind]
     return lambda: init(generator, cfg, device)
+
+
+#: the matrix products ``_remat(mode="dots")`` saves (``checkpoint_dots``)
+_DOTS = ("mm", "bmm", "addmm", "baddbmm")
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Save the outputs of matrix products, recompute the rest."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    name = getattr(op, "__name__", "").split(".")[0]
+    return CheckpointPolicy.MUST_SAVE if name in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(fn: Callable, mode: str) -> Callable:
+    """``fn`` under the reference's rematerialization ``mode``: "none" as
+    it is, "full" recomputed in the backward from its inputs
+    (``torch.utils.checkpoint``, non-reentrant), "dots" recomputed but
+    for the matrix products' outputs, which are saved (a selective
+    checkpoint policy: ``jax.checkpoint_policies.checkpoint_dots``)."""
+    if mode == "none":
+        return fn
+    if mode == "full":
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False)
+    if mode == "dots":
+        if not hasattr(ckpt, "create_selective_checkpoint_contexts"):
+            raise NotImplementedError("remat='dots' needs torch.utils.checkpoint's selective checkpoint policies")
+        context = functools.partial(ckpt.create_selective_checkpoint_contexts, _dots_policy)
+        return lambda *args: ckpt.checkpoint(fn, *args, use_reentrant=False, context_fn=context)
+    raise ValueError(f"unknown remat mode {mode!r}")
 
 
 def head_units(cfg: ModelConfig) -> Dict[str, int]:
@@ -404,12 +443,13 @@ class Model:
         cfg = self.cfg
         return cfg.seq_parallel and cfg.family not in ("ssm", "hybrid") and self.tp.p > 1 and s % self.tp.p == 0
 
-    @torch.inference_mode()
     def hidden(self, params, batch) -> Tuple[torch.Tensor, torch.Tensor]:
         """(the final hidden states (B, S, d), normalized, meta tokens cut,
         whole on every rank; aux, the sum of the MoE blocks' router
         losses, a float32 scalar). The encoder-decoder's are its
-        decoder's, over ``batch["tokens"]``."""
+        decoder's, over ``batch["tokens"]``. Where autograd records (grad
+        enabled, a leaf of ``params`` requiring it), each layer runs under
+        ``_remat(cfg.remat)``."""
         cfg = self.cfg
         params = self._cast(params)
         enc = None
@@ -422,11 +462,14 @@ class Model:
         if tp.seq:
             x = tp.scatter_seq(x)
         aux = torch.zeros((), device=self.device)
+        remat = self.cfg.remat if torch.is_grad_enabled() and _records(params) else "none"
         for g in self.groups:
             if g.kind == "enc":
                 continue
             for i in range(g.count):
-                x, a = self._trunk_block(g, _layer(params[g.name], i), x, self._flag(g, i), tp, enc)
+                block = _remat(lambda x, p, enc, g=g, flag=self._flag(g, i): self._trunk_block(g, p, x, flag, tp, enc),
+                               remat)
+                x, a = block(x, _layer(params[g.name], i), enc)
                 if a is not None:
                     aux = aux + a
         x = tp.whole(tp.each(lambda a: common.apply_norm(params["final_norm"], a, cfg.norm_kind), x))
@@ -436,6 +479,55 @@ class Model:
     def logits(self, params, batch) -> torch.Tensor:
         """Full float32 logits -- small shapes only (tests / serving)."""
         return self._logits(self._cast(params), self.hidden(params, batch)[0])
+
+    def _unemb_fn(self, params) -> Callable[[torch.Tensor], torch.Tensor]:
+        """The loss's unembedding: ``_logits`` without the softcap and the
+        float32 cast (``chunked_xent`` applies both), gathered whole over
+        the ``model`` axis."""
+        cfg = self.cfg
+
+        def f(x):
+            parts = common.unembed(params["embed"], x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
+            return self.tp.gather(parts, -1) if self.tp.splits(cfg.vocab_size) else parts[0]
+
+        return f
+
+    # ----------------------------------------------------------------- loss
+    def loss(self, params, batch) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training loss and its metrics, the reference's: the chunked
+        cross-entropy with z-loss 1e-4 and the final softcap, plus the MoE
+        router's aux loss (``router_aux_weight``) and DeepSeek's MTP loss
+        (weight 0.3, under a checkpoint). Records the autograd graph."""
+        cfg = self.cfg
+        x, aux = self.hidden(params, batch)
+        nll, zl = losses.chunked_xent(x, batch["labels"], self._unemb_fn(params), z_loss=1e-4,
+                                      final_softcap=cfg.final_logit_softcap)
+        total = nll + zl
+        metrics = {"nll": nll, "z_loss": zl}
+        if cfg.moe is not None:
+            total = total + cfg.moe.router_aux_weight * aux
+            metrics["moe_aux"] = aux
+        if cfg.mtp_depth > 0 and "tokens" in batch:
+            mtp_nll = ckpt.checkpoint(self._mtp_loss, params, x, batch, use_reentrant=False)
+            total = total + 0.3 * mtp_nll
+            metrics["mtp_nll"] = mtp_nll
+        metrics["loss"] = total
+        return total, metrics
+
+    def _mtp_loss(self, params, h, batch) -> torch.Tensor:
+        """DeepSeek MTP (depth 1): predict token t+2 from [h_t; emb(t+1)]."""
+        cfg = self.cfg
+        p = params["mtp"]
+        tokens, labels = batch["tokens"].to(self.device), batch["labels"]
+        emb_next = common.embed_tokens(params["embed"], tokens[:, 1:], self.dtype, self.tp, cfg.vocab_size)
+        hh = common.apply_norm(p["norm_h"], h[:, :-1], cfg.norm_kind)
+        ee = common.apply_norm(p["norm_e"], emb_next, cfg.norm_kind)
+        z = torch.cat([hh, ee], dim=-1) @ p["proj"].to(self.dtype)
+        use_moe = cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers
+        z, _ = blocks.apply_decoder_block(p["block"], z, cfg, is_global=True, use_moe=use_moe, impl=self.attn_impl,
+                                          tp=self.tp)
+        nll, _ = losses.chunked_xent(z, labels[:, 1:], self._unemb_fn(params))  # label t+1 predicts token t+2
+        return nll
 
     # --------------------------------------------------------------- decode
     def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
@@ -564,6 +656,13 @@ class Model:
         dim = torch.arange(half, dtype=torch.float32, device=self.device)
         ang = float(pos) / torch.pow(10000.0, 2 * dim / self.cfg.d_model)
         return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
+
+
+def _records(tree) -> bool:
+    """Whether any leaf of a tree requires grad (autograd records through it)."""
+    if isinstance(tree, dict):
+        return any(_records(v) for v in tree.values())
+    return tree.requires_grad
 
 
 def _map2(fn: Callable, tree, specs, path: str = ""):

@@ -24,7 +24,8 @@ Every mixer has a full-sequence entry point (state in and out when given)
 and a decode step. The mLSTM decode step can update its (C, n, m) in
 place (``inplace=True``, which ``decode_mlstm_block`` uses), in the
 reference's order of operations: bitwise the out-of-place form. Mamba's
-custom backward is ROADMAP A15.3.
+selective scan carries the reference's manual backward
+(:class:`_MambaCore`, a ``torch.autograd.Function``).
 
 Over a mesh (``tp``, ``common.TP`` over the ``model`` axis), each leaf
 placed by the reference's specs (``core.sharding.placement``) but where
@@ -578,12 +579,76 @@ def _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk: int):
     return y, h, bounds
 
 
+def _mamba_core_bwd_impl(xc, dt, bmat, cmat, a, dskip, bounds, dy, dh_last, chunk: int):
+    """The reference's manual backward: over the chunks in reverse, each
+    chunk's forward recomputed from its boundary state, the reverse
+    recurrence ``dh[t] = dhs_local[t] + decay[t+1] dh[t+1]`` as
+    :func:`linear_scan` on the flipped time axis, ``da`` and ``dD``
+    accumulated in float32; the cotangents cast to the primal dtypes."""
+    s = xc.shape[1]
+    af, dskf = a.float(), dskip.float()
+    dh_carry = dh_last.float()
+    da = torch.zeros(a.shape, dtype=torch.float32, device=xc.device)
+    dD = torch.zeros(dskip.shape, dtype=torch.float32, device=xc.device)
+    outs = []
+    for ci in reversed(range(s // chunk)):
+        start = ci * chunk
+        xci, dti, bi, cci, dyi = (v[:, start:start + chunk].transpose(0, 1).float()
+                                  for v in (xc, dt, bmat, cmat, dy))
+        h_in = bounds[ci]
+        decay = torch.exp(dti[..., None] * af)  # (L,B,d,N)
+        inc = (dti * xci)[..., None] * bi[:, :, None, :]
+        hs = _chunk_fwd(decay, inc, h_in)
+        h_prev = torch.cat([h_in[None], hs[:-1]], dim=0)  # h_{t-1}
+        dhs_local = dyi[..., None] * cci[:, :, None, :]  # (L,B,d,N)
+        dhs_local[-1] += dh_carry
+        decay_next = torch.cat([decay[1:], torch.ones_like(decay[:1])], dim=0)
+        dh = linear_scan(decay_next.flip(0), dhs_local.flip(0))[1].flip(0)
+        d_dta = dh * h_prev * decay  # d/d(dt*a)
+        da = da + torch.einsum("lbdn,lbd->dn", d_dta, dti)
+        ddt_dec = torch.einsum("lbdn,dn->lbd", d_dta, af)
+        ddtx = torch.einsum("lbdn,lbn->lbd", dh, bi)
+        dbi = torch.einsum("lbdn,lbd->lbn", dh, dti * xci)
+        dci = torch.einsum("lbdn,lbd->lbn", hs, dyi)
+        dxci = ddtx * dti + dskf * dyi
+        ddti = ddtx * xci + ddt_dec
+        dD = dD + torch.einsum("lbd,lbd->d", dyi, xci)
+        dh_carry = decay[0] * dh[0]  # into the previous chunk's last h
+        outs.append((dxci, ddti, dbi, dci))
+
+    def from_chunks(i, like):  # the chunks' (L, B, ...) in time order -> (B, S, ...)
+        return torch.cat([o[i] for o in reversed(outs)], dim=0).transpose(0, 1).to(like.dtype)
+
+    return (from_chunks(0, xc), from_chunks(1, dt), from_chunks(2, bmat), from_chunks(3, cmat),
+            da.to(a.dtype), dD.to(dskip.dtype), dh_carry)
+
+
+class _MambaCore(torch.autograd.Function):
+    """The reference's ``_make_mamba_core`` custom VJP: the forward keeps
+    the chunks' boundary states, the backward is
+    :func:`_mamba_core_bwd_impl`. The forward runs without recording
+    (:func:`linear_scan` writes into its clones in place)."""
+
+    @staticmethod
+    def forward(ctx, xc, dt, bmat, cmat, a, dskip, h0, chunk: int):
+        y, h_last, bounds = _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk)
+        ctx.save_for_backward(xc, dt, bmat, cmat, a, dskip, *bounds)
+        ctx.chunk = chunk
+        return y, h_last
+
+    @staticmethod
+    def backward(ctx, dy, dh_last):
+        xc, dt, bmat, cmat, a, dskip, *bounds = ctx.saved_tensors
+        grads = _mamba_core_bwd_impl(xc, dt, bmat, cmat, a, dskip, bounds, dy, dh_last, ctx.chunk)
+        return (*grads, None)
+
+
 def mamba_core(xc, dt, bmat, cmat, a, dskip, h0, *, chunk: int):
-    """The selective scan y = SSM(xc; dt, B, C, A, D), forward only.
+    """The selective scan y = SSM(xc; dt, B, C, A, D), with the
+    reference's manual backward (:class:`_MambaCore`).
     xc/dt: (B, S, d) f32; bmat/cmat: (B, S, N); a: (d, N); h0: (B, d, N).
     S must be a multiple of ``chunk`` (caller pads). Returns (y, h_last)."""
-    y, h_last, _ = _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk)
-    return y, h_last
+    return _MambaCore.apply(xc, dt, bmat, cmat, a, dskip, h0, chunk)
 
 
 def _mamba_scan_chunked(decay, inc, h0, chunk: int):

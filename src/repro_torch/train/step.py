@@ -1,0 +1,220 @@
+"""Train-step factory, ported from ``repro.train.step``: loss -> grads ->
+clip -> AdamW, with microbatch accumulation.
+
+Two step flavors:
+
+- :func:`make_train_step`: one rank (or a mesh whose ranks all sit in
+  this process with a ``model`` axis of one: the same arithmetic on the
+  whole batch). The reference's GSPMD shardings over a model axis and
+  FSDP are ROADMAP A15.3b; a mesh with several ``model`` ranks raises.
+- :func:`make_ddp_compressed_step`: the explicit data-parallel step whose
+  gradient all-reduce is the int8 error-feedback all-gather
+  (``optim.compress``) -- the paper's decomposed-collective idea applied
+  to the optimizer's traffic. The weights are replicated; each data rank
+  takes its block of the batch, and every rank clips and updates the
+  same reduced gradient, so the replicas stay equal bit for bit.
+
+Both steps update the state's tensors in place (``adamw.update(...,
+inplace=True)``: the reference donates its state buffers to the jitted
+step) and return the state with ``step + 1``. The gradients come from
+``torch.autograd.grad`` on detached aliases of the float32 master
+weights; a leaf the loss does not reach gets a zero gradient, as
+``jax.grad`` gives.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, List, NamedTuple, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.base import TrainConfig
+from repro_torch.core.mesh import resolve_device
+from repro_torch.models.model import Model
+from repro_torch.optim import adamw, compress, schedule
+from repro_torch.optim.adamw import leaves, tree_map, unflatten
+
+NEXT = "ROADMAP A15.3b (FSDP and tensor-parallel training over a mesh)"
+
+
+class TrainState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+    step: torch.Tensor  # () int32
+
+
+def init_train_state(model: Model, generator: torch.Generator, tcfg: TrainConfig) -> Tuple[TrainState, Any]:
+    """Float32 master weights from ``generator`` (on the model's device)
+    and a zero AdamW state in ``tcfg.opt_state_dtype``."""
+    params, specs = model.init(generator)
+    opt = adamw.init(params, tcfg.opt_state_dtype)
+    return TrainState(params=params, opt=opt, step=torch.zeros((), dtype=torch.int32, device=model.device)), specs
+
+
+def _split_micro(batch: Dict[str, torch.Tensor], n: int):
+    return {k: v.reshape((n, v.shape[0] // n) + tuple(v.shape[1:])) for k, v in batch.items()}
+
+
+def make_loss_fn(model: Model):
+    def loss_fn(params, batch):
+        return model.loss(params, batch)
+
+    return loss_fn
+
+
+def _value_and_grad(loss_fn, params, batch):
+    """(loss, metrics, grads): ``jax.value_and_grad(loss_fn,
+    has_aux=True)``, the metrics detached."""
+    flat = [p.detach().requires_grad_(True) for p in leaves(params)]
+    with torch.enable_grad():
+        loss, metrics = loss_fn(unflatten(params, flat), batch)
+        grads = torch.autograd.grad(loss, flat, allow_unused=True)
+    grads = [torch.zeros_like(p) if g is None else g for g, p in zip(grads, flat)]
+    return loss.detach(), {k: v.detach() for k, v in metrics.items()}, unflatten(params, grads)
+
+
+def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
+    return schedule.warmup_cosine(step, peak=tcfg.learning_rate, warmup=tcfg.warmup_steps, total=tcfg.total_steps)
+
+
+def _check_one_model_rank(mesh) -> None:
+    if mesh is None:
+        return
+    if mesh.shape.get("model", 1) > 1:
+        raise NotImplementedError(f"training over a model axis of {mesh.shape['model']} ranks is {NEXT}")
+    if mesh.caller_holds_block and mesh.p > 1:
+        raise NotImplementedError(f"make_train_step over a process group is {NEXT}; "
+                                  "data-parallel over processes: make_ddp_compressed_step")
+
+
+def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
+    """Returns ``step(state, batch) -> (state, metrics)``: the lr from
+    ``warmup_cosine`` at ``state.step``, the loss and its gradients (with
+    ``tcfg.microbatch > 1``: float32 gradients accumulated over the
+    microbatches, then divided), ``clip_by_global_norm``, the AdamW
+    update in place, ``step + 1``. Metrics: the loss's own, ``grad_norm``
+    and ``lr``."""
+    _check_one_model_rank(mesh)
+    loss_fn = make_loss_fn(model)
+
+    def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        lr = _lr(tcfg, state.step)
+        if tcfg.microbatch and tcfg.microbatch > 1:
+            micro = _split_micro(batch, tcfg.microbatch)
+            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), state.params)
+            ltot = torch.zeros((), dtype=torch.float32, device=lr.device)
+            for i in range(tcfg.microbatch):
+                l, _, g = _value_and_grad(loss_fn, state.params, {k: v[i] for k, v in micro.items()})
+                grads = tree_map(torch.add, grads, g)
+                ltot = ltot + l
+            grads = tree_map(lambda g: g / tcfg.microbatch, grads)
+            metrics = {"loss": ltot / tcfg.microbatch}
+        else:
+            _, metrics, grads = _value_and_grad(loss_fn, state.params, batch)
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
+        params, opt = adamw.update(grads, state.opt, state.params, lr=lr, cfg=tcfg, inplace=True)
+        metrics = dict(metrics, grad_norm=gnorm, lr=lr)
+        return TrainState(params, opt, state.step + 1), metrics
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# explicit-DP step with the compressed all-gather (the paper's technique on
+# the optimizer's collective)
+# ---------------------------------------------------------------------------
+
+
+class DDPState(NamedTuple):
+    params: Any
+    opt: adamw.AdamWState
+    err: List[Any]  # one float32 residual tree per local rank of the data axis
+    step: torch.Tensor
+
+
+def init_ddp_state(model: Model, generator: torch.Generator, tcfg: TrainConfig, mesh=None) -> DDPState:
+    """The weights, a zero AdamW state and zero error residuals: one
+    residual tree per ``mesh.local_ranks()`` entry (each rank carries its
+    own; one without a mesh, or on a ``ProcessGroupMesh``)."""
+    params, _ = model.init(generator)
+    ranks = 1 if mesh is None else len(mesh.local_ranks())
+    return DDPState(
+        params=params,
+        opt=adamw.init(params, tcfg.opt_state_dtype),
+        err=[compress.init_error_state(params) for _ in range(ranks)],
+        step=torch.zeros((), dtype=torch.int32, device=model.device),
+    )
+
+
+def make_ddp_compressed_step(model: Model, tcfg: TrainConfig, mesh, axis_name: str = "data"):
+    """Returns ``step(state, batch) -> (state, {"loss", "grad_norm"})``.
+    ``batch`` is the global batch (every rank passes the same); each
+    local rank takes its ``1/P`` block of the rows by its coordinate on
+    ``axis_name`` and gets its gradients; then either
+    ``compressed_psum_tree`` (``grad_compression="int8"``) or a mean over
+    the axis (one ``psum`` a leaf), the loss's mean over the axis, then
+    clip and update on the replicated weights."""
+    loss_fn = make_loss_fn(model)
+    n = mesh.axis_size(axis_name)
+    ranks = mesh.local_ranks()
+
+    def step(state: DDPState, batch):
+        grads, losses = [], []
+        for r in ranks:
+            i = mesh.coords(r)[axis_name]
+            rows = {k: v[i * (v.shape[0] // n):(i + 1) * (v.shape[0] // n)] for k, v in batch.items()}
+            loss, _, g = _value_and_grad(loss_fn, state.params, rows)
+            grads.append(g)
+            losses.append(loss)
+        if tcfg.grad_compression == "int8":
+            reduced, new_err = compress.compressed_psum_tree(grads, mesh, axis_name, state.err)
+            grads = reduced[0]  # the same on every local rank
+        else:
+            flat = [leaves(g) for g in grads]
+            grads = unflatten(grads[0], [mesh.psum([f[j] for f in flat], axis_name)[0] / n
+                                         for j in range(len(flat[0]))])
+            new_err = state.err
+        loss = mesh.psum(losses, axis_name)[0] / n
+        lr = _lr(tcfg, state.step)
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
+        params, opt = adamw.update(grads, state.opt, state.params, lr=lr, cfg=tcfg, inplace=True)
+        return DDPState(params, opt, new_err, state.step + 1), {"loss": loss, "grad_norm": gnorm}
+
+    return step
+
+
+# ---------------------------------------------------------------------------
+# carrying the reference's states across
+# ---------------------------------------------------------------------------
+
+
+def _tensor(a, device) -> torch.Tensor:
+    arr = np.asarray(a)
+    if arr.dtype.name == "bfloat16":  # numpy has no bfloat16: through float32, exactly
+        return torch.from_numpy(arr.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(arr)).to(device)
+
+
+def _tree(tree, device):
+    return {k: _tree(v, device) for k, v in tree.items()} if isinstance(tree, dict) else _tensor(tree, device)
+
+
+def _opt(opt, device) -> adamw.AdamWState:
+    return adamw.AdamWState(count=_tensor(opt.count, device), mu=_tree(opt.mu, device), nu=_tree(opt.nu, device))
+
+
+def train_state_from_numpy(state, device=None) -> TrainState:
+    """The reference's ``TrainState`` (numpy or JAX leaves: weights,
+    moments, count, step) as the port's, on ``device`` (default
+    ``cuda``)."""
+    dev = resolve_device(device)
+    return TrainState(_tree(state.params, dev), _opt(state.opt, dev), _tensor(state.step, dev))
+
+
+def ddp_state_from_numpy(state, device=None, ranks: int = 1) -> DDPState:
+    """The reference's ``DDPState`` as the port's, its one residual tree
+    copied to each of ``ranks`` local ranks."""
+    dev = resolve_device(device)
+    return DDPState(_tree(state.params, dev), _opt(state.opt, dev), [_tree(state.err, dev) for _ in range(ranks)],
+                    _tensor(state.step, dev))

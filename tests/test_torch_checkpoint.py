@@ -105,6 +105,34 @@ def test_roundtrip_async_keep_n_and_device(tmp_path):
     assert not [f for f in os.listdir(tmp_path) if ".tmp" in f]
 
 
+def test_async_save_holds_a_copy_of_cpu_tensors(tmp_path, monkeypatch):
+    """The train steps update their state in place while the background
+    thread writes the last checkpoint: the write must hold the values of
+    the moment ``save`` was called. The write is held until the tensors
+    have been overwritten."""
+    import threading
+
+    from repro_torch.checkpoint import manager
+
+    release, savez = threading.Event(), np.savez
+
+    def held_savez(*args, **kwargs):
+        assert release.wait(30)
+        savez(*args, **kwargs)
+
+    monkeypatch.setattr(manager.np, "savez", held_savez)
+    mgr = CheckpointManager(str(tmp_path))
+    t = _torch_tree(_arrays(seed=4))
+    before = {k: np.array(v) for k, v in _leaves(t).items()}
+    mgr.save(1, t)
+    for v in _flatten_with_names(t).values():
+        v.add_(1)
+    release.set()
+    mgr.wait()
+    for k, v in _leaves(mgr.restore(1, t)).items():
+        np.testing.assert_array_equal(v, before[k])
+
+
 def test_shape_mismatch_raises(tmp_path):
     mgr = CheckpointManager(str(tmp_path))
     mgr.save(1, {"a": torch.zeros(4)}, blocking=True)
