@@ -213,7 +213,15 @@ Phases, each printing a line; any failure exits non-zero with no result:
    step's device ms (CUDA events) and host ms to issue it, tokens/s,
    the model-FLOP share of the bf16 dense peak, each custom backward's
    ms a layer; (3) launch/train.py's train() in-process, reduced, with
-   a failure injected at step 6: one restart, 12 finite losses.
+   a failure injected at step 6: one restart, 12 finite losses; (4) the
+   step over a model axis: Model.loss on SimMesh((1, 2)) against one
+   rank in float32, every leaf's gradient within 1e-5 of its largest
+   one-rank entry, for check 1's Hymba-1.5B (25 / 5 heads: the context
+   partition, beside Mamba's channel split) and Qwen2.5-32B at full
+   width, 2 layers (heads, d_ff and its 152064-word vocabulary split,
+   Megatron sequence parallelism); (5) 3 bf16 steps of check 1's Hymba
+   on SimMesh((1, 2)) beside one rank: device ms, host ms to issue,
+   peak memory (``training_tp``: 0 FFT launches).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -259,7 +267,12 @@ phase 17's float32 dense checks and phase 19's models' (whisper,
 xLSTM, hymba: logits, prefill, decode) against one card, every rank's
 outputs bitwise equal (the MoE check above holds its logits so too), and on
 P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
-one decode step's collectives by name (``nccl_tp``: 0 FFT launches).
+one decode step's collectives by name (``nccl_tp``: 0 FFT launches),
+and one train step of check 1's Hymba-1.5B (full width, 4 layers,
+float32) on Model(cfg, ProcessGroupMesh) against one card from the same
+seed: each rank's blocks of every gradient and of the parameters after
+the step within 1e-5 of one card's, the leaves kept whole, the loss and
+the gradient norm bitwise equal on every rank.
 Last, training (``nccl_ddp``): make_ddp_compressed_step over a "data"
 axis, Hymba-1.5B at full width and 4 layers in float32, each rank its
 block of 8 x 512 tokens, 4 steps without compression and 4 with the
@@ -282,7 +295,8 @@ counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
 ``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
 (``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``), 18
 (``ssm_serving_<arch>``), 19 (``encdec_serving``,
-``ssm_mesh_serving``) and 20 (``training``) included; the last line is
+``ssm_mesh_serving``) and 20 (``training``, ``training_tp``) included;
+the last line is
 {"ok": true, "device": {...}}.
 """
 
@@ -479,6 +493,22 @@ TRAIN_LAUNCH_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--batc
 #: loss of the uncompressed one (tests/test_elastic.py's gate)
 DDP_LAYERS, DDP_BATCH, DDP_SEQ, DDP_STEPS = 4, 8, 512, 4
 DDP_DRIFT = 0.15
+#: phase 20's check 4: the step over a model axis of TRAIN_TP_P ranks on this
+#: card (SimMesh((1, TRAIN_TP_P))), float32 (TF32 off), every leaf's gradient
+#: against one rank's on the same weights and tokens within TRAIN_REL_TOL of
+#: its largest entry: check 1's Hymba-1.5B (25 / 5 heads, which 2 divides
+#: neither: the context partition, beside Mamba's channel split) and
+#: Qwen2.5-32B at full width and TRAIN_TP_LAYERS layers (heads, d_ff and its
+#: 152064-word vocabulary split; Megatron sequence parallelism on)
+TRAIN_TP_P = 2
+TRAIN_TP_ARCH, TRAIN_TP_LAYERS, TRAIN_TP_SEQ = "qwen2.5-32b", 2, 512
+#: check 5: TRAIN_TP_STEPS bf16 steps of check 1's 4-layer Hymba on
+#: SimMesh((1, TRAIN_TP_P)) beside one rank, TRAIN_TP_BATCH x TRAIN_TP_STEP_SEQ
+#: tokens a step (1152 positions with the meta tokens)
+TRAIN_TP_STEPS, TRAIN_TP_BATCH, TRAIN_TP_STEP_SEQ = 3, 2, 1024
+#: phase 7's TP training check: one step of check 1's Hymba over NCCL on
+#: 1 x NCCL_TRAIN_SEQ tokens (640 positions: every P of 1, 2, 4 divides them)
+NCCL_TRAIN_SEQ = 512
 
 
 class SmokeFailure(RuntimeError):
@@ -3140,8 +3170,112 @@ def train_launcher(torch) -> None:
           f"training launcher: restarts {hist['restarts']}, losses {losses}")
 
 
+def leaf_errs(torch, got, exp) -> list:
+    """Each leaf's largest error relative to its largest expected entry
+    (a leaf whose expected gradient is zero: its largest entry got)."""
+    return [((a.float() - e.float()).abs().max() / e.float().abs().max()).item() if e.abs().max() > 0
+            else a.abs().max().item() for a, e in zip(got, exp)]
+
+
+def train_tp_grads(torch, seed, cfg, seq: int, label: str) -> float:
+    """Check 4 of phase 20, one model: the gradient of every leaf of
+    Model.loss on SimMesh((1, TRAIN_TP_P)) against one rank's on the same
+    weights and ``seq`` tokens, float32, each within TRAIN_REL_TOL of the
+    leaf's largest one-rank entry."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models import attention as A
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves, unflatten
+
+    one = Model(cfg)
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = one.init(g)
+    toks = torch.randint(0, cfg.vocab_size, (1, seq + 1), device="cuda", generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+    flat = leaves(params)
+
+    def grads(m):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = train_grads(torch, lambda *ps: m.loss(unflatten(params, list(ps)), batch)[0], flat)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    grads(one)  # warm: the first call of a phase's shapes pays its setup
+    exp, one_s = grads(one)
+    split = Model(cfg, SimMesh((1, TRAIN_TP_P), axis_names=("data", "model")))
+    got, split_s = grads(split)
+    errs = leaf_errs(torch, got, exp)
+    err = max(errs)
+    tp = split.tp
+    print(f"training check 4: {label} full width, {cfg.num_layers} layers, float32, {seq} tokens, on "
+          f"SimMesh((1, {TRAIN_TP_P})) (heads split {tp.splits(cfg.num_heads)}, context partition "
+          f"{A.use_context_parallel(cfg, tp)}, d_ff split {tp.splits(cfg.d_ff)}, vocabulary {cfg.vocab_size} split "
+          f"{tp.splits(cfg.vocab_size)}, sequence parallel {split.seq_parallel(seq + cfg.meta_tokens)}): every leaf's "
+          f"gradient ({len(flat)} leaves, {sum(p.numel() for p in flat) / 1e9:.3f} B) vs one rank, worst rel_err "
+          f"{err:.3e} (tol {TRAIN_REL_TOL}; median {statistics.median(errs):.3e}); loss + backward {one_s:.2f} s one "
+          f"rank, {split_s:.2f} s split", flush=True)
+    check(err <= TRAIN_REL_TOL, f"training: {label} split gradients {err:.3e} > {TRAIN_REL_TOL}")
+    del params, exp, got, flat
+    return err
+
+
+def train_tp_steps(torch, seed) -> dict:
+    """Check 5 of phase 20: TRAIN_TP_STEPS steps of check 1's 4-layer
+    Hymba-1.5B (float32 master weights, bf16 compute) on
+    SimMesh((1, TRAIN_TP_P)) beside one rank from the same seed and
+    batches: each step's device ms (CUDA events), host ms to issue it,
+    the peak memory, the losses (finite)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SimMesh
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=TRAIN_TP_STEPS, seed=seed)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_TP_STEP_SEQ, TRAIN_TP_BATCH, seed=seed))
+    out = {}
+    for label, mesh in (("one rank", None),
+                        (f"SimMesh((1, {TRAIN_TP_P}))", SimMesh((1, TRAIN_TP_P), axis_names=("data", "model")))):
+        model = Model(cfg, mesh)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        state, _ = init_train_state(model, g, tcfg)
+        step = make_train_step(model, tcfg, mesh)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        dev, host, losses = [], [], []
+        for s in range(TRAIN_TP_STEPS):
+            batch = make_batch_arrays(ds.batch_at(s))
+            torch.cuda.synchronize()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            host.append((time.perf_counter() - t0) * 1e3)
+            end.synchronize()
+            dev.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+        out[label] = dict(device_ms=dev, host_ms=host, losses=losses,
+                          peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        print(f"training check 5: {TRAIN_ARCH} full width, {cfg.num_layers} layers, bf16 compute, "
+              f"{TRAIN_TP_BATCH} x {TRAIN_TP_STEP_SEQ} tokens, {label}: step device ms "
+              f"{', '.join(f'{x:.1f}' for x in dev)} (CUDA events), host ms to issue "
+              f"{', '.join(f'{x:.1f}' for x in host)}; losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
+              f"{out[label]['peak_gib']:.2f} GiB", flush=True)
+        check(all(math.isfinite(x) for x in losses), f"training: a {label} bf16 loss is not finite")
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
 def training_phase(torch, seed, fft_stage, cm) -> dict:
-    """Phase 20: training on one card; returns its FFT kernel launches (0)."""
+    """Phase 20: training on one card; returns its FFT kernel launches (0),
+    the single-rank checks' and the split step's (``training_tp``)."""
     t0 = time.perf_counter()
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
@@ -3160,9 +3294,24 @@ def training_phase(torch, seed, fft_stage, cm) -> dict:
         train_launcher(torch)
         return out
 
+    def run_tp():
+        t = time.perf_counter()
+        train_tp_grads(torch, seed, ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, "float32"), TRAIN_F32_SEQ, "Hymba-1.5B")
+        gc.collect()
+        torch.cuda.empty_cache()
+        train_tp_grads(torch, seed, ssm_cfg(TRAIN_TP_ARCH, TRAIN_TP_LAYERS, "float32"), TRAIN_TP_SEQ, "Qwen2.5-32B")
+        gc.collect()
+        torch.cuda.empty_cache()
+        print(f"training check 4: {time.perf_counter() - t:.1f} s", flush=True)
+        t = time.perf_counter()
+        out = train_tp_steps(torch, seed)
+        print(f"training check 5: {time.perf_counter() - t:.1f} s", flush=True)
+        return out
+
     _, launches, _ = counted(torch, fft_stage, "training", run, expect=())
+    _, tp_launches, _ = counted(torch, fft_stage, "training TP", run_tp, expect=())
     print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"training": launches}
+    return {"training": launches, "training_tp": tp_launches}
 
 
 def nccl_ddp(torch, mesh, fft_stage, seed: int) -> dict:
@@ -3642,15 +3791,86 @@ def nccl_tp_f32(torch, mesh, seed: int, arch: str, kw: dict) -> dict:
     return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30, tol=tol, layers=cfg.num_layers)
 
 
+def nccl_tp_train(torch, mesh, seed: int) -> dict:
+    """Phase 7's TP training check, one rank: one make_train_step of check
+    1's Hymba-1.5B (full width, TRAIN_F32_LAYERS layers, float32) on 1 x
+    NCCL_TRAIN_SEQ tokens at lr TRAIN_LR, on this card alone (Model(cfg))
+    and then on Model(cfg, mesh) from the same seed (each rank keeps its
+    blocks): each rank's block of every leaf's gradient within
+    TRAIN_REL_TOL of that block's largest one-card entry, the parameters
+    after the step within TRAIN_REL_TOL of the block's largest plus Adam's
+    amplification of the gradients' disagreement (2 lr min(1,
+    TRAIN_REL_TOL G / |g|), G the block's largest gradient), the loss and
+    the gradient norm within TRAIN_REL_TOL; the leaves kept whole (their gradients
+    and parameters), the loss and the gradient norm bitwise equal on every
+    rank."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.models.model import Model, rank_blocks
+    from repro_torch.optim.adamw import leaves, unflatten
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, "float32")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=10, seed=seed)
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab_size, (1, NCCL_TRAIN_SEQ + 1), device=mesh.device, generator=g)
+    batch = {"tokens": toks[:, :-1], "labels": toks[:, 1:]}
+
+    def run(model):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        state, specs = init_train_state(model, gen, tcfg)
+        flat = leaves(state.params)
+        grads = train_grads(torch, lambda *ps: model.loss(unflatten(state.params, list(ps)), batch)[0], flat)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = make_train_step(model, tcfg, model.mesh)(state, batch)
+        torch.cuda.synchronize()
+        return unflatten(state.params, list(grads)), state.params, m, specs, (time.perf_counter() - t0) * 1e3
+
+    one_g, one_p, one_m, specs, one_ms = run(Model(cfg, device=mesh.device))
+    place = dict(mesh=mesh, specs=specs, cfg=cfg)
+    one_g, one_p = (leaves(rank_blocks(t, **place)) for t in (one_g, one_p))  # this rank's blocks
+    gc.collect()
+    torch.cuda.empty_cache()
+    model = Model(cfg, mesh, device=mesh.device)
+    got_g, got_p, got_m, _, ms = run(model)
+    got_g, got_p = leaves(got_g), leaves(got_p)
+    grad_err = max(leaf_errs(torch, got_g, one_g))
+    lr = float(got_m["lr"])
+    param_err = -math.inf  # the largest distance past its bound
+    for a, e, ge in zip(got_p, one_p, one_g):  # the gradient's relative noise, at most 1 (a zero gradient: 1)
+        noise = torch.nan_to_num(torch.clamp(TRAIN_REL_TOL * ge.abs().max() / ge.abs(), max=1.0), nan=1.0)
+        excess = ((a - e).abs() - TRAIN_REL_TOL * e.abs().max() - 2 * lr * noise).max().item()
+        param_err = max(param_err, excess)
+    metric_err = max(abs(float(got_m[k]) - float(one_m[k])) / abs(float(one_m[k])) for k in ("loss", "grad_norm"))
+    check(grad_err <= TRAIN_REL_TOL, f"rank {mesh.rank}: NCCL TP training gradients {grad_err:.3e} > {TRAIN_REL_TOL}")
+    check(param_err <= 0, f"rank {mesh.rank}: NCCL TP training parameters {param_err:.3e} past their bound")
+    check(metric_err <= TRAIN_REL_TOL, f"rank {mesh.rank}: NCCL TP training loss / grad norm {metric_err:.3e} > "
+          f"{TRAIN_REL_TOL}")
+    whole = [not s for s in model.sharded_leaves()]
+    same_on_every_rank(mesh, [digest(t) for t, w in zip(got_g + got_p, whole + whole) if w]
+                       + [digest(got_m["loss"]), digest(got_m["grad_norm"])],
+                       "whole leaves' gradients and parameters, loss and grad norm after a TP train step (bitwise)")
+    return dict(grad_err=grad_err, param_err=param_err, metric_err=metric_err, loss=float(got_m["loss"]),
+                grad_norm=float(got_m["grad_norm"]), step_ms=ms, one_ms=one_ms, leaves=len(got_g),
+                sharded=len(whole) - sum(whole))
+
+
 def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
-    """Phase 7's TP part, one rank: the float32 checks of TP_F32, then
-    (P > 1) Qwen2.5-32B at all 64 layers served tensor-parallel; the FFT
-    kernels' launches (0)."""
+    """Phase 7's TP part, one rank: the float32 checks of TP_F32, one TP
+    train step (``nccl_tp_train``), then (P > 1) Qwen2.5-32B at all 64
+    layers served tensor-parallel; the FFT kernels' launches (0)."""
     from repro_torch.configs import get_config
 
     def run():
         out = {"f32": {f"{arch} {kw or ''}".strip(): nccl_tp_f32(torch, mesh, seed, arch, kw)
                        for arch, kw in TP_F32 + TP_F32_MORE}, "served": {}}
+        gc.collect()
+        torch.cuda.empty_cache()
+        out["train"] = nccl_tp_train(torch, mesh, seed)
+        gc.collect()
+        torch.cuda.empty_cache()
         if mesh.p > 1:
             r = nccl_served(torch, mesh, seed, get_config(LM_ARCH))
             r.pop("params")
@@ -3671,6 +3891,14 @@ def print_nccl_tp(rep) -> None:
               f"the same seed: hidden or logits ({LM_SEQ} tokens), prefill, {TP_DECODE} decode steps rel_err "
               f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {r['tol']:.3e}), bitwise equal on every rank; weights "
               f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card", flush=True)
+    r = m["train"]
+    print(f"{who} training: {TRAIN_ARCH} full width, {TRAIN_F32_LAYERS} layers, float32, 1 x {NCCL_TRAIN_SEQ} tokens, "
+          f"one make_train_step at lr {TRAIN_LR} on Model(cfg, ProcessGroupMesh) ({r['sharded']} of {r['leaves']} leaves "
+          f"placed over the ranks) vs one card on the same seed: each rank's gradient blocks worst rel_err "
+          f"{r['grad_err']:.3e} (tol {TRAIN_REL_TOL}), parameters within their bound (largest distance past it "
+          f"{r['param_err']:.3e}), loss {r['loss']:.6f} / grad norm {r['grad_norm']:.6f} rel_err {r['metric_err']:.3e} "
+          f"(tol {TRAIN_REL_TOL}); whole leaves, loss and grad norm bitwise equal on every rank; step {r['step_ms']:.1f} ms (host "
+          f"clock) vs {r['one_ms']:.1f} on one card", flush=True)
     for arch, r in m["served"].items():
         print(f"{who} {arch} {r['layers']} layers bf16, phase 14's stream: {r['tokens']} tokens in {r['wall_s']:.2f} s, "
               f"{r['tok_s']:.1f} tok/s, time to first token p50 {r['ttft_p50_ms']:.1f} ms p99 {r['ttft_p99_ms']:.1f} ms; "

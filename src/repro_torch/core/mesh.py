@@ -38,6 +38,19 @@ own ring, over that ring's ``torch.distributed`` subgroup.
 The exchange code loops over :meth:`local_ranks` of a 1-D view
 (``range(p)`` on the simulated mesh, ``[rank]`` here) and never asks
 which mesh it has.
+
+Gradients: on a ``SimMesh`` every rank's blocks lie in one autograd
+graph and the collectives are tensor ops on them, differentiated as any
+other. On a ``ProcessGroupMesh`` each rank's graph holds only its own
+part. The model keeps its activations the same on every rank after each
+collective, and every rank computes the same loss, so ``psum``,
+``gather``, ``all_gather`` and ``all_to_all`` carry Megatron's backward
+passes (the identity, the rank's own block, the inverse all-to-all), and
+``pvary`` (Megatron's "f") marks where a replicated tensor enters
+rank-specific compute, summing the ranks' gradients. ``pmax`` and a
+posted ``ppermute_start`` have no gradient and raise under autograd;
+the rings' hops carry their own (``core.overlap._Hop``,
+``core.overlap.ppermute_start``).
 """
 
 from __future__ import annotations
@@ -368,6 +381,14 @@ class SimMesh(_AxisMesh):
         """``lax.pmax`` over ``axis_name``, as :meth:`psum`."""
         return self._reduce(blocks, axis_name, torch.maximum)
 
+    def pvary(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """A replicated tensor entering each rank's own compute
+        (:meth:`ProcessGroupMesh.pvary`): the blocks as they are. Every
+        rank's use lies in one autograd graph here, which sums their
+        gradients itself."""
+        self._check(blocks)
+        return list(blocks)
+
     def all_gather(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
         """``lax.all_gather`` over ``axis_name`` (a 1-D mesh's own axis by
         default): every rank of a ring gets the (P, ...) stack of the
@@ -529,6 +550,9 @@ class ProcessGroupMesh(_AxisMesh):
 
         self._check_1d(pieces)
         piece, me = pieces[0], self.rank
+        if _records(piece):
+            raise NotImplementedError("a posted ppermute over a process group carries no gradient: under autograd "
+                                      "hop through core.overlap (ppermute_start, the rings)")
         dsts = [d for s, d in perm if s == me]
         srcs = [s for s, d in perm if d == me]
         if len(dsts) > 1 or len(srcs) > 1:
@@ -551,17 +575,23 @@ class ProcessGroupMesh(_AxisMesh):
 
     def all_to_all(self, blocks: Sequence[torch.Tensor], split_axis: int, concat_axis: int) -> Blocks:
         """Tiled all-to-all (see :meth:`SimMesh.all_to_all`) as one
-        ``all_to_all_single`` over the pieces stacked source-major."""
-        import torch.distributed as dist
-
+        ``all_to_all_single`` over the pieces stacked source-major.
+        Differentiable: the backward is the inverse all-to-all."""
         self._check_1d(blocks)
         b, p = blocks[0], self.p
         if b.shape[split_axis] % p:
             raise ValueError(f"all_to_all: axis of size {b.shape[split_axis]} does not split into {p} pieces")
-        inp = torch.stack(torch.chunk(b.resolve_conj(), p, dim=split_axis))
+        if _records(b):
+            return [_AllToAll.apply(self, split_axis, concat_axis, b)]
+        return [self._all_to_all(b, split_axis, concat_axis)]
+
+    def _all_to_all(self, b: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
+        import torch.distributed as dist
+
+        inp = torch.stack(torch.chunk(b.resolve_conj(), self.p, dim=split_axis))
         out = torch.empty_like(inp)
         dist.all_to_all_single(_wire(out), _wire(inp), group=self.group)
-        return [torch.cat(list(out.unbind(0)), dim=concat_axis)]
+        return torch.cat(list(out.unbind(0)), dim=concat_axis)
 
     def all_max(self, values: Sequence[float]) -> List[float]:
         """The largest of each value over the group's ranks (one
@@ -598,39 +628,64 @@ class ProcessGroupMesh(_AxisMesh):
         """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
         default): one ``all_reduce`` (SUM) of a copy of the rank's block on
         the axis's ring group (a grid's rings have theirs, made with the
-        mesh). The collective hands every rank of the ring the same bits."""
-        return self._all_reduce(blocks, axis_name, "SUM")
+        mesh). The collective hands every rank of the ring the same bits.
+
+        Differentiable for the model's layout, where the sum is used the
+        same on every rank (every rank computes the same loss from it):
+        the backward is the identity, Megatron's "g" -- each rank's
+        partial sum takes the whole sum's gradient. A replicated tensor
+        that enters each rank's own compute goes through :meth:`pvary`,
+        whose backward sums the ranks' gradients."""
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        if ring.p == 1:  # a ring of one: nothing to reduce
+            return [blocks[0]]
+        if _records(blocks[0]):
+            return [_Psum.apply(ring, blocks[0])]
+        return [_all_reduce(ring, blocks[0], "SUM")]
 
     def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
-        """``lax.pmax`` over ``axis_name``, as :meth:`psum` (MAX)."""
-        return self._all_reduce(blocks, axis_name, "MAX")
+        """``lax.pmax`` over ``axis_name``, as :meth:`psum` (MAX). It has
+        no gradient, and raises where autograd would record it: its one
+        caller, ``models.attention.flash_decode_combine``, lies on no
+        training path (no path calls it)."""
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        if ring.p == 1:
+            return [blocks[0]]
+        if _records(blocks[0]):
+            raise NotImplementedError("pmax over a process group has no gradient: run it outside autograd")
+        return [_all_reduce(ring, blocks[0], "MAX")]
+
+    def pvary(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+        """A tensor that is the same on every rank of ``axis_name``'s ring
+        entering rank-specific compute (a product with the rank's block of
+        a weight, the rank's slice of it, or a weight kept whole that
+        meets the rank's own activations): Megatron's "f", the transpose
+        of ``lax.pvary``. The forward is the identity; the backward sums
+        the ranks' gradients with one all-reduce over the ring, since each
+        rank's graph holds only its own use of the tensor."""
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        if ring.p == 1 or not _records(blocks[0]):
+            return [blocks[0]]
+        return [_Vary.apply(ring, blocks[0])]
 
     def all_gather(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
         """``lax.all_gather`` over ``axis_name``: the (P, ...) stack of the
         ring's blocks in ring order, by one ``all_gather_into_tensor`` of
         the rank's block (in its own dtype: int8 moves as int8) on the
-        axis's ring group."""
-        import torch.distributed as dist
-
+        axis's ring group. Differentiable: the backward keeps the rank's
+        own entry of the stack's gradient (the stack is used the same on
+        every rank)."""
         self._check(blocks)
         ring, _ = self.rings(axis_name or self.axis_name)[0]
         b = blocks[0].resolve_conj().contiguous()
         if ring.p == 1:
             return [b[None]]
-        out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
-        dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
-        return [out.view((ring.p,) + tuple(b.shape))]
-
-    def _all_reduce(self, blocks, axis_name, op: str) -> Blocks:
-        import torch.distributed as dist
-
-        self._check(blocks)
-        ring, _ = self.rings(axis_name or self.axis_name)[0]
-        if ring.p == 1:  # a ring of one: nothing to reduce
-            return [blocks[0]]
-        t = blocks[0].resolve_conj().clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=ring.group)
-        return [t]
+        if _records(b):
+            return [_AllGather.apply(ring, b)]
+        return [_stack_gather(ring, b)]
 
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x, tail: Sequence[Optional[str]]) -> Blocks:
@@ -642,14 +697,23 @@ class ProcessGroupMesh(_AxisMesh):
         """This rank's block -> the global array, on every rank: one
         ``all_gather_into_tensor`` over the mesh's group where ``tail``
         shards one dim of a 1-D mesh (the MoE dispatches' gathers), else
-        one list ``all_gather`` and a copy of each block into place."""
+        one list ``all_gather`` and a copy of each block into place.
+        Differentiable: the backward keeps the rank's own block of the
+        global array's gradient (the array is used the same on every
+        rank)."""
+        self._check(blocks)
+        b = blocks[0]
+        if not self._shard_dims(b.ndim, tail):
+            return b.resolve_conj().contiguous()
+        if _records(b):
+            return _Gather.apply(self, tuple(tail), b)
+        return self._gather(b, tail)
+
+    def _gather(self, b: torch.Tensor, tail: Sequence[Optional[str]]) -> torch.Tensor:
         import torch.distributed as dist
 
-        self._check(blocks)
-        b = blocks[0].resolve_conj().contiguous()
+        b = b.resolve_conj().contiguous()
         dims = self._shard_dims(b.ndim, tail)
-        if not dims:
-            return b
         if len(self.dims) == 1:
             dim = dims[0][0]
             front = b.movedim(dim, 0).contiguous()
@@ -684,6 +748,104 @@ class ProcessGroupMesh(_AxisMesh):
         axes = (f"axis_name={self.axis_name!r}" if len(self.dims) == 1
                 else f"grid={self.dims}, axis_names={self.axis_names}")
         return f"ProcessGroupMesh(p={self.p}, rank={self.rank}, {axes}, device={str(self.device)!r})"
+
+
+def _records(t: torch.Tensor) -> bool:
+    """Whether autograd records an op on ``t`` (the collectives take their
+    differentiable form only then: serving and the FFT paths run the plain
+    calls, untouched)."""
+    return torch.is_grad_enabled() and t.requires_grad
+
+
+def _all_reduce(ring: ProcessGroupMesh, b: torch.Tensor, op: str) -> torch.Tensor:
+    """One ``all_reduce`` of a copy of ``b`` over ``ring``'s group."""
+    import torch.distributed as dist
+
+    t = b.resolve_conj().clone(memory_format=torch.contiguous_format)
+    dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=ring.group)
+    return t
+
+
+def _stack_gather(ring: ProcessGroupMesh, b: torch.Tensor) -> torch.Tensor:
+    """The (P, ...) stack of the ring's blocks, one ``all_gather_into_tensor``."""
+    import torch.distributed as dist
+
+    b = b.resolve_conj().contiguous()
+    out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
+    dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
+    return out.view((ring.p,) + tuple(b.shape))
+
+
+class _Psum(torch.autograd.Function):
+    """Megatron's "g": a psum of partial sums whose result every rank uses
+    the same way. Forward all-reduce, backward identity."""
+
+    @staticmethod
+    def forward(ctx, ring, b):
+        return _all_reduce(ring, b, "SUM")
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad
+
+
+class _Vary(torch.autograd.Function):
+    """Megatron's "f": a replicated tensor entering rank-specific compute.
+    Forward identity, backward all-reduce (SUM)."""
+
+    @staticmethod
+    def forward(ctx, ring, b):
+        ctx.ring = ring
+        return b.view_as(b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, _all_reduce(ctx.ring, grad, "SUM")
+
+
+class _AllGather(torch.autograd.Function):
+    """The (P, ...) stack of the ring's blocks; the backward keeps the
+    rank's own entry of the stack's gradient."""
+
+    @staticmethod
+    def forward(ctx, ring, b):
+        ctx.me = ring.rank
+        return _stack_gather(ring, b)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, grad[ctx.me]
+
+
+class _Gather(torch.autograd.Function):
+    """The global array from each rank's block under ``tail``; the backward
+    keeps the rank's own block of the gradient."""
+
+    @staticmethod
+    def forward(ctx, mesh, tail, b):
+        ctx.mesh, ctx.tail = mesh, tail
+        return mesh._gather(b, tail)
+
+    @staticmethod
+    def backward(ctx, grad):
+        mesh = ctx.mesh
+        return None, None, mesh._block(grad, mesh.rank, ctx.tail)
+
+
+class _AllToAll(torch.autograd.Function):
+    """The tiled all-to-all; the backward is the inverse all-to-all (split
+    along the forward's ``concat_axis``, concatenate along its
+    ``split_axis``)."""
+
+    @staticmethod
+    def forward(ctx, mesh, split_axis, concat_axis, b):
+        ctx.mesh, ctx.axes = mesh, (split_axis, concat_axis)
+        return mesh._all_to_all(b, split_axis, concat_axis)
+
+    @staticmethod
+    def backward(ctx, grad):
+        split_axis, concat_axis = ctx.axes
+        return None, None, None, ctx.mesh._all_to_all(grad.contiguous(), concat_axis, split_axis)
 
 
 Mesh = Union[SimMesh, ProcessGroupMesh]

@@ -39,7 +39,7 @@ from typing import Callable, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import schedule
-from repro_torch.core.mesh import Blocks, Mesh
+from repro_torch.core.mesh import Blocks, Mesh, Pending
 
 #: ``chunk_fn(chunk, src)``: the partial a rank accumulates for the chunk
 #: that source rank ``src`` contributed.
@@ -63,6 +63,17 @@ class _Hop(torch.autograd.Function):
 
 def _hop(ring, pieces: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> Blocks:
     return list(_Hop.apply(ring, tuple(perm), *pieces))
+
+
+def ppermute_start(ring, pieces: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> Pending:
+    """``ring.ppermute_start(pieces, perm)`` where autograd records
+    nothing (the message travels until it is waited on); where it
+    records, the differentiable hop (:class:`_Hop`), waited on at once:
+    a ``ProcessGroupMesh``'s posted message carries no gradient."""
+    if not (torch.is_grad_enabled() and any(p.requires_grad for p in pieces)):
+        return ring.ppermute_start(pieces, perm)
+    out = _hop(ring, pieces, perm)
+    return Pending(ring, lambda: out)
 
 
 def _call(ring, me: int, fn: ChunkFn, chunk: torch.Tensor, src: int) -> torch.Tensor:

@@ -25,7 +25,7 @@ GSPMD survives and explicit attention cannot; here a ``"heads"`` or
 ``"kv_heads"`` dim takes the ``model`` axis only where the head count
 (``units``) divides it. And only the ``model`` axis places weights in
 this slice: a ``data`` axis (``"fsdp"``) replicates them (FSDP comes
-with training, ROADMAP A15.3).
+with the placed training state, ROADMAP A15.3c).
 """
 
 from __future__ import annotations

@@ -13,9 +13,12 @@ GPU unless given ``--device cpu``).
 
 Unlike the reference's serve launcher, ``--reduced`` is a plain
 ``store_true`` (default False), as in the reference's train launcher: a
-bare ``--arch hymba-1.5b`` trains the full config. ``--model-parallel``
-above 1 raises until training over a model axis is ported (ROADMAP
-A15.3b).
+bare ``--arch hymba-1.5b`` trains the full config. ``--model-parallel
+mp`` trains tensor-parallel over a ``(1, mp)`` ``SimMesh`` on the one
+device (``launch.mesh.make_local_mesh``; ``--elastic``: ``(n // mp,
+mp)``). The launcher over processes -- a ``ProcessGroupMesh`` under
+``torch.distributed``, whose checkpoints would hold per-rank blocks --
+raises: it is ROADMAP A15.3c.
 """
 
 from __future__ import annotations
@@ -87,8 +90,6 @@ def build_argparser():
 
 
 def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
-    if args.model_parallel > 1:
-        raise NotImplementedError(f"--model-parallel {args.model_parallel}: training over a model axis is {NEXT}")
     cfg = get_config(args.arch, reduced=args.reduced)
     device = getattr(args, "device", None)
     tcfg = TrainConfig(
@@ -118,6 +119,8 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
             mesh = elastic_mesh(("data", "model"), model_parallel=args.model_parallel, device=device)
         else:
             mesh = make_local_mesh(args.model_parallel, device)
+        if mesh.caller_holds_block and mesh.p > 1:
+            raise NotImplementedError(f"the train launcher over processes (checkpoints of per-rank blocks) is {NEXT}")
         model = Model(cfg, mesh=mesh, attn_impl=args.attn_impl, device=mesh.device)
         g = torch.Generator(device=model.device)
         g.manual_seed(tcfg.seed)

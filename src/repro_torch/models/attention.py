@@ -43,8 +43,16 @@ whole heads (``core.sharding.placement``):
   constrains MLA to the heads partition).
 
 :func:`flash_decode_combine` merges partial online softmaxes over a
-sequence-sharded KV (``pmax`` then two ``psum`` s); no serving path calls
-it, in the reference or here.
+sequence-sharded KV (``pmax`` then two ``psum`` s); no serving or
+training path calls it, in the reference or here, and over a process
+group it has no gradient (``mesh.pmax`` raises under autograd).
+
+Training over a ``ProcessGroupMesh``: where the products differ by rank
+(split heads, sequence blocks, the context partition's rows), a tensor
+the same on every rank enters them through ``TP.vary`` -- the input of
+a split projection, a whole K / V weight or ``wo``, the context
+partition's whole Q / K / V, MLA's latent -- so its gradient is summed
+over the ranks (``common.TP``).
 
 :func:`flash_attention_train` (every full-sequence pass with ``impl="chunked"``
 and ``q_offset=0``) carries the reference's custom backward as a
@@ -355,25 +363,31 @@ def cache_heads(cfg: ModelConfig, tp: TP) -> int:
     return cfg.num_kv_heads // tp.p if _split(cfg, tp).cache and tp.holds_block else cfg.num_kv_heads
 
 
-def _heads_block(tp: TP, w: torch.Tensor, dim: int, c: int, units: int, width: int) -> torch.Tensor:
-    """Coordinate ``c``'s block of ``units`` heads of ``width`` along ``dim``."""
-    return tp.block(w, dim % w.ndim, c, units * width, units)
+def _heads_block(tp: TP, w: torch.Tensor, dim: int, c: int, units: int, width: int, *,
+                 vary: bool = False) -> torch.Tensor:
+    """Coordinate ``c``'s block of ``units`` heads of ``width`` along ``dim``
+    (``vary``: ``TP.block``'s)."""
+    return tp.block(w, dim % w.ndim, c, units * width, units, vary=vary)
 
 
 def _gqa_qkv(p: Params, x: Acts, cfg: ModelConfig, positions: torch.Tensor, tp: TP, coords: Sequence[int]):
     """Each coordinate's (q (B, S, H', hd), k, v (B, S, KVH', hd)), rope
     applied: its Q heads and its K / V heads (every KV head where they
-    stay whole), over the whole sequence."""
+    stay whole), over the whole sequence. Where the Q heads are split or
+    the activations are sequence blocks the products differ by rank, and
+    K / V weights kept whole enter through ``TP.vary``."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
-    cols = tp.col(x, lambda c: [_heads_block(tp, p[n], -1, c, u, hd) for n, u in (("wq", h), ("wk", kvh), ("wv", kvh))],
-                  coords)
+    split = tp.splits(h)
+    rs = split or tp.seq
+    cols = tp.col(x, lambda c: [_heads_block(tp, p[n], -1, c, u, hd, vary=rs)
+                                for n, u in (("wq", h), ("wk", kvh), ("wv", kvh))], coords, split=split)
     out = []
     for c, (q, k, v) in zip(coords, cols):
         dt = q.dtype
         if cfg.qkv_bias:
-            q = q + _heads_block(tp, p["bq"], 0, c, h, hd).to(dt)
-            k = k + _heads_block(tp, p["bk"], 0, c, kvh, hd).to(dt)
-            v = v + _heads_block(tp, p["bv"], 0, c, kvh, hd).to(dt)
+            q = q + _heads_block(tp, p["bq"], 0, c, h, hd, vary=rs).to(dt)
+            k = k + _heads_block(tp, p["bk"], 0, c, kvh, hd, vary=rs).to(dt)
+            v = v + _heads_block(tp, p["bv"], 0, c, kvh, hd, vary=rs).to(dt)
         b, s = q.shape[:2]
         q = q.reshape(b, s, -1, hd)
         k = k.reshape(b, s, -1, hd)
@@ -402,11 +416,13 @@ def _kv_for(t: torch.Tensor, c: int, cfg: ModelConfig, tp: TP) -> torch.Tensor:
     return t.index_select(2, torch.tensor([(c * n + i) // g for i in range(n)], device=t.device))
 
 
-def _out(p: Params, o: torch.Tensor, c: int, cfg: ModelConfig, tp: TP, width: int) -> torch.Tensor:
+def _out(p: Params, o: torch.Tensor, c: int, cfg: ModelConfig, tp: TP, width: int, *,
+         vary: bool = False) -> torch.Tensor:
     """Coordinate ``c``'s (B, S, H', width) attention output through its
-    row block of ``wo``."""
+    row block of ``wo`` (``vary``: the outputs differ by rank, so a whole
+    ``wo`` enters through ``TP.vary``)."""
     b, s = o.shape[:2]
-    return o.reshape(b, s, -1) @ _heads_block(tp, p["wo"], 0, c, cfg.num_heads, width).to(o.dtype)
+    return o.reshape(b, s, -1) @ _heads_block(tp, p["wo"], 0, c, cfg.num_heads, width, vary=vary).to(o.dtype)
 
 
 def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: str, tp: TP,
@@ -419,6 +435,7 @@ def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: 
     whole = x if isinstance(x, torch.Tensor) else x[0]
     s = whole.shape[1] * (tp.p if tp.seq else 1)
     context = sp.context and s % tp.p == 0
+    rs = sp.heads or tp.seq  # the q / k / v products differ by rank (else the same on every rank)
     coords = tp.owners(sp.heads or context)
     qkv = _gqa_qkv(p, x, cfg, torch.arange(s, device=whole.device), tp, coords)
     kv_whole = None
@@ -438,20 +455,21 @@ def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: 
     if not context:
         outs = [attention(q, _kv_for(k, c, cfg, tp), _kv_for(v, c, cfg, tp), spec, impl=impl,
                           kv_chunk=cfg.attn_kv_chunk) for c, (q, k, v) in zip(coords, qkv)]
-        return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)],
+        return tp.reduce([_out(p, o, c, cfg, tp, hd, vary=rs) for c, o in zip(coords, outs)],
                          "partial" if sp.heads else "whole")
     sl = s // tp.p
     if sp.heads:  # the head blocks -> each rank's S/P queries of every head
         qs = tp.all_to_all([q for q, _, _ in qkv], 1, 2)
     else:
-        qs = [q.narrow(1, c * sl, sl) for c, (q, _, _) in zip(coords, qkv)]
-    k, v = kv_whole
+        qs = [tp.vary(q, not rs).narrow(1, c * sl, sl) for c, (q, _, _) in zip(coords, qkv)]
+    # every rank's queries read the whole K / V: gathered, or the same on every rank
+    k, v = (tp.vary(t, sp.kv or not rs) for t in kv_whole)
     outs = [attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk, q_offset=c * sl)
             for c, q in zip(coords, qs)]
     if sp.heads:  # back to the head blocks over the whole sequence, for the row-parallel wo
         outs = tp.all_to_all(outs, 2, 1)
         return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)], "partial")
-    return tp.reduce([_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)], "seq")
+    return tp.reduce([_out(p, o, c, cfg, tp, hd, vary=True) for c, o in zip(coords, outs)], "seq")
 
 
 def apply_attention(
@@ -602,19 +620,26 @@ def init_mla(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Para
 def _mla_ranks(p: Params, x: Acts, cfg: ModelConfig, positions: torch.Tensor, tp: TP, coords: Sequence[int]):
     """Each coordinate's (q_nope (B,S,H',nope), q_rope (B,S,H',rope)
     rotated, ckv (B,S,r) normalized, k_rope (B,S,1,rope) rotated): its
-    heads' queries, and the latent, which every rank computes whole."""
+    heads' queries, and the latent, which every rank computes whole. The
+    latent's leaves are whole: on sequence blocks they meet each rank's
+    rows (``TP.vary``); on replicated activations the latent is the same
+    on every rank and enters the rank's heads through ``TP.vary``."""
     m: MLAConfig = cfg.mla
     h, qd = cfg.num_heads, m.nope_head_dim + m.rope_head_dim
+    seq, split = tp.seq, tp.splits(h)
+    enter = split and not seq  # a latent the same on every rank, into the rank's heads
+    q_norm, kv_norm = tp.vary_tree(p["q_norm"], seq), tp.vary_tree(p["kv_norm"], seq)
     out = []
-    for c, (cq, ckv_full) in zip(coords, tp.col(x, lambda c: [p["wdq"], p["wdkv"]], coords)):
+    for c, (cq, ckv_full) in zip(coords, tp.col(x, lambda c: [tp.vary(p["wdq"], seq), tp.vary(p["wdkv"], seq)],
+                                                coords)):
         dt = cq.dtype
-        cq = common.apply_norm(p["q_norm"], cq, "rmsnorm")
-        q = cq @ _heads_block(tp, p["wuq"], 1, c, h, qd).to(dt)
+        cq = tp.vary(common.apply_norm(q_norm, cq, "rmsnorm"), enter)
+        q = cq @ _heads_block(tp, p["wuq"], 1, c, h, qd, vary=seq).to(dt)
         q = q.reshape(q.shape[0], q.shape[1], -1, qd)
         q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
         q_rope = common.rope(q_rope, positions, cfg.rope_theta)
-        ckv = common.apply_norm(p["kv_norm"], ckv_full[..., :m.kv_lora_rank], "rmsnorm")
-        k_rope = common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta)
+        ckv = tp.vary(common.apply_norm(kv_norm, ckv_full[..., :m.kv_lora_rank], "rmsnorm"), enter)
+        k_rope = tp.vary(common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta), enter)
         out.append((q_nope, q_rope, ckv, k_rope))
     return out
 
@@ -636,11 +661,11 @@ def _mla_expanded(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, position
     ranks = _mla_ranks(p, x, cfg, positions, tp, coords)
     for c, (q_nope, q_rope, ckv, k_rope) in zip(coords, ranks):
         b, s, n = q_nope.shape[:3]
-        kv = (ckv @ _heads_block(tp, p["wukv"], 1, c, h, e).to(ckv.dtype)).reshape(b, s, n, e)
+        kv = (ckv @ _heads_block(tp, p["wukv"], 1, c, h, e, vary=tp.seq).to(ckv.dtype)).reshape(b, s, n, e)
         k_nope, v = kv[..., :m.nope_head_dim], kv[..., m.nope_head_dim:]
         k = torch.cat([k_nope, k_rope.expand(b, s, n, m.rope_head_dim)], dim=-1)
         q = torch.cat([q_nope, q_rope], dim=-1)
-        parts.append(_out(p, attention(q, k, v, spec, impl=impl), c, cfg, tp, m.v_head_dim))
+        parts.append(_out(p, attention(q, k, v, spec, impl=impl), c, cfg, tp, m.v_head_dim, vary=tp.seq))
     return tp.reduce(parts, "partial" if split else "whole"), ranks[0][2], ranks[0][3]
 
 

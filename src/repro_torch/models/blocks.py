@@ -23,7 +23,9 @@ non-causal attention, ``out_proj``.
 Over a mesh (``tp``, ``common.TP``) the attention and the dense FFN are
 tensor-parallel and the norms and residuals run on the activations as
 they lie: replicated, or under Megatron sequence parallelism
-(``Model.hidden``) on each rank's sequence block. The cross-attention
+(``Model.hidden``) on each rank's sequence block (their scales through
+``TP.norm``, so a rank's rows add their share of the scales' gradients
+over processes). The cross-attention
 splits as the self-attention's heads partition: ``wq`` column blocks of
 whole heads, ``wo`` a row block and one psum, its K / V the rank's KV
 heads (a rank holds those of ``state["cross"]`` on a
@@ -92,7 +94,7 @@ def _ffn(p: Params, x: common.Acts, cfg: ModelConfig, use_moe: bool, tp: common.
     FFN: decode and prefill drop it, so they make no zero for it). A MoE
     FFN runs on the whole sequence (gathered from sequence blocks, and
     its output cut back to them): its experts keep their own placement."""
-    h2 = tp.each(lambda a: common.apply_norm(p["ln2"], a, cfg.norm_kind), x)
+    h2 = tp.norm(p["ln2"], x, cfg.norm_kind)
     if use_moe:
         f, aux = moe.apply_moe(p["ffn"], tp.whole(h2), cfg, mesh=tp.mesh, tp=tp.with_seq(False))
         if tp.seq:
@@ -103,7 +105,7 @@ def _ffn(p: Params, x: common.Acts, cfg: ModelConfig, use_moe: bool, tp: common.
 
 
 def _residual(post, x: common.Acts, a: common.Acts, cfg: ModelConfig, tp: common.TP) -> common.Acts:
-    return tp.each(lambda xi, ai: xi + _maybe_post(post, ai, cfg), x, a)
+    return tp.each(lambda xi, ai: xi + ai, x, tp.norm(post if cfg.post_norm else None, a, cfg.norm_kind))
 
 
 class CrossKV(NamedTuple):
@@ -117,8 +119,10 @@ def cross_kv_proj(p: Params, enc_out: torch.Tensor, cfg: ModelConfig, tp: common
     side (every head on a ``SimMesh``, the rank's on a
     ``ProcessGroupMesh``)."""
     c_, kvh, hd = p["cross"], cfg.num_kv_heads, cfg.head_dim_
-    coords = tp.owners(tp.splits(kvh))
-    kv = tp.col(enc_out, lambda c: [attn._heads_block(tp, c_[n], -1, c, kvh, hd) for n in ("wk", "wv")], coords)
+    split = tp.splits(kvh)
+    coords = tp.owners(split)
+    kv = tp.col(enc_out, lambda c: [attn._heads_block(tp, c_[n], -1, c, kvh, hd) for n in ("wk", "wv")], coords,
+                split=split)
     b, s = enc_out.shape[:2]
     k, v = (torch.cat([pair[i] for pair in kv], -1) if len(kv) > 1 else kv[0][i] for i in (0, 1))
     return CrossKV(k.reshape(b, s, -1, hd), v.reshape(b, s, -1, hd))
@@ -129,19 +133,20 @@ def _cross(p: Params, x: common.Acts, cfg: ModelConfig, cross_kv: CrossKV, impl:
     non-causal attention over ``cross_kv``, ``out_proj``."""
     h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
     pc = p["cross"]
-    hc = tp.each(lambda a: common.apply_norm(p["lnc"], a, cfg.norm_kind), x)
+    hc = tp.norm(p["lnc"], x, cfg.norm_kind)
     split = tp.splits(h)
+    rs = split or tp.seq  # the products differ by rank
     coords = tp.owners(split)
-    qs = tp.col(hc, lambda c: [attn._heads_block(tp, pc["wq"], -1, c, h, hd)], coords)
+    qs = tp.col(hc, lambda c: [attn._heads_block(tp, pc["wq"], -1, c, h, hd, vary=rs)], coords, split=split)
 
-    def kv(t, c):
-        return attn._kv_for(tp.block(t, 2, c, kvh) if tp.splits(kvh) else t, c, cfg, tp)
+    def kv(t, c):  # the rank's own KV heads, or all of them: the same on every rank
+        return attn._kv_for(tp.block(t, 2, c, kvh) if tp.splits(kvh) else tp.vary(t, rs), c, cfg, tp)
 
     parts = []
     for c, (q,) in zip(coords, qs):
         q = q.reshape(q.shape[0], q.shape[1], -1, hd)
         o = attn.attention(q, kv(cross_kv.k, c), kv(cross_kv.v, c), AttnSpec(causal=False), impl=impl)
-        parts.append(attn._out(pc, o, c, cfg, tp, hd))
+        parts.append(attn._out(pc, o, c, cfg, tp, hd, vary=rs))
     return tp.each(lambda xi, ai: xi + ai, x, tp.reduce(parts, "partial" if split else "whole"))
 
 
@@ -158,7 +163,7 @@ def apply_decoder_block(
 ) -> Tuple[common.Acts, torch.Tensor]:
     """``x`` in ``tp``'s layout (sequence blocks under Megatron sequence
     parallelism), positions 0..S-1."""
-    h = tp.each(lambda a: common.apply_norm(p["ln1"], a, cfg.norm_kind), x)
+    h = tp.norm(p["ln1"], x, cfg.norm_kind)
     spec = _attn_spec(cfg, is_global=is_global)
     if cfg.mla is not None:
         a = attn.apply_mla(p["attn"], h, cfg, spec, impl=impl, tp=tp)
@@ -234,10 +239,10 @@ def init_encoder_block(generator: torch.Generator, cfg: ModelConfig, device):
 def apply_encoder_block(p: Params, x: common.Acts, cfg: ModelConfig, *, impl: str = "chunked",
                         tp: common.TP = common.SINGLE) -> common.Acts:
     """Pre-norm: bidirectional self-attention, then the MLP."""
-    h = tp.each(lambda a: common.apply_norm(p["ln1"], a, cfg.norm_kind), x)
+    h = tp.norm(p["ln1"], x, cfg.norm_kind)
     x = tp.each(lambda xi, ai: xi + ai, x, attn.apply_attention(p["attn"], h, cfg, AttnSpec(causal=False),
                                                                 impl=impl, tp=tp))
-    h2 = tp.each(lambda a: common.apply_norm(p["ln2"], a, cfg.norm_kind), x)
+    h2 = tp.norm(p["ln2"], x, cfg.norm_kind)
     return tp.each(lambda xi, fi: xi + fi, x, mlp.apply_mlp(p["ffn"], h2, cfg.mlp_kind, tp, cfg.d_ff))
 
 

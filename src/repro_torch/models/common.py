@@ -192,6 +192,7 @@ def unembed(p: Params, x: torch.Tensor, tie: bool, tp: Optional["TP"] = None,
     if tp is None or not tp.splits(vocab):
         w = p["table"].T if tie else p["unembed"]
         return [x @ w.to(x.dtype)]
+    x = tp.vary(x)  # the same on every rank, into each rank's vocabulary block
     if tie:
         return [x @ tp.block(p["table"], 0, c, vocab).T.to(x.dtype) for c in tp.ranks]
     return [x @ tp.block(p["unembed"], 1, c, vocab).to(x.dtype) for c in tp.ranks]
@@ -240,13 +241,31 @@ class TP:
 
     ``ranks`` are the ``model`` coordinates this process computes: all P
     on a ``SimMesh`` (lock step; one ring serves every ``data``
-    coordinate, since this slice replicates over ``data``), its own on a
+    coordinate, since the weights are replicated over ``data`` until
+    FSDP, ROADMAP A15.3c), its own on a
     ``ProcessGroupMesh``. A layer computes one part per coordinate from
     the rank's blocks of its weights (:meth:`block`: a view of the whole
     leaf on a ``SimMesh``, the leaf itself where the process holds its
     block) and sums them with :meth:`psum`. Without a mesh, or on a
     ``model`` axis of one rank, ``ranks`` is ``[0]`` and every block is the
     whole leaf: the one-rank model, op for op.
+
+    Training over a ``ProcessGroupMesh`` (one rank a process): each rank's
+    graph holds only its own part, and every rank computes the same loss
+    from activations that are the same on every rank after each
+    collective. So :meth:`psum` and :meth:`gather` take Megatron's
+    backward passes (``core.mesh``), and :meth:`vary` -- Megatron's "f" --
+    marks each place where a tensor that is the same on every rank
+    enters compute that differs by rank: a product with the rank's block
+    of a weight (:meth:`col` with ``split``), the rank's slice of it
+    (:meth:`scatter_seq`, the context partition's queries, a Mamba
+    rank's channels of ``dt``), or a leaf kept whole that meets the
+    rank's own activations (``block(..., vary=True)``, the norms on
+    sequence blocks, :meth:`norm`). Its backward sums the ranks'
+    gradients. On a ``SimMesh`` all ranks lie in one autograd graph and
+    :meth:`vary` does nothing. Over processes the ``data`` axis holds one
+    rank: the weights are replicated over ``data`` (FSDP and the placed
+    training state are ROADMAP A15.3c).
 
     ``seq`` is the layout of the activations between the layers: False,
     one tensor the same on every rank (the reference's prefill and
@@ -276,13 +295,17 @@ class TP:
         (``core.sharding.placement``'s rule)."""
         return self.p > 1 and units is not None and units % self.p == 0
 
-    def block(self, w: torch.Tensor, dim: int, c: int, full: int, units: Optional[int] = None) -> torch.Tensor:
+    def block(self, w: torch.Tensor, dim: int, c: int, full: int, units: Optional[int] = None, *,
+              vary: bool = False) -> torch.Tensor:
         """Coordinate ``c``'s block of a leaf whose size along ``dim`` is
         ``full`` (``units`` whole units, default ``full``): the leaf where
         the dim is not split, else its slice -- a view on a ``SimMesh``,
-        the leaf itself where the process holds its block."""
+        the leaf itself where the process holds its block. ``vary``: the
+        coordinate's compute differs by rank (its products are its part,
+        or the activations are sequence blocks), so a leaf kept whole
+        enters through :meth:`vary`."""
         if not self.splits(full if units is None else units):
-            return w
+            return self.vary(w, vary)
         n = full // self.p
         if self.holds_block and w.shape[dim] == n:
             return w
@@ -310,6 +333,20 @@ class TP:
         return [w.narrow(dim, j * width + c * n, n) for j in range(parts)]
 
     # -- collectives over the axis ---------------------------------------------
+    def vary(self, t: torch.Tensor, when: bool = True) -> torch.Tensor:
+        """``t``, the same on every rank, entering compute that differs by
+        rank (``mesh.pvary``, Megatron's "f"): the forward is the identity;
+        on a ``ProcessGroupMesh`` the backward sums the ranks' gradients
+        over the axis. ``t`` itself where not ``when``, on one rank, or on
+        a ``SimMesh`` (one autograd graph holds every rank's use)."""
+        if not when or self.p == 1 or not self.holds_block:
+            return t
+        return self.ring.pvary([t], "model")[0]
+
+    def vary_tree(self, p: Params, when: bool = True) -> Params:
+        """:meth:`vary` on every leaf of a dict of leaves (a norm's)."""
+        return {k: self.vary(v, when) for k, v in p.items()}
+
     def psum(self, parts: Sequence[torch.Tensor]) -> torch.Tensor:
         """The sum of the local ranks' parts over the axis (``lax.psum``),
         the same tensor on every rank."""
@@ -340,8 +377,20 @@ class TP:
         """``fn`` elementwise over activations in either layout."""
         return [fn(*a) for a in zip(*xs)] if self.seq else fn(*xs)
 
+    def norm(self, p: Optional[Params], x: Acts, kind: str) -> Acts:
+        """``apply_norm(p, ., kind)`` over activations in either layout
+        (``x`` as it is where ``p`` is None). On sequence blocks each rank
+        normalizes its own rows, so its scale (kept whole) enters through
+        :meth:`vary`: the scale's gradient is summed over the axis."""
+        if p is None:
+            return x
+        p = self.vary_tree(p, self.seq)
+        return self.each(lambda a: apply_norm(p, a, kind), x)
+
     def scatter_seq(self, x: torch.Tensor) -> List[torch.Tensor]:
-        """A replicated (B, S, d) tensor -> the local ranks' sequence blocks."""
+        """A replicated (B, S, d) tensor -> the local ranks' sequence
+        blocks (through :meth:`vary`: each rank keeps its own rows)."""
+        x = self.vary(x)
         s = x.shape[1] // self.p
         return [x.narrow(1, c * s, s) for c in self.ranks]
 
@@ -357,18 +406,23 @@ class TP:
         return self.ranks if split or self.seq else self.ranks[:1]
 
     def col(self, x: Acts, ws_of: Callable[[int], Sequence[torch.Tensor]],
-            coords: Optional[Sequence[int]] = None) -> List[List[torch.Tensor]]:
+            coords: Optional[Sequence[int]] = None, *, split: bool = False) -> List[List[torch.Tensor]]:
         """Column-parallel products over the whole sequence: for each
         coordinate ``c`` of ``coords`` (default every local one),
         ``[x @ w for w in ws_of(c)]`` (the weights cast to x's dtype).
         Replicated ``x``: a weight that is the same tensor for every
-        coordinate (a leaf kept whole) is multiplied once.
+        coordinate (a leaf kept whole) is multiplied once; with ``split``
+        (``ws_of`` gives the coordinates' blocks: the products are each
+        rank's part) ``x`` enters through :meth:`vary`. A leaf kept whole
+        among split ones, or under sequence blocks, is the caller's to
+        pass through :meth:`vary` (``block(..., vary=True)``).
         Sequence blocks: one ring all-gather over the axis whose chunk
         function multiplies each arriving (B, S/P, d) chunk by the rank's
         weights and puts it at its place in the sequence (zeros elsewhere:
         the ring sums what the chunk function returns, and adding zeros
         is exact)."""
         if not self.seq:
+            x = self.vary(x, split)
             done = {}
 
             def prod(w):

@@ -52,10 +52,11 @@ def apply_mlp(p: Params, x: common.Acts, kind: str, tp: common.TP = common.SINGL
     its block; default the leaves' own)."""
     d_ff = p["wd"].shape[0] if d_ff is None else d_ff
     names = ("wg", "wu") if kind in GATED else ("wu",)
-    coords = tp.owners(tp.splits(d_ff))
-    hs = tp.col(x, lambda c: [tp.block(p[k], 1, c, d_ff) for k in names], coords)
+    split = tp.splits(d_ff)
+    coords = tp.owners(split)
+    hs = tp.col(x, lambda c: [tp.block(p[k], 1, c, d_ff, vary=tp.seq) for k in names], coords, split=split)
     parts = []
     for c, h in zip(coords, hs):
         a = _act(h[0], kind) * h[1] if kind in GATED else _act(h[0], kind)
-        parts.append(a @ tp.block(p["wd"], 0, c, d_ff).to(a.dtype))
-    return tp.reduce(parts, "partial" if tp.splits(d_ff) else "whole")
+        parts.append(a @ tp.block(p["wd"], 0, c, d_ff, vary=tp.seq).to(a.dtype))
+    return tp.reduce(parts, "partial" if split else "whole")

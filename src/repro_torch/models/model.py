@@ -65,7 +65,16 @@ every rank (their recurrences need the whole sequence; the reference
 constrains it back to whole, or batch-only, inside their blocks): their
 mixers split by channel over the axis (``models.ssm``), hymba's
 attention and FFN as the decoders'. The ``data`` axis replicates the
-weights (FSDP comes with training over a model axis, A15.3b).
+weights (FSDP and the placed training state are ROADMAP A15.3c).
+
+Training over the ``model`` axis (``loss``): on a ``SimMesh`` every
+rank's part lies in one autograd graph; on a ``ProcessGroupMesh`` each
+rank's graph holds its own part, the collectives carry Megatron's
+backward passes and ``common.TP.vary`` marks where a tensor the same on
+every rank enters a rank's own compute (``core.mesh``), so each rank's
+gradient of a leaf is that leaf's gradient of the one-rank model: the
+whole leaf's for a leaf kept whole, its block's for a placed one
+(:meth:`Model.sharded_leaves` names which).
 
 On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
 every leaf in the one-rank order, one layer at a time, and keeps the
@@ -361,6 +370,22 @@ class Model:
             specs["mtp"] = {"proj": ("fsdp", None), "block": sb, "norm_h": sn, "norm_e": sn}
         return params, specs
 
+    def sharded_leaves(self) -> List[bool]:
+        """Whether each leaf of the model's parameter tree, in
+        ``optim.adamw.leaves`` order, is placed over the ``model`` axis on
+        this model's mesh -- a rank holds its block (``core.sharding.block``
+        through :func:`_where`, as :meth:`init` and :func:`params_from_numpy`
+        place it) -- rather than whole. The leaves' shapes and specs come
+        from :meth:`init` on the ``meta`` device: no weight is drawn. All
+        False without a mesh and on a ``SimMesh`` (every rank's block is a
+        view of the whole leaf)."""
+        from repro_torch.optim.adamw import leaves
+
+        shapes, specs = Model(self.cfg, device="meta").init(torch.Generator())
+        placed = _map2(lambda a, spec, path: _where(self.mesh, spec, a.shape, self.units, path)[0] is not None,
+                       shapes, specs)
+        return leaves(placed)
+
     # ------------------------------------------------------------- embedding
     def _embed_in(self, params, batch) -> torch.Tensor:
         cfg = self.cfg
@@ -472,7 +497,7 @@ class Model:
                 x, a = block(x, _layer(params[g.name], i), enc)
                 if a is not None:
                     aux = aux + a
-        x = tp.whole(tp.each(lambda a: common.apply_norm(params["final_norm"], a, cfg.norm_kind), x))
+        x = tp.whole(tp.norm(params["final_norm"], x, cfg.norm_kind))
         return (x[:, cfg.meta_tokens:] if cfg.meta_tokens else x), aux
 
     @torch.inference_mode()
@@ -691,6 +716,33 @@ def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: 
         stacked[i].copy_(tree if rows is None else _take(tree, rows, parts))
 
 
+def rank_blocks(tree, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
+    """A tree of the model's layout (weights, or AdamW moments or
+    gradients, which mirror them; the reference's numpy or JAX arrays,
+    or the port's whole tensors) with, on a ``ProcessGroupMesh`` of
+    several ranks, each leaf cut to the block this rank keeps, as
+    ``Model(cfg, mesh).init`` places it (``specs``: ``Model.init``'s, the
+    reference's; ``cfg``: the head counts, where the specs place heads);
+    elsewhere every leaf whole. Arrays come back as numpy arrays, tensors
+    as tensors (a block a copy)."""
+    units = None if cfg is None else head_units(cfg)
+
+    def cut(a, spec=(), path=""):
+        if not isinstance(a, torch.Tensor):
+            a = np.asarray(a)
+        rows, parts = _where(mesh, spec, tuple(a.shape), units, path)
+        if rows is None:
+            return a
+        block = _take(a, rows, parts)
+        return block.clone() if isinstance(block, torch.Tensor) else block
+
+    if mesh is not None and mesh.caller_holds_block and mesh.p > 1:
+        if specs is None:
+            raise ValueError("placing a tree on a ProcessGroupMesh needs its specs to cut its blocks")
+        return _map2(cut, tree, specs)
+    return _map(cut, tree)
+
+
 def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
     """The reference's parameter tree (numpy or JAX arrays, the same keys
     and stacked ``(L, ...)`` layout) as the port's tensors on ``device``
@@ -699,20 +751,8 @@ def params_from_numpy(tree, device=None, dtype=None, *, mesh=None, specs=None, c
     ``ProcessGroupMesh`` of several ranks pass the tree's ``specs``
     (``Model.init``'s, the reference's) and, where they place heads, the
     model's ``cfg`` (its head counts): each leaf keeps this rank's block,
-    as ``Model(cfg, mesh).init`` places it."""
+    as ``Model(cfg, mesh).init`` places it (:func:`rank_blocks`)."""
     dev = resolve_device(device)
     cast = _float_to(dtype) if dtype is not None else (lambda a: a)
-    units = None if cfg is None else head_units(cfg)
-
-    def load(a, spec=(), path=""):
-        rows, parts = _where(mesh, spec, np.shape(a), units, path)
-        a = np.asarray(a)
-        if rows is not None:
-            a = _take(a, rows, parts)
-        return cast(torch.from_numpy(np.array(a)).to(dev))
-
-    if mesh is not None and mesh.caller_holds_block and mesh.p > 1:
-        if specs is None:
-            raise ValueError("params_from_numpy on a ProcessGroupMesh needs the tree's specs to place its blocks")
-        return _map2(load, tree, specs)
-    return _map(load, tree)
+    return _map(lambda a: cast(torch.from_numpy(np.array(a)).to(dev)),
+                rank_blocks(tree, mesh=mesh, specs=specs, cfg=cfg))

@@ -204,11 +204,14 @@ def _block_ffn(ws, xb: torch.Tensor, kind: str) -> torch.Tensor:
     return _expert_ffn(*ws, xb, kind)
 
 
-def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None) -> Tuple[torch.Tensor, torch.Tensor]:
+def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None,
+                     tp: Optional[common.TP] = None) -> Tuple[torch.Tensor, torch.Tensor]:
     """The reference's GSPMD capacity dispatch: capacity per data-parallel
     group, every expert on its (cap, d) slots. Over several ranks each
     runs its block of the (G, E, cap, d) buffer and ``mesh.gather`` (an
-    all-gather) brings the expert outputs to every rank."""
+    all-gather) brings the expert outputs to every rank. The buffer, the
+    same on every rank, enters each rank's block through ``tp.vary`` (and
+    experts kept whole, where the capacity dim is what splits)."""
     mo = cfg.moe
     e = mo.num_experts
     t = x2d.shape[0]
@@ -226,8 +229,9 @@ def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None) -> Tuple
         y = _block_ffn((p.get("wg"), p["wu"], p["wd"]), buf, cfg.mlp_kind)
     else:
         split = spec[1] is not None
-        blocks = [_block_ffn(_experts_of(p, mesh, rank, split, e), b, cfg.mlp_kind)
-                  for rank, b in zip(mesh.local_ranks(), mesh.split(buf, spec))]
+        blocks = [_block_ffn(tuple(w if split or w is None else tp.vary(w) for w in _experts_of(p, mesh, rank, split, e)),
+                             b, cfg.mlp_kind)
+                  for rank, b in zip(mesh.local_ranks(), mesh.split(tp.vary(buf), spec))]
         y = mesh.gather(blocks, spec)  # every expert's outputs on every rank
     out = torch.cat([_local_combine(y[i], w, routing, tl) for i, (w, _, routing, _) in enumerate(routed)])
     return out, torch.stack([r[3] for r in routed]).mean()
@@ -259,11 +263,13 @@ def _ring_exchange_ffn(ws: Sequence[tuple], bufs: Sequence[torch.Tensor], kind: 
     it lands and its result is sent home at once (the paper's literal
     'compute each chunk as it lands'); the bytes on the wire are the
     same."""
+    from repro_torch.core.overlap import ppermute_start
+
     pn = ring.p
     ranks = ring.local_ranks()
 
-    def post(s: int, pieces, sign: int):
-        return ring.ppermute_start(pieces, [(i, (i + sign * s) % pn) for i in range(pn)])
+    def post(s: int, pieces, sign: int):  # under autograd a differentiable hop, waited at once
+        return ppermute_start(ring, pieces, [(i, (i + sign * s) % pn) for i in range(pn)])
 
     outs = [torch.empty_like(b) for b in bufs]
     sends = [post(s, [b[(me + s) % pn] for b, me in zip(bufs, ranks)], 1) for s in range(1, pn)]
@@ -292,25 +298,27 @@ def _ring_exchange_ffn(ws: Sequence[tuple], bufs: Sequence[torch.Tensor], kind: 
     return outs
 
 
-def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, axis_name: str = "model"):
+def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp: common.TP, axis_name: str = "model"):
     """x: (B, S, d), replicated. Each rank takes its island of the
     sequence: its S/P slice over ``axis_name`` (and its batch block over a
     data axis), the sequence-parallel expert parallelism of DeepSeek. The
     aux is the mean of the islands of the ``model`` ring of data
     coordinate 0: the reference's ``lax.pmean`` over the axis, whose
-    ``out_specs=P()`` keeps that group's value."""
+    ``out_specs=P()`` keeps that group's value. ``x`` and the router,
+    the same on every rank, enter the islands through ``tp.vary``."""
     mo = cfg.moe
     b, s, d = x.shape
     e, pn = mo.num_experts, mesh.shape[axis_name]
     e_loc = e // pn
     tail = (sharding.resolve(mesh, "batch")[0], axis_name, None)  # the reference's x_spec
     islands = []
-    for xl in mesh.split(x, tail):
+    router = tp.vary(p["router"])
+    for xl in mesh.split(tp.vary(x), tail):
         bl, sl, _ = xl.shape
         t = bl * sl
         x2d = xl.reshape(t, d)
         cap = _capacity(t, mo.top_k, e, mo.capacity_factor)
-        w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
+        w, idx, aux = router_topk(x2d, router, mo.top_k)
         buf, routing = _local_dispatch(x2d, idx, e, cap)
         islands.append((buf.reshape(pn, e_loc, cap, d), w, routing, aux, xl.shape))
     local = mesh.local_ranks()
@@ -334,6 +342,7 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
     the mesh's ``model`` axis)."""
     mo = cfg.moe
     b, s, d = x.shape
+    tp = common.TP(mesh) if tp is None else tp
     dispatch = mo.dispatch
     if dispatch == "ring":
         pn = mesh.shape.get("model", 1) if mesh is not None else 1
@@ -341,13 +350,12 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
             dispatch = "einsum"  # the reference's divisibility fallback
     DISPATCHES[(dispatch, 1 if mesh is None else mesh.p)] += 1
     if dispatch == "ring":
-        out, aux = _apply_moe_ring(p, x, cfg, mesh)
+        out, aux = _apply_moe_ring(p, x, cfg, mesh, tp)
     elif dispatch == "dense":
         out, aux = _apply_moe_dense(p, x.reshape(b * s, d), cfg)
     else:
-        out, aux = _apply_moe_gspmd(p, x.reshape(b * s, d), cfg, mesh)
+        out, aux = _apply_moe_gspmd(p, x.reshape(b * s, d), cfg, mesh, tp)
     out = out.reshape(b, s, d)
     if mo.num_shared:
-        tp = common.TP(mesh) if tp is None else tp
         out = out + mlp.apply_mlp(p["shared"], x, cfg.mlp_kind, tp, (mo.expert_d_ff or cfg.d_ff) * mo.num_shared)
     return out, aux

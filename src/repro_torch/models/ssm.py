@@ -39,7 +39,9 @@ divides them:
   and (B, W-1, di/P) conv window; ``wbc`` and ``wdt`` are row blocks
   (partial sums over the rank's channels, one psum, then each rank's
   channels of dt); the scan is local to the rank's channels over the
-  whole sequence; ``wout`` a row block, one psum.
+  whole sequence; ``wout`` a row block, one psum. In training over
+  processes ``bc`` and ``dt`` enter the rank's channels through
+  ``TP.vary`` (their gradients summed over the ranks).
 - **mLSTM**, by heads: ``wup`` packs ``[x | z]`` (``MESH_LAYOUT``),
   ``conv`` and the conv window by channel; the rank's conv output and x
   are gathered whole, and ``wq`` / ``wk`` / ``wv`` / ``wif`` are placed
@@ -308,7 +310,7 @@ def _mlstm_in(p, x, cfg, conv_state, tp: common.TP):
     di = int(cfg.ssm.expand * d)
     dh = di // h
     split, coords, _ = _channels(tp, di)
-    ups = tp.col(x, lambda c: tp.parts(p["wup"], 1, c, 2 * di, 2), coords)
+    ups = tp.col(x, lambda c: tp.parts(p["wup"], 1, c, 2 * di, 2), coords, split=split)
     xcs, convs = [], []
     for c, (xm, _) in zip(coords, ups):
         xc, conv_new = _causal_conv(xm, tp.block(p["conv"], 1, c, di),
@@ -320,8 +322,10 @@ def _mlstm_in(p, x, cfg, conv_state, tp: common.TP):
     def to_heads(a):
         return a.reshape(b, s_len, -1, dh).transpose(1, 2)
 
+    by_heads = tp.splits(h)
+    xc, xm = tp.vary(xc, by_heads), tp.vary(xm, by_heads)  # the same on every rank, into the rank's heads
     heads = []
-    for c in tp.owners(tp.splits(h)):
+    for c in tp.owners(by_heads):
         cols = [tp.block(p[n], 1, c, di, h) for n in ("wq", "wk", "wv")]  # the coordinate's whole heads
         gates = xc.float() @ torch.cat(tp.parts(p["wif"], 1, c, 2 * h, 2), -1).float()
         i_pre, f_pre = gates.chunk(2, -1)  # (B,S,H')
@@ -343,12 +347,12 @@ def _mlstm_out(p, houts, zs, h, tp: common.TP):
     split, _, m = _channels(tp, di)
     by_heads = tp.splits(h)
     ys = {}
-    for c, hout in houts:
-        scale = {"scale": _own(p["gn"]["scale"], c, by_heads, m)}
+    for c, hout in houts:  # the norm's scale is whole: a rank's heads take their channels of it
+        scale = {"scale": _own(tp.vary(p["gn"]["scale"], by_heads), c, by_heads, m)}
         ys[c] = common.apply_groupnorm(scale, hout, hout.shape[-2])
     parts = []
     for c, z in zs:
-        y = ys[c] if by_heads else _own(next(iter(ys.values())), c, split, m)
+        y = ys[c] if by_heads else _own(tp.vary(next(iter(ys.values())), split), c, split, m)
         parts.append((y * common.silu(z)) @ tp.block(p["wdown"], 0, c, di).to(y.dtype))
     return tp.reduce(parts, "partial" if split else "whole")
 
@@ -472,7 +476,8 @@ def apply_slstm_block(
     keep_state = state is not None
     st = state if keep_state else init_slstm_state(b, d, x.device)
     split = tp.splits(4 * d)
-    xg = [a for (a,) in tp.col(x.float(), lambda c: [tp.block(p["wx"], 1, c, 4 * d).float()], tp.owners(split))]
+    xg = [a for (a,) in tp.col(x.float(), lambda c: [tp.block(p["wx"], 1, c, 4 * d).float()], tp.owners(split),
+                               split=split)]
     xg = tp.gather(xg, -1) if split else xg[0]
     cell = {"r": p["r"].float()}  # cast once, not per step
     hs = []
@@ -484,7 +489,7 @@ def apply_slstm_block(
     dff = int(d * 4 / 3)
     fsplit = tp.splits(dff)
     coords = tp.owners(fsplit)
-    ups = tp.col(hn, lambda c: tp.parts(p["wup"], 1, c, 2 * dff, 2), coords)
+    ups = tp.col(hn, lambda c: tp.parts(p["wup"], 1, c, 2 * dff, 2), coords, split=fsplit)
     outs = [(common.gelu(a) * u) @ tp.block(p["wdown"], 0, c, dff).to(x.dtype) for c, (a, u) in zip(coords, ups)]
     return tp.reduce(outs, "partial" if fsplit else "whole"), (st if keep_state else None)
 
@@ -691,7 +696,7 @@ def apply_mamba(
     dt_ = x.dtype
     keep_state = state is not None
     split, coords, m = _channels(tp, di)
-    ups = tp.col(x, lambda c: tp.parts(p["win"], 1, c, 2 * di, 2), coords)
+    ups = tp.col(x, lambda c: tp.parts(p["win"], 1, c, 2 * di, 2), coords, split=split)
     xcs, convs, sums = [], [], []
     for c, (xi, _) in zip(coords, ups):
         xc, conv_new = _causal_conv(xi, tp.block(p["conv"], 1, c, di),
@@ -700,7 +705,8 @@ def apply_mamba(
         xcs.append(xc)
         convs.append(conv_new)
         sums.append((xc @ tp.block(p["wbc"], 0, c, di).float(), xc @ tp.block(p["wdt"], 0, c, di).float()))
-    bc, dt_all = tp.psum_cat(sums) if split else sums[0]
+    # the sums are the same on every rank; each rank's scan takes its channels
+    bc, dt_all = (tp.vary(t) for t in tp.psum_cat(sums)) if split else sums[0]
     bmat, cmat = bc[..., :n], bc[..., n:]
     chunk = min(sc.chunk, s_len)
     pad = (-s_len) % chunk

@@ -16,7 +16,7 @@ hold one copy of the state, not two).
 
 from __future__ import annotations
 
-from typing import Any, Callable, List, NamedTuple, Tuple
+from typing import Any, Callable, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -71,16 +71,35 @@ def state_specs(param_specs) -> AdamWState:
     return AdamWState(count=((),), mu=param_specs, nu=param_specs)
 
 
-def global_norm(tree) -> torch.Tensor:
+def _squares(xs) -> torch.Tensor:
     total = None
-    for x in leaves(tree):
+    for x in xs:
         sq = torch.sum(torch.square(x.float()))
         total = sq if total is None else total + sq
-    return torch.sqrt(total)
+    return total
 
 
-def clip_by_global_norm(grads, max_norm: float):
-    norm = global_norm(grads)
+def global_norm(tree, mesh=None, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+    """The 2-norm of every leaf of ``tree`` together. Over a
+    ``ProcessGroupMesh`` whose ranks hold blocks of some leaves
+    (``sharded``: one flag a leaf in :func:`leaves` order,
+    ``Model.sharded_leaves``), the whole model's norm: each sharded leaf's
+    squares summed over the ``model`` axis (one all-reduce), each leaf
+    kept whole counted once -- the same value on every rank."""
+    flat = leaves(tree)
+    if mesh is None or sharded is None or not any(sharded):
+        return torch.sqrt(_squares(flat))
+    if len(sharded) != len(flat):
+        raise ValueError(f"{len(sharded)} sharded flags for a tree of {len(flat)} leaves")
+    own = mesh.psum([_squares([x for x, s in zip(flat, sharded) if s])], "model")[0]
+    whole = [x for x, s in zip(flat, sharded) if not s]
+    return torch.sqrt(own + _squares(whole) if whole else own)
+
+
+def clip_by_global_norm(grads, max_norm: float, mesh=None, sharded: Optional[Sequence[bool]] = None):
+    """``grads`` scaled to a global norm of at most ``max_norm``, and that
+    norm (:func:`global_norm`, over ``mesh`` where ``sharded`` says)."""
+    norm = global_norm(grads, mesh, sharded)
     scale = torch.clamp(norm.new_tensor(max_norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 

@@ -1,6 +1,7 @@
-"""Training steps, ported from ``repro.train`` (one rank, and the
-compressed data-parallel step; ``state_shardings`` / ``jit_train_step``
-come with training over a model axis, ROADMAP A15.3b)."""
+"""Training steps, ported from ``repro.train``: one rank or
+tensor-parallel over a ``model`` axis, and the compressed data-parallel
+step; ``state_shardings`` / ``jit_train_step`` come with FSDP and the
+placed training state, ROADMAP A15.3c."""
 
 from repro_torch.train.step import (
     DDPState,

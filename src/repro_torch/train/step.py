@@ -3,10 +3,18 @@ clip -> AdamW, with microbatch accumulation.
 
 Two step flavors:
 
-- :func:`make_train_step`: one rank (or a mesh whose ranks all sit in
-  this process with a ``model`` axis of one: the same arithmetic on the
-  whole batch). The reference's GSPMD shardings over a model axis and
-  FSDP are ROADMAP A15.3b; a mesh with several ``model`` ranks raises.
+- :func:`make_train_step`: one rank, or tensor-parallel over the
+  model's ``model`` axis -- the reference's step under GSPMD, whose
+  collectives the port makes explicit. On a ``SimMesh`` (any shape: its
+  ranks sit in this process, one autograd graph, the whole batch) or
+  SPMD on a ``ProcessGroupMesh`` whose ranks all lie on ``model`` (every
+  rank passes the same whole batch, as the reference shards the batch
+  over ``data`` only). Each rank's gradients are the one-rank step's, of
+  its blocks (``models.model``); the clip's norm sums the placed
+  leaves' squares over the ranks (``optim.adamw.global_norm``). A
+  process group with a ``data`` axis -- FSDP, the batch split over
+  processes and the placed training state -- is ROADMAP A15.3c, and
+  raises.
 - :func:`make_ddp_compressed_step`: the explicit data-parallel step whose
   gradient all-reduce is the int8 error-feedback all-gather
   (``optim.compress``) -- the paper's decomposed-collective idea applied
@@ -31,11 +39,11 @@ import torch
 
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core.mesh import resolve_device
-from repro_torch.models.model import Model
+from repro_torch.models.model import Model, rank_blocks
 from repro_torch.optim import adamw, compress, schedule
 from repro_torch.optim.adamw import leaves, tree_map, unflatten
 
-NEXT = "ROADMAP A15.3b (FSDP and tensor-parallel training over a mesh)"
+NEXT = "ROADMAP A15.3c (FSDP and the placed training state over processes)"
 
 
 class TrainState(NamedTuple):
@@ -78,14 +86,19 @@ def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return schedule.warmup_cosine(step, peak=tcfg.learning_rate, warmup=tcfg.warmup_steps, total=tcfg.total_steps)
 
 
-def _check_one_model_rank(mesh) -> None:
-    if mesh is None:
-        return
-    if mesh.shape.get("model", 1) > 1:
-        raise NotImplementedError(f"training over a model axis of {mesh.shape['model']} ranks is {NEXT}")
-    if mesh.caller_holds_block and mesh.p > 1:
-        raise NotImplementedError(f"make_train_step over a process group is {NEXT}; "
-                                  "data-parallel over processes: make_ddp_compressed_step")
+def _step_mesh(model: Model, mesh):
+    """The mesh the step runs over: the model's own (``mesh``, where
+    given, must be it). Over processes only its ``model`` axis may hold
+    several ranks."""
+    if mesh is not None and mesh is not model.mesh:
+        raise ValueError(f"the step runs over the model's mesh ({model.mesh}), not {mesh}: build Model(cfg, mesh)")
+    mesh = model.mesh
+    if mesh is not None and mesh.caller_holds_block:
+        others = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
+        if others:
+            raise NotImplementedError(f"make_train_step over a process group with a batch axis {others} is {NEXT}; "
+                                      "data-parallel over processes: make_ddp_compressed_step")
+    return mesh
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
@@ -94,9 +107,13 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
     ``tcfg.microbatch > 1``: float32 gradients accumulated over the
     microbatches, then divided), ``clip_by_global_norm``, the AdamW
     update in place, ``step + 1``. Metrics: the loss's own, ``grad_norm``
-    and ``lr``."""
-    _check_one_model_rank(mesh)
+    and ``lr``. ``mesh`` is the model's (``Model(cfg, mesh)``) or None;
+    on a ``ProcessGroupMesh`` every rank passes the same whole batch and
+    the state holds the rank's blocks (``init_train_state``,
+    ``train_state_from_numpy(mesh=, specs=, cfg=)``)."""
+    mesh = _step_mesh(model, mesh)
     loss_fn = make_loss_fn(model)
+    sharded = model.sharded_leaves() if mesh is not None and mesh.caller_holds_block else None
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         lr = _lr(tcfg, state.step)
@@ -112,7 +129,7 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
             metrics = {"loss": ltot / tcfg.microbatch}
         else:
             _, metrics, grads = _value_and_grad(loss_fn, state.params, batch)
-        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip)
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip, mesh, sharded)
         params, opt = adamw.update(grads, state.opt, state.params, lr=lr, cfg=tcfg, inplace=True)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(params, opt, state.step + 1), metrics
@@ -196,20 +213,30 @@ def _tensor(a, device) -> torch.Tensor:
     return torch.from_numpy(np.array(arr)).to(device)
 
 
-def _tree(tree, device):
+def _tree(tree, device, **place):
+    """A tree's leaves as tensors on ``device``; with ``place`` (``mesh=,
+    specs=, cfg=``) each leaf's block a process-group rank keeps
+    (``models.model.rank_blocks``)."""
+    if place:
+        tree = rank_blocks(tree, **place)
     return {k: _tree(v, device) for k, v in tree.items()} if isinstance(tree, dict) else _tensor(tree, device)
 
 
-def _opt(opt, device) -> adamw.AdamWState:
-    return adamw.AdamWState(count=_tensor(opt.count, device), mu=_tree(opt.mu, device), nu=_tree(opt.nu, device))
+def _opt(opt, device, **place) -> adamw.AdamWState:
+    return adamw.AdamWState(count=_tensor(opt.count, device), mu=_tree(opt.mu, device, **place),
+                            nu=_tree(opt.nu, device, **place))
 
 
-def train_state_from_numpy(state, device=None) -> TrainState:
+def train_state_from_numpy(state, device=None, *, mesh=None, specs=None, cfg=None) -> TrainState:
     """The reference's ``TrainState`` (numpy or JAX leaves: weights,
     moments, count, step) as the port's, on ``device`` (default
-    ``cuda``)."""
+    ``cuda``). On a ``ProcessGroupMesh`` of several ranks pass the
+    weights' ``specs`` and the model's ``cfg``, as to
+    ``params_from_numpy``: the weights and both AdamW moments keep this
+    rank's blocks."""
     dev = resolve_device(device)
-    return TrainState(_tree(state.params, dev), _opt(state.opt, dev), _tensor(state.step, dev))
+    place = dict(mesh=mesh, specs=specs, cfg=cfg) if mesh is not None else {}
+    return TrainState(_tree(state.params, dev, **place), _opt(state.opt, dev, **place), _tensor(state.step, dev))
 
 
 def ddp_state_from_numpy(state, device=None, ranks: int = 1) -> DDPState:

@@ -7,7 +7,10 @@ reference's ``jax.grad`` and against autograd through a plain version:
 every leaf at reduced widths with the reference's weights carried across
 (1e-5 of each leaf's largest reference gradient), ``_remat``, three
 train steps, the microbatch step, a checkpoint written by the reference
-and resumed here, and the train launcher with an injected failure. The
+and resumed here, and the train launcher with an injected failure. Then
+the step over a model axis of 2 (``SimMesh((1, 2))``) against the
+one-rank step, and through it the reference's; the refusal of a batch
+axis over processes; the launcher's ``--model-parallel 2``. The
 reference's calls are jitted; its weights come from its own ``init``
 under jit."""
 
@@ -37,7 +40,7 @@ from repro.train import init_train_state as r_init_train_state
 from repro.train import make_train_step as r_make_train_step
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
-from repro_torch.core import SimMesh
+from repro_torch.core import ProcessGroupMesh, SimMesh
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM, make_batch_arrays
 from repro_torch.models import attention as A
 from repro_torch.models import losses as L
@@ -45,7 +48,9 @@ from repro_torch.models import ssm as S
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.optim import adamw, compress, schedule
 from repro_torch.train import init_train_state, make_train_step, train_state_from_numpy
-from torch_train_common import assert_params_match, grad_noise
+from torch_train_common import (SPLIT_ARCHS, SPLIT_SEQ, SPLIT_STEPS, assert_flat_params_match, assert_params_match,
+                                 assert_split_matches, grad_noise, one_thread, split_batches, split_cfg, split_init,
+                                 split_run, split_tcfg)
 from torch_train_common import flat as _flat
 
 REL_TOL = 1e-5
@@ -528,10 +533,69 @@ def test_microbatch_step_matches_the_whole_batch():
     assert abs(float(out[4][1]["loss"]) - float(out[0][1]["loss"])) < 1e-3
 
 
-def test_train_step_refuses_a_model_axis():
-    model = Model(get_config(STEP_ARCH, reduced=True), device="cpu")
-    with pytest.raises(NotImplementedError, match="A15.3b"):
-        make_train_step(model, TrainConfig(), SimMesh((1, 2), axis_names=("data", "model"), device="cpu"))
+class _DataAxisRank(ProcessGroupMesh):
+    """Rank 0 of a (data 2, model 1) process group as the step sees it:
+    its axes, without joining a group (the gloo spawn of
+    ``tests/test_torch_train_ddp.py`` refuses a real one)."""
+
+    def __init__(self):
+        self._set_axes((2, 1), ("data", "model"))
+        self.rank, self.device = 0, torch.device("cpu")
+
+
+def test_train_step_refuses_a_data_axis_over_processes():
+    """Every process-group rank passes the same whole batch: a batch split
+    over a ``data`` axis of processes is FSDP's slice (A15.3c). A step
+    over a mesh must be the model's own."""
+    mesh = _DataAxisRank()
+    model = Model(get_config(STEP_ARCH, reduced=True), mesh, device="cpu")
+    with pytest.raises(NotImplementedError, match="A15.3c"):
+        make_train_step(model, TrainConfig(), mesh)
+    with pytest.raises(ValueError, match="the model's mesh"):
+        make_train_step(Model(get_config(STEP_ARCH, reduced=True), device="cpu"), TrainConfig(),
+                        SimMesh((1, 2), axis_names=("data", "model"), device="cpu"))
+
+
+# ------------------------------------------------- the step over a model axis
+
+
+def _split_state(arch, step_ref):
+    """The initial numpy state: the reference's for STEP_ARCH (through the
+    one-rank step, the split step is held to the reference), the port's
+    seeded init for the others."""
+    return step_ref[1] if arch == STEP_ARCH else split_init(arch)[0]
+
+
+@pytest.mark.parametrize("arch,micro", [(a, 0) for a in SPLIT_ARCHS] + [(STEP_ARCH, 2)])
+def test_split_step_on_sim_mesh_matches_one_rank(step_ref, arch, micro):
+    """``make_train_step`` on ``Model(cfg, SimMesh((1, 2)))`` against the
+    one-rank step from the same state, SPLIT_STEPS steps in float32: every
+    leaf's gradient within 1e-5 of its largest one-rank entry at every
+    step, loss and gradient norm within 1e-6 relative, the parameters
+    within 1e-5 (and Adam's amplification of the gradients'
+    disagreement). SPLIT_ARCHS: sequence parallelism (qwen, mixtral), the
+    einsum MoE dispatch with split experts (mixtral), hymba's context
+    partition beside Mamba's channels;
+    ``micro``: 2 microbatches. For STEP_ARCH the split step also meets
+    the reference's step (its metrics and parameters, ``step_ref``)."""
+    cfg = split_cfg(arch)
+    state_np, tcfg, batches = _split_state(arch, step_ref), split_tcfg(microbatch=micro), split_batches(cfg)
+    mesh = SimMesh((1, 2), axis_names=("data", "model"), device="cpu")
+    model = Model(cfg, mesh, device="cpu")
+    assert model.seq_parallel(SPLIT_SEQ) == (arch != "hymba-1.5b")  # the hybrid keeps its activations whole
+    assert A.use_context_parallel(cfg, model.tp) == (arch == "hymba-1.5b")
+    with one_thread():
+        one = split_run(Model(cfg, device="cpu"), state_np, batches, tcfg)
+        got = split_run(model, state_np, batches, tcfg)
+    lrs = [m["lr"] for m in one[1]]
+    assert_split_matches(got, one, lrs)
+    if arch == STEP_ARCH and not micro:
+        _, _, states, metrics, _, rgrads = step_ref
+        for s in range(SPLIT_STEPS):
+            for k in ("loss", "grad_norm"):
+                assert abs(got[1][s][k] - metrics[s][k]) <= 1e-6 * metrics[s][k], (s, k)
+        assert_flat_params_match(got[2], _flat(states[SPLIT_STEPS - 1].params), REL_TOL, lrs,
+                                 grad_noise(rgrads[:SPLIT_STEPS]))
 
 
 # ----------------------------------------------------------------- launcher
@@ -564,7 +628,33 @@ def test_train_launcher_recovers_from_an_injected_failure(tmp_path):
     assert sorted(failed.files) == sorted(clean.files)
     for name in clean.files:
         assert np.array_equal(failed[name], clean[name]), name
-    args = build_argparser().parse_args(["--arch", "phi3-medium-14b", "--reduced", "--model-parallel", "2",
-                                         "--device", "cpu", "--ckpt-dir", str(tmp_path)])
-    with pytest.raises(NotImplementedError, match="A15.3b"):
-        train(args)
+
+
+def test_train_launcher_model_parallel_matches_one_rank(tmp_path, monkeypatch):
+    """``--model-parallel 2`` trains on a ``SimMesh((1, 2))`` (what
+    ``make_local_mesh`` builds: the departure of ROADMAP queue C) with the
+    losses of ``--model-parallel 1``: within 1e-5 in float32, and within
+    2e-3 in the reduced config's own bfloat16, where the split products'
+    sums round in another order (4e-4 measured)."""
+    import repro_torch.launch.train as launch
+    from repro_torch.launch.mesh import make_local_mesh
+
+    mesh = make_local_mesh(2, "cpu")
+    assert isinstance(mesh, SimMesh) and mesh.shape == {"data": 1, "model": 2}
+
+    def run(mp, name):
+        args = launch.build_argparser().parse_args([
+            "--arch", STEP_ARCH, "--reduced", "--steps", "4", "--batch", "4", "--seq", "16", "--model-parallel",
+            str(mp), "--ckpt-dir", str(tmp_path / f"{name}{mp}"), "--device", "cpu"])
+        hist = launch.train(args)
+        assert hist["restarts"] == 0 and len(hist["loss"]) == 4
+        return hist["loss"]
+
+    for name, tol in (("bfloat16", 2e-3), ("float32", 1e-5)):
+        if name == "float32":
+            get = launch.get_config
+            monkeypatch.setattr(launch, "get_config", lambda *a, **k: dataclasses.replace(get(*a, **k),
+                                                                                        dtype="float32"))
+        with one_thread():
+            one, two = run(1, name), run(2, name)
+        assert all(abs(a - b) <= tol * abs(b) for a, b in zip(two, one)), (name, one, two)

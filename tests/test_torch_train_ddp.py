@@ -4,7 +4,16 @@ shard_map step on 4 forced host devices (one subprocess runs both
 compression modes), ``"none"`` at 1e-5, ``"int8"`` losses at 1e-5 and
 parameters within 1e-4; then over gloo at P = 2 in one spawn, every
 rank's parameters bitwise equal to the other's and within 1e-6 of
-``SimMesh(2)``'s on the same global batches."""
+``SimMesh(2)``'s on the same global batches.
+
+The same spawn trains over a ``model`` axis of the two processes
+(``make_train_step`` SPMD, each rank its blocks cut from one initial
+state): every rank's block of every leaf's gradient and parameters
+against the same block of the one-rank step (DeepSeek-V3's ring
+dispatch against ``SimMesh((1, 2))``'s), the leaves kept whole, the
+loss and the gradient norm bitwise equal on both ranks; each
+differentiable collective's gradient against ``SimMesh(2)``'s; and a
+``data`` axis of processes refused."""
 
 import dataclasses
 import os
@@ -19,8 +28,10 @@ from repro_torch.core import SimMesh
 from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
-from repro_torch.train import ddp_state_from_numpy, make_ddp_compressed_step
-from torch_train_common import assert_params_match, grad_noise, near_tie
+from repro_torch.train import ddp_state_from_numpy, make_ddp_compressed_step, make_train_step
+from torch_train_common import (SPLIT_ARCHS, assert_params_match, assert_split_matches, blocks_of, grad_noise,
+                                leaf_names, near_tie, one_thread, split_batches, split_cfg, split_init, split_run,
+                                split_tcfg)
 from torch_train_common import flat as _flat
 
 ARCH = "phi3-medium-14b"  # the reference's own DDP test's (tests/test_elastic.py)
@@ -28,6 +39,13 @@ P = 4
 N_STEPS = 3
 BATCH, SEQ = 8, 16
 MODES = ("none", "int8")
+#: the step over a model axis of the two gloo processes: SPLIT_ARCHS held to
+#: the one-rank step, and DeepSeek-V3's ring dispatch (split experts, MLA,
+#: MTP, the shared expert; capacity E / k) held to SimMesh((1, 2)): the
+#: ring's aux loss is the mean of each rank's island's, not one rank's
+RING_ARCH = "deepseek-v3-671b"
+SPLIT_CASES = tuple(SPLIT_ARCHS) + (RING_ARCH,)
+COLLECTIVES = ("psum", "gather", "all_gather", "all_to_all", "pvary")
 
 REF_CODE = r"""
 import dataclasses
@@ -147,10 +165,51 @@ def test_ddp_step_on_sim_mesh_matches_reference(reference, comp):
             assert (d <= bound).all(), (name, int((d > bound).sum()), float(d.max()))
 
 
-def _gloo_worker(rank, world, init_method, out_dir, init):
+def _split_oracle(arch):
+    """(the initial numpy state, its specs, ``split_run``'s results on one
+    rank -- on ``SimMesh((1, 2))`` for RING_ARCH)."""
+    cfg = split_cfg(arch)
+    state_np, specs = split_init(arch)
+    mesh = SimMesh((1, 2), axis_names=("data", "model"), device="cpu") if arch == RING_ARCH else None
+    return state_np, specs, split_run(Model(cfg, mesh, device="cpu"), state_np, split_batches(cfg), split_tcfg())
+
+
+def _collective_loss(op, mesh, xs, t):
+    """A loss of ``op`` over the ``model`` axis on the local blocks ``xs``
+    (``pvary``: on ``t``, the same on every rank): of an output the same on
+    every rank, one readout; of the ranks' own outputs (``all_to_all``),
+    each rank's readout, summed over the local ranks."""
+    ranks = mesh.local_ranks()
+
+    def readout(y, scale=1.0):
+        return (y * torch.linspace(-1.0, 1.0, y.numel()).reshape(y.shape) * scale).sum()
+
+    if op == "psum":
+        return readout(mesh.psum(xs, "model")[0])
+    if op == "gather":
+        return readout(mesh.gather(xs, ("model", None)))
+    if op == "all_gather":
+        return readout(mesh.all_gather(xs, "model")[0])
+    if op == "all_to_all":
+        return sum(readout(y, r + 1.5) for y, r in zip(mesh.all_to_all(xs, 1, 0), ranks))
+    zs = [v * (r + 1.5) for v, r in zip(mesh.pvary([t] * len(ranks), "model"), ranks)]  # pvary
+    return readout(mesh.psum(zs, "model")[0] ** 2)
+
+
+def _collective_grads(op, mesh):
+    """The gradients of :func:`_collective_loss` with respect to the local
+    blocks (rank r's block drawn from seed r) and to ``t``."""
+    xs = [torch.from_numpy(np.random.default_rng(r).standard_normal((4, 6)).astype(np.float32)).requires_grad_()
+          for r in mesh.local_ranks()]
+    t = torch.from_numpy(np.random.default_rng(9).standard_normal((4, 6)).astype(np.float32)).requires_grad_()
+    grads = torch.autograd.grad(_collective_loss(op, mesh, xs, t), xs + [t], allow_unused=True)
+    return [None if g is None else g.numpy() for g in grads]
+
+
+def _gloo_worker(rank, world, init_method, out_dir, init, oracles):
     import torch.distributed as dist
 
-    from repro_torch.core import init_process_mesh
+    from repro_torch.core import ProcessGroupMesh, init_process_mesh
 
     torch.set_num_threads(1)
     mesh = init_process_mesh(rank, world, init_method, axis_name="data", device="cpu")
@@ -159,21 +218,44 @@ def _gloo_worker(rank, world, init_method, out_dir, init):
         for comp in MODES:
             state, metrics = _run(mesh, init, comp)
             out[comp] = ({k: v.numpy() for k, v in _flat(state.params).items()}, metrics)
+        try:  # a batch split over processes is FSDP's slice
+            make_train_step(Model(split_cfg(ARCH), mesh, device="cpu"), split_tcfg(), mesh)
+            out["refused"] = None
+        except NotImplementedError as e:
+            out["refused"] = str(e)
+        tmesh = ProcessGroupMesh("model", device="cpu")  # the same two processes as a model axis
+        out["collectives"] = {op: _collective_grads(op, tmesh) for op in COLLECTIVES}
+        out["split"] = {}
+        for arch, (state_np, specs, one) in oracles.items():
+            cfg = split_cfg(arch)
+            model = Model(cfg, tmesh, device="cpu")
+            place = dict(mesh=tmesh, specs=specs, cfg=cfg)
+            got = split_run(model, state_np, split_batches(cfg), split_tcfg(), **place)
+            sharded = dict(zip(leaf_names(state_np.params), model.sharded_leaves()))
+            out["split"][arch] = (got, blocks_of(one, **place), sharded)
         np.save(os.path.join(out_dir, f"rank{rank}.npy"), np.array(out, dtype=object), allow_pickle=True)
     finally:
         dist.destroy_process_group()
 
 
-def test_ddp_step_over_gloo_keeps_replicas_equal(reference, tmp_path):
+@pytest.fixture(scope="module")
+def gloo(reference, tmp_path_factory):
+    """The one spawn of P = 2 gloo processes: each rank's results."""
+    import torch.multiprocessing as mp
+
+    world, tmp = 2, tmp_path_factory.mktemp("gloo")
+    with one_thread():
+        oracles = {arch: _split_oracle(arch) for arch in SPLIT_CASES}
+    mp.spawn(_gloo_worker, args=(world, f"file://{tmp / 'rendezvous'}", str(tmp), reference["init"], oracles),
+             nprocs=world, join=True)
+    return [np.load(tmp / f"rank{r}.npy", allow_pickle=True).item() for r in range(world)]
+
+
+def test_ddp_step_over_gloo_keeps_replicas_equal(reference, gloo):
     """P = 2 over gloo: the int8 payload moves by all_gather_into_tensor,
     the plain mean by all_reduce; every rank updates the same replicated
     weights."""
-    import torch.multiprocessing as mp
-
-    world = 2
-    mp.spawn(_gloo_worker, args=(world, f"file://{tmp_path / 'rendezvous'}", str(tmp_path), reference["init"]),
-             nprocs=world, join=True)
-    ranks = [np.load(tmp_path / f"rank{r}.npy", allow_pickle=True).item() for r in range(world)]
+    ranks, world = gloo, len(gloo)
     for comp in MODES:
         sim, sim_metrics = _run(SimMesh(world, "data", device="cpu"), reference["init"], comp)
         for name, e in _flat(sim.params).items():
@@ -183,3 +265,47 @@ def test_ddp_step_over_gloo_keeps_replicas_equal(reference, tmp_path):
         for s in range(N_STEPS):
             assert ranks[0][comp][1][s] == ranks[1][comp][1][s]
             assert abs(ranks[0][comp][1][s]["loss"] - sim_metrics[s]["loss"]) <= 1e-6 * sim_metrics[s]["loss"]
+
+
+@pytest.mark.parametrize("arch", SPLIT_CASES)
+def test_split_step_over_gloo_matches_one_rank(gloo, arch):
+    """``make_train_step`` SPMD over a ``model`` axis of the two processes,
+    2 steps in float32 from the one-rank state cut to each rank's blocks
+    (``train_state_from_numpy(mesh=, specs=, cfg=)``): each rank's block
+    of every leaf's gradient within 1e-5 of that block's largest entry of
+    the one-rank step at every step -- so no leaf's gradient is all zeros
+    where one rank's is not (a graph cut at a collective) -- the loss and
+    the gradient norm within 1e-6, the parameters within 1e-5 (and Adam's
+    amplification of the gradients' disagreement); the leaves kept whole,
+    the losses and the gradient norms bitwise equal on both ranks."""
+    runs = [rank["split"][arch] for rank in gloo]
+    for got, exp, _ in runs:
+        assert_split_matches(got, exp, [m["lr"] for m in exp[1]])
+    (got0, _, sharded), (got1, _, _) = runs
+    assert any(sharded.values()) and not all(sharded.values())
+    assert got0[1] == got1[1]  # loss, grad_norm, lr: every step, bitwise
+    for name in (n for n, s in sharded.items() if not s):
+        assert np.array_equal(got0[2][name], got1[2][name]), name
+        assert all(np.array_equal(a[name], b[name]) for a, b in zip(got0[0], got1[0])), name
+
+
+@pytest.mark.parametrize("op", COLLECTIVES)
+def test_collectives_over_gloo_match_sim_mesh(gloo, op):
+    """Each differentiable collective of ``ProcessGroupMesh`` (psum's
+    identity backward, the gathers' own block, the inverse all-to-all,
+    pvary's all-reduce) gives each rank the gradient ``SimMesh(2)``'s one
+    autograd graph gives that rank's block."""
+    with one_thread():
+        sim = _collective_grads(op, SimMesh(2, "model", device="cpu"))
+    for r, rank in enumerate(gloo):
+        got = rank["collectives"][op]
+        exp = sim[r] if op != "pvary" else sim[-1]
+        g = got[0] if op != "pvary" else got[-1]
+        assert np.abs(g - exp).max() <= 1e-6 * np.abs(exp).max(), (op, r)
+
+
+def test_train_step_over_gloo_refuses_a_data_axis(gloo):
+    """Over a process group only the ``model`` axis may hold several ranks:
+    the two processes as a ``data`` axis raise, naming A15.3c."""
+    for rank in gloo:
+        assert rank["refused"] is not None and "A15.3c" in rank["refused"]
