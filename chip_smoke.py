@@ -456,12 +456,13 @@ SSM_TP_BATCH, SSM_TP_PREFILL, SSM_TP_DECODE = 8, 512, 8  # check 3 at full depth
 #: phase 20: training on one card. Hymba-1.5B (phase 18's config) whole --
 #: 32 layers, full width, float32 master weights and AdamW state, bf16
 #: compute, remat "full" -- over SyntheticLM at train_4k's length: 2 x 4096
-#: tokens a step (4224 positions with the meta tokens), 6 steps at the
+#: tokens a step (4224 positions with the meta tokens), 5 steps at the
 #: train launcher's warmup. Check 1 holds the bf16 gradients to float32
-#: ones, so these steps only show that the whole model trains: 6 keep the
-#: first-three / last-three loss comparison and the phase near 90 s
+#: ones, so these steps only show that the whole model trains: 5 keep a
+#: first-three / last-three loss comparison (6 until check 6 needed the
+#: room: each step is ~13.5 s)
 TRAIN_ARCH = "hymba-1.5b"
-TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 6
+TRAIN_SEQ, TRAIN_BATCH, TRAIN_STEPS = 4096, 2, 5
 #: TrainConfig's own default lr (the LM default), with launch/train.py's
 #: warmup rule max(steps // 20, 5): at the launcher's 3e-3 (its smoke-size
 #: default) the full-width model's loss rose 10.88 -> 11.69 in 10 steps
@@ -506,9 +507,37 @@ TRAIN_TP_ARCH, TRAIN_TP_LAYERS, TRAIN_TP_SEQ = "qwen2.5-32b", 2, 512
 #: SimMesh((1, TRAIN_TP_P)) beside one rank, TRAIN_TP_BATCH x TRAIN_TP_STEP_SEQ
 #: tokens a step (1152 positions with the meta tokens)
 TRAIN_TP_STEPS, TRAIN_TP_BATCH, TRAIN_TP_STEP_SEQ = 3, 2, 1024
+#: check 6: the train launcher over a one-rank process group (the world of
+#: this process alone, cpu:gloo,cuda:nccl), check 3's Hymba (reduced),
+#: TRAIN_PG_STEPS steps of TRAIN_PG_BATCH x TRAIN_PG_SEQ, one checkpoint at
+#: the end, restored onto SimMesh((2, 2)) and onto one rank; and one
+#: float32 step of check 1's 4-layer Hymba on SimMesh((2, 2)), microbatch
+#: 2, labels -1 in one data block, against one rank's. Hymba-1.5B whole in
+#: 6a writes and twice reads a 23.6 GB checkpoint: 158 s on the card
+#: (tools/train_fsdp_probe.py, PERF.md), five times the phase's budget
+TRAIN_PG_STEPS, TRAIN_PG_BATCH, TRAIN_PG_SEQ = 2, 2, 256
+TRAIN_GRID_BATCH, TRAIN_GRID_SEQ = 4, 512
 #: phase 7's TP training check: one step of check 1's Hymba over NCCL on
 #: 1 x NCCL_TRAIN_SEQ tokens (640 positions: every P of 1, 2, 4 divides them)
 NCCL_TRAIN_SEQ = 512
+
+
+#: phase 7's FSDP part (nccl_fsdp): one make_train_step (microbatch 2,
+#: float32, TF32 off) over a grid of every card of the machine, (P, 1) and
+#: at P >= 4 also (2, P / 2) ('data', 'model'), of check 1's Hymba-1.5B
+#: (TRAIN_F32_LAYERS layers) and Qwen2.5-32B (FSDP_QWEN_LAYERS of 64 layers)
+#: at full width, on FSDP_BATCH x FSDP_SEQ tokens (every P of 1, 2, 4
+#: splits each microbatch's rows): each rank's blocks of every first moment
+#: ((1 - b1) times the clipped gradient) and updated weight against one
+#: card's step, the loss and the gradient norm bitwise equal on every rank
+FSDP_QWEN_LAYERS = 2
+FSDP_BATCH, FSDP_SEQ, FSDP_MICRO = 8, 256, 2
+#: its four-card part: Qwen2.5-32B at FSDP_BIG_LAYERS of 64 layers, 3.90 B
+#: layer params and 1.56 B of embedding and unembedding: float32 weights,
+#: gradients and both moments take ~87 GB, which no one card holds.
+#: FSDP_BIG_STEPS steps in bf16 compute on (P, 1), (2, P / 2) and (1, P),
+#: FSDP_BIG_BATCH x FSDP_BIG_SEQ tokens a step
+FSDP_BIG_LAYERS, FSDP_BIG_STEPS, FSDP_BIG_BATCH, FSDP_BIG_SEQ = 8, 3, 4, 1024
 
 
 class SmokeFailure(RuntimeError):
@@ -3273,6 +3302,134 @@ def train_tp_steps(torch, seed) -> dict:
     return out
 
 
+def train_pg_launcher(torch, tmp: str, reduced: bool = True) -> dict:
+    """Check 6a of phase 20: launch/train.py's train(args) over a
+    torch.distributed world of this one process (as torchrun with one
+    rank starts it: a ProcessGroupMesh of (1, 1), each rank its blocks
+    and its own proc<k>.npz), Hymba-1.5B (reduced, or whole), one
+    checkpoint at the end; then that checkpoint restored onto
+    SimMesh((2, 2)) and onto one rank (on the meta device's shapes: no
+    state is drawn), every leaf bitwise equal in both."""
+    import numpy as np
+    import torch.distributed as dist
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import SimMesh, init_process_mesh
+    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainState, state_layout
+
+    from repro_torch.configs import get_config
+
+    ck = os.path.join(tmp, "ckpt")
+    args = build_argparser().parse_args([
+        "--arch", TRAIN_ARCH, "--steps", str(TRAIN_PG_STEPS), "--batch", str(TRAIN_PG_BATCH), "--seq",
+        str(TRAIN_PG_SEQ), "--ckpt-every", str(TRAIN_PG_STEPS), "--lr", str(TRAIN_LR), "--ckpt-dir", ck]
+        + (["--reduced"] if reduced else []))
+    cfg = get_config(TRAIN_ARCH, reduced=reduced)
+    init_process_mesh(0, 1, f"file://{os.path.join(tmp, 'rendezvous')}", timeout_s=NCCL_TIMEOUT_S)
+    t0 = time.perf_counter()
+    try:
+        hist = train(args)
+    finally:
+        dist.destroy_process_group()
+    train_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    losses = hist["loss"]
+    check(len(losses) == TRAIN_PG_STEPS and all(math.isfinite(x) for x in losses),
+          f"training launcher over a process group: losses {losses}")
+    shapes, _ = Model(cfg, device="meta")._abstract()
+    target = TrainState(shapes, adamw.AdamWState(torch.zeros((), dtype=torch.int32, device="meta"), shapes, shapes),
+                        torch.zeros((), dtype=torch.int32, device="meta"))
+    restored, restore_s = {}, {}
+    for label, mesh in (("SimMesh((2, 2))", SimMesh((2, 2), axis_names=("data", "model"))), ("one rank", None)):
+        t1 = time.perf_counter()
+        step, st = CheckpointManager(ck).restore_latest(target, device="cuda",
+                                                        layout=state_layout(Model(cfg, mesh)))
+        torch.cuda.synchronize()
+        restore_s[label] = time.perf_counter() - t1
+        check(step == TRAIN_PG_STEPS, f"the launcher's checkpoint restored step {step} on {label}")
+        restored[label] = st
+    a, b = (adamw.leaves({"p": st.params, "m": st.opt.mu, "v": st.opt.nu}) for st in restored.values())
+    same = all(torch.equal(x, y) for x, y in zip(a, b))
+    nbytes = sum(x.numel() * x.element_size() for x in a)
+    check(same, "the launcher's checkpoint restored differently onto SimMesh((2, 2)) and one rank")
+    with np.load(os.path.join(ck, f"step_{TRAIN_PG_STEPS:010d}", "proc0.npz")) as f:
+        name = "params/embed/table"
+        check(np.array_equal(f[name], restored["one rank"].params["embed"]["table"].cpu().numpy()),
+              f"the restored {name} is not the checkpoint's")
+    del restored, a, b
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"training check 6a: launcher over a torch.distributed world of 1 rank ({TRAIN_ARCH} "
+          f"{'reduced' if reduced else 'whole'}, "
+          f"{TRAIN_PG_STEPS} steps of {TRAIN_PG_BATCH} x {TRAIN_PG_SEQ}): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, "
+          f"{train_s:.1f} s with init and one checkpoint of {nbytes / 1e9:.2f} GB; restored onto SimMesh((2, 2)) "
+          f"in {restore_s['SimMesh((2, 2))']:.1f} s and onto one rank in {restore_s['one rank']:.1f} s, every leaf "
+          f"bitwise equal", flush=True)
+    return dict(losses=losses, train_s=train_s, restore_s=restore_s, gb=nbytes / 1e9)
+
+
+def train_grid_step(torch, seed) -> dict:
+    """Check 6b of phase 20: one make_train_step of check 1's Hymba-1.5B
+    (full width, TRAIN_F32_LAYERS layers, float32) on SimMesh((2, 2)) with
+    microbatch 2 and labels -1 over the first half of the rows of data
+    block 0 (the global masked mean), against one rank's from the same
+    seed: the first moments ((1 - b1) times the clipped gradient) within
+    TRAIN_REL_TOL of each leaf's largest entry, the weights within
+    TRAIN_REL_TOL plus Adam's amplification, loss and grad norm within
+    TRAIN_REL_TOL."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import SimMesh
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(TRAIN_ARCH, TRAIN_F32_LAYERS, "float32")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=10, microbatch=2, seed=seed)
+    batch = make_batch_arrays(SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_GRID_SEQ, TRAIN_GRID_BATCH, seed=seed))
+                              .batch_at(0))
+    rows = TRAIN_GRID_BATCH // 2
+    for m in range(2):  # each microbatch's rows of data block 0
+        batch["labels"][m * rows:m * rows + rows // 2, : TRAIN_GRID_SEQ // 2] = -1
+    out = {}
+    for label, mesh in (("one rank", None), ("SimMesh((2, 2))", SimMesh((2, 2), axis_names=("data", "model")))):
+        model = Model(cfg, mesh)
+        g = torch.Generator(device="cuda")
+        g.manual_seed(seed)
+        state, _ = init_train_state(model, g, tcfg)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = make_train_step(model, tcfg, mesh)(state, batch)
+        torch.cuda.synchronize()
+        out[label] = (leaves(state.opt.mu), leaves(state.params), {k: float(v) for k, v in m.items()},
+                      (time.perf_counter() - t0) * 1e3)
+        del state
+    (one_mu, one_p, one_m, one_ms), (mu, p, m, ms) = out["one rank"], out["SimMesh((2, 2))"]
+    grad_err = max(leaf_errs(torch, mu, one_mu))
+    param_err = -math.inf
+    for a, e, ge in zip(p, one_p, one_mu):
+        noise = torch.nan_to_num(torch.clamp(TRAIN_REL_TOL * ge.abs().max() / ge.abs(), max=1.0), nan=1.0)
+        param_err = max(param_err, ((a - e).abs() - TRAIN_REL_TOL * e.abs().max() - 2 * m["lr"] * noise).max().item())
+    metric_err = max(abs(m[k] - one_m[k]) / abs(one_m[k]) for k in ("loss", "grad_norm"))
+    print(f"training check 6b: {TRAIN_ARCH} full width, {cfg.num_layers} layers, float32, {TRAIN_GRID_BATCH} x "
+          f"{TRAIN_GRID_SEQ} tokens, microbatch 2, labels -1 in one data block: one step on SimMesh((2, 2)) vs one "
+          f"rank, first moments worst rel_err {grad_err:.3e} (tol {TRAIN_REL_TOL}), weights past their bound by "
+          f"{param_err:.3e}, loss {m['loss']:.6f} / grad norm {m['grad_norm']:.6f} rel_err {metric_err:.3e}; step "
+          f"{ms:.1f} ms (host clock) vs {one_ms:.1f} on one rank", flush=True)
+    check(grad_err <= TRAIN_REL_TOL, f"training check 6b: first moments {grad_err:.3e} > {TRAIN_REL_TOL}")
+    check(param_err <= 0, f"training check 6b: weights {param_err:.3e} past their bound")
+    check(metric_err <= TRAIN_REL_TOL, f"training check 6b: loss / grad norm {metric_err:.3e} > {TRAIN_REL_TOL}")
+    del out
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(grad_err=grad_err, param_err=param_err, metric_err=metric_err)
+
+
 def training_phase(torch, seed, fft_stage, cm) -> dict:
     """Phase 20: training on one card; returns its FFT kernel launches (0),
     the single-rank checks' and the split step's (``training_tp``)."""
@@ -3308,10 +3465,18 @@ def training_phase(torch, seed, fft_stage, cm) -> dict:
         print(f"training check 5: {time.perf_counter() - t:.1f} s", flush=True)
         return out
 
+    def run_fsdp():
+        t = time.perf_counter()
+        with tempfile.TemporaryDirectory() as tmp:
+            train_pg_launcher(torch, tmp)
+        train_grid_step(torch, seed)
+        print(f"training check 6: {time.perf_counter() - t:.1f} s", flush=True)
+
     _, launches, _ = counted(torch, fft_stage, "training", run, expect=())
     _, tp_launches, _ = counted(torch, fft_stage, "training TP", run_tp, expect=())
+    _, fsdp_launches, _ = counted(torch, fft_stage, "training FSDP", run_fsdp, expect=())
     print(f"training phase: {time.perf_counter() - t0:.1f} s", flush=True)
-    return {"training": launches, "training_tp": tp_launches}
+    return {"training": launches, "training_tp": tp_launches, "training_fsdp": fsdp_launches}
 
 
 def nccl_ddp(torch, mesh, fft_stage, seed: int) -> dict:
@@ -3372,6 +3537,194 @@ def nccl_ddp(torch, mesh, fft_stage, seed: int) -> dict:
     out, launches, _ = counted(torch, fft_stage, "NCCL DDP", run, expect=())
     out["launches"] = launches
     return out
+
+
+def fsdp_grids(p: int) -> list:
+    """The ('data', 'model') grids phase 7's FSDP part runs over P cards."""
+    return [(p, 1)] + ([(2, p // 2)] if p >= 4 else [])
+
+
+def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
+    """Phase 7's FSDP check of one model, one rank: one make_train_step
+    (microbatch FSDP_MICRO, float32) of ``arch`` at full width and
+    ``layers`` layers on this card alone, then over each grid of
+    ``fsdp_grids`` (each rank its blocks, its rows of every microbatch,
+    FSDP x TP) from the same seed and batch: each rank's block of every
+    first moment within TRAIN_REL_TOL of the block's largest one-card
+    entry, the weights within TRAIN_REL_TOL plus Adam's amplification of
+    the gradients' disagreement, the loss and the gradient norm within
+    TRAIN_REL_TOL and bitwise equal on every rank."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import ProcessGroupMesh
+    from repro_torch.core.mesh import FSDP_BYTES
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model, rank_blocks
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(arch, layers, "float32")
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=10, microbatch=FSDP_MICRO, seed=seed)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, FSDP_SEQ, FSDP_BATCH, seed=seed))
+    batch = make_batch_arrays(ds.batch_at(0), mesh)
+    grids = fsdp_grids(mesh.p)
+
+    def run(model):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        state, specs = init_train_state(model, gen, tcfg)
+        step = make_train_step(model, tcfg, model.mesh)
+        FSDP_BYTES.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, batch)
+        torch.cuda.synchronize()
+        return state, m, specs, (time.perf_counter() - t0) * 1e3
+
+    one, one_m, specs, one_ms = run(Model(cfg, device=mesh.device))
+    kept = {}  # each grid's blocks of the one-card moments and weights, on the host
+    for grid in grids:
+        gmesh = ProcessGroupMesh(device=mesh.device, grid=grid, axis_names=("data", "model"), timeout_s=NCCL_TIMEOUT_S)
+        place = dict(mesh=gmesh, specs=specs, cfg=cfg)
+        kept[grid] = (gmesh, [t.cpu() for t in leaves(rank_blocks(one.opt.mu, **place))],
+                      [t.cpu() for t in leaves(rank_blocks(one.params, **place))])
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    out = {"one_ms": one_ms, "grids": {}}
+    for grid, (gmesh, one_mu, one_p) in kept.items():
+        torch.cuda.reset_peak_memory_stats()
+        state, m, _, ms = run(Model(cfg, gmesh, device=mesh.device))
+        moved = dict(FSDP_BYTES)
+        grad_err, param_err = 0.0, -math.inf
+        lr = float(m["lr"])
+        for a, e, p, ep in zip(leaves(state.opt.mu), one_mu, leaves(state.params), one_p):
+            e, ep = e.to(mesh.device), ep.to(mesh.device)
+            top = e.abs().max()
+            grad_err = max(grad_err, ((a - e).abs().max() / top).item() if top > 0 else a.abs().max().item())
+            noise = torch.nan_to_num(torch.clamp(TRAIN_REL_TOL * top / e.abs(), max=1.0), nan=1.0)
+            param_err = max(param_err, ((p - ep).abs() - TRAIN_REL_TOL * ep.abs().max() - 2 * lr * noise).max().item())
+        metric_err = max(abs(float(m[k]) - float(one_m[k])) / abs(float(one_m[k])) for k in ("loss", "grad_norm"))
+        label = f"{arch} grid {grid}"
+        check(grad_err <= TRAIN_REL_TOL, f"rank {mesh.rank}: NCCL FSDP {label} gradients {grad_err:.3e} > "
+              f"{TRAIN_REL_TOL}")
+        check(param_err <= 0, f"rank {mesh.rank}: NCCL FSDP {label} weights {param_err:.3e} past their bound")
+        check(metric_err <= TRAIN_REL_TOL, f"rank {mesh.rank}: NCCL FSDP {label} loss / grad norm {metric_err:.3e}")
+        same_on_every_rank(mesh, [digest(m["loss"]), digest(m["grad_norm"])], f"{label} loss and grad norm (bitwise)")
+        out["grids"][str(grid)] = dict(grad_err=grad_err, param_err=param_err, metric_err=metric_err, step_ms=ms,
+                                       loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
+                                       gathered=moved.get("all_gather", 0), scattered=moved.get("reduce_scatter", 0),
+                                       peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
+    """Phase 7's four-card FSDP part, one rank: Qwen2.5-32B at full width
+    and FSDP_BIG_LAYERS layers (float32 master weights and AdamW state,
+    bf16 compute), FSDP_BIG_STEPS steps on each of (P, 1), (2, P / 2) (FSDP
+    x TP) and (1, P) (tensor parallelism alone): each step's device ms
+    (CUDA events), host ms to issue it, the bytes FSDP's gathers and
+    reduce-scatters assemble on the rank, the peak memory, the losses
+    (finite, bitwise equal on every rank)."""
+    from repro_torch.configs import TrainConfig
+    from repro_torch.core import ProcessGroupMesh
+    from repro_torch.core.mesh import FSDP_BYTES
+    from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.models.model import Model
+    from repro_torch.optim.adamw import leaves
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = ssm_cfg(LM_ARCH, FSDP_BIG_LAYERS)
+    tcfg = TrainConfig(learning_rate=TRAIN_LR, warmup_steps=0, total_steps=FSDP_BIG_STEPS, seed=seed)
+    ds = SyntheticLM(DataConfig(cfg.vocab_size, FSDP_BIG_SEQ, FSDP_BIG_BATCH, seed=seed))
+    out = {}
+    for grid in fsdp_grids(mesh.p) + [(1, mesh.p)]:
+        gmesh = ProcessGroupMesh(device=mesh.device, grid=grid, axis_names=("data", "model"), timeout_s=NCCL_TIMEOUT_S)
+        model = Model(cfg, gmesh, device=mesh.device)
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        t0 = time.perf_counter()
+        state, _ = init_train_state(model, gen, tcfg)
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t0
+        state_gib = sum(t.numel() * t.element_size() for t in leaves(state.params) + leaves(state.opt.mu)
+                        + leaves(state.opt.nu)) / 2**30
+        step = make_train_step(model, tcfg, gmesh)
+        torch.cuda.reset_peak_memory_stats()
+        dev, host, losses, moved = [], [], [], []
+        for s in range(FSDP_BIG_STEPS):
+            batch = make_batch_arrays(ds.batch_at(s), gmesh)
+            torch.cuda.synchronize()
+            FSDP_BYTES.clear()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t1 = time.perf_counter()
+            start.record()
+            state, m = step(state, batch)
+            end.record()
+            host.append((time.perf_counter() - t1) * 1e3)
+            end.synchronize()
+            dev.append(start.elapsed_time(end))
+            losses.append(float(m["loss"]))
+            moved.append(dict(FSDP_BYTES))
+        check(all(math.isfinite(x) for x in losses), f"rank {mesh.rank}: a Qwen2.5-32B FSDP loss on {grid} is not "
+              "finite")
+        same_on_every_rank(mesh, losses, f"Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}: losses")
+        out[str(grid)] = dict(device_ms=dev, host_ms=host, losses=losses, init_s=init_s, state_gib=state_gib,
+                              peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                              gathered=moved[-1].get("all_gather", 0), scattered=moved[-1].get("reduce_scatter", 0))
+        del state, step, model
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def nccl_fsdp(torch, mesh, fft_stage, seed: int) -> dict:
+    """Phase 7's FSDP part, one rank: the float32 checks over the grids of
+    ``fsdp_grids`` (``nccl_fsdp_f32``), then at P >= 4 the four-card
+    Qwen2.5-32B steps (``nccl_fsdp_big``); the FFT kernels' launches (0)."""
+
+    def run():
+        out = {"f32": {}}
+        for arch, layers in ((TRAIN_ARCH, TRAIN_F32_LAYERS), (LM_ARCH, FSDP_QWEN_LAYERS)):
+            out["f32"][arch] = nccl_fsdp_f32(torch, mesh, seed, arch, layers)
+            gc.collect()
+            torch.cuda.empty_cache()
+        out["big"] = nccl_fsdp_big(torch, mesh, seed) if mesh.p >= 4 else None
+        return out
+
+    out, launches, _ = counted(torch, fft_stage, "NCCL FSDP", run, expect=())
+    out["launches"] = launches
+    return out
+
+
+def print_nccl_fsdp(rep) -> None:
+    who, m = f"NCCL rank {rep['rank']}/{rep['P']} FSDP", rep["fsdp"]
+    for arch, r in m["f32"].items():
+        layers = TRAIN_F32_LAYERS if arch == TRAIN_ARCH else FSDP_QWEN_LAYERS
+        for grid, g in r["grids"].items():
+            print(f"{who} {arch} full width, {layers} layers, float32, {FSDP_BATCH} x {FSDP_SEQ} tokens, microbatch "
+                  f"{FSDP_MICRO}, one make_train_step over grid {grid} ('data', 'model') vs one card on the same seed: "
+                  f"each rank's first-moment blocks worst rel_err {g['grad_err']:.3e} (tol {TRAIN_REL_TOL}), weights "
+                  f"within their bound (largest distance past it {g['param_err']:.3e}), loss {g['loss']:.6f} / grad "
+                  f"norm {g['grad_norm']:.6f} rel_err {g['metric_err']:.3e}, bitwise equal on every rank; step "
+                  f"{g['step_ms']:.1f} ms (host clock) vs {r['one_ms']:.1f} on one card; FSDP gathered "
+                  f"{g['gathered'] / 1e9:.3f} GB, reduce-scattered {g['scattered'] / 1e9:.3f} GB a rank; peak "
+                  f"{g['peak_gib']:.2f} GiB", flush=True)
+    if m["big"] is None:
+        print(f"{who} Qwen2.5-32B at {FSDP_BIG_LAYERS} of 64 layers (5.46 B params, ~87 GB of float32 weights, "
+              f"gradients and moments): not run at P = {rep['P']}: the model does not fit on fewer than 4 cards",
+              flush=True)
+        return
+    for grid, r in m["big"].items():
+        print(f"{who} Qwen2.5-32B full width, {FSDP_BIG_LAYERS} layers, bf16 compute (float32 weights and AdamW), "
+              f"{FSDP_BIG_BATCH} x {FSDP_BIG_SEQ} tokens a step, grid {grid}: step device ms "
+              f"{', '.join(f'{x:.1f}' for x in r['device_ms'])} (CUDA events), host ms to issue "
+              f"{', '.join(f'{x:.1f}' for x in r['host_ms'])}; losses {', '.join(f'{x:.4f}' for x in r['losses'])} "
+              f"(bitwise equal on every rank); state {r['state_gib']:.2f} GiB a rank, peak {r['peak_gib']:.2f} GiB; "
+              f"FSDP gathered {r['gathered'] / 1e9:.3f} GB, reduce-scattered {r['scattered'] / 1e9:.3f} GB a rank a "
+              f"step; init {r['init_s']:.1f} s", flush=True)
 
 
 def print_nccl_ddp(rep) -> None:
@@ -4055,6 +4408,8 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         report["tp"] = nccl_tp(torch, mesh, fft_stage, seed)
         torch.cuda.empty_cache()
         report["ddp"] = nccl_ddp(torch, mesh, fft_stage, seed)
+        torch.cuda.empty_cache()
+        report["fsdp"] = nccl_fsdp(torch, mesh, fft_stage, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
     finally:
@@ -4169,7 +4524,7 @@ def nccl_phase(torch, seed: int):
                 reports.append(json.load(fh))
     for rep in reports:
         for key, r in rep.items():
-            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe", "tp", "ddp"):
+            if isinstance(r, dict) and key not in ("measured planner", "faults", "serving", "moe", "tp", "ddp", "fsdp"):
                 print(f"NCCL rank {rep['rank']}/{rep['P']} {key}: fused={r['fused']} launches {r['launches']} "
                       f"rel_err vs {r['sim']}={r['rel_err_vs_sim']:.3e} (tol 1e-06) "
                       f"ms={r['ms']:.2f} (median of 3) peak memory {r['peak_gib']:.2f} GiB", flush=True)
@@ -4201,6 +4556,7 @@ def nccl_phase(torch, seed: int):
         print_nccl_moe(rep)
         print_nccl_tp(rep)
         print_nccl_ddp(rep)
+        print_nccl_fsdp(rep)
     check(len({rep["measured planner"]["winner"] for rep in reports}) == 1, "the ranks' measured winners differ")
     for what in ("poison", "breaker"):  # the counters, not each rank's own error against torch.fft
         counters = [{k: v for k, v in rep["serving"][what].items() if not k.endswith("rel_err")} for rep in reports]
@@ -4274,6 +4630,7 @@ def main(argv=None) -> int:
     by_path["nccl_moe"] = nccl["moe"]["launches"]
     by_path["nccl_tp"] = nccl["tp"]["launches"]
     by_path["nccl_ddp"] = nccl["ddp"]["launches"]
+    by_path["nccl_fsdp"] = nccl["fsdp"]["launches"]
     by_path["pencil_c2c"], shapes = pencil_c2c_phase(torch, args.seed, fft_stage, plan_fft, SimMesh, slab_ms)
     torch.cuda.empty_cache()
     time_shapes("pencil c2c", shapes)

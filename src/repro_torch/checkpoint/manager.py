@@ -22,16 +22,29 @@ checkpoint written by either package therefore restores in the other.
   only checkpoints whose manifest parses and whose shard file exists,
   and ``restore_latest`` falls back to the previous step when the
   newest one fails to load (truncated npz, bit rot) instead of raising.
-- *mesh-agnostic restore*: leaves are stored as full logical arrays;
-  ``restore(..., device=)`` places them on whatever device the restart
-  runs on, and a ``ProcessGroupMesh`` cuts each rank's block with
-  ``mesh.split`` (elastic re-scale).
+- *mesh-agnostic restore*: a checkpoint of whole leaves (one process, a
+  ``SimMesh``, or the reference's) is ``proc0.npz`` of full logical
+  arrays; ``restore(..., device=)`` places them on whatever device the
+  restart runs on, and with ``layout=`` cuts each rank's block.
+- *placed checkpoints* (a ``ProcessGroupMesh`` whose ranks hold blocks,
+  the layout the reference's docstring foresees for multi-host): each
+  rank writes its own blocks to ``step_<N>/proc<k>.npz`` (``k`` its rank
+  in the mesh's group), and the manifest records every leaf's global
+  shape and each process's block of it. Rank 0 writes the manifest
+  last, once the ranks agree that every ``proc<k>`` file is complete
+  (``mesh.host_max``, at the next :meth:`CheckpointManager.wait`); a
+  step directory is valid only with every file its manifest names.
+  ``restore`` builds each rank's block on the *current* layout from
+  whichever files hold it, so a checkpoint of one mesh shape resumes on
+  any other, on fewer ranks, or on one; the step ``restore_latest``
+  picks is agreed across the ranks.
 """
 
 from __future__ import annotations
 
 import json
 import logging
+import math
 import os
 import shutil
 import tempfile
@@ -98,25 +111,69 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
+#: a leaf's place in a placed checkpoint: (its global shape, its cuts --
+#: ``[(dim, first, count, parts), ...]`` along each cut dim ``count``
+#: entries from ``first`` of each of ``parts`` equal parts, side by side --
+#: or None for the whole leaf); ``models.model`` makes them
+#: (``train.step.state_layout``)
+Layout = Dict[str, Tuple[Tuple[int, ...], Optional[List[Tuple[int, int, int, int]]]]]
+
+
+def _indices(n: int, cut) -> np.ndarray:
+    """The global indices along a dim of ``n`` entries a cut keeps, in the
+    block's order."""
+    _, first, count, parts = cut
+    width = n // parts
+    return np.concatenate([np.arange(j * width + first, j * width + first + count) for j in range(parts)])
+
+
+def _dim_indices(shape, cuts) -> List[np.ndarray]:
+    """For every dim of a leaf of global ``shape``, the global indices its
+    block holds (every index of an uncut dim)."""
+    out = [np.arange(n) for n in shape]
+    for cut in cuts or ():
+        out[cut[0]] = _indices(shape[cut[0]], cut)
+    return out
+
+
 class CheckpointManager:
-    def __init__(self, directory: str, *, keep: int = 3, process_index: int = 0):
+    def __init__(self, directory: str, *, keep: int = 3, process_index: int = 0, mesh=None):
+        """``mesh``: a ``ProcessGroupMesh`` whose ranks write placed
+        checkpoints together (``process_index`` is then the rank's; the
+        ranks agree through ``mesh.host_max``), or None."""
         self.dir = directory
         self.keep = keep
-        self.process_index = process_index
+        self.mesh = mesh if mesh is not None and mesh.caller_holds_block and mesh.p > 1 else None
+        self.process_index = mesh.rank if self.mesh is not None else process_index
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
+        self._pending: Optional[Tuple[int, dict]] = None  # a placed save whose manifest is due
+        self._error: Optional[BaseException] = None
 
     def _step_dir(self, step: int) -> str:
         return os.path.join(self.dir, f"step_{step:010d}")
 
+    def _agree(self, values: List[float]) -> List[float]:
+        return self.mesh.host_max(values) if self.mesh is not None else [float(v) for v in values]
+
     # ------------------------------------------------------------------ save
-    def save(self, step: int, tree: Any, *, blocking: bool = False) -> None:
+    def save(self, step: int, tree: Any, *, blocking: bool = False, layout: Optional[Layout] = None) -> None:
+        """Write ``tree`` as step ``step``. ``layout`` (by leaf name: the
+        global shape and this rank's cuts) marks a placed tree: every rank
+        of the manager's mesh calls ``save`` with its blocks."""
         self.wait()
         host = {k: _to_host(v) for k, v in _flatten_with_names(tree).items()}  # device -> host now
+        if self.mesh is not None and layout is not None and any(c for _, c in layout.values()):
+            self._save_placed(step, host, layout, blocking)
+            return
         manifest = {
             "step": int(step),
             "leaves": {k: {"shape": list(v.shape), "dtype": str(v.dtype)} for k, v in host.items()},
         }
+        if self.mesh is not None:  # whole leaves on every rank: rank 0 writes them
+            if self.mesh.rank != 0:
+                return
+            self.process_index = 0
 
         def write():
             # unique same-dir tempdir: same filesystem (so os.replace is
@@ -143,10 +200,70 @@ class CheckpointManager:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
 
+    def _save_placed(self, step: int, host: Dict[str, np.ndarray], layout: Layout, blocking: bool) -> None:
+        """Each rank its ``proc<k>.npz`` in the step's directory (written
+        to a temporary name and renamed: a file present is complete);
+        the manifest comes at :meth:`wait`, once every rank's is."""
+        final, me = self._step_dir(step), self.mesh.rank
+        if me == 0:  # a directory left by an earlier attempt at this step goes first
+            shutil.rmtree(final, ignore_errors=True)
+            os.makedirs(final)
+        self._agree([0.0])  # the directory is there for every rank
+        blocks = {k: [list(c) for c in cuts] if cuts else None for k, (_, cuts) in layout.items()}
+        procs = self._gather_blocks(blocks)
+        manifest = {
+            "step": int(step),
+            "leaves": {k: {"shape": list(layout[k][0]), "dtype": str(v.dtype)} for k, v in host.items()},
+            "procs": procs,
+        }
+
+        def write():
+            try:
+                path = os.path.join(final, f"proc{me}.npz")
+                with open(path + ".tmp", "wb") as f:
+                    np.savez(f, **host)
+                os.replace(path + ".tmp", path)
+            except BaseException as e:  # noqa: BLE001 -- reported to the ranks' agreement
+                self._error = e
+
+        self._pending = (step, manifest)
+        if blocking:
+            write()
+            self.wait()
+        else:
+            self._thread = threading.Thread(target=write, daemon=True)
+            self._thread.start()
+
+    def _gather_blocks(self, blocks: dict) -> Dict[str, dict]:
+        """Every rank's cuts, keyed by its ``proc<k>`` name (one
+        ``all_gather_object`` over the mesh's group: rank 0's manifest
+        names each file's blocks)."""
+        import torch.distributed as dist
+
+        out: List[Optional[dict]] = [None] * self.mesh.p
+        dist.all_gather_object(out, blocks, group=self.mesh.group)
+        return {f"proc{k}": b for k, b in enumerate(out)}
+
     def wait(self):
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending is None:
+            return
+        (step, manifest), self._pending = self._pending, None
+        error, self._error = self._error, None
+        failed = self._agree([1.0 if error is not None else 0.0])[0]
+        if failed:  # some rank's file is missing: the step stays without a manifest (invalid)
+            if error is not None:
+                raise error
+            return
+        if self.mesh.rank == 0:
+            tmp = os.path.join(self._step_dir(step), "manifest.json.tmp")
+            with open(tmp, "w") as f:
+                json.dump(manifest, f)
+            os.replace(tmp, os.path.join(self._step_dir(step), "manifest.json"))
+            self._gc()
+        self._agree([0.0])  # the manifest is there for every rank
 
     def _gc(self):
         steps = self.all_steps()
@@ -165,20 +282,36 @@ class CheckpointManager:
                     pass
         return sorted(out)
 
-    def _is_valid(self, step: int) -> bool:
-        """Cheap completeness check: the manifest parses, names this
-        step, and this process's shard file exists. (Deeper corruption
-        -- a truncated npz -- is caught at load time by
-        :meth:`restore_latest`'s fallback.)"""
-        d = self._step_dir(step)
+    def _manifest(self, step: int) -> Optional[dict]:
         try:
-            with open(os.path.join(d, "manifest.json")) as f:
+            with open(os.path.join(self._step_dir(step), "manifest.json")) as f:
                 manifest = json.load(f)
         except (OSError, json.JSONDecodeError):
-            return False
+            return None
         if not isinstance(manifest, dict) or manifest.get("step") != step:
+            return None
+        return manifest
+
+    def _files(self, step: int, manifest: dict) -> List[str]:
+        """The payload files a step needs: every ``proc<k>`` its manifest
+        names (a placed checkpoint), else the one file of whole leaves --
+        this process's, or ``proc0`` (a checkpoint of whole leaves read on
+        any rank)."""
+        if "procs" in manifest:
+            return sorted(manifest["procs"])
+        own = f"proc{self.process_index}"
+        return [own if os.path.exists(os.path.join(self._step_dir(step), own + ".npz")) else "proc0"]
+
+    def _is_valid(self, step: int) -> bool:
+        """Cheap completeness check: the manifest parses, names this
+        step, and every payload file it needs exists. (Deeper corruption
+        -- a truncated npz -- is caught at load time by
+        :meth:`restore_latest`'s fallback.)"""
+        manifest = self._manifest(step)
+        if manifest is None:
             return False
-        return os.path.exists(os.path.join(d, f"proc{self.process_index}.npz"))
+        d = self._step_dir(step)
+        return all(os.path.exists(os.path.join(d, f + ".npz")) for f in self._files(step, manifest))
 
     def valid_steps(self) -> List[int]:
         """Steps whose checkpoint passes the completeness check."""
@@ -191,36 +324,93 @@ class CheckpointManager:
         steps = self.valid_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Any, *, device=None) -> Any:
+    def restore(self, step: int, target: Any, *, device=None, layout: Optional[Layout] = None) -> Any:
         """Restore into the structure of ``target``: each leaf a tensor
         of the target leaf's dtype, on ``device`` (default: the target
-        leaf's device; the CPU for a non-tensor leaf)."""
+        leaf's device; the CPU for a non-tensor leaf). ``layout`` (by leaf
+        name: the global shape and this rank's cuts on the current mesh)
+        asks for blocks: each is built from whichever of the step's files
+        hold it, whatever layout wrote them."""
         self.wait()
-        path = os.path.join(self._step_dir(step), f"proc{self.process_index}.npz")
-        with np.load(path) as data:
+        d = self._step_dir(step)
+        manifest = self._manifest(step) or {}
+        files = self._files(step, manifest) if manifest else [f"proc{self.process_index}"]
+        procs = manifest.get("procs")
+        opened = {f: np.load(os.path.join(d, f + ".npz")) for f in files}
+        try:
             def leaf(name, tgt):
-                arr = data[name]
                 shape = tuple(tgt.shape) if hasattr(tgt, "shape") else np.shape(tgt)
+                cuts = layout[name][1] if layout is not None and name in layout else None
+                if procs is None and cuts is None:
+                    arr = opened[files[0]][name]
+                else:
+                    arr = self._assemble(name, manifest, opened, procs, cuts)
                 if tuple(arr.shape) != tuple(shape):
                     raise ValueError(f"shape mismatch for {name}: {arr.shape} vs {shape}")
                 if isinstance(tgt, torch.Tensor):
+                    arr = arr if arr.flags.c_contiguous else arr.copy(order="C")
                     return torch.from_numpy(arr).to(device=device or tgt.device, dtype=tgt.dtype)
                 arr = arr.astype(np.asarray(tgt).dtype)
                 return torch.from_numpy(arr).to(device=device or "cpu")
 
             return _map_leaves(target, leaf)
+        finally:
+            for f in opened.values():
+                f.close()
 
-    def restore_latest(self, target: Any, *, device=None) -> Tuple[Optional[int], Any]:
+    @staticmethod
+    def _assemble(name: str, manifest: dict, opened: dict, procs: Optional[dict], cuts) -> np.ndarray:
+        """The block ``cuts`` of leaf ``name`` (the whole leaf for None)
+        from the files that hold its parts: each file's block placed by
+        the global indices it and the wanted block share."""
+        shape = tuple(manifest["leaves"][name]["shape"])
+        want = _dim_indices(shape, cuts)
+        out = None
+        filled = 0
+        sources = procs.items() if procs is not None else [(f, None) for f in opened]
+        for f, blocks in sources:
+            have = _dim_indices(shape, (blocks or {}).get(name))
+            src, dst = [], []
+            for w, h in zip(want, have):
+                _, si, di = np.intersect1d(h, w, assume_unique=True, return_indices=True)
+                src.append(si)
+                dst.append(di)
+            if any(len(i) == 0 for i in src):
+                continue
+            arr = opened[f][name]
+            if out is None:
+                out = np.empty([len(w) for w in want], dtype=arr.dtype)
+            out[np.ix_(*dst)] = arr[np.ix_(*src)]
+            filled += math.prod(len(i) for i in dst)
+            if procs is None:
+                break
+        if out is None or filled < math.prod(len(w) for w in want):
+            raise ValueError(f"the checkpoint's files do not hold all of {name}'s block")
+        return out
+
+    def restore_latest(self, target: Any, *, device=None, layout: Optional[Layout] = None
+                       ) -> Tuple[Optional[int], Any]:
         """Restore the newest checkpoint that actually loads, walking
         back past corrupt/partial ones (one warning each) -- the
-        recovery loop's entry point. Returns ``(None, None)`` when no
-        checkpoint survives."""
-        for step in reversed(self.valid_steps()):
+        recovery loop's entry point. Over a mesh the ranks agree on each
+        step they try (the newest valid on every rank) and on whether it
+        loaded everywhere. Returns ``(None, None)`` when no checkpoint
+        survives."""
+        self.wait()
+        bound = math.inf
+        while True:
+            mine = [s for s in self.valid_steps() if s < bound]
+            step = int(-self._agree([-(mine[-1] if mine else -1)])[0])
+            if step < 0:
+                return None, None
             try:
-                return step, self.restore(step, target, device=device)
+                tree, failed = self.restore(step, target, device=device, layout=layout), 0.0
             except Exception as e:  # noqa: BLE001 -- fall back to the previous step
                 log.warning(
                     "checkpoint step %d unreadable (%s: %s); falling back",
                     step, type(e).__name__, e,
                 )
-        return None, None
+                tree, failed = None, 1.0
+            if not self._agree([failed])[0]:
+                return step, tree
+            bound = step

@@ -55,6 +55,7 @@ the rings' hops carry their own (``core.overlap._Hop``,
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import datetime
 import itertools
@@ -64,11 +65,20 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 import torch
 
 Blocks = List[torch.Tensor]
+#: one mesh axis, or a tuple of them that together place one dim
+Axes = Union[str, Sequence[str]]
 
 #: Seconds a ``torch.distributed`` group waits on a message or collective
 #: before it fails (a peer that never posts its half raises instead of
 #: hanging the job).
 DEFAULT_TIMEOUT_S = 120.0
+
+#: The bytes FSDP's collectives (``gather_many`` / ``all_gather_fsdp`` and
+#: their reduce-scatters, ``psum_scatter``) assemble on this rank, by kind:
+#: ``"all_gather"`` the gathered tensors (the ring's P blocks each),
+#: ``"reduce_scatter"`` the whole gradients handed in (P blocks each).
+#: Clear it before a run to read that run's.
+FSDP_BYTES: "collections.Counter[str]" = collections.Counter()
 
 #: Axis names of a grid mesh when the caller gives none, in (row, col)
 #: order -- ``repro.core.grid.GRID_AXES``.
@@ -154,10 +164,21 @@ class _AxisMesh:
             raise ValueError(f"a grid mesh has axes {self.axis_names}, not one axis_name")
         return self.axis_names[0]
 
-    def axis_size(self, axis_name: str) -> int:
-        if axis_name not in self.shape:
-            raise ValueError(f"mesh has axes {tuple(self.shape)}, not {axis_name!r}")
-        return self.shape[axis_name]
+    def axes_of(self, axis_name: Axes) -> Tuple[str, ...]:
+        """The mesh axes ``axis_name`` names -- one axis, or a tuple of them
+        (``("pod", "data")``, one dim placed over both) -- in the mesh's
+        order."""
+        names = (axis_name,) if isinstance(axis_name, str) else tuple(axis_name)
+        for a in names:
+            if a not in self.shape:
+                raise ValueError(f"mesh has axes {tuple(self.shape)}, not {a!r}")
+        if not names or len(set(names)) != len(names):
+            raise ValueError(f"an axis group names each mesh axis once, got {axis_name!r}")
+        return tuple(a for a in self.axis_names if a in names)
+
+    def axis_size(self, axis_name: Axes) -> int:
+        """The ranks along one axis, or the product over a tuple of axes."""
+        return math.prod(self.shape[a] for a in self.axes_of(axis_name))
 
     def coords(self, rank: int) -> Dict[str, int]:
         """Axis name -> coordinate of ``rank`` (row-major, the first axis
@@ -173,17 +194,29 @@ class _AxisMesh:
             rank = rank * d + coords.get(name, 0)
         return rank
 
-    def ring_ranks(self, axis_name: str) -> List[List[int]]:
-        """The rings of ``axis_name``: each the ranks that differ only in
-        that axis's coordinate, in coordinate order; the rings in the
+    def ring_ranks(self, axis_name: Axes) -> List[List[int]]:
+        """The rings of ``axis_name`` (an axis, or a tuple of axes): each
+        the ranks that differ only in those coordinates, in their row-major
+        order (the first axis slowest: ``("pod", "data")`` runs pod-major,
+        as a jax ``NamedSharding`` lays a dim over both); the rings in the
         order of their first rank."""
-        self.axis_size(axis_name)
-        others = [n for n in self.axis_names if n != axis_name]
+        axes = self.axes_of(axis_name)
+        others = [n for n in self.axis_names if n not in axes]
         rings = []
         for fixed in itertools.product(*(range(self.shape[n]) for n in others)):
             base = dict(zip(others, fixed))
-            rings.append([self._rank_of({**base, axis_name: i}) for i in range(self.shape[axis_name])])
+            rings.append([self._rank_of({**base, **dict(zip(axes, pos))})
+                          for pos in itertools.product(*(range(self.shape[a]) for a in axes))])
         return rings
+
+    def ring_index(self, rank: int, axis_name: Axes) -> int:
+        """``rank``'s position on its ring of ``axis_name`` (row-major over
+        a tuple of axes): the block of a dim placed over those axes that
+        the rank keeps."""
+        coords, i = self.coords(rank), 0
+        for a in self.axes_of(axis_name):
+            i = i * self.shape[a] + coords[a]
+        return i
 
     def place(self, x) -> torch.Tensor:
         """``x`` (a tensor or array-like) on the mesh's device, moved
@@ -218,7 +251,7 @@ class _AxisMesh:
         """(dim, axis) for each dim the trailing partition spec ``tail``
         shards, in dim order; each axis may shard one dim."""
         dims = [(ndim - len(tail) + i, a) for i, a in enumerate(tail) if a is not None]
-        names = [a for _, a in dims]
+        names = [n for _, a in dims for n in ((a,) if isinstance(a, str) else a)]
         for a in names:
             if a not in self.shape:
                 raise ValueError(f"tail spec {tuple(tail)} names axis {a!r}; mesh axes are {self.axis_names}")
@@ -226,19 +259,26 @@ class _AxisMesh:
             raise ValueError(f"tail spec {tuple(tail)} names a mesh axis twice")
         return dims
 
+    def _coords_at(self, axis: Axes, i: int) -> Dict[str, int]:
+        """The coordinates of position ``i`` along ``axis`` (row-major over
+        a tuple of axes)."""
+        out = {}
+        for a in reversed(self.axes_of(axis)):
+            i, out[a] = divmod(i, self.shape[a])
+        return out
+
     def _block(self, x: torch.Tensor, rank: int, tail: Sequence[Optional[str]]) -> torch.Tensor:
         """Rank ``rank``'s block of the global ``x`` under ``tail`` (a view)."""
-        coords = self.coords(rank)
         index = [slice(None)] * x.ndim
         for dim, axis in self._shard_dims(x.ndim, tail):
-            k = self.shape[axis]
+            k = self.axis_size(axis)
             if x.shape[dim] % k:
                 raise ValueError(
                     f"dim {dim} of size {x.shape[dim]} is not divisible by the {k} "
                     f"ranks of mesh axis {axis!r}"
                 )
-            n = x.shape[dim] // k
-            index[dim] = slice(coords[axis] * n, (coords[axis] + 1) * n)
+            n, at = x.shape[dim] // k, self.ring_index(rank, axis)
+            index[dim] = slice(at * n, (at + 1) * n)
         return x[tuple(index)]
 
     def _assemble(self, block_of: Callable[[int], torch.Tensor], ndim: int,
@@ -252,13 +292,15 @@ class _AxisMesh:
             return first
         shape = list(first.shape)
         for dim, axis in dims:
-            shape[dim] *= self.shape[axis]
+            shape[dim] *= self.axis_size(axis)
         out = torch.empty(shape, dtype=first.dtype, device=first.device)
-        for coords in itertools.product(*(range(self.shape[axis]) for _, axis in dims)):
+        for coords in itertools.product(*(range(self.axis_size(axis)) for _, axis in dims)):
             index = [slice(None)] * ndim
-            for (dim, _), i in zip(dims, coords):
+            at: Dict[str, int] = {}
+            for (dim, axis), i in zip(dims, coords):
                 index[dim] = slice(i * first.shape[dim], (i + 1) * first.shape[dim])
-            out[tuple(index)] = block_of(self._rank_of({axis: i for (_, axis), i in zip(dims, coords)}))
+                at.update(self._coords_at(axis, i))
+            out[tuple(index)] = block_of(self._rank_of(at))
         return out
 
     def global_shape(self, shape: Sequence[int], tail: Sequence[Optional[str]]) -> Tuple[int, ...]:
@@ -269,7 +311,7 @@ class _AxisMesh:
         shape = list(shape)
         if self.caller_holds_block:
             for dim, axis in self._shard_dims(len(shape), tail):
-                shape[dim] *= self.shape[axis]
+                shape[dim] *= self.axis_size(axis)
         return tuple(shape)
 
     def caller_shape(self, global_shape: Sequence[int], tail: Sequence[Optional[str]]) -> Tuple[int, ...]:
@@ -279,7 +321,7 @@ class _AxisMesh:
         shape = list(global_shape)
         if self.caller_holds_block:
             for dim, axis in self._shard_dims(len(shape), tail):
-                shape[dim] //= self.shape[axis]
+                shape[dim] //= self.axis_size(axis)
         return tuple(shape)
 
 
@@ -311,9 +353,10 @@ class SimMesh(_AxisMesh):
         if len(self.dims) == 1:
             self.axis_size(axis_name)
             return [(self, self.local_ranks())]
-        view = self._ring_views.get(axis_name)
+        key = _axis_key(self.axes_of(axis_name))
+        view = self._ring_views.get(key)
         if view is None:
-            view = self._ring_views[axis_name] = SimMesh(self.axis_size(axis_name), axis_name, self.device)
+            view = self._ring_views[key] = SimMesh(self.axis_size(axis_name), key, self.device)
         return [(view, ring) for ring in self.ring_ranks(axis_name)]
 
     # -- the rank whose per-rank code is running -------------------------------
@@ -334,7 +377,7 @@ class SimMesh(_AxisMesh):
         self.axis_size(axis_name)
         if self._rank is None:
             raise RuntimeError("axis_index is only defined inside per-rank code (SimMesh.running)")
-        return self.coords(self._rank)[axis_name]
+        return self.ring_index(self._rank, axis_name)
 
     # -- collectives over per-rank lists (1-D) ------------------------------------
     def ppermute_start(self, pieces: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> Pending:
@@ -400,6 +443,40 @@ class SimMesh(_AxisMesh):
             stacked = torch.stack([blocks[r] for r in ring])
             for r in ring:
                 out[r] = stacked
+        return out
+
+    def all_gather_fsdp(self, blocks: Sequence[torch.Tensor], axis_name: Optional[Axes] = None,
+                        dim: int = 0) -> Blocks:
+        """FSDP's gather: every rank of a ring gets the ring's blocks
+        concatenated along ``dim`` in ring order (``lax.all_gather(...,
+        axis=dim, tiled=True)``) -- one tensor, the same object for each.
+        Its gradient is autograd's: the uses' gradients summed, each
+        rank's slice to its block (:meth:`ProcessGroupMesh.all_gather_fsdp`'s
+        reduce-scatter)."""
+        self._check(blocks)
+        out = list(blocks)
+        for ring in self.ring_ranks(axis_name or self.axis_name):
+            whole = torch.cat([blocks[r] for r in ring], dim)
+            for r in ring:
+                out[r] = whole
+        return out
+
+    def psum_scatter(self, blocks: Sequence[torch.Tensor], axis_name: Optional[Axes] = None,
+                     dim: int = 0) -> Blocks:
+        """``lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``:
+        the ring's blocks summed in ring order, and each rank's slice of
+        the sum along ``dim`` (its position on the ring's)."""
+        self._check(blocks)
+        out = list(blocks)
+        for ring in self.ring_ranks(axis_name or self.axis_name):
+            acc = blocks[ring[0]]
+            for r in ring[1:]:
+                acc = acc + blocks[r]
+            if acc.shape[dim] % len(ring):
+                raise ValueError(f"psum_scatter: dim {dim} of size {acc.shape[dim]} does not split over "
+                                 f"{len(ring)} ranks")
+            for i, piece in enumerate(torch.chunk(acc, len(ring), dim)):
+                out[ring[i]] = piece
         return out
 
     def _reduce(self, blocks, axis_name, op) -> Blocks:
@@ -502,15 +579,16 @@ class ProcessGroupMesh(_AxisMesh):
         self._rings: Dict[str, _AxisMesh] = {}
         if len(self.dims) > 1:
             timeout = datetime.timedelta(seconds=timeout_s)
-            for axis in self.axis_names:
-                for ring in self.ring_ranks(axis):
+            for axes in ring_axes(self.axis_names):
+                key = _axis_key(axes)
+                for ring in self.ring_ranks(axes):
                     if len(ring) == 1:  # no message moves on a ring of one
                         if ring == [self.rank]:
-                            self._rings[axis] = SimMesh(1, axis, self.device)
+                            self._rings[key] = SimMesh(1, key, self.device)
                         continue
                     sub = dist.new_group([self._global[r] for r in ring], timeout=timeout)
                     if self.rank in ring:
-                        self._rings[axis] = ProcessGroupMesh(axis, self.device, sub)
+                        self._rings[key] = ProcessGroupMesh(key, self.device, sub)
 
     def local_ranks(self) -> List[int]:
         """The ranks whose blocks this process holds: its own."""
@@ -521,10 +599,10 @@ class ProcessGroupMesh(_AxisMesh):
         the view is a mesh over that ring's subgroup (a one-rank
         ``SimMesh`` where the ring has one rank), ``[0]`` the index of
         the one local block. A 1-D mesh is its own ring."""
-        self.axis_size(axis_name)
-        if len(self.dims) == 1:
+        axes = self.axes_of(axis_name)
+        if len(self.dims) == 1 or axes == self.axis_names:  # every axis: the whole group
             return [(self, [0])]
-        return [(self._rings[axis_name], [0])]
+        return [(self._rings[_axis_key(axes)], [0])]
 
     @contextlib.contextmanager
     def running(self, me: int):
@@ -533,9 +611,10 @@ class ProcessGroupMesh(_AxisMesh):
             raise ValueError(f"process of rank {self.rank} cannot run rank {me}'s code")
         yield
 
-    def axis_index(self, axis_name: str) -> int:
-        self.axis_size(axis_name)
-        return self.coords(self.rank)[axis_name]
+    def axis_index(self, axis_name: Axes) -> int:
+        """The rank's coordinate along ``axis_name`` (row-major over a
+        tuple of axes: :meth:`ring_index`)."""
+        return self.ring_index(self.rank, axis_name)
 
     # -- collectives (1-D) ----------------------------------------------------------
     def ppermute_start(self, pieces: Sequence[torch.Tensor], perm: Sequence[Tuple[int, int]]) -> Pending:
@@ -687,6 +766,49 @@ class ProcessGroupMesh(_AxisMesh):
             return [_AllGather.apply(ring, b)]
         return [_stack_gather(ring, b)]
 
+    def all_gather_fsdp(self, blocks: Sequence[torch.Tensor], axis_name: Optional[Axes] = None,
+                        dim: int = 0) -> Blocks:
+        """FSDP's gather: the ring's blocks concatenated along ``dim`` in
+        ring order (``lax.all_gather(..., axis=dim, tiled=True)``), one
+        ``all_gather_into_tensor`` on the ring's group. Differentiable:
+        unlike :meth:`all_gather`, whose stack every rank uses the same,
+        each rank uses the gathered weight on its own rows of the batch,
+        so the backward reduce-scatters -- the ring's gradients summed,
+        each rank its block (:meth:`psum_scatter`)."""
+        self._check(blocks)
+        return [self.gather_many([blocks[0]], [dim], axis_name)[0]]
+
+    def gather_many(self, tensors: Sequence[torch.Tensor], dims: Sequence[int],
+                    axis_name: Optional[Axes] = None) -> List[torch.Tensor]:
+        """:meth:`all_gather_fsdp` of several of the rank's tensors at once,
+        each along its own dim: one ``all_gather_into_tensor`` for all of
+        them (per dtype), and in the backward one reduce-scatter -- a
+        layer's weights move in one collective, not one a leaf."""
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        if ring.p == 1 or not tensors:
+            return list(tensors)
+        if any(_records(t) for t in tensors):
+            return list(_GatherMany.apply(ring, tuple(dims), *tensors))
+        return _gather_many(ring, list(tensors), list(dims))
+
+    def psum_scatter(self, blocks: Sequence[torch.Tensor], axis_name: Optional[Axes] = None,
+                     dim: int = 0) -> Blocks:
+        """``lax.psum_scatter(..., scatter_dimension=dim, tiled=True)``: one
+        ``reduce_scatter_tensor`` (SUM) on the ring's group; the rank gets
+        its slice of the ring's sum along ``dim``. Differentiable: the
+        backward all-gathers the slices' gradients (each rank's slice is
+        its own; the sum's gradient is every slice's)."""
+        self._check(blocks)
+        ring, _ = self.rings(axis_name or self.axis_name)[0]
+        b = blocks[0]
+        if b.shape[dim] % ring.p:
+            raise ValueError(f"psum_scatter: dim {dim} of size {b.shape[dim]} does not split over {ring.p} ranks")
+        if ring.p == 1:
+            return [b]
+        if _records(b):
+            return [_PsumScatter.apply(ring, dim, b)]
+        return [_psum_scatter(ring, b, dim)]
+
     # -- global <-> per-rank ----------------------------------------------------
     def split(self, x, tail: Sequence[Optional[str]]) -> Blocks:
         """Global array -> this rank's block (a view of ``x`` on the
@@ -774,6 +896,122 @@ def _stack_gather(ring: ProcessGroupMesh, b: torch.Tensor) -> torch.Tensor:
     out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
     dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
     return out.view((ring.p,) + tuple(b.shape))
+
+
+def ring_axes(names: Sequence[str]) -> List[Tuple[str, ...]]:
+    """The axis groups a grid of axes ``names`` makes rings for, in the
+    order every rank creates their groups: each axis alone, then each
+    proper subset of two or more axes (a dim placed over ``("pod",
+    "data")``, the norm of leaves placed on two axes)."""
+    names = tuple(names)
+    return [axes for k in range(1, len(names)) for axes in itertools.combinations(names, k)]
+
+
+def _axis_key(axes: Sequence[str]) -> str:
+    """The name of a ring over ``axes``: the axis itself, or the axes
+    joined by ``+``."""
+    return "+".join(axes)
+
+
+def _all_gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
+    """``all_gather_into_tensor`` under the name this torch gives it."""
+    import torch.distributed as dist
+
+    (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, inp, group=group)
+
+
+def _flat_cat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
+    return torch.cat([t.reshape(-1) for t in tensors]) if len(tensors) > 1 else tensors[0].reshape(-1)
+
+
+def _gather_many(ring: ProcessGroupMesh, tensors: List[torch.Tensor], dims: List[int]) -> List[torch.Tensor]:
+    """Each tensor's ring blocks concatenated along its dim, by one
+    ``all_gather_into_tensor`` of the rank's blocks side by side (one per
+    dtype): the output holds the ranks' buffers one after another, so a
+    tensor's blocks are one column of the (P, n) view, laid along its
+    dim by a ``movedim``."""
+    import torch.distributed as dist
+
+    out: List[Optional[torch.Tensor]] = [None] * len(tensors)
+    for dtype in dict.fromkeys(t.dtype for t in tensors):
+        idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
+        send = _flat_cat([tensors[i].detach().resolve_conj().contiguous() for i in idx])
+        recv = torch.empty((ring.p, send.numel()), dtype=dtype, device=send.device)
+        _all_gather_into(_wire(recv.view(-1)), _wire(send), ring.group)
+        FSDP_BYTES["all_gather"] += recv.numel() * recv.element_size()
+        at = 0
+        for i in idx:
+            t, d = tensors[i], dims[i] % max(tensors[i].ndim, 1)
+            n = t.numel()
+            piece = recv[:, at:at + n].reshape((ring.p,) + tuple(t.shape))
+            shape = list(t.shape)
+            shape[d] *= ring.p
+            out[i] = piece.movedim(0, d).reshape(shape)
+            at += n
+    return out  # type: ignore[return-value]
+
+
+def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims: List[int]) -> List[torch.Tensor]:
+    """The inverse layout of :func:`_gather_many`: each whole gradient
+    cut along its dim into the ring's blocks, the blocks laid rank-major
+    in one buffer a dtype, and one reduce-scatter (SUM) hands the rank the
+    sum of its blocks."""
+    import torch.distributed as dist
+
+    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
+    out: List[Optional[torch.Tensor]] = [None] * len(grads)
+    for dtype in dict.fromkeys(g.dtype for g in grads):
+        idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
+        cols = []
+        for i in idx:
+            g, d = grads[i], dims[i]
+            shape = list(g.shape)
+            shape[d:d + 1] = [ring.p, shape[d] // ring.p]
+            cols.append(g.reshape(shape).movedim(d, 0).reshape(ring.p, -1))
+        send = torch.cat(cols, 1).contiguous() if len(cols) > 1 else cols[0].contiguous()
+        recv = torch.empty(send.shape[1], dtype=dtype, device=send.device)
+        reduce_scatter(_wire(recv), _wire(send.view(-1)), group=ring.group)
+        FSDP_BYTES["reduce_scatter"] += send.numel() * send.element_size()
+        at = 0
+        for i in idx:
+            shape = list(grads[i].shape)
+            shape[dims[i]] //= ring.p
+            n = math.prod(shape)
+            out[i] = recv[at:at + n].view(shape)
+            at += n
+    return out  # type: ignore[return-value]
+
+
+def _psum_scatter(ring: ProcessGroupMesh, b: torch.Tensor, dim: int) -> torch.Tensor:
+    return _reduce_scatter_many(ring, [b], [dim % b.ndim])[0]
+
+
+class _GatherMany(torch.autograd.Function):
+    """FSDP's gather of several tensors (:func:`_gather_many`); the
+    backward reduce-scatters their gradients in one collective."""
+
+    @staticmethod
+    def forward(ctx, ring, dims, *tensors):
+        ctx.ring, ctx.dims = ring, [d % max(t.ndim, 1) for d, t in zip(dims, tensors)]
+        return tuple(_gather_many(ring, list(tensors), ctx.dims))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g.contiguous() for g in grads]
+        return (None, None) + tuple(_reduce_scatter_many(ctx.ring, grads, ctx.dims))
+
+
+class _PsumScatter(torch.autograd.Function):
+    """The reduce-scatter; the backward all-gathers the slices' gradients."""
+
+    @staticmethod
+    def forward(ctx, ring, dim, b):
+        ctx.ring, ctx.dim = ring, dim % b.ndim
+        return _psum_scatter(ring, b, ctx.dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return None, None, _gather_many(ctx.ring, [grad.contiguous()], [ctx.dim])[0]
 
 
 class _Psum(torch.autograd.Function):

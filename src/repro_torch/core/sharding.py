@@ -14,23 +14,32 @@ The reference's other half (``named``, ``constrain``, ``tree_shardings``,
 then moves the data. The port places explicitly instead:
 :func:`placement` resolves a leaf's spec for the mesh and :func:`block`
 names the block a ``ProcessGroupMesh`` rank keeps (``Model.init``,
-``models.model.params_from_numpy``). ``constrain`` has no counterpart:
-the activations' layout is whatever the model code computes, and the
-collectives that move them sit in the model code (``models.common.TP``).
+``models.model.params_from_numpy``, ``train.step.state_placement``);
+:func:`batch_placement` is ``batch_sharding``'s spec, the rows a rank
+of the ``('pod', 'data')`` axes trains on. ``constrain`` has no
+counterpart: the activations' layout is whatever the model code
+computes, and the collectives that move them sit in the model code
+(``models.common.TP`` over ``model``, the FSDP gathers of
+``models.model`` over ``('pod', 'data')``).
 
-Two rules differ from GSPMD's. Heads are placed whole: the reference
-resolves the flattened ``(d, H*hd)`` leaves by their size, so a model
-with 2 KV heads of 16 on 4 ranks splits ``wk`` into half heads, which
-GSPMD survives and explicit attention cannot; here a ``"heads"`` or
+The weights are FSDP x TP, as the reference's: an ``"fsdp"`` dim over
+the ``('pod', 'data')`` axes that divide it (a rank keeps its block and
+gathers the layer's whole weight just before the layer runs), a
+``"heads"`` / ``"mlp"`` / ``"vocab"`` / ``"experts"`` dim over ``model``.
+A tuple of axes on one dim is laid row-major, ``pod`` before ``data``,
+as a jax ``NamedSharding`` lays it, so a rank's block is the
+reference's shard on the device of the same mesh coordinates. One rule
+differs from GSPMD's: heads are placed whole. The reference resolves
+the flattened ``(d, H*hd)`` leaves by their size, so a model with 2 KV
+heads of 16 on 4 ranks splits ``wk`` into half heads, which GSPMD
+survives and explicit attention cannot; here a ``"heads"`` or
 ``"kv_heads"`` dim takes the ``model`` axis only where the head count
-(``units``) divides it. And only the ``model`` axis places weights in
-this slice: a ``data`` axis (``"fsdp"``) replicates them (FSDP comes
-with the placed training state, ROADMAP A15.3c).
+(``units``) divides it.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence, Tuple, Union
+from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
 Axis = Union[str, None]
 Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
@@ -95,46 +104,71 @@ HEAD_NAMES = ("heads", "kv_heads")
 def placement(mesh, spec: Sequence[Axis], shape: Sequence[int],
               units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Spec:
     """The port's placement of a leaf of ``shape`` whose logical spec is
-    ``spec``: ``"model"`` on the dim :func:`resolve` gives the ``model``
-    axis, where the dim's whole units -- ``units[name]`` (the head count
-    of a ``"heads"`` / ``"kv_heads"`` dim), else its size over ``parts``
-    (a dim that packs equal parts side by side, as Mamba's ``win`` packs
-    ``[x | z]``) -- divide the axis; None everywhere else (replicated). No
-    mesh, or a ``model`` axis of one rank, places nothing."""
-    p = mesh.shape.get("model", 1) if mesh is not None else 1
-    if p == 1:
+    ``spec``, one entry a dim: ``"model"`` on the dim :func:`resolve`
+    gives the ``model`` axis, where the dim's whole units --
+    ``units[name]`` (the head count of a ``"heads"`` / ``"kv_heads"``
+    dim), else its size over ``parts`` (a dim that packs equal parts side
+    by side, as Mamba's ``win`` packs ``[x | z]``) -- divide the axis; the
+    ``('pod', 'data')`` axes :func:`resolve` gives a dim (an ``"fsdp"``
+    dim: the axes of more than one rank that divide it, one name or a
+    tuple); None everywhere else (replicated). No mesh, or axes of one
+    rank, place nothing."""
+    if mesh is None:
         return (None,) * len(spec)
+    p = mesh.shape.get("model", 1)
     out = []
     for name, entry, n in zip(spec, resolve(mesh, *spec, shape=shape), shape):
-        if entry != "model" and not (isinstance(entry, tuple) and "model" in entry):
-            out.append(None)
+        axes = () if entry is None else (entry,) if isinstance(entry, str) else tuple(entry)
+        if "model" in axes and p > 1:
+            if name in HEAD_NAMES and (units is None or name not in units):
+                raise ValueError(f"placing a {name!r} dim needs its head count (units={{{name!r}: ...}}): heads are "
+                                 "placed whole")
+            whole = units[name] if units is not None and name in units else n // parts
+            out.append("model" if whole % p == 0 else None)
             continue
-        if name in HEAD_NAMES and (units is None or name not in units):
-            raise ValueError(f"placing a {name!r} dim needs its head count (units={{{name!r}: ...}}): heads are "
-                             "placed whole")
-        whole = units[name] if units is not None and name in units else n // parts
-        out.append("model" if whole % p == 0 else None)
+        batch = tuple(a for a in axes if a in DEFAULT_RULES["batch"] and mesh.shape[a] > 1)
+        out.append(_entry(batch))
     return tuple(out)
 
 
+def placed_axes(where: Spec) -> Tuple[str, ...]:
+    """The mesh axes a :func:`placement` cuts the leaf over, in the order
+    of its dims."""
+    out: Tuple[str, ...] = ()
+    for entry in where:
+        if entry is not None:
+            out += (entry,) if isinstance(entry, str) else tuple(entry)
+    return out
+
+
 def block(mesh, spec: Sequence[Axis], shape: Sequence[int],
-          units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Optional[Tuple[int, int, int]]:
-    """(dim, first, count): the block of a leaf that the caller keeps on a
-    mesh where it holds its own block (a ``ProcessGroupMesh``): its
-    ``model`` coordinate's slice of the dim :func:`placement` puts on
-    that axis -- of each part, where the dim packs ``parts`` (the caller
-    keeps the parts' slices side by side: ``first`` and ``count`` are
-    within a part). None where it keeps the whole leaf: no mesh, a
-    ``SimMesh`` (every rank's block is a view of the whole leaf), or a
-    leaf placed nowhere."""
+          units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Optional[List[Tuple[int, int, int]]]:
+    """One ``(dim, first, count)`` for each dim :func:`placement` cuts:
+    the block of a leaf that the caller keeps on a mesh where it holds its
+    own block (a ``ProcessGroupMesh``), in dim order -- along a ``model``
+    dim its ``model`` coordinate's slice (of each part, where the dim
+    packs ``parts``: the caller keeps the parts' slices side by side, and
+    ``first`` and ``count`` are within a part), along an ``"fsdp"`` dim
+    its row-major position on the dim's ``('pod', 'data')`` axes. None
+    where it keeps the whole leaf: no mesh, a ``SimMesh`` (every rank's
+    block is a view of the whole leaf), or a leaf placed nowhere."""
     if mesh is None or not mesh.caller_holds_block:
         return None
-    where = placement(mesh, spec, shape, units, parts)
-    if "model" not in where:
-        return None
-    dim = where.index("model")
-    n = shape[dim] // parts // mesh.shape["model"]
-    return dim, mesh.axis_index("model") * n, n
+    out = []
+    for dim, entry in enumerate(placement(mesh, spec, shape, units, parts)):
+        if entry is None:
+            continue
+        per = parts if entry == "model" else 1
+        n = shape[dim] // per // mesh.axis_size(entry)
+        out.append((dim, mesh.axis_index(entry) * n, n))
+    return out or None
+
+
+def batch_placement(mesh, ndim: int) -> Spec:
+    """``batch_sharding``'s spec for an ``ndim`` batch input: its leading
+    (row) dim over the mesh's ``('pod', 'data')`` axes, row-major -- the
+    rows a rank trains on."""
+    return resolve(mesh, *(["batch"] + [None] * (ndim - 1)))
 
 
 def sanitize_spec(mesh, spec: Sequence, shape: Sequence[int]) -> Spec:

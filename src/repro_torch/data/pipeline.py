@@ -105,7 +105,10 @@ class Prefetcher:
 
 def make_batch_arrays(batch: Dict[str, np.ndarray], mesh=None, device=None) -> Dict[str, torch.Tensor]:
     """A host batch as tensors on ``device`` (default: the mesh's device,
-    else ``cuda``). Every rank of a mesh gets the whole batch: the steps
-    take each data rank's rows themselves (``train.step``)."""
+    else ``cuda``). Every rank of a mesh gets the whole host batch, over
+    processes too: the steps take each data rank's rows themselves --
+    ``make_train_step`` each microbatch's block of rows at the rank's
+    ``('pod', 'data')`` coordinate (``train.step.microbatch_rows``), the
+    compressed DDP step its block of the batch."""
     dev = resolve_device(device if device is not None or mesh is None else mesh.device)
     return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev, non_blocking=True) for k, v in batch.items()}

@@ -3,22 +3,32 @@ ported from ``repro.launch.train``.
 
 Wires together the config registry, the synthetic data, the train step,
 the checkpoint manager (atomic / async / keep-3; its leaf names are the
-reference's, so a ``TrainState`` written by either package restores in
-the other), the step monitor (straggler flags, ``input`` / ``step_fn``
-spans), and the failure-recovery loop (auto-resume from the latest
-checkpoint, ``elastic_mesh`` under ``--elastic``). Without ``--ckpt-dir``
-a run checkpoints into a fresh directory, so it never resumes another
-run's state. Runs on ``--device`` (default ``cuda``; it raises without a
-GPU unless given ``--device cpu``).
+reference's, so a ``TrainState`` of whole leaves written by either
+package restores in the other), the step monitor (straggler flags,
+``input`` / ``step_fn`` spans), and the failure-recovery loop
+(auto-resume from the latest checkpoint, ``elastic_mesh`` under
+``--elastic``). Without ``--ckpt-dir`` a run checkpoints into a fresh
+directory, so it never resumes another run's state. Runs on ``--device``
+(default ``cuda``; it raises without a GPU unless given ``--device
+cpu``).
 
 Unlike the reference's serve launcher, ``--reduced`` is a plain
 ``store_true`` (default False), as in the reference's train launcher: a
-bare ``--arch hymba-1.5b`` trains the full config. ``--model-parallel
-mp`` trains tensor-parallel over a ``(1, mp)`` ``SimMesh`` on the one
-device (``launch.mesh.make_local_mesh``; ``--elastic``: ``(n // mp,
-mp)``). The launcher over processes -- a ``ProcessGroupMesh`` under
-``torch.distributed``, whose checkpoints would hold per-rank blocks --
-raises: it is ROADMAP A15.3c.
+bare ``--arch hymba-1.5b`` trains the full config.
+
+In one process ``--model-parallel mp`` trains tensor-parallel over a
+``(1, mp)`` ``SimMesh`` on the one device (``launch.mesh.make_local_mesh``;
+``--elastic``: ``(n // mp, mp)``). Over processes -- under ``torchrun``,
+or any ``torch.distributed`` world that ``RANK`` / ``WORLD_SIZE`` name --
+every rank joins the world (``cpu:gloo,cuda:nccl`` on cards, gloo with
+``--device cpu``) as the ``(world // mp, mp)`` ``('data', 'model')`` grid
+and trains FSDP x TP on it (``train.make_train_step``): each rank builds
+its blocks of the state, takes its rows of every batch, and writes its
+blocks to the placed checkpoints (``step_<N>/proc<k>.npz``), which
+restore onto whatever grid a restart gets (``--elastic``: the
+survivors'). The loss log and history are the same on every rank::
+
+    torchrun --nproc-per-node 4 -m repro_torch.launch.train --arch qwen2.5-32b --reduced --model-parallel 2
 """
 
 from __future__ import annotations
@@ -38,8 +48,7 @@ from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import Model
 from repro_torch.runtime import FailureInjector, Resume, StepMonitor, elastic_mesh, run_with_recovery
-from repro_torch.train import init_train_state, make_train_step
-from repro_torch.train.step import NEXT
+from repro_torch.train import init_train_state, make_train_step, state_layout
 
 log = logging.getLogger("repro_torch.train")
 
@@ -89,7 +98,19 @@ def build_argparser():
     return ap
 
 
+def _broadcast(value):
+    """Rank 0's ``value`` on every rank of the world (one object)."""
+    import torch.distributed as dist
+
+    box = [value]
+    dist.broadcast_object_list(box, src=0)
+    return box[0]
+
+
 def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
+    import torch.distributed as dist
+
+    distributed = dist.is_available() and dist.is_initialized()
     cfg = get_config(args.arch, reduced=args.reduced)
     device = getattr(args, "device", None)
     tcfg = TrainConfig(
@@ -102,8 +123,11 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
     )
     ds = SyntheticLM(DataConfig(cfg.vocab_size, args.seq, args.batch, seed=args.seed))
     ckpt_dir = args.ckpt_dir or tempfile.mkdtemp(prefix="repro_torch_ckpt_")
-    log.info("checkpoints in %s", ckpt_dir)
-    ckpt = CheckpointManager(ckpt_dir, keep=3)
+    if distributed:  # one directory for the job: rank 0's
+        ckpt_dir = _broadcast(ckpt_dir)
+    rank0 = not distributed or dist.get_rank() == 0
+    if rank0:
+        log.info("checkpoints in %s", ckpt_dir)
     monitor = StepMonitor(history_limit=getattr(args, "monitor_window", 512))
     injector = injector or FailureInjector(
         args.fail_at,
@@ -111,33 +135,40 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
         times=getattr(args, "fail_times", 1),
     )
     history = {"loss": [], "restarts": 0, "ckpt_dir": ckpt_dir}
+    managers = []  # the previous attempt's, whose placed save may still owe its manifest
 
     def loop(resume: Optional[Resume]):
         # the mesh (and the state on it) is rebuilt per attempt: under
         # --elastic a restart re-discovers whatever ranks are still alive
+        for old in managers:
+            old.wait()
+        managers.clear()
         if getattr(args, "elastic", False):
             mesh = elastic_mesh(("data", "model"), model_parallel=args.model_parallel, device=device)
+            if mesh is None:  # not a survivor: the others train on
+                return
         else:
             mesh = make_local_mesh(args.model_parallel, device)
-        if mesh.caller_holds_block and mesh.p > 1:
-            raise NotImplementedError(f"the train launcher over processes (checkpoints of per-rank blocks) is {NEXT}")
         model = Model(cfg, mesh=mesh, attn_impl=args.attn_impl, device=mesh.device)
         g = torch.Generator(device=model.device)
         g.manual_seed(tcfg.seed)
         state, _ = init_train_state(model, g, tcfg)
+        layout = state_layout(model)
+        ckpt = CheckpointManager(ckpt_dir, keep=3, mesh=mesh)
+        managers.append(ckpt)
         start = 0
         # restore_latest walks back past corrupt/partial checkpoints --
         # a crash mid-save costs one interval, never the run
-        latest, restored = ckpt.restore_latest(state)
+        latest, restored = ckpt.restore_latest(state, layout=layout)
         if latest is not None:
             state = restored
             start = latest
-            if resume is not None:
+            if rank0 and resume is not None:
                 log.info(
                     "restart %d (%s): resumed from checkpoint step %d on %d ranks",
                     resume.restarts, resume.cause, start, mesh.p,
                 )
-            else:
+            elif rank0:
                 log.info("resumed from checkpoint step %d", start)
             # the pre-failure EMA would flag every post-restart step
             monitor.reset()
@@ -157,18 +188,18 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
                 spans=[("input", input_s), ("step_fn", time.perf_counter() - t_in - input_s)],
             )
             history["loss"].append(loss)
-            if st.flagged:
+            if st.flagged and rank0:
                 log.warning(
                     "straggler step %d: %.3fs (ema %.3fs, slowest stage: %s)",
                     step, st.seconds, monitor.ema, st.culprit,
                 )
-            if step % args.log_every == 0:
+            if step % args.log_every == 0 and rank0:
                 log.info(
                     "step %d loss %.4f gnorm %.3f %.0f tok/s",
                     step, loss, float(metrics["grad_norm"]), monitor.tokens_per_sec,
                 )
             if (step + 1) % tcfg.checkpoint_every == 0 or step + 1 == args.steps:
-                ckpt.save(step + 1, state)
+                ckpt.save(step + 1, state, layout=layout)
         ckpt.wait()
 
     restarts = run_with_recovery(
@@ -182,10 +213,38 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
     return history
 
 
+def _join_world(device) -> bool:
+    """Join the ``torch.distributed`` world that ``RANK`` / ``WORLD_SIZE``
+    (and ``MASTER_ADDR`` / ``MASTER_PORT``, as ``torchrun`` sets them)
+    name, unless joined already; False when the environment names none."""
+    import os
+
+    import torch.distributed as dist
+
+    if dist.is_initialized():
+        return False
+    if "RANK" not in os.environ or "WORLD_SIZE" not in os.environ:
+        return False
+    from repro_torch.core import init_process_mesh
+
+    rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
+    if device is None and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{os.environ['LOCAL_RANK']}"
+    init_process_mesh(rank, world, "env://", device=device)
+    return True
+
+
 def main(argv=None):
     logging.basicConfig(level=logging.INFO, format="%(asctime)s %(name)s %(message)s")
     args = build_argparser().parse_args(argv)
-    hist = train(args)
+    joined = _join_world(args.device)
+    try:
+        hist = train(args)
+    finally:
+        if joined:
+            import torch.distributed as dist
+
+            dist.destroy_process_group()
     first = np.mean(hist["loss"][:5]) if hist["loss"] else float("nan")
     last = np.mean(hist["loss"][-5:]) if hist["loss"] else float("nan")
     print(f"loss {first:.4f} -> {last:.4f} over {len(hist['loss'])} steps "

@@ -57,15 +57,18 @@ class Deferred(NamedTuple):
     shape: Tuple[int, ...]
     scale: float = 1.0
 
-    def fill(self, out: torch.Tensor, generator: torch.Generator, first: int = 0) -> torch.Tensor:
+    def fill(self, out: torch.Tensor, generator: torch.Generator, first: int = 0,
+             cut: Optional[Callable[[torch.Tensor], torch.Tensor]] = None) -> torch.Tensor:
         """Draw all ``shape[0]`` slices in order and write slices ``first``
         .. ``first + len(out)`` into ``out`` (a rank's block of the
-        experts: the same values as the whole draw's, whatever it keeps)."""
+        experts: the same values as the whole draw's, whatever it keeps),
+        each through ``cut`` where the rank keeps a block of a slice's
+        dims too (FSDP's block of ``d_model``)."""
         std = _std(self.shape, self.scale)
         for j in range(self.shape[0]):
             draw = _unit_draw(self.shape[1:], std, generator, out.device)
             if first <= j < first + out.shape[0]:
-                out[j - first].copy_(draw)
+                out[j - first].copy_(draw if cut is None else cut(draw))
         return out
 
     def draw(self, generator: torch.Generator, device) -> torch.Tensor:
@@ -241,8 +244,7 @@ class TP:
 
     ``ranks`` are the ``model`` coordinates this process computes: all P
     on a ``SimMesh`` (lock step; one ring serves every ``data``
-    coordinate, since the weights are replicated over ``data`` until
-    FSDP, ROADMAP A15.3c), its own on a
+    coordinate: a ``SimMesh`` holds every weight whole), its own on a
     ``ProcessGroupMesh``. A layer computes one part per coordinate from
     the rank's blocks of its weights (:meth:`block`: a view of the whole
     leaf on a ``SimMesh``, the leaf itself where the process holds its
@@ -263,9 +265,12 @@ class TP:
     rank's own activations (``block(..., vary=True)``, the norms on
     sequence blocks, :meth:`norm`). Its backward sums the ranks'
     gradients. On a ``SimMesh`` all ranks lie in one autograd graph and
-    :meth:`vary` does nothing. Over processes the ``data`` axis holds one
-    rank: the weights are replicated over ``data`` (FSDP and the placed
-    training state are ROADMAP A15.3c).
+    :meth:`vary` does nothing. Over processes with ``('pod', 'data')``
+    axes of several ranks, the model hands the layers its ``model`` ring
+    (``mesh``) and the weights already gathered whole over those axes
+    (FSDP, ``models.model``); ``batch`` is then ``(the whole mesh, those
+    axes)``: each process computes on its own rows of the batch, and the
+    MoE ring's aux reads the other rows' groups through it.
 
     ``seq`` is the layout of the activations between the layers: False,
     one tensor the same on every rank (the reference's prefill and
@@ -276,8 +281,9 @@ class TP:
     (:meth:`col`), and a row-parallel output returns to with the ring
     reduce-scatter (:meth:`reduce`)."""
 
-    def __init__(self, mesh=None, seq: bool = False):
+    def __init__(self, mesh=None, seq: bool = False, batch=None):
         self.mesh = mesh
+        self.batch = batch
         self.p = mesh.shape.get("model", 1) if mesh is not None else 1
         self.ring = mesh.rings("model")[0][0] if self.p > 1 else None  # a 1-D view over ``model``
         self.ranks: List[int] = self.ring.local_ranks() if self.p > 1 else [0]

@@ -16,7 +16,7 @@ is padded with zero rows and ignored labels, as the reference pads it.
 
 from __future__ import annotations
 
-from typing import Callable, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -43,8 +43,14 @@ def chunked_xent(
     seq_chunk: int = 1024,
     z_loss: float = 0.0,
     final_softcap: float = 0.0,
+    count_sum: Optional[Callable[[torch.Tensor], torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Returns (mean_nll, mean_z_loss_term). Never materializes (B,S,V)."""
+    """Returns (mean_nll, mean_z_loss_term). Never materializes (B,S,V).
+    ``count_sum``: where the caller holds its rows of a batch split over
+    ranks, the global count of kept labels from the local one (a sum over
+    the ranks): the result is then the rank's share of the global masked
+    mean, and the shares sum to it (the reference's mean over the whole
+    batch, not a mean of the ranks' means)."""
     s = x.shape[1]
     labels = labels.to(x.device)
     mask = (labels >= 0).float()
@@ -62,6 +68,8 @@ def chunked_xent(
         a, b, c = checkpoint(_chunk_ce, x[:, sl], labels[:, sl], mask[:, sl], unemb_fn, final_softcap,
                              use_reentrant=False)
         nll, z2, cnt = nll + a, z2 + b, cnt + c
+    if count_sum is not None:
+        cnt = count_sum(cnt)
     cnt = torch.clamp(cnt, min=1.0)
     return nll / cnt, z_loss * z2 / cnt
 

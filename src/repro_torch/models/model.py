@@ -64,8 +64,22 @@ length). The SSM and hybrid models keep the residual stream whole on
 every rank (their recurrences need the whole sequence; the reference
 constrains it back to whole, or batch-only, inside their blocks): their
 mixers split by channel over the axis (``models.ssm``), hymba's
-attention and FFN as the decoders'. The ``data`` axis replicates the
-weights (FSDP and the placed training state are ROADMAP A15.3c).
+attention and FFN as the decoders'.
+
+FSDP over the ``('pod', 'data')`` axes of a ``ProcessGroupMesh``
+(``batch_axes``): a rank keeps its block of every ``"fsdp"`` dim
+(``core.sharding.placement``) and the model gathers a layer's blocks
+whole just before the layer runs -- inside the function ``_remat``
+checkpoints, so the recompute gathers again and only the blocks live
+between the layers -- and the embedding, the unembedding, the meta
+tokens and the MTP module just before theirs (``mesh.gather_many``: one
+all-gather, whose backward reduce-scatters the gradients; the norms have
+no ``"fsdp"`` dim and stay whole). The process
+computes on its own rows of the batch (``train.step``) through its
+``model`` ring, and ``loss`` returns its share of the global masked
+mean, its metrics the global values. On a ``SimMesh`` the ``data`` axis
+holds the whole batch and every weight whole; the MoE dispatch counts
+its capacity per data group either way.
 
 Training over the ``model`` axis (``loss``): on a ``SimMesh`` every
 rank's part lies in one autograd graph; on a ``ProcessGroupMesh`` each
@@ -76,10 +90,11 @@ gradient of a leaf is that leaf's gradient of the one-rank model: the
 whole leaf's for a leaf kept whole, its block's for a placed one
 (:meth:`Model.sharded_leaves` names which).
 
-On a ``ProcessGroupMesh`` a rank holds only its blocks (``init`` draws
-every leaf in the one-rank order, one layer at a time, and keeps the
-rank's; ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's
-arrays; a leaf of ``ssm.MESH_LAYOUT`` is placed as that table says), its
+On a ``ProcessGroupMesh`` a rank holds only its blocks, of the
+``model`` and the ``('pod', 'data')`` axes (``init`` draws every leaf in
+the one-rank order, one layer at a time, and keeps the rank's;
+``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's arrays;
+a leaf of ``ssm.MESH_LAYOUT`` is placed as that table says), its
 KV heads of the caches (and of the cross K / V) and its channel blocks
 of the conv windows and Mamba states; on a ``SimMesh`` the stacks and
 the states stay whole and a rank's block is a view.
@@ -98,7 +113,7 @@ from torch.utils import checkpoint as ckpt
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sharding
-from repro_torch.core.mesh import resolve_device
+from repro_torch.core.mesh import SimMesh, resolve_device
 from repro_torch.models import attention, blocks, common, losses, ssm
 from repro_torch.models.common import Deferred, Params, Specs
 
@@ -252,38 +267,80 @@ def _layout(path: str, spec) -> Tuple[tuple, int]:
     return (spec if new is None else (None,) * (len(spec) - len(new)) + tuple(new)), parts
 
 
-def _where(mesh, spec, shape, units, path: str):
-    """(``core.sharding.block`` of the leaf at ``path``, its parts)."""
+#: one cut of a leaf a process keeps: (dim, first, count, parts) -- along
+#: ``dim``, ``count`` entries from ``first`` of each of its ``parts`` equal
+#: parts, side by side (``core.sharding.block``; parts > 1 only on a
+#: ``model`` dim that packs them)
+Cut = Tuple[int, int, int, int]
+
+
+def _where(mesh, spec, shape, units, path: str) -> Optional[List[Cut]]:
+    """The cuts of the leaf at ``path`` a process keeps
+    (``core.sharding.block`` of its :func:`_layout`, with its parts on
+    the ``model`` dim), None where it keeps the whole leaf."""
     spec, parts = _layout(path, spec)
-    return sharding.block(mesh, spec, shape, units, parts), parts
+    rows = sharding.block(mesh, spec, shape, units, parts)
+    if rows is None:
+        return None
+    where = sharding.placement(mesh, spec, shape, units, parts)
+    return [(dim, first, count, parts if where[dim] == "model" else 1) for dim, first, count in rows]
 
 
-def _take(a, where: Optional[Tuple[int, int, int]], parts: int = 1):
-    """A tensor's or array's ``(dim, first, count)`` block of each of its
-    ``parts`` along ``dim`` (``core.sharding.block``), side by side."""
-    dim, first, count = where
-    width = a.shape[dim] // parts
-
-    def cut(j):
-        at = (slice(None),) * dim + (slice(j * width + first, j * width + first + count),)
-        return a[at]
-
-    if parts == 1:
-        return cut(0)
-    return torch.cat([cut(j) for j in range(parts)], dim) if isinstance(a, torch.Tensor) else \
-        np.concatenate([cut(j) for j in range(parts)], dim)
+def _fsdp_dim(mesh, spec, shape, units, path: str) -> Optional[Tuple[int, Any]]:
+    """(dim, axes) of the leaf at ``path`` placed over the ``('pod',
+    'data')`` axes (FSDP: gathered whole along ``dim`` before use), None
+    where no dim of it is."""
+    if mesh is None or not mesh.caller_holds_block:
+        return None
+    spec, parts = _layout(path, spec)
+    for dim, entry in enumerate(sharding.placement(mesh, spec, shape, units, parts)):
+        if entry is not None and entry != "model":
+            return dim, entry
+    return None
 
 
-def _keep(a: torch.Tensor, where: Optional[Tuple[int, int, int]], parts: int = 1) -> torch.Tensor:
+def _take(a, where: Optional[List[Cut]]):
+    """A tensor's or array's block under ``where`` (:func:`_where`): each
+    cut in turn, a cut's parts side by side."""
+    for dim, first, count, parts in where or ():
+        width = a.shape[dim] // parts
+
+        def cut(j, a=a, dim=dim, width=width, first=first, count=count):
+            at = (slice(None),) * dim + (slice(j * width + first, j * width + first + count),)
+            return a[at]
+
+        if parts == 1:
+            a = cut(0)
+        elif isinstance(a, torch.Tensor):
+            a = torch.cat([cut(j) for j in range(parts)], dim)
+        else:
+            a = np.concatenate([cut(j) for j in range(parts)], dim)
+    return a
+
+
+def _keep(a: torch.Tensor, where: Optional[List[Cut]]) -> torch.Tensor:
     """``a``, or a copy of its block (a view would keep the whole leaf
     alive)."""
     if where is None:
         return a
-    return _take(a, where, parts).clone(memory_format=torch.contiguous_format)
+    return _take(a, where).clone(memory_format=torch.contiguous_format)
 
 
 def _float_to(dtype):
     return lambda a: a.to(dtype) if a.is_floating_point() else a
+
+
+def batch_axes(mesh) -> Tuple[str, ...]:
+    """The ``('pod', 'data')`` axes of more than one rank of a mesh whose
+    process holds its own blocks (a ``ProcessGroupMesh``): the axes the
+    batch is split over between the processes and FSDP places the
+    weights over. () on a ``SimMesh`` (one process holds every rank and
+    the whole batch) and without a mesh."""
+    if mesh is None or not mesh.caller_holds_block:
+        return ()
+    entry = sharding.batch_placement(mesh, 1)[0]
+    axes = () if entry is None else (entry,) if isinstance(entry, str) else entry
+    return tuple(a for a in axes if mesh.shape[a] > 1)
 
 
 class Model:
@@ -296,8 +353,17 @@ class Model:
             raise ValueError(f"the mesh's ranks are on {mesh.device}, the model on {self.device}")
         self.groups = build_groups(cfg)
         self.dtype = getattr(torch, cfg.dtype)
-        self.tp = common.TP(mesh)
         self.units = head_units(cfg)
+        #: the ``('pod', 'data')`` axes of more than one rank of a
+        #: ``ProcessGroupMesh``: the process trains on its rows of the batch
+        #: and keeps its FSDP blocks; () where it holds the whole batch
+        self.batch_axes = batch_axes(mesh)
+        if self.batch_axes:  # the layers see the rank's ``model`` ring; the rows are the rank's own
+            ring = mesh.rings("model")[0][0] if "model" in mesh.shape else SimMesh(1, "model", mesh.device)
+            self.tp = common.TP(ring, batch=(mesh, self.batch_axes))
+        else:
+            self.tp = common.TP(mesh)
+        self._placed_tree = None
 
     def _cast(self, params):
         """Float params in the compute dtype. Idempotent: on a tree already
@@ -325,15 +391,14 @@ class Model:
             return _where(self.mesh, spec, shape, self.units, path)
 
         def keep(tree, specs, prefix=""):
-            return _map2(lambda a, spec, path: cast(_keep(a, *where(spec, a.shape, path))), tree, specs, prefix)
+            return _map2(lambda a, spec, path: cast(_keep(a, where(spec, a.shape, path))), tree, specs, prefix)
 
         def empty_stack(a, spec, path, count):
             src = torch.float32 if isinstance(a, Deferred) else a.dtype
             out_dtype = dtype if dtype is not None and src.is_floating_point else src
             shape = list(a.shape)
-            rows, parts = where(spec, shape, path)
-            if rows is not None:
-                shape[rows[0]] = rows[2] * parts
+            for dim, _, n, parts in where(spec, shape, path) or ():
+                shape[dim] = n * parts
             return torch.empty([count] + shape, dtype=out_dtype, device=dev)
 
         def stacked_blocks(count: int, draw: Callable):
@@ -354,15 +419,17 @@ class Model:
         params["final_norm"], specs["final_norm"] = keep(pn, sn), sn
         if cfg.meta_tokens:
             meta = common.trunc_normal((cfg.meta_tokens, cfg.d_model), 1.0, generator=generator, device=dev)
-            params["meta"], specs["meta"] = cast(meta), (None, "fsdp")
+            params["meta"], specs["meta"] = cast(_keep(meta, where((None, "fsdp"), meta.shape, "/meta"))), \
+                (None, "fsdp")
         for g in self.groups:
             params[g.name], s = stacked_blocks(g.count, _group_init_fn(g, cfg, generator, dev))
             specs[g.name] = _stack_specs(s)
         if cfg.mtp_depth > 0:
             use_moe = cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers
             block, sb = stacked_blocks(1, lambda: blocks.init_decoder_block(generator, cfg, dev, use_moe=use_moe))
+            proj = common.dense_init((2 * cfg.d_model, cfg.d_model), generator=generator, device=dev)
             params["mtp"] = {
-                "proj": cast(common.dense_init((2 * cfg.d_model, cfg.d_model), generator=generator, device=dev)),
+                "proj": cast(_keep(proj, where(("fsdp", None), proj.shape, "/mtp/proj"))),
                 "block": _layer(block, 0),
                 "norm_h": keep(*common.init_norm(cfg.d_model, cfg.norm_kind, dev)),
                 "norm_e": keep(*common.init_norm(cfg.d_model, cfg.norm_kind, dev)),
@@ -370,21 +437,95 @@ class Model:
             specs["mtp"] = {"proj": ("fsdp", None), "block": sb, "norm_h": sn, "norm_e": sn}
         return params, specs
 
-    def sharded_leaves(self) -> List[bool]:
-        """Whether each leaf of the model's parameter tree, in
-        ``optim.adamw.leaves`` order, is placed over the ``model`` axis on
-        this model's mesh -- a rank holds its block (``core.sharding.block``
-        through :func:`_where`, as :meth:`init` and :func:`params_from_numpy`
-        place it) -- rather than whole. The leaves' shapes and specs come
-        from :meth:`init` on the ``meta`` device: no weight is drawn. All
-        False without a mesh and on a ``SimMesh`` (every rank's block is a
-        view of the whole leaf)."""
+    def _abstract(self):
+        """(the one-rank model's leaves on the ``meta`` device, its specs):
+        the shapes and specs of the parameter tree, no weight drawn."""
+        return Model(self.cfg, device="meta").init(torch.Generator())
+
+    def sharded_leaves(self) -> List[Tuple[str, ...]]:
+        """The mesh axes each leaf of the model's parameter tree, in
+        ``optim.adamw.leaves`` order, is placed over on this model's mesh
+        -- a rank holds its block (``core.sharding.block`` through
+        :func:`_where`, as :meth:`init` and :func:`params_from_numpy` place
+        it) -- () for a leaf a rank holds whole: ``("model",)``, the
+        ``('pod', 'data')`` axes of its FSDP dim, or both. All () without
+        a mesh and on a ``SimMesh`` (every rank's block is a view of the
+        whole leaf)."""
         from repro_torch.optim.adamw import leaves
 
-        shapes, specs = Model(self.cfg, device="meta").init(torch.Generator())
-        placed = _map2(lambda a, spec, path: _where(self.mesh, spec, a.shape, self.units, path)[0] is not None,
-                       shapes, specs)
-        return leaves(placed)
+        shapes, specs = self._abstract()
+
+        def axes(a, spec, path):
+            if _where(self.mesh, spec, a.shape, self.units, path) is None:
+                return ()
+            lay, parts = _layout(path, spec)
+            return sharding.placed_axes(sharding.placement(self.mesh, lay, a.shape, self.units, parts))
+
+        return leaves(_map2(axes, shapes, specs))
+
+    def _placed(self):
+        """The tree of :func:`_fsdp_dim` of every leaf (made once)."""
+        if self._placed_tree is None:
+            shapes, specs = self._abstract()
+            self._placed_tree = _map2(lambda a, spec, path: _fsdp_dim(self.mesh, spec, a.shape, self.units, path),
+                                      shapes, specs)
+        return self._placed_tree
+
+    def _whole(self, params, key: str):
+        """``params[key]`` with its FSDP leaves gathered whole over their
+        ``('pod', 'data')`` axes (``mesh.gather_many``: one all-gather, whose
+        backward reduce-scatters the gradients); ``params[key]`` itself
+        where the process holds its whole batch."""
+        return self._gather(params[key], self._placed()[key]) if self.batch_axes else params[key]
+
+    def _embed_leaf(self, params, name: str) -> Params:
+        """``{name: the embedding's leaf name}`` ("table" or "unembed"),
+        its FSDP blocks gathered whole: only the leaf a lookup or the
+        unembedding uses moves (in its dtype: the loss's unembedding takes
+        the float32 masters and casts each chunk's product, as one rank
+        does)."""
+        leaf = params["embed"][name]
+        if self.batch_axes:
+            leaf = self._gather({name: leaf}, {name: self._placed()["embed"][name]})[name]
+        return {name: leaf}
+
+    def _unembed_leaf(self, params) -> Params:
+        """The unembedding's leaf (:meth:`_embed_leaf`): the table where the
+        embeddings are tied."""
+        return self._embed_leaf(params, "table" if self.cfg.tie_embeddings else "unembed")
+
+    def _layer_whole(self, params, g: "Group", i: int):
+        """Layer ``i`` of group ``g``: views of the stacks, its FSDP leaves
+        gathered whole (:meth:`_gather`)."""
+        p = _layer(params[g.name], i)
+        return self._gather(p, self._placed()[g.name], lead=1) if self.batch_axes else p
+
+    def _gather(self, tree, placed, lead: int = 0):
+        """``tree`` with each leaf that ``placed`` (:meth:`_placed`'s
+        subtree; ``lead``: the leading dims ``tree``'s leaves lack, 1 for a
+        layer's views) puts on ``('pod', 'data')`` axes gathered whole
+        along its dim: one ``gather_many`` a group of axes."""
+        flat: List[Tuple[str, torch.Tensor, Any]] = []
+
+        def collect(t, pl, path=""):
+            if isinstance(t, dict):
+                for k, v in t.items():
+                    collect(v, pl[k], f"{path}/{k}")
+            elif pl is not None:
+                flat.append((path, t, pl))
+
+        collect(tree, placed)
+        done: Dict[str, torch.Tensor] = {}
+        for axes in dict.fromkeys(pl[1] for _, _, pl in flat):
+            group = [(path, t, pl[0] - lead) for path, t, pl in flat if pl[1] == axes]
+            whole = self.mesh.gather_many([t for _, t, _ in group], [d for _, _, d in group], axes)
+            done.update((path, w) for (path, _, _), w in zip(group, whole))
+        return _map2(lambda t, _, path: done.get(path, t), tree, tree) if done else tree
+
+    def _batch_total(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the batch's ranks (no gradient): a loss's
+        global masked count, a metric's global value."""
+        return self.mesh.psum([t.detach()], self.batch_axes)[0]
 
     # ------------------------------------------------------------- embedding
     def _embed_in(self, params, batch) -> torch.Tensor:
@@ -392,21 +533,22 @@ class Model:
         if "embeds" in batch:
             x = batch["embeds"].to(self.device, self.dtype)
         else:
-            x = common.embed_tokens(params["embed"], batch["tokens"].to(self.device), self.dtype, self.tp,
-                                    cfg.vocab_size)
+            x = common.embed_tokens(self._embed_leaf(params, "table"), batch["tokens"].to(self.device), self.dtype,
+                                    self.tp, cfg.vocab_size)
         x = self._scale_tied(x)
         if cfg.rope_theta <= 0:
             x = x + common.sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, self.device)
         if cfg.meta_tokens:
-            m = params["meta"].to(self.dtype).expand((x.shape[0],) + params["meta"].shape)
-            x = torch.cat([m, x], dim=1)
+            meta = self._whole(params, "meta")
+            x = torch.cat([meta.to(self.dtype).expand((x.shape[0],) + meta.shape), x], dim=1)
         return x
 
     def _embed_dec(self, params, tokens) -> torch.Tensor:
         """The encoder-decoder's decoder tokens, with their sinusoidal
         positions (the reference scales no tied table there)."""
         cfg = self.cfg
-        x = common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype, self.tp, cfg.vocab_size)
+        x = common.embed_tokens(self._embed_leaf(params, "table"), tokens.to(self.device), self.dtype, self.tp,
+                                cfg.vocab_size)
         return x + common.sinusoidal_positions(x.shape[1], cfg.d_model, self.dtype, self.device)
 
     def _encode(self, params, embeds) -> torch.Tensor:
@@ -421,7 +563,7 @@ class Model:
         if tp.seq:
             x = tp.scatter_seq(x)
         for i in range(g.count):
-            x = blocks.apply_encoder_block(_layer(params[g.name], i), x, self.cfg, impl=self.attn_impl, tp=tp)
+            x = blocks.apply_encoder_block(self._layer_whole(params, g, i), x, self.cfg, impl=self.attn_impl, tp=tp)
         return tp.whole(x)
 
     def _scale_tied(self, x) -> torch.Tensor:
@@ -444,7 +586,7 @@ class Model:
             for i in range(g.count):
                 view = _state_layer(state[g.name], i)
                 cross = _state_layer(state["cross"], i) if g.cross else None
-                x, new = block(g, _layer(params[g.name], i), x, view, self._flag(g, i), cross)
+                x, new = block(g, self._layer_whole(params, g, i), x, view, self._flag(g, i), cross)
                 _write_back(view, new)
         return x
 
@@ -452,7 +594,7 @@ class Model:
         """Float32 logits, softcapped on each rank's vocabulary block (it
         is elementwise), then gathered whole over the ``model`` axis."""
         cfg = self.cfg
-        parts = common.unembed(params["embed"], x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
+        parts = common.unembed(self._unembed_leaf(params), x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
         parts = [common.softcap(o.float(), cfg.final_logit_softcap) for o in parts]
         return self.tp.gather(parts, -1) if self.tp.splits(cfg.vocab_size) else parts[0]
 
@@ -491,9 +633,12 @@ class Model:
         for g in self.groups:
             if g.kind == "enc":
                 continue
+            placed = self._placed()[g.name] if self.batch_axes else None
             for i in range(g.count):
-                block = _remat(lambda x, p, enc, g=g, flag=self._flag(g, i): self._trunk_block(g, p, x, flag, tp, enc),
-                               remat)
+                # FSDP: the layer's blocks gathered inside the remat'd function, so its
+                # recompute gathers again and only the blocks live between layers
+                block = _remat(lambda x, p, enc, g=g, flag=self._flag(g, i), placed=placed: self._trunk_block(
+                    g, p if placed is None else self._gather(p, placed, lead=1), x, flag, tp, enc), remat)
                 x, a = block(x, _layer(params[g.name], i), enc)
                 if a is not None:
                     aux = aux + a
@@ -510,9 +655,10 @@ class Model:
         float32 cast (``chunked_xent`` applies both), gathered whole over
         the ``model`` axis."""
         cfg = self.cfg
+        emb = self._unembed_leaf(params)
 
         def f(x):
-            parts = common.unembed(params["embed"], x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
+            parts = common.unembed(emb, x, cfg.tie_embeddings, self.tp, cfg.vocab_size)
             return self.tp.gather(parts, -1) if self.tp.splits(cfg.vocab_size) else parts[0]
 
         return f
@@ -526,10 +672,13 @@ class Model:
         cfg = self.cfg
         x, aux = self.hidden(params, batch)
         nll, zl = losses.chunked_xent(x, batch["labels"], self._unemb_fn(params), z_loss=1e-4,
-                                      final_softcap=cfg.final_logit_softcap)
+                                      final_softcap=cfg.final_logit_softcap,
+                                      count_sum=self._batch_total if self.batch_axes else None)
         total = nll + zl
         metrics = {"nll": nll, "z_loss": zl}
         if cfg.moe is not None:
+            if self.batch_axes:  # the mean over the capacity groups: each rank's rows are one
+                aux = aux / self.mesh.axis_size(self.batch_axes)
             total = total + cfg.moe.router_aux_weight * aux
             metrics["moe_aux"] = aux
         if cfg.mtp_depth > 0 and "tokens" in batch:
@@ -537,21 +686,25 @@ class Model:
             total = total + 0.3 * mtp_nll
             metrics["mtp_nll"] = mtp_nll
         metrics["loss"] = total
+        if self.batch_axes:  # the rank's share, and every metric's global value
+            metrics = {k: self._batch_total(v) for k, v in metrics.items()}
         return total, metrics
 
     def _mtp_loss(self, params, h, batch) -> torch.Tensor:
         """DeepSeek MTP (depth 1): predict token t+2 from [h_t; emb(t+1)]."""
         cfg = self.cfg
-        p = params["mtp"]
+        p = self._whole(params, "mtp")
         tokens, labels = batch["tokens"].to(self.device), batch["labels"]
-        emb_next = common.embed_tokens(params["embed"], tokens[:, 1:], self.dtype, self.tp, cfg.vocab_size)
+        emb_next = common.embed_tokens(self._embed_leaf(params, "table"), tokens[:, 1:], self.dtype, self.tp,
+                                       cfg.vocab_size)
         hh = common.apply_norm(p["norm_h"], h[:, :-1], cfg.norm_kind)
         ee = common.apply_norm(p["norm_e"], emb_next, cfg.norm_kind)
         z = torch.cat([hh, ee], dim=-1) @ p["proj"].to(self.dtype)
         use_moe = cfg.moe is not None and cfg.moe.first_k_dense < cfg.num_layers
         z, _ = blocks.apply_decoder_block(p["block"], z, cfg, is_global=True, use_moe=use_moe, impl=self.attn_impl,
                                           tp=self.tp)
-        nll, _ = losses.chunked_xent(z, labels[:, 1:], self._unemb_fn(params))  # label t+1 predicts token t+2
+        nll, _ = losses.chunked_xent(z, labels[:, 1:], self._unemb_fn(params),  # label t+1 predicts token t+2
+                                     count_sum=self._batch_total if self.batch_axes else None)
         return nll
 
     # --------------------------------------------------------------- decode
@@ -619,7 +772,7 @@ class Model:
         g = self.groups[1]
         out = None
         for i in range(g.count):
-            kv = blocks.cross_kv_proj(_layer(params[g.name], i), enc, self.cfg, self.tp)
+            kv = blocks.cross_kv_proj(self._layer_whole(params, g, i), enc, self.cfg, self.tp)
             if out is None:
                 out = blocks.CrossKV(*(t.new_empty((g.count,) + tuple(t.shape)) for t in kv))
             out.k[i], out.v[i] = kv
@@ -630,8 +783,8 @@ class Model:
         """tokens: (B, 1) -> (logits (B, V), state advanced in place)."""
         cfg = self.cfg
         params = self._cast(params)
-        x = self._scale_tied(common.embed_tokens(params["embed"], tokens.to(self.device), self.dtype, self.tp,
-                                                 cfg.vocab_size))
+        x = self._scale_tied(common.embed_tokens(self._embed_leaf(params, "table"), tokens.to(self.device), self.dtype,
+                                                 self.tp, cfg.vocab_size))
         if cfg.rope_theta <= 0:
             x = x + self._abs_pos(state["pos"])
         x = self._through_caches(params, x, state, self._decode_block)
@@ -707,13 +860,14 @@ def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: 
         for k, v in tree.items():
             _copy_into(stacked[k], v, specs[k], i, generator, where, f"{path}/{k}")
         return
-    rows, parts = where(specs, tree.shape, path)
+    cuts = where(specs, tree.shape, path)
     if isinstance(tree, Deferred):
-        if rows is not None and rows[0] != 0:
-            raise ValueError(f"a deferred draw keeps a block of its leading dim, not of dim {rows[0]}")
-        tree.fill(stacked[i], generator, first=0 if rows is None else rows[1])
+        lead = [c for c in cuts or () if c[0] == 0]
+        rest = [(dim - 1, first, count, parts) for dim, first, count, parts in cuts or () if dim > 0]
+        tree.fill(stacked[i], generator, first=lead[0][1] if lead else 0,
+                  cut=(lambda t: _take(t, rest)) if rest else None)
     else:
-        stacked[i].copy_(tree if rows is None else _take(tree, rows, parts))
+        stacked[i].copy_(_take(tree, cuts))
 
 
 def rank_blocks(tree, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
@@ -730,10 +884,10 @@ def rank_blocks(tree, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = Non
     def cut(a, spec=(), path=""):
         if not isinstance(a, torch.Tensor):
             a = np.asarray(a)
-        rows, parts = _where(mesh, spec, tuple(a.shape), units, path)
-        if rows is None:
+        where = _where(mesh, spec, tuple(a.shape), units, path)
+        if where is None:
             return a
-        block = _take(a, rows, parts)
+        block = _take(a, where)
         return block.clone() if isinstance(block, torch.Tensor) else block
 
     if mesh is not None and mesh.caller_holds_block and mesh.p > 1:

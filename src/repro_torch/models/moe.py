@@ -302,10 +302,16 @@ def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp: common.TP, a
     """x: (B, S, d), replicated. Each rank takes its island of the
     sequence: its S/P slice over ``axis_name`` (and its batch block over a
     data axis), the sequence-parallel expert parallelism of DeepSeek. The
-    aux is the mean of the islands of the ``model`` ring of data
-    coordinate 0: the reference's ``lax.pmean`` over the axis, whose
-    ``out_specs=P()`` keeps that group's value. ``x`` and the router,
-    the same on every rank, enter the islands through ``tp.vary``."""
+    aux is the reference's: ``lax.pmean`` over the axis with
+    ``out_specs=P()`` keeps the value of data coordinate 0's islands,
+    while its transpose (``check_vma=False``) spreads the gradient over
+    every island as the mean of all of them -- the value of group 0's
+    mean, the gradient of the mean over the mesh. Where the process holds
+    its rows (``tp.batch``), its islands are its data group's: its aux
+    carries that group's gradient, and its value moves by the same
+    constant on every group so that the mean over the groups (what
+    ``Model.loss`` takes) is group 0's. ``x`` and the router, the same on
+    every rank, enter the islands through ``tp.vary``."""
     mo = cfg.moe
     b, s, d = x.shape
     e, pn = mo.num_experts, mesh.shape[axis_name]
@@ -331,7 +337,12 @@ def _apply_moe_ring(p, x: torch.Tensor, cfg: ModelConfig, mesh, tp: common.TP, a
             outs[k] = _local_combine(y.reshape(e, -1, d), w, routing, shape[0] * shape[1]).reshape(shape)
     out = mesh.gather(outs, tail)
     auxes = mesh.gather([isl[3].reshape(1, 1) for isl in islands], tail[:2])  # (data, P)
-    return out, auxes[0].mean()
+    if tp.batch is not None:  # the process holds its rows: this ring is its data group's
+        full, axes = tp.batch
+        own = auxes.mean()
+        groups = full.all_gather([own.detach()], axes)[0]  # every data group's mean
+        return out, own + (groups[0] - groups.mean()).detach()
+    return out, auxes.mean() + (auxes[0].mean() - auxes.mean()).detach()
 
 
 def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
@@ -348,6 +359,9 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
         pn = mesh.shape.get("model", 1) if mesh is not None else 1
         if mesh is None or pn == 1 or mo.num_experts % pn or s % pn:
             dispatch = "einsum"  # the reference's divisibility fallback
+    if dispatch == "dense" and tp.batch is not None:
+        raise NotImplementedError("the dense dispatch's aux loss is one over every token: it does not split over "
+                                  "ranks that each hold their rows of the batch (use the einsum or ring dispatch)")
     DISPATCHES[(dispatch, 1 if mesh is None else mesh.p)] += 1
     if dispatch == "ring":
         out, aux = _apply_moe_ring(p, x, cfg, mesh, tp)

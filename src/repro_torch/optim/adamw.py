@@ -79,27 +79,32 @@ def _squares(xs) -> torch.Tensor:
     return total
 
 
-def global_norm(tree, mesh=None, sharded: Optional[Sequence[bool]] = None) -> torch.Tensor:
+def global_norm(tree, mesh=None, placed: Optional[Sequence[Sequence[str]]] = None) -> torch.Tensor:
     """The 2-norm of every leaf of ``tree`` together. Over a
     ``ProcessGroupMesh`` whose ranks hold blocks of some leaves
-    (``sharded``: one flag a leaf in :func:`leaves` order,
-    ``Model.sharded_leaves``), the whole model's norm: each sharded leaf's
-    squares summed over the ``model`` axis (one all-reduce), each leaf
-    kept whole counted once -- the same value on every rank."""
+    (``placed``: the mesh axes each leaf in :func:`leaves` order is cut
+    over, () for a leaf held whole -- ``Model.sharded_leaves``), the
+    whole model's norm: each leaf's squares summed over the axes it is
+    placed on (one all-reduce a set of axes) and counted once over the
+    axes it is replicated on -- the same value on every rank."""
     flat = leaves(tree)
-    if mesh is None or sharded is None or not any(sharded):
+    if mesh is None or placed is None or not any(placed):
         return torch.sqrt(_squares(flat))
-    if len(sharded) != len(flat):
-        raise ValueError(f"{len(sharded)} sharded flags for a tree of {len(flat)} leaves")
-    own = mesh.psum([_squares([x for x, s in zip(flat, sharded) if s])], "model")[0]
-    whole = [x for x, s in zip(flat, sharded) if not s]
-    return torch.sqrt(own + _squares(whole) if whole else own)
+    if len(placed) != len(flat):
+        raise ValueError(f"{len(placed)} placements for a tree of {len(flat)} leaves")
+    total = None
+    for axes in dict.fromkeys(tuple(a) for a in placed):
+        sq = _squares([x for x, a in zip(flat, placed) if tuple(a) == axes])
+        if axes:
+            sq = mesh.psum([sq], axes)[0]
+        total = sq if total is None else total + sq
+    return torch.sqrt(total)
 
 
-def clip_by_global_norm(grads, max_norm: float, mesh=None, sharded: Optional[Sequence[bool]] = None):
+def clip_by_global_norm(grads, max_norm: float, mesh=None, placed: Optional[Sequence[Sequence[str]]] = None):
     """``grads`` scaled to a global norm of at most ``max_norm``, and that
-    norm (:func:`global_norm`, over ``mesh`` where ``sharded`` says)."""
-    norm = global_norm(grads, mesh, sharded)
+    norm (:func:`global_norm`, over ``mesh`` where ``placed`` says)."""
+    norm = global_norm(grads, mesh, placed)
     scale = torch.clamp(norm.new_tensor(max_norm) / torch.clamp(norm, min=1e-9), max=1.0)
     return tree_map(lambda g: g * scale.to(g.dtype), grads), norm
 

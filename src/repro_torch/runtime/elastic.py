@@ -29,7 +29,7 @@ import random
 import time
 from typing import Callable, List, Optional
 
-from repro_torch.core.mesh import DEFAULT_TIMEOUT_S, ProcessGroupMesh, SimMesh
+from repro_torch.core.mesh import DEFAULT_TIMEOUT_S, ProcessGroupMesh, SimMesh, ring_axes
 
 log = logging.getLogger("repro_torch.runtime")
 
@@ -145,8 +145,8 @@ def elastic_mesh(
         # the survivors' ProcessGroupMesh makes one group per ring of each
         # axis (rings of one rank need none); join each creation in order
         layout = SimMesh(grid, device="cpu", axis_names=names)
-        for axis in names:
-            for ring in layout.ring_ranks(axis):
+        for axes in ring_axes(names):
+            for ring in layout.ring_ranks(axes):
                 if len(ring) > 1:
                     dist.new_group([devs[r] for r in ring], timeout=datetime.timedelta(seconds=timeout_s))
     return None

@@ -3,18 +3,25 @@ clip -> AdamW, with microbatch accumulation.
 
 Two step flavors:
 
-- :func:`make_train_step`: one rank, or tensor-parallel over the
-  model's ``model`` axis -- the reference's step under GSPMD, whose
-  collectives the port makes explicit. On a ``SimMesh`` (any shape: its
-  ranks sit in this process, one autograd graph, the whole batch) or
-  SPMD on a ``ProcessGroupMesh`` whose ranks all lie on ``model`` (every
-  rank passes the same whole batch, as the reference shards the batch
-  over ``data`` only). Each rank's gradients are the one-rank step's, of
-  its blocks (``models.model``); the clip's norm sums the placed
-  leaves' squares over the ranks (``optim.adamw.global_norm``). A
-  process group with a ``data`` axis -- FSDP, the batch split over
-  processes and the placed training state -- is ROADMAP A15.3c, and
-  raises.
+- :func:`make_train_step`: the reference's ``jit_train_step`` -- the
+  batch over ``('pod', 'data')``, the weights FSDP x TP -- with the
+  collectives GSPMD would insert made explicit. On one rank; on a
+  ``SimMesh`` of any shape (its ranks sit in this process, one autograd
+  graph, the whole batch, every weight whole); or SPMD on a
+  ``ProcessGroupMesh``: every rank passes the same whole batch and the
+  state holds the rank's blocks (:func:`state_placement`). Over the
+  ``model`` axis the layers are tensor-parallel (``models.common.TP``).
+  Over the ``('pod', 'data')`` axes a rank takes, in each microbatch,
+  that microbatch's block of rows at its (row-major) coordinate -- the
+  reference splits the microbatches first and the jit then groups each
+  by data-parallel shard, which decides the MoE capacity groups; the
+  model gathers each layer's FSDP blocks whole just before the layer
+  (the gather's backward reduce-scatters their gradients), the loss is
+  the global masked mean (``Model.loss``), and a leaf replicated over a
+  batch axis gets its gradient summed over it (one all-reduce a set of
+  axes). Then one clip by the norm over the whole mesh
+  (``optim.adamw.global_norm`` by ``Model.sharded_leaves``) and AdamW in
+  place on the blocks.
 - :func:`make_ddp_compressed_step`: the explicit data-parallel step whose
   gradient all-reduce is the int8 error-feedback all-gather
   (``optim.compress``) -- the paper's decomposed-collective idea applied
@@ -38,12 +45,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import TrainConfig
+from repro_torch.core import sharding
 from repro_torch.core.mesh import resolve_device
-from repro_torch.models.model import Model, rank_blocks
+from repro_torch.models.model import Model, _layout, _map2, _where, head_units, rank_blocks
 from repro_torch.optim import adamw, compress, schedule
 from repro_torch.optim.adamw import leaves, tree_map, unflatten
-
-NEXT = "ROADMAP A15.3c (FSDP and the placed training state over processes)"
 
 
 class TrainState(NamedTuple):
@@ -54,10 +60,41 @@ class TrainState(NamedTuple):
 
 def init_train_state(model: Model, generator: torch.Generator, tcfg: TrainConfig) -> Tuple[TrainState, Any]:
     """Float32 master weights from ``generator`` (on the model's device)
-    and a zero AdamW state in ``tcfg.opt_state_dtype``."""
+    and a zero AdamW state in ``tcfg.opt_state_dtype``. On a
+    ``ProcessGroupMesh`` the weights and both moments are the rank's
+    blocks (``Model.init`` draws every leaf as one rank does and keeps
+    its block)."""
     params, specs = model.init(generator)
     opt = adamw.init(params, tcfg.opt_state_dtype)
     return TrainState(params=params, opt=opt, step=torch.zeros((), dtype=torch.int32, device=model.device)), specs
+
+
+def state_placement(mesh, specs, abstract_state: TrainState, cfg=None) -> TrainState:
+    """The reference's ``state_shardings(mesh, specs, abstract_state)``:
+    each leaf's partition spec on ``mesh`` (``core.sharding.placement``
+    of its logical spec and whole shape -- FSDP x TP, heads whole where
+    ``cfg``'s head counts place them), the moments as the weights, the
+    scalars replicated. ``abstract_state``: the whole state, or its
+    shapes (the ``meta`` device)."""
+    units = None if cfg is None else head_units(cfg)
+
+    def spec_of(a, spec, path):
+        lay, parts = _layout(path, spec)
+        return sharding.placement(mesh, lay, tuple(a.shape), units, parts)
+
+    p = _map2(spec_of, abstract_state.params, specs)
+    return TrainState(params=p, opt=adamw.AdamWState(count=(), mu=p, nu=p), step=())
+
+
+def place_train_state(state: TrainState, *, mesh, specs, cfg=None) -> TrainState:
+    """A whole ``TrainState`` (tensors) cut to this rank's blocks on
+    ``mesh`` under :func:`state_placement` -- ``jit_train_step``'s
+    ``in_shardings`` as explicit copies; the whole state itself on a
+    ``SimMesh`` or without a mesh."""
+    place = dict(mesh=mesh, specs=specs, cfg=cfg)
+    return TrainState(rank_blocks(state.params, **place),
+                      adamw.AdamWState(state.opt.count, rank_blocks(state.opt.mu, **place),
+                                       rank_blocks(state.opt.nu, **place)), state.step)
 
 
 def _split_micro(batch: Dict[str, torch.Tensor], n: int):
@@ -86,19 +123,76 @@ def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return schedule.warmup_cosine(step, peak=tcfg.learning_rate, warmup=tcfg.warmup_steps, total=tcfg.total_steps)
 
 
+def state_layout(model: Model) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
+    """Where a ``TrainState`` on ``model``'s mesh lies, by the checkpoint's
+    leaf names (``params/...``, ``opt/mu/...``, ``opt/nu/...``,
+    ``opt/count``, ``step``): each leaf's global shape and the cuts this
+    rank keeps (``models.model._where``; None for a whole leaf) -- what
+    ``CheckpointManager.save`` / ``restore`` take as ``layout=``."""
+    shapes, specs = model._abstract()
+    layout: Dict[str, Tuple[Tuple[int, ...], Any]] = {"opt/count": ((), None), "step": ((), None)}
+
+    def put(a, spec, path):
+        cuts = _where(model.mesh, spec, tuple(a.shape), model.units, path)
+        for prefix in ("params", "opt/mu", "opt/nu"):
+            layout[prefix + path] = (tuple(a.shape), cuts)
+
+    _map2(put, shapes, specs)
+    return layout
+
+
 def _step_mesh(model: Model, mesh):
     """The mesh the step runs over: the model's own (``mesh``, where
-    given, must be it). Over processes only its ``model`` axis may hold
-    several ranks."""
+    given, must be it)."""
     if mesh is not None and mesh is not model.mesh:
         raise ValueError(f"the step runs over the model's mesh ({model.mesh}), not {mesh}: build Model(cfg, mesh)")
-    mesh = model.mesh
-    if mesh is not None and mesh.caller_holds_block:
-        others = {a: n for a, n in mesh.shape.items() if a != "model" and n > 1}
-        if others:
-            raise NotImplementedError(f"make_train_step over a process group with a batch axis {others} is {NEXT}; "
-                                      "data-parallel over processes: make_ddp_compressed_step")
-    return mesh
+    return model.mesh
+
+
+def _rows(batch: Dict[str, torch.Tensor], i: int, n: int) -> Dict[str, torch.Tensor]:
+    """Block ``i`` of ``n`` of every input's rows."""
+    out = {}
+    for k, v in batch.items():
+        if v.shape[0] % n:
+            raise ValueError(f"{k!r} has {v.shape[0]} rows, which the {n} ranks of the batch axes do not split")
+        m = v.shape[0] // n
+        out[k] = v[i * m:(i + 1) * m]
+    return out
+
+
+def microbatch_rows(batch: Dict[str, torch.Tensor], microbatch: int, index: int = 0,
+                    count: int = 1) -> List[Dict[str, torch.Tensor]]:
+    """The rows a rank at ``index`` of ``count`` on the batch axes trains
+    on, one dict a microbatch: the reference's ``_split_micro`` first
+    (microbatch ``i`` is the ``i``-th block of rows), then each
+    microbatch's ``index``-th block of rows, as the jit shards each
+    microbatch over ``('pod', 'data')`` -- so a rank's rows of a
+    microbatch are the data group the MoE dispatch counts capacity on."""
+    if not microbatch or microbatch <= 1:
+        return [_rows(batch, index, count)]
+    micro = _split_micro(batch, microbatch)
+    return [_rows({k: v[i] for k, v in micro.items()}, index, count) for i in range(microbatch)]
+
+
+def _sum_over_batch(model: Model, grads, placed: List[Tuple[str, ...]]):
+    """Each gradient summed over the batch axes its leaf is replicated
+    on (an FSDP leaf's own axes were summed by its gather's
+    reduce-scatter): one all-reduce of the leaves side by side a set of
+    axes."""
+    flat = leaves(grads)
+    out = list(flat)
+    missing = [tuple(a for a in model.batch_axes if a not in axes) for axes in placed]
+    for axes in dict.fromkeys(m for m in missing if m):
+        idx = [i for i, m in enumerate(missing) if m == axes]
+        for dtype in dict.fromkeys(flat[i].dtype for i in idx):
+            part = [i for i in idx if flat[i].dtype == dtype]
+            buf = torch.cat([flat[i].reshape(-1) for i in part])
+            buf = model.mesh.psum([buf], axes)[0]
+            at = 0
+            for i in part:
+                out[i] = buf[at:at + flat[i].numel()].view(flat[i].shape)
+                at += flat[i].numel()
+    return unflatten(grads, out)
 
 
 def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
@@ -107,29 +201,33 @@ def make_train_step(model: Model, tcfg: TrainConfig, mesh=None):
     ``tcfg.microbatch > 1``: float32 gradients accumulated over the
     microbatches, then divided), ``clip_by_global_norm``, the AdamW
     update in place, ``step + 1``. Metrics: the loss's own, ``grad_norm``
-    and ``lr``. ``mesh`` is the model's (``Model(cfg, mesh)``) or None;
-    on a ``ProcessGroupMesh`` every rank passes the same whole batch and
-    the state holds the rank's blocks (``init_train_state``,
-    ``train_state_from_numpy(mesh=, specs=, cfg=)``)."""
+    and ``lr``, the same on every rank. ``mesh`` is the model's
+    (``Model(cfg, mesh)``) or None; on a ``ProcessGroupMesh`` every rank
+    passes the same whole batch and the state holds the rank's blocks
+    (``init_train_state``, ``train_state_from_numpy(mesh=, specs=,
+    cfg=)``, :func:`place_train_state`)."""
     mesh = _step_mesh(model, mesh)
     loss_fn = make_loss_fn(model)
-    sharded = model.sharded_leaves() if mesh is not None and mesh.caller_holds_block else None
+    placed = model.sharded_leaves() if mesh is not None and mesh.caller_holds_block else None
+    me, ranks = (mesh.axis_index(model.batch_axes), mesh.axis_size(model.batch_axes)) if model.batch_axes else (0, 1)
 
     def step(state: TrainState, batch) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         lr = _lr(tcfg, state.step)
-        if tcfg.microbatch and tcfg.microbatch > 1:
-            micro = _split_micro(batch, tcfg.microbatch)
+        rows = microbatch_rows(batch, tcfg.microbatch, me, ranks)
+        if len(rows) > 1:
             grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), state.params)
             ltot = torch.zeros((), dtype=torch.float32, device=lr.device)
-            for i in range(tcfg.microbatch):
-                l, _, g = _value_and_grad(loss_fn, state.params, {k: v[i] for k, v in micro.items()})
+            for mb in rows:
+                _, m, g = _value_and_grad(loss_fn, state.params, mb)
                 grads = tree_map(torch.add, grads, g)
-                ltot = ltot + l
+                ltot = ltot + m["loss"]
             grads = tree_map(lambda g: g / tcfg.microbatch, grads)
             metrics = {"loss": ltot / tcfg.microbatch}
         else:
-            _, metrics, grads = _value_and_grad(loss_fn, state.params, batch)
-        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip, mesh, sharded)
+            _, metrics, grads = _value_and_grad(loss_fn, state.params, rows[0])
+        if model.batch_axes:
+            grads = _sum_over_batch(model, grads, placed)
+        grads, gnorm = adamw.clip_by_global_norm(grads, tcfg.grad_clip, mesh, placed)
         params, opt = adamw.update(grads, state.opt, state.params, lr=lr, cfg=tcfg, inplace=True)
         metrics = dict(metrics, grad_norm=gnorm, lr=lr)
         return TrainState(params, opt, state.step + 1), metrics

@@ -471,8 +471,10 @@ def _init_case(mesh, ran):
             where = sharding.block(mesh, spec, b.shape, head_units(cfg))
             if "experts" in spec:
                 dim = spec.index("experts")
-                assert where == (dim, mesh.rank * n, n), key
-            assert torch.equal(a, b if where is None else b.narrow(*where)), key
+                assert where == [(dim, mesh.rank * n, n)], key
+            for cut in where or ():
+                b = b.narrow(*cut)
+            assert torch.equal(a, b), key
     ran.append("init keeps the rank's experts")
 
 

@@ -324,7 +324,9 @@ def _placement_cases(mesh, ran, ref_dir):
     for key, (a, b) in _pairs(own, whole):
         where = S.block(mesh, _spec_at(specs, key), b.shape, units)
         cut += where is not None
-        assert torch.equal(a, b if where is None else b.narrow(*where)), key
+        for dim, first, count in where or ():
+            b = b.narrow(dim, first, count)
+        assert torch.equal(a, b), key
     attn = own["layers"]["attn"]
     assert attn["wq"].shape == (2, 64, 16) and attn["wk"].shape == (2, 64, 32) and attn["wo"].shape == (2, 16, 64)
     assert own["embed"]["table"].shape == (64, 64) and own["layers"]["ffn"]["wd"].shape == (2, 40, 64)
@@ -334,8 +336,9 @@ def _placement_cases(mesh, ran, ref_dir):
     tree = _unflat(arrays)
     got = params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs, cfg=cfg)
     for key, (a, b) in _pairs(got, tree):
-        where = S.block(mesh, _spec_at(rspecs, key), b.shape, units)
-        exp = b if where is None else b[(slice(None),) * where[0] + (slice(where[1], where[1] + where[2]),)]
+        exp = b
+        for dim, first, count in S.block(mesh, _spec_at(rspecs, key), b.shape, units) or ():
+            exp = exp[(slice(None),) * dim + (slice(first, first + count),)]
         assert np.array_equal(a.numpy(), exp), key
     with pytest.raises(ValueError, match="head count"):
         params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs)

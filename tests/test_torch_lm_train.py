@@ -9,8 +9,8 @@ every leaf at reduced widths with the reference's weights carried across
 train steps, the microbatch step, a checkpoint written by the reference
 and resumed here, and the train launcher with an injected failure. Then
 the step over a model axis of 2 (``SimMesh((1, 2))``) against the
-one-rank step, and through it the reference's; the refusal of a batch
-axis over processes; the launcher's ``--model-parallel 2``. The
+one-rank step, and through it the reference's; the rows a rank of a
+batch axis trains on; the launcher's ``--model-parallel 2``. The
 reference's calls are jitted; its weights come from its own ``init``
 under jit."""
 
@@ -40,7 +40,7 @@ from repro.train import init_train_state as r_init_train_state
 from repro.train import make_train_step as r_make_train_step
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.configs import TrainConfig, get_config
-from repro_torch.core import ProcessGroupMesh, SimMesh
+from repro_torch.core import SimMesh
 from repro_torch.data import DataConfig, Prefetcher, SyntheticLM, make_batch_arrays
 from repro_torch.models import attention as A
 from repro_torch.models import losses as L
@@ -533,24 +533,27 @@ def test_microbatch_step_matches_the_whole_batch():
     assert abs(float(out[4][1]["loss"]) - float(out[0][1]["loss"])) < 1e-3
 
 
-class _DataAxisRank(ProcessGroupMesh):
-    """Rank 0 of a (data 2, model 1) process group as the step sees it:
-    its axes, without joining a group (the gloo spawn of
-    ``tests/test_torch_train_ddp.py`` refuses a real one)."""
+def test_a_rank_trains_on_each_microbatchs_block_of_rows():
+    """Over ``('pod', 'data')`` axes of processes a rank trains on, in each
+    microbatch, that microbatch's block of rows at its coordinate -- the
+    reference's ``_split_micro`` first, then the jit's data shard of each
+    microbatch, the groups its MoE dispatch counts capacity on -- not its
+    own contiguous block of the whole batch. A batch the axes do not
+    split raises. A step over a mesh must be the model's own."""
+    from repro.train.step import _split_micro as r_split_micro
+    from repro_torch.train.step import microbatch_rows
 
-    def __init__(self):
-        self._set_axes((2, 1), ("data", "model"))
-        self.rank, self.device = 0, torch.device("cpu")
-
-
-def test_train_step_refuses_a_data_axis_over_processes():
-    """Every process-group rank passes the same whole batch: a batch split
-    over a ``data`` axis of processes is FSDP's slice (A15.3c). A step
-    over a mesh must be the model's own."""
-    mesh = _DataAxisRank()
-    model = Model(get_config(STEP_ARCH, reduced=True), mesh, device="cpu")
-    with pytest.raises(NotImplementedError, match="A15.3c"):
-        make_train_step(model, TrainConfig(), mesh)
+    batch = {"tokens": torch.arange(8)[:, None].repeat(1, 3), "labels": -torch.arange(8)[:, None].repeat(1, 3)}
+    rows = microbatch_rows(batch, 2, index=1, count=2)
+    ref = r_split_micro({k: jnp.asarray(v.numpy()) for k, v in batch.items()}, 2)
+    for i, got in enumerate(rows):
+        for k in batch:
+            assert np.array_equal(got[k].numpy(), np.asarray(ref[k][i])[2:4]), (i, k)
+    assert [r["tokens"][:, 0].tolist() for r in rows] == [[2, 3], [6, 7]]
+    assert [r["tokens"][:, 0].tolist() for r in microbatch_rows(batch, 0, 1, 2)] == [[4, 5, 6, 7]]
+    assert [r["tokens"][:, 0].tolist() for r in microbatch_rows(batch, 4)] == [[0, 1], [2, 3], [4, 5], [6, 7]]
+    with pytest.raises(ValueError, match="do not split"):
+        microbatch_rows(batch, 2, 0, 3)
     with pytest.raises(ValueError, match="the model's mesh"):
         make_train_step(Model(get_config(STEP_ARCH, reduced=True), device="cpu"), TrainConfig(),
                         SimMesh((1, 2), axis_names=("data", "model"), device="cpu"))

@@ -12,8 +12,9 @@ state): every rank's block of every leaf's gradient and parameters
 against the same block of the one-rank step (DeepSeek-V3's ring
 dispatch against ``SimMesh((1, 2))``'s), the leaves kept whole, the
 loss and the gradient norm bitwise equal on both ranks; each
-differentiable collective's gradient against ``SimMesh(2)``'s; and a
-``data`` axis of processes refused."""
+differentiable collective's gradient against ``SimMesh(2)``'s; and the
+step over the two processes as a ``data`` axis (each rank its rows,
+FSDP) against ``SimMesh(2, "data")``'s."""
 
 import dataclasses
 import os
@@ -22,23 +23,20 @@ import numpy as np
 import pytest
 import torch
 
-from conftest import run_subprocess
 from repro_torch.configs import TrainConfig, get_config
 from repro_torch.core import SimMesh
 from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
 from repro_torch.models.model import Model
 from repro_torch.optim import adamw
-from repro_torch.train import ddp_state_from_numpy, make_ddp_compressed_step, make_train_step
-from torch_train_common import (SPLIT_ARCHS, assert_params_match, assert_split_matches, blocks_of, grad_noise,
-                                leaf_names, near_tie, one_thread, split_batches, split_cfg, split_init, split_run,
-                                split_tcfg)
+from repro_torch.train import (ddp_state_from_numpy, make_ddp_compressed_step, make_train_step,
+                               train_state_from_numpy)
+from torch_train_common import (DDP_ARCH, DDP_BATCH, DDP_MODES, DDP_N_STEPS, DDP_P, DDP_SEQ, SPLIT_ARCHS,
+                                assert_params_match, assert_split_matches, blocks_of, grad_noise, leaf_names, near_tie,
+                                one_thread, split_batches, split_cfg, split_init, split_run, split_tcfg,
+                                train_reference)
 from torch_train_common import flat as _flat
 
-ARCH = "phi3-medium-14b"  # the reference's own DDP test's (tests/test_elastic.py)
-P = 4
-N_STEPS = 3
-BATCH, SEQ = 8, 16
-MODES = ("none", "int8")
+ARCH, P, N_STEPS, BATCH, SEQ, MODES = DDP_ARCH, DDP_P, DDP_N_STEPS, DDP_BATCH, DDP_SEQ, DDP_MODES
 #: the step over a model axis of the two gloo processes: SPLIT_ARCHS held to
 #: the one-rank step, and DeepSeek-V3's ring dispatch (split experts, MLA,
 #: MTP, the shared expert; capacity E / k) held to SimMesh((1, 2)): the
@@ -47,56 +45,6 @@ RING_ARCH = "deepseek-v3-671b"
 SPLIT_CASES = tuple(SPLIT_ARCHS) + (RING_ARCH,)
 COLLECTIVES = ("psum", "gather", "all_gather", "all_to_all", "pvary")
 
-REF_CODE = r"""
-import dataclasses
-import numpy as np, jax, jax.numpy as jnp
-from repro.core.compat import make_mesh
-from repro.configs import TrainConfig, get_config
-from repro.data import DataConfig, SyntheticLM
-from repro.models import Model
-from repro.optim import compress
-from repro.train import init_ddp_state, make_ddp_compressed_step
-
-
-def flat(tree, prefix=""):
-    if isinstance(tree, dict):
-        return {k: v for key, sub in tree.items() for k, v in flat(sub, f"{prefix}/{key}").items()}
-    return {prefix: np.asarray(tree)}
-
-
-mesh = make_mesh((P,), ("data",))
-cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
-model = Model(cfg)
-ds = SyntheticLM(DataConfig(cfg.vocab_size, SEQ, BATCH, seed=0))
-grad = jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))
-requant = jax.jit(lambda x: jax.tree.map(lambda v: v - compress.dequantize_int8(*compress.quantize_int8(v)), x))
-out = {}
-for comp in MODES:
-    tcfg = TrainConfig(learning_rate=2e-3, warmup_steps=2, total_steps=12, grad_compression=comp)
-    state = jax.jit(lambda k: init_ddp_state(model, k, tcfg))(jax.random.PRNGKey(0))
-    if comp == MODES[0]:
-        out["init"] = jax.tree.map(np.asarray, state)
-    step = make_ddp_compressed_step(model, tcfg, mesh)
-    err = [state.err] * P
-    for s in range(N_STEPS):
-        batch = {k: jnp.asarray(v) for k, v in ds.batch_at(s).items()}
-        # each rank's gradient of its block, as the shard_map step takes them:
-        # their mean, and with int8 each rank's quantizer input g + err
-        n = BATCH // P
-        gs = [grad(state.params, {k: v[r * n:(r + 1) * n] for k, v in batch.items()}) for r in range(P)]
-        out[("grad", comp, s)] = flat(jax.tree.map(lambda *g: sum(g) / P, *gs))
-        if comp == "int8":
-            xs = [jax.tree.map(jnp.add, g, e) for g, e in zip(gs, err)]
-            out[("x", s)] = [flat(x) for x in xs]
-            err = [requant(x) for x in xs]
-        state, m = step(state, batch)
-        out[(comp, s)] = {k: float(v) for k, v in m.items()}
-    out[comp] = jax.tree.map(np.asarray, state)
-import pickle
-with open(OUT, "wb") as fh:
-    pickle.dump(out, fh)
-print("PASS")
-"""
 
 
 def _cfg():
@@ -124,13 +72,9 @@ def _run(mesh, init, comp, ranks=None):
 
 @pytest.fixture(scope="module")
 def reference(tmp_path_factory):
-    import pickle
-
-    path = str(tmp_path_factory.mktemp("ddp_ref") / "ref.pkl")
-    head = f"OUT = {path!r}\nARCH = {ARCH!r}\nP = {P}\nN_STEPS = {N_STEPS}\nBATCH, SEQ = {BATCH}, {SEQ}\nMODES = {MODES!r}\n"
-    assert "PASS" in run_subprocess(head + REF_CODE, devices=P)
-    with open(path, "rb") as fh:
-        return pickle.load(fh)
+    """The training tests' one reference subprocess over 4 host devices
+    (``torch_train_common.train_reference``: run once per test run)."""
+    return train_reference(tmp_path_factory)
 
 
 @pytest.mark.parametrize("comp", MODES)
@@ -206,6 +150,26 @@ def _collective_grads(op, mesh):
     return [None if g is None else g.numpy() for g in grads]
 
 
+def _data_split_run(model):
+    """SPLIT_STEPS of ``make_train_step`` over ``model``'s mesh from
+    ``split_init(ARCH)``'s state (each rank its rows of every batch):
+    (the metrics, floats a step; the weights after the steps, flat
+    numpy)."""
+    from repro_torch.checkpoint.manager import _dim_indices
+    from repro_torch.train import state_layout
+
+    state_np, specs = split_init(ARCH)
+    state = train_state_from_numpy(state_np, "cpu", mesh=model.mesh, specs=specs, cfg=model.cfg)
+    step = make_train_step(model, split_tcfg(), model.mesh)
+    metrics = []
+    for batch in split_batches(model.cfg):
+        state, m = step(state, batch)
+        metrics.append({k: float(v) for k, v in m.items()})
+    layout = state_layout(model)
+    return metrics, {k: (v.detach().numpy().copy(), _dim_indices(*layout["params" + k]))
+                     for k, v in _flat(state.params).items()}
+
+
 def _gloo_worker(rank, world, init_method, out_dir, init, oracles):
     import torch.distributed as dist
 
@@ -218,11 +182,7 @@ def _gloo_worker(rank, world, init_method, out_dir, init, oracles):
         for comp in MODES:
             state, metrics = _run(mesh, init, comp)
             out[comp] = ({k: v.numpy() for k, v in _flat(state.params).items()}, metrics)
-        try:  # a batch split over processes is FSDP's slice
-            make_train_step(Model(split_cfg(ARCH), mesh, device="cpu"), split_tcfg(), mesh)
-            out["refused"] = None
-        except NotImplementedError as e:
-            out["refused"] = str(e)
+        out["data_split"] = _data_split_run(Model(split_cfg(ARCH), mesh, device="cpu"))
         tmesh = ProcessGroupMesh("model", device="cpu")  # the same two processes as a model axis
         out["collectives"] = {op: _collective_grads(op, tmesh) for op in COLLECTIVES}
         out["split"] = {}
@@ -304,8 +264,25 @@ def test_collectives_over_gloo_match_sim_mesh(gloo, op):
         assert np.abs(g - exp).max() <= 1e-6 * np.abs(exp).max(), (op, r)
 
 
-def test_train_step_over_gloo_refuses_a_data_axis(gloo):
-    """Over a process group only the ``model`` axis may hold several ranks:
-    the two processes as a ``data`` axis raise, naming A15.3c."""
+def test_train_step_over_gloo_splits_a_data_axis(gloo):
+    """``make_train_step`` over the two processes as a ``data`` axis: each
+    rank trains on its rows of every batch (the loss the global masked
+    mean, the gradients summed over the axis), the weights replicated
+    (phi3's reduced dims, whose ``"fsdp"`` dims the axis divides, are
+    placed over it and gathered before each layer). Both ranks' metrics
+    equal, within 1e-6 of ``SimMesh(2, "data")``'s (every rank in one
+    process, the whole batch), the weights within 1e-5."""
+    with one_thread():
+        exp_m, exp_p = _data_split_run(Model(split_cfg(ARCH), SimMesh(2, "data", device="cpu"), device="cpu"))
     for rank in gloo:
-        assert rank["refused"] is not None and "A15.3c" in rank["refused"]
+        got_m, got_p = rank["data_split"]
+        assert got_m == gloo[0]["data_split"][0]
+        for a, b in zip(got_m, exp_m):
+            for k in ("loss", "grad_norm"):
+                assert abs(a[k] - b[k]) <= 1e-6 * abs(b[k]), (k, a[k], b[k])
+        assert sorted(got_p) == sorted(exp_p)
+        assert any(len(i) < n for name, (_, idx) in got_p.items()  # FSDP placed some of them
+                   for i, n in zip(idx, exp_p[name][0].shape))
+        for name, (block, idx) in got_p.items():
+            e = exp_p[name][0][np.ix_(*idx)]
+            assert np.abs(block - e).max() <= 1e-5 * np.abs(exp_p[name][0]).max(), name

@@ -247,3 +247,241 @@ def blocks_of(run, **place):
 
     grads, metrics, params = run
     return [cut(g) for g in grads], metrics, cut(params)
+
+
+# ---------------------------------------------------------------------------
+# FSDP x TP over a data x model grid: the step held to the reference's
+# jit_train_step on a host mesh of the same shape
+# ---------------------------------------------------------------------------
+
+#: the archs the placed step is held on over a grid, and what each adds:
+#: qwen the dense FSDP x TP layer; mixtral the MoE capacity groups (the
+#: stock capacity factor: tokens drop per data group); hymba the meta
+#: tokens and Mamba (5 / 1 heads, as SPLIT_ARCHS); deepseek-v3 MLA, MTP
+#: and the ring dispatch's aux under a data axis (2 layers: its dense
+#: prefix and one MoE layer)
+FSDP_ARCHS = {
+    "qwen2.5-32b": {},
+    "mixtral-8x22b": {},
+    "hymba-1.5b": dict(num_heads=5, num_kv_heads=1, head_dim=16, num_layers=2),
+    "deepseek-v3-671b": dict(num_layers=2),
+}
+#: grid shape -> axis names, the meshes the step runs on
+FSDP_GRIDS = {(2, 2): ("data", "model"), (4, 1): ("data", "model")}
+#: the three-axis grid, held to (2, 2): the same data groups over (pod, data)
+POD_GRID = ((2, 1, 2), ("pod", "data", "model"))
+FSDP_SEQ, FSDP_BATCH, FSDP_MICRO = 16, 8, 2
+
+
+def fsdp_ref_grid(arch: str, grid):
+    """The reference cell the step of ``arch`` on ``grid`` is held to: the
+    same grid for the MoE archs (the data groups decide their capacity and
+    aux loss), (2, 2) for the dense ones (every mesh computes the same
+    function; one reference compile serves both grids)."""
+    if grid not in FSDP_GRIDS:
+        return None
+    return grid if fsdp_cfg(arch).moe is not None else (2, 2)
+
+
+def fsdp_cfg(arch: str):
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    return dataclasses.replace(get_config(arch, reduced=True), dtype="float32", **FSDP_ARCHS[arch])
+
+
+def fsdp_tcfg():
+    from repro_torch.configs import TrainConfig
+
+    return TrainConfig(learning_rate=1e-2, warmup_steps=2, total_steps=10, microbatch=FSDP_MICRO)
+
+
+def fsdp_batches(cfg):
+    """Two numpy batches of FSDP_BATCH x FSDP_SEQ: a plain one, and the
+    same with labels -1 in the first half of every position of the rows
+    the first of 2 data ranks trains on (in each microbatch): the global
+    masked mean counts them on one rank only."""
+    from repro_torch.data import DataConfig, SyntheticLM
+
+    plain = {k: np.asarray(v) for k, v in SyntheticLM(DataConfig(cfg.vocab_size, FSDP_SEQ, FSDP_BATCH, seed=1))
+             .batch_at(0).items()}
+    masked = {k: v.copy() for k, v in plain.items()}
+    rows = FSDP_BATCH // FSDP_MICRO
+    for m in range(FSDP_MICRO):
+        masked["labels"][m * rows:m * rows + rows // 2, : FSDP_SEQ // 2] = -1
+    return {"plain": plain, "masked": masked}
+
+
+def fsdp_init(arch: str):
+    """The port's initial state of ``arch`` (``fsdp_cfg``) as numpy, at
+    step 1 (the warmup's lr is 0 at step 0), and its specs."""
+    import torch
+
+    from repro_torch.models.model import Model
+    from repro_torch.train import init_train_state
+
+    state, specs = init_train_state(Model(fsdp_cfg(arch), device="cpu"), torch.Generator().manual_seed(0),
+                                    fsdp_tcfg())
+    out = numpy_state(state)
+    return out._replace(step=np.array(1, np.int32)), specs
+
+
+#: the reference's side, run in the training tests' one subprocess over 4
+#: host devices: for each arch and grid, the placed state's shardings
+#: (``state_shardings(mesh, specs, abstract_state)``: every leaf's spec and
+#: each device's index of it) and one ``jit_train_step`` from ``fsdp_init``'s state on
+#: each of ``fsdp_batches``; the new state's weights and first moments
+#: (``mu = (1 - b1) * the clipped gradient``: the moments start at 0) and
+#: the metrics
+FSDP_REF_CODE = r"""
+def _fsdp_oracle():
+    import jax, numpy as np
+    from jax.sharding import NamedSharding, PartitionSpec as Pspec
+    from repro.core.compat import make_mesh
+    from repro.configs import TrainConfig as RTrainConfig
+    from repro.models import Model as RModel
+    from repro.optim import adamw as radamw
+    from repro.train import TrainState as RTrainState
+    from repro.train.step import jit_train_step, state_shardings
+    import torch_train_common as ttc
+
+    def rtcfg():
+        t = ttc.fsdp_tcfg()
+        return RTrainConfig(learning_rate=t.learning_rate, warmup_steps=t.warmup_steps, total_steps=t.total_steps,
+                            microbatch=t.microbatch)
+
+    def rcfg(arch):
+        import dataclasses
+        from repro.configs import get_config as rget
+        return dataclasses.replace(rget(arch, reduced=True), dtype="float32", **ttc.FSDP_ARCHS[arch])
+
+    def index(idx, shape):
+        return tuple((s.start or 0, n if s.stop is None else s.stop) for s, n in zip(idx, shape))
+
+    res = {}
+    grids = dict(ttc.FSDP_GRIDS)
+    grids[ttc.POD_GRID[0]] = ttc.POD_GRID[1]
+    for arch in ttc.FSDP_ARCHS:
+        state_np, specs = ttc.fsdp_init(arch)
+        rstate = RTrainState(state_np.params, radamw.AdamWState(state_np.opt.count, state_np.opt.mu, state_np.opt.nu),
+                             state_np.step)
+        for grid, names in grids.items():
+            mesh = make_mesh(grid, names)
+            sh = state_shardings(mesh, specs, rstate)
+            coords = {d.id: c for c, d in np.ndenumerate(mesh.devices)}
+            res[("specs", arch, grid)] = {name: tuple(s.spec) for name, s in ttc.flat(sh.params).items()}
+            res[("blocks", arch, grid)] = {
+                name: {coords[d.id]: index(i, np.shape(a)) for d, i in s.devices_indices_map(np.shape(a)).items()}
+                for name, (s, a) in ttc.flat(jax.tree.map(lambda s, a: (s, a), sh.params, rstate.params,
+                                                          is_leaf=lambda x: isinstance(x, NamedSharding))).items()}
+            if ttc.fsdp_ref_grid(arch, grid) != grid:
+                continue
+            model = RModel(rcfg(arch), mesh)
+            step = jit_train_step(model, rtcfg(), mesh, specs)
+            for kind, batch in ttc.fsdp_batches(model.cfg).items():
+                new, m = step(jax.tree.map(np.array, rstate), batch)
+                res[("step", arch, grid, kind)] = (ttc.flat(jax.tree.map(np.asarray, new.params)),
+                                                   ttc.flat(jax.tree.map(np.asarray, new.opt.mu)),
+                                                   {k: float(v) for k, v in m.items()})
+    return res
+"""
+
+
+# ---------------------------------------------------------------------------
+# the training tests' one reference subprocess
+# ---------------------------------------------------------------------------
+
+#: the compressed DDP step's cell (tests/test_torch_train_ddp.py): the
+#: reference's own DDP test's arch (tests/test_elastic.py), 4 host devices
+DDP_ARCH = "phi3-medium-14b"
+DDP_P = 4
+DDP_N_STEPS = 3
+DDP_BATCH, DDP_SEQ = 8, 16
+DDP_MODES = ("none", "int8")
+
+#: the reference's DDP step (``make_ddp_compressed_step`` under
+#: ``shard_map`` on 4 host devices): each step's mean gradient and with
+#: int8 each rank's quantizer input, the metrics and the final states
+DDP_REF_CODE = r"""
+import dataclasses
+import numpy as np, jax, jax.numpy as jnp
+from repro.core.compat import make_mesh
+from repro.configs import TrainConfig, get_config
+from repro.data import DataConfig, SyntheticLM
+from repro.models import Model
+from repro.optim import compress
+from repro.train import init_ddp_state, make_ddp_compressed_step
+
+
+def flat(tree, prefix=""):
+    if isinstance(tree, dict):
+        return {k: v for key, sub in tree.items() for k, v in flat(sub, f"{prefix}/{key}").items()}
+    return {prefix: np.asarray(tree)}
+
+
+mesh = make_mesh((P,), ("data",))
+cfg = dataclasses.replace(get_config(ARCH, reduced=True), dtype="float32")
+model = Model(cfg)
+ds = SyntheticLM(DataConfig(cfg.vocab_size, SEQ, BATCH, seed=0))
+grad = jax.jit(jax.grad(lambda p, b: model.loss(p, b)[0]))
+requant = jax.jit(lambda x: jax.tree.map(lambda v: v - compress.dequantize_int8(*compress.quantize_int8(v)), x))
+out = {}
+for comp in MODES:
+    tcfg = TrainConfig(learning_rate=2e-3, warmup_steps=2, total_steps=12, grad_compression=comp)
+    state = jax.jit(lambda k: init_ddp_state(model, k, tcfg))(jax.random.PRNGKey(0))
+    if comp == MODES[0]:
+        out["init"] = jax.tree.map(np.asarray, state)
+    step = make_ddp_compressed_step(model, tcfg, mesh)
+    err = [state.err] * P
+    for s in range(N_STEPS):
+        batch = {k: jnp.asarray(v) for k, v in ds.batch_at(s).items()}
+        # each rank's gradient of its block, as the shard_map step takes them:
+        # their mean, and with int8 each rank's quantizer input g + err
+        n = BATCH // P
+        gs = [grad(state.params, {k: v[r * n:(r + 1) * n] for k, v in batch.items()}) for r in range(P)]
+        out[("grad", comp, s)] = flat(jax.tree.map(lambda *g: sum(g) / P, *gs))
+        if comp == "int8":
+            xs = [jax.tree.map(jnp.add, g, e) for g, e in zip(gs, err)]
+            out[("x", s)] = [flat(x) for x in xs]
+            err = [requant(x) for x in xs]
+        state, m = step(state, batch)
+        out[(comp, s)] = {k: float(v) for k, v in m.items()}
+    out[comp] = jax.tree.map(np.asarray, state)
+"""
+
+
+_REFERENCE: dict = {}
+
+
+def train_reference(tmp_path_factory) -> dict:
+    """The reference's side of both training-over-a-mesh test files, from
+    one subprocess over 4 host devices a test run: DDP_REF_CODE's
+    results, and under ``"fsdp"`` FSDP_REF_CODE's. The first file to ask
+    runs it and leaves its results beside the workers' temporary
+    directories (under xdist every worker of the run finds them there; a
+    lock makes a second worker wait for the first's run instead of
+    starting its own)."""
+    import fcntl
+    import os
+    import pickle
+
+    from conftest import run_subprocess
+
+    run = os.environ.get("PYTEST_XDIST_TESTRUNUID")
+    base = tmp_path_factory.getbasetemp()
+    path = (base.parent if run else base) / f"torch_train_reference_{run or 'local'}.pkl"
+    if str(path) not in _REFERENCE:
+        with open(f"{path}.lock", "w") as lock:
+            fcntl.flock(lock, fcntl.LOCK_EX)
+            if not path.exists():
+                part = f"{path}.part"
+                head = (f"import sys\nsys.path.insert(0, 'tests')\nOUT = {part!r}\nARCH = {DDP_ARCH!r}\nP = {DDP_P}\n"
+                        f"N_STEPS = {DDP_N_STEPS}\nBATCH, SEQ = {DDP_BATCH}, {DDP_SEQ}\nMODES = {DDP_MODES!r}\n")
+                tail = ("\nout['fsdp'] = _fsdp_oracle()\nimport pickle\nwith open(OUT, 'wb') as fh:\n"
+                        "    pickle.dump(out, fh)\nprint('PASS')\n")
+                assert "PASS" in run_subprocess(head + DDP_REF_CODE + FSDP_REF_CODE + tail, devices=DDP_P)
+                os.replace(part, path)
+        with open(path, "rb") as fh:
+            _REFERENCE[str(path)] = pickle.load(fh)
+    return _REFERENCE[str(path)]
