@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--fsdp]
 
 Phases, each printing a line; any failure exits non-zero with no result:
 
@@ -221,7 +221,13 @@ Phases, each printing a line; any failure exits non-zero with no result:
    width, 2 layers (heads, d_ff and its 152064-word vocabulary split,
    Megatron sequence parallelism); (5) 3 bf16 steps of check 1's Hymba
    on SimMesh((1, 2)) beside one rank: device ms, host ms to issue,
-   peak memory (``training_tp``: 0 FFT launches).
+   peak memory (``training_tp``: 0 FFT launches); (6) the train launcher
+   over a one-rank torch.distributed world on Hymba-1.5B at full width,
+   1 layer, its checkpoint rewritten as the placed checkpoint of a
+   (2, 2) grid by four gloo ranks on the host's CPU, and restored from
+   those four files onto one rank on the card, bitwise; one float32 step of check 1's Hymba on SimMesh((2, 2))
+   against one rank (``training_fsdp``: 0 FFT launches). NCCL puts one
+   rank on each card, so on one card no check runs FSDP itself.
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -279,6 +285,14 @@ block of 8 x 512 tokens, 4 steps without compression and 4 with the
 int8 all-gather: every rank's parameters equal after every step, the
 int8 losses within 0.15 x the first of the uncompressed run's, the
 bytes a step's gradient reduction moves (P = 1 on one card: no message).
+Last, FSDP x TP (``nccl_fsdp``): one float32 step of check 1's Hymba and
+of Qwen2.5-32B (full width, 2 layers) over grids (P, 1) and, at P >= 4,
+(2, P / 2) against one card, every rank's blocks within 1e-5; on four
+cards Qwen2.5-32B at 8 of 64 layers (~87 GB of float32 state, more than
+one card holds) trained 3 bf16 steps on (4, 1), (2, 2) and (1, 4): step
+ms, host ms, peak GiB, the bytes FSDP gathers and reduce-scatters. At
+P = 1 the grid (1, 1) moves no message. ``--fsdp`` runs this part over
+every card and phase 20's check 6 alone (nothing built, no result line).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
 and read them just after, the pack's split by mode; each fails if a
@@ -292,10 +306,11 @@ runs of back-to-back calls. The second-to-last line is one JSON object
 with a row per kernel, the pack's accumulate mode a row of its own
 (``chunk_twiddle_pack_c64 accumulate``), its ``launches_by_path`` the
 counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
-``nccl_tp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
+``nccl_tp``, ``nccl_ddp``, ``nccl_fsdp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
 (``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``), 18
 (``ssm_serving_<arch>``), 19 (``encdec_serving``,
-``ssm_mesh_serving``) and 20 (``training``, ``training_tp``) included;
+``ssm_mesh_serving``) and 20 (``training``,
+``training_tp``, ``training_fsdp``) included;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -507,15 +522,25 @@ TRAIN_TP_ARCH, TRAIN_TP_LAYERS, TRAIN_TP_SEQ = "qwen2.5-32b", 2, 512
 #: SimMesh((1, TRAIN_TP_P)) beside one rank, TRAIN_TP_BATCH x TRAIN_TP_STEP_SEQ
 #: tokens a step (1152 positions with the meta tokens)
 TRAIN_TP_STEPS, TRAIN_TP_BATCH, TRAIN_TP_STEP_SEQ = 3, 2, 1024
-#: check 6: the train launcher over a one-rank process group (the world of
-#: this process alone, cpu:gloo,cuda:nccl), check 3's Hymba (reduced),
-#: TRAIN_PG_STEPS steps of TRAIN_PG_BATCH x TRAIN_PG_SEQ, one checkpoint at
-#: the end, restored onto SimMesh((2, 2)) and onto one rank; and one
-#: float32 step of check 1's 4-layer Hymba on SimMesh((2, 2)), microbatch
-#: 2, labels -1 in one data block, against one rank's. Hymba-1.5B whole in
-#: 6a writes and twice reads a 23.6 GB checkpoint: 158 s on the card
-#: (tools/train_fsdp_probe.py, PERF.md), five times the phase's budget
-TRAIN_PG_STEPS, TRAIN_PG_BATCH, TRAIN_PG_SEQ = 2, 2, 256
+#: check 6: (a) the train launcher over a one-rank process group (the world
+#: of this process alone, cpu:gloo,cuda:nccl) on Hymba-1.5B at full width
+#: cut to TRAIN_PG_LAYERS layers (launch.train's get_config patched, as
+#: ssm_cfg cuts check 1's), TRAIN_PG_STEPS steps of TRAIN_PG_BATCH x
+#: TRAIN_PG_SEQ, one checkpoint of whole leaves at the end (one rank cuts
+#: nothing); four gloo processes on the host's CPU, the ranks of a (2, 2)
+#: ('data', 'model') grid, each restore their blocks of it and write them
+#: as one placed checkpoint (each its proc<k>.npz, rank 0's manifest
+#: last), which restores from its four files onto one rank on the card
+#: (and so onto SimMesh((2, 2)), whose state holds the same whole leaves),
+#: bitwise. NCCL puts one rank on each card, so no
+#: check on one card runs FSDP itself: phase 7's nccl_fsdp does on four.
+#: (b) one float32 step of check 1's 4-layer Hymba on SimMesh((2, 2)),
+#: microbatch 2, labels -1 in the first half of the positions of the first
+#: half of each microbatch's rows, against one rank's: TP over model
+#: beside a data axis that holds the whole batch in one process.
+#: Hymba-1.5B whole in (a) writes and twice reads a 23.6 GB checkpoint:
+#: 192.8 s on an H100 (PERF.md, section 6)
+TRAIN_PG_LAYERS, TRAIN_PG_STEPS, TRAIN_PG_BATCH, TRAIN_PG_SEQ = 1, 2, 2, 256
 TRAIN_GRID_BATCH, TRAIN_GRID_SEQ = 4, 512
 #: phase 7's TP training check: one step of check 1's Hymba over NCCL on
 #: 1 x NCCL_TRAIN_SEQ tokens (640 positions: every P of 1, 2, 4 divides them)
@@ -3302,37 +3327,93 @@ def train_tp_steps(torch, seed) -> dict:
     return out
 
 
-def train_pg_launcher(torch, tmp: str, reduced: bool = True) -> dict:
-    """Check 6a of phase 20: launch/train.py's train(args) over a
-    torch.distributed world of this one process (as torchrun with one
-    rank starts it: a ProcessGroupMesh of (1, 1), each rank its blocks
-    and its own proc<k>.npz), Hymba-1.5B (reduced, or whole), one
-    checkpoint at the end; then that checkpoint restored onto
-    SimMesh((2, 2)) and onto one rank (on the meta device's shapes: no
-    state is drawn), every leaf bitwise equal in both."""
-    import numpy as np
+def train_state_target(torch, cfg, mesh=None):
+    """A ``TrainState`` of ``cfg``'s shapes on the meta device -- cut to
+    this process's blocks on ``mesh``, where given -- to restore a
+    checkpoint into (no weight is drawn)."""
+    from repro_torch.models.model import Model
+    from repro_torch.optim import adamw
+    from repro_torch.train import TrainState, place_train_state
+
+    shapes, specs = Model(cfg, device="meta").init(torch.Generator())
+    zero = torch.zeros((), dtype=torch.int32, device="meta")
+    state = TrainState(shapes, adamw.AdamWState(zero, shapes, shapes), zero)
+    return state if mesh is None else place_train_state(state, mesh=mesh, specs=specs, cfg=cfg)
+
+
+def same_state(torch, a, b) -> bool:
+    """Whether two ``TrainState``s hold the same bits, leaf for leaf."""
+    from repro_torch.optim.adamw import leaves
+
+    x, y = (leaves({"p": st.params, "m": st.opt.mu, "v": st.opt.nu}) for st in (a, b))
+    return (len(x) == len(y) and all(torch.equal(u, v) for u, v in zip(x, y))
+            and int(a.opt.count) == int(b.opt.count) and int(a.step) == int(b.step))
+
+
+def placed_ckpt_rank(rank: int, world: int, init_method: str, ckpt: str, out_dir: str) -> None:
+    """Check 6a's placed checkpoint, one gloo rank on the host's CPU: its
+    blocks on a (2, 2) ('data', 'model') grid, restored from the
+    launcher's checkpoint of whole leaves (``ckpt``), written with the
+    other ranks' as one placed checkpoint (``ckpt``-placed: each rank its
+    proc<k>.npz, rank 0's manifest last)."""
+    import torch
     import torch.distributed as dist
 
     from repro_torch.checkpoint import CheckpointManager
-    from repro_torch.core import SimMesh, init_process_mesh
-    from repro_torch.launch.train import build_argparser, train
+    from repro_torch.core import init_process_mesh
     from repro_torch.models.model import Model
-    from repro_torch.optim import adamw
-    from repro_torch.train import TrainState, state_layout
 
-    from repro_torch.configs import get_config
+    torch.set_num_threads(2)
+    mesh = init_process_mesh(rank, world, init_method, device="cpu", grid=(2, 2), axis_names=("data", "model"),
+                             timeout_s=NCCL_TIMEOUT_S)
+    try:
+        cfg = ssm_cfg(TRAIN_ARCH, TRAIN_PG_LAYERS)
+        t0 = time.perf_counter()
+        layout = Model(cfg, mesh, device="cpu").state_layout()
+        step, state = CheckpointManager(ckpt).restore_latest(train_state_target(torch, cfg, mesh), device="cpu",
+                                                             layout=layout)
+        t1 = time.perf_counter()
+        mgr = CheckpointManager(f"{ckpt}-placed", mesh=mesh)
+        mgr.save(step, state, layout=layout)
+        mgr.wait()
+        rep = dict(rank=rank, step=step, cut=sum(cuts is not None for _, cuts in layout.values()),
+                   restore_s=t1 - t0, write_s=time.perf_counter() - t1)
+        with open(os.path.join(out_dir, f"placed{rank}.json"), "w") as fh:
+            json.dump(rep, fh)
+    finally:
+        dist.destroy_process_group()
 
+
+def train_pg_launcher(torch, tmp: str) -> dict:
+    """Check 6a of phase 20: launch/train.py's train(args) over a
+    torch.distributed world of this one process (as torchrun with one
+    rank starts it: a ProcessGroupMesh of (1, 1), which cuts nothing),
+    Hymba-1.5B at full width and TRAIN_PG_LAYERS layers, one checkpoint
+    at the end; that state rewritten as the placed checkpoint of a (2, 2)
+    grid by four gloo ranks on the host's CPU (``placed_ckpt_rank``), and
+    restored from its four files onto one rank on the card (the layout of
+    SimMesh((2, 2)) too), every leaf bitwise the launcher's. NCCL puts one
+    rank on each card, so the FSDP step itself runs in phase 7 on four."""
+    import torch.distributed as dist
+    import torch.multiprocessing as mp
+
+    import repro_torch.launch.train as launch_train
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.core import SimMesh, init_process_mesh
+    from repro_torch.models.model import Model
+
+    cfg = ssm_cfg(TRAIN_ARCH, TRAIN_PG_LAYERS)
     ck = os.path.join(tmp, "ckpt")
-    args = build_argparser().parse_args([
+    args = launch_train.build_argparser().parse_args([
         "--arch", TRAIN_ARCH, "--steps", str(TRAIN_PG_STEPS), "--batch", str(TRAIN_PG_BATCH), "--seq",
-        str(TRAIN_PG_SEQ), "--ckpt-every", str(TRAIN_PG_STEPS), "--lr", str(TRAIN_LR), "--ckpt-dir", ck]
-        + (["--reduced"] if reduced else []))
-    cfg = get_config(TRAIN_ARCH, reduced=reduced)
+        str(TRAIN_PG_SEQ), "--ckpt-every", str(TRAIN_PG_STEPS), "--lr", str(TRAIN_LR), "--ckpt-dir", ck])
     init_process_mesh(0, 1, f"file://{os.path.join(tmp, 'rendezvous')}", timeout_s=NCCL_TIMEOUT_S)
+    get_config, launch_train.get_config = launch_train.get_config, lambda arch, reduced=False: cfg
     t0 = time.perf_counter()
     try:
-        hist = train(args)
+        hist = launch_train.train(args)
     finally:
+        launch_train.get_config = get_config
         dist.destroy_process_group()
     train_s = time.perf_counter() - t0
     gc.collect()
@@ -3340,45 +3421,63 @@ def train_pg_launcher(torch, tmp: str, reduced: bool = True) -> dict:
     losses = hist["loss"]
     check(len(losses) == TRAIN_PG_STEPS and all(math.isfinite(x) for x in losses),
           f"training launcher over a process group: losses {losses}")
-    shapes, _ = Model(cfg, device="meta")._abstract()
-    target = TrainState(shapes, adamw.AdamWState(torch.zeros((), dtype=torch.int32, device="meta"), shapes, shapes),
-                        torch.zeros((), dtype=torch.int32, device="meta"))
-    restored, restore_s = {}, {}
-    for label, mesh in (("SimMesh((2, 2))", SimMesh((2, 2), axis_names=("data", "model"))), ("one rank", None)):
-        t1 = time.perf_counter()
-        step, st = CheckpointManager(ck).restore_latest(target, device="cuda",
-                                                        layout=state_layout(Model(cfg, mesh)))
+    t1 = time.perf_counter()  # the four ranks read and rewrite the checkpoint while this process restores it
+    ranks = mp.spawn(placed_ckpt_rank, args=(4, f"file://{os.path.join(tmp, 'rendezvous-placed')}", ck, tmp),
+                     nprocs=4, join=False)
+    try:
+        layout = Model(cfg, device="meta").state_layout()
+        check(Model(cfg, SimMesh((2, 2), axis_names=("data", "model")), device="cuda").state_layout() == layout,
+              "SimMesh((2, 2))'s state is not whole leaves")
+        step, whole = CheckpointManager(ck).restore_latest(train_state_target(torch, cfg), device="cuda",
+                                                           layout=layout)
         torch.cuda.synchronize()
-        restore_s[label] = time.perf_counter() - t1
-        check(step == TRAIN_PG_STEPS, f"the launcher's checkpoint restored step {step} on {label}")
-        restored[label] = st
-    a, b = (adamw.leaves({"p": st.params, "m": st.opt.mu, "v": st.opt.nu}) for st in restored.values())
-    same = all(torch.equal(x, y) for x, y in zip(a, b))
-    nbytes = sum(x.numel() * x.element_size() for x in a)
-    check(same, "the launcher's checkpoint restored differently onto SimMesh((2, 2)) and one rank")
-    with np.load(os.path.join(ck, f"step_{TRAIN_PG_STEPS:010d}", "proc0.npz")) as f:
-        name = "params/embed/table"
-        check(np.array_equal(f[name], restored["one rank"].params["embed"]["table"].cpu().numpy()),
-              f"the restored {name} is not the checkpoint's")
-    del restored, a, b
+        restore_s = time.perf_counter() - t1
+        check(step == TRAIN_PG_STEPS, f"the launcher's checkpoint restored step {step}")
+    finally:
+        while not ranks.join():
+            pass
+    spawn_s = time.perf_counter() - t1
+    reps = []
+    for r in range(4):
+        with open(os.path.join(tmp, f"placed{r}.json")) as fh:
+            reps.append(json.load(fh))
+    step_dir = os.path.join(f"{ck}-placed", f"step_{TRAIN_PG_STEPS:010d}")
+    with open(os.path.join(step_dir, "manifest.json")) as fh:
+        procs = json.load(fh).get("procs", {})
+    check(sorted(os.listdir(step_dir)) == ["manifest.json"] + [f"proc{k}.npz" for k in range(4)]
+          and sorted(procs) == [f"proc{k}" for k in range(4)],
+          f"the placed checkpoint holds {sorted(os.listdir(step_dir))}, its manifest names {sorted(procs)}")
+    check(all(r["step"] == TRAIN_PG_STEPS and r["cut"] > 0 for r in reps), f"the placed checkpoint's ranks: {reps}")
+    t1 = time.perf_counter()
+    step, placed = CheckpointManager(f"{ck}-placed").restore_latest(train_state_target(torch, cfg), device="cuda",
+                                                                     layout=layout)
+    torch.cuda.synchronize()
+    placed_s = time.perf_counter() - t1
+    check(step == TRAIN_PG_STEPS and same_state(torch, placed, whole),
+          "the placed checkpoint restored onto one rank differs from the launcher's")
+    nbytes = sum(os.path.getsize(os.path.join(step_dir, f"proc{k}.npz")) for k in range(4))
+    del whole, placed
     gc.collect()
     torch.cuda.empty_cache()
-    print(f"training check 6a: launcher over a torch.distributed world of 1 rank ({TRAIN_ARCH} "
-          f"{'reduced' if reduced else 'whole'}, "
-          f"{TRAIN_PG_STEPS} steps of {TRAIN_PG_BATCH} x {TRAIN_PG_SEQ}): losses "
-          f"{', '.join(f'{x:.4f}' for x in losses)}, "
-          f"{train_s:.1f} s with init and one checkpoint of {nbytes / 1e9:.2f} GB; restored onto SimMesh((2, 2)) "
-          f"in {restore_s['SimMesh((2, 2))']:.1f} s and onto one rank in {restore_s['one rank']:.1f} s, every leaf "
-          f"bitwise equal", flush=True)
-    return dict(losses=losses, train_s=train_s, restore_s=restore_s, gb=nbytes / 1e9)
+    print(f"training check 6a: launcher over a torch.distributed world of 1 rank ({TRAIN_ARCH} full width, "
+          f"{cfg.num_layers} of {ssm_cfg(TRAIN_ARCH).num_layers} layers, {TRAIN_PG_STEPS} steps of {TRAIN_PG_BATCH} x {TRAIN_PG_SEQ}): losses "
+          f"{', '.join(f'{x:.4f}' for x in losses)}, {train_s:.1f} s with init and one checkpoint of whole leaves, "
+          f"restored onto one rank in {restore_s:.1f} s; meanwhile four gloo ranks of a (2, 2) grid restored their "
+          f"blocks of it ({reps[0]['cut']} of {len(layout)} leaves cut; {max(r['restore_s'] for r in reps):.1f} s) "
+          f"and wrote them as a placed checkpoint ({nbytes / 1e9:.2f} GB in proc0-3.npz, {max(r['write_s'] for r in reps):.1f} "
+          f"s; spawn {spawn_s:.1f} s in all); the placed checkpoint restored from its four files onto one rank (and "
+          f"SimMesh((2, 2))'s layout) in {placed_s:.1f} s, every leaf bitwise equal", flush=True)
+    return dict(losses=losses, train_s=train_s, restore_s=restore_s, spawn_s=spawn_s, placed_s=placed_s,
+                gb=nbytes / 1e9)
 
 
 def train_grid_step(torch, seed) -> dict:
     """Check 6b of phase 20: one make_train_step of check 1's Hymba-1.5B
-    (full width, TRAIN_F32_LAYERS layers, float32) on SimMesh((2, 2)) with
-    microbatch 2 and labels -1 over the first half of the rows of data
-    block 0 (the global masked mean), against one rank's from the same
-    seed: the first moments ((1 - b1) times the clipped gradient) within
+    (full width, TRAIN_F32_LAYERS layers, float32) on SimMesh((2, 2)) --
+    TP over model; the data axis holds the whole batch in one process, so
+    no rows move between ranks -- with microbatch 2 and labels -1 in the
+    first half of the positions of the first half of each microbatch's
+    rows, against one rank's from the same seed: the first moments ((1 - b1) times the clipped gradient) within
     TRAIN_REL_TOL of each leaf's largest entry, the weights within
     TRAIN_REL_TOL plus Adam's amplification, loss and grad norm within
     TRAIN_REL_TOL."""
@@ -3394,7 +3493,7 @@ def train_grid_step(torch, seed) -> dict:
     batch = make_batch_arrays(SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_GRID_SEQ, TRAIN_GRID_BATCH, seed=seed))
                               .batch_at(0))
     rows = TRAIN_GRID_BATCH // 2
-    for m in range(2):  # each microbatch's rows of data block 0
+    for m in range(2):  # each microbatch's first half of its rows
         batch["labels"][m * rows:m * rows + rows // 2, : TRAIN_GRID_SEQ // 2] = -1
     out = {}
     for label, mesh in (("one rank", None), ("SimMesh((2, 2))", SimMesh((2, 2), axis_names=("data", "model")))):
@@ -3417,7 +3516,8 @@ def train_grid_step(torch, seed) -> dict:
         param_err = max(param_err, ((a - e).abs() - TRAIN_REL_TOL * e.abs().max() - 2 * m["lr"] * noise).max().item())
     metric_err = max(abs(m[k] - one_m[k]) / abs(one_m[k]) for k in ("loss", "grad_norm"))
     print(f"training check 6b: {TRAIN_ARCH} full width, {cfg.num_layers} layers, float32, {TRAIN_GRID_BATCH} x "
-          f"{TRAIN_GRID_SEQ} tokens, microbatch 2, labels -1 in one data block: one step on SimMesh((2, 2)) vs one "
+          f"{TRAIN_GRID_SEQ} tokens, microbatch 2, labels -1 in part of each microbatch: one step on SimMesh((2, 2)) "
+          f"(TP over model; the data axis holds the whole batch in one process) vs one "
           f"rank, first moments worst rel_err {grad_err:.3e} (tol {TRAIN_REL_TOL}), weights past their bound by "
           f"{param_err:.3e}, loss {m['loss']:.6f} / grad norm {m['grad_norm']:.6f} rel_err {metric_err:.3e}; step "
           f"{ms:.1f} ms (host clock) vs {one_ms:.1f} on one rank", flush=True)
@@ -4564,9 +4664,57 @@ def nccl_phase(torch, seed: int):
     return reports[0]
 
 
+def fsdp_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) -> None:
+    """``--fsdp``: phase 7's FSDP part alone, one rank a card over NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.core import init_process_mesh
+    from repro_torch.kernels import fft_stage
+
+    mesh = init_process_mesh(rank, world, init_method, timeout_s=NCCL_TIMEOUT_S)
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        t = time.perf_counter()
+        rep = {"rank": rank, "P": world, "fsdp": nccl_fsdp(torch, mesh, fft_stage, seed)}
+        rep["s"] = time.perf_counter() - t
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
+            json.dump(rep, fh)
+    finally:
+        dist.destroy_process_group()
+
+
+def fsdp_only(torch, seed: int) -> None:
+    """``--fsdp``: phase 7's FSDP part over every card (``nccl_fsdp``: on
+    four, Qwen2.5-32B at 8 layers too), then phase 20's check 6."""
+    import torch.multiprocessing as mp
+
+    world = torch.cuda.device_count()
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        mp.spawn(fsdp_rank, args=(world, f"file://{os.path.join(tmp, 'rendezvous')}", seed, tmp), nprocs=world,
+                 join=True)
+        reports = []
+        for r in range(world):
+            with open(os.path.join(tmp, f"rank{r}.json")) as fh:
+                reports.append(json.load(fh))
+    for rep in reports:
+        print_nccl_fsdp(rep)
+        print(f"NCCL rank {rep['rank']}/{rep['P']} FSDP part {rep['s']:.1f} s", flush=True)
+    print(f"phase 7's FSDP part with the spawn: {time.perf_counter() - t0:.1f} s", flush=True)
+    t = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_pg_launcher(torch, tmp)
+    train_grid_step(torch, seed)
+    print(f"training check 6: {time.perf_counter() - t:.1f} s", flush=True)
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--fsdp", action="store_true",
+                    help="run phase 7's FSDP part over every card and phase 20's check 6 alone: nothing is built "
+                         "and no result line is printed")
     args = ap.parse_args(argv)
 
     t_start = time.perf_counter()
@@ -4585,6 +4733,10 @@ def main(argv=None) -> int:
           f"{torch.__version__}, CUDA {torch.version.cuda}, seed {args.seed}", flush=True)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    if args.fsdp:
+        fsdp_only(torch, args.seed)
+        print(smi, flush=True)
+        return 0
 
     from repro_torch.apps import solve_poisson
     from repro_torch.core import SimMesh, auto_grid_shape, plan_fft

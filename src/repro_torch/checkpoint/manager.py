@@ -54,6 +54,8 @@ from typing import Any, Callable, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.core.sharding import Cut, block_indices
+
 log = logging.getLogger("repro_torch.checkpoint")
 
 
@@ -111,29 +113,18 @@ def _to_host(leaf) -> np.ndarray:
     return np.array(leaf)
 
 
-#: a leaf's place in a placed checkpoint: (its global shape, its cuts --
-#: ``[(dim, first, count, parts), ...]`` along each cut dim ``count``
-#: entries from ``first`` of each of ``parts`` equal parts, side by side --
-#: or None for the whole leaf); ``models.model`` makes them
-#: (``train.step.state_layout``)
-Layout = Dict[str, Tuple[Tuple[int, ...], Optional[List[Tuple[int, int, int, int]]]]]
+#: a leaf's place in a placed checkpoint, by leaf name: (its global shape,
+#: the cuts a rank keeps -- ``core.sharding.Cut``s -- or None for the whole
+#: leaf); ``Model.state_layout`` makes them
+Layout = Dict[str, Tuple[Tuple[int, ...], Optional[List[Cut]]]]
 
 
-def _indices(n: int, cut) -> np.ndarray:
-    """The global indices along a dim of ``n`` entries a cut keeps, in the
-    block's order."""
-    _, first, count, parts = cut
-    width = n // parts
-    return np.concatenate([np.arange(j * width + first, j * width + first + count) for j in range(parts)])
-
-
-def _dim_indices(shape, cuts) -> List[np.ndarray]:
-    """For every dim of a leaf of global ``shape``, the global indices its
-    block holds (every index of an uncut dim)."""
-    out = [np.arange(n) for n in shape]
-    for cut in cuts or ():
-        out[cut[0]] = _indices(shape[cut[0]], cut)
-    return out
+def _index(idx: List[np.ndarray]):
+    """An index that takes ``idx[d]`` along each dim d: slices (a view)
+    where every one is a run of consecutive indices, else ``np.ix_``."""
+    if all(len(i) and i[-1] - i[0] == len(i) - 1 and np.all(np.diff(i) == 1) for i in idx):
+        return tuple(slice(int(i[0]), int(i[0]) + len(i)) for i in idx)
+    return np.ix_(*idx)
 
 
 class CheckpointManager:
@@ -362,16 +353,23 @@ class CheckpointManager:
     def _assemble(name: str, manifest: dict, opened: dict, procs: Optional[dict], cuts) -> np.ndarray:
         """The block ``cuts`` of leaf ``name`` (the whole leaf for None)
         from the files that hold its parts: each file's block placed by
-        the global indices it and the wanted block share."""
+        the global indices it and the wanted block share. A block that
+        several ranks wrote (a leaf replicated over an axis) is read from
+        the first of them, and the reading stops once the wanted block is
+        whole."""
         shape = tuple(manifest["leaves"][name]["shape"])
-        want = _dim_indices(shape, cuts)
-        out = None
-        filled = 0
+        want = block_indices(shape, cuts)
+        need = math.prod(len(w) for w in want)
+        out, filled, seen = None, 0, set()
         sources = procs.items() if procs is not None else [(f, None) for f in opened]
         for f, blocks in sources:
-            have = _dim_indices(shape, (blocks or {}).get(name))
+            mine = (blocks or {}).get(name)
+            key = json.dumps(mine)
+            if key in seen:
+                continue
+            seen.add(key)
             src, dst = [], []
-            for w, h in zip(want, have):
+            for w, h in zip(want, block_indices(shape, mine)):
                 _, si, di = np.intersect1d(h, w, assume_unique=True, return_indices=True)
                 src.append(si)
                 dst.append(di)
@@ -380,11 +378,11 @@ class CheckpointManager:
             arr = opened[f][name]
             if out is None:
                 out = np.empty([len(w) for w in want], dtype=arr.dtype)
-            out[np.ix_(*dst)] = arr[np.ix_(*src)]
+            out[_index(dst)] = arr[_index(src)]
             filled += math.prod(len(i) for i in dst)
-            if procs is None:
+            if filled == need:
                 break
-        if out is None or filled < math.prod(len(w) for w in want):
+        if out is None or filled < need:
             raise ValueError(f"the checkpoint's files do not hold all of {name}'s block")
         return out
 

@@ -913,13 +913,6 @@ def _axis_key(axes: Sequence[str]) -> str:
     return "+".join(axes)
 
 
-def _all_gather_into(out: torch.Tensor, inp: torch.Tensor, group) -> None:
-    """``all_gather_into_tensor`` under the name this torch gives it."""
-    import torch.distributed as dist
-
-    (getattr(dist, "all_gather_single", None) or dist.all_gather_into_tensor)(out, inp, group=group)
-
-
 def _flat_cat(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     return torch.cat([t.reshape(-1) for t in tensors]) if len(tensors) > 1 else tensors[0].reshape(-1)
 
@@ -937,7 +930,7 @@ def _gather_many(ring: ProcessGroupMesh, tensors: List[torch.Tensor], dims: List
         idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
         send = _flat_cat([tensors[i].detach().resolve_conj().contiguous() for i in idx])
         recv = torch.empty((ring.p, send.numel()), dtype=dtype, device=send.device)
-        _all_gather_into(_wire(recv.view(-1)), _wire(send), ring.group)
+        dist.all_gather_into_tensor(_wire(recv.view(-1)), _wire(send), group=ring.group)
         FSDP_BYTES["all_gather"] += recv.numel() * recv.element_size()
         at = 0
         for i in idx:
@@ -958,7 +951,6 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
     sum of its blocks."""
     import torch.distributed as dist
 
-    reduce_scatter = getattr(dist, "reduce_scatter_single", None) or dist.reduce_scatter_tensor
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     for dtype in dict.fromkeys(g.dtype for g in grads):
         idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
@@ -970,7 +962,7 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
             cols.append(g.reshape(shape).movedim(d, 0).reshape(ring.p, -1))
         send = torch.cat(cols, 1).contiguous() if len(cols) > 1 else cols[0].contiguous()
         recv = torch.empty(send.shape[1], dtype=dtype, device=send.device)
-        reduce_scatter(_wire(recv), _wire(send.view(-1)), group=ring.group)
+        dist.reduce_scatter_tensor(_wire(recv), _wire(send.view(-1)), group=ring.group)
         FSDP_BYTES["reduce_scatter"] += send.numel() * send.element_size()
         at = 0
         for i in idx:

@@ -41,6 +41,9 @@ from __future__ import annotations
 
 from typing import List, Mapping, Optional, Sequence, Tuple, Union
 
+import numpy as np
+import torch
+
 Axis = Union[str, None]
 Spec = Tuple[Union[str, Tuple[str, ...], None], ...]
 
@@ -141,14 +144,19 @@ def placed_axes(where: Spec) -> Tuple[str, ...]:
     return out
 
 
+#: one cut of a leaf a rank keeps: ``(dim, first, count, parts)`` -- along
+#: ``dim``, ``count`` entries from ``first`` of each of its ``parts`` equal
+#: parts, side by side (parts > 1 only on a ``model`` dim that packs them)
+Cut = Tuple[int, int, int, int]
+
+
 def block(mesh, spec: Sequence[Axis], shape: Sequence[int],
-          units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Optional[List[Tuple[int, int, int]]]:
-    """One ``(dim, first, count)`` for each dim :func:`placement` cuts:
-    the block of a leaf that the caller keeps on a mesh where it holds its
-    own block (a ``ProcessGroupMesh``), in dim order -- along a ``model``
-    dim its ``model`` coordinate's slice (of each part, where the dim
-    packs ``parts``: the caller keeps the parts' slices side by side, and
-    ``first`` and ``count`` are within a part), along an ``"fsdp"`` dim
+          units: Optional[Mapping[str, int]] = None, parts: int = 1) -> Optional[List[Cut]]:
+    """One :data:`Cut` for each dim :func:`placement` cuts: the block of a
+    leaf that the caller keeps on a mesh where it holds its own block (a
+    ``ProcessGroupMesh``), in dim order -- along a ``model`` dim its
+    ``model`` coordinate's slice of each of the dim's ``parts`` (the
+    caller keeps the parts' slices side by side), along an ``"fsdp"`` dim
     its row-major position on the dim's ``('pod', 'data')`` axes. None
     where it keeps the whole leaf: no mesh, a ``SimMesh`` (every rank's
     block is a view of the whole leaf), or a leaf placed nowhere."""
@@ -160,8 +168,39 @@ def block(mesh, spec: Sequence[Axis], shape: Sequence[int],
             continue
         per = parts if entry == "model" else 1
         n = shape[dim] // per // mesh.axis_size(entry)
-        out.append((dim, mesh.axis_index(entry) * n, n))
+        out.append((dim, mesh.axis_index(entry) * n, n, per))
     return out or None
+
+
+def cut_indices(n: int, cut: Cut) -> np.ndarray:
+    """The global indices along a dim of ``n`` entries that ``cut`` keeps,
+    in the block's order."""
+    _, first, count, parts = cut
+    width = n // parts
+    return np.concatenate([np.arange(j * width + first, j * width + first + count) for j in range(parts)])
+
+
+def block_indices(shape: Sequence[int], cuts: Optional[Sequence[Cut]]) -> List[np.ndarray]:
+    """For every dim of a leaf of global ``shape``, the global indices its
+    block under ``cuts`` holds (every index of an uncut dim)."""
+    out = [np.arange(n) for n in shape]
+    for cut in cuts or ():
+        out[cut[0]] = cut_indices(shape[cut[0]], cut)
+    return out
+
+
+def take(a, cuts: Optional[Sequence[Cut]]):
+    """A tensor's or numpy array's block under ``cuts`` (:func:`block`):
+    a view where each cut keeps one run of indices, else a copy."""
+    for cut in cuts or ():
+        dim, idx = cut[0], cut_indices(a.shape[cut[0]], cut)
+        if cut[3] == 1:
+            a = a[(slice(None),) * dim + (slice(int(idx[0]), int(idx[0]) + len(idx)),)]
+        elif isinstance(a, np.ndarray):
+            a = np.take(a, idx, axis=dim)
+        else:
+            a = a.index_select(dim, torch.from_numpy(idx).to(a.device))
+    return a
 
 
 def batch_placement(mesh, ndim: int) -> Spec:

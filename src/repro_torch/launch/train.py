@@ -48,7 +48,7 @@ from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
 from repro_torch.launch.mesh import make_local_mesh
 from repro_torch.models.model import Model
 from repro_torch.runtime import FailureInjector, Resume, StepMonitor, elastic_mesh, run_with_recovery
-from repro_torch.train import init_train_state, make_train_step, state_layout
+from repro_torch.train import init_train_state, make_train_step
 
 log = logging.getLogger("repro_torch.train")
 
@@ -153,7 +153,7 @@ def train(args, *, injector: Optional[FailureInjector] = None) -> dict:
         g = torch.Generator(device=model.device)
         g.manual_seed(tcfg.seed)
         state, _ = init_train_state(model, g, tcfg)
-        layout = state_layout(model)
+        layout = model.state_layout()
         ckpt = CheckpointManager(ckpt_dir, keep=3, mesh=mesh)
         managers.append(ckpt)
         start = 0

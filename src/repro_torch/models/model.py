@@ -267,23 +267,12 @@ def _layout(path: str, spec) -> Tuple[tuple, int]:
     return (spec if new is None else (None,) * (len(spec) - len(new)) + tuple(new)), parts
 
 
-#: one cut of a leaf a process keeps: (dim, first, count, parts) -- along
-#: ``dim``, ``count`` entries from ``first`` of each of its ``parts`` equal
-#: parts, side by side (``core.sharding.block``; parts > 1 only on a
-#: ``model`` dim that packs them)
-Cut = Tuple[int, int, int, int]
-
-
-def _where(mesh, spec, shape, units, path: str) -> Optional[List[Cut]]:
+def _where(mesh, spec, shape, units, path: str) -> Optional[List[sharding.Cut]]:
     """The cuts of the leaf at ``path`` a process keeps
-    (``core.sharding.block`` of its :func:`_layout`, with its parts on
-    the ``model`` dim), None where it keeps the whole leaf."""
+    (``core.sharding.block`` of its :func:`_layout`), None where it keeps
+    the whole leaf."""
     spec, parts = _layout(path, spec)
-    rows = sharding.block(mesh, spec, shape, units, parts)
-    if rows is None:
-        return None
-    where = sharding.placement(mesh, spec, shape, units, parts)
-    return [(dim, first, count, parts if where[dim] == "model" else 1) for dim, first, count in rows]
+    return sharding.block(mesh, spec, shape, units, parts)
 
 
 def _fsdp_dim(mesh, spec, shape, units, path: str) -> Optional[Tuple[int, Any]]:
@@ -299,31 +288,12 @@ def _fsdp_dim(mesh, spec, shape, units, path: str) -> Optional[Tuple[int, Any]]:
     return None
 
 
-def _take(a, where: Optional[List[Cut]]):
-    """A tensor's or array's block under ``where`` (:func:`_where`): each
-    cut in turn, a cut's parts side by side."""
-    for dim, first, count, parts in where or ():
-        width = a.shape[dim] // parts
-
-        def cut(j, a=a, dim=dim, width=width, first=first, count=count):
-            at = (slice(None),) * dim + (slice(j * width + first, j * width + first + count),)
-            return a[at]
-
-        if parts == 1:
-            a = cut(0)
-        elif isinstance(a, torch.Tensor):
-            a = torch.cat([cut(j) for j in range(parts)], dim)
-        else:
-            a = np.concatenate([cut(j) for j in range(parts)], dim)
-    return a
-
-
-def _keep(a: torch.Tensor, where: Optional[List[Cut]]) -> torch.Tensor:
+def _keep(a: torch.Tensor, where: Optional[List[sharding.Cut]]) -> torch.Tensor:
     """``a``, or a copy of its block (a view would keep the whole leaf
     alive)."""
     if where is None:
         return a
-    return _take(a, where).clone(memory_format=torch.contiguous_format)
+    return sharding.take(a, where).clone(memory_format=torch.contiguous_format)
 
 
 def _float_to(dtype):
@@ -462,6 +432,24 @@ class Model:
             return sharding.placed_axes(sharding.placement(self.mesh, lay, a.shape, self.units, parts))
 
         return leaves(_map2(axes, shapes, specs))
+
+    def state_layout(self) -> Dict[str, Tuple[Tuple[int, ...], Optional[List[sharding.Cut]]]]:
+        """Where a ``train.TrainState`` of this model lies on its mesh, by
+        the checkpoint's leaf names (``params/...``, ``opt/mu/...``,
+        ``opt/nu/...``, ``opt/count``, ``step``): each leaf's global shape
+        and the cuts this process keeps (None for a whole leaf) -- what
+        ``CheckpointManager.save`` / ``restore`` take as ``layout=``."""
+        shapes, specs = self._abstract()
+        layout: Dict[str, Tuple[Tuple[int, ...], Optional[List[sharding.Cut]]]] = {
+            "opt/count": ((), None), "step": ((), None)}
+
+        def put(a, spec, path):
+            cuts = _where(self.mesh, spec, tuple(a.shape), self.units, path)
+            for prefix in ("params", "opt/mu", "opt/nu"):
+                layout[prefix + path] = (tuple(a.shape), cuts)
+
+        _map2(put, shapes, specs)
+        return layout
 
     def _placed(self):
         """The tree of :func:`_fsdp_dim` of every leaf (made once)."""
@@ -865,9 +853,23 @@ def _copy_into(stacked, tree, specs, i: int, generator: torch.Generator, where: 
         lead = [c for c in cuts or () if c[0] == 0]
         rest = [(dim - 1, first, count, parts) for dim, first, count, parts in cuts or () if dim > 0]
         tree.fill(stacked[i], generator, first=lead[0][1] if lead else 0,
-                  cut=(lambda t: _take(t, rest)) if rest else None)
+                  cut=(lambda t: sharding.take(t, rest)) if rest else None)
     else:
-        stacked[i].copy_(_take(tree, cuts))
+        stacked[i].copy_(sharding.take(tree, cuts))
+
+
+def placements(tree, *, mesh, specs, cfg: Optional[ModelConfig] = None):
+    """Each leaf's ``core.sharding.placement`` on ``mesh`` (its partition
+    spec: FSDP x TP, heads whole where ``cfg``'s head counts place them),
+    for a tree of the model's layout (weights, moments, or their shapes
+    on the ``meta`` device) and its ``specs``."""
+    units = None if cfg is None else head_units(cfg)
+
+    def spec_of(a, spec, path):
+        lay, parts = _layout(path, spec)
+        return sharding.placement(mesh, lay, tuple(a.shape), units, parts)
+
+    return _map2(spec_of, tree, specs)
 
 
 def rank_blocks(tree, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = None):
@@ -887,7 +889,7 @@ def rank_blocks(tree, *, mesh=None, specs=None, cfg: Optional[ModelConfig] = Non
         where = _where(mesh, spec, tuple(a.shape), units, path)
         if where is None:
             return a
-        block = _take(a, where)
+        block = sharding.take(a, where)
         return block.clone() if isinstance(block, torch.Tensor) else block
 
     if mesh is not None and mesh.caller_holds_block and mesh.p > 1:

@@ -14,13 +14,12 @@ from repro_torch.train.step import (
     make_loss_fn,
     make_train_step,
     place_train_state,
-    state_layout,
     state_placement,
     train_state_from_numpy,
 )
 
 __all__ = [
     "DDPState", "TrainState", "ddp_state_from_numpy", "init_ddp_state", "init_train_state",
-    "make_ddp_compressed_step", "make_loss_fn", "make_train_step", "place_train_state", "state_layout",
+    "make_ddp_compressed_step", "make_loss_fn", "make_train_step", "place_train_state",
     "state_placement", "train_state_from_numpy",
 ]

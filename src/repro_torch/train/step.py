@@ -47,7 +47,7 @@ import torch
 from repro_torch.configs.base import TrainConfig
 from repro_torch.core import sharding
 from repro_torch.core.mesh import resolve_device
-from repro_torch.models.model import Model, _layout, _map2, _where, head_units, rank_blocks
+from repro_torch.models.model import Model, placements, rank_blocks
 from repro_torch.optim import adamw, compress, schedule
 from repro_torch.optim.adamw import leaves, tree_map, unflatten
 
@@ -76,13 +76,7 @@ def state_placement(mesh, specs, abstract_state: TrainState, cfg=None) -> TrainS
     ``cfg``'s head counts place them), the moments as the weights, the
     scalars replicated. ``abstract_state``: the whole state, or its
     shapes (the ``meta`` device)."""
-    units = None if cfg is None else head_units(cfg)
-
-    def spec_of(a, spec, path):
-        lay, parts = _layout(path, spec)
-        return sharding.placement(mesh, lay, tuple(a.shape), units, parts)
-
-    p = _map2(spec_of, abstract_state.params, specs)
+    p = placements(abstract_state.params, mesh=mesh, specs=specs, cfg=cfg)
     return TrainState(params=p, opt=adamw.AdamWState(count=(), mu=p, nu=p), step=())
 
 
@@ -121,24 +115,6 @@ def _value_and_grad(loss_fn, params, batch):
 
 def _lr(tcfg: TrainConfig, step: torch.Tensor) -> torch.Tensor:
     return schedule.warmup_cosine(step, peak=tcfg.learning_rate, warmup=tcfg.warmup_steps, total=tcfg.total_steps)
-
-
-def state_layout(model: Model) -> Dict[str, Tuple[Tuple[int, ...], Any]]:
-    """Where a ``TrainState`` on ``model``'s mesh lies, by the checkpoint's
-    leaf names (``params/...``, ``opt/mu/...``, ``opt/nu/...``,
-    ``opt/count``, ``step``): each leaf's global shape and the cuts this
-    rank keeps (``models.model._where``; None for a whole leaf) -- what
-    ``CheckpointManager.save`` / ``restore`` take as ``layout=``."""
-    shapes, specs = model._abstract()
-    layout: Dict[str, Tuple[Tuple[int, ...], Any]] = {"opt/count": ((), None), "step": ((), None)}
-
-    def put(a, spec, path):
-        cuts = _where(model.mesh, spec, tuple(a.shape), model.units, path)
-        for prefix in ("params", "opt/mu", "opt/nu"):
-            layout[prefix + path] = (tuple(a.shape), cuts)
-
-    _map2(put, shapes, specs)
-    return layout
 
 
 def _step_mesh(model: Model, mesh):

@@ -471,9 +471,9 @@ def _init_case(mesh, ran):
             where = sharding.block(mesh, spec, b.shape, head_units(cfg))
             if "experts" in spec:
                 dim = spec.index("experts")
-                assert where == [(dim, mesh.rank * n, n)], key
-            for cut in where or ():
-                b = b.narrow(*cut)
+                assert where == [(dim, mesh.rank * n, n, 1)], key
+            for dim, first, count, _ in where or ():
+                b = b.narrow(dim, first, count)
             assert torch.equal(a, b), key
     ran.append("init keeps the rank's experts")
 

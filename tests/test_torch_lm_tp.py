@@ -324,7 +324,7 @@ def _placement_cases(mesh, ran, ref_dir):
     for key, (a, b) in _pairs(own, whole):
         where = S.block(mesh, _spec_at(specs, key), b.shape, units)
         cut += where is not None
-        for dim, first, count in where or ():
+        for dim, first, count, _ in where or ():
             b = b.narrow(dim, first, count)
         assert torch.equal(a, b), key
     attn = own["layers"]["attn"]
@@ -337,7 +337,7 @@ def _placement_cases(mesh, ran, ref_dir):
     got = params_from_numpy(tree, device="cpu", mesh=mesh, specs=rspecs, cfg=cfg)
     for key, (a, b) in _pairs(got, tree):
         exp = b
-        for dim, first, count in S.block(mesh, _spec_at(rspecs, key), b.shape, units) or ():
+        for dim, first, count, _ in S.block(mesh, _spec_at(rspecs, key), b.shape, units) or ():
             exp = exp[(slice(None),) * dim + (slice(first, first + count),)]
         assert np.array_equal(a.numpy(), exp), key
     with pytest.raises(ValueError, match="head count"):

@@ -155,8 +155,7 @@ def _data_split_run(model):
     ``split_init(ARCH)``'s state (each rank its rows of every batch):
     (the metrics, floats a step; the weights after the steps, flat
     numpy)."""
-    from repro_torch.checkpoint.manager import _dim_indices
-    from repro_torch.train import state_layout
+    from repro_torch.core.sharding import block_indices
 
     state_np, specs = split_init(ARCH)
     state = train_state_from_numpy(state_np, "cpu", mesh=model.mesh, specs=specs, cfg=model.cfg)
@@ -165,8 +164,8 @@ def _data_split_run(model):
     for batch in split_batches(model.cfg):
         state, m = step(state, batch)
         metrics.append({k: float(v) for k, v in m.items()})
-    layout = state_layout(model)
-    return metrics, {k: (v.detach().numpy().copy(), _dim_indices(*layout["params" + k]))
+    layout = model.state_layout()
+    return metrics, {k: (v.detach().numpy().copy(), block_indices(*layout["params" + k]))
                      for k, v in _flat(state.params).items()}
 
 

@@ -273,16 +273,6 @@ POD_GRID = ((2, 1, 2), ("pod", "data", "model"))
 FSDP_SEQ, FSDP_BATCH, FSDP_MICRO = 16, 8, 2
 
 
-def fsdp_ref_grid(arch: str, grid):
-    """The reference cell the step of ``arch`` on ``grid`` is held to: the
-    same grid for the MoE archs (the data groups decide their capacity and
-    aux loss), (2, 2) for the dense ones (every mesh computes the same
-    function; one reference compile serves both grids)."""
-    if grid not in FSDP_GRIDS:
-        return None
-    return grid if fsdp_cfg(arch).moe is not None else (2, 2)
-
-
 def fsdp_cfg(arch: str):
     import dataclasses
 
@@ -375,7 +365,7 @@ def _fsdp_oracle():
                 name: {coords[d.id]: index(i, np.shape(a)) for d, i in s.devices_indices_map(np.shape(a)).items()}
                 for name, (s, a) in ttc.flat(jax.tree.map(lambda s, a: (s, a), sh.params, rstate.params,
                                                           is_leaf=lambda x: isinstance(x, NamedSharding))).items()}
-            if ttc.fsdp_ref_grid(arch, grid) != grid:
+            if grid not in ttc.FSDP_GRIDS:  # the (2, 1, 2) grid's step is held to (2, 2)'s
                 continue
             model = RModel(rcfg(arch), mesh)
             step = jit_train_step(model, rtcfg(), mesh, specs)
