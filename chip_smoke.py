@@ -99,6 +99,8 @@ Phases, each printing a line; any failure exits non-zero with no result:
    against attention_naive at that shape (1e-5), and one request's greedy
    tokens alone equal to its tokens among 8 slots; (2) all 64 layers in
    bfloat16, built as launch/serve.py builds them (launch.build_engine),
+   its weights' bytes and its decode cache's equal to the dry run's
+   (launch.dryrun) decode cell at 8 x 2048 on one rank, exactly;
    prefill + 1 decode step against the whole sequence's logits (3e-2);
    (3) that engine on the launcher's prompt stream (rng(0), 16 requests
    of 4-512 tokens, 64 new tokens each, ServeConfig()'s 8 slots and
@@ -210,6 +212,9 @@ Phases, each printing a line; any failure exits non-zero with no result:
    make_train_step over SyntheticLM (2 x 4096 tokens) at TrainConfig's
    default lr 3e-4: finite losses and gradient norms, the last three steps'
    mean loss below the first three's, peak memory under 72 GiB; the
+   dry run's state bytes (launch.dryrun, one rank) equal to the state's
+   own, within 1 % of torch.cuda.memory_allocated's growth over
+   init_train_state, its floor peak at most the measured one; the
    step's device ms (CUDA events) and host ms to issue it, tokens/s,
    the model-FLOP share of the bf16 dense peak, each custom backward's
    ms a layer; (3) launch/train.py's train() in-process, reduced, with
@@ -228,6 +233,12 @@ Phases, each printing a line; any failure exits non-zero with no result:
    those four files onto one rank on the card, bitwise; one float32 step of check 1's Hymba on SimMesh((2, 2))
    against one rank (``training_fsdp``: 0 FFT launches). NCCL puts one
    rank on each card, so on one card no check runs FSDP itself.
+21. the dry run (``dryrun_phase``): ``python -m repro_torch.launch.dryrun
+   --all --mesh both`` as a subprocess (no card: a walk over the
+   placement specs) must exit 0 with 64 ``_torch.json`` cells; one line
+   a cell: GiB a rank (a floor), the bottleneck and the roofline's three
+   times from the H100 data-sheet constants, beside the card's name and
+   power limit (0 FFT launches).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -290,8 +301,11 @@ of Qwen2.5-32B (full width, 2 layers) over grids (P, 1) and, at P >= 4,
 (2, P / 2) against one card, every rank's blocks within 1e-5; on four
 cards Qwen2.5-32B at 8 of 64 layers (~87 GB of float32 state, more than
 one card holds) trained 3 bf16 steps on (4, 1), (2, 2) and (1, 4): step
-ms, host ms, peak GiB, the bytes FSDP gathers and reduce-scatters. At
-P = 1 the grid (1, 1) moves no message. ``--fsdp`` runs this part over
+ms, host ms, peak GiB, the bytes FSDP gathers and reduce-scatters. On
+every grid the rank's state bytes and the bytes each kind of state
+collective moved equal the dry run's prediction (launch.dryrun), printed
+before the four-card steps. At P = 1 the grid (1, 1) moves no message,
+and the dry run predicts none. ``--fsdp`` runs this part over
 every card and phase 20's check 6 alone (nothing built, no result line).
 
 Phases 4-12 each zero the kernels' launch counters just before they run
@@ -309,8 +323,8 @@ counts of every counted path, phases 7 (SPMD serving, ``nccl_moe``,
 ``nccl_tp``, ``nccl_ddp``, ``nccl_fsdp``), 11-12, 14 (``lm_serving``), 15 (``moe_serving_<arch>``), 16
 (``ep_sim_serving_<arch>``), 17 (``tp_sim_serving``), 18
 (``ssm_serving_<arch>``), 19 (``encdec_serving``,
-``ssm_mesh_serving``) and 20 (``training``,
-``training_tp``, ``training_fsdp``) included;
+``ssm_mesh_serving``), 20 (``training``,
+``training_tp``, ``training_fsdp``) and 21 (``dryrun``) included;
 the last line is
 {"ok": true, "device": {...}}.
 """
@@ -322,6 +336,7 @@ import gc
 import json
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -380,7 +395,6 @@ LM_BF16_REL_TOL = 3e-2  # bfloat16, 64 layers: prefill + decode vs the full sequ
 LM_REQUESTS, LM_PROMPT_LEN, LM_MAX_NEW = 16, 512, 64  # the stream, on launch/serve.py's prompts
 LM_PEAK_LIMIT_GIB = 72.0
 LM_HEADROOM_GIB = 6.0  # free memory needed beyond the weights and the KV cache
-PEAK_FLOPS_BF16 = 989e12  # FLOP/s, bf16 tensor cores, dense (H100 SXM data sheet)
 LM_TOP_KERNELS = 8  # the decode step's longest kernels, printed by name
 #: phase 15: MoE + MLA serving at full width, depth cut to fit one card.
 #: DeepSeek-V3 (src/repro/configs/deepseek_v3_671b.py: 61 layers, d_model
@@ -499,7 +513,6 @@ TRAIN_FLASH_SEQ = 1024
 TRAIN_HYMBA_POSITIONS = 2176  # past Hymba's window of 1024, meta tokens included
 TRAIN_MAMBA_SEQ, TRAIN_MAMBA_BATCH = 1024, 2
 TRAIN_F32_LAYERS, TRAIN_F32_SEQ = 4, 1200  # layer 1 windowed; 1328 positions
-TRAIN_BF16_PEAK = 989e12  # FLOP/s, dense bf16 tensor cores (H100 SXM data sheet)
 #: check 3: the launcher in-process, reduced, with an injected failure
 TRAIN_LAUNCH_ARGS = ["--arch", TRAIN_ARCH, "--reduced", "--steps", "12", "--batch", "4", "--seq", "64",
                      "--ckpt-every", "4", "--fail-at", "6"]
@@ -563,6 +576,13 @@ FSDP_BATCH, FSDP_SEQ, FSDP_MICRO = 8, 256, 2
 #: FSDP_BIG_STEPS steps in bf16 compute on (P, 1), (2, P / 2) and (1, P),
 #: FSDP_BIG_BATCH x FSDP_BIG_SEQ tokens a step
 FSDP_BIG_LAYERS, FSDP_BIG_STEPS, FSDP_BIG_BATCH, FSDP_BIG_SEQ = 8, 3, 4, 1024
+#: the dry run (launch.dryrun) beside what the card holds and moves: its
+#: predicted state within DRYRUN_ALLOC_TOL of torch.cuda.memory_allocated's
+#: growth over init_train_state (the allocator rounds each block up); its
+#: bytes a rank otherwise exact. Phase 21 runs its CLI over the
+#: DRYRUN_CELLS arch x shape x mesh cells of the production meshes
+DRYRUN_ALLOC_TOL = 0.01
+DRYRUN_CELLS = 64
 
 
 class SmokeFailure(RuntimeError):
@@ -1754,6 +1774,21 @@ def lm_build(torch, seed, cfg, scfg, launch, label: str):
     return eng, nbytes
 
 
+def dry_run_serve_check(eng, cfg, scfg, nbytes: int, label: str) -> None:
+    """Phase 14's dry-run check: ``launch.dryrun``'s decode cell of ``cfg``
+    at the engine's max_batch x max_seq on one rank predicts the
+    weights' bytes (``lm_build``'s nbytes) and the decode state's (the
+    cache the engine allocated) exactly."""
+    args, rep = dry_run_cell(cfg, "decode", scfg.max_seq, scfg.max_batch)
+    weights, cache = state_bytes_of(args, ("params/",)), state_bytes_of(args, ("state/",))
+    held = tensor_bytes(t for t in lm_leaves(eng.state) if hasattr(t, "element_size"))
+    print(f"{label} dry run (launch.dryrun.cell_report, decode {scfg.max_batch} x {scfg.max_seq}, one rank): weights "
+          f"{weights} B predicted, {nbytes} B held; decode state {cache} B predicted, {held} B allocated by the "
+          f"engine; floor peak {rep['memory']['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+    check(weights == nbytes, f"{label}: the dry run predicts {weights} B of weights, the engine holds {nbytes} B")
+    check(cache == held, f"{label}: the dry run predicts {cache} B of decode state, the engine holds {held} B")
+
+
 def lm_bf16_agreement(torch, seed, model, params) -> None:
     """Check 2 of phase 14: a LM_BF16_SEQ-token prefill + 1 decode step
     of the bfloat16 model against the whole sequence's logits."""
@@ -1787,6 +1822,7 @@ def lm_full_depth(torch, seed, cfg, scfg, launch):
     """Checks 2 and 3: Qwen2.5-32B at all its layers in bfloat16, built the
     way repro_torch.launch.serve builds it, then the launcher's stream."""
     eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "LM serving")
+    dry_run_serve_check(eng, cfg, scfg, nbytes, "LM serving")
     lm_bf16_agreement(torch, seed, eng.model, eng.params)
     return nbytes, lm_serve_stream(torch, eng, cfg, launch)
 
@@ -1805,6 +1841,8 @@ def lm_yardstick(torch, seed, A) -> None:
     Qwen2.5-32B beside F.scaled_dot_product_attention (which the port
     never calls)."""
     import torch.nn.functional as F
+
+    from repro_torch.core.comm_model import PEAK_FLOPS_BF16
 
     g = torch.Generator(device="cuda")
     g.manual_seed(seed + 2)
@@ -1865,7 +1903,7 @@ def lm_stream_report(torch, label, cfg, scfg, nbytes, stream, kernels, peak, lau
     decode_bound = (nbytes + kv_live + extra) / cm.HBM_BW * 1e3
     s_med = statistics.median(n for n, _, _ in arrivals)
     active = cfg.active_param_count() if active is None else active
-    prefill_bound = max(2 * active * s_med / PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
+    prefill_bound = max(2 * active * s_med / cm.PEAK_FLOPS_BF16, nbytes / cm.HBM_BW) * 1e3
     print(f"{label} stream: {LM_REQUESTS} requests (prompts 4-{LM_PROMPT_LEN} tokens from rng(0), median "
           f"{s_med:.0f}), max_new {LM_MAX_NEW}, {scfg.max_batch} slots, max_seq {scfg.max_seq}, greedy: {tok} tokens "
           f"in {wall:.2f} s, {tok / wall:.1f} tok/s aggregate, {len(steps)} decode steps", flush=True)
@@ -2770,7 +2808,7 @@ def encdec_full_depth(torch, seed, cm, fft_stage) -> dict:
     print(f"{label} {ENCDEC_BATCH} utterances of {ENCDEC_FRAMES} frames, prompt {list(ENCDEC_SOT)}: time to first "
           f"token (encoder + cross K/V + decoder prefill) {rep['ttft_ms']:.2f} ms (CUDA events, median of "
           f"{ENCDEC_REPS}; the encoder's weight products {2 * enc_macs / 1e12:.2f} TFLOP, "
-          f"{2 * enc_macs / PEAK_FLOPS_BF16 * 1e3:.2f} ms at the bf16 peak, and its attention "
+          f"{2 * enc_macs / cm.PEAK_FLOPS_BF16 * 1e3:.2f} ms at the bf16 peak, and its attention "
           f"{2 * attn_macs / 1e12:.2f} TFLOP in float32 products); {rep['tokens']} greedy tokens "
           f"({ENCDEC_NEW} each) in {rep['wall_s']:.3f} s, {rep['tokens'] / rep['wall_s']:.1f} tok/s; row 0 "
           f"starts {rep['first']}", flush=True)
@@ -3071,24 +3109,6 @@ def train_model_check(torch, seed) -> float:
     return err
 
 
-def train_model_flops(cfg, n_params: int, tokens: int, positions: int, batch: int) -> float:
-    """6 N tokens (N without the embedding table, a lookup) plus the
-    attention's products, forward and backward (3 x 4 B H d a visible
-    (query, key) pair), causal and window counted as the mask needs:
-    what the model needs, remat's recompute not counted."""
-    from repro_torch.models.model import build_groups
-
-    def visible(window: int) -> int:
-        q = range(positions)
-        if window <= 0:
-            return sum(i + 1 for i in q)
-        return sum(min(i + 1, window) + min(cfg.meta_tokens, max(0, i + 1 - window)) for i in q)
-
-    pairs = sum(visible(0 if (grp.static_global if grp.flags is None else grp.flags[i]) else cfg.window_size)
-                for grp in build_groups(cfg) for i in range(grp.count))
-    return 6.0 * n_params * tokens + 12.0 * batch * cfg.num_heads * cfg.head_dim_ * pairs
-
-
 def train_layer_ms(torch, g, cfg) -> dict:
     """One layer's flash and Mamba forward and custom backward at the
     step's shapes, bf16 inputs as the step gives them (CUDA events, median
@@ -3126,12 +3146,57 @@ def train_layer_ms(torch, g, cfg) -> dict:
     return out
 
 
+def tensor_bytes(tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def dry_run_cell(cfg, kind: str, seq: int, batch: int, mesh=None, tcfg=None):
+    """(the argument bytes a rank by name, the report) of
+    ``launch.dryrun`` for ``cfg`` at ``batch`` x ``seq`` of ``kind`` on
+    ``mesh`` (default one rank, ``MeshShape((1, 1))``)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    shape = ShapeConfig(kind, seq, batch, kind)
+    mesh = MeshShape((1, 1), ("data", "model")) if mesh is None else mesh
+    tcfg = dryrun.PRODUCTION_TCFG if tcfg is None else tcfg
+    return dryrun.arguments(cfg, shape, mesh, tcfg), dryrun.cell_report(cfg, shape, mesh, tcfg=tcfg)
+
+
+def state_bytes_of(args: dict, prefixes=("params/", "opt/", "step")) -> int:
+    """The bytes of the arguments whose names start with ``prefixes``."""
+    return sum(v for k, v in args.items() if k.startswith(prefixes))
+
+
+def dry_run_train_check(cfg, tcfg, counted: int, init_alloc: int, peak_bytes: float, label: str) -> None:
+    """Phase 20's check 2, the dry run's side: ``launch.dryrun`` for the
+    step's cell on one rank predicts the state's bytes exactly (the
+    check's own sum of numel x element_size, count and step included),
+    within DRYRUN_ALLOC_TOL of what init_train_state allocated, and a
+    floor of the peak at most the measured one."""
+    args, rep = dry_run_cell(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, tcfg=tcfg)
+    predicted = state_bytes_of(args)
+    floor = rep["memory"]["peak_device_bytes"]
+    rel = abs(init_alloc - predicted) / predicted
+    print(f"{label} dry run (launch.dryrun.cell_report, one rank, MeshShape((1, 1))): state {predicted} B predicted, "
+          f"{counted} B counted (numel x element_size), {init_alloc} B allocated by init_train_state "
+          f"(torch.cuda.memory_allocated delta; rel diff {rel:.2e}, tol {DRYRUN_ALLOC_TOL}); floor peak "
+          f"{floor / 2**30:.2f} GiB (arguments + outputs - aliases) <= measured peak {peak_bytes / 2**30:.2f} GiB; "
+          f"roofline bottleneck {rep['roofline']['bottleneck']}", flush=True)
+    check(predicted == counted, f"{label}: the dry run predicts {predicted} B of state, the state holds {counted} B")
+    check(rel <= DRYRUN_ALLOC_TOL, f"{label}: init_train_state allocated {init_alloc} B, the dry run predicts "
+          f"{predicted} B")
+    check(floor <= peak_bytes, f"{label}: the dry run's floor peak {floor} B is above the measured {peak_bytes:.0f} B")
+
+
 def train_full_depth(torch, seed, cm) -> dict:
     """Check 2 of phase 20: Hymba-1.5B whole (32 layers, full width),
     float32 master weights and AdamW state, bf16 compute, remat full,
     TRAIN_STEPS of make_train_step over SyntheticLM at TRAIN_SEQ."""
     from repro_torch.configs import TrainConfig
     from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
+    from repro_torch.launch.dryrun import train_model_flops
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import leaves
     from repro_torch.train import init_train_state, make_train_step
@@ -3145,12 +3210,15 @@ def train_full_depth(torch, seed, cm) -> dict:
     g = torch.Generator(device="cuda")
     g.manual_seed(seed)
     t0 = time.perf_counter()
+    alloc0 = torch.cuda.memory_allocated()
     state, _ = init_train_state(model, g, tcfg)
     torch.cuda.synchronize()
+    init_alloc = torch.cuda.memory_allocated() - alloc0
     init_s = time.perf_counter() - t0
     flat = leaves(state.params)
     n_all = sum(p.numel() for p in flat)
     state_gb = sum(p.numel() * p.element_size() for p in flat + leaves(state.opt.mu) + leaves(state.opt.nu)) / 1e9
+    state_bytes = tensor_bytes(flat + leaves(state.opt.mu) + leaves(state.opt.nu) + [state.opt.count, state.step])
     cast_gb = sum(p.numel() * 2 for p in flat) / 1e9
     ds = SyntheticLM(DataConfig(cfg.vocab_size, TRAIN_SEQ, TRAIN_BATCH, seed=seed))
     step = make_train_step(model, tcfg)
@@ -3175,7 +3243,7 @@ def train_full_depth(torch, seed, cm) -> dict:
     dev, host = statistics.median(device_ms[2:]), statistics.median(host_ms_[2:])
     n_model = n_all - state.params["embed"]["table"].numel()
     flops = train_model_flops(cfg, n_model, tokens, TRAIN_SEQ + cfg.meta_tokens, TRAIN_BATCH)
-    share = flops / (dev / 1e3) / TRAIN_BF16_PEAK
+    share = flops / (dev / 1e3) / cm.PEAK_FLOPS_BF16
     print(f"{label} whole: {cfg.num_layers} layers, full width, {n_all / 1e9:.3f} B params (leaves), float32 master "
           f"weights + AdamW moments {state_gb:.2f} GB + float32 gradients {state_gb / 3:.2f} GB (+ {cast_gb:.2f} GB of "
           f"bf16 weights cast each step), bf16 compute, "
@@ -3188,13 +3256,14 @@ def train_full_depth(torch, seed, cm) -> dict:
           f"{', '.join(f'{x:.1f}' for x in device_ms[:2])} ms; {tokens / (dev / 1e3):.0f} tokens/s; model FLOPs "
           f"{flops / 1e12:.2f} T a step (6 N tokens, N {n_model / 1e9:.3f} B without the embedding table, + attention "
           f"products; remat's recompute not counted) = {100 * share:.2f} % of the bf16 dense peak "
-          f"({TRAIN_BF16_PEAK / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}; weights, "
+          f"({cm.PEAK_FLOPS_BF16 / 1e12:.0f} TFLOP/s); peak memory {peak:.2f} GiB (limit {LM_PEAK_LIMIT_GIB}; weights, "
           f"moments and gradients {4 * state_gb / 3 / 1.073741824:.2f} GiB + cast weights {cast_gb / 1.073741824:.2f} "
           f"GiB)", flush=True)
     check(all(math.isfinite(x) for x in losses + gnorms), f"{label}: a loss or gradient norm is not finite")
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
     check(last < first, f"{label}: the loss did not fall ({first:.4f} -> {last:.4f} over the first / last three steps)")
     check(peak < LM_PEAK_LIMIT_GIB, f"{label}: peak memory {peak:.2f} GiB >= {LM_PEAK_LIMIT_GIB}")
+    dry_run_train_check(cfg, tcfg, state_bytes, init_alloc, peak * 2**30, label)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3695,6 +3764,8 @@ def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
         torch.cuda.reset_peak_memory_stats()
         state, m, _, ms = run(Model(cfg, gmesh, device=mesh.device))
         moved = dict(FSDP_BYTES)
+        label = f"{arch} grid {grid}"
+        dry = dry_run_fsdp_check(cfg, tcfg, gmesh, FSDP_SEQ, FSDP_BATCH, state, moved, f"rank {mesh.rank}: {label}")
         grad_err, param_err = 0.0, -math.inf
         lr = float(m["lr"])
         for a, e, p, ep in zip(leaves(state.opt.mu), one_mu, leaves(state.params), one_p):
@@ -3704,7 +3775,6 @@ def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
             noise = torch.nan_to_num(torch.clamp(TRAIN_REL_TOL * top / e.abs(), max=1.0), nan=1.0)
             param_err = max(param_err, ((p - ep).abs() - TRAIN_REL_TOL * ep.abs().max() - 2 * lr * noise).max().item())
         metric_err = max(abs(float(m[k]) - float(one_m[k])) / abs(float(one_m[k])) for k in ("loss", "grad_norm"))
-        label = f"{arch} grid {grid}"
         check(grad_err <= TRAIN_REL_TOL, f"rank {mesh.rank}: NCCL FSDP {label} gradients {grad_err:.3e} > "
               f"{TRAIN_REL_TOL}")
         check(param_err <= 0, f"rank {mesh.rank}: NCCL FSDP {label} weights {param_err:.3e} past their bound")
@@ -3713,11 +3783,29 @@ def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
         out["grids"][str(grid)] = dict(grad_err=grad_err, param_err=param_err, metric_err=metric_err, step_ms=ms,
                                        loss=float(m["loss"]), grad_norm=float(m["grad_norm"]),
                                        gathered=moved.get("all_gather", 0), scattered=moved.get("reduce_scatter", 0),
+                                       reduced=moved.get("all_reduce", 0), dry=dry,
                                        peak_gib=torch.cuda.max_memory_allocated() / 2**30)
         del state
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dict, label: str) -> dict:
+    """``launch.dryrun``'s train cell of ``cfg`` at ``batch`` x ``seq`` on
+    ``gmesh``'s grid beside a step's: the rank's state bytes and the bytes
+    each kind of state collective moved (``core.mesh.FSDP_BYTES``),
+    exactly. Returns the prediction."""
+    from repro_torch.optim.adamw import leaves
+
+    args, rep = dry_run_cell(cfg, "train", seq, batch, mesh=gmesh, tcfg=tcfg)
+    held = tensor_bytes(leaves(state.params) + leaves(state.opt.mu) + leaves(state.opt.nu)
+                        + [state.opt.count, state.step])
+    pred = {k: v for k, v in rep["collectives"]["bytes"].items() if v}
+    check(state_bytes_of(args) == held, f"{label}: the dry run predicts {state_bytes_of(args)} B of state, the rank "
+          f"holds {held} B")
+    check(pred == {k: v for k, v in moved.items() if v}, f"{label}: the dry run predicts {pred}, the step moved {moved}")
+    return dict(state=state_bytes_of(args), moved=pred, bottleneck=rep["roofline"]["bottleneck"])
 
 
 def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
@@ -3751,6 +3839,14 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
         init_s = time.perf_counter() - t0
         state_gib = sum(t.numel() * t.element_size() for t in leaves(state.params) + leaves(state.opt.mu)
                         + leaves(state.opt.nu)) / 2**30
+        _, pred = dry_run_cell(cfg, "train", FSDP_BIG_SEQ, FSDP_BIG_BATCH, mesh=gmesh, tcfg=tcfg)
+        if mesh.rank == 0:
+            b = pred["collectives"]["bytes"]
+            print(f"NCCL rank 0/{mesh.p} FSDP dry run, Qwen2.5-32B {FSDP_BIG_LAYERS} layers, {FSDP_BIG_BATCH} x "
+                  f"{FSDP_BIG_SEQ} tokens, grid {grid}, before its steps: state "
+                  f"{pred['memory']['alias_bytes'] / 2**30:.2f} GiB a rank, "
+                  f"all_gather {b['all_gather'] / 1e9:.3f} GB, reduce_scatter {b['reduce_scatter'] / 1e9:.3f} GB, "
+                  f"all_reduce {b['all_reduce']} B a rank a step", flush=True)
         step = make_train_step(model, tcfg, gmesh)
         torch.cuda.reset_peak_memory_stats()
         dev, host, losses, moved = [], [], [], []
@@ -3771,6 +3867,8 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
         check(all(math.isfinite(x) for x in losses), f"rank {mesh.rank}: a Qwen2.5-32B FSDP loss on {grid} is not "
               "finite")
         same_on_every_rank(mesh, losses, f"Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}: losses")
+        dry_run_fsdp_check(cfg, tcfg, gmesh, FSDP_BIG_SEQ, FSDP_BIG_BATCH, state, moved[-1],
+                           f"rank {mesh.rank}: Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}")
         out[str(grid)] = dict(device_ms=dev, host_ms=host, losses=losses, init_s=init_s, state_gib=state_gib,
                               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                               gathered=moved[-1].get("all_gather", 0), scattered=moved[-1].get("reduce_scatter", 0))
@@ -3778,6 +3876,43 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
         gc.collect()
         torch.cuda.empty_cache()
     return out
+
+
+def dryrun_phase(torch, fft_stage, smi: str) -> dict:
+    """Phase 21: the port's dry run, its CLI over every arch x shape x
+    production mesh cell in a subprocess (a walk over the placement
+    specs: no card, no process group); its FFT kernel launches (0)."""
+
+    def run():
+        out_dir = tempfile.mkdtemp(prefix="dryrun_")
+        try:
+            env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+                [os.path.join(HERE, "src")] + [p for p in [os.environ.get("PYTHONPATH")] if p]))
+            t0 = time.perf_counter()
+            proc = subprocess.run([sys.executable, "-m", "repro_torch.launch.dryrun", "--all", "--mesh", "both",
+                                   "--out", out_dir], capture_output=True, text=True, env=env, timeout=600)
+            secs = time.perf_counter() - t0
+            check(proc.returncode == 0, f"dry run: exit {proc.returncode}: {proc.stdout[-2000:]} {proc.stderr[-2000:]}")
+            files = sorted(f for f in os.listdir(out_dir) if f.endswith("_torch.json"))
+            check(len(files) == DRYRUN_CELLS, f"dry run: {len(files)} cells written, not {DRYRUN_CELLS}")
+            print(f"dry run: python -m repro_torch.launch.dryrun --all --mesh both, {len(files)} cells in {secs:.1f} s "
+                  f"(a spec walk on the meta device, no card); the times below are the roofline's, from the H100 "
+                  f"SXM data-sheet constants (989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink a direction), not "
+                  f"measured; this card: {smi}", flush=True)
+            for f in files:
+                with open(os.path.join(out_dir, f)) as fh:
+                    r = json.load(fh)
+                roof = r["roofline"]
+                print(f"dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): "
+                      f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB a rank (floor), bottleneck "
+                      f"{roof['bottleneck']}, t_compute {roof['t_compute_s']:.3e} s, t_memory "
+                      f"{roof['t_memory_s']:.3e} s, t_collective {roof['t_collective_s']:.3e} s (data-sheet "
+                      f"roofline; {smi})", flush=True)
+        finally:
+            shutil.rmtree(out_dir, ignore_errors=True)
+
+    _, launches, _ = counted(torch, fft_stage, "dry run", run, expect=())
+    return launches
 
 
 def nccl_fsdp(torch, mesh, fft_stage, seed: int) -> dict:
@@ -3810,8 +3945,9 @@ def print_nccl_fsdp(rep) -> None:
                   f"within their bound (largest distance past it {g['param_err']:.3e}), loss {g['loss']:.6f} / grad "
                   f"norm {g['grad_norm']:.6f} rel_err {g['metric_err']:.3e}, bitwise equal on every rank; step "
                   f"{g['step_ms']:.1f} ms (host clock) vs {r['one_ms']:.1f} on one card; FSDP gathered "
-                  f"{g['gathered'] / 1e9:.3f} GB, reduce-scattered {g['scattered'] / 1e9:.3f} GB a rank; peak "
-                  f"{g['peak_gib']:.2f} GiB", flush=True)
+                  f"{g['gathered'] / 1e9:.3f} GB, reduce-scattered {g['scattered'] / 1e9:.3f} GB, all-reduced "
+                  f"{g['reduced']} B a rank; peak {g['peak_gib']:.2f} GiB; the dry run predicted state "
+                  f"{g['dry']['state']} B and moved {g['dry']['moved']} B a rank, as held and counted", flush=True)
     if m["big"] is None:
         print(f"{who} Qwen2.5-32B at {FSDP_BIG_LAYERS} of 64 layers (5.46 B params, ~87 GB of float32 weights, "
               f"gradients and moments): not run at P = {rep['P']}: the model does not fit on fewer than 4 cards",
@@ -3824,7 +3960,7 @@ def print_nccl_fsdp(rep) -> None:
               f"{', '.join(f'{x:.1f}' for x in r['host_ms'])}; losses {', '.join(f'{x:.4f}' for x in r['losses'])} "
               f"(bitwise equal on every rank); state {r['state_gib']:.2f} GiB a rank, peak {r['peak_gib']:.2f} GiB; "
               f"FSDP gathered {r['gathered'] / 1e9:.3f} GB, reduce-scattered {r['scattered'] / 1e9:.3f} GB a rank a "
-              f"step; init {r['init_s']:.1f} s", flush=True)
+              f"step (the dry run's prediction, exactly); init {r['init_s']:.1f} s", flush=True)
 
 
 def print_nccl_ddp(rep) -> None:
@@ -4805,6 +4941,7 @@ def main(argv=None) -> int:
     by_path.update(ssm_serving_phase(torch, args.seed, fft_stage, cm))
     by_path.update(encdec_mesh_phase(torch, args.seed, fft_stage, cm))
     by_path.update(training_phase(torch, args.seed, fft_stage, cm))
+    by_path["dryrun"] = dryrun_phase(torch, fft_stage, smi)
     for row in rows:  # the pack's rows count their own mode's launches
         key = f"{PACK} {row['mode']}" if "mode" in row else row["name"]
         row["launches"] = launches[key]

@@ -33,6 +33,7 @@ NVLINK_BW = 450e9  # bytes/s per GPU, each way (900 GB/s bidirectional)
 HBM_BW = 3.35e12  # bytes/s
 PEAK_FLOPS_FP32 = 67e12  # FLOP/s, CUDA cores, no tensor cores
 PEAK_FLOPS_TF32 = 495e12  # FLOP/s, TF32 tensor cores, dense (H100 SXM data sheet)
+PEAK_FLOPS_BF16 = 989e12  # FLOP/s, bf16 tensor cores, dense (H100 SXM data sheet)
 #: per-message latency: a placeholder, not a measurement (see
 #: CommParams.calibrate for the fitted value of a mesh)
 ALPHA_S = 10e-6

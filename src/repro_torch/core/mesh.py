@@ -73,12 +73,24 @@ Axes = Union[str, Sequence[str]]
 #: hanging the job).
 DEFAULT_TIMEOUT_S = 120.0
 
-#: The bytes FSDP's collectives (``gather_many`` / ``all_gather_fsdp`` and
-#: their reduce-scatters, ``psum_scatter``) assemble on this rank, by kind:
-#: ``"all_gather"`` the gathered tensors (the ring's P blocks each),
-#: ``"reduce_scatter"`` the whole gradients handed in (P blocks each).
-#: Clear it before a run to read that run's.
+#: The bytes the state's collectives -- FSDP's (``gather_many`` /
+#: ``all_gather_fsdp`` and their reduce-scatters, ``psum_scatter``) and the
+#: all-reduces over a batch axis (``psum`` over ``"pod"`` or ``"data"``:
+#: the gradients of leaves replicated there, the step's scalars) --
+#: assemble on this rank, by kind: ``"all_gather"`` the gathered tensors
+#: (the ring's P blocks each), ``"reduce_scatter"`` the whole gradients
+#: handed in (P blocks each), ``"all_reduce"`` the reduced block.
+#: ``FSDP_CALLS`` counts the collectives of each kind. Clear both before a
+#: run to read that run's (``launch.dryrun`` predicts them).
 FSDP_BYTES: "collections.Counter[str]" = collections.Counter()
+FSDP_CALLS: "collections.Counter[str]" = collections.Counter()
+#: the axes whose all-reduces ``FSDP_BYTES`` counts: the batch's
+STATE_AXES = ("pod", "data")
+
+
+def _count(kind: str, t: torch.Tensor) -> None:
+    FSDP_BYTES[kind] += t.numel() * t.element_size()
+    FSDP_CALLS[kind] += 1
 
 #: Axis names of a grid mesh when the caller gives none, in (row, col)
 #: order -- ``repro.core.grid.GRID_AXES``.
@@ -193,6 +205,13 @@ class _AxisMesh:
         for name, d in zip(self.axis_names, self.dims):
             rank = rank * d + coords.get(name, 0)
         return rank
+
+    def _count_reduce(self, axis_name: Optional[Axes], block: torch.Tensor) -> None:
+        """Count a psum of ``block`` over a batch axis of more than one rank
+        in ``FSDP_BYTES["all_reduce"]``."""
+        axes = self.axes_of(axis_name or self.axis_name)
+        if self.axis_size(axes) > 1 and any(a in STATE_AXES for a in axes):
+            _count("all_reduce", block)
 
     def ring_ranks(self, axis_name: Axes) -> List[List[int]]:
         """The rings of ``axis_name`` (an axis, or a tuple of axes): each
@@ -418,6 +437,7 @@ class SimMesh(_AxisMesh):
         """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
         default): every rank of a ring gets the sum of the ring's blocks,
         added in rank order -- one tensor, the same object for each."""
+        self._count_reduce(axis_name, blocks[0])
         return self._reduce(blocks, axis_name, torch.add)
 
     def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
@@ -719,6 +739,7 @@ class ProcessGroupMesh(_AxisMesh):
         ring, _ = self.rings(axis_name or self.axis_name)[0]
         if ring.p == 1:  # a ring of one: nothing to reduce
             return [blocks[0]]
+        self._count_reduce(axis_name, blocks[0])
         if _records(blocks[0]):
             return [_Psum.apply(ring, blocks[0])]
         return [_all_reduce(ring, blocks[0], "SUM")]
@@ -931,7 +952,7 @@ def _gather_many(ring: ProcessGroupMesh, tensors: List[torch.Tensor], dims: List
         send = _flat_cat([tensors[i].detach().resolve_conj().contiguous() for i in idx])
         recv = torch.empty((ring.p, send.numel()), dtype=dtype, device=send.device)
         dist.all_gather_into_tensor(_wire(recv.view(-1)), _wire(send), group=ring.group)
-        FSDP_BYTES["all_gather"] += recv.numel() * recv.element_size()
+        _count("all_gather", recv)
         at = 0
         for i in idx:
             t, d = tensors[i], dims[i] % max(tensors[i].ndim, 1)
@@ -963,7 +984,7 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
         send = torch.cat(cols, 1).contiguous() if len(cols) > 1 else cols[0].contiguous()
         recv = torch.empty(send.shape[1], dtype=dtype, device=send.device)
         dist.reduce_scatter_tensor(_wire(recv), _wire(send.view(-1)), group=ring.group)
-        FSDP_BYTES["reduce_scatter"] += send.numel() * send.element_size()
+        _count("reduce_scatter", send)
         at = 0
         for i in idx:
             shape = list(grads[i].shape)

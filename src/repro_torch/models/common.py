@@ -33,6 +33,8 @@ def _std(shape, scale: float) -> float:
 
 def _unit_draw(shape, std: float, generator: torch.Generator, device) -> torch.Tensor:
     out = torch.empty(tuple(shape), dtype=torch.float32, device=device)
+    if out.is_meta:  # a shape without values: nothing to draw
+        return out
     torch.nn.init.trunc_normal_(out, 0.0, 1.0, -3.0, 3.0, generator=generator)
     return out.mul_(std)
 
@@ -63,7 +65,10 @@ class Deferred(NamedTuple):
         .. ``first + len(out)`` into ``out`` (a rank's block of the
         experts: the same values as the whole draw's, whatever it keeps),
         each through ``cut`` where the rank keeps a block of a slice's
-        dims too (FSDP's block of ``d_model``)."""
+        dims too (FSDP's block of ``d_model``). On the ``meta`` device
+        ``out`` holds no values: nothing is drawn."""
+        if out.is_meta:
+            return out
         std = _std(self.shape, self.scale)
         for j in range(self.shape[0]):
             draw = _unit_draw(self.shape[1:], std, generator, out.device)

@@ -19,6 +19,10 @@ host devices (``torch_train_common.train_reference``, shared with
   only (the global masked mean); the (2, 1, 2) ``('pod', 'data',
   'model')`` grid against (2, 2);
 - ``psum_scatter`` and the FSDP gather's gradients against ``SimMesh``'s;
+- the state collectives each step, prefill and decode step counted
+  (``core.mesh.FSDP_BYTES`` / ``FSDP_CALLS``) against the dry run's
+  prediction (``launch.dryrun.cell_report``), also for one step of four
+  more families on (2, 2), and a psum's count against ``SimMesh``'s;
 - a placed checkpoint written on (2, 2) restored bitwise on (4, 1), on
   (1, 2) (the survivors of an elastic shrink) and on one rank; a
   reference checkpoint restored onto (2, 2); a step directory missing
@@ -34,8 +38,8 @@ import pytest
 import torch
 
 from repro_torch.core.sharding import block_indices
-from torch_train_common import (FSDP_ARCHS, FSDP_GRIDS, POD_GRID, assert_flat_params_match, fsdp_batches, fsdp_cfg,
-                                fsdp_init, fsdp_tcfg, flat, grad_noise, one_thread,
+from torch_train_common import (FSDP_ARCHS, FSDP_BATCH, FSDP_GRIDS, FSDP_SEQ, POD_GRID, assert_flat_params_match,
+                                fsdp_batches, fsdp_cfg, fsdp_init, fsdp_tcfg, flat, grad_noise, one_thread,
                                 train_reference)
 
 P = 4
@@ -51,10 +55,12 @@ DEPARTURES = {
 #: the gradient tolerance of a cell, 1e-5 of each leaf's largest entry but
 #: for DeepSeek-V3's ring dispatch on (2, 2): at this seed its MoE layer's
 #: MLA query projections (wdq, wuq) land 1.04-1.09e-5 from the reference's
-#: there, and so does the port on SimMesh((2, 2)) -- one graph, no FSDP --
-#: so the placement does not add to it (test_ring_cell_is_sim_mesh_s holds
-#: the two at 1e-5); other seeds and (4, 1) stay under 7e-6
-#: (tools/ring_gap_probe.py; ROADMAP queue C, open)
+#: there. The rounding is the reference's: against the reference's own step
+#: in float64 (x64) the port's float32 step lies within 3.4e-6 on every
+#: leaf, the reference's float32 step 9.5e-6 (wuq) / 8.9e-6 (wdq); other
+#: seeds and (4, 1) keep both under 6.7e-6 (tools/ring_gap_probe.py
+#: --float64; ROADMAP queue C). The port on SimMesh((2, 2)) lands where it
+#: lands over gloo (test_ring_cell_is_sim_mesh_s holds the two at 1e-5)
 GRAD_TOL = {("deepseek-v3-671b", (2, 2)): 2e-5}
 RING_ARCH = "deepseek-v3-671b"
 CKPT_ARCH = "qwen2.5-32b"
@@ -120,6 +126,93 @@ def _collective_grads(op, axes, mesh):
     ys = mesh.all_gather_fsdp(xs, axes, dim=1) if op == "all_gather_fsdp" else mesh.psum_scatter(xs, axes, dim=0)
     loss = sum(_readout(y, r + 1.5) for y, r in zip(ys, mesh.local_ranks()))
     return [g.numpy() for g in torch.autograd.grad(loss, xs)], [y.detach().numpy() for y in ys]
+
+
+#: the serving calls whose weight gathers are counted: a prefill of
+#: SERVE_BATCH x SERVE_PROMPT tokens into a cache of SERVE_CACHE, one decode step
+SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 2, 8, 12
+
+
+def _serve_moved(model, state_np, specs, cfg):
+    """What ``core.mesh.FSDP_BYTES`` / ``FSDP_CALLS`` count on this rank in
+    one prefill and in one decode step of the placed weights."""
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+    from repro_torch.models.model import params_from_numpy
+
+    params = params_from_numpy(state_np.params, "cpu", mesh=model.mesh, specs=specs, cfg=cfg)
+    tokens = torch.arange(SERVE_BATCH * SERVE_PROMPT).reshape(SERVE_BATCH, SERVE_PROMPT) % cfg.vocab_size
+    state = model.init_decode_state(SERVE_BATCH, SERVE_CACHE)
+    out = {}
+    for kind in ("prefill", "decode"):
+        FSDP_BYTES.clear()
+        FSDP_CALLS.clear()
+        if kind == "prefill":
+            state, _ = model.prefill(params, {"tokens": tokens}, state)
+        else:
+            model.decode_step(params, tokens[:, :1], state)
+        out[kind] = (dict(FSDP_BYTES), dict(FSDP_CALLS))
+    return out
+
+
+#: the families FSDP_ARCHS leave out, each one step on (2, 2) against the dry
+#: run's collectives (no reference step): tied embeddings and alternating
+#: windows (gemma2), the encoder-decoder (whisper), embeddings in (the
+#: vision stub) and xLSTM's layouts (ssm.MESH_LAYOUT)
+MORE_ARCHS = ("gemma2-9b", "whisper-medium", "phi-3-vision-4.2b", "xlstm-1.3b")
+
+
+def _more_batch(cfg):
+    """FSDP_BATCH x FSDP_SEQ of the inputs ``cfg`` takes (whisper: frames and
+    FSDP_SEQ / decoder_ratio decoder tokens), seeded."""
+    rng = np.random.default_rng(0)
+    rows, seq = FSDP_BATCH, max(FSDP_SEQ // cfg.decoder_ratio, 1) if cfg.is_encdec else FSDP_SEQ
+    ids = lambda: torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, seq)))  # noqa: E731
+    out = {}
+    if cfg.is_encdec or cfg.input_kind == "embeddings":
+        key = "enc_embeds" if cfg.is_encdec else "embeds"
+        out[key] = torch.from_numpy(rng.standard_normal((rows, FSDP_SEQ, cfg.d_model)).astype(np.float32))
+    if cfg.is_encdec or cfg.input_kind != "embeddings":
+        out["tokens"] = ids()
+    out["labels"] = ids()
+    return out
+
+
+def _moved_more(arch, mesh):
+    """``FSDP_BYTES`` / ``FSDP_CALLS`` of one step of ``arch`` (reduced,
+    float32) over ``mesh`` from its own init."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+    from repro_torch.models.model import Model
+    from repro_torch.train import init_train_state, make_train_step
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    model = Model(cfg, mesh, device="cpu")
+    state, _ = init_train_state(model, torch.Generator().manual_seed(0), fsdp_tcfg())
+    step = make_train_step(model, fsdp_tcfg(), mesh)
+    FSDP_BYTES.clear()
+    FSDP_CALLS.clear()
+    step(state._replace(step=torch.ones((), dtype=torch.int32)), _more_batch(cfg))
+    return dict(FSDP_BYTES), dict(FSDP_CALLS)
+
+
+#: the psums whose all-reduce ``FSDP_BYTES`` counts: those over a batch axis
+PSUM_AXES = ["data", ("data", "model"), "model"]
+
+
+def _psum_counted(mesh):
+    """``FSDP_BYTES`` / ``FSDP_CALLS`` after one psum of a (3, 5) float32
+    block over each of PSUM_AXES."""
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+
+    out = {}
+    for axes in PSUM_AXES:
+        FSDP_BYTES.clear()
+        FSDP_CALLS.clear()
+        mesh.psum([torch.ones((3, 5)) for _ in mesh.local_ranks()], axes)
+        out[axes] = (dict(FSDP_BYTES), dict(FSDP_CALLS))
+    return out
 
 
 def _ckpt_cases(rank, mesh22, inputs, tmp):
@@ -207,6 +300,7 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
     import torch.distributed as dist
 
     from repro_torch.core import ProcessGroupMesh, init_process_mesh
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
     from repro_torch.models.model import Model
 
     torch.set_num_threads(1)
@@ -214,7 +308,7 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
     try:
         meshes = {grid: ProcessGroupMesh(device="cpu", grid=grid, axis_names=names) for grid, names in GRIDS.items()}
         out = {"coords": {g: tuple(m.coords(rank)[a] for a in m.axis_names) for g, m in meshes.items()},
-               "blocks": {}, "step": {}}
+               "blocks": {}, "step": {}, "moved": {}}
         for arch in FSDP_ARCHS:
             state_np, specs = inputs["init"][arch]
             cfg = fsdp_cfg(arch)
@@ -223,8 +317,15 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
                 out["blocks"][(arch, grid)] = _blocks(mesh, model, state_np, specs, cfg)
                 kinds = ("plain", "masked") if grid in FSDP_GRIDS else ("plain",)
                 for kind in kinds:
+                    FSDP_BYTES.clear()
+                    FSDP_CALLS.clear()
                     out["step"][(arch, grid, kind)] = _step(model, state_np, specs, cfg, fsdp_batches(cfg)[kind])
+                    out["moved"][(arch, grid, kind)] = (dict(FSDP_BYTES), dict(FSDP_CALLS))
+                if grid in FSDP_GRIDS:
+                    out["moved"][(arch, grid, "serve")] = _serve_moved(model, state_np, specs, cfg)
         out["collectives"] = {case: _collective_grads(*case, meshes[(2, 2)]) for case in COLLECTIVES}
+        out["psum"] = _psum_counted(meshes[(2, 2)])
+        out["moved_more"] = {arch: _moved_more(arch, meshes[(2, 2)]) for arch in MORE_ARCHS}
         out["ckpt"] = _ckpt_cases(rank, meshes[(2, 2)], inputs, out_dir)
         out["launcher"] = _launcher_cases(out_dir)
         np.save(os.path.join(out_dir, f"rank{rank}.npy"), np.array(out, dtype=object), allow_pickle=True)
@@ -369,6 +470,68 @@ def test_pod_data_model_grid_matches_the_data_model_grid(gloo, arch):
         for got, exp in zip(a[1:], b[1:]):
             assert sorted(got) == sorted(exp)
             assert all(np.array_equal(got[n], exp[n]) for n in exp)
+
+
+@pytest.mark.parametrize("grid", list(FSDP_GRIDS))
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_state_collectives_are_the_dry_runs(gloo, arch, grid):
+    """What ``core.mesh.FSDP_BYTES`` and ``FSDP_CALLS`` counted on every
+    rank in each step over the grid (FSDP's all-gathers and
+    reduce-scatters, the all-reduces over the batch axes) and in one
+    prefill and one decode step of the placed weights (their gathers) is
+    ``launch.dryrun.cell_report``'s prediction at the same config,
+    batch, microbatch and grid, bytes and counts of each kind, exactly."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    mesh, cfg = MeshShape(grid, FSDP_GRIDS[grid]), fsdp_cfg(arch)
+    shapes = {"train": ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
+              "prefill": ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"),
+              "decode": ShapeConfig("decode", SERVE_CACHE, SERVE_BATCH, "decode")}
+    walk = {k: dryrun.cell_report(cfg, shape, mesh, tcfg=fsdp_tcfg())["collectives"] for k, shape in shapes.items()}
+    nonzero = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    for rank in gloo:
+        for kind in ("plain", "masked"):
+            moved, calls = rank["moved"][(arch, grid, kind)]
+            assert (moved, calls) == (nonzero(walk["train"]["bytes"]), nonzero(walk["train"]["counts"])), kind
+        for kind, (moved, calls) in rank["moved"][(arch, grid, "serve")].items():
+            assert (moved, calls) == (nonzero(walk[kind]["bytes"]), nonzero(walk[kind]["counts"])), kind
+    assert all(walk["train"]["bytes"].values()) and walk["prefill"]["bytes"]["all_gather"]
+
+
+@pytest.mark.parametrize("arch", MORE_ARCHS)
+def test_state_collectives_of_more_families_are_the_dry_runs(gloo, arch):
+    """One step over the (2, 2) grid of the families FSDP_ARCHS leave out:
+    what every rank counted is ``launch.dryrun.cell_report``'s
+    prediction, bytes and counts of each kind, exactly."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    walk = dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
+                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["collectives"]
+    expected = tuple({k: v for k, v in walk[part].items() if v} for part in ("bytes", "counts"))
+    assert expected[0]["all_gather"] and expected[0]["all_reduce"]
+    for rank in gloo:
+        assert rank["moved_more"][arch] == expected
+
+
+def test_psum_is_counted_over_batch_axes_alike(gloo):
+    """A psum over a batch axis counts its block once in ``FSDP_BYTES``
+    (one all-reduce in ``FSDP_CALLS``) on a rank of the gloo grid and on
+    ``SimMesh((2, 2))`` alike; one over ``model`` alone is no state
+    collective and counts nothing."""
+    from repro_torch.core import SimMesh
+
+    sim = SimMesh((2, 2), axis_names=("data", "model"), device="cpu")
+    expected = _psum_counted(sim)
+    assert expected["data"] == ({"all_reduce": 60}, {"all_reduce": 1}) and expected["model"] == ({}, {})
+    for rank in gloo:
+        assert rank["psum"] == expected
 
 
 @pytest.mark.parametrize("op,axes", COLLECTIVES)
