@@ -157,7 +157,11 @@ Phases, each printing a line; any failure exits non-zero with no result:
    check 1: tensor- and expert-parallel); (2) Qwen2.5-32B at 8 of 64
    layers in bfloat16, phase 14's stream on one rank and on
    Model(cfg, SimMesh(4)) on the same weights: phase 14's report, the
-   share of greedy tokens equal to one rank's, and one 512-token prompt's
+   share of greedy tokens equal to one rank's; one prefill of 2 x 512
+   tokens and one decode step on SimMesh(4), each one's activation
+   collectives (``core.mesh.collectives``, one rank's share) equal to
+   ``launch.dryrun``'s prefill / decode cell on MeshShape((1, 4)),
+   counts and bytes of each kind, exactly; and one 512-token prompt's
    prefill beside hidden on both (``tp_sim_serving``: 0 FFT launches);
 18. SSM and hybrid serving -- xLSTM-1.3B (24 mLSTM + sLSTM pairs) and
    Hymba-1.5B (attention beside Mamba heads, 128 meta tokens), each after
@@ -226,19 +230,25 @@ Phases, each printing a line; any failure exits non-zero with no result:
    width, 2 layers (heads, d_ff and its 152064-word vocabulary split,
    Megatron sequence parallelism); (5) 3 bf16 steps of check 1's Hymba
    on SimMesh((1, 2)) beside one rank: device ms, host ms to issue,
-   peak memory (``training_tp``: 0 FFT launches); (6) the train launcher
+   peak memory, the last step's activation collectives equal to the dry
+   run's walk (``one_process``) exactly (``training_tp``: 0 FFT
+   launches); (6) the train launcher
    over a one-rank torch.distributed world on Hymba-1.5B at full width,
    1 layer, its checkpoint rewritten as the placed checkpoint of a
    (2, 2) grid by four gloo ranks on the host's CPU, and restored from
    those four files onto one rank on the card, bitwise; one float32 step of check 1's Hymba on SimMesh((2, 2))
-   against one rank (``training_fsdp``: 0 FFT launches). NCCL puts one
+   against one rank, its activation collectives equal to the walk's on
+   that SimMesh (``one_process``: its one ``model`` ring on the whole
+   batch) exactly (``training_fsdp``: 0 FFT launches). NCCL puts one
    rank on each card, so on one card no check runs FSDP itself.
 21. the dry run (``dryrun_phase``): ``python -m repro_torch.launch.dryrun
    --all --mesh both`` as a subprocess (no card: a walk over the
    placement specs) must exit 0 with 64 ``_torch.json`` cells; one line
    a cell: GiB a rank (a floor), the bottleneck and the roofline's three
-   times from the H100 data-sheet constants, beside the card's name and
-   power limit (0 FFT launches).
+   times from the H100 data-sheet constants, the state's and the
+   activation collectives' shipped bytes a rank (their sum the roofline's
+   ``coll_bytes``, checked), beside the card's name and power limit (0
+   FFT launches).
 
 Phase 7 also fits alpha and beta per rank over NCCL (the default sizes,
 and sizes up to 64 MiB; on one card a rank's message to itself, a
@@ -284,7 +294,9 @@ phase 17's float32 dense checks and phase 19's models' (whisper,
 xLSTM, hymba: logits, prefill, decode) against one card, every rank's
 outputs bitwise equal (the MoE check above holds its logits so too), and on
 P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
-one decode step's collectives by name (``nccl_tp``: 0 FFT launches),
+one decode step's collectives by name and checks its activation
+collectives against the dry run's decode cell on every rank, exactly
+(``nccl_tp``: 0 FFT launches),
 and one train step of check 1's Hymba-1.5B (full width, 4 layers,
 float32) on Model(cfg, ProcessGroupMesh) against one card from the same
 seed: each rank's blocks of every gradient and of the parameters after
@@ -304,7 +316,8 @@ one card holds) trained 3 bf16 steps on (4, 1), (2, 2) and (1, 4): step
 ms, host ms, peak GiB, the bytes FSDP gathers and reduce-scatters. On
 every grid the rank's state bytes and the bytes each kind of state
 collective moved equal the dry run's prediction (launch.dryrun), printed
-before the four-card steps. At P = 1 the grid (1, 1) moves no message,
+before the four-card steps, and on four cards every step's activation
+collectives (over ``model``) equal the walk's, exactly, on every rank. At P = 1 the grid (1, 1) moves no message,
 and the dry run predicts none. ``--fsdp`` runs this part over
 every card and phase 20's check 6 alone (nothing built, no result line).
 
@@ -443,6 +456,7 @@ TP_F32_LAYERS, TP_DECODE = 2, 2
 TP_F32_MORE = (("whisper-medium", {"encoder_layers": 2}), ("xlstm-1.3b", {}), ("hymba-1.5b", {"num_layers": 4}))
 TP_SERVE_LAYERS = 8  # phase 17's bf16 serving: Qwen2.5-32B at full width, 8 of 64 layers
 TP_PREFILL, TP_REPS = 512, 3  # one 512-token prompt: prefill (psum form) beside hidden (the rings)
+TP_COUNT_BATCH = 2  # phase 17's counted prefill and decode step: 2 rows of TP_PREFILL
 #: phase 18: SSM and hybrid serving on one card at full width and depth.
 #: xLSTM-1.3B (src/repro/configs/xlstm_1p3b.py: 48 layers as 24 mLSTM +
 #: sLSTM pairs, d_model 2048, mLSTM 4 heads of 1024 (expand 2), sLSTM 4
@@ -2353,6 +2367,37 @@ def tp_prefill_ms(torch, models, params, seed: int) -> dict:
     return out
 
 
+def tp_counted_check(torch, model, params, cfg, seed: int, label: str) -> None:
+    """Phase 17's dry-run check: one TP_PREFILL-token prefill of
+    TP_COUNT_BATCH rows and one decode step on ``model`` (SimMesh(TP_P)),
+    each's activation collectives (``core.mesh.collectives``, one rank's
+    share) equal to ``launch.dryrun``'s prefill / decode cell on
+    ``MeshShape((1, TP_P))`` at the same rows, prompt and cache, exactly."""
+    from repro_torch.core.mesh import collectives, reset_collectives
+    from repro_torch.launch.mesh import MeshShape
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 5)
+    toks = torch.randint(0, cfg.vocab_size, (TP_COUNT_BATCH, TP_PREFILL), device=model.device, generator=g)
+    mesh = MeshShape((1, TP_P), ("data", "model"))
+    state = model.init_decode_state(TP_COUNT_BATCH, TP_PREFILL + 1)
+    for kind, seq in (("prefill", TP_PREFILL), ("decode", TP_PREFILL + 1)):
+        walk = walk_activation(cfg, kind, seq, TP_COUNT_BATCH, mesh)
+        print(f"{label} dry run before its {kind} ({TP_COUNT_BATCH} x {seq}, MeshShape((1, {TP_P}))): activation "
+              f"collectives {sum(walk['counts'].values())} calls, {sum(walk['bytes'].values())} B assembled a rank "
+              f"({card()})", flush=True)
+        reset_collectives()
+        if kind == "prefill":
+            state, _ = model.prefill(params, {"tokens": toks}, state)
+        else:
+            model.decode_step(params, toks[:, :1], state)
+        torch.cuda.synchronize()
+        check_counted(f"{label} {kind}", walk, collectives("activation"))
+        check(not any(collectives("state")["counts"].values()), f"{label}: a SimMesh counted state collectives")
+    del state
+    torch.cuda.empty_cache()
+
+
 def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
     """Phase 17: tensor parallelism on SimMesh(TP_P), one card. Check 1
     (the dense archs; the MoE archs ran beside phase 16's check 1), then
@@ -2388,6 +2433,7 @@ def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
     total = sum(len(t) for t in one[0].values())
     print(f"{label} greedy tokens equal to one rank's on the same stream and weights: {same} of {total} "
           f"({same / total:.4f})", flush=True)
+    tp_counted_check(torch, tp.model, eng.params, cfg, seed, label)
     ms = tp_prefill_ms(torch, {"one rank": eng.model, f"SimMesh({TP_P})": tp.model}, eng.params, seed)
     print(f"{label} one {TP_PREFILL}-token prompt, bfloat16, {TP_SERVE_LAYERS} layers (CUDA events, median of "
           f"{TP_REPS}): " + ", ".join(f"{k} {v:.2f} ms" for k, v in ms.items())
@@ -3164,6 +3210,40 @@ def dry_run_cell(cfg, kind: str, seq: int, batch: int, mesh=None, tcfg=None):
     return dryrun.arguments(cfg, shape, mesh, tcfg), dryrun.cell_report(cfg, shape, mesh, tcfg=tcfg)
 
 
+_CARD = []
+
+
+def card() -> str:
+    """The card's name and power limit (nvidia-smi), read once."""
+    if not _CARD:
+        _CARD.append(nvidia_smi())
+    return _CARD[0]
+
+
+def walk_activation(cfg, kind: str, seq: int, batch: int, mesh, tcfg=None, one_process: bool = False) -> dict:
+    """``launch.dryrun``'s ``activation`` entry (counts and assembled
+    bytes by kind) of ``cfg`` at ``batch`` x ``seq`` of ``kind`` on
+    ``mesh`` (``one_process``: what a SimMesh's one process issues)."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+
+    tcfg = dryrun.PRODUCTION_TCFG if tcfg is None else tcfg
+    rep = dryrun.cell_report(cfg, ShapeConfig(kind, seq, batch, kind), mesh, tcfg=tcfg, one_process=one_process)
+    return rep["collectives"]["activation"]
+
+
+def check_counted(label: str, walk: dict, counted: dict) -> None:
+    """The activation collectives ``core.mesh.collectives`` counted in a run
+    against the walk's prediction for it, counts and bytes of each kind,
+    exactly; one line either way."""
+    nz = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    same = (walk["counts"], walk["bytes"]) == (counted["counts"], counted["bytes"])
+    print(f"{label}: activation collectives counted {nz(counted['counts'])} calls, {nz(counted['bytes'])} B "
+          f"assembled; the dry run's walk predicted {nz(walk['counts'])} calls, {nz(walk['bytes'])} B -- "
+          f"{'equal' if same else 'DIFFERENT'} ({card()})", flush=True)
+    check(same, f"{label}: counted {counted} activation collectives, the walk predicts {walk}")
+
+
 def state_bytes_of(args: dict, prefixes=("params/", "opt/", "step")) -> int:
     """The bytes of the arguments whose names start with ``prefixes``."""
     return sum(v for k, v in args.items() if k.startswith(prefixes))
@@ -3352,6 +3432,7 @@ def train_tp_steps(torch, seed) -> dict:
     the peak memory, the losses (finite)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core import SimMesh
+    from repro_torch.core.mesh import collectives, reset_collectives
     from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
     from repro_torch.models.model import Model
     from repro_torch.train import init_train_state, make_train_step
@@ -3373,6 +3454,7 @@ def train_tp_steps(torch, seed) -> dict:
         for s in range(TRAIN_TP_STEPS):
             batch = make_batch_arrays(ds.batch_at(s))
             torch.cuda.synchronize()
+            reset_collectives()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t0 = time.perf_counter()
             start.record()
@@ -3390,6 +3472,10 @@ def train_tp_steps(torch, seed) -> dict:
               f"{', '.join(f'{x:.1f}' for x in host)}; losses {', '.join(f'{x:.4f}' for x in losses)}; peak memory "
               f"{out[label]['peak_gib']:.2f} GiB", flush=True)
         check(all(math.isfinite(x) for x in losses), f"training: a {label} bf16 loss is not finite")
+        if mesh is not None:  # the last step's collectives, one rank's share, against the walk
+            check_counted(f"training check 5: {TRAIN_ARCH} {cfg.num_layers} layers {label}, one step",
+                          walk_activation(cfg, "train", TRAIN_TP_STEP_SEQ, TRAIN_TP_BATCH, mesh, tcfg, one_process=True),
+                          collectives("activation"))
         del state, step, model
         gc.collect()
         torch.cuda.empty_cache()
@@ -3552,6 +3638,7 @@ def train_grid_step(torch, seed) -> dict:
     TRAIN_REL_TOL."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core import SimMesh
+    from repro_torch.core.mesh import collectives, reset_collectives
     from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import leaves
@@ -3571,9 +3658,14 @@ def train_grid_step(torch, seed) -> dict:
         g.manual_seed(seed)
         state, _ = init_train_state(model, g, tcfg)
         torch.cuda.synchronize()
+        reset_collectives()
         t0 = time.perf_counter()
         state, m = make_train_step(model, tcfg, mesh)(state, batch)
         torch.cuda.synchronize()
+        if mesh is not None:  # one rank's share of the step's collectives against the walk on the same SimMesh
+            check_counted(f"training check 6b: {TRAIN_ARCH} {cfg.num_layers} layers SimMesh((2, 2)), one step",
+                          walk_activation(cfg, "train", TRAIN_GRID_SEQ, TRAIN_GRID_BATCH, mesh, tcfg, one_process=True),
+                          collectives("activation"))
         out[label] = (leaves(state.opt.mu), leaves(state.params), {k: float(v) for k, v in m.items()},
                       (time.perf_counter() - t0) * 1e3)
         del state
@@ -3791,6 +3883,10 @@ def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
     return out
 
 
+#: ``core.mesh.FSDP_BYTES``' names of the dry run's state kinds
+FSDP_NAMES = {"all-gather": "all_gather", "reduce-scatter": "reduce_scatter", "all-reduce": "all_reduce"}
+
+
 def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dict, label: str) -> dict:
     """``launch.dryrun``'s train cell of ``cfg`` at ``batch`` x ``seq`` on
     ``gmesh``'s grid beside a step's: the rank's state bytes and the bytes
@@ -3801,7 +3897,7 @@ def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dic
     args, rep = dry_run_cell(cfg, "train", seq, batch, mesh=gmesh, tcfg=tcfg)
     held = tensor_bytes(leaves(state.params) + leaves(state.opt.mu) + leaves(state.opt.nu)
                         + [state.opt.count, state.step])
-    pred = {k: v for k, v in rep["collectives"]["bytes"].items() if v}
+    pred = {FSDP_NAMES[k]: v for k, v in rep["collectives"]["state"]["bytes"].items() if v}
     check(state_bytes_of(args) == held, f"{label}: the dry run predicts {state_bytes_of(args)} B of state, the rank "
           f"holds {held} B")
     check(pred == {k: v for k, v in moved.items() if v}, f"{label}: the dry run predicts {pred}, the step moved {moved}")
@@ -3818,7 +3914,7 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
     (finite, bitwise equal on every rank)."""
     from repro_torch.configs import TrainConfig
     from repro_torch.core import ProcessGroupMesh
-    from repro_torch.core.mesh import FSDP_BYTES
+    from repro_torch.core.mesh import FSDP_BYTES, collectives, reset_collectives
     from repro_torch.data import DataConfig, SyntheticLM, make_batch_arrays
     from repro_torch.models.model import Model
     from repro_torch.optim.adamw import leaves
@@ -3840,20 +3936,23 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
         state_gib = sum(t.numel() * t.element_size() for t in leaves(state.params) + leaves(state.opt.mu)
                         + leaves(state.opt.nu)) / 2**30
         _, pred = dry_run_cell(cfg, "train", FSDP_BIG_SEQ, FSDP_BIG_BATCH, mesh=gmesh, tcfg=tcfg)
+        act = pred["collectives"]["activation"]
         if mesh.rank == 0:
-            b = pred["collectives"]["bytes"]
+            b = pred["collectives"]["state"]["bytes"]
             print(f"NCCL rank 0/{mesh.p} FSDP dry run, Qwen2.5-32B {FSDP_BIG_LAYERS} layers, {FSDP_BIG_BATCH} x "
                   f"{FSDP_BIG_SEQ} tokens, grid {grid}, before its steps: state "
                   f"{pred['memory']['alias_bytes'] / 2**30:.2f} GiB a rank, "
-                  f"all_gather {b['all_gather'] / 1e9:.3f} GB, reduce_scatter {b['reduce_scatter'] / 1e9:.3f} GB, "
-                  f"all_reduce {b['all_reduce']} B a rank a step", flush=True)
+                  f"all_gather {b['all-gather'] / 1e9:.3f} GB, reduce_scatter {b['reduce-scatter'] / 1e9:.3f} GB, "
+                  f"all_reduce {b['all-reduce']} B a rank a step; activation collectives "
+                  f"{sum(act['counts'].values())} calls, {sum(act['bytes'].values()) / 1e9:.3f} GB assembled a rank "
+                  f"a step ({card()})", flush=True)
         step = make_train_step(model, tcfg, gmesh)
         torch.cuda.reset_peak_memory_stats()
         dev, host, losses, moved = [], [], [], []
         for s in range(FSDP_BIG_STEPS):
             batch = make_batch_arrays(ds.batch_at(s), gmesh)
             torch.cuda.synchronize()
-            FSDP_BYTES.clear()
+            reset_collectives()
             start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
             t1 = time.perf_counter()
             start.record()
@@ -3864,6 +3963,8 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
             dev.append(start.elapsed_time(end))
             losses.append(float(m["loss"]))
             moved.append(dict(FSDP_BYTES))
+            check_counted(f"rank {mesh.rank}: Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}, step {s}", act,
+                          collectives("activation"))
         check(all(math.isfinite(x) for x in losses), f"rank {mesh.rank}: a Qwen2.5-32B FSDP loss on {grid} is not "
               "finite")
         same_on_every_rank(mesh, losses, f"Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}: losses")
@@ -3902,12 +4003,19 @@ def dryrun_phase(torch, fft_stage, smi: str) -> dict:
             for f in files:
                 with open(os.path.join(out_dir, f)) as fh:
                     r = json.load(fh)
-                roof = r["roofline"]
+                roof, coll = r["roofline"], r["collectives"]
+                state, act = coll["state"]["shipped"], coll["activation"]["shipped"]
                 print(f"dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): "
                       f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB a rank (floor), bottleneck "
                       f"{roof['bottleneck']}, t_compute {roof['t_compute_s']:.3e} s, t_memory "
-                      f"{roof['t_memory_s']:.3e} s, t_collective {roof['t_collective_s']:.3e} s (data-sheet "
-                      f"roofline; {smi})", flush=True)
+                      f"{roof['t_memory_s']:.3e} s, t_collective {roof['t_collective_s']:.3e} s; shipped a rank: "
+                      f"state {state:.6e} B, activation {act:.6e} B (data-sheet roofline; {smi})", flush=True)
+                total = sum(coll["bytes"].values())
+                check(math.isclose(total, state + act, rel_tol=1e-12) and roof["coll_bytes"] == total
+                      and sum(coll["counts"].values()) == sum(coll["state"]["counts"].values())
+                      + sum(coll["activation"]["counts"].values()),
+                      f"dry run {f}: shipped {total} B by kind, {state} + {act} B by scope, roofline "
+                      f"{roof['coll_bytes']} B")
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -4229,10 +4337,24 @@ def digest(t) -> str:
 
 def collectives_per_step(torch, eng) -> dict:
     """The torch.distributed calls one decode step of all slots makes
-    (the engine's host agreements are outside it), by name."""
+    (the engine's host agreements are outside it), by name; the step's
+    activation collectives (``core.mesh.collectives``) checked against
+    ``launch.dryrun``'s decode cell at max_batch x max_seq on the
+    engine's mesh, exactly, the prediction printed before the step."""
     import collections
 
     import torch.distributed as dist
+
+    from repro_torch.core.mesh import collectives, reset_collectives
+    from repro_torch.launch.mesh import MeshShape
+
+    mesh, cfg = eng.model.mesh, eng.model.cfg
+    walk = walk_activation(cfg, "decode", eng.scfg.max_seq, eng.scfg.max_batch,
+                           MeshShape(tuple(mesh.shape.values()), tuple(mesh.shape)))
+    print(f"NCCL rank {mesh.rank}/{mesh.p} {cfg.name} {cfg.num_layers} layers: the dry run predicts one decode step "
+          f"of {eng.scfg.max_batch} slots to issue {sum(walk['counts'].values())} activation collectives, "
+          f"{sum(walk['bytes'].values())} B assembled a rank ({card()})", flush=True)
+    reset_collectives()
 
     counts = collections.Counter()
     names = ("all_reduce", "all_gather_into_tensor", "all_gather", "all_to_all_single", "batch_isend_irecv")
@@ -4253,6 +4375,7 @@ def collectives_per_step(torch, eng) -> dict:
     finally:
         for n in names:
             setattr(dist, n, orig[n])
+    check_counted(f"NCCL rank {mesh.rank}/{mesh.p} {cfg.name} one decode step", walk, collectives("activation"))
     return dict(counts)
 
 

@@ -382,6 +382,41 @@ def t_pencil(m_bytes: float, p_rows: int, p_cols: int, backend_row: str, backend
 
 
 # ---------------------------------------------------------------------------
+# Collectives' shipped bytes (the reference's HLO convention)
+# ---------------------------------------------------------------------------
+
+#: the collective kinds, by the reference's (HLO) names
+COLLECTIVE_KINDS = (
+    "all-reduce", "all-gather", "reduce-scatter", "all-to-all", "collective-permute",
+)
+
+
+def collective_scaled_bytes(kind: str, payload_bytes: float, p: int) -> float:
+    """Per-device bytes shipped = payload * the kind's ring factor at
+    group size ``p`` (``repro.core.comm_model.collective_scaled_bytes``):
+    the payload is the collective's result -- an all-reduce's block, an
+    all-gather's gathered tensor, a reduce-scatter's 1/P slice, an
+    all-to-all's block, a permute's piece."""
+    if kind == "collective-permute":
+        return float(payload_bytes)  # point-to-point, no group factor
+    if p <= 1:
+        return 0.0
+    if kind == "all-reduce":
+        return payload_bytes * 2 * (p - 1) / p
+    if kind == "reduce-scatter":
+        return payload_bytes * (p - 1)  # result is 1/P of the operand
+    return payload_bytes * (p - 1) / p  # all-gather, all-to-all
+
+
+def shipped_bytes(kind: str, assembled: float, p: int) -> float:
+    """:func:`collective_scaled_bytes` of a collective whose bytes are
+    counted as ``core.mesh`` counts them, what it assembles on the rank
+    (a reduce-scatter: its whole operand, P times its result)."""
+    payload = assembled / p if kind == "reduce-scatter" and p > 0 else assembled
+    return collective_scaled_bytes(kind, payload, p)
+
+
+# ---------------------------------------------------------------------------
 # Roofline terms
 # ---------------------------------------------------------------------------
 

@@ -64,6 +64,8 @@ from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
+from repro_torch.core.comm_model import COLLECTIVE_KINDS
+
 Blocks = List[torch.Tensor]
 #: one mesh axis, or a tuple of them that together place one dim
 Axes = Union[str, Sequence[str]]
@@ -91,6 +93,80 @@ STATE_AXES = ("pod", "data")
 def _count(kind: str, t: torch.Tensor) -> None:
     FSDP_BYTES[kind] += t.numel() * t.element_size()
     FSDP_CALLS[kind] += 1
+
+
+#: Every collective this process issues on a rank's behalf, keyed
+#: ``(scope, kind, axes)``: ``scope`` "state" for what ``FSDP_BYTES``
+#: counts (FSDP's gathers and reduce-scatters, the all-reduces over a
+#: batch axis), "activation" for the rest (the model's collectives over
+#: ``model``, the MoE ring's hops and gathers, the clip's norm over
+#: ``model``); ``kind`` one of ``COLLECTIVE_KINDS`` (the reference's
+#: HLO names, ``core.comm_model``); ``axes`` the mesh axes of more than one rank the
+#: collective runs over. The bytes are what the collective assembles on
+#: the rank (as ``FSDP_BYTES``): an all-reduce's block, an all-gather's
+#: gathered tensor, a reduce-scatter's whole operand, an all-to-all's
+#: received block, a permute's received piece. Backward passes count
+#: when they run. On a ``SimMesh`` each call counts one rank's share --
+#: what one process-group rank would issue for it -- and the backward
+#: collectives a process-group rank's autograd would issue (Megatron's
+#: "f" all-reduce, the inverse all-to-all) are counted when their forward
+#: runs outside a backward pass (not again in remat's recompute). Clear
+#: with :func:`reset_collectives`; :func:`collectives` reads them.
+COLLECTIVE_BYTES: "collections.Counter[Tuple[str, str, Tuple[str, ...]]]" = collections.Counter()
+COLLECTIVE_CALLS: "collections.Counter[Tuple[str, str, Tuple[str, ...]]]" = collections.Counter()
+
+
+def reset_collectives() -> None:
+    """Zero :data:`COLLECTIVE_BYTES` / :data:`COLLECTIVE_CALLS` (and the
+    ``FSDP_*`` view)."""
+    for c in (COLLECTIVE_BYTES, COLLECTIVE_CALLS, FSDP_BYTES, FSDP_CALLS):
+        c.clear()
+
+
+def collectives(scope: Optional[str] = None, axes: Optional[Tuple[str, ...]] = None) -> Dict[str, Dict[str, int]]:
+    """``{"counts": {kind: n}, "bytes": {kind: bytes}}`` of what was
+    counted since the last reset, every kind of :data:`COLLECTIVE_KINDS`
+    present (0 where none ran): of one ``scope`` ("state" or
+    "activation") or both, over one tuple of ``axes`` or any."""
+    out = {"counts": dict.fromkeys(COLLECTIVE_KINDS, 0), "bytes": dict.fromkeys(COLLECTIVE_KINDS, 0)}
+    for (sc, kind, ax), n in COLLECTIVE_CALLS.items():
+        if (scope is None or sc == scope) and (axes is None or ax == axes):
+            out["counts"][kind] += n
+            out["bytes"][kind] += COLLECTIVE_BYTES[(sc, kind, ax)]
+    return out
+
+
+def _record(mesh, kind: str, nbytes: int, scope: str = "activation",
+            axes: Optional[Tuple[str, ...]] = None) -> None:
+    """Count one ``kind`` collective over ``axes`` (default ``mesh``'s
+    ``count_axes``) assembling ``nbytes`` on the rank; nothing on a group
+    of one rank."""
+    axes = mesh.count_axes if axes is None else axes
+    if not axes:
+        return
+    COLLECTIVE_BYTES[(scope, kind, axes)] += int(nbytes)
+    COLLECTIVE_CALLS[(scope, kind, axes)] += 1
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+def _first_pass(t: torch.Tensor) -> bool:
+    """Whether autograd records ``t`` and this is no backward pass (remat's
+    recompute runs inside one): where a ``SimMesh`` counts, at its
+    forward, a backward collective a process-group rank would issue."""
+    return _records(t) and torch._C._current_graph_task_id() == -1
+
+
+def note_backward(mesh, kind: str, t: torch.Tensor, scope: str = "activation",
+                  axes: Optional[Tuple[str, ...]] = None, nbytes: Optional[int] = None) -> None:
+    """On a ``SimMesh``, count the ``kind`` collective of ``t``'s gradient
+    (assembling ``nbytes``, default ``t``'s) that a process-group rank's
+    backward issues (:func:`_first_pass`)."""
+    if _first_pass(t):
+        _record(mesh, kind, _nbytes(t) if nbytes is None else nbytes, scope, axes)
+
 
 #: Axis names of a grid mesh when the caller gives none, in (row, col)
 #: order -- ``repro.core.grid.GRID_AXES``.
@@ -168,6 +244,9 @@ class _AxisMesh:
         self.shape = dict(zip(names, dims))
         self.p = math.prod(dims)
         self.in_flight = 0
+        #: the axes of more than one rank a collective over the whole mesh
+        #: runs over (a ring view's: its parent's axes, :func:`_ring_view`)
+        self.count_axes = tuple(a for a, d in zip(names, dims) if d > 1)
 
     @property
     def axis_name(self) -> str:
@@ -192,6 +271,17 @@ class _AxisMesh:
         """The ranks along one axis, or the product over a tuple of axes."""
         return math.prod(self.shape[a] for a in self.axes_of(axis_name))
 
+    def _counted_axes(self, axis_name: Optional[Axes]) -> Tuple[str, ...]:
+        """The axes of more than one rank of ``axis_name`` (a 1-D mesh's own
+        by default): what a collective over them is counted under."""
+        return tuple(a for a in self.axes_of(axis_name or self.axis_name) if self.shape[a] > 1)
+
+    def _ring_view(self, view: "_AxisMesh", axes: Tuple[str, ...]) -> "_AxisMesh":
+        """``view``, a 1-D mesh over the ring of ``axes``, counting its
+        collectives under those axes of this mesh."""
+        view.count_axes = tuple(a for a in axes if self.shape[a] > 1)
+        return view
+
     def coords(self, rank: int) -> Dict[str, int]:
         """Axis name -> coordinate of ``rank`` (row-major, the first axis
         varying slowest)."""
@@ -206,12 +296,15 @@ class _AxisMesh:
             rank = rank * d + coords.get(name, 0)
         return rank
 
-    def _count_reduce(self, axis_name: Optional[Axes], block: torch.Tensor) -> None:
+    def _count_reduce(self, axis_name: Optional[Axes], block: torch.Tensor) -> bool:
         """Count a psum of ``block`` over a batch axis of more than one rank
-        in ``FSDP_BYTES["all_reduce"]``."""
+        in ``FSDP_BYTES["all_reduce"]``; whether it did (a state
+        collective)."""
         axes = self.axes_of(axis_name or self.axis_name)
         if self.axis_size(axes) > 1 and any(a in STATE_AXES for a in axes):
             _count("all_reduce", block)
+            return True
+        return False
 
     def ring_ranks(self, axis_name: Axes) -> List[List[int]]:
         """The rings of ``axis_name`` (an axis, or a tuple of axes): each
@@ -375,7 +468,8 @@ class SimMesh(_AxisMesh):
         key = _axis_key(self.axes_of(axis_name))
         view = self._ring_views.get(key)
         if view is None:
-            view = self._ring_views[key] = SimMesh(self.axis_size(axis_name), key, self.device)
+            view = self._ring_views[key] = self._ring_view(SimMesh(self.axis_size(axis_name), key, self.device),
+                                                           self.axes_of(axis_name))
         return [(view, ring) for ring in self.ring_ranks(axis_name)]
 
     # -- the rank whose per-rank code is running -------------------------------
@@ -404,6 +498,8 @@ class SimMesh(_AxisMesh):
         waited on: one stream, program order, no overlap."""
         self._check_1d(pieces)
         pieces, perm = list(pieces), list(perm)
+        if any(src != dst for src, dst in perm):  # one rank's share: its piece
+            _record(self, "collective-permute", _nbytes(pieces[0]))
 
         def complete() -> Blocks:
             out: List[Optional[torch.Tensor]] = [None] * self.p
@@ -424,6 +520,8 @@ class SimMesh(_AxisMesh):
         if size % p:
             raise ValueError(f"all_to_all: axis of size {size} does not split into {p} pieces")
         pieces = [torch.chunk(b, p, dim=split_axis) for b in blocks]
+        _record(self, "all-to-all", _nbytes(blocks[0]))
+        note_backward(self, "all-to-all", blocks[0])  # the inverse all-to-all of a process-group rank
         return [torch.cat([pieces[src][dst] for src in range(p)], dim=concat_axis) for dst in range(p)]
 
     def all_max(self, values: Sequence[float]) -> List[float]:
@@ -437,11 +535,14 @@ class SimMesh(_AxisMesh):
         """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
         default): every rank of a ring gets the sum of the ring's blocks,
         added in rank order -- one tensor, the same object for each."""
-        self._count_reduce(axis_name, blocks[0])
+        state = self._count_reduce(axis_name, blocks[0])
+        _record(self, "all-reduce", _nbytes(blocks[0]), "state" if state else "activation",
+                self._counted_axes(axis_name))
         return self._reduce(blocks, axis_name, torch.add)
 
     def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
         """``lax.pmax`` over ``axis_name``, as :meth:`psum`."""
+        _record(self, "all-reduce", _nbytes(blocks[0]), axes=self._counted_axes(axis_name))
         return self._reduce(blocks, axis_name, torch.maximum)
 
     def pvary(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
@@ -459,6 +560,8 @@ class SimMesh(_AxisMesh):
         each."""
         self._check(blocks)
         out = list(blocks)
+        axes = self._counted_axes(axis_name)
+        _record(self, "all-gather", _nbytes(blocks[0]) * self.axis_size(axis_name or self.axis_name), axes=axes)
         for ring in self.ring_ranks(axis_name or self.axis_name):
             stacked = torch.stack([blocks[r] for r in ring])
             for r in ring:
@@ -475,6 +578,9 @@ class SimMesh(_AxisMesh):
         reduce-scatter)."""
         self._check(blocks)
         out = list(blocks)
+        axes, k = self._counted_axes(axis_name), self.axis_size(axis_name or self.axis_name)
+        _record(self, "all-gather", _nbytes(blocks[0]) * k, "state", axes)
+        note_backward(self, "reduce-scatter", blocks[0], "state", axes, _nbytes(blocks[0]) * k)
         for ring in self.ring_ranks(axis_name or self.axis_name):
             whole = torch.cat([blocks[r] for r in ring], dim)
             for r in ring:
@@ -488,6 +594,9 @@ class SimMesh(_AxisMesh):
         the sum along ``dim`` (its position on the ring's)."""
         self._check(blocks)
         out = list(blocks)
+        axes = self._counted_axes(axis_name)
+        _record(self, "reduce-scatter", _nbytes(blocks[0]), "state", axes)
+        note_backward(self, "all-gather", blocks[0], "state", axes)
         for ring in self.ring_ranks(axis_name or self.axis_name):
             acc = blocks[ring[0]]
             for r in ring[1:]:
@@ -519,9 +628,13 @@ class SimMesh(_AxisMesh):
         return [self._block(x, rank, tail) for rank in range(self.p)]
 
     def gather(self, blocks: Sequence[torch.Tensor], tail: Sequence[Optional[str]]) -> torch.Tensor:
-        """Per-rank blocks -> global array (a schedule's ``out_tail``)."""
+        """Per-rank blocks -> global array (a schedule's ``out_tail``),
+        counted as :meth:`ProcessGroupMesh.gather`'s all-gather."""
         self._check(blocks)
-        return self._assemble(lambda rank: blocks[rank], blocks[0].ndim, tail)
+        out = self._assemble(lambda rank: blocks[rank], blocks[0].ndim, tail)
+        if self._shard_dims(blocks[0].ndim, tail):
+            _record(self, "all-gather", self.p * _nbytes(blocks[0]))
+        return out
 
     # -- what a transform takes from and gives back to its caller ---------------
     def local_blocks(self, x, tail: Sequence[Optional[str]]) -> Blocks:
@@ -604,11 +717,11 @@ class ProcessGroupMesh(_AxisMesh):
                 for ring in self.ring_ranks(axes):
                     if len(ring) == 1:  # no message moves on a ring of one
                         if ring == [self.rank]:
-                            self._rings[key] = SimMesh(1, key, self.device)
+                            self._rings[key] = self._ring_view(SimMesh(1, key, self.device), axes)
                         continue
                     sub = dist.new_group([self._global[r] for r in ring], timeout=timeout)
                     if self.rank in ring:
-                        self._rings[key] = ProcessGroupMesh(key, self.device, sub)
+                        self._rings[key] = self._ring_view(ProcessGroupMesh(key, self.device, sub), axes)
 
     def local_ranks(self) -> List[int]:
         """The ranks whose blocks this process holds: its own."""
@@ -660,6 +773,8 @@ class ProcessGroupMesh(_AxisMesh):
         if srcs == [me]:  # a rank's message to itself moves no bytes
             return Pending(self, lambda: [send.clone()])
         recv = torch.empty(piece.shape, dtype=piece.dtype, device=self.device)
+        if srcs:
+            _record(self, "collective-permute", _nbytes(recv))
         ops = [dist.P2POp(dist.isend, _wire(send), self._global[d], self.group) for d in dsts]
         ops += [dist.P2POp(dist.irecv, _wire(recv), self._global[s], self.group) for s in srcs]
         works = dist.batch_isend_irecv(ops) if ops else []
@@ -690,6 +805,7 @@ class ProcessGroupMesh(_AxisMesh):
         inp = torch.stack(torch.chunk(b.resolve_conj(), self.p, dim=split_axis))
         out = torch.empty_like(inp)
         dist.all_to_all_single(_wire(out), _wire(inp), group=self.group)
+        _record(self, "all-to-all", _nbytes(out))
         return torch.cat(list(out.unbind(0)), dim=concat_axis)
 
     def all_max(self, values: Sequence[float]) -> List[float]:
@@ -739,10 +855,10 @@ class ProcessGroupMesh(_AxisMesh):
         ring, _ = self.rings(axis_name or self.axis_name)[0]
         if ring.p == 1:  # a ring of one: nothing to reduce
             return [blocks[0]]
-        self._count_reduce(axis_name, blocks[0])
+        scope = "state" if self._count_reduce(axis_name, blocks[0]) else "activation"
         if _records(blocks[0]):
-            return [_Psum.apply(ring, blocks[0])]
-        return [_all_reduce(ring, blocks[0], "SUM")]
+            return [_Psum.apply(ring, blocks[0], scope)]
+        return [_all_reduce(ring, blocks[0], "SUM", scope)]
 
     def pmax(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
         """``lax.pmax`` over ``axis_name``, as :meth:`psum` (MAX). It has
@@ -862,9 +978,11 @@ class ProcessGroupMesh(_AxisMesh):
             front = b.movedim(dim, 0).contiguous()
             out = torch.empty((self.p * front.shape[0],) + tuple(front.shape[1:]), dtype=b.dtype, device=b.device)
             dist.all_gather_into_tensor(_wire(out), _wire(front), group=self.group)
+            _record(self, "all-gather", _nbytes(out))
             return out.movedim(0, dim).contiguous()
         outs = [torch.empty_like(b) for _ in range(self.p)]
         dist.all_gather([_wire(o) for o in outs], _wire(b), group=self.group)
+        _record(self, "all-gather", self.p * _nbytes(b))
         return self._assemble(lambda rank: outs[rank], b.ndim, tail)
 
     # -- what a transform takes from and gives back to its caller ---------------
@@ -900,12 +1018,13 @@ def _records(t: torch.Tensor) -> bool:
     return torch.is_grad_enabled() and t.requires_grad
 
 
-def _all_reduce(ring: ProcessGroupMesh, b: torch.Tensor, op: str) -> torch.Tensor:
+def _all_reduce(ring: ProcessGroupMesh, b: torch.Tensor, op: str, scope: str = "activation") -> torch.Tensor:
     """One ``all_reduce`` of a copy of ``b`` over ``ring``'s group."""
     import torch.distributed as dist
 
     t = b.resolve_conj().clone(memory_format=torch.contiguous_format)
     dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=ring.group)
+    _record(ring, "all-reduce", _nbytes(t), scope)
     return t
 
 
@@ -916,6 +1035,7 @@ def _stack_gather(ring: ProcessGroupMesh, b: torch.Tensor) -> torch.Tensor:
     b = b.resolve_conj().contiguous()
     out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
     dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
+    _record(ring, "all-gather", _nbytes(out))
     return out.view((ring.p,) + tuple(b.shape))
 
 
@@ -953,6 +1073,7 @@ def _gather_many(ring: ProcessGroupMesh, tensors: List[torch.Tensor], dims: List
         recv = torch.empty((ring.p, send.numel()), dtype=dtype, device=send.device)
         dist.all_gather_into_tensor(_wire(recv.view(-1)), _wire(send), group=ring.group)
         _count("all_gather", recv)
+        _record(ring, "all-gather", _nbytes(recv), "state")
         at = 0
         for i in idx:
             t, d = tensors[i], dims[i] % max(tensors[i].ndim, 1)
@@ -985,6 +1106,7 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
         recv = torch.empty(send.shape[1], dtype=dtype, device=send.device)
         dist.reduce_scatter_tensor(_wire(recv), _wire(send.view(-1)), group=ring.group)
         _count("reduce_scatter", send)
+        _record(ring, "reduce-scatter", _nbytes(send), "state")
         at = 0
         for i in idx:
             shape = list(grads[i].shape)
@@ -1032,12 +1154,12 @@ class _Psum(torch.autograd.Function):
     the same way. Forward all-reduce, backward identity."""
 
     @staticmethod
-    def forward(ctx, ring, b):
-        return _all_reduce(ring, b, "SUM")
+    def forward(ctx, ring, b, scope):
+        return _all_reduce(ring, b, "SUM", scope)
 
     @staticmethod
     def backward(ctx, grad):
-        return None, grad
+        return None, grad, None
 
 
 class _Vary(torch.autograd.Function):

@@ -461,7 +461,7 @@ def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: 
     if sp.heads:  # the head blocks -> each rank's S/P queries of every head
         qs = tp.all_to_all([q for q, _, _ in qkv], 1, 2)
     else:
-        qs = [tp.vary(q, not rs).narrow(1, c * sl, sl) for c, (q, _, _) in zip(coords, qkv)]
+        qs = [tp.vary(q, not rs, c).narrow(1, c * sl, sl) for c, (q, _, _) in zip(coords, qkv)]
     # every rank's queries read the whole K / V: gathered, or the same on every rank
     k, v = (tp.vary(t, sp.kv or not rs) for t in kv_whole)
     outs = [attention(q, k, v, spec, impl=impl, kv_chunk=cfg.attn_kv_chunk, q_offset=c * sl)
@@ -630,16 +630,17 @@ def _mla_ranks(p: Params, x: Acts, cfg: ModelConfig, positions: torch.Tensor, tp
     enter = split and not seq  # a latent the same on every rank, into the rank's heads
     q_norm, kv_norm = tp.vary_tree(p["q_norm"], seq), tp.vary_tree(p["kv_norm"], seq)
     out = []
-    for c, (cq, ckv_full) in zip(coords, tp.col(x, lambda c: [tp.vary(p["wdq"], seq), tp.vary(p["wdkv"], seq)],
+    for c, (cq, ckv_full) in zip(coords, tp.col(x, lambda c: [tp.vary(p["wdq"], seq, c), tp.vary(p["wdkv"], seq, c)],
                                                 coords)):
         dt = cq.dtype
-        cq = tp.vary(common.apply_norm(q_norm, cq, "rmsnorm"), enter)
+        cq = tp.vary(common.apply_norm(q_norm, cq, "rmsnorm"), enter, c)
         q = cq @ _heads_block(tp, p["wuq"], 1, c, h, qd, vary=seq).to(dt)
         q = q.reshape(q.shape[0], q.shape[1], -1, qd)
         q_nope, q_rope = q[..., :m.nope_head_dim], q[..., m.nope_head_dim:]
         q_rope = common.rope(q_rope, positions, cfg.rope_theta)
-        ckv = tp.vary(common.apply_norm(kv_norm, ckv_full[..., :m.kv_lora_rank], "rmsnorm"), enter)
-        k_rope = tp.vary(common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta), enter)
+        ckv = tp.vary(common.apply_norm(kv_norm, ckv_full[..., :m.kv_lora_rank], "rmsnorm"), enter, c)
+        k_rope = tp.vary(common.rope(ckv_full[..., m.kv_lora_rank:][:, :, None, :], positions, cfg.rope_theta), enter,
+                         c)
         out.append((q_nope, q_rope, ckv, k_rope))
     return out
 

@@ -140,7 +140,7 @@ def _cross(p: Params, x: common.Acts, cfg: ModelConfig, cross_kv: CrossKV, impl:
     qs = tp.col(hc, lambda c: [attn._heads_block(tp, pc["wq"], -1, c, h, hd, vary=rs)], coords, split=split)
 
     def kv(t, c):  # the rank's own KV heads, or all of them: the same on every rank
-        return attn._kv_for(tp.block(t, 2, c, kvh) if tp.splits(kvh) else tp.vary(t, rs), c, cfg, tp)
+        return attn._kv_for(tp.block(t, 2, c, kvh) if tp.splits(kvh) else tp.vary(t, rs, c), c, cfg, tp)
 
     parts = []
     for c, (q,) in zip(coords, qs):

@@ -20,6 +20,8 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from repro_torch.core.mesh import note_backward
+
 Params = dict
 Specs = dict
 #: a layer's activations: one (B, S, d) tensor the same on every rank, or
@@ -316,7 +318,7 @@ class TP:
         or the activations are sequence blocks), so a leaf kept whole
         enters through :meth:`vary`."""
         if not self.splits(full if units is None else units):
-            return self.vary(w, vary)
+            return self.vary(w, vary, c)
         n = full // self.p
         if self.holds_block and w.shape[dim] == n:
             return w
@@ -344,13 +346,21 @@ class TP:
         return [w.narrow(dim, j * width + c * n, n) for j in range(parts)]
 
     # -- collectives over the axis ---------------------------------------------
-    def vary(self, t: torch.Tensor, when: bool = True) -> torch.Tensor:
+    def vary(self, t: torch.Tensor, when: bool = True, c: Optional[int] = None) -> torch.Tensor:
         """``t``, the same on every rank, entering compute that differs by
         rank (``mesh.pvary``, Megatron's "f"): the forward is the identity;
         on a ``ProcessGroupMesh`` the backward sums the ranks' gradients
         over the axis. ``t`` itself where not ``when``, on one rank, or on
-        a ``SimMesh`` (one autograd graph holds every rank's use)."""
-        if not when or self.p == 1 or not self.holds_block:
+        a ``SimMesh`` (one autograd graph holds every rank's use), which
+        counts the all-reduce a process-group rank's backward issues
+        (``core.mesh.note_backward``) -- once for a call made for every
+        local coordinate, or for coordinate ``c`` only where it is the
+        first local one (a call made once a coordinate)."""
+        if not when or self.p == 1:
+            return t
+        if not self.holds_block:
+            if c is None or c == self.ranks[0]:
+                note_backward(self.ring, "all-reduce", t)
             return t
         return self.ring.pvary([t], "model")[0]
 
@@ -450,7 +460,8 @@ class TP:
             y = torch.cat([chunk @ w.to(chunk.dtype) for w in ws_of(ring.axis_index("model"))], dim=-1)
             return F.pad(y, (0, 0, src * s, (p - 1 - src) * s))
 
-        sizes = [w.shape[-1] for w in ws_of(self.ranks[0])]
+        with torch.no_grad():  # the widths alone: no "f" of a leaf kept whole whose gradient nothing takes
+            sizes = [w.shape[-1] for w in ws_of(self.ranks[0])]
         outs = ring_all_gather(list(x), ring, "model", chunk_fn, axis=1)
         return [list(torch.split(o, sizes, dim=-1)) for o in outs]
 

@@ -229,8 +229,9 @@ def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None,
         y = _block_ffn((p.get("wg"), p["wu"], p["wd"]), buf, cfg.mlp_kind)
     else:
         split = spec[1] is not None
-        blocks = [_block_ffn(tuple(w if split or w is None else tp.vary(w) for w in _experts_of(p, mesh, rank, split, e)),
-                             b, cfg.mlp_kind)
+        # experts kept whole are the same on every rank: they enter each rank's block once
+        whole = None if split else tuple(None if w is None else tp.vary(w) for w in (p.get("wg"), p["wu"], p["wd"]))
+        blocks = [_block_ffn(whole or _experts_of(p, mesh, rank, split, e), b, cfg.mlp_kind)
                   for rank, b in zip(mesh.local_ranks(), mesh.split(tp.vary(buf), spec))]
         y = mesh.gather(blocks, spec)  # every expert's outputs on every rank
     out = torch.cat([_local_combine(y[i], w, routing, tl) for i, (w, _, routing, _) in enumerate(routed)])

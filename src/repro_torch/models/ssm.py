@@ -348,11 +348,11 @@ def _mlstm_out(p, houts, zs, h, tp: common.TP):
     by_heads = tp.splits(h)
     ys = {}
     for c, hout in houts:  # the norm's scale is whole: a rank's heads take their channels of it
-        scale = {"scale": _own(tp.vary(p["gn"]["scale"], by_heads), c, by_heads, m)}
+        scale = {"scale": _own(tp.vary(p["gn"]["scale"], by_heads, c), c, by_heads, m)}
         ys[c] = common.apply_groupnorm(scale, hout, hout.shape[-2])
     parts = []
     for c, z in zs:
-        y = ys[c] if by_heads else _own(tp.vary(next(iter(ys.values())), split), c, split, m)
+        y = ys[c] if by_heads else _own(tp.vary(next(iter(ys.values())), split, c), c, split, m)
         parts.append((y * common.silu(z)) @ tp.block(p["wdown"], 0, c, di).to(y.dtype))
     return tp.reduce(parts, "partial" if split else "whole")
 

@@ -23,6 +23,10 @@ host devices (``torch_train_common.train_reference``, shared with
   (``core.mesh.FSDP_BYTES`` / ``FSDP_CALLS``) against the dry run's
   prediction (``launch.dryrun.cell_report``), also for one step of four
   more families on (2, 2), and a psum's count against ``SimMesh``'s;
+- every other collective of the same runs (``core.mesh.collectives``:
+  the activation collectives over ``model``, the MoE ring's aux) against
+  the dry run's ``activation`` entry, and ``SimMesh((1, 2))`` on a
+  rank's rows counting what a (2, 2) rank counts over ``model``;
 - a placed checkpoint written on (2, 2) restored bitwise on (4, 1), on
   (1, 2) (the survivors of an elastic shrink) and on one rank; a
   reference checkpoint restored onto (2, 2); a step directory missing
@@ -133,10 +137,20 @@ def _collective_grads(op, axes, mesh):
 SERVE_BATCH, SERVE_PROMPT, SERVE_CACHE = 2, 8, 12
 
 
+def _counted():
+    """``core.mesh.collectives`` of each scope, and of the activation
+    collectives over ``model`` alone, as counted since the last reset."""
+    from repro_torch.core.mesh import collectives
+
+    return {"state": collectives("state"), "activation": collectives("activation"),
+            "model": collectives("activation", ("model",))}
+
+
 def _serve_moved(model, state_np, specs, cfg):
-    """What ``core.mesh.FSDP_BYTES`` / ``FSDP_CALLS`` count on this rank in
-    one prefill and in one decode step of the placed weights."""
-    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+    """What ``core.mesh.FSDP_BYTES`` / ``FSDP_CALLS`` and every collective
+    (:func:`_counted`) count on this rank in one prefill and in one decode
+    step of the placed weights (every rank on SERVE_BATCH rows)."""
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS, reset_collectives
     from repro_torch.models.model import params_from_numpy
 
     params = params_from_numpy(state_np.params, "cpu", mesh=model.mesh, specs=specs, cfg=cfg)
@@ -144,13 +158,12 @@ def _serve_moved(model, state_np, specs, cfg):
     state = model.init_decode_state(SERVE_BATCH, SERVE_CACHE)
     out = {}
     for kind in ("prefill", "decode"):
-        FSDP_BYTES.clear()
-        FSDP_CALLS.clear()
+        reset_collectives()
         if kind == "prefill":
             state, _ = model.prefill(params, {"tokens": tokens}, state)
         else:
             model.decode_step(params, tokens[:, :1], state)
-        out[kind] = (dict(FSDP_BYTES), dict(FSDP_CALLS))
+        out[kind] = (dict(FSDP_BYTES), dict(FSDP_CALLS), _counted())
     return out
 
 
@@ -178,12 +191,13 @@ def _more_batch(cfg):
 
 
 def _moved_more(arch, mesh):
-    """``FSDP_BYTES`` / ``FSDP_CALLS`` of one step of ``arch`` (reduced,
-    float32) over ``mesh`` from its own init."""
+    """``FSDP_BYTES`` / ``FSDP_CALLS`` and every collective (:func:`_counted`)
+    of one step of ``arch`` (reduced, float32) over ``mesh`` from its own
+    init."""
     import dataclasses
 
     from repro_torch.configs import get_config
-    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS, reset_collectives
     from repro_torch.models.model import Model
     from repro_torch.train import init_train_state, make_train_step
 
@@ -191,10 +205,9 @@ def _moved_more(arch, mesh):
     model = Model(cfg, mesh, device="cpu")
     state, _ = init_train_state(model, torch.Generator().manual_seed(0), fsdp_tcfg())
     step = make_train_step(model, fsdp_tcfg(), mesh)
-    FSDP_BYTES.clear()
-    FSDP_CALLS.clear()
+    reset_collectives()
     step(state._replace(step=torch.ones((), dtype=torch.int32)), _more_batch(cfg))
-    return dict(FSDP_BYTES), dict(FSDP_CALLS)
+    return dict(FSDP_BYTES), dict(FSDP_CALLS), _counted()
 
 
 #: the psums whose all-reduce ``FSDP_BYTES`` counts: those over a batch axis
@@ -300,7 +313,7 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
     import torch.distributed as dist
 
     from repro_torch.core import ProcessGroupMesh, init_process_mesh
-    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS
+    from repro_torch.core.mesh import FSDP_BYTES, FSDP_CALLS, reset_collectives
     from repro_torch.models.model import Model
 
     torch.set_num_threads(1)
@@ -308,7 +321,7 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
     try:
         meshes = {grid: ProcessGroupMesh(device="cpu", grid=grid, axis_names=names) for grid, names in GRIDS.items()}
         out = {"coords": {g: tuple(m.coords(rank)[a] for a in m.axis_names) for g, m in meshes.items()},
-               "blocks": {}, "step": {}, "moved": {}}
+               "blocks": {}, "step": {}, "moved": {}, "counted": {}}
         for arch in FSDP_ARCHS:
             state_np, specs = inputs["init"][arch]
             cfg = fsdp_cfg(arch)
@@ -317,10 +330,10 @@ def _gloo_worker(rank, world, init_method, out_dir, inputs):
                 out["blocks"][(arch, grid)] = _blocks(mesh, model, state_np, specs, cfg)
                 kinds = ("plain", "masked") if grid in FSDP_GRIDS else ("plain",)
                 for kind in kinds:
-                    FSDP_BYTES.clear()
-                    FSDP_CALLS.clear()
+                    reset_collectives()
                     out["step"][(arch, grid, kind)] = _step(model, state_np, specs, cfg, fsdp_batches(cfg)[kind])
                     out["moved"][(arch, grid, kind)] = (dict(FSDP_BYTES), dict(FSDP_CALLS))
+                    out["counted"][(arch, grid, kind)] = _counted()
                 if grid in FSDP_GRIDS:
                     out["moved"][(arch, grid, "serve")] = _serve_moved(model, state_np, specs, cfg)
         out["collectives"] = {case: _collective_grads(*case, meshes[(2, 2)]) for case in COLLECTIVES}
@@ -489,15 +502,18 @@ def test_state_collectives_are_the_dry_runs(gloo, arch, grid):
     shapes = {"train": ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
               "prefill": ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"),
               "decode": ShapeConfig("decode", SERVE_CACHE, SERVE_BATCH, "decode")}
-    walk = {k: dryrun.cell_report(cfg, shape, mesh, tcfg=fsdp_tcfg())["collectives"] for k, shape in shapes.items()}
-    nonzero = lambda d: {k: v for k, v in d.items() if v}  # noqa: E731
+    walk = {k: dryrun.cell_report(cfg, shape, mesh, tcfg=fsdp_tcfg())["collectives"]["state"]
+            for k, shape in shapes.items()}
     for rank in gloo:
         for kind in ("plain", "masked"):
             moved, calls = rank["moved"][(arch, grid, kind)]
-            assert (moved, calls) == (nonzero(walk["train"]["bytes"]), nonzero(walk["train"]["counts"])), kind
-        for kind, (moved, calls) in rank["moved"][(arch, grid, "serve")].items():
-            assert (moved, calls) == (nonzero(walk[kind]["bytes"]), nonzero(walk[kind]["counts"])), kind
-    assert all(walk["train"]["bytes"].values()) and walk["prefill"]["bytes"]["all_gather"]
+            assert (moved, calls) == (_fsdp_names(walk["train"]["bytes"]), _fsdp_names(walk["train"]["counts"])), kind
+            assert _entry(rank["counted"][(arch, grid, kind)]["state"]) == _entry(walk["train"]), kind
+        for kind, (moved, calls, counted) in rank["moved"][(arch, grid, "serve")].items():
+            assert (moved, calls) == (_fsdp_names(walk[kind]["bytes"]), _fsdp_names(walk[kind]["counts"])), kind
+            assert _entry(counted["state"]) == _entry(walk[kind]), kind
+    assert all(_fsdp_names(walk["train"]["bytes"]).get(k) for k in STATE_KINDS.values())
+    assert walk["prefill"]["bytes"]["all-gather"]
 
 
 @pytest.mark.parametrize("arch", MORE_ARCHS)
@@ -514,10 +530,147 @@ def test_state_collectives_of_more_families_are_the_dry_runs(gloo, arch):
     cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
     walk = dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
                               MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["collectives"]
-    expected = tuple({k: v for k, v in walk[part].items() if v} for part in ("bytes", "counts"))
+    expected = tuple(_fsdp_names(walk["state"][part]) for part in ("bytes", "counts"))
     assert expected[0]["all_gather"] and expected[0]["all_reduce"]
     for rank in gloo:
-        assert rank["moved_more"][arch] == expected
+        assert rank["moved_more"][arch][:2] == expected
+        assert _entry(rank["moved_more"][arch][2]["state"]) == _entry(walk["state"])
+
+
+#: ``FSDP_BYTES``' kind names, by the reference's names the dry run reports
+STATE_KINDS = {"all-gather": "all_gather", "reduce-scatter": "reduce_scatter", "all-reduce": "all_reduce"}
+
+
+def _fsdp_names(by_kind):
+    """A state entry's nonzero kinds under ``FSDP_BYTES``' names (the state
+    collectives are of those three kinds only)."""
+    assert all(not v for k, v in by_kind.items() if k not in STATE_KINDS), by_kind
+    return {STATE_KINDS[k]: v for k, v in by_kind.items() if v}
+
+
+def _entry(d):
+    """(counts, bytes) of a ``collectives`` entry, without its scope."""
+    return d["counts"], d["bytes"]
+
+
+def _serve_shape(kind, grid):
+    """The serving cell whose rank rows are SERVE_BATCH (every rank of the
+    spawn serves the same SERVE_BATCH rows): the walk splits a cell's
+    batch over ``data``."""
+    from repro_torch.configs import ShapeConfig
+
+    seq = SERVE_PROMPT if kind == "prefill" else SERVE_CACHE
+    return ShapeConfig(kind, seq, SERVE_BATCH * grid[0], kind)
+
+
+@pytest.mark.parametrize("grid", list(FSDP_GRIDS))
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_activation_collectives_are_the_dry_runs(gloo, arch, grid):
+    """Every collective beside the state's that a rank issued
+    (``core.mesh.collectives("activation")``: the tensor-parallel psums
+    and Megatron "f" all-reduces, the sequence-parallel rings' hops, the
+    vocabulary's and the context partition's gathers, the MoE dispatch's
+    gathers and ring hops and its aux over ``data``, the SSM split's
+    psums, the clip's norm over ``model``) in the plain and the masked
+    step (microbatch 2, remat's recompute and the backward included) and
+    in one prefill and one decode step is ``launch.dryrun``'s
+    ``activation`` entry at the same config, rows and grid, bytes and
+    counts of each kind, exactly, on every rank; on (4, 1) there is none."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    mesh, cfg = MeshShape(grid, FSDP_GRIDS[grid]), fsdp_cfg(arch)
+    walk = {"train": dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"), mesh,
+                                        tcfg=fsdp_tcfg())["collectives"]["activation"]}
+    for kind in ("prefill", "decode"):
+        walk[kind] = dryrun.cell_report(cfg, _serve_shape(kind, grid), mesh)["collectives"]["activation"]
+    for rank in gloo:
+        for kind in ("plain", "masked"):
+            assert _entry(rank["counted"][(arch, grid, kind)]["activation"]) == _entry(walk["train"]), kind
+        for kind, (_, _, counted) in rank["moved"][(arch, grid, "serve")].items():
+            assert _entry(counted["activation"]) == _entry(walk[kind]), kind
+    if grid[1] == 1:
+        assert not any(v for w in walk.values() for v in w["counts"].values())
+    else:
+        assert walk["train"]["counts"]["all-reduce"] and walk["prefill"]["bytes"]["all-reduce"]
+
+
+@pytest.mark.parametrize("arch", MORE_ARCHS)
+def test_activation_collectives_of_more_families_are_the_dry_runs(gloo, arch):
+    """The step over the (2, 2) grid of the families FSDP_ARCHS leave out
+    (gemma2's post-norms, whisper's encoder and cross K / V, the vision
+    stub's embeddings in, xLSTM's heads and sLSTM): every rank's
+    activation collectives are the dry run's ``activation`` entry,
+    exactly."""
+    import dataclasses
+
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
+    walk = dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
+                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["collectives"]["activation"]
+    assert walk["counts"]["all-reduce"]
+    for rank in gloo:
+        assert _entry(rank["moved_more"][arch][2]["activation"]) == _entry(walk)
+
+
+@pytest.mark.parametrize("arch", FSDP_ARCHS)
+def test_sim_mesh_counts_what_a_process_rank_counts(gloo, arch):
+    """``SimMesh((1, 2))`` -- both ``model`` ranks in one process, on one
+    (2, 2) rank's rows (half the batch) -- counts over ``model`` what
+    each gloo rank of the (2, 2) grid counted there (its rings', psums',
+    gathers' and "f" all-reduces' one rank's share), in the plain step and
+    in one prefill and one decode step, but for the train step's clip
+    norm over ``model``, which only a process holding its blocks takes;
+    and what it counts is the walk's with ``one_process``."""
+    from repro_torch.configs import ShapeConfig
+    from repro_torch.core import SimMesh, sharding
+    from repro_torch.core.mesh import collectives, reset_collectives
+    from repro_torch.data import make_batch_arrays
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import MeshShape
+    from repro_torch.models.model import Model, params_from_numpy
+    from repro_torch.train import make_train_step, train_state_from_numpy
+
+    state_np, _ = fsdp_init(arch)
+    cfg = fsdp_cfg(arch)
+    sim = SimMesh((1, 2), axis_names=("data", "model"), device="cpu")
+    model = Model(cfg, sim, device="cpu")
+    rows = {k: v[: FSDP_BATCH // 2] for k, v in fsdp_batches(cfg)["plain"].items()}
+    got = {}
+    with one_thread():
+        reset_collectives()
+        make_train_step(model, fsdp_tcfg(), sim)(train_state_from_numpy(state_np, "cpu"),
+                                                 make_batch_arrays(rows, device="cpu"))
+        got["train"] = collectives("activation")
+        params = params_from_numpy(state_np.params, "cpu")
+        tokens = torch.arange(SERVE_BATCH * SERVE_PROMPT).reshape(SERVE_BATCH, SERVE_PROMPT) % cfg.vocab_size
+        state = model.init_decode_state(SERVE_BATCH, SERVE_CACHE)
+        reset_collectives()
+        state, _ = model.prefill(params, {"tokens": tokens}, state)
+        got["prefill"] = collectives("activation")
+        reset_collectives()
+        model.decode_step(params, tokens[:, :1], state)
+        got["decode"] = collectives("activation")
+    shapes = {"train": ShapeConfig("train", FSDP_SEQ, FSDP_BATCH // 2, "train"),
+              "prefill": _serve_shape("prefill", (1, 2)), "decode": _serve_shape("decode", (1, 2))}
+    for kind, shape in shapes.items():
+        assert _entry(got[kind]) == _entry(dryrun.cell_report(cfg, shape, sim, tcfg=fsdp_tcfg(), one_process=True)
+                                           ["collectives"]["activation"]), kind
+    # the clip's norm: one float32 all-reduce a set of leaves placed on model alone
+    grid = MeshShape((2, 2), FSDP_GRIDS[(2, 2)])
+    clip = sum(1 for p in {sharding.placed_axes(leaf.where) for leaf in dryrun.weight_leaves(cfg, grid)}
+               if p == ("model",))
+    got["train"]["counts"]["all-reduce"] += clip
+    got["train"]["bytes"]["all-reduce"] += 4 * clip
+    for rank in gloo:
+        counted = {"train": rank["counted"][(arch, (2, 2), "plain")]["model"],
+                   **{k: v[2]["model"] for k, v in rank["moved"][(arch, (2, 2), "serve")].items()}}
+        for kind, entry in counted.items():
+            assert _entry(entry) == _entry(got[kind]), kind
 
 
 def test_psum_is_counted_over_batch_axes_alike(gloo):
