@@ -597,6 +597,13 @@ FSDP_BIG_LAYERS, FSDP_BIG_STEPS, FSDP_BIG_BATCH, FSDP_BIG_SEQ = 8, 3, 4, 1024
 #: DRYRUN_CELLS arch x shape x mesh cells of the production meshes
 DRYRUN_ALLOC_TOL = 0.01
 DRYRUN_CELLS = 64
+#: the executed half: one rank's step traced on the meta device
+#: predicts the peak within DRYRUN_PEAK_TOL of torch.cuda.max_memory_allocated
+#: over the same step, and the FLOPs FlopCounterMode counts in it exactly;
+#: phase 21's CLI runs within DRYRUN_CLI_S seconds and reports every cell
+#: whose peak exceeds a card (``launch.dryrun.CARD_BYTES``)
+DRYRUN_PEAK_TOL = 0.05
+DRYRUN_CLI_S = 120.0
 
 
 class SmokeFailure(RuntimeError):
@@ -1788,19 +1795,50 @@ def lm_build(torch, seed, cfg, scfg, launch, label: str):
     return eng, nbytes
 
 
-def dry_run_serve_check(eng, cfg, scfg, nbytes: int, label: str) -> None:
+def dry_run_serve_check(torch, eng, cfg, scfg, nbytes: int, label: str) -> None:
     """Phase 14's dry-run check: ``launch.dryrun``'s decode cell of ``cfg``
     at the engine's max_batch x max_seq on one rank predicts the
     weights' bytes (``lm_build``'s nbytes) and the decode state's (the
-    cache the engine allocated) exactly."""
+    cache the engine allocated) exactly, and its executed half the peak of
+    one decode step of every slot on the engine's state (max_memory_allocated)
+    within DRYRUN_PEAK_TOL."""
     args, rep = dry_run_cell(cfg, "decode", scfg.max_seq, scfg.max_batch)
     weights, cache = state_bytes_of(args, ("params/",)), state_bytes_of(args, ("state/",))
     held = tensor_bytes(t for t in lm_leaves(eng.state) if hasattr(t, "element_size"))
+    peak = decode_step_peak(torch, eng, scfg)
+    mem = rep["memory"]
+    prel = (mem["peak_device_bytes"] - peak) / peak
     print(f"{label} dry run (launch.dryrun.cell_report, decode {scfg.max_batch} x {scfg.max_seq}, one rank): weights "
           f"{weights} B predicted, {nbytes} B held; decode state {cache} B predicted, {held} B allocated by the "
-          f"engine; floor peak {rep['memory']['peak_device_bytes'] / 2**30:.2f} GiB", flush=True)
+          f"engine; executed half ({rep['trace_s']:.1f} s on the meta device): peak "
+          f"{mem['peak_device_bytes']} B ({mem['peak_device_bytes'] / 2**30:.2f} GiB, temporaries "
+          f"{mem['temp_bytes'] / 2**20:.1f} MiB) against one decode step's measured {peak} B ({peak / 2**30:.2f} GiB, "
+          f"max_memory_allocated; rel diff {prel:+.2e}, tol {DRYRUN_PEAK_TOL}) ({card()})", flush=True)
     check(weights == nbytes, f"{label}: the dry run predicts {weights} B of weights, the engine holds {nbytes} B")
     check(cache == held, f"{label}: the dry run predicts {cache} B of decode state, the engine holds {held} B")
+    check(abs(prel) <= DRYRUN_PEAK_TOL, f"{label}: the dry run's decode peak {mem['peak_device_bytes']} B is "
+          f"{prel:+.2%} from the measured {peak} B")
+
+
+def decode_step_peak(torch, eng, scfg) -> int:
+    """max_memory_allocated over one decode step of every slot on the
+    engine's own state at its last position (the dry run's decode cell);
+    the slots' lengths and the position put back after, so the stream
+    that follows starts from the engine's fresh state."""
+    saved = [(t, t.clone()) for t in lm_leaves(eng.state) if hasattr(t, "dtype") and not t.is_floating_point()]
+    pos = eng.state["pos"]
+    eng.state["pos"] = scfg.max_seq - 1
+    tokens = torch.zeros((scfg.max_batch, 1), dtype=torch.int32, device="cuda")
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    out = eng.model.decode_step(eng.params, tokens, eng.state)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated()
+    del out
+    for t, c in saved:
+        t.copy_(c)
+    eng.state["pos"] = pos
+    return peak
 
 
 def lm_bf16_agreement(torch, seed, model, params) -> None:
@@ -1836,7 +1874,7 @@ def lm_full_depth(torch, seed, cfg, scfg, launch):
     """Checks 2 and 3: Qwen2.5-32B at all its layers in bfloat16, built the
     way repro_torch.launch.serve builds it, then the launcher's stream."""
     eng, nbytes = lm_build(torch, seed, cfg, scfg, launch, "LM serving")
-    dry_run_serve_check(eng, cfg, scfg, nbytes, "LM serving")
+    dry_run_serve_check(torch, eng, cfg, scfg, nbytes, "LM serving")
     lm_bf16_agreement(torch, seed, eng.model, eng.params)
     return nbytes, lm_serve_stream(torch, eng, cfg, launch)
 
@@ -3228,8 +3266,7 @@ def walk_activation(cfg, kind: str, seq: int, batch: int, mesh, tcfg=None, one_p
     from repro_torch.launch import dryrun
 
     tcfg = dryrun.PRODUCTION_TCFG if tcfg is None else tcfg
-    rep = dryrun.cell_report(cfg, ShapeConfig(kind, seq, batch, kind), mesh, tcfg=tcfg, one_process=one_process)
-    return rep["collectives"]["activation"]
+    return dryrun.collectives(cfg, ShapeConfig(kind, seq, batch, kind), mesh, tcfg, one_process)["activation"]
 
 
 def check_counted(label: str, walk: dict, counted: dict) -> None:
@@ -3249,25 +3286,49 @@ def state_bytes_of(args: dict, prefixes=("params/", "opt/", "step")) -> int:
     return sum(v for k, v in args.items() if k.startswith(prefixes))
 
 
-def dry_run_train_check(cfg, tcfg, counted: int, init_alloc: int, peak_bytes: float, label: str) -> None:
+def dry_run_train_check(cfg, tcfg, counted: int, init_alloc: int, peak_bytes: float, flops: int,
+                        label: str) -> None:
     """Phase 20's check 2, the dry run's side: ``launch.dryrun`` for the
     step's cell on one rank predicts the state's bytes exactly (the
     check's own sum of numel x element_size, count and step included),
-    within DRYRUN_ALLOC_TOL of what init_train_state allocated, and a
-    floor of the peak at most the measured one."""
+    within DRYRUN_ALLOC_TOL of what init_train_state allocated; its
+    executed half (the step traced on the meta device) predicts the
+    step's peak within DRYRUN_PEAK_TOL of ``peak_bytes`` (the steps'
+    max_memory_allocated) and the FLOPs ``FlopCounterMode`` counted in one
+    real step (``flops``) exactly."""
     args, rep = dry_run_cell(cfg, "train", TRAIN_SEQ, TRAIN_BATCH, tcfg=tcfg)
     predicted = state_bytes_of(args)
-    floor = rep["memory"]["peak_device_bytes"]
+    mem, ex = rep["memory"], rep["executed"]
     rel = abs(init_alloc - predicted) / predicted
+    prel = (mem["peak_device_bytes"] - peak_bytes) / peak_bytes
     print(f"{label} dry run (launch.dryrun.cell_report, one rank, MeshShape((1, 1))): state {predicted} B predicted, "
           f"{counted} B counted (numel x element_size), {init_alloc} B allocated by init_train_state "
-          f"(torch.cuda.memory_allocated delta; rel diff {rel:.2e}, tol {DRYRUN_ALLOC_TOL}); floor peak "
-          f"{floor / 2**30:.2f} GiB (arguments + outputs - aliases) <= measured peak {peak_bytes / 2**30:.2f} GiB; "
-          f"roofline bottleneck {rep['roofline']['bottleneck']}", flush=True)
+          f"(torch.cuda.memory_allocated delta; rel diff {rel:.2e}, tol {DRYRUN_ALLOC_TOL}); executed half traced "
+          f"in {rep['trace_s']:.1f} s ({ex['traces']} traces on the meta device): peak {mem['peak_device_bytes']} B "
+          f"({mem['peak_device_bytes'] / 2**30:.2f} GiB = arguments + temporaries {mem['temp_bytes'] / 2**30:.2f} "
+          f"GiB + outputs - aliases; floor {mem['floor_bytes'] / 2**30:.2f} GiB) against the measured "
+          f"{peak_bytes:.0f} B ({peak_bytes / 2**30:.2f} GiB, max_memory_allocated over the steps; rel diff "
+          f"{prel:+.2e}, tol {DRYRUN_PEAK_TOL}); FLOPs {ex['flops']} predicted, {flops} counted by FlopCounterMode "
+          f"over one step ({'equal' if ex['flops'] == flops else 'DIFFERENT'}); HBM bytes as moved "
+          f"{ex['hbm_bytes'] / 1e12:.3f} TB; roofline bottleneck {rep['roofline']['bottleneck']} ({card()})",
+          flush=True)
     check(predicted == counted, f"{label}: the dry run predicts {predicted} B of state, the state holds {counted} B")
     check(rel <= DRYRUN_ALLOC_TOL, f"{label}: init_train_state allocated {init_alloc} B, the dry run predicts "
           f"{predicted} B")
-    check(floor <= peak_bytes, f"{label}: the dry run's floor peak {floor} B is above the measured {peak_bytes:.0f} B")
+    check(abs(prel) <= DRYRUN_PEAK_TOL, f"{label}: the dry run's peak {mem['peak_device_bytes']} B is "
+          f"{prel:+.2%} from the measured {peak_bytes:.0f} B")
+    check(ex["flops"] == flops, f"{label}: the dry run predicts {ex['flops']} FLOPs, FlopCounterMode counted {flops}")
+
+
+def flop_counted_step(torch, step, state, batch) -> int:
+    """The FLOPs ``torch.utils.flop_counter.FlopCounterMode`` counts in one
+    real step (the dry run's rule: its registry's matrix products)."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    return fc.get_total_flops()
 
 
 def train_full_depth(torch, seed, cm) -> dict:
@@ -3318,7 +3379,9 @@ def train_full_depth(torch, seed, cm) -> dict:
         device_ms.append(start.elapsed_time(end))
         losses.append(float(m["loss"]))
         gnorms.append(float(m["grad_norm"]))
-    peak = torch.cuda.max_memory_allocated() / 2**30
+    peak_bytes = torch.cuda.max_memory_allocated()
+    peak = peak_bytes / 2**30
+    step_flops = flop_counted_step(torch, step, state, make_batch_arrays(ds.batch_at(TRAIN_STEPS)))
     tokens = TRAIN_BATCH * TRAIN_SEQ
     dev, host = statistics.median(device_ms[2:]), statistics.median(host_ms_[2:])
     n_model = n_all - state.params["embed"]["table"].numel()
@@ -3343,7 +3406,7 @@ def train_full_depth(torch, seed, cm) -> dict:
     first, last = statistics.mean(losses[:3]), statistics.mean(losses[-3:])
     check(last < first, f"{label}: the loss did not fall ({first:.4f} -> {last:.4f} over the first / last three steps)")
     check(peak < LM_PEAK_LIMIT_GIB, f"{label}: peak memory {peak:.2f} GiB >= {LM_PEAK_LIMIT_GIB}")
-    dry_run_train_check(cfg, tcfg, state_bytes, init_alloc, peak * 2**30, label)
+    dry_run_train_check(cfg, tcfg, state_bytes, init_alloc, peak_bytes, step_flops, label)
     del state, step
     gc.collect()
     torch.cuda.empty_cache()
@@ -3887,11 +3950,14 @@ def nccl_fsdp_f32(torch, mesh, seed: int, arch: str, layers: int) -> dict:
 FSDP_NAMES = {"all-gather": "all_gather", "reduce-scatter": "reduce_scatter", "all-reduce": "all_reduce"}
 
 
-def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dict, label: str) -> dict:
+def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dict, label: str,
+                       peak: int = None) -> dict:
     """``launch.dryrun``'s train cell of ``cfg`` at ``batch`` x ``seq`` on
     ``gmesh``'s grid beside a step's: the rank's state bytes and the bytes
     each kind of state collective moved (``core.mesh.FSDP_BYTES``),
-    exactly. Returns the prediction."""
+    exactly; with ``peak`` (the steps' max_memory_allocated on the rank)
+    the executed half's peak within DRYRUN_PEAK_TOL. Returns the
+    prediction."""
     from repro_torch.optim.adamw import leaves
 
     args, rep = dry_run_cell(cfg, "train", seq, batch, mesh=gmesh, tcfg=tcfg)
@@ -3901,6 +3967,16 @@ def dry_run_fsdp_check(cfg, tcfg, gmesh, seq: int, batch: int, state, moved: dic
     check(state_bytes_of(args) == held, f"{label}: the dry run predicts {state_bytes_of(args)} B of state, the rank "
           f"holds {held} B")
     check(pred == {k: v for k, v in moved.items() if v}, f"{label}: the dry run predicts {pred}, the step moved {moved}")
+    if peak is not None:
+        mem = rep["memory"]
+        prel = (mem["peak_device_bytes"] - peak) / peak
+        print(f"{label}: the dry run's executed peak {mem['peak_device_bytes']} B "
+              f"({mem['peak_device_bytes'] / 2**30:.2f} GiB; temporaries {mem['temp_bytes'] / 2**30:.2f} GiB, traced "
+              f"in {rep['trace_s']:.1f} s) against the measured {peak} B ({peak / 2**30:.2f} GiB, "
+              f"max_memory_allocated over the steps; rel diff {prel:+.2e}, tol {DRYRUN_PEAK_TOL}) ({card()})",
+              flush=True)
+        check(abs(prel) <= DRYRUN_PEAK_TOL, f"{label}: the dry run's peak {mem['peak_device_bytes']} B is "
+              f"{prel:+.2%} from the measured {peak} B")
     return dict(state=state_bytes_of(args), moved=pred, bottleneck=rep["roofline"]["bottleneck"])
 
 
@@ -3969,7 +4045,8 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
               "finite")
         same_on_every_rank(mesh, losses, f"Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}: losses")
         dry_run_fsdp_check(cfg, tcfg, gmesh, FSDP_BIG_SEQ, FSDP_BIG_BATCH, state, moved[-1],
-                           f"rank {mesh.rank}: Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}")
+                           f"rank {mesh.rank}: Qwen2.5-32B {FSDP_BIG_LAYERS} layers on {grid}",
+                           peak=torch.cuda.max_memory_allocated())
         out[str(grid)] = dict(device_ms=dev, host_ms=host, losses=losses, init_s=init_s, state_gib=state_gib,
                               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
                               gathered=moved[-1].get("all_gather", 0), scattered=moved[-1].get("reduce_scatter", 0))
@@ -3982,7 +4059,14 @@ def nccl_fsdp_big(torch, mesh, seed: int) -> dict:
 def dryrun_phase(torch, fft_stage, smi: str) -> dict:
     """Phase 21: the port's dry run, its CLI over every arch x shape x
     production mesh cell in a subprocess (a walk over the placement
-    specs: no card, no process group); its FFT kernel launches (0)."""
+    specs, and one rank's step traced on the meta device: no
+    card, no process group), within DRYRUN_CLI_S seconds; every cell's
+    executed peak, temporaries and whether it fits a card; its FFT kernel
+    launches (0)."""
+
+    from repro_torch.launch.dryrun import CARD_BYTES
+
+    card_gb = f"{CARD_BYTES / 1e9:.0f}"
 
     def run():
         out_dir = tempfile.mkdtemp(prefix="dryrun_")
@@ -3997,16 +4081,29 @@ def dryrun_phase(torch, fft_stage, smi: str) -> dict:
             files = sorted(f for f in os.listdir(out_dir) if f.endswith("_torch.json"))
             check(len(files) == DRYRUN_CELLS, f"dry run: {len(files)} cells written, not {DRYRUN_CELLS}")
             print(f"dry run: python -m repro_torch.launch.dryrun --all --mesh both, {len(files)} cells in {secs:.1f} s "
-                  f"(a spec walk on the meta device, no card); the times below are the roofline's, from the H100 "
-                  f"SXM data-sheet constants (989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink a direction), not "
-                  f"measured; this card: {smi}", flush=True)
+                  f"(limit {DRYRUN_CLI_S:.0f} s; a spec walk and one rank's step traced on the meta device, no card, "
+                  f"{os.cpu_count()} host cores); the times below are the roofline's, from the H100 "
+                  f"SXM data-sheet constants (989 TFLOP/s bf16, 3.35 TB/s HBM, 450 GB/s NVLink a direction) on the "
+                  f"executed FLOPs and moved bytes, not measured; this card: {smi}", flush=True)
+            print("dry run CLI: " + proc.stdout.strip().splitlines()[-1], flush=True)
+            check(secs <= DRYRUN_CLI_S, f"dry run: the CLI took {secs:.1f} s > {DRYRUN_CLI_S} s")
+            over = []
             for f in files:
                 with open(os.path.join(out_dir, f)) as fh:
                     r = json.load(fh)
                 roof, coll = r["roofline"], r["collectives"]
                 state, act = coll["state"]["shipped"], coll["activation"]["shipped"]
+                mem = r["memory"]
+                fits = mem["peak_device_bytes"] <= CARD_BYTES
+                over += [] if fits else [f"{r['arch']} {r['shape']} {r['mesh']}"]
+                check(mem["temp_bytes"] is not None and mem["peak_device_bytes"] == mem["argument_bytes"]
+                      + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"], f"dry run {f}: memory {mem}")
                 print(f"dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): "
-                      f"{r['memory']['peak_device_bytes'] / 2**30:.2f} GiB a rank (floor), bottleneck "
+                      f"{mem['peak_device_bytes'] / 2**30:.2f} GiB a rank (temporaries "
+                      f"{mem['temp_bytes'] / 2**30:.2f}, floor {mem['floor_bytes'] / 2**30:.2f}; "
+                      f"{'fits' if fits else 'EXCEEDS'} {card_gb} GB), traced in {r['trace_s']:.2f} s, "
+                      f"{r['executed']['flops']:.4e} FLOPs, {r['executed']['hbm_bytes']:.4e} HBM B, useful "
+                      f"{r['useful_flops_frac']:.3f}, bottleneck "
                       f"{roof['bottleneck']}, t_compute {roof['t_compute_s']:.3e} s, t_memory "
                       f"{roof['t_memory_s']:.3e} s, t_collective {roof['t_collective_s']:.3e} s; shipped a rank: "
                       f"state {state:.6e} B, activation {act:.6e} B (data-sheet roofline; {smi})", flush=True)
@@ -4016,6 +4113,8 @@ def dryrun_phase(torch, fft_stage, smi: str) -> dict:
                       + sum(coll["activation"]["counts"].values()),
                       f"dry run {f}: shipped {total} B by kind, {state} + {act} B by scope, roofline "
                       f"{roof['coll_bytes']} B")
+            print(f"dry run: {len(over)} of {len(files)} cells exceed {card_gb} GB a rank: {', '.join(over)}",
+                  flush=True)
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
 

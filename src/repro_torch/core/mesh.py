@@ -758,8 +758,6 @@ class ProcessGroupMesh(_AxisMesh):
         allocator cannot hand them out while the transport still uses
         them; on the card ``wait`` orders the current stream after the
         transfer and does not block the host."""
-        import torch.distributed as dist
-
         self._check_1d(pieces)
         piece, me = pieces[0], self.rank
         if _records(piece):
@@ -775,9 +773,7 @@ class ProcessGroupMesh(_AxisMesh):
         recv = torch.empty(piece.shape, dtype=piece.dtype, device=self.device)
         if srcs:
             _record(self, "collective-permute", _nbytes(recv))
-        ops = [dist.P2POp(dist.isend, _wire(send), self._global[d], self.group) for d in dsts]
-        ops += [dist.P2POp(dist.irecv, _wire(recv), self._global[s], self.group) for s in srcs]
-        works = dist.batch_isend_irecv(ops) if ops else []
+        ops, works = self._post([(send, d) for d in dsts], [(recv, s) for s in srcs])
 
         def complete() -> Blocks:
             for w in works:
@@ -800,11 +796,9 @@ class ProcessGroupMesh(_AxisMesh):
         return [self._all_to_all(b, split_axis, concat_axis)]
 
     def _all_to_all(self, b: torch.Tensor, split_axis: int, concat_axis: int) -> torch.Tensor:
-        import torch.distributed as dist
-
         inp = torch.stack(torch.chunk(b.resolve_conj(), self.p, dim=split_axis))
         out = torch.empty_like(inp)
-        dist.all_to_all_single(_wire(out), _wire(inp), group=self.group)
+        self._wire_all_to_all(out, inp)
         _record(self, "all-to-all", _nbytes(out))
         return torch.cat(list(out.unbind(0)), dim=concat_axis)
 
@@ -969,19 +963,17 @@ class ProcessGroupMesh(_AxisMesh):
         return self._gather(b, tail)
 
     def _gather(self, b: torch.Tensor, tail: Sequence[Optional[str]]) -> torch.Tensor:
-        import torch.distributed as dist
-
         b = b.resolve_conj().contiguous()
         dims = self._shard_dims(b.ndim, tail)
         if len(self.dims) == 1:
             dim = dims[0][0]
             front = b.movedim(dim, 0).contiguous()
             out = torch.empty((self.p * front.shape[0],) + tuple(front.shape[1:]), dtype=b.dtype, device=b.device)
-            dist.all_gather_into_tensor(_wire(out), _wire(front), group=self.group)
+            self._wire_gather_into(out, front)
             _record(self, "all-gather", _nbytes(out))
             return out.movedim(0, dim).contiguous()
         outs = [torch.empty_like(b) for _ in range(self.p)]
-        dist.all_gather([_wire(o) for o in outs], _wire(b), group=self.group)
+        self._wire_gather_list(outs, b)
         _record(self, "all-gather", self.p * _nbytes(b))
         return self._assemble(lambda rank: outs[rank], b.ndim, tail)
 
@@ -1005,10 +997,103 @@ class ProcessGroupMesh(_AxisMesh):
         """A whole-transform result -> the rank's own block of it."""
         return self.split(y, tail)[0]
 
+    # -- the wire: every ``torch.distributed`` call of the transports ----------------
+    def _post(self, sends: List[Tuple[torch.Tensor, int]], recvs: List[Tuple[torch.Tensor, int]]):
+        """(the ops, their works) of one ``batch_isend_irecv`` of ``sends``
+        / ``recvs`` ((tensor, group rank) pairs)."""
+        import torch.distributed as dist
+
+        ops = [dist.P2POp(dist.isend, _wire(t), self._global[d], self.group) for t, d in sends]
+        ops += [dist.P2POp(dist.irecv, _wire(t), self._global[s], self.group) for t, s in recvs]
+        return ops, (dist.batch_isend_irecv(ops) if ops else [])
+
+    def _wire_all_reduce(self, t: torch.Tensor, op: str) -> None:
+        import torch.distributed as dist
+
+        dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=self.group)
+
+    def _wire_gather_into(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        dist.all_gather_into_tensor(_wire(out), _wire(inp), group=self.group)
+
+    def _wire_gather_list(self, outs: List[torch.Tensor], inp: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        dist.all_gather([_wire(o) for o in outs], _wire(inp), group=self.group)
+
+    def _wire_all_to_all(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        dist.all_to_all_single(_wire(out), _wire(inp), group=self.group)
+
+    def _wire_reduce_scatter(self, out: torch.Tensor, inp: torch.Tensor) -> None:
+        import torch.distributed as dist
+
+        dist.reduce_scatter_tensor(_wire(out), _wire(inp), group=self.group)
+
     def __repr__(self) -> str:
         axes = (f"axis_name={self.axis_name!r}" if len(self.dims) == 1
                 else f"grid={self.dims}, axis_names={self.axis_names}")
-        return f"ProcessGroupMesh(p={self.p}, rank={self.rank}, {axes}, device={str(self.device)!r})"
+        return f"{type(self).__name__}(p={self.p}, rank={self.rank}, {axes}, device={str(self.device)!r})"
+
+
+class MetaRankMesh(ProcessGroupMesh):
+    """One rank of a grid of ``dims`` ranks named ``axis_names`` (or
+    ``p`` ranks on ``axis_name``), holding its own blocks on the ``meta``
+    device: shapes and dtypes, no memory. It joins no process group and
+    reads no environment. Every transport is :class:`ProcessGroupMesh`'s
+    -- the same buffers made, the same shapes returned, the same counts
+    recorded in :data:`COLLECTIVE_BYTES` / :data:`FSDP_BYTES` -- but the
+    wire calls move nothing, so one process runs one rank's step as a
+    trace (``launch.dryrun.executed``). :meth:`all_max` and
+    :meth:`host_max` return the rank's own values (a stand-in: every rank
+    is taken to agree). ``rank`` picks the rank's coordinates (row-major).
+    ``device`` other than ``meta`` runs a rank's step on real tensors, where
+    a grid of one rank (nothing moves) is the meaningful one."""
+
+    def __init__(self, dims: Union[int, Sequence[int]], axis_names: Optional[Sequence[str]] = None, *,
+                 rank: int = 0, axis_name: str = "model", device="meta"):
+        self.group = None
+        self._set_axes(*_grid_axes(dims, axis_name, axis_names))
+        if not 0 <= rank < self.p:
+            raise ValueError(f"rank {rank} is not one of the grid's {self.p}")
+        self.rank = rank
+        self.device = torch.device(device)
+        self._backend, self._backends = "meta", {"meta": "meta", "cpu": "meta"}
+        self._global = list(range(self.p))
+        self._rings: Dict[str, _AxisMesh] = {}
+        if len(self.dims) > 1:
+            for axes in ring_axes(self.axis_names):
+                key = _axis_key(axes)
+                ring = next(r for r in self.ring_ranks(axes) if self.rank in r)
+                view = (SimMesh(1, key, self.device) if len(ring) == 1
+                        else MetaRankMesh(len(ring), axis_name=key, rank=ring.index(self.rank), device=self.device))
+                self._rings[key] = self._ring_view(view, axes)
+
+    def all_max(self, values: Sequence[float]) -> List[float]:
+        return [float(v) for v in values]
+
+    def host_max(self, values: Sequence[float]) -> List[float]:
+        return [float(v) for v in values]
+
+    def _post(self, sends, recvs):
+        return [], []
+
+    def _wire_all_reduce(self, t, op) -> None:
+        pass
+
+    def _wire_gather_into(self, out, inp) -> None:
+        pass
+
+    def _wire_gather_list(self, outs, inp) -> None:
+        pass
+
+    def _wire_all_to_all(self, out, inp) -> None:
+        pass
+
+    def _wire_reduce_scatter(self, out, inp) -> None:
+        pass
 
 
 def _records(t: torch.Tensor) -> bool:
@@ -1020,21 +1105,17 @@ def _records(t: torch.Tensor) -> bool:
 
 def _all_reduce(ring: ProcessGroupMesh, b: torch.Tensor, op: str, scope: str = "activation") -> torch.Tensor:
     """One ``all_reduce`` of a copy of ``b`` over ``ring``'s group."""
-    import torch.distributed as dist
-
     t = b.resolve_conj().clone(memory_format=torch.contiguous_format)
-    dist.all_reduce(_wire(t), op=getattr(dist.ReduceOp, op), group=ring.group)
+    ring._wire_all_reduce(t, op)
     _record(ring, "all-reduce", _nbytes(t), scope)
     return t
 
 
 def _stack_gather(ring: ProcessGroupMesh, b: torch.Tensor) -> torch.Tensor:
     """The (P, ...) stack of the ring's blocks, one ``all_gather_into_tensor``."""
-    import torch.distributed as dist
-
     b = b.resolve_conj().contiguous()
     out = torch.empty((ring.p * b.numel(),), dtype=b.dtype, device=b.device)
-    dist.all_gather_into_tensor(_wire(out), _wire(b.reshape(-1)), group=ring.group)
+    ring._wire_gather_into(out, b.reshape(-1))
     _record(ring, "all-gather", _nbytes(out))
     return out.view((ring.p,) + tuple(b.shape))
 
@@ -1064,14 +1145,12 @@ def _gather_many(ring: ProcessGroupMesh, tensors: List[torch.Tensor], dims: List
     dtype): the output holds the ranks' buffers one after another, so a
     tensor's blocks are one column of the (P, n) view, laid along its
     dim by a ``movedim``."""
-    import torch.distributed as dist
-
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for dtype in dict.fromkeys(t.dtype for t in tensors):
         idx = [i for i, t in enumerate(tensors) if t.dtype == dtype]
         send = _flat_cat([tensors[i].detach().resolve_conj().contiguous() for i in idx])
         recv = torch.empty((ring.p, send.numel()), dtype=dtype, device=send.device)
-        dist.all_gather_into_tensor(_wire(recv.view(-1)), _wire(send), group=ring.group)
+        ring._wire_gather_into(recv.view(-1), send)
         _count("all_gather", recv)
         _record(ring, "all-gather", _nbytes(recv), "state")
         at = 0
@@ -1091,8 +1170,6 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
     cut along its dim into the ring's blocks, the blocks laid rank-major
     in one buffer a dtype, and one reduce-scatter (SUM) hands the rank the
     sum of its blocks."""
-    import torch.distributed as dist
-
     out: List[Optional[torch.Tensor]] = [None] * len(grads)
     for dtype in dict.fromkeys(g.dtype for g in grads):
         idx = [i for i, g in enumerate(grads) if g.dtype == dtype]
@@ -1104,7 +1181,7 @@ def _reduce_scatter_many(ring: ProcessGroupMesh, grads: List[torch.Tensor], dims
             cols.append(g.reshape(shape).movedim(d, 0).reshape(ring.p, -1))
         send = torch.cat(cols, 1).contiguous() if len(cols) > 1 else cols[0].contiguous()
         recv = torch.empty(send.shape[1], dtype=dtype, device=send.device)
-        dist.reduce_scatter_tensor(_wire(recv), _wire(send.view(-1)), group=ring.group)
+        ring._wire_reduce_scatter(recv, send.view(-1))
         _count("reduce_scatter", send)
         _record(ring, "reduce-scatter", _nbytes(send), "state")
         at = 0

@@ -1,6 +1,6 @@
 """The dry run, ported from ``repro.launch.dryrun``: every arch x shape x
 mesh cell's bytes a rank, FLOPs and collective bytes, as a walk over the
-port's placement specs.
+port's placement specs and as one rank's step run on the ``meta`` device.
 
 The reference lowers and compiles each cell's step over 512 forced host
 devices and reads ``memory_analysis()``, ``cost_analysis()`` and the
@@ -30,11 +30,29 @@ Per cell, as the reference's ``lower_cell`` builds it:
 ``memory``: ``argument_bytes`` sums this rank's block of every argument
 (exact: the placement cuts only dims its axes divide), ``output_bytes``
 the new state (plus the float32 ``(b, V)`` logits of prefill and decode,
-or the train step's scalar metrics), ``alias_bytes`` the donated state.
-No compiler plans the temporaries, so ``temp_bytes`` is null and
-``peak_device_bytes`` (arguments + outputs - aliases) is a **floor**
-(``peak_is_floor``): gradients, activations and the gathered weights come
-on top of it.
+or the train step's scalar metrics), ``alias_bytes`` the donated state;
+``temp_bytes`` is the executed peak (below) less ``floor_bytes``
+(arguments + outputs - aliases), so that ``peak_device_bytes`` is the
+reference's arguments + temporaries + outputs - aliases. Where the
+port's own step holds more state than the reference's spec gives a rank
+(a serving cache whose KV heads the ``model`` axis does not divide is
+kept whole; whisper's decode keeps its cross K / V), that state counts
+in the temporaries: ``executed.args_bytes`` says what the trace held.
+
+``executed`` (:func:`executed`) is one rank's step -- the cell's own entry
+point, ``train.make_train_step``'s step, ``Model.prefill`` or
+``Model.decode_step`` -- run on the ``meta`` device over a
+``core.mesh.MetaRankMesh`` of the cell's mesh (``ProcessGroupMesh``'s
+transports, no wire), under :class:`StepTally`: the FLOPs as executed
+(``torch.utils.flop_counter``'s registry: remat's recompute, every masked
+KV chunk, every expert's slots), the HBM bytes an eager program moves
+(every kernel reads its operands and writes its outputs once: a
+departure from the reference's fused matmul-boundary rule, ROADMAP queue
+C) and the bytes alive at the peak, traced at a few depths and loop
+lengths and extended (:func:`executed`); ``trace_s`` in place of the
+reference's ``lower_s`` / ``compile_s``. A loop whose trips the host
+would read back raises on ``meta``; the step has none since
+``models.moe._one_hot`` (one program on every device).
 
 ``collectives`` are every collective one rank issues, as the port's code
 issues them (what ``core.mesh.COLLECTIVE_BYTES`` counts on a run), in
@@ -63,11 +81,11 @@ the all-reduced block, a permute's piece):
   the checkpointed loss chunks, and in the backward; the MoE ring's aux
   over the batch axes; the clip's norm over ``model``.
 
-The FLOPs are the reference's analytic ``6`` (train) or ``2`` x active
-params x tokens; the roofline (``core.comm_model.Roofline``, H100
-data-sheet constants) adds the attention's products a chip
-(:func:`attention_flops`) and prices them at ``PEAK_FLOPS_BF16``. Its
-``hbm_bytes`` are the arguments and outputs each moved once, a floor too.
+The model FLOPs are the reference's analytic ``6`` (train) or ``2`` x
+active params x tokens (``useful_flops_frac`` their share of the executed
+ones); the roofline (``core.comm_model.Roofline``, H100 data-sheet
+constants) prices the executed FLOPs at ``PEAK_FLOPS_BF16``, the moved
+bytes at the HBM rate and the shipped collective bytes at NVLink's.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-v3-671b --shape train_4k --mesh single
@@ -85,7 +103,8 @@ import math
 import os
 import sys
 import traceback
-from typing import Any, Dict, Iterator, List, Optional, Tuple
+import weakref
+from typing import Any, Dict, Iterator, List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -94,9 +113,9 @@ from repro_torch.configs.base import ModelConfig, ShapeConfig, TrainConfig
 from repro_torch.core import comm_model, sharding
 from repro_torch.core.mesh import STATE_AXES
 from repro_torch.launch import specs as specs_lib
-from repro_torch.launch.mesh import MeshShape, make_production_mesh
+from repro_torch.launch.mesh import MeshShape, make_production_mesh, process_state, touched
 from repro_torch.models import moe as moe_lib
-from repro_torch.models.model import Model, build_groups, placements
+from repro_torch.models.model import Model, abstract, build_groups, placements
 
 RESULT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun")
 
@@ -251,12 +270,6 @@ class Leaf:
         return self.numel(mesh) * math.prod(mesh.shape[a] for a in self.fsdp) // self.layers
 
 
-@functools.lru_cache(maxsize=64)
-def _abstract(cfg: ModelConfig):
-    """(the weights on the ``meta`` device, their specs): ``Model._abstract``."""
-    return Model(cfg, device="meta")._abstract()
-
-
 def _flat(tree, path: str = "") -> Iterator[Tuple[str, Any]]:
     if isinstance(tree, dict):
         for k in sorted(tree):
@@ -274,7 +287,7 @@ def weight_leaves(cfg: ModelConfig, mesh) -> List[Leaf]:
 
 @functools.lru_cache(maxsize=256)
 def _weight_leaves(cfg: ModelConfig, mesh: MeshShape) -> List[Leaf]:
-    shapes, specs = _abstract(cfg)
+    shapes, specs = abstract(cfg)
     where = dict(_flat(placements(shapes, mesh=mesh, specs=specs, cfg=cfg)))
     stacks = {g.name for g in build_groups(cfg)}
     out = []
@@ -484,7 +497,7 @@ class _Acts:
         self.fm = 1
         self.it = _itemsize(cfg.dtype)
         self.wit = self.it  # the weights' dtype (the MTP module runs on the float32 masters)
-        self.shapes = _abstract(cfg)[0]
+        self.shapes = abstract(cfg)[0]
         self.batch = () if one_process else batch_axes(mesh)
         #: the mesh ``models.moe`` runs over: the rank's ``model`` ring where it holds its rows of a
         #: batch split over processes, else the whole mesh
@@ -1056,19 +1069,563 @@ def outputs(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig = PROD
     return out
 
 
-def memory(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig = PRODUCTION_TCFG) -> Dict[str, Any]:
-    """The cell's ``memory`` entry (see the module docstring)."""
+def memory(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, peak: int) -> Dict[str, Any]:
+    """The cell's ``memory`` entry (see the module docstring): the walk's
+    arguments, outputs and aliases, and the temporaries as the rest of
+    ``peak`` (:func:`executed`'s), so that ``peak_device_bytes`` is the
+    reference's arguments + temporaries + outputs - aliases.
+    ``floor_bytes`` is the peak without temporaries."""
     args = arguments(cfg, shape, mesh, tcfg)
     alias = sum(v for k, v in args.items() if donated(shape, k))
     total, outs = sum(args.values()), sum(outputs(cfg, shape, mesh, tcfg).values())
+    floor = total + outs - alias
+    temp = peak - floor
     return {
         "argument_bytes": total,
         "output_bytes": outs,
-        "temp_bytes": None,
+        "temp_bytes": temp,
         "alias_bytes": alias,
-        "peak_device_bytes": total + outs - alias,
-        "peak_is_floor": True,
+        "peak_device_bytes": total + temp + outs - alias,
+        "floor_bytes": floor,
     }
+
+
+# ---------------------------------------------------------------------------
+# the executed half: one rank's step, traced on the ``meta`` device
+# ---------------------------------------------------------------------------
+
+_aten = torch.ops.aten
+#: ops that allocate and write nothing (no kernel)
+_ALLOCATE = frozenset({_aten.empty.memory_format, _aten.empty_strided.default, _aten.empty_like.default,
+                       _aten.new_empty.default, _aten.new_empty_strided.default})
+#: ops that make a view or an alias without saying so in their schema
+_ALIASES = frozenset({_aten._unsafe_view.default, _aten.lift_fresh.default})
+#: in-place ops that change a tensor's sizes or strides: always run, never replayed
+_RESHAPING = frozenset({"resize_", "resize_as_", "set_", "as_strided_", "squeeze_", "unsqueeze_", "transpose_",
+                        "t_", "swapdims_", "swapaxes_", "detach_"})
+
+
+class _Op(NamedTuple):
+    """What :class:`StepTally` knows of an aten op: whether it decomposes
+    (a composite op: its parts are counted), how it moves bytes ("view":
+    every output aliases an input, or one of ``_ALIASES`` -- metadata
+    only; "alloc": one of ``_ALLOCATE`` -- memory, no bytes; "inplace":
+    an output written in place -- that operand counted read and written;
+    "fresh": new outputs), its FLOP formula and whether a meta trace may
+    replay it."""
+
+    decomposes: bool
+    kind: str
+    flops: Any
+    replay: bool
+
+
+_OPS: Dict[Any, _Op] = {}
+
+
+def _op(func) -> _Op:
+    from torch.utils.flop_counter import flop_registry
+
+    info = _OPS.get(func)
+    if info is None:
+        alias = [r.alias_info for r in func._schema.returns]
+        if any(a is not None and a.is_write for a in alias):
+            kind = "inplace"
+        elif (alias and all(a is not None for a in alias)) or func in _ALIASES:
+            kind = "view"
+        else:
+            kind = "alloc" if func in _ALLOCATE else "fresh"
+        replay = kind == "fresh" or (kind == "inplace" and func._overloadpacket.__name__ not in _RESHAPING)
+        info = _OPS[func] = _Op(func.has_kernel_for_dispatch_key(torch._C.DispatchKey.CompositeImplicitAutograd),
+                                kind, flop_registry.get(func._overloadpacket), replay)
+    return info
+
+
+def _sig(x):
+    """What an op's output metadata depends on: a tensor's shape, strides,
+    offset, dtype and device; any other argument itself."""
+    if isinstance(x, torch.Tensor):
+        return (x.shape, x.stride(), x.storage_offset(), x.dtype, x.device.type)
+    if isinstance(x, (list, tuple)):
+        return tuple(map(_sig, x))
+    if isinstance(x, dict):
+        return tuple((k, _sig(v)) for k, v in x.items())
+    return x
+
+
+def _tensors(tree, out: Optional[List[torch.Tensor]] = None) -> List[torch.Tensor]:
+    """The tensors of nested tuples, lists, dicts and NamedTuples."""
+    out = [] if out is None else out
+    if isinstance(tree, torch.Tensor):
+        out.append(tree)
+    elif isinstance(tree, (list, tuple)):
+        for x in tree:
+            _tensors(x, out)
+    elif isinstance(tree, dict):
+        for x in tree.values():
+            _tensors(x, out)
+    return out
+
+
+def _nbytes(t: torch.Tensor) -> int:
+    return t.numel() * t.element_size()
+
+
+#: the meta trace's replay cache (:class:`StepTally`), shared by every cell
+_REPLAY: dict = {}
+
+
+class StepTally:
+    """What a step executes on ``device``, op by op, as a
+    ``TorchDispatchMode`` over the aten ops it dispatches (the backward's
+    and remat's recompute too; the ``with`` block enters it):
+
+    - ``flops``: ``torch.utils.flop_counter``'s count of each op (its
+      ``flop_registry``: the matrix products and convolutions, the
+      reference's rule of dots), what ``FlopCounterMode`` counts; a
+      composite op is decomposed first, as ``FlopCounterMode`` does;
+    - ``moved``: the HBM bytes of an eager program, every op that launches
+      a kernel reading each tensor operand once and writing each output
+      once (an in-place op's operand is read and written). Left out:
+      views and aliases (an op whose every output aliases an input, and
+      ``aten._unsafe_view`` / ``aten.lift_fresh``), allocations that write
+      nothing (``aten.empty*`` / ``new_empty*``), and ops with no tensor on
+      ``device`` (host scalars);
+    - ``live`` / ``peak``: the bytes of the storages on ``device`` alive,
+      from each storage's first appearance as an op's output (or
+      :meth:`hold`) to its release, and their largest sum;
+    - ``phases``: ``[peak, flops, moved]`` of each phase of the step,
+      a phase ending where a backward pass begins or ends (a train step
+      with microbatches: each microbatch's forward, with the previous
+      one's accumulation, and its backward, then the update), or where
+      :meth:`mark` names another part; ``profile`` the bytes alive after
+      each op of the last phase.
+
+    On ``meta`` it replays an op it has run before on the same metadata
+    (:data:`_REPLAY`, shared by every trace): its fresh outputs made with
+    ``empty_strided`` (an in-place op returns its operand), so a loop's
+    repeated bodies cost no meta kernel. Python's cycle collector is off
+    inside, so releases follow the references alone."""
+
+    def __init__(self, device):
+        from torch.utils._python_dispatch import TorchDispatchMode
+
+        tally = self
+
+        class _Mode(TorchDispatchMode):
+            def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+                return tally._dispatch(func, args, kwargs or {})
+
+        self._mode = _Mode()
+        self.device = torch.device(device).type
+        self.live = self.peak = 0
+        self.phases: List[List[int]] = [[0, 0, 0]]
+        #: the bytes alive after each op of the current phase
+        self.profile: List[int] = []
+        self._phase: Tuple[bool, Optional[str]] = (False, None)
+        self._mark: Optional[str] = None
+        self._held: Dict[int, Any] = {}
+        self._cache = _REPLAY if self.device == "meta" else None
+
+    @property
+    def flops(self) -> int:
+        return sum(ph[1] for ph in self.phases)
+
+    @property
+    def moved(self) -> int:
+        return sum(ph[2] for ph in self.phases)
+
+    def hold(self, t: torch.Tensor, nbytes: Optional[int] = None) -> None:
+        """Count ``t``'s storage live from now (``nbytes``: in place of the
+        storage's own size) until it is released."""
+        if t.device.type != self.device:
+            return
+        st = t.untyped_storage()
+        key = id(st)
+        if key in self._held:
+            return
+        n = st.nbytes() if nbytes is None else nbytes
+        self._held[key] = weakref.ref(st, functools.partial(self._release, key, n))
+        self.live += n
+        if self.live > self.peak:
+            self.peak = self.live
+        phase = self.phases[-1]
+        if self.live > phase[0]:
+            phase[0] = self.live
+
+    def mark(self, name: Optional[str]) -> None:
+        """Start a new phase at the next op where ``name`` differs from the
+        last mark (the trace marks each layer group it enters)."""
+        self._mark = name
+
+    def _release(self, key: int, n: int, _ref) -> None:
+        if self._held.pop(key, None) is not None:
+            self.live -= n
+
+    def __enter__(self) -> "StepTally":
+        import gc
+
+        self._gc = gc.isenabled()
+        gc.disable()
+        self._mode.__enter__()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        import gc
+
+        self._mode.__exit__(*exc)
+        if self._gc:
+            gc.enable()
+
+    def _dispatch(self, func, args, kwargs):
+        info = _OPS.get(func) or _op(func)
+        if info.decomposes:  # as FlopCounterMode does (inference mode hands composite ops down)
+            with self._mode:
+                out = func.decompose(*args, **kwargs)
+            if out is not NotImplemented:
+                return out
+        out = key = None
+        cache = self._cache
+        if cache is not None and info.replay:
+            key = (func, _sig(args), _sig(kwargs) if kwargs else None)
+            hit = cache.get(key)
+            if hit is not None:
+                out = self._replayed(hit, args, kwargs)
+        if out is None:
+            out = func(*args, **kwargs)
+            if key is not None:
+                self._remember(cache, key, out, args, kwargs, info.kind)
+        outs = _tensors(out)
+        ins = _tensors(kwargs, _tensors(args)) if kwargs else _tensors(args)
+        dev = self.device
+        if not any(t.device.type == dev for t in outs) and not any(t.device.type == dev for t in ins):
+            return out
+        phase = (torch._C._current_graph_task_id() != -1, self._mark)
+        if phase != self._phase:
+            self._phase = phase
+            self.phases.append([self.live, 0, 0])
+            self.profile = []
+        phase = self.phases[-1]
+        if info.flops is not None:
+            phase[1] += info.flops(*args, **kwargs, out_val=out)
+        if info.kind == "fresh" or info.kind == "inplace":
+            phase[2] += sum(map(_nbytes, ins)) + sum(map(_nbytes, outs))
+        for t in outs:
+            self.hold(t)
+        self.profile.append(self.live)
+        return out
+
+    @staticmethod
+    def _replayed(hit, args, kwargs):
+        if hit == "self":
+            return args[0]
+        if hit == "out":
+            return kwargs["out"]
+        spec, metas = hit
+        leaves = [torch.empty_strided(sz, st, dtype=dt, device="meta") for sz, st, dt in metas]
+        if spec is None:
+            return leaves[0]
+        from torch.utils._pytree import tree_unflatten
+
+        return tree_unflatten(leaves, spec)
+
+    @staticmethod
+    def _remember(cache, key, out, args, kwargs, kind) -> None:
+        """Keep what replays ``out``: an in-place op's operand, or a fresh
+        op's outputs' metadata where ``empty_strided`` makes the same
+        storages."""
+        if kind == "inplace":
+            if args and out is args[0]:
+                cache[key] = "self"
+            elif out is kwargs.get("out"):
+                cache[key] = "out"
+            return
+        from torch.utils._pytree import tree_structure
+
+        leaves = _tensors(out)
+        if leaves and all(isinstance(t, torch.Tensor) and t.device.type == "meta" and t.storage_offset() == 0
+                          and t.untyped_storage().nbytes() == torch.empty_strided(
+                              t.shape, t.stride(), dtype=t.dtype, device="meta").untyped_storage().nbytes()
+                          for t in leaves):
+            cache[key] = (None if isinstance(out, torch.Tensor) else tree_structure(out),
+                          [(t.shape, t.stride(), t.dtype) for t in leaves])
+
+
+def _patterns(cfg: ModelConfig) -> Dict[Tuple[str, bool], int]:
+    """Each distinct layer of the model -- (group, is_global): the group
+    fixes its kind and whether it has cross-attention -- and how many
+    layers of it the model has, in the order they first appear."""
+    out: Dict[Tuple[str, bool], int] = {}
+    for g in build_groups(cfg):
+        for i in range(g.count):
+            key = (g.name, g.static_global if g.flags is None else g.flags[i])
+            out[key] = out.get(key, 0) + 1
+    return out
+
+
+def _groups_of(cfg: ModelConfig, counts: Dict[Tuple[str, bool], int]):
+    """The model's groups holding ``counts`` layers of each pattern (a
+    group's patterns in their order, each repeated)."""
+    out = []
+    for g in build_groups(cfg):
+        flags = [f for (name, f), n in counts.items() if name == g.name for _ in range(n)]
+        out.append(dataclasses.replace(g, count=len(flags), flags=None if g.flags is None else tuple(flags)))
+    return out
+
+
+def _rank_rows(shape: ShapeConfig, mesh) -> int:
+    """The rows of a serving batch a rank holds: its block over the batch
+    axes (all of a batch of one)."""
+    b = shape.global_batch
+    return b if b == 1 else b // math.prod(mesh.shape[a] for a in STATE_AXES if a in mesh.shape)
+
+
+def _trace(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, groups, whole: bool = False,
+           device="meta") -> Dict[str, Any]:
+    """One rank's step of a model holding ``groups``, traced on the
+    ``meta`` device over a ``core.mesh.MetaRankMesh`` of ``mesh``'s
+    axes under :class:`StepTally`: the state and batch made first and
+    held live from the start, then the cell's entry point --
+    ``train.make_train_step``'s step, ``Model.prefill`` or
+    ``Model.decode_step``.
+
+    A train step of more than two microbatches is traced with two (the
+    same rows each) and extended: its later microbatches repeat the
+    second's forward and backward phases, and its batch is held at its
+    own size (unless ``whole``). On another ``device`` (a grid of one
+    rank) the same step runs on real tensors, the weights drawn, the
+    inputs zeros."""
+    from repro_torch.core.mesh import MetaRankMesh
+    from repro_torch.train import init_train_state, make_train_step
+
+    micro = tcfg.microbatch if shape.kind == "train" and tcfg.microbatch and tcfg.microbatch > 2 else 0
+    micro = 0 if whole else micro
+    if micro:
+        tcfg = dataclasses.replace(tcfg, microbatch=2)
+        shape = dataclasses.replace(shape, global_batch=shape.global_batch // micro * 2)
+    rank = MetaRankMesh(tuple(mesh.shape.values()), tuple(mesh.shape), device=device)
+    tally = StepTally(device)
+    # a serving step's phases: each group of layers it runs through
+    model = Model(cfg, rank, device=device, groups=groups, on_layer=None if shape.kind == "train" else tally.mark)
+    new = functools.partial(torch.empty if device == "meta" else torch.zeros, device=device)
+    gen = torch.Generator() if device == "meta" else torch.Generator(device).manual_seed(0)
+    held: List[Tuple[torch.Tensor, Optional[int]]] = []
+    grown = 0  # the batch's bytes past the traced microbatches'
+    if shape.kind == "train":
+        state, _ = init_train_state(model, gen, tcfg)
+        held += [(t, None) for t in _tensors(tuple(state))]
+        batch = {}
+        for k, (shp, dtype, spec) in specs_lib.batch_input_specs(cfg, shape, mesh).items():
+            # every rank passes the whole batch and reads its rows: held at the rank's block
+            batch[k] = new(shp, dtype=getattr(torch, dtype))
+            held.append((batch[k], block_bytes(mesh, shp, dtype, spec)))
+            if micro:
+                full = (shp[0] // 2 * micro,) + tuple(shp[1:])
+                grown += block_bytes(mesh, full, dtype, spec) - block_bytes(mesh, shp, dtype, spec)
+        run = functools.partial(make_train_step(model, tcfg), state, batch)
+    else:
+        params, _ = model.init(gen, dtype=model.dtype)
+        b, s = _rank_rows(shape, mesh), shape.seq_len
+        st = model.init_decode_state(b, s)
+        held += [(t, None) for t in _tensors((params, st))]
+        if shape.kind == "prefill":
+            batch = {}
+            for k, (shp, dtype, _) in specs_lib.batch_input_specs(cfg, shape, mesh).items():
+                batch[k] = new((b,) + tuple(shp[1:]), dtype=getattr(torch, dtype))
+                held.append((batch[k], None))
+            run = functools.partial(model.prefill, params, batch, st)
+        else:
+            st["pos"] = s - 1  # the new token's query sees the cache's seq_len positions
+            if cfg.is_encdec:  # the cross K / V over the frames, as prefill made them
+                st["cross"] = model._cross_kv(params, new((b, s, cfg.d_model), dtype=model.dtype))
+                held += [(t, None) for t in _tensors(st["cross"])]
+            tokens = new((b, 1), dtype=torch.int32)
+            held.append((tokens, None))
+            run = functools.partial(model.decode_step, params, tokens, st)
+    for t, n in held:
+        tally.hold(t, n)
+    args = tally.live
+    with tally:
+        out = run()
+    live = tally.live
+    del out, run
+    phases = [list(ph) for ph in tally.phases]
+    if micro:  # [F1, B1, F2, B2, U]: F2 and B2 again for each further microbatch
+        phases = phases[:4] + [list(ph) for _ in range(micro - 2) for ph in phases[2:4]] + phases[4:]
+        for ph in phases:
+            ph[0] += grown
+    return {"flops": sum(ph[1] for ph in phases), "moved": sum(ph[2] for ph in phases),
+            "peaks": [ph[0] for ph in phases], "tail": [n + grown for n in tally.profile], "args": args + grown,
+            "live_end": live + grown}
+
+
+@functools.lru_cache(maxsize=None)
+def _warm_up() -> None:
+    """One small train step traced once a process and dropped: the first
+    step a process traces keeps the learning rate's scalars alive to its
+    end (torch's first use of those ops), in that trace alone."""
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("qwen2.5-32b", reduced=True), num_layers=1)
+    _trace(cfg, ShapeConfig("warm", 8, 4, "train"), MeshShape((1, 1), ("data", "model")), PRODUCTION_TCFG,
+           build_groups(cfg))
+
+
+#: the loops over positions whose trips the trace caps (``models.common.TRIP_CAPS``)
+LOOPS = ("kv", "mamba", "mlstm", "slstm")
+#: a loop of at least this many trips is traced at two caps and extended
+CAP_FROM = 16
+#: the caps it is traced at: CAP and CAP + 1 trips
+CAP = 4
+
+
+def _loop_trips(cfg: ModelConfig, shape: ShapeConfig) -> Dict[str, int]:
+    """The trips each loop of :data:`LOOPS` makes in the cell's step, as
+    the model code counts them (the trace checks them): the KV chunks over
+    every position (one length for every attention of a decoder-only
+    model; an encoder-decoder's differ and are never capped), Mamba's and
+    the mLSTM's chunks and the sLSTM's steps over the positions (none in
+    a decode step)."""
+    s = shape.seq_len
+    pos = s + cfg.meta_tokens
+    out: Dict[str, int] = {}
+    if cfg.family != "ssm" and not cfg.is_encdec:
+        out["kv"] = -(-pos // min(cfg.attn_kv_chunk, pos))
+    if shape.kind != "decode" and cfg.ssm is not None:
+        if cfg.ssm.kind == "mamba":
+            out["mamba"] = -(-pos // min(cfg.ssm.chunk, pos))
+        else:
+            out["mlstm"] = -(-s // min(cfg.ssm.chunk, s))
+            if cfg.ssm.slstm_every:
+                out["slstm"] = s
+    return out
+
+
+def _traced(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, counts, caps: Dict[str, int],
+            whole: bool = False) -> Dict[str, Any]:
+    """:func:`_trace` of a model holding ``counts`` layers of each
+    pattern, its loops capped at ``caps`` trips."""
+    from repro_torch.models import common
+
+    old, common.TRIP_CAPS = common.TRIP_CAPS, dict(caps)
+    common.TRIPS_SEEN.clear()
+    try:
+        out = _trace(cfg, shape, mesh, tcfg, _groups_of(cfg, counts), whole)
+    finally:
+        common.TRIP_CAPS = old
+    out["seen"] = {k: set(v) for k, v in common.TRIPS_SEEN.items()}
+    return out
+
+
+def _combine(q00, q_p: Dict[Any, Any], q_l: Dict[Any, Any], q_pl: Dict[Any, Any], a: Dict[Any, int],
+             b: Dict[Any, int]):
+    """A figure at ``a`` more layers of each pattern and ``b`` more trips of
+    each loop than the base trace's ``q00``, from the traces with one
+    more layer (``q_p``), one more trip (``q_l``) and both (``q_pl``):
+    affine in each, a layer's loops' trips the cross term."""
+    out = q00 + sum(a[p] * (q_p[p] - q00) for p in q_p) + sum(b[l] * (q_l[l] - q00) for l in q_l)
+    return out + sum(a[p] * b[l] * (q_pl[p, l] - q_p[p] - q_l[l] + q00) for p in q_p for l in q_l)
+
+
+def executed(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig = PRODUCTION_TCFG, *,
+             whole: bool = False) -> Dict[str, Any]:
+    """What one rank of ``mesh`` executes in the cell's step, measured by
+    running the step's own code on the ``meta`` device (:func:`_trace`):
+    ``flops`` as executed (remat's recompute, the chunked attention's
+    masked KV chunks, every expert's slots of the einsum dispatch),
+    ``hbm_bytes`` as an eager program moves them (:class:`StepTally`),
+    ``peak_bytes`` the most bytes alive on the rank, the state and the
+    rank's block of the batch included, and ``trace_s``.
+
+    Unless ``whole``, the step is traced small and extended:
+
+    - **depth**: with two layers of each distinct pattern
+      (:func:`_patterns`; fewer where the model has fewer), and with one
+      layer added for each pattern the model has more of; a layer's share
+      extended to the pattern's count;
+    - **loops**: each loop over positions of ``CAP_FROM`` trips or more
+      (:data:`LOOPS`) run at ``CAP`` and ``CAP + 1`` trips
+      (``models.common.TRIP_CAPS``, the skipped trips' outputs stood in
+      for), a trip's share extended to the loop's count, with a layer's
+      loops as the cross term;
+    - **microbatches**: two traced, the later ones repeating the second
+      (:func:`_trace`).
+
+    FLOPs and moved bytes add up this way exactly; each phase's peak (a
+    phase ends where a backward pass begins or ends) grows by each
+    layer's and each trip's share -- saved activations, gradients, state
+    -- and a layer's own temporaries count once: the peak is the largest
+    phase's. The train step's update after its last backward, the same
+    ops at every depth, is extended op by op. Held exactly against
+    ``whole`` traces on reduced configs (``tests/test_torch_dryrun_executed.py``).
+
+    ``core.mesh``'s collective counters are left as they were (the traces
+    count into them)."""
+    from repro_torch.core import mesh as mesh_lib
+
+    counters = (mesh_lib.COLLECTIVE_BYTES, mesh_lib.COLLECTIVE_CALLS, mesh_lib.FSDP_BYTES, mesh_lib.FSDP_CALLS)
+    saved = [dict(c) for c in counters]
+    try:
+        return _executed_step(cfg, shape, mesh, tcfg, whole)
+    finally:
+        for c, old in zip(counters, saved):
+            c.clear()
+            c.update(old)
+
+
+def _executed_step(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, whole: bool) -> Dict[str, Any]:
+    """:func:`executed`'s traces and their extension."""
+    import time
+
+    t0 = time.perf_counter()
+    _warm_up()
+    counts = _patterns(cfg)
+    if whole:
+        out = _traced(cfg, shape, mesh, tcfg, counts, {}, whole=True)
+        return _report(out, max(out["peaks"]), 1, t0)
+    base = {p: min(n, 2) for p, n in counts.items()}
+    caps = {name: CAP for name, n in _loop_trips(cfg, shape).items() if n >= CAP_FROM}
+    first = _traced(cfg, shape, mesh, tcfg, base, caps)
+    traced = 1
+    loops = {name: next(iter(n)) for name, n in first["seen"].items()
+             if name in caps and len(n) == 1 and min(n) >= CAP_FROM}
+    if set(loops) != set(caps):  # a loop of several lengths, or shorter than predicted: every trip
+        caps = {name: CAP for name in loops}
+        first = _traced(cfg, shape, mesh, tcfg, base, caps)
+        traced += 1
+    more = [p for p, n in counts.items() if n > base[p]]
+    t_p = {p: _traced(cfg, shape, mesh, tcfg, {**base, p: base[p] + 1}, caps) for p in more}
+    t_l = {l: _traced(cfg, shape, mesh, tcfg, base, {**caps, l: CAP + 1}) for l in loops}
+    t_pl = {(p, l): _traced(cfg, shape, mesh, tcfg, {**base, p: base[p] + 1}, {**caps, l: CAP + 1})
+            for p in more for l in loops}
+    traced += len(t_p) + len(t_l) + len(t_pl)
+    a = {p: counts[p] - base[p] for p in more}
+    b = {l: loops[l] - CAP for l in loops}
+
+    def fig(key):
+        return _combine(first[key], {p: t[key] for p, t in t_p.items()}, {l: t[key] for l, t in t_l.items()},
+                        {pl: t[key] for pl, t in t_pl.items()}, a, b)
+
+    out = {key: fig(key) for key in ("flops", "moved", "args")}
+
+    def extend(key):
+        return [_combine(first[key][i], {p: t[key][i] for p, t in t_p.items()}, {l: t[key][i] for l, t in t_l.items()},
+                         {pl: t[key][i] for pl, t in t_pl.items()}, a, b) for i in range(len(first[key]))]
+
+    peak = max(extend("peaks"))
+    if shape.kind == "train" and all(len(t["tail"]) == len(first["tail"])
+                                     for t in (*t_p.values(), *t_l.values(), *t_pl.values())):
+        # the update after the last backward runs the same ops at every depth: each op's bytes alive extended
+        # alone (its largest leaf's temporaries may grow past a constant one's, which the phase's peak hides)
+        peak = max(max(extend("peaks")[:-1]), max(extend("tail")))
+    return _report(out, peak, traced, t0)
+
+
+def _report(out: Dict[str, Any], peak: int, traces: int, t0: float) -> Dict[str, Any]:
+    import time
+
+    return {"flops": out["flops"], "hbm_bytes": out["moved"], "peak_bytes": peak, "args_bytes": out["args"],
+            "traces": traces, "trace_s": time.perf_counter() - t0}
 
 
 # ---------------------------------------------------------------------------
@@ -1105,15 +1662,19 @@ def collectives(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig = 
 def cell_report(cfg: ModelConfig, shape: ShapeConfig, mesh, *, tcfg: Optional[TrainConfig] = None,
                 one_process: bool = False) -> Dict[str, Any]:
     """One cell's report on ``mesh`` (anything with a ``.shape`` mapping of
-    axis name to size): ``memory``, ``collectives``, the reference's
-    analytic FLOPs and parameter counts, and the H100 roofline.
-    ``tcfg``: the train step's config (default ``PRODUCTION_TCFG``). A
-    shape named ``long_500k`` shards its caches' sequence (the
-    reference's rule). ``one_process``: the collectives one process
-    running every rank of a ``SimMesh`` counts (:func:`collectives`)."""
+    axis name to size): ``memory`` (the walk's bytes, the executed peak
+    and temporaries), ``collectives``, ``executed`` (:func:`executed`:
+    one rank's step traced on the ``meta`` device), the reference's
+    analytic FLOPs and parameter counts, and the H100 roofline on the
+    executed FLOPs and moved bytes. ``tcfg``: the train step's config
+    (default ``PRODUCTION_TCFG``). A shape named ``long_500k`` shards its
+    caches' sequence (the reference's rule) in the walk. ``one_process``:
+    the collectives one process running every rank of a ``SimMesh``
+    counts (:func:`collectives`)."""
     tcfg = PRODUCTION_TCFG if tcfg is None else tcfg
     chips = math.prod(mesh.shape.values())
-    mem = memory(cfg, shape, mesh, tcfg)
+    ex = _executed(cfg, shape, tuple(mesh.shape.values()), tuple(mesh.shape), tcfg)
+    mem = memory(cfg, shape, mesh, tcfg, peak=ex["peak_bytes"])
     coll = collectives(cfg, shape, mesh, tcfg, one_process)
     n_params = cfg.param_count()
     n_active = cfg.active_param_count()
@@ -1121,8 +1682,8 @@ def cell_report(cfg: ModelConfig, shape: ShapeConfig, mesh, *, tcfg: Optional[Tr
     # 6ND for train (fwd 2ND + bwd 4ND); forward-only passes are 2ND (the reference's)
     model_flops = (6.0 if shape.kind == "train" else 2.0) * n_active * tokens
     roof = comm_model.Roofline(
-        flops=model_flops / chips + attention_flops(cfg, shape) / chips,
-        hbm_bytes=float(mem["argument_bytes"] + mem["output_bytes"]),
+        flops=float(ex["flops"]),  # the rank's, as executed
+        hbm_bytes=float(ex["hbm_bytes"]),  # as an eager program moves them
         coll_bytes=float(sum(coll["bytes"].values())),  # shipped
         chips=chips,
         peak_flops=comm_model.PEAK_FLOPS_BF16,
@@ -1135,6 +1696,8 @@ def cell_report(cfg: ModelConfig, shape: ShapeConfig, mesh, *, tcfg: Optional[Tr
         "memory": mem,
         "roofline": roof.as_dict(),
         "collectives": coll,
+        "executed": {k: v for k, v in ex.items() if k != "trace_s"},
+        "trace_s": ex["trace_s"],
         "params": n_params,
         "active_params": n_active,
         "tokens_per_step": tokens,
@@ -1144,6 +1707,14 @@ def cell_report(cfg: ModelConfig, shape: ShapeConfig, mesh, *, tcfg: Optional[Tr
     }
 
 
+@functools.lru_cache(maxsize=256)
+def _executed(cfg: ModelConfig, shape: ShapeConfig, dims: Tuple[int, ...], names: Tuple[str, ...],
+              tcfg: TrainConfig) -> Dict[str, Any]:
+    """:func:`executed` on a ``MeshShape`` of ``dims`` named ``names``,
+    once a cell a process."""
+    return executed(cfg, shape, MeshShape(dims, names), tcfg)
+
+
 def run_cell(arch: str, sname: str, mesh_kind: str, *, reduced: bool = False) -> Dict[str, Any]:
     """:func:`cell_report` of ``arch`` x ``sname`` on the single- or the
     multi-pod production mesh, tagged as the reference tags its cells."""
@@ -1151,6 +1722,38 @@ def run_cell(arch: str, sname: str, mesh_kind: str, *, reduced: bool = False) ->
                       make_production_mesh(multi_pod=(mesh_kind == "multi")))
     res.update(arch=arch, mesh=mesh_kind)
     return res
+
+
+#: the memory of one H100 (80 GB): a cell whose peak a rank exceeds it does not fit
+CARD_BYTES = 80 * 10**9
+#: the CLI's worker processes at most (one a core)
+CLI_WORKERS = 8
+
+
+def _cell_job(job: Tuple[str, str, str, bool, str]) -> Tuple[str, Optional[str], Optional[Dict[str, Any]]]:
+    """One cell of :func:`main`, written to its file: (tag, the error or
+    None, a summary or None). Runs in a worker process on one torch
+    thread (the trace dispatches small ops); a cell that leaves anything
+    in its process (``launch.mesh.touched``) fails."""
+    arch, sname, mk, reduced, out_dir = job
+    torch.set_num_threads(1)
+    tag = f"{arch}_{sname}_{mk}" + ("_reduced" if reduced else "") + "_torch"
+    before = process_state()
+    try:
+        res = run_cell(arch, sname, mk, reduced=reduced)
+        left = touched(before)
+        if left:
+            raise RuntimeError(f"the cell left in its process: {', '.join(left)}")
+        with open(os.path.join(out_dir, tag + ".json"), "w") as f:
+            json.dump(res, f, indent=1)
+        r = res["roofline"]
+        return tag, None, {"peak": res["memory"]["peak_device_bytes"], "bottleneck": r["bottleneck"],
+                           "t": (r["t_compute_s"], r["t_memory_s"], r["t_collective_s"]), "trace_s": res["trace_s"]}
+    except Exception:  # noqa: BLE001
+        err = traceback.format_exc()
+        with open(os.path.join(out_dir, tag + ".FAILED"), "w") as f:
+            f.write(err)
+        return tag, err, None
 
 
 def main(argv=None):
@@ -1169,27 +1772,30 @@ def main(argv=None):
     todo = list(cells(args.arch, args.shape)) if (args.all or not args.arch or not args.shape) else [
         (args.arch, args.shape)
     ]
+    # the train cells trace longest: first, so the workers end together
+    jobs = sorted(((arch, sname, mk, args.reduced, out_dir) for arch, sname in todo for mk in meshes),
+                  key=lambda j: SHAPES[j[1]].kind != "train")
+    workers = min(CLI_WORKERS, os.cpu_count() or 1, len(jobs))
+    if workers > 1:
+        import concurrent.futures
+        import multiprocessing
+
+        # spawned workers: a fork of a process whose torch thread pools ran may hang
+        with concurrent.futures.ProcessPoolExecutor(workers,
+                                                    mp_context=multiprocessing.get_context("spawn")) as pool:
+            done = list(pool.map(_cell_job, jobs))
+    else:
+        done = [_cell_job(j) for j in jobs]
     failures = 0
-    for arch, sname in todo:
-        for mk in meshes:
-            tag = f"{arch}_{sname}_{mk}" + ("_reduced" if args.reduced else "") + "_torch"
-            path = os.path.join(out_dir, tag + ".json")
-            try:
-                res = run_cell(arch, sname, mk, reduced=args.reduced)
-                with open(path, "w") as f:
-                    json.dump(res, f, indent=1)
-                r = res["roofline"]
-                print(
-                    f"[OK] {tag}: mem/dev={res['memory']['peak_device_bytes'] / 2**30:.2f}GiB "
-                    f"bottleneck={r['bottleneck']} "
-                    f"t=({r['t_compute_s']:.2e},{r['t_memory_s']:.2e},{r['t_collective_s']:.2e})s"
-                )
-            except Exception as e:  # noqa: BLE001
-                failures += 1
-                print(f"[FAIL] {tag}: {type(e).__name__}: {e}")
-                traceback.print_exc()
-                with open(os.path.join(out_dir, tag + ".FAILED"), "w") as f:
-                    f.write(traceback.format_exc())
+    for tag, err, res in sorted(done):
+        if err is not None:
+            failures += 1
+            print(f"[FAIL] {tag}:\n{err}")
+            continue
+        print(f"[OK] {tag}: mem/dev={res['peak'] / 2**30:.2f}GiB bottleneck={res['bottleneck']} "
+              "t=({:.2e},{:.2e},{:.2e})s".format(*res["t"]) + f" traced in {res['trace_s']:.2f}s")
+    over = [tag for tag, err, res in sorted(done) if err is None and res["peak"] > CARD_BYTES]
+    print(f"{len(over)} of {len(done)} cells exceed {CARD_BYTES / 1e9:.0f} GB a rank: " + ", ".join(over))
     sys.exit(1 if failures else 0)
 
 

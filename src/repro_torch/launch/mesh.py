@@ -6,9 +6,31 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Tuple, Union
+import os
+from typing import Dict, List, Tuple, Union
 
 from repro_torch.core.mesh import ProcessGroupMesh, SimMesh
+
+
+def process_state() -> Tuple[Dict[str, str], bool, bool]:
+    """(the environment, whether CUDA is initialised, whether a process
+    group is joined): what a shape-only run (``launch.dryrun``) must leave
+    in its process as it found it (:func:`touched`)."""
+    import torch
+    import torch.distributed as dist
+
+    return dict(os.environ), torch.cuda.is_initialized(), dist.is_available() and dist.is_initialized()
+
+
+def touched(before: Tuple[Dict[str, str], bool, bool]) -> List[str]:
+    """What the process changed since :func:`process_state` was
+    ``before``: each environment variable set, changed or removed, CUDA
+    initialised, a process group joined."""
+    env, cuda, group = before
+    now, cuda_now, group_now = process_state()
+    out = [f"environment variable {k}" for k in sorted(set(env) | set(now)) if env.get(k) != now.get(k)]
+    return out + (["CUDA initialised"] if cuda_now and not cuda else []) + \
+        (["a process group joined"] if group_now and not group else [])
 
 
 @dataclasses.dataclass(frozen=True)

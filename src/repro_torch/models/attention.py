@@ -146,7 +146,8 @@ def _online_softmax(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: At
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=dev)
-    for start in range(0, skv, kv_chunk):
+    for j in common.trips("kv", -(-skv // kv_chunk), k)[0]:
+        start = j * kv_chunk
         kb = k[:, start:start + kv_chunk]
         vb = v[:, start:start + kv_chunk]
         s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
@@ -232,7 +233,12 @@ def _flash_bwd(qg, k, v, out, lse, dout, spec: AttnSpec, kv_chunk: int):
     dout_v = dout.to(v.dtype).float()
     dq = torch.zeros(qg.shape, dtype=torch.float32, device=qg.device)
     dks, dvs = [], []
-    for start in range(0, k.shape[1], kv_chunk):
+    run, skipped = common.trips("kv", -(-k.shape[1] // kv_chunk), k)
+    for j in run:
+        if skipped and j == run[-1]:
+            dks += common.stand_ins(dks[-1], skipped)
+            dvs += common.stand_ins(dvs[-1], skipped)
+        start = j * kv_chunk
         kb = k[:, start:start + kv_chunk].float()
         vb = v[:, start:start + kv_chunk]
         s_raw = torch.einsum("bqhgd,bkhd->bhgqk", qf, kb)

@@ -13,8 +13,9 @@ statistics.
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Callable, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -27,6 +28,46 @@ Specs = dict
 #: a layer's activations: one (B, S, d) tensor the same on every rank, or
 #: under Megatron sequence parallelism one (B, S/P, d) block per local rank
 Acts = Union[torch.Tensor, List[torch.Tensor]]
+
+
+#: The dry run's cap on the trips of the loops over positions
+#: (``launch.dryrun.executed``), by loop name: "kv" (the online softmax's
+#: KV chunks, forward and backward), "mamba" (Mamba's chunks), "mlstm"
+#: (the mLSTM's chunks), "slstm" (the sLSTM's time steps). A loop named
+#: here runs that many of its trips -- its first ones and its last -- and
+#: stands in for the others with uninitialised outputs of their shapes
+#: (:func:`stand_ins`): the dry run traces at two caps and extends the
+#: difference to the loop's own count. A cap applies to tensors on the
+#: ``meta`` device alone (a trace): a capped loop over real tensors
+#: raises. Empty (as everywhere else): every trip runs.
+#: :data:`TRIPS_SEEN` records each named loop's counts.
+TRIP_CAPS: Dict[str, int] = {}
+TRIPS_SEEN: Dict[str, set] = {}
+
+
+def trips(name: str, n: int, on: torch.Tensor) -> Tuple[List[int], int]:
+    """(the trips of loop ``name``, of ``n``, over tensors on ``on``'s
+    device, to run, in order; how many it skips): all of them, or under
+    :data:`TRIP_CAPS` the first ``cap - 1`` and the last, the skipped ones
+    lying between those two. Raises where a cap is set and ``on`` is not
+    on the ``meta`` device: the skipped trips' outputs would be
+    uninitialised memory."""
+    cap = TRIP_CAPS.get(name)
+    if cap is None:
+        return list(range(n)), 0
+    if not on.is_meta:
+        raise RuntimeError(f"the loop {name!r} is capped at {cap} trips (models.common.TRIP_CAPS) over tensors "
+                           f"on {on.device}: a cap is for a trace on the meta device alone")
+    TRIPS_SEEN.setdefault(name, set()).add(n)
+    if n <= cap:
+        return list(range(n)), 0
+    return list(range(cap - 1)) + [n - 1], n - cap
+
+
+def stand_ins(like: torch.Tensor, n: int) -> List[torch.Tensor]:
+    """``n`` uninitialised tensors of ``like``'s shape and dtype: the
+    outputs of the trips a capped loop skips (:func:`trips`)."""
+    return list(torch.empty((n,) + tuple(like.shape), dtype=like.dtype, device=like.device).unbind(0))
 
 
 def _std(shape, scale: float) -> float:
@@ -226,9 +267,12 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     return x * (1 / (1 + torch.exp(-x)))
 
 
+@functools.lru_cache(maxsize=None)
 def _rounded(value: float, dtype) -> float:
     """``value`` rounded to ``dtype`` (a Python float: multiplying by it
-    rounds once, as by the reference's constant in that dtype)."""
+    rounds once, as by the reference's constant in that dtype). A host
+    computation, made once a value and dtype: no op of it reaches the
+    step's device."""
     return torch.tensor(value, dtype=dtype).item()
 
 

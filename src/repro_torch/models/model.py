@@ -134,6 +134,18 @@ def _layer(tree, i: int):
     return _map(lambda a: a[i], tree)
 
 
+def _unstack(tree, count: int) -> List[Any]:
+    """Every layer's params of the stacked ``(L, ...)`` leaves: one
+    ``unbind`` a leaf, whose backward stacks the layers' gradients once.
+    (:func:`_layer`'s view a layer makes each layer's backward fill a zero
+    gradient of the whole stack and add it: bytes in the square of the
+    depth.)"""
+    if isinstance(tree, dict):
+        parts = {k: _unstack(v, count) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(count)]
+    return list(tree.unbind(0))
+
+
 def _state_layer(state, i: int):
     """Layer ``i``'s views of a stacked decode state (``NamedTuple`` s of
     (L, ...) tensors, nested any way)."""
@@ -313,15 +325,31 @@ def batch_axes(mesh) -> Tuple[str, ...]:
     return tuple(a for a in axes if mesh.shape[a] > 1)
 
 
+@functools.lru_cache(maxsize=64)
+def abstract(cfg: ModelConfig):
+    """(the one-rank model's leaves on the ``meta`` device, its specs):
+    the shapes and specs of ``cfg``'s parameter tree, no weight drawn;
+    made once a config."""
+    return Model(cfg, device="meta").init(torch.Generator())
+
+
 class Model:
-    def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None):
+    """``cfg``'s model on ``mesh`` (or one device). ``groups``: the layer
+    groups it holds (default :func:`build_groups`; the dry run traces a
+    model of fewer layers of the same patterns). ``on_layer``: called with
+    a group's name as a serving step takes each of its layers (the dry
+    run's phases)."""
+
+    def __init__(self, cfg: ModelConfig, mesh=None, *, attn_impl: str = "chunked", device=None,
+                 groups: Optional[List["Group"]] = None, on_layer: Optional[Callable[[str], None]] = None):
         self.cfg = cfg
         self.mesh = mesh
         self.attn_impl = attn_impl
         self.device = resolve_device(device)
         if mesh is not None and mesh.device != self.device:
             raise ValueError(f"the mesh's ranks are on {mesh.device}, the model on {self.device}")
-        self.groups = build_groups(cfg)
+        self.groups = build_groups(cfg) if groups is None else groups
+        self.on_layer = on_layer
         self.dtype = getattr(torch, cfg.dtype)
         self.units = head_units(cfg)
         #: the ``('pod', 'data')`` axes of more than one rank of a
@@ -333,7 +361,11 @@ class Model:
             self.tp = common.TP(ring, batch=(mesh, self.batch_axes))
         else:
             self.tp = common.TP(mesh)
-        self._placed_tree = None
+        #: the tree of :func:`_fsdp_dim` of every leaf, where the process keeps FSDP blocks
+        self._placed = None
+        if self.batch_axes:
+            shapes, specs = abstract(self.cfg)
+            self._placed = _map2(lambda a, spec, path: _fsdp_dim(mesh, spec, a.shape, self.units, path), shapes, specs)
 
     def _cast(self, params):
         """Float params in the compute dtype. Idempotent: on a tree already
@@ -407,11 +439,6 @@ class Model:
             specs["mtp"] = {"proj": ("fsdp", None), "block": sb, "norm_h": sn, "norm_e": sn}
         return params, specs
 
-    def _abstract(self):
-        """(the one-rank model's leaves on the ``meta`` device, its specs):
-        the shapes and specs of the parameter tree, no weight drawn."""
-        return Model(self.cfg, device="meta").init(torch.Generator())
-
     def sharded_leaves(self) -> List[Tuple[str, ...]]:
         """The mesh axes each leaf of the model's parameter tree, in
         ``optim.adamw.leaves`` order, is placed over on this model's mesh
@@ -423,7 +450,7 @@ class Model:
         whole leaf)."""
         from repro_torch.optim.adamw import leaves
 
-        shapes, specs = self._abstract()
+        shapes, specs = abstract(self.cfg)
 
         def axes(a, spec, path):
             if _where(self.mesh, spec, a.shape, self.units, path) is None:
@@ -439,7 +466,7 @@ class Model:
         ``opt/nu/...``, ``opt/count``, ``step``): each leaf's global shape
         and the cuts this process keeps (None for a whole leaf) -- what
         ``CheckpointManager.save`` / ``restore`` take as ``layout=``."""
-        shapes, specs = self._abstract()
+        shapes, specs = abstract(self.cfg)
         layout: Dict[str, Tuple[Tuple[int, ...], Optional[List[sharding.Cut]]]] = {
             "opt/count": ((), None), "step": ((), None)}
 
@@ -451,20 +478,12 @@ class Model:
         _map2(put, shapes, specs)
         return layout
 
-    def _placed(self):
-        """The tree of :func:`_fsdp_dim` of every leaf (made once)."""
-        if self._placed_tree is None:
-            shapes, specs = self._abstract()
-            self._placed_tree = _map2(lambda a, spec, path: _fsdp_dim(self.mesh, spec, a.shape, self.units, path),
-                                      shapes, specs)
-        return self._placed_tree
-
     def _whole(self, params, key: str):
         """``params[key]`` with its FSDP leaves gathered whole over their
         ``('pod', 'data')`` axes (``mesh.gather_many``: one all-gather, whose
         backward reduce-scatters the gradients); ``params[key]`` itself
         where the process holds its whole batch."""
-        return self._gather(params[key], self._placed()[key]) if self.batch_axes else params[key]
+        return self._gather(params[key], self._placed[key]) if self.batch_axes else params[key]
 
     def _embed_leaf(self, params, name: str) -> Params:
         """``{name: the embedding's leaf name}`` ("table" or "unembed"),
@@ -474,7 +493,7 @@ class Model:
         does)."""
         leaf = params["embed"][name]
         if self.batch_axes:
-            leaf = self._gather({name: leaf}, {name: self._placed()["embed"][name]})[name]
+            leaf = self._gather({name: leaf}, {name: self._placed["embed"][name]})[name]
         return {name: leaf}
 
     def _unembed_leaf(self, params) -> Params:
@@ -485,24 +504,18 @@ class Model:
     def _layer_whole(self, params, g: "Group", i: int):
         """Layer ``i`` of group ``g``: views of the stacks, its FSDP leaves
         gathered whole (:meth:`_gather`)."""
+        if self.on_layer is not None:
+            self.on_layer(g.name)
         p = _layer(params[g.name], i)
-        return self._gather(p, self._placed()[g.name], lead=1) if self.batch_axes else p
+        return self._gather(p, self._placed[g.name], lead=1) if self.batch_axes else p
 
     def _gather(self, tree, placed, lead: int = 0):
-        """``tree`` with each leaf that ``placed`` (:meth:`_placed`'s
+        """``tree`` with each leaf that ``placed`` (``self._placed``'s
         subtree; ``lead``: the leading dims ``tree``'s leaves lack, 1 for a
         layer's views) puts on ``('pod', 'data')`` axes gathered whole
         along its dim: one ``gather_many`` a group of axes."""
         flat: List[Tuple[str, torch.Tensor, Any]] = []
-
-        def collect(t, pl, path=""):
-            if isinstance(t, dict):
-                for k, v in t.items():
-                    collect(v, pl[k], f"{path}/{k}")
-            elif pl is not None:
-                flat.append((path, t, pl))
-
-        collect(tree, placed)
+        _collect_placed(tree, placed, "", flat)
         done: Dict[str, torch.Tensor] = {}
         for axes in dict.fromkeys(pl[1] for _, _, pl in flat):
             group = [(path, t, pl[0] - lead) for path, t, pl in flat if pl[1] == axes]
@@ -621,13 +634,14 @@ class Model:
         for g in self.groups:
             if g.kind == "enc":
                 continue
-            placed = self._placed()[g.name] if self.batch_axes else None
+            placed = self._placed[g.name] if self.batch_axes else None
+            layers = _unstack(params[g.name], g.count)
             for i in range(g.count):
                 # FSDP: the layer's blocks gathered inside the remat'd function, so its
                 # recompute gathers again and only the blocks live between layers
                 block = _remat(lambda x, p, enc, g=g, flag=self._flag(g, i), placed=placed: self._trunk_block(
                     g, p if placed is None else self._gather(p, placed, lead=1), x, flag, tp, enc), remat)
-                x, a = block(x, _layer(params[g.name], i), enc)
+                x, a = block(x, layers[i], enc)
                 if a is not None:
                     aux = aux + a
         x = tp.whole(tp.norm(params["final_norm"], x, cfg.norm_kind))
@@ -822,6 +836,18 @@ class Model:
         dim = torch.arange(half, dtype=torch.float32, device=self.device)
         ang = float(pos) / torch.pow(10000.0, 2 * dim / self.cfg.d_model)
         return torch.cat([torch.sin(ang), torch.cos(ang)])[None, None, :].to(self.dtype)
+
+
+def _collect_placed(t, pl, path: str, out: List[Tuple[str, torch.Tensor, Any]]) -> None:
+    """(path, leaf, placement) of each leaf of ``t`` that ``pl`` places
+    (a module-level recursion: a closure calling itself would make a
+    reference cycle keeping the leaves alive until the cycle collector
+    runs)."""
+    if isinstance(t, dict):
+        for k, v in t.items():
+            _collect_placed(v, pl[k], f"{path}/{k}", out)
+    elif pl is not None:
+        out.append((path, t, pl))
 
 
 def _records(tree) -> bool:

@@ -56,7 +56,6 @@ import math
 from typing import List, Optional, Sequence, Tuple
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig, MoEConfig
 from repro_torch.core import sharding
@@ -93,6 +92,14 @@ def init_moe(generator: torch.Generator, cfg: ModelConfig, device) -> Tuple[Para
     return p, s
 
 
+def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """``F.one_hot(idx, n)`` as CUDA makes it: int64 zeros, then one scatter
+    of ones. The CPU's first reads the indices' range back to the host and
+    the ``meta`` device's compares against an ``arange``; this is one
+    program on every device (``launch.dryrun`` traces it on ``meta``)."""
+    return torch.zeros(idx.shape + (n,), dtype=torch.int64, device=idx.device).scatter_(-1, idx[..., None], 1)
+
+
 def router_topk(x: torch.Tensor, wr: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (weights (T, k) float32, indices (T, k) int64, aux
     load-balance loss)."""
@@ -101,7 +108,7 @@ def router_topk(x: torch.Tensor, wr: torch.Tensor, k: int) -> Tuple[torch.Tensor
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # GShard aux: E * sum_e (fraction routed to e) * (mean prob of e)
     e = wr.shape[1]
-    frac = F.one_hot(idx, e).float().sum(1).mean(0)  # (E,)
+    frac = _one_hot(idx, e).float().sum(1).mean(0)  # (E,)
     aux = e * torch.sum(frac * probs.mean(0))
     return w, idx, aux
 
@@ -245,7 +252,7 @@ def _apply_moe_dense(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tens
                          f"{mo.num_experts}")
     w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
     all_y = _expert_ffn(p.get("wg"), p["wu"], p["wd"], x2d[None], cfg.mlp_kind)  # (E, T, d)
-    gate = torch.einsum("tk,tke->te", w, F.one_hot(idx, mo.num_experts).float())  # (T, E)
+    gate = torch.einsum("tk,tke->te", w, _one_hot(idx, mo.num_experts).float())  # (T, E)
     return torch.einsum("te,etd->td", gate.to(x2d.dtype), all_y), aux
 
 

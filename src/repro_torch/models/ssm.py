@@ -153,7 +153,11 @@ def mlstm_chunkwise(
     c_prev, n_prev, m_prev = state
     tri = torch.ones((chunk, chunk), dtype=torch.bool, device=q.device).tril()
     outs = []
-    for start in range(0, s, chunk):
+    run, skipped = common.trips("mlstm", s // chunk, q)
+    for j in run:
+        if skipped and j == run[-1]:
+            outs += common.stand_ins(outs[-1], skipped)
+        start = j * chunk
         at = slice(start, start + chunk)
         qf, kf, vf = (a[:, :, at].float() for a in (q, k, v))
         ic, fc = i_pre[:, :, at].float(), f_pre[:, :, at].float()
@@ -481,8 +485,12 @@ def apply_slstm_block(
     xg = tp.gather(xg, -1) if split else xg[0]
     cell = {"r": p["r"].float()}  # cast once, not per step
     hs = []
-    for xt in xg.unbind(1):
-        h, st = _slstm_cell(cell, xt, st, hh)
+    steps = xg.unbind(1)
+    run, skipped = common.trips("slstm", len(steps), xg)
+    for t in run:
+        if skipped and t == run[-1]:
+            hs += common.stand_ins(hs[-1], skipped)
+        h, st = _slstm_cell(cell, steps[t], st, hh)
         hs.append(h)
     hseq = torch.stack(hs, dim=1).to(x.dtype)  # (B,S,d)
     hn = common.apply_groupnorm(p["gn"], hseq.reshape(b, s_len, hh, d // hh), hh)
@@ -572,7 +580,12 @@ def _mamba_core_fwd_impl(xc, dt, bmat, cmat, a, dskip, h0, chunk: int):
     from; the forward alone keeps them unstacked)."""
     s = xc.shape[1]
     h, ys, bounds = h0, [], []
-    for start in range(0, s, chunk):
+    run, skipped = common.trips("mamba", s // chunk, xc)
+    for j in run:
+        if skipped and j == run[-1]:
+            ys += common.stand_ins(ys[-1], skipped)
+            bounds += common.stand_ins(bounds[-1], skipped)
+        start = j * chunk
         xci, dti, bi, ci = (v[:, start:start + chunk].transpose(0, 1) for v in (xc, dt, bmat, cmat))
         decay = torch.exp(dti[..., None] * a)  # (L,B,d,N)
         inc = (dti * xci)[..., None] * bi[:, :, None, :]
@@ -596,7 +609,10 @@ def _mamba_core_bwd_impl(xc, dt, bmat, cmat, a, dskip, bounds, dy, dh_last, chun
     da = torch.zeros(a.shape, dtype=torch.float32, device=xc.device)
     dD = torch.zeros(dskip.shape, dtype=torch.float32, device=xc.device)
     outs = []
-    for ci in reversed(range(s // chunk)):
+    run, skipped = common.trips("mamba", s // chunk, xc)
+    for ci in reversed(run):
+        if skipped and ci == run[-2]:  # the skipped chunks lie between the last and the one before
+            outs += list(zip(*(common.stand_ins(t, skipped) for t in outs[-1])))
         start = ci * chunk
         xci, dti, bi, cci, dyi = (v[:, start:start + chunk].transpose(0, 1).float()
                                   for v in (xc, dt, bmat, cmat, dy))
@@ -671,7 +687,11 @@ def _mamba_scan_chunked(decay, inc, h0, chunk: int):
         s = s + pad
     dr, ir = decay.transpose(0, 1), inc.transpose(0, 1)  # (S, B, di, N)
     h, hs = h0, []
-    for start in range(0, s, chunk):
+    run, skipped = common.trips("mamba", s // chunk, dr)
+    for j in run:
+        if skipped and j == run[-1]:
+            hs += common.stand_ins(hs[-1], skipped)
+        start = j * chunk
         dcum, icum = linear_scan(dr[start:start + chunk], ir[start:start + chunk])
         hs.append(dcum * h[None] + icum)
         h = hs[-1][-1]

@@ -46,14 +46,15 @@ def leaves(tree) -> List[torch.Tensor]:
 
 def unflatten(like, flat: List[torch.Tensor]):
     """``flat`` (in :func:`leaves` order) in the shape of the tree ``like``."""
-    it = iter(flat)
+    return _build(like, iter(flat))
 
-    def build(node):
-        if isinstance(node, dict):
-            return {k: build(node[k]) for k in sorted(node)}
-        return next(it)
 
-    return build(like)
+def _build(node, it):
+    # a module-level recursion: a closure calling itself would make a reference cycle that keeps
+    # ``flat``'s tensors alive until the cycle collector runs
+    if isinstance(node, dict):
+        return {k: _build(node[k], it) for k in sorted(node)}
+    return next(it)
 
 
 def init(params, dtype: str = "float32") -> AdamWState:

@@ -16,6 +16,7 @@ import torch
 
 from repro_torch.apps import fft_convolve, fft_correlate, gradient, laplacian, solve_poisson, wavenumbers
 from repro_torch.core import SimMesh, plan_fft
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 PS = (1, 4)
 LAYOUTS = {  # name -> plan_fft kwargs, the slab plans of tests/test_apps.py (and c2c transposed back)

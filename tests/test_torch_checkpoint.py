@@ -16,6 +16,7 @@ import jax.numpy as jnp
 from repro.checkpoint import CheckpointManager as RefManager
 from repro_torch.checkpoint import CheckpointManager
 from repro_torch.checkpoint.manager import _flatten_with_names
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _arrays(seed=0):

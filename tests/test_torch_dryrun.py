@@ -21,6 +21,7 @@ import pytest
 import torch
 
 from conftest import run_subprocess
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 CELLS = [("qwen2.5-32b", "train_4k"), ("deepseek-v3-671b", "decode_32k"), ("xlstm-1.3b", "long_500k"),
          ("hymba-1.5b", "prefill_32k")]
@@ -146,6 +147,7 @@ for arch, sname in __CELLS__:
         cost = hlo_analysis.analyze_compiled(compiled)  # the reference's run_cell collectives, loop-aware
         res[f"{arch}|{sname}|{dims[0]},{dims[1]}"] = {
             "ma": [ma.argument_size_in_bytes, ma.output_size_in_bytes, ma.alias_size_in_bytes],
+            "temp": ma.temp_size_in_bytes, "flops": cost.flops, "hbm": cost.hbm_bytes,
             "args": {n: v for group in per_arg for n, v in group.items()}, "pruned": pruned, "outs": outs,
             "coll_counts": cost.coll_counts, "coll_bytes": cost.coll_bytes_by_kind}
 print("RESULT" + json.dumps(res))
@@ -284,21 +286,40 @@ def _production_cells():
     return [(a, s, m) for a, s in dryrun.cells() for m in ("single", "multi")]
 
 
-def test_model_flops_are_the_reference_formula():
+@pytest.fixture(scope="module")
+def production_run(tmp_path_factory):
+    """``main(["--all", "--mesh", "both"])`` on the full configs, once a
+    module: its exit code, its output directory, and what it left in this
+    process -- the environment before and after, whether CUDA or a process
+    group was initialised."""
+    import torch.distributed as dist
+
+    from repro_torch.launch import dryrun
+
+    out = tmp_path_factory.mktemp("dryrun")
+    env = dict(os.environ)
+    with pytest.raises(SystemExit) as done:
+        dryrun.main(["--all", "--mesh", "both", "--out", str(out)])
+    return {"code": done.value.code, "out": out, "env": (env, dict(os.environ)),
+            "cuda": torch.cuda.is_initialized(), "group": dist.is_available() and dist.is_initialized()}
+
+
+def test_model_flops_are_the_reference_formula(production_run):
     """``params``, ``active_params``, ``tokens_per_step`` and the model
-    FLOPs of every cell on both production meshes equal the reference's
-    formula (``repro/launch/dryrun.py:175-181``) on the reference's own
-    config; the roofline prices the port's H100 bf16 peak."""
+    FLOPs of every cell on both production meshes (``run_cell``, as the CLI
+    wrote them) equal the reference's formula
+    (``repro/launch/dryrun.py:175-181``) on the reference's own config; the
+    roofline prices the port's H100 bf16 peak on the executed FLOPs, and
+    the model FLOPs are a share of them."""
     from repro.configs import SHAPES as RSHAPES
     from repro.configs import get_config as rget
     from repro_torch.core import comm_model
-    from repro_torch.launch import dryrun
 
     cells = _production_cells()
     assert len(cells) == 64
     assert comm_model.PEAK_FLOPS_BF16 == 989e12
     for arch, sname, mk in cells:
-        res = dryrun.run_cell(arch, sname, mk)
+        res = json.loads((production_run["out"] / f"{arch}_{sname}_{mk}_torch.json").read_text())
         rcfg, shape = rget(arch), RSHAPES[sname]
         chips = 512 if mk == "multi" else 256
         tokens = shape.global_batch * (shape.seq_len if shape.kind != "decode" else 1)
@@ -308,6 +329,7 @@ def test_model_flops_are_the_reference_formula():
         assert (res["chips"], res["model_flops_global"], res["model_flops_per_chip"]) == (chips, flops, flops / chips)
         r = res["roofline"]
         assert r["t_compute_s"] == r["flops"] / comm_model.PEAK_FLOPS_BF16
+        assert r["flops"] == res["executed"]["flops"]
         assert r["flops"] >= res["model_flops_per_chip"] and 0 < res["useful_flops_frac"] <= 1
 
 
@@ -320,32 +342,77 @@ def test_reduced_cells(arch, sname, mesh_kind):
     from repro_torch.launch import dryrun
 
     res = dryrun.run_cell(arch, sname, mesh_kind, reduced=True)
-    assert res["memory"]["peak_device_bytes"] > 0 and res["memory"]["peak_is_floor"]
-    assert res["memory"]["temp_bytes"] is None
+    mem = res["memory"]
+    assert mem["temp_bytes"] is not None and mem["temp_bytes"] > 0
+    assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - \
+        mem["alias_bytes"] == res["executed"]["peak_bytes"] > mem["floor_bytes"]
     r = res["roofline"]
     assert r["flops"] > 0 and r["bottleneck"] in ("compute", "memory", "collective")
     assert res["collectives"]["state"]["scope"] == "state collectives"
 
 
-def test_main_writes_every_cell_and_touches_nothing(tmp_path):
+def test_main_writes_every_cell_and_touches_nothing(production_run):
     """``main(["--all", "--mesh", "both"])`` on the full configs: 64
-    ``_torch.json`` files and exit 0, in one process that sets no
-    environment variable, initialises no CUDA and joins no process
-    group."""
+    ``_torch.json`` files and exit 0, so no cell set an environment
+    variable, initialised CUDA or joined a process group in the worker
+    that ran it (each cell checks its own process, ``launch.mesh.touched``,
+    and fails otherwise: test_a_cell_that_touches_its_process_fails); nor
+    did the calling process; every cell's peak is the executed one."""
+    out = production_run["out"]
+    assert production_run["code"] == 0
+    files = sorted(os.listdir(out))
+    assert len(files) == 64 and all(f.endswith("_torch.json") for f in files)
+    before, after = production_run["env"]
+    assert after == before
+    assert not production_run["cuda"] and not production_run["group"]
+    res = json.loads((out / "deepseek-v3-671b_train_4k_single_torch.json").read_text())
+    assert res["memory"]["temp_bytes"] > 0 and res["collectives"]["state"]["bytes"]["all-gather"] > 0
+
+
+def test_a_cell_that_touches_its_process_fails(tmp_path, monkeypatch):
+    """A cell of ``main`` that leaves an environment variable set, or a
+    process group joined, in its process fails, and its ``.FAILED`` file
+    names what it left (``launch.mesh.touched``)."""
     import torch.distributed as dist
 
     from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import process_state, touched
 
-    env = dict(os.environ)
+    cell = dryrun.run_cell
+    monkeypatch.delenv("DRYRUN_LEFT", raising=False)
+
+    def leaves_a_variable(*args, **kwargs):
+        monkeypatch.setenv("DRYRUN_LEFT", "1")
+        return cell(*args, **kwargs)
+
+    monkeypatch.setattr(dryrun, "run_cell", leaves_a_variable)
     with pytest.raises(SystemExit) as done:
-        dryrun.main(["--all", "--mesh", "both", "--out", str(tmp_path)])
-    assert done.value.code == 0
-    files = sorted(os.listdir(tmp_path))
-    assert len(files) == 64 and all(f.endswith("_torch.json") for f in files)
-    assert dict(os.environ) == env
-    assert not torch.cuda.is_initialized() and not (dist.is_available() and dist.is_initialized())
-    res = json.loads((tmp_path / "deepseek-v3-671b_train_4k_single_torch.json").read_text())
-    assert res["memory"]["peak_is_floor"] and res["collectives"]["state"]["bytes"]["all-gather"] > 0
+        dryrun.main(["--arch", "qwen2.5-32b", "--shape", "decode_32k", "--reduced", "--out", str(tmp_path)])
+    assert done.value.code == 1
+    assert "environment variable DRYRUN_LEFT" in \
+        (tmp_path / "qwen2.5-32b_decode_32k_single_reduced_torch.FAILED").read_text()
+    before = process_state()
+    assert touched(before) == []
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path / 'rendezvous'}", rank=0, world_size=1)
+    try:
+        assert touched(before) == ["a process group joined"]
+    finally:
+        dist.destroy_process_group()
+
+
+def test_a_capped_loop_runs_on_the_meta_device_alone(monkeypatch):
+    """``models.common.trips`` under a cap (the dry run's traces) runs the
+    first trips and the last on ``meta`` tensors, and raises on real ones
+    (a skipped trip's output would be uninitialised memory); uncapped, every
+    trip on any device."""
+    from repro_torch.models import common
+
+    assert common.trips("kv", 8, torch.zeros(1)) == (list(range(8)), 0)
+    monkeypatch.setattr(common, "TRIP_CAPS", {"kv": 4})
+    assert common.trips("kv", 8, torch.empty(1, device="meta")) == ([0, 1, 2, 7], 4)
+    with pytest.raises(RuntimeError, match="meta device alone"):
+        common.trips("kv", 8, torch.zeros(1))
+    common.TRIPS_SEEN.clear()
 
 
 def test_a_mesh_is_read_by_its_shape():
@@ -378,7 +445,7 @@ def test_the_walk_reproduces_the_four_card_fsdp_run():
     for dims, (gathered, scattered) in {(4, 1): (20.274, 12.473), (2, 2): (10.137, 6.236)}.items():
         args = dryrun.arguments(cfg, shape, _mesh(dims), tcfg)
         assert f"{sum(v for n, v in args.items() if dryrun.donated(shape, n)) / 2**30:.2f}" == "15.25"
-        moved = dryrun.cell_report(cfg, shape, _mesh(dims), tcfg=tcfg)["collectives"]["state"]["bytes"]
+        moved = dryrun.collectives(cfg, shape, _mesh(dims), tcfg=tcfg)["state"]["bytes"]
         assert (f"{moved['all-gather'] / 1e9:.3f}", f"{moved['reduce-scatter'] / 1e9:.3f}") == \
             (f"{gathered:.3f}", f"{scattered:.3f}")
 
@@ -571,5 +638,109 @@ def test_sim_mesh_counts_are_the_walks(arch):
         got = _sim_runs(cfg, mesh, tcfg, b, s)
     for kind in ("train", "prefill", "decode"):
         shape = ShapeConfig(kind, s, b, kind)
-        walk = dryrun.cell_report(cfg, shape, mesh, tcfg=tcfg, one_process=True)["collectives"]["activation"]
+        walk = dryrun.collectives(cfg, shape, mesh, tcfg=tcfg, one_process=True)["activation"]
         assert (got[kind]["counts"], got[kind]["bytes"]) == (walk["counts"], walk["bytes"]), kind
+
+
+# ---------------------------------------------------------------------------
+# the executed half: one rank's step traced on the meta device
+# ---------------------------------------------------------------------------
+
+def test_the_executed_half_leaves_the_counters_alone():
+    """``cell_report``'s traces issue their rank's collectives on a
+    ``MetaRankMesh``, which count into ``core.mesh.COLLECTIVE_BYTES``; the
+    report puts the counters back, so a run's own counts read after a
+    prediction (``chip_smoke.py``'s checks) are the run's alone."""
+    from repro_torch.configs import ShapeConfig, get_config
+    from repro_torch.core.mesh import COLLECTIVE_BYTES, COLLECTIVE_CALLS, FSDP_BYTES, collectives, reset_collectives
+    from repro_torch.launch import dryrun
+
+    reset_collectives()
+    COLLECTIVE_BYTES[("activation", "all-reduce", ("model",))] += 7
+    COLLECTIVE_CALLS[("activation", "all-reduce", ("model",))] += 1
+    FSDP_BYTES["all_gather"] += 5
+    before = collectives()
+    rep = dryrun.cell_report(get_config("qwen2.5-32b", reduced=True), ShapeConfig("train", 16, 8, "train"),
+                             _mesh((2, 2)))
+    assert rep["collectives"]["counts"]["all-gather"] > 0  # the cell has collectives
+    assert collectives() == before and dict(FSDP_BYTES) == {"all_gather": 5}
+    reset_collectives()
+
+
+@pytest.mark.parametrize("dims", GRIDS)
+@pytest.mark.parametrize("arch,sname", CELLS)
+def test_the_meta_rank_counts_the_walks_collectives(arch, sname, dims):
+    """One rank's whole step on a ``core.mesh.MetaRankMesh`` of the
+    cell's mesh -- ``ProcessGroupMesh``'s transports, no wire -- counts in
+    ``core.mesh.COLLECTIVE_BYTES`` exactly the collectives the walk
+    predicts (``dryrun.collectives``: the state's and the activations',
+    counts and assembled bytes of each kind) on the 12 cells."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.core.mesh import collectives, reset_collectives
+    from repro_torch.launch import dryrun
+
+    cfg, shape, mesh = get_config(arch, reduced=True), SHAPES[sname], _mesh(dims)
+    walk = dryrun.collectives(cfg, shape, mesh)
+    reset_collectives()
+    # every layer and microbatch; the loops over positions capped (they issue no collective)
+    dryrun._traced(cfg, shape, mesh, dryrun.PRODUCTION_TCFG, dryrun._patterns(cfg),
+                   dict.fromkeys(dryrun.LOOPS, dryrun.CAP), whole=True)
+    for scope in ("state", "activation"):
+        got = collectives(scope)
+        assert (got["counts"], got["bytes"]) == (walk[scope]["counts"], walk[scope]["bytes"]), scope
+
+
+#: the executed half against the reference's compiled program on the 12
+#: cells, as port / reference ratios (test_executed_against_the_reference),
+#: a band a cell around the ratios of its three grids: the two are
+#: different programs, each named in ROADMAP queue C. FLOPs: the port's
+#: remat recomputes every layer's forward (XLA's keeps some products), its
+#: chunked attention scores every masked KV chunk, where XLA's analysis
+#: counts each ``dot`` of its own schedule; temporaries (the bytes the port
+#: holds past the walk's arguments taken out: the heads it keeps whole) and
+#: HBM bytes: an eager program materialises every op's output, where XLA
+#: fuses elementwise chains into the products and plans buffer reuse
+EXECUTED_BANDS = {
+    # 1.003-1.023 FLOPs; 1.38-1.42 temporaries (an eager step holds every op's
+    # output); 6.7-7.1 bytes (every elementwise op reads and writes HBM)
+    ("qwen2.5-32b", "train_4k"): {"flops": (0.99, 1.05), "temp": (1.3, 1.5), "hbm": (6.3, 7.5)},
+    # 1.000 FLOPs; 0.037-0.147 temporaries (XLA's MLA decode temporaries span
+    # the whole 32k cache, the port's chunked scan holds a chunk); 0.31-0.40
+    # bytes (the reference's matmul-boundary rule counts each product's
+    # operands, some of them the whole cache in float32)
+    ("deepseek-v3-671b", "decode_32k"): {"flops": (0.99, 1.01), "temp": (0.03, 0.2), "hbm": (0.28, 0.45)},
+    # 1.78-2.48 FLOPs (a few hundred kFLOPs: the port's sLSTM and mLSTM decode
+    # products beside XLA's fused ones); 5.8-16.4 temporaries (under 0.5 MB:
+    # each layer's new state beside the old before the write back); 0.80-0.89
+    # bytes (the matmul-boundary rule, as DeepSeek-V3's decode)
+    ("xlstm-1.3b", "long_500k"): {"flops": (1.6, 2.7), "temp": (5.0, 18.0), "hbm": (0.75, 0.95)},
+    # 0.985-0.988 FLOPs; 1.76-1.79 temporaries and 7.5-7.7 bytes (as qwen's)
+    ("hymba-1.5b", "prefill_32k"): {"flops": (0.97, 1.01), "temp": (1.6, 1.95), "hbm": (7.0, 8.2)},
+}
+
+
+@pytest.mark.parametrize("dims", GRIDS)
+@pytest.mark.parametrize("arch,sname", CELLS)
+def test_executed_against_the_reference(reference, arch, sname, dims, capsys):
+    """The executed half's temporaries, FLOPs and moved bytes, printed
+    beside the reference's ``memory_analysis().temp_size_in_bytes`` and
+    ``hlo_analysis.analyze_compiled``'s loop-aware FLOPs and HBM bytes of
+    the same compiled step, each ratio within the cell's EXECUTED_BANDS
+    (the temporaries less the bytes the port holds past the walk's
+    arguments); the peak is the reference's formula on the port's
+    temporaries."""
+    ref = reference[f"{arch}|{sname}|{dims[0]},{dims[1]}"]
+    cfg, shape, _, _, rep = _port(arch, sname, dims)
+    mem, ex = rep["memory"], rep["executed"]
+    held = ex["args_bytes"] - mem["argument_bytes"]
+    port = {"flops": ex["flops"], "temp": mem["temp_bytes"] - held, "hbm": ex["hbm_bytes"]}
+    ratios = {k: port[k] / max(float(ref[k]), 1.0) for k in port}
+    with capsys.disabled():
+        print(f"\n{arch} {sname} {dims}: port / reference " +
+              ", ".join(f"{k} {port[k]:.4g} / {float(ref[k]):.4g} = {ratios[k]:.3f}" for k in port) +
+              f" (held past the walk's arguments {held} B)")
+    for k, (lo, hi) in EXECUTED_BANDS[arch, sname].items():
+        assert lo <= ratios[k] <= hi, (k, ratios[k])
+    assert mem["peak_device_bytes"] == mem["argument_bytes"] + mem["temp_bytes"] + mem["output_bytes"] - \
+        mem["alias_bytes"] == ex["peak_bytes"]
+    assert rep["roofline"]["flops"] == ex["flops"] and rep["roofline"]["hbm_bytes"] == ex["hbm_bytes"]

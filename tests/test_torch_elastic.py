@@ -32,6 +32,7 @@ from repro_torch.checkpoint import CheckpointManager
 from repro_torch.core import SimMesh
 from repro_torch.runtime import FailureInjector, SimulatedFailure, elastic_mesh, run_with_recovery
 from repro_torch.serve import PlanPool
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 N = 32
 STEPS = 6

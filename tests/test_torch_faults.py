@@ -24,6 +24,7 @@ import repro_torch.runtime.monitor as monitor
 from repro_torch.core import SimMesh, plan_fft, planner
 from repro_torch.obs import TraceRecorder
 from repro_torch.runtime import DeviceLossFault, FaultPlan, InjectedFault
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 

@@ -15,6 +15,7 @@ import repro.core.fftmath as ref_lf
 import repro.kernels.ops as ref_ops
 import repro_torch.core.fftmath as lf
 import repro_torch.kernels.ops as kops
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 IMPL_PAIRS = [("torch", "jnp"), ("matmul", "matmul"), ("kernel", "pallas")]
 

@@ -12,6 +12,7 @@ import torch
 
 from repro_torch.core import CommParams, ProcessGrid, SimMesh, backends, comm_model, plan_fft
 from repro_torch.core.grid import auto_grid_shape, grid_from_mesh, grid_shapes, make_grid
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 PRM = dict(alpha_s=3e-6, beta_bytes_s=120e9)  # explicit, so both packages price alike
 

@@ -15,6 +15,7 @@ import pytest
 import repro.obs.history as ref
 import repro_torch.obs.history as port
 from conftest import REPO
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 BENCH = os.path.join(REPO, "BENCH_fft.json")
 HISTORY = os.path.join(REPO, "BENCH_history.jsonl")

@@ -12,6 +12,7 @@ import sys
 import pytest
 
 from conftest import REPO, SRC
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 PKG = pathlib.Path(SRC) / "repro_torch"
 SMOKE = pathlib.Path(REPO) / "chip_smoke.py"

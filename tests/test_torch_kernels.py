@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from repro_torch.kernels import fft_stage, ops, ref
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _reference():

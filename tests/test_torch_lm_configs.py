@@ -17,6 +17,7 @@ from repro.models.model import Model as RModel
 from repro.models.model import build_groups as r_build_groups
 from repro_torch.core import sharding as SH
 from repro_torch.models.model import Model, build_groups
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 ARCHS = sorted(RCFG.ARCHS)
 DENSE = ["gemma2-9b", "nemotron-4-15b", "phi-3-vision-4.2b", "phi3-medium-14b", "qwen2.5-32b"]

@@ -24,6 +24,7 @@ from repro_torch.configs import get_config
 from repro_torch.core import SimMesh
 from repro_torch.models import blocks as B
 from repro_torch.models.model import Model, params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 ARCH = "whisper-medium"
 REL_TOL = 1e-5

@@ -46,6 +46,7 @@ from repro_torch.core import SimMesh
 from repro_torch.core import sharding
 from repro_torch.models import moe as MOE
 from repro_torch.models.model import Model, params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 INTERLEAVE_TOL = 1e-4  # interleaved against batched, as tests/test_moe.py holds the reference
@@ -364,7 +365,7 @@ def engine_refs(tmp_path_factory, ref_process):
             cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
                 cfg.moe, capacity_factor=cfg.moe.num_experts / cfg.moe.top_k))
         model = RModel(cfg, attn_impl="chunked")
-        params, _ = model.init(jax.random.PRNGKey(0))
+        params = jax.jit(lambda key: model.init(key)[0])(jax.random.PRNGKey(0))  # bitwise the eager init
         res = RServeEngine(model, params, RServeConfig(**SCFG)).run(_prompts(), max_new=MAX_NEW)
         tokens[_run_key(arch, no_drop)] = {str(k): v for k, v in res.items()}
         arrays.update({f"{arch}/{k}": v for k, v in _flat(params).items()})

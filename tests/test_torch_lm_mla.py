@@ -20,6 +20,7 @@ from repro_torch.configs import get_config
 from repro_torch.models import attention as A
 from repro_torch.models.attention import AttnSpec, MLACache
 from repro_torch.models.model import params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 SPEC = AttnSpec(causal=True)

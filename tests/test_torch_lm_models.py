@@ -27,6 +27,7 @@ from repro_torch.models import common as C
 from repro_torch.models import mlp as M
 from repro_torch.models.attention import AttnSpec
 from repro_torch.models.model import Model, params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 DENSE = ["qwen2.5-32b", "phi3-medium-14b", "gemma2-9b", "nemotron-4-15b"]
 MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
@@ -309,6 +310,20 @@ def _batch(cfg, seed, b=2, s=12, extra=4):
     return rng.integers(0, cfg.vocab_size, (b, s + extra)).astype(np.int32)
 
 
+def _jit_init(rmodel, seed: int):
+    """The reference model's (weights, specs) from ``PRNGKey(seed)``, its
+    init under jit (bitwise the eager init's, at a third of the time); the
+    specs read while tracing."""
+    box = {}
+
+    def init(key):
+        params, box["specs"] = rmodel.init(key)
+        return params
+
+    params = jax.jit(init)(jax.random.PRNGKey(seed))
+    return params, box["specs"]
+
+
 def _flat(tree, prefix=""):
     if isinstance(tree, dict):
         return {k: v for key, sub in tree.items() for k, v in _flat(sub, f"{prefix}/{key}").items()}
@@ -329,7 +344,7 @@ def arch_run(request):
     arch = request.param
     rcfg = dataclasses.replace(r_get_config(arch, reduced=True), dtype="float32")
     rmodel = RModel(rcfg, attn_impl="chunked")
-    rparams, rspecs = rmodel.init(jax.random.PRNGKey(0))
+    rparams, rspecs = _jit_init(rmodel, 0)
     toks = _batch(rcfg, seed=13)
     s = toks.shape[1] - 4
     ref = {"logits": np.asarray(jax.jit(rmodel.logits)(rparams, {"tokens": jnp.asarray(toks)})), "specs": rspecs}
@@ -395,7 +410,7 @@ def test_moe_config_without_moe_layers_matches_reference():
     rcfg = dataclasses.replace(r_get_config("deepseek-v3-671b", reduced=True), dtype="float32")
     rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(rcfg.moe, first_k_dense=rcfg.num_layers))
     rmodel = RModel(rcfg)
-    rparams, rspecs = rmodel.init(jax.random.PRNGKey(3))
+    rparams, rspecs = _jit_init(rmodel, 3)
     model = Model(rcfg, device="cpu")
     assert [(g.name, g.count) for g in model.groups] == [("dense_prefix", 3), ("moe", 0)]
     params, specs = model.init(torch.Generator().manual_seed(3))
@@ -417,7 +432,7 @@ def test_moe_without_drops_decodes_like_the_full_sequence(arch):
     rcfg = dataclasses.replace(rcfg, moe=dataclasses.replace(
         rcfg.moe, capacity_factor=rcfg.moe.num_experts / rcfg.moe.top_k))
     rmodel = RModel(rcfg)
-    rparams, _ = rmodel.init(jax.random.PRNGKey(2))
+    rparams, _ = _jit_init(rmodel, 2)
     toks = _batch(rcfg, seed=15)
     s = toks.shape[1] - 4
     model = Model(rcfg, device="cpu")
@@ -456,7 +471,7 @@ def test_bfloat16_model_matches_reference():
     rcfg = r_get_config(arch, reduced=True)
     assert rcfg.dtype == "bfloat16"
     rmodel = RModel(rcfg)
-    rparams, _ = rmodel.init(jax.random.PRNGKey(1))
+    rparams, _ = _jit_init(rmodel, 1)
     toks = _batch(rcfg, seed=14, extra=2)
     s = toks.shape[1] - 2
     rstate = rmodel.init_decode_state(2, 32)

@@ -23,6 +23,7 @@ from repro_torch.core import SimMesh
 from repro_torch.models import common as C
 from repro_torch.models import moe as MOE
 from repro_torch.models.model import params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 

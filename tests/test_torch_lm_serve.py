@@ -18,15 +18,16 @@ from repro_torch.configs import ARCHS, ServeConfig, get_config
 from repro_torch.launch import serve as launch
 from repro_torch.models.model import Model, params_from_numpy
 from repro_torch.serve import ServeEngine
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 ARCH = "qwen2.5-32b"
 MOE = ["mixtral-8x22b", "deepseek-v3-671b"]
 SSM = ["xlstm-1.3b", "hymba-1.5b"]
 
 
-def _reference(arch, jit_init=False, **moe):
-    """The reference engine's module, model and weights (float32);
-    ``jit_init``: its init under jit (eager, the SSM archs' takes ~9 s);
+def _reference(arch, **moe):
+    """The reference engine's module, model and weights (float32; its init
+    under jit, bitwise the eager init's at a third of the time);
     ``moe`` overrides MoEConfig fields."""
     jax = pytest.importorskip("jax")
     from repro.configs import ServeConfig as RServeConfig
@@ -38,10 +39,7 @@ def _reference(arch, jit_init=False, **moe):
     if moe:
         cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, **moe))
     model = RModel(cfg, attn_impl="chunked")
-    if jit_init:
-        params = jax.jit(lambda key: model.init(key)[0])(jax.random.PRNGKey(0))
-    else:
-        params, _ = model.init(jax.random.PRNGKey(0))
+    params = jax.jit(lambda key: model.init(key)[0])(jax.random.PRNGKey(0))
     return RServeEngine, RServeConfig, model, params
 
 
@@ -72,7 +70,7 @@ def moe_port(moe_ref):
 
 @pytest.fixture(scope="module", params=SSM)
 def ssm_ref(request):
-    return _reference(request.param, jit_init=True)
+    return _reference(request.param)
 
 
 @pytest.fixture(scope="module")

@@ -31,6 +31,7 @@ from repro_torch.models import blocks as B
 from repro_torch.models import common as C
 from repro_torch.models import ssm as S
 from repro_torch.models.model import Model, params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 BF16_TOL = 2e-2

@@ -54,6 +54,7 @@ from repro_torch.configs import ServeConfig, get_config
 from repro_torch.core import SimMesh, overlap, sharding
 from repro_torch.models import attention as A
 from repro_torch.models.model import Model, head_units, params_from_numpy
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 P = 4

@@ -52,6 +52,7 @@ from torch_train_common import (SPLIT_ARCHS, SPLIT_SEQ, SPLIT_STEPS, assert_flat
                                  assert_split_matches, grad_noise, one_thread, split_batches, split_cfg, split_init,
                                  split_run, split_tcfg)
 from torch_train_common import flat as _flat
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-5
 BF16_TOL = 2e-2

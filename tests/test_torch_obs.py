@@ -16,6 +16,7 @@ import repro.obs.trace as ref_trace
 import repro_torch.core.schedule as sch
 import repro_torch.obs.trace as trace
 from repro_torch.core import CommParams, SimMesh, plan_fft
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 
 def _clock():

@@ -17,6 +17,7 @@ from conftest import run_subprocess
 from repro_torch.core import (
     SimMesh, collective_matmul_ag, ring_all_gather, ring_reduce_scatter, ring_scatter_reduce,
 )
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 AX = "model"
 

@@ -27,6 +27,7 @@ from repro_torch.core import (
     CommParams, PencilConfig, SimMesh, make_grid, pencil_fft2, pencil_fft3, pencil_irfft2, pencil_irfft3,
     pencil_rfft2, pencil_rfft3, plan_fft,
 )
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 GRIDS = [(1, 1), (2, 2), (2, 4), (4, 2), (1, 4)]
 PAIRS = [("scatter", "scatter"), ("scatter", "bisection"), ("pairwise_xor", "alltoall"), ("alltoall", "alltoall")]

@@ -15,6 +15,7 @@ import torch
 from conftest import run_subprocess
 from repro_torch.core import CommParams, SimMesh, plan_fft
 from repro_torch.core import schedule as sch
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 PS = (1, 2, 4, 8)
 BACKENDS = ("alltoall", "scatter", "pairwise_xor")

@@ -26,6 +26,7 @@ import repro_torch.core.comm_model as cm
 import repro_torch.core.schedule as sch
 from repro_torch.core import FFTConfig, FFTPlan, SimMesh, make_plan, plan_fft, planner
 from repro_torch.obs import TraceRecorder
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL = 1e-12  # the same numpy fit on the same numbers
 

@@ -25,6 +25,7 @@ import time
 import numpy as np
 import pytest
 import torch
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 REL_TOL = 1e-6  # the same arithmetic on the same blocks; only the transport differs
 TIMEOUT_S = 2.0  # the short-timeout group of the hang case

@@ -18,6 +18,7 @@ import torch
 
 from conftest import run_subprocess
 from repro_torch.core import FFTConfig, SimMesh, irfft2, irfft3, plan_fft, rfft2, rfft3
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 TOL = {"float32": 1e-4, "float64": 1e-10}  # relative to the oracle's max
 

@@ -10,6 +10,7 @@ import pytest
 
 import repro_torch.core.schedule as sch
 from repro_torch.core import CommParams
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 GOLDEN_PATH = os.path.join(os.path.dirname(os.path.abspath(__file__)), "golden_schedules.json")
 

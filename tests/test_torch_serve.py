@@ -30,6 +30,7 @@ import repro_torch.serve.spectral as spectral
 from repro_torch.core import SimMesh, plan_fft, planner
 from repro_torch.runtime import CircuitBreaker, FaultPlan, InjectedFault, RetryPolicy, elastic_mesh
 from repro_torch.serve import Admission, PlanPool, SpectralEngine, plan_key
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 RTOL, ATOL = 1e-5, 1e-6
 

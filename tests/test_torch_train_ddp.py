@@ -35,6 +35,7 @@ from torch_train_common import (DDP_ARCH, DDP_BATCH, DDP_MODES, DDP_N_STEPS, DDP
                                 one_thread, split_batches, split_cfg, split_init, split_run, split_tcfg,
                                 train_reference)
 from torch_train_common import flat as _flat
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 ARCH, P, N_STEPS, BATCH, SEQ, MODES = DDP_ARCH, DDP_P, DDP_N_STEPS, DDP_BATCH, DDP_SEQ, DDP_MODES
 #: the step over a model axis of the two gloo processes: SPLIT_ARCHS held to

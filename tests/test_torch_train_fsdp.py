@@ -45,6 +45,7 @@ from repro_torch.core.sharding import block_indices
 from torch_train_common import (FSDP_ARCHS, FSDP_BATCH, FSDP_GRIDS, FSDP_SEQ, POD_GRID, assert_flat_params_match,
                                 fsdp_batches, fsdp_cfg, fsdp_init, fsdp_tcfg, flat, grad_noise, one_thread,
                                 train_reference)
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 P = 4
 GRIDS = {**FSDP_GRIDS, POD_GRID[0]: POD_GRID[1]}
@@ -502,7 +503,7 @@ def test_state_collectives_are_the_dry_runs(gloo, arch, grid):
     shapes = {"train": ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
               "prefill": ShapeConfig("prefill", SERVE_PROMPT, SERVE_BATCH, "prefill"),
               "decode": ShapeConfig("decode", SERVE_CACHE, SERVE_BATCH, "decode")}
-    walk = {k: dryrun.cell_report(cfg, shape, mesh, tcfg=fsdp_tcfg())["collectives"]["state"]
+    walk = {k: dryrun.collectives(cfg, shape, mesh, tcfg=fsdp_tcfg())["state"]
             for k, shape in shapes.items()}
     for rank in gloo:
         for kind in ("plain", "masked"):
@@ -528,8 +529,8 @@ def test_state_collectives_of_more_families_are_the_dry_runs(gloo, arch):
     from repro_torch.launch.mesh import MeshShape
 
     cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
-    walk = dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
-                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["collectives"]
+    walk = dryrun.collectives(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
+                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())
     expected = tuple(_fsdp_names(walk["state"][part]) for part in ("bytes", "counts"))
     assert expected[0]["all_gather"] and expected[0]["all_reduce"]
     for rank in gloo:
@@ -581,10 +582,10 @@ def test_activation_collectives_are_the_dry_runs(gloo, arch, grid):
     from repro_torch.launch.mesh import MeshShape
 
     mesh, cfg = MeshShape(grid, FSDP_GRIDS[grid]), fsdp_cfg(arch)
-    walk = {"train": dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"), mesh,
-                                        tcfg=fsdp_tcfg())["collectives"]["activation"]}
+    walk = {"train": dryrun.collectives(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"), mesh,
+                                        tcfg=fsdp_tcfg())["activation"]}
     for kind in ("prefill", "decode"):
-        walk[kind] = dryrun.cell_report(cfg, _serve_shape(kind, grid), mesh)["collectives"]["activation"]
+        walk[kind] = dryrun.collectives(cfg, _serve_shape(kind, grid), mesh)["activation"]
     for rank in gloo:
         for kind in ("plain", "masked"):
             assert _entry(rank["counted"][(arch, grid, kind)]["activation"]) == _entry(walk["train"]), kind
@@ -610,8 +611,8 @@ def test_activation_collectives_of_more_families_are_the_dry_runs(gloo, arch):
     from repro_torch.launch.mesh import MeshShape
 
     cfg = dataclasses.replace(get_config(arch, reduced=True), dtype="float32")
-    walk = dryrun.cell_report(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
-                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["collectives"]["activation"]
+    walk = dryrun.collectives(cfg, ShapeConfig("train", FSDP_SEQ, FSDP_BATCH, "train"),
+                              MeshShape((2, 2), FSDP_GRIDS[(2, 2)]), tcfg=fsdp_tcfg())["activation"]
     assert walk["counts"]["all-reduce"]
     for rank in gloo:
         assert _entry(rank["moved_more"][arch][2]["activation"]) == _entry(walk)
@@ -658,8 +659,8 @@ def test_sim_mesh_counts_what_a_process_rank_counts(gloo, arch):
     shapes = {"train": ShapeConfig("train", FSDP_SEQ, FSDP_BATCH // 2, "train"),
               "prefill": _serve_shape("prefill", (1, 2)), "decode": _serve_shape("decode", (1, 2))}
     for kind, shape in shapes.items():
-        assert _entry(got[kind]) == _entry(dryrun.cell_report(cfg, shape, sim, tcfg=fsdp_tcfg(), one_process=True)
-                                           ["collectives"]["activation"]), kind
+        assert _entry(got[kind]) == _entry(dryrun.collectives(cfg, shape, sim, tcfg=fsdp_tcfg(), one_process=True)
+                                           ["activation"]), kind
     # the clip's norm: one float32 all-reduce a set of leaves placed on model alone
     grid = MeshShape((2, 2), FSDP_GRIDS[(2, 2)])
     clip = sum(1 for p in {sharding.placed_axes(leaf.where) for leaf in dryrun.weight_leaves(cfg, grid)}

@@ -10,6 +10,7 @@ import torch
 
 from repro_torch.core import SimMesh, backends, comm_model
 from repro_torch.core import transpose as tr
+from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch thread)
 
 PS = (1, 2, 4, 8)
 PAPER_STRATEGIES = {"alltoall", "scatter", "bisection", "xla_auto"}

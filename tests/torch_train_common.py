@@ -18,6 +18,7 @@ of a .5 tie, on any rank in any step, may round either way: its
 import contextlib
 
 import numpy as np
+import pytest
 
 # the gradient tests' tolerance: each leaf's gradient within this share of
 # its largest element
@@ -110,6 +111,16 @@ SPLIT_ARCHS = {
     "hymba-1.5b": dict(num_heads=5, num_kv_heads=1, head_dim=16),
 }
 SPLIT_SEQ, SPLIT_BATCH, SPLIT_STEPS = 16, 4, 2
+
+
+@pytest.fixture(scope="module", autouse=True)
+def on_one_thread():
+    """:func:`one_thread` over a whole test module, autouse: a module of
+    small-op tests imports it (``from torch_train_common import
+    on_one_thread``). Under six xdist workers the default thread pool
+    ran such modules 30-130 x slower and starved the other workers."""
+    with one_thread():
+        yield
 
 
 @contextlib.contextmanager
