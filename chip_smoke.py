@@ -36,7 +36,10 @@ Phases, each printing a line; any failure exits non-zero with no result:
    against torch.fft.rfft2;
 6. rfft3 -- plan_fft((1024,) * 3, SimMesh(4), ndim=3, real=True) on a
    4 GiB float32 cube, held against torch.fft.rfftn, and its inverse;
-7. NCCL -- one process per visible card (torch.multiprocessing.spawn),
+7. NCCL -- run right after the build, while this process holds nothing
+   on card 0 (after phases 3-6 it held ~11 GiB there, which rank 0 of a
+   four-card run then lacked); one process per visible card
+   (torch.multiprocessing.spawn),
    each a rank of a ProcessGroupMesh over NCCL running the c2c main
    path and phase 5's real solve on its own block, through the fused
    scatter ring, the unfused ring and the unfused alltoall; every rank
@@ -604,6 +607,11 @@ DRYRUN_CELLS = 64
 #: whose peak exceeds a card (``launch.dryrun.CARD_BYTES``)
 DRYRUN_PEAK_TOL = 0.05
 DRYRUN_CLI_S = 120.0
+#: the cells whose peak exceeds a card: Mixtral-8x22B's training state on
+#: both meshes (its 8 experts do not divide ``model``: the reference's
+#: own spec); every serving cell fits since the cache is cut as the
+#: reference's ``decode_state_shardings`` cuts it
+DRYRUN_OVER = ("mixtral-8x22b train_4k multi", "mixtral-8x22b train_4k single")
 
 
 class SmokeFailure(RuntimeError):
@@ -2326,11 +2334,12 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
     return by_path
 
 
-def tp_runs(torch, model, params, toks, n: int, enc=None, logits: bool = False) -> list:
+def tp_runs(torch, model, params, toks, n: int, enc=None, logits: bool = False, states=None) -> list:
     """``model``'s hidden states (``logits``: its logits) of the first
     ``n`` tokens, then a prefill of them and the decode steps to the end
     of ``toks`` (float32 cache): [hidden, prefill logits, decode
-    logits...]. ``enc``: the encoder-decoder's frame embeddings."""
+    logits...]. ``enc``: the encoder-decoder's frame embeddings;
+    ``states``: a list the final decode state is appended to."""
     def batch(t):
         return {"tokens": t} if enc is None else {"enc_embeds": enc, "tokens": t}
 
@@ -2341,7 +2350,22 @@ def tp_runs(torch, model, params, toks, n: int, enc=None, logits: bool = False) 
     for t in range(n, toks.shape[1]):
         lg, state = model.decode_step(params, toks[:, t:t + 1], state)
         out.append(lg)
+    if states is not None:
+        states.append(state)
     return out
+
+
+def kv_cache_bytes(state) -> int:
+    """The bytes of a decode state's self-attention KV caches (every
+    ``KVCache``'s K and V; not whisper's cross K / V)."""
+    from repro_torch.models.attention import KVCache
+
+    def walk(t):
+        if isinstance(t, KVCache):
+            return t.k.numel() * t.k.element_size() + t.v.numel() * t.v.element_size()
+        return sum(walk(x) for x in t) if isinstance(t, tuple) else 0
+
+    return sum(walk(v) for v in state.values())
 
 
 def tp_width_check(torch, g, model, params, label: str, **kw) -> None:
@@ -2584,9 +2608,9 @@ def ssm_bf16_layerwise(torch, seed, model, params, label: str) -> None:
                 xin = x32.to(model.dtype)
                 whole = model._trunk_block(grp, p, xin, flag)[0]
                 view = _state_layer(state[grp.name], i)
-                pre, new = model._prefill_block(grp, p, xin[:, :-1], view, flag)
+                pre, new = model._prefill_block(grp, p, xin[:, :-1], view, flag, tp=model.serve_tp)
                 _write_back(view, new)
-                dec, _ = model._decode_block(grp, p, xin[:, -1:], view, flag)
+                dec, _ = model._decode_block(grp, p, xin[:, -1:], view, flag, tp=model.serve_tp)
                 d32 = y32 - x32
                 for got, at in ((pre[:, -1], -2), (dec[:, 0], -1)):
                     for r in range(rows):
@@ -4099,7 +4123,8 @@ def dryrun_phase(torch, fft_stage, smi: str) -> dict:
                 check(mem["temp_bytes"] is not None and mem["peak_device_bytes"] == mem["argument_bytes"]
                       + mem["temp_bytes"] + mem["output_bytes"] - mem["alias_bytes"], f"dry run {f}: memory {mem}")
                 print(f"dry run {r['arch']} {r['shape']} {r['mesh']} ({r['chips']} ranks): "
-                      f"{mem['peak_device_bytes'] / 2**30:.2f} GiB a rank (temporaries "
+                      f"{mem['peak_device_bytes'] / 2**30:.2f} GiB a rank (arguments: the traced rank's "
+                      f"{r['executed']['args_bytes']} B, the spec's {mem['argument_bytes']} B; temporaries "
                       f"{mem['temp_bytes'] / 2**30:.2f}, floor {mem['floor_bytes'] / 2**30:.2f}; "
                       f"{'fits' if fits else 'EXCEEDS'} {card_gb} GB), traced in {r['trace_s']:.2f} s, "
                       f"{r['executed']['flops']:.4e} FLOPs, {r['executed']['hbm_bytes']:.4e} HBM B, useful "
@@ -4115,6 +4140,8 @@ def dryrun_phase(torch, fft_stage, smi: str) -> dict:
                       f"{roof['coll_bytes']} B")
             print(f"dry run: {len(over)} of {len(files)} cells exceed {card_gb} GB a rank: {', '.join(over)}",
                   flush=True)
+            check(sorted(over) == sorted(DRYRUN_OVER), f"dry run: the cells over {card_gb} GB a rank are {over}, "
+                  f"not {DRYRUN_OVER}")
         finally:
             shutil.rmtree(out_dir, ignore_errors=True)
 
@@ -4589,17 +4616,23 @@ def nccl_tp_f32(torch, mesh, seed: int, arch: str, kw: dict) -> dict:
         gen.manual_seed(seed)
         params, _ = model.init(gen)
         nbytes = sum(t.numel() * t.element_size() for t in lm_leaves(params))
-        return tp_runs(torch, model, params, toks, LM_SEQ, enc, logits), nbytes
+        states = []
+        out = tp_runs(torch, model, params, toks, LM_SEQ, enc, logits, states)
+        return out, nbytes, kv_cache_bytes(states.pop())
 
-    one, one_bytes = run(Model(cfg))
+    one, one_bytes, one_kv = run(Model(cfg))
     gc.collect()
     torch.cuda.empty_cache()
-    got, nbytes = run(Model(cfg, mesh))
+    got, nbytes, kv = run(Model(cfg, mesh))
     errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
     tol = SSM_F32_REL_TOL if cfg.family in ("ssm", "hybrid") else TP_REL_TOL  # as phase 19's check 3
     check(max(errs) <= tol, f"rank {mesh.rank}: NCCL TP {arch} {kw} float32 vs one card {errs} > {tol}")
     same_on_every_rank(mesh, [digest(t) for t in got], f"{arch} {kw} float32 outputs (bitwise)")
-    return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30, tol=tol, layers=cfg.num_layers)
+    # the cache a rank holds is its block (decode_state_shardings' cut: KV heads, else the head dim): 1/P
+    check(kv * mesh.p == one_kv, f"rank {mesh.rank}: {arch} {kw} holds {kv} B of KV cache, not 1/{mesh.p} of "
+          f"the one-card model's {one_kv} B")
+    return dict(errs=errs, gib=nbytes / 2**30, one_gib=one_bytes / 2**30, tol=tol, layers=cfg.num_layers,
+                kv_bytes=kv, one_kv_bytes=one_kv)
 
 
 def nccl_tp_train(torch, mesh, seed: int) -> dict:
@@ -4701,7 +4734,8 @@ def print_nccl_tp(rep) -> None:
         print(f"{who} {name} full width, {r['layers']} layers, float32: Model(cfg, ProcessGroupMesh) vs one card on "
               f"the same seed: hidden or logits ({LM_SEQ} tokens), prefill, {TP_DECODE} decode steps rel_err "
               f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {r['tol']:.3e}), bitwise equal on every rank; weights "
-              f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card", flush=True)
+              f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card; KV cache {r['kv_bytes']} B a rank vs "
+              f"{r['one_kv_bytes']} B on one card (1/{rep['P']})", flush=True)
     r = m["train"]
     print(f"{who} training: {TRAIN_ARCH} full width, {TRAIN_F32_LAYERS} layers, float32, 1 x {NCCL_TRAIN_SEQ} tokens, "
           f"one make_train_step at lr {TRAIN_LR} on Model(cfg, ProcessGroupMesh) ({r['sharded']} of {r['leaves']} leaves "
@@ -4787,6 +4821,9 @@ def nccl_moe_phase(torch, seed: int) -> dict:
         reports = [json.load(open(os.path.join(tmp, f"rank{r}.json"))) for r in range(world)]
     print(nvidia_smi(), flush=True)
     for rep in reports:
+        print(f"NCCL rank {rep['rank']}/{rep['P']}: its card's memory outside the rank's allocator before the MoE "
+              f"part {rep['outside_gib']:.2f} GiB (its context, NCCL's buffers, any other process)", flush=True)
+    for rep in reports:
         print_nccl_moe(rep)
     return reports[0]["moe"]
 
@@ -4861,6 +4898,8 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         torch.cuda.empty_cache()
         report["rings"] = ring_cases(torch, mesh, seed)
         torch.cuda.empty_cache()
+        free, total = torch.cuda.mem_get_info()
+        report["outside_gib"] = (total - free - torch.cuda.memory_reserved()) / 2**30
         report["moe"] = nccl_moe(torch, mesh, fft_stage, seed)
         torch.cuda.empty_cache()
         report["tp"] = nccl_tp(torch, mesh, fft_stage, seed)
@@ -5011,6 +5050,9 @@ def nccl_phase(torch, seed: int):
     for rep in reports:
         print_rings(f"NCCL rank {rep['rank']}/{rep['P']} rings", rep["rings"])
     for rep in reports:
+        print(f"NCCL rank {rep['rank']}/{rep['P']}: its card's memory outside the rank's allocator before the MoE "
+              f"part {rep['outside_gib']:.2f} GiB (its context, NCCL's buffers, any other process)", flush=True)
+    for rep in reports:
         print_nccl_moe(rep)
         print_nccl_tp(rep)
         print_nccl_ddp(rep)
@@ -5110,6 +5152,7 @@ def main(argv=None) -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}", flush=True)
 
+    nccl = nccl_phase(torch, args.seed)  # phase 7 first: see the module's docstring
     g = torch.Generator(device="cuda")
     g.manual_seed(args.seed)
     rows = kernel_phase(torch, g, fft_stage, ref, ops, lf, cm)
@@ -5129,7 +5172,6 @@ def main(argv=None) -> int:
     by_path["rfft3"], shapes, slab_rfft3_ms = rfft3_phase(torch, args.seed, fft_stage, plan_fft, SimMesh)
     torch.cuda.empty_cache()
     time_shapes("rfft3", shapes)
-    nccl = nccl_phase(torch, args.seed)
     by_path["nccl_c2c"] = nccl["c2c main path scatter pipeline=auto"]["launches"]
     by_path["nccl_real_poisson"] = nccl["real Poisson scatter pipeline=auto"]["launches"]
     grid = auto_grid_shape(torch.cuda.device_count())

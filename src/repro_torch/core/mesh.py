@@ -531,11 +531,15 @@ class SimMesh(_AxisMesh):
 
     host_max = all_max  # host values (ProcessGroupMesh.host_max): the same here
 
-    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None, *,
+             activation: bool = False) -> Blocks:
         """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
         default): every rank of a ring gets the sum of the ring's blocks,
-        added in rank order -- one tensor, the same object for each."""
-        state = self._count_reduce(axis_name, blocks[0])
+        added in rank order -- one tensor, the same object for each.
+        ``activation``: a model's activations summed over a batch axis
+        (the sequence-sharded cache's combine), counted with the
+        activations' collectives, not the state's."""
+        state = not activation and self._count_reduce(axis_name, blocks[0])
         _record(self, "all-reduce", _nbytes(blocks[0]), "state" if state else "activation",
                 self._counted_axes(axis_name))
         return self._reduce(blocks, axis_name, torch.add)
@@ -833,11 +837,13 @@ class ProcessGroupMesh(_AxisMesh):
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.group)
         return t.tolist()
 
-    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None) -> Blocks:
+    def psum(self, blocks: Sequence[torch.Tensor], axis_name: Optional[str] = None, *,
+             activation: bool = False) -> Blocks:
         """``lax.psum`` over ``axis_name`` (a 1-D mesh's own axis by
         default): one ``all_reduce`` (SUM) of a copy of the rank's block on
         the axis's ring group (a grid's rings have theirs, made with the
         mesh). The collective hands every rank of the ring the same bits.
+        ``activation``: as :meth:`SimMesh.psum`'s.
 
         Differentiable for the model's layout, where the sum is used the
         same on every rank (every rank computes the same loss from it):
@@ -849,7 +855,7 @@ class ProcessGroupMesh(_AxisMesh):
         ring, _ = self.rings(axis_name or self.axis_name)[0]
         if ring.p == 1:  # a ring of one: nothing to reduce
             return [blocks[0]]
-        scope = "state" if self._count_reduce(axis_name, blocks[0]) else "activation"
+        scope = "state" if not activation and self._count_reduce(axis_name, blocks[0]) else "activation"
         if _records(blocks[0]):
             return [_Psum.apply(ring, blocks[0], scope)]
         return [_all_reduce(ring, blocks[0], "SUM", scope)]

@@ -33,11 +33,14 @@ the new state (plus the float32 ``(b, V)`` logits of prefill and decode,
 or the train step's scalar metrics), ``alias_bytes`` the donated state;
 ``temp_bytes`` is the executed peak (below) less ``floor_bytes``
 (arguments + outputs - aliases), so that ``peak_device_bytes`` is the
-reference's arguments + temporaries + outputs - aliases. Where the
-port's own step holds more state than the reference's spec gives a rank
-(a serving cache whose KV heads the ``model`` axis does not divide is
-kept whole; whisper's decode keeps its cross K / V), that state counts
-in the temporaries: ``executed.args_bytes`` says what the trace held.
+reference's arguments + temporaries + outputs - aliases. The serving
+cache a traced rank holds is the spec's (``Model.init_decode_state``
+cuts it as ``decode_state_shardings`` does, ``seq_shard`` in a
+``long_500k`` cell). Where the port's own step holds more state than the
+reference's spec gives a rank (whisper's decode keeps its cross K / V;
+xLSTM's sLSTM ``m``, which the reference's name rule places over
+``model``, stays whole), that state counts in the temporaries:
+``executed.args_bytes`` says what the trace held.
 
 ``executed`` (:func:`executed`) is one rank's step -- the cell's own entry
 point, ``train.make_train_step``'s step, ``Model.prefill`` or
@@ -98,6 +101,7 @@ import argparse
 import contextlib
 import dataclasses
 import functools
+import importlib
 import json
 import math
 import os
@@ -114,7 +118,9 @@ from repro_torch.core import comm_model, sharding
 from repro_torch.core.mesh import STATE_AXES
 from repro_torch.launch import specs as specs_lib
 from repro_torch.launch.mesh import MeshShape, make_production_mesh, process_state, touched
+from repro_torch.models import common
 from repro_torch.models import moe as moe_lib
+from repro_torch.models.attention import cache_model_dim
 from repro_torch.models.model import Model, abstract, build_groups, placements
 
 RESULT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun")
@@ -595,9 +601,7 @@ class _Acts:
         cfg, it = self.cfg, self.it
         h, kvh, hd, d = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_, cfg.d_model
         heads, kv = tp.splits(h), tp.splits(kvh)
-        ctx = _context(cfg, tp)
-        sp_cache = kv and not ctx
-        context = ctx and s % tp.p == 0
+        context = _context(cfg, tp) and s % tp.p == 0
         rs = heads or tp.seq
         whole = [self.leaf(*pre, n) for n, u in (("wq", h), ("wk", kvh), ("wv", kvh)) if not tp.splits(u) and rs]
         self.col(tp, b * s * d * it, heads, whole, g)
@@ -606,7 +610,7 @@ class _Acts:
                 if not tp.splits(u) and rs:
                     self.vary(tp, self.leaf(*pre, n))
         kvb = b * s * kvh * hd * it
-        if (context or (cache and not sp_cache)) and kv:
+        if context and kv:  # a cache takes the rank's KV heads, or its slices of the whole K / V
             self.gather(tp, kvb)
             self.gather(tp, kvb)
         if not context:
@@ -628,13 +632,30 @@ class _Acts:
             self.vary(tp, self.leaf(*pre, "wo"))
             self.reduce(tp, "seq", b * s * d * it, g)
 
-    def decode_attention(self, tp: _TP, b: int) -> None:
+    def decode_attention(self, tp: _TP, b: int, s_kv: int, blocks: int) -> None:
+        """``attention.decode_attention`` over a cache of ``s_kv``
+        positions in ``blocks`` sequence blocks over ``data``: on a
+        head-dim cut the step's queries gathered (head blocks), one psum
+        of the float32 scores of every head against the rank's block, the
+        output's all-to-all back to the head blocks (or a whole ``wo``'s
+        partial sums); over ``data`` the combine's pmax and two psums, of
+        float32 (B, H') and (B, 1, H', Dv); the psum of the output."""
         cfg, it = self.cfg, self.it
-        heads, kv = tp.splits(cfg.num_heads), tp.splits(cfg.num_kv_heads)
-        if kv and _context(cfg, tp):  # a cache of every KV head: the new token's K / V gathered
-            self.gather(tp, b * cfg.num_kv_heads * cfg.head_dim_ * it)
-            self.gather(tp, b * cfg.num_kv_heads * cfg.head_dim_ * it)
-        self.reduce(tp, "partial" if heads else "whole", b * cfg.d_model * it)
+        h, hd = cfg.num_heads, cfg.head_dim_
+        heads = tp.splits(h)
+        cut = cache_model_dim(cfg.num_kv_heads, hd, tp.p) if tp.p > 1 else None
+        if cut == 3:
+            if heads:
+                self.gather(tp, b * h * hd * it)
+            self.psum(tp, b * h * (s_kv // blocks) * 4)
+            if heads:
+                self.a2a(b * h * (hd // tp.p) * it)
+        if blocks > 1:
+            nh = h // tp.p if heads and cut != 3 else h  # the heads a rank attends for
+            dv = hd // tp.p if cut == 3 else hd
+            for nbytes in (b * nh * 4, b * nh * dv * 4, b * nh * 4):
+                self.fwd("all-reduce", nbytes, axes=("data",))
+        self.reduce(tp, "partial" if heads or cut == 3 else "whole", b * cfg.d_model * it)
 
     def mla(self, tp: _TP, pre: tuple, b: int, s: int, g: bool = True) -> None:
         """``attention._mla_expanded`` (train and prefill); decode
@@ -789,12 +810,13 @@ class _Acts:
         if cfg.post_norm:
             self.norm(tp, *pre, "ln2p")
 
-    def decode_decoder(self, tp: _TP, pre: tuple, b: int, moe: bool, s_enc: int = 0) -> None:
+    def decode_decoder(self, tp: _TP, pre: tuple, b: int, moe: bool, s_kv: int, blocks: int,
+                       s_enc: int = 0) -> None:
         cfg = self.cfg
         if cfg.mla is not None:
             self.reduce(tp, "partial" if tp.splits(cfg.num_heads) else "whole", b * cfg.d_model * self.it)
         else:
-            self.decode_attention(tp, b)
+            self.decode_attention(tp, b, s_kv, blocks)
         if s_enc:
             self.cross(tp, pre, b, 1, s_enc)
         if moe:
@@ -824,10 +846,12 @@ class _Acts:
         else:
             self.decoder(tp, pre, b, s, g.kind == "dec_moe", cache=cache, s_enc=s_enc, remat=remat)
 
-    def decode_layer(self, tp: _TP, g, b: int, s_enc: int = 0) -> None:
+    def decode_layer(self, tp: _TP, g, b: int, s_kv: int, blocks: int = 1, s_enc: int = 0) -> None:
+        """One layer of a decode step over a cache of ``s_kv`` positions
+        (``blocks`` sequence blocks over ``data``)."""
         pre = (g.name,)
         if g.kind == "hymba":
-            self.decode_attention(tp, b)
+            self.decode_attention(tp, b, s_kv, blocks)
             self.mamba(tp, pre + ("mamba",), b, 1)
             self.mlp(tp, pre + ("ffn",), b, 1, self.cfg.d_ff)
         elif g.kind in ("xlstm_pair", "xlstm_m"):
@@ -835,7 +859,7 @@ class _Acts:
             if g.kind == "xlstm_pair":
                 self.slstm(tp, b, 1)
         else:
-            self.decode_decoder(tp, pre, b, g.kind == "dec_moe", s_enc)
+            self.decode_decoder(tp, pre, b, g.kind == "dec_moe", s_kv, blocks, s_enc)
 
     def embed(self, tp: _TP, b: int, s: int) -> None:
         """``common.embed_tokens``: one psum where the vocabulary is split."""
@@ -853,6 +877,19 @@ class _Acts:
             self.vary(tp, b * chunk * self.cfg.d_model * self.it)
             self.gather(tp, b * chunk * self.cfg.vocab_size * self.it)
         self.fm = fm
+
+
+def _seq_shard(shape: ShapeConfig) -> bool:
+    """Whether the cell serves its cache with the sequence over ``data``:
+    ``long_500k``, as the reference's dry run sets ``seq_shard``."""
+    return shape.name == "long_500k"
+
+
+def seq_blocks(shape: ShapeConfig, mesh, s_kv: int) -> int:
+    """The blocks a serving cache of ``s_kv`` positions lies in over
+    ``data`` (``common.seq_blocks``, the model's own rule) where the cell
+    is :func:`_seq_shard`, else 1."""
+    return common.seq_blocks(mesh.shape.get("data", 1), s_kv) if _seq_shard(shape) else 1
 
 
 def _context(cfg: ModelConfig, tp: _TP) -> bool:
@@ -912,9 +949,11 @@ def activation_collectives(cfg: ModelConfig, shape: ShapeConfig, mesh,
         b = _rows(shape, mesh, one_process=one_process)
         w.embed(tp, b, 1)
         s_enc = s if cfg.is_encdec else 0
+        s_kv = s + cfg.meta_tokens
+        blocks = seq_blocks(shape, mesh, s_kv)
         for g in _trunk_groups(cfg):
             for _ in range(g.count):
-                w.decode_layer(tp, g, b, s_enc)
+                w.decode_layer(tp, g, b, s_kv, blocks, s_enc)
         if tp.splits(cfg.vocab_size):  # the logits' gather
             w.gather(tp, b * cfg.vocab_size * 4)
         return w.tally
@@ -1008,7 +1047,7 @@ def decode_state(cfg: ModelConfig, shape: ShapeConfig, mesh):
     b, s = shape.global_batch, shape.seq_len
     state = _abstract_state(cfg, b, s)
     spec = specs_lib.decode_state_shardings(state, mesh, replicate_batch=(b == 1),
-                                            seq_shard=shape.name == "long_500k")
+                                            seq_shard=_seq_shard(shape))
     return state, spec
 
 
@@ -1426,7 +1465,7 @@ def _trace(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, groups
     else:
         params, _ = model.init(gen, dtype=model.dtype)
         b, s = _rank_rows(shape, mesh), shape.seq_len
-        st = model.init_decode_state(b, s)
+        st = model.init_decode_state(b, s, seq_shard=_seq_shard(shape))
         held += [(t, None) for t in _tensors((params, st))]
         if shape.kind == "prefill":
             batch = {}
@@ -1505,8 +1544,6 @@ def _traced(cfg: ModelConfig, shape: ShapeConfig, mesh, tcfg: TrainConfig, count
             whole: bool = False) -> Dict[str, Any]:
     """:func:`_trace` of a model holding ``counts`` layers of each
     pattern, its loops capped at ``caps`` trips."""
-    from repro_torch.models import common
-
     old, common.TRIP_CAPS = common.TRIP_CAPS, dict(caps)
     common.TRIPS_SEEN.clear()
     try:
@@ -1737,6 +1774,10 @@ def _cell_job(job: Tuple[str, str, str, bool, str]) -> Tuple[str, Optional[str],
     in its process (``launch.mesh.touched``) fails."""
     arch, sname, mk, reduced, out_dir = job
     torch.set_num_threads(1)
+    # torch's first import of dynamo (lazy: a train step's first op under a
+    # dispatch mode) sets TORCHINDUCTOR_CACHE_DIR where it is unset (torch
+    # 2.13): the library's own import, so done before the snapshot
+    importlib.import_module("torch._dynamo")
     tag = f"{arch}_{sname}_{mk}" + ("_reduced" if reduced else "") + "_torch"
     before = process_state()
     try:

@@ -23,6 +23,7 @@ from typing import Any, Dict, Tuple
 
 from repro_torch.configs.base import ModelConfig, ShapeConfig
 from repro_torch.core.sharding import Spec, sanitize_spec
+from repro_torch.models.attention import cache_model_dim
 
 #: (shape, dtype name, partition spec) of one abstract input
 InputSpec = Tuple[Tuple[int, ...], str, Spec]
@@ -70,8 +71,8 @@ def _leaf_spec(path: str, ndim: int, *, ba, seq_shard: bool, shape=(), tp: int =
     if path.endswith("pos"):
         return ()
     if path.endswith((".k", ".v")) and ndim == 5:  # (L, B, S, KVH, D)
-        # fewer KV heads than the axis (GQA): the head dim instead
-        if shape and shape[3] % tp and shape[4] % tp == 0:
+        # KV heads the axis does not divide (GQA): the head dim instead, as the model cuts its cache
+        if shape and cache_model_dim(shape[3], shape[4], tp) == 3:
             return (None, ba, seq_ax, None, "model")
         return (None, ba, seq_ax, "model", None)
     if path.endswith("ckv") and ndim == 4:  # (L, B, S, r)

@@ -22,9 +22,9 @@ whole heads (``core.sharding.placement``):
 
 - **heads partition**: ``wq`` / ``bq`` column blocks of H/P heads, ``wo``
   a row block, one psum of the partial outputs. ``wk`` / ``wv`` / ``bk``
-  / ``bv`` and the KV cache are split by KV heads where P divides their
-  count; elsewhere they stay whole on every rank, and each rank reads the
-  KV heads its Q heads read (GQA group ``h // (H / KVH)``).
+  / ``bv`` are split by KV heads where P divides their count; elsewhere
+  they stay whole on every rank, and each rank reads the KV heads its Q
+  heads read (GQA group ``h // (H / KVH)``).
 - **context partition** (:func:`use_context_parallel`: ``attn_partition``
   "context", or "auto" where P does not divide the heads), for the
   full-sequence passes: Q sequence-sharded (an all-to-all from the head
@@ -34,18 +34,36 @@ whole heads (``core.sharding.placement``):
   whole, ``wo`` on the rank's rows and an all-gather. Where P does not
   divide S it falls back to the heads partition if P divides the heads,
   else every rank computes every head (the reference pads; the outputs
-  are the same). Decode (no constraint in the reference) keeps the cache
-  whole under the context partition; each rank attends for its Q heads,
-  or for every head where the heads stay whole.
+  are the same).
+- **the serving cache** lies as the reference's ``decode_state_shardings``
+  places it (:func:`cache_model_dim`, :func:`cache_block`): by KV heads
+  over ``model`` where P divides them, else by head dim where P divides
+  that, else whole; with ``TP.kv_seq`` (``long_500k``'s ``seq_shard``)
+  its sequence in blocks over ``data``. A process on a
+  ``ProcessGroupMesh`` holds its block, a ``SimMesh`` the whole cache
+  (a rank's block a view). Prefill writes each block from the fresh K /
+  V, computed as above (no new collective). Decode
+  (:func:`_attend_cache`) attends each block of the cache. On a head-dim
+  cut it takes the step's queries of every head (gathered over ``model``
+  where they are head blocks), sums each rank's partial scores against
+  its slice of the keys by one psum over ``model`` a layer, applies the
+  scale, the softcap and the mask to the full-width sums, reads the
+  rank's slice of the values, and goes back to ``wo``: an all-to-all to
+  the rank's heads, or the rows of its slice of a whole ``wo``, then one
+  psum. On a sequence-sharded cache each rank's online softmax over its
+  own keys (masked by absolute position; a block with no visible key
+  gives m = -inf and l = 0) is combined over ``data`` by
+  :func:`flash_decode_combine`, after the scores' psum where both cuts
+  apply.
 - **MLA**: ``wdq`` / ``wdkv`` and the latent cache whole on every rank,
   ``wuq`` / ``wukv`` column blocks by head (the absorbed decode absorbs
   the rank's heads), ``wo`` a row block, one psum (the reference
   constrains MLA to the heads partition).
 
 :func:`flash_decode_combine` merges partial online softmaxes over a
-sequence-sharded KV (``pmax`` then two ``psum`` s); no serving or
-training path calls it, in the reference or here, and over a process
-group it has no gradient (``mesh.pmax`` raises under autograd).
+sequence-sharded KV (``pmax`` then two ``psum`` s): the decode of a
+sequence-sharded cache calls it; over a process group it has no
+gradient (``mesh.pmax`` raises under autograd).
 
 Training over a ``ProcessGroupMesh``: where the products differ by rank
 (split heads, sequence blocks, the context partition's rows), a tensor
@@ -134,25 +152,34 @@ def attention_naive(
     return out.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
-def _online_softmax(qg: torch.Tensor, k: torch.Tensor, v: torch.Tensor, spec: AttnSpec, q_idx: torch.Tensor,
-                    valid: Optional[torch.Tensor], kv_chunk: int):
+def _online_softmax(qg: Optional[torch.Tensor], k: Optional[torch.Tensor], v: torch.Tensor, spec: AttnSpec,
+                    q_idx: torch.Tensor, valid: Optional[torch.Tensor], kv_chunk: int, *, k0: int = 0,
+                    scores: Optional[torch.Tensor] = None):
     """The online-softmax scan over KV chunks: (m, l, acc) of the float32
     queries ``qg`` (B, Sq, KVH, G, D), already scaled, against ``k`` /
     ``v`` in their own dtype; ``valid`` the valid cache entries (None, or
-    broadcastable against the (Sq, K) / (B, Sq, K) mask)."""
-    b, sq, kvh, g, _ = qg.shape
-    skv, dv = k.shape[1], v.shape[-1]
-    dev = qg.device
+    broadcastable against the (Sq, K) / (B, Sq, K) mask). ``k0``: the
+    position of the first key (a block of a sequence-sharded cache).
+    ``scores``: the (B, KVH, G, Sq, Skv) float32 scores of every key,
+    already summed (a head-dim cut's psum), in place of ``qg`` and ``k``."""
+    if scores is None:
+        b, sq, kvh, g, _ = qg.shape
+    else:
+        b, kvh, g, sq = scores.shape[:4]
+    skv, dv = v.shape[1], v.shape[-1]
+    dev = v.device
     m = torch.full((b, kvh, g, sq), NEG_INF, dtype=torch.float32, device=dev)
     l = torch.zeros((b, kvh, g, sq), dtype=torch.float32, device=dev)
     acc = torch.zeros((b, kvh, g, sq, dv), dtype=torch.float32, device=dev)
-    for j in common.trips("kv", -(-skv // kv_chunk), k)[0]:
+    for j in common.trips("kv", -(-skv // kv_chunk), v)[0]:
         start = j * kv_chunk
-        kb = k[:, start:start + kv_chunk]
         vb = v[:, start:start + kv_chunk]
-        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, kb.float())
+        if scores is None:
+            s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, start:start + kv_chunk].float())
+        else:
+            s = scores[..., start:start + kv_chunk]
         s = common.softcap(s, spec.softcap)
-        k_idx = torch.arange(start, start + kb.shape[1], device=dev)
+        k_idx = torch.arange(k0 + start, k0 + start + vb.shape[1], device=dev)
         ok = _mask(q_idx, k_idx, spec)  # (Sq, K) or (B, Sq, K)
         if valid is not None:
             ok = ok & (k_idx < valid)
@@ -354,19 +381,71 @@ def use_context_parallel(cfg: ModelConfig, tp: TP) -> bool:
 class _Split(NamedTuple):
     heads: bool  # wq / bq / wo in blocks of H/P heads
     kv: bool  # wk / wv / bk / bv in blocks of KVH/P heads
-    cache: bool  # the KV cache in blocks of KVH/P heads
+    cache: Optional[int]  # the KV cache's dim cut over the axis: 2 (KV heads), 3 (head dim) or None
     context: bool  # the context partition for the full-sequence passes
 
 
+def cache_model_dim(kv_heads: int, head_dim: int, p: int) -> Optional[int]:
+    """The dim of a (B, S, KVH, hd) KV cache a ``model`` axis of ``p``
+    ranks cuts: 2, the KV heads, where ``p`` divides them; else 3, the
+    head dim, where ``p`` divides it; else None (whole on every rank).
+    The reference's ``decode_state_shardings`` rule
+    (``repro/launch/specs.py:77-82``); ``launch.specs._leaf_spec`` reads
+    it from here."""
+    if kv_heads % p == 0:
+        return 2
+    return 3 if head_dim % p == 0 else None
+
+
 def _split(cfg: ModelConfig, tp: TP) -> _Split:
-    ctx = use_context_parallel(cfg, tp)
-    kv = tp.splits(cfg.num_kv_heads)
-    return _Split(tp.splits(cfg.num_heads), kv, kv and not ctx, ctx)
+    cache = cache_model_dim(cfg.num_kv_heads, cfg.head_dim_, tp.p) if tp.p > 1 else None
+    return _Split(tp.splits(cfg.num_heads), tp.splits(cfg.num_kv_heads), cache, use_context_parallel(cfg, tp))
 
 
-def cache_heads(cfg: ModelConfig, tp: TP) -> int:
-    """The KV heads of the cache this process holds."""
-    return cfg.num_kv_heads // tp.p if _split(cfg, tp).cache and tp.holds_block else cfg.num_kv_heads
+def cache_block(cfg: ModelConfig, tp: TP, b: int, s_tot: int) -> Tuple[int, int, int, int]:
+    """The (B, S, KVH, hd) shape of the KV cache of ``b`` rows and
+    ``s_tot`` positions this process holds: its block -- the KV heads or
+    the head dim over ``model`` (:func:`cache_model_dim`), the sequence
+    over ``data`` where ``tp.kv_seq`` -- where it holds its own blocks (a
+    ``ProcessGroupMesh``), else the whole cache (a ``SimMesh``: each
+    rank's block a view, :func:`_cache_view`)."""
+    shape = [b, s_tot, cfg.num_kv_heads, cfg.head_dim_]
+    dim = _split(cfg, tp).cache
+    if dim is not None and tp.holds_block:
+        shape[dim] //= tp.p
+    if tp.kv_seq is not None and tp.kv_seq.holds_block:
+        shape[1] //= tp.kv_seq.blocks
+    return tuple(shape)
+
+
+def _cache_view(t: torch.Tensor, dim: Optional[int], tp: TP, c: int, d: int) -> torch.Tensor:
+    """The block of coordinate ``c`` on ``model`` and ``d`` on ``data`` of
+    a cache leaf laid out as :func:`cache_block` says (``dim``: the dim
+    cut over ``model``): the leaf itself where the process holds its
+    block, else a view of the whole."""
+    if dim is not None and not tp.holds_block:
+        n = t.shape[dim] // tp.p
+        t = t.narrow(dim, c * n, n)
+    if tp.kv_seq is not None and not tp.kv_seq.holds_block:
+        n = t.shape[1] // tp.kv_seq.blocks
+        t = t.narrow(1, d * n, n)
+    return t
+
+
+def _cache_blocks(sp: _Split, tp: TP) -> List[Tuple[int, int]]:
+    """The (model, data) coordinates of the cache blocks this process
+    writes: each local one where the cache is cut, else one."""
+    cs = tp.ranks if sp.cache is not None else tp.ranks[:1]
+    return [(c, d) for c in cs for d in (tp.kv_seq.coords if tp.kv_seq is not None else [0])]
+
+
+def _slice(t: torch.Tensor, sp: _Split, view: torch.Tensor, c: int) -> torch.Tensor:
+    """``t`` (K or V at the full head dim) cut to ``view``'s head dim:
+    coordinate ``c``'s slice where the cache is cut along it."""
+    if sp.cache != 3:
+        return t
+    w = view.shape[3]
+    return t.narrow(-1, c * w, w)
 
 
 def _heads_block(tp: TP, w: torch.Tensor, dim: int, c: int, units: int, width: int, *,
@@ -435,8 +514,9 @@ def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: 
                     cache: Optional["KVCache"] = None) -> Acts:
     """The full-sequence pass (positions 0..S-1) in the heads or the
     context partition; with ``cache``, its rows [0, S) written in place
-    from the fresh K / V (the rank's KV heads, or all of them once)."""
-    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    from the fresh K / V into each block of it the process holds (the
+    rank's KV heads, its head-dim slice or its sequence block)."""
+    hd = cfg.head_dim_
     sp = _split(cfg, tp)
     whole = x if isinstance(x, torch.Tensor) else x[0]
     s = whole.shape[1] * (tp.p if tp.seq else 1)
@@ -445,19 +525,19 @@ def _full_attention(p: Params, x: Acts, cfg: ModelConfig, spec: AttnSpec, impl: 
     coords = tp.owners(sp.heads or context)
     qkv = _gqa_qkv(p, x, cfg, torch.arange(s, device=whole.device), tp, coords)
     kv_whole = None
-    if context or (cache is not None and not sp.cache):
+    if context or (cache is not None and sp.cache != 2):
         if sp.kv:
             kv_whole = (tp.gather([k for _, k, _ in qkv], 2), tp.gather([v for _, _, v in qkv], 2))
         else:
             kv_whole = qkv[0][1:]
-    if cache is not None:
-        if sp.cache:
-            for c, (_, k, v) in zip(coords, qkv):
-                tp.block(cache.k, 2, c, kvh)[:, :s] = k.to(cache.k.dtype)
-                tp.block(cache.v, 2, c, kvh)[:, :s] = v.to(cache.v.dtype)
-        else:
-            cache.k[:, :s] = kv_whole[0].to(cache.k.dtype)
-            cache.v[:, :s] = kv_whole[1].to(cache.v.dtype)
+    if cache is not None:  # each block from the rank's KV heads, or from all of them
+        own = {c: (k, v) for c, (_, k, v) in zip(coords, qkv)}
+        for c, d in _cache_blocks(sp, tp):
+            for t, new in zip((cache.k, cache.v), own[c] if sp.cache == 2 else kv_whole):
+                view = _cache_view(t, sp.cache, tp, c, d)
+                lo, n = d * view.shape[1], view.shape[1]
+                if lo < s:
+                    view[:, :min(s - lo, n)] = _slice(new, sp, view, c)[:, lo:lo + n].to(t.dtype)
     if not context:
         outs = [attention(q, _kv_for(k, c, cfg, tp), _kv_for(v, c, cfg, tp), spec, impl=impl,
                           kv_chunk=cfg.attn_kv_chunk) for c, (q, k, v) in zip(coords, qkv)]
@@ -505,12 +585,14 @@ def init_kv_cache(b: int, s_max: int, kvh: int, hd: int, dtype=torch.bfloat16, d
 def _write_rows(pos: torch.Tensor, *pairs) -> None:
     """``cache[row, pos[row]] = new[row]`` in place for each (cache, new)
     pair, for the rows whose position lies inside the cache; a row at or
-    past the end (an idle serving slot keeps stepping) is not written, as
-    JAX drops an out-of-bounds ``.at[].set`` (torch would raise)."""
+    past the end (an idle serving slot keeps stepping), or before the
+    start (another rank's block of a sequence-sharded cache), is not
+    written, as JAX drops an out-of-bounds ``.at[].set`` (torch would
+    raise)."""
     first = pairs[0][0]
     rows = torch.arange(first.shape[0], device=first.device)
-    at = pos.clamp(max=first.shape[1] - 1).long()
-    inside = pos < first.shape[1]
+    at = pos.clamp(0, first.shape[1] - 1).long()
+    inside = (pos >= 0) & (pos < first.shape[1])
     for cache, new in pairs:
         keep = inside.reshape((-1,) + (1,) * (new.dim() - 1))
         cache[rows, at] = torch.where(keep, new.to(cache.dtype), cache[rows, at])
@@ -530,31 +612,92 @@ def decode_attention(
     the cache. Rows may be at different positions (serving slots).
 
     The write goes into ``cache.k`` / ``cache.v`` in place (``_write_rows``):
-    each rank's KV heads where the cache is split, else all of them once
-    (the new token's K / V gathered over the ranks where their weights are
-    split); the returned cache shares them, with ``length + 1``.
+    each block of the cache the process holds (:func:`cache_block`) takes
+    its KV heads, its head-dim slice or, sequence-sharded, the row of the
+    block that holds the position; the returned cache shares them, with
+    ``length + 1``. The attention is :func:`_attend_cache`'s.
     """
-    kvh, hd = cfg.num_kv_heads, cfg.head_dim_
     sp = _split(cfg, tp)
     pos = cache.length  # (B,)
-    coords = tp.owners(sp.heads)
+    coords = tp.ranks if sp.cache == 3 else tp.owners(sp.heads)
     qkv = _gqa_qkv(p, x, cfg, pos[:, None], tp, coords)
+    new = {c: (k[:, 0], v[:, 0]) for c, (_, k, v) in zip(coords, qkv)}
+    for c, d in _cache_blocks(sp, tp):
+        views = [_cache_view(t, sp.cache, tp, c, d) for t in (cache.k, cache.v)]
+        kv = new[c] if sp.cache == 2 else new[coords[0]]  # the rank's KV heads, or every one
+        _write_rows(pos - d * views[0].shape[1], *((vw, _slice(t, sp, vw, c)) for vw, t in zip(views, kv)))
+    return _attend_cache(p, qkv, coords, cache, cfg, spec, sp, tp, kv_chunk), KVCache(cache.k, cache.v, pos + 1)
 
-    def view(t, c):
-        return tp.block(t, 2, c, kvh) if sp.cache else t
 
-    if sp.cache:
-        for c, (_, k, v) in zip(coords, qkv):
-            _write_rows(pos, (view(cache.k, c), k[:, 0]), (view(cache.v, c), v[:, 0]))
+def _attend_cache(p: Params, qkv, coords: List[int], cache: KVCache, cfg: ModelConfig, spec: AttnSpec, sp: _Split,
+                  tp: TP, kv_chunk: int) -> torch.Tensor:
+    """The decode step's attention over the cache (the write done),
+    through ``wo``, reduced.
+
+    Each coordinate's online softmax runs over its block of the keys,
+    masked by absolute position: of its Q heads at the full head dim, or
+    on a head-dim cut of every head at the rank's slice, from the
+    partial scores of every rank's slice summed by one psum over
+    ``model`` a layer -- the scale (1/sqrt of the full head dim, on the
+    query, as the uncut path scales it), the softcap and the mask apply
+    to the sums. A block with no visible key (a windowed layer far from
+    the position) leaves m = -inf and l = 0; over ``data`` the blocks
+    combine through :func:`flash_decode_combine`. The output goes to
+    ``wo``: on a head-dim cut an all-to-all over ``model`` brings a rank
+    its own heads at the full head dim for its row block of ``wo``, or,
+    where ``wo`` is whole, the rank's slice meets its rows of ``wo``; one
+    psum sums the parts."""
+    h, kvh, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim_
+    pos = cache.length
+    q_idx, valid = pos[:, None], (pos + 1)[:, None, None]
+    dt = qkv[0][0].dtype
+    cut_hd = sp.cache == 3
+    w = hd // tp.p  # a head-dim slice
+    if cut_hd:  # every head's query, gathered where the heads are blocks over the axis
+        q = tp.gather([q for q, _, _ in qkv], 2) if sp.heads else qkv[0][0]
+        qg = (q / math.sqrt(hd)).reshape(q.shape[0], 1, kvh, h // kvh, hd).float()
+    blocks = []  # each data block's (out, m, l) of each softmax this process runs
+    for d in tp.kv_seq.coords if tp.kv_seq is not None else [0]:
+        k0 = d * _cache_view(cache.v, sp.cache, tp, coords[0], d).shape[1]
+        if cut_hd:  # one softmax of the summed scores over the values every local rank holds (their slices)
+            scores = tp.psum([torch.einsum("bqhgd,bkhd->bhgqk", qg[..., c * w:(c + 1) * w],
+                                           _cache_view(cache.k, sp.cache, tp, c, d).float()) for c in coords])
+            v = _cache_view(cache.v, None, tp, coords[0], d)
+            runs = [_online_softmax(None, None, v, spec, q_idx, valid, min(kv_chunk, v.shape[1]), k0=k0,
+                                    scores=scores)]
+        else:  # each coordinate's Q heads against the KV heads it reads
+            runs = []
+            for c, (q_c, _, _) in zip(coords, qkv):
+                k, v = (_kv_for(_cache_view(t, sp.cache, tp, c, d), c, cfg, tp) for t in (cache.k, cache.v))
+                qc = (q_c / math.sqrt(hd)).reshape(q_c.shape[0], 1, k.shape[2], -1, hd).float()
+                runs.append(_online_softmax(qc, k, v, spec, q_idx, valid, min(kv_chunk, k.shape[1]), k0=k0))
+        parts = []
+        for m, l, acc in runs:
+            if tp.kv_seq is not None:  # a block with no visible key: m = -inf, l = 0
+                empty = m <= NEG_INF
+                m, l = m.masked_fill(empty, -math.inf), l.masked_fill(empty, 0.0)
+                acc = acc.masked_fill(empty[..., None], 0.0)
+            b = m.shape[0]
+            parts.append((acc.permute(0, 3, 1, 2, 4).reshape(b, 1, -1, acc.shape[-1]), m.reshape(b, -1),
+                          l.reshape(b, -1)))
+        blocks.append(parts)
+    outs = []
+    for accs, ms, ls in (zip(*run) for run in zip(*blocks)):  # each softmax over the data blocks
+        if tp.kv_seq is not None:
+            o = flash_decode_combine(accs, ms, ls, tp.kv_seq.ring, "data")[0]
+        else:
+            o = accs[0] / torch.clamp(ls[0][:, None, :, None], min=1e-30)
+        outs.append(o.to(dt))
+    if cut_hd:  # each local rank's slice of the head dim
+        outs = [outs[0].narrow(-1, i * w, w) for i in range(len(coords))]
+    if cut_hd and sp.heads:  # every head's slice -> the rank's heads at the full head dim
+        outs = tp.all_to_all(outs, 2, 3)
+    if cut_hd and not sp.heads:  # wo whole: the rows of the rank's slice of every head
+        res = [torch.einsum("bshe,hed->bsd", o, _heads_block(tp, p["wo"], 0, c, h, hd).reshape(h, hd, -1)
+                            [:, c * w:(c + 1) * w].to(o.dtype)) for c, o in zip(coords, outs)]
     else:
-        k, v = ((tp.gather([t[i] for t in qkv], 2) for i in (1, 2)) if sp.kv else qkv[0][1:])
-        _write_rows(pos, (cache.k, k[:, 0]), (cache.v, v[:, 0]))
-    parts = []
-    for c, (q, _, _) in zip(coords, qkv):
-        o = attention_chunked(q, _kv_for(view(cache.k, c), c, cfg, tp), _kv_for(view(cache.v, c), c, cfg, tp), spec,
-                              q_offset=pos, kv_chunk=kv_chunk, kv_valid_len=pos + 1)
-        parts.append(_out(p, o, c, cfg, tp, hd))
-    return tp.reduce(parts, "partial" if sp.heads else "whole"), KVCache(cache.k, cache.v, pos + 1)
+        res = [_out(p, o, c, cfg, tp, hd) for c, o in zip(coords, outs)]
+    return tp.reduce(res, "partial" if sp.heads or cut_hd else "whole")
 
 
 def prefill_attention(
@@ -583,9 +726,10 @@ def flash_decode_combine(partial_out: Sequence[torch.Tensor], partial_m: Sequenc
     global max (``mesh.pmax``) and summed (``mesh.psum``) over
     ``axis_name``. Returns each rank's normalized (B, 1, H, Dv) output."""
     m_glob = mesh.pmax(list(partial_m), axis_name)
-    scale = [torch.exp(m - g) for m, g in zip(partial_m, m_glob)]
-    num = mesh.psum([o * sc[:, None, :, None] for o, sc in zip(partial_out, scale)], axis_name)
-    den = mesh.psum([l * sc for l, sc in zip(partial_l, scale)], axis_name)
+    # a rank with no visible key (m = -inf) adds nothing, even where no rank has one
+    scale = [torch.where(torch.isneginf(m), 0.0, torch.exp(m - g)) for m, g in zip(partial_m, m_glob)]
+    num = mesh.psum([o * sc[:, None, :, None] for o, sc in zip(partial_out, scale)], axis_name, activation=True)
+    den = mesh.psum([l * sc for l, sc in zip(partial_l, scale)], axis_name, activation=True)
     return [n / torch.clamp(d[:, None, :, None], min=1e-30) for n, d in zip(num, den)]
 
 

@@ -179,11 +179,11 @@ def apply_decoder_block(
 
 def init_block_cache(cfg: ModelConfig, b: int, s_max: int, dtype=torch.bfloat16, device=None,
                      tp: common.TP = common.SINGLE) -> Cache:
-    """One layer's cache; a GQA cache holds this process's KV heads
-    (``attention.cache_heads``)."""
+    """One layer's cache; a GQA cache holds this process's block
+    (``attention.cache_block``)."""
     if cfg.mla is not None:
         return attn.init_mla_cache(b, s_max, cfg.mla, dtype, device)
-    return attn.init_kv_cache(b, s_max, attn.cache_heads(cfg, tp), cfg.head_dim_, dtype, device)
+    return attn.init_kv_cache(*attn.cache_block(cfg, tp, b, s_max), dtype, device)
 
 
 def decode_decoder_block(

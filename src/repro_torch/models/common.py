@@ -15,7 +15,7 @@ from __future__ import annotations
 
 import functools
 import math
-from typing import Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
+from typing import Any, Callable, Dict, List, NamedTuple, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -289,6 +289,25 @@ def gelu(x: torch.Tensor) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
+class SeqCut(NamedTuple):
+    """A serving cache's sequence in ``blocks`` equal blocks over the
+    mesh's ``data`` axis (:meth:`TP.with_kv_seq`)."""
+
+    ring: Any  # the 1-D view over ``data`` its partial softmaxes combine over
+    coords: List[int]  # the ``data`` coordinates this process runs
+    blocks: int  # the ``data`` axis's size
+    holds_block: bool  # the process holds its own block (else the whole cache, a block a view)
+
+
+def seq_blocks(data: int, positions: int) -> int:
+    """The blocks over a ``data`` axis of ``data`` ranks that a serving
+    cache of ``positions`` positions lies in when its sequence is cut
+    there (``seq_shard``): one a rank where they divide the positions,
+    else 1 (the reference's ``sanitize_spec`` drops an axis that does not
+    divide its dim)."""
+    return data if positions % data == 0 else 1
+
+
 class TP:
     """The ``model`` axis as the layers see it (Megatron-style tensor
     parallelism: heads, ``d_ff`` and the vocabulary over the axis).
@@ -330,7 +349,10 @@ class TP:
     rank's (B, S/P, d) block, which a column-parallel projection gathers
     with PR 18's ring all-gather, multiplying each arriving chunk
     (:meth:`col`), and a row-parallel output returns to with the ring
-    reduce-scatter (:meth:`reduce`)."""
+    reduce-scatter (:meth:`reduce`).
+
+    ``kv_seq`` (:meth:`with_kv_seq`): a serving cache whose sequence lies
+    in blocks over the mesh's ``data`` axis, or None."""
 
     def __init__(self, mesh=None, seq: bool = False, batch=None):
         self.mesh = mesh
@@ -340,11 +362,29 @@ class TP:
         self.ranks: List[int] = self.ring.local_ranks() if self.p > 1 else [0]
         self.holds_block = mesh is not None and mesh.caller_holds_block
         self.seq = seq and self.p > 1
+        self.kv_seq: Optional[SeqCut] = None
 
     def with_seq(self, seq: bool) -> "TP":
         """The same axis with the activations in the other layout."""
         out = TP.__new__(TP)
         out.__dict__.update(self.__dict__, seq=seq and self.p > 1)
+        return out
+
+    def with_kv_seq(self, on: bool, positions: int) -> "TP":
+        """The same axis serving a cache of ``positions`` positions whose
+        sequence lies in blocks over the mesh's ``data`` axis, where ``on``
+        (``Model.init_decode_state(seq_shard=True)``, the reference's
+        ``seq_shard``) and :func:`seq_blocks` gives several; else no such
+        cache."""
+        full = self.batch[0] if self.batch is not None else self.mesh
+        n = seq_blocks(full.shape.get("data", 1), positions) if on and full is not None else 1
+        cut = None
+        if n > 1:
+            ring = full.rings("data")[0][0]
+            held = full.caller_holds_block
+            cut = SeqCut(ring, [full.axis_index("data")] if held else ring.local_ranks(), n, held)
+        out = TP.__new__(TP)
+        out.__dict__.update(self.__dict__, kv_seq=cut)
         return out
 
     def splits(self, units: Optional[int]) -> bool:

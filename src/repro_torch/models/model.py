@@ -95,9 +95,11 @@ On a ``ProcessGroupMesh`` a rank holds only its blocks, of the
 the one-rank order, one layer at a time, and keeps the rank's;
 ``params_from_numpy(mesh=, specs=, cfg=)`` cuts the reference's arrays;
 a leaf of ``ssm.MESH_LAYOUT`` is placed as that table says), its
-KV heads of the caches (and of the cross K / V) and its channel blocks
-of the conv windows and Mamba states; on a ``SimMesh`` the stacks and
-the states stay whole and a rank's block is a view.
+block of the KV caches (``attention.cache_block``: KV heads or head dim,
+and with ``seq_shard`` its sequence block), its KV heads of the cross K
+/ V and its channel blocks of the conv windows and Mamba states; on a
+``SimMesh`` the stacks and the states stay whole and a rank's block is a
+view.
 """
 
 from __future__ import annotations
@@ -361,6 +363,10 @@ class Model:
             self.tp = common.TP(ring, batch=(mesh, self.batch_axes))
         else:
             self.tp = common.TP(mesh)
+        #: the ``model`` axis as ``prefill`` and ``decode_step`` see it: with
+        #: the cache's sequence over ``data`` where the last
+        #: ``init_decode_state`` put it there (``seq_shard``)
+        self.serve_tp = self.tp
         #: the tree of :func:`_fsdp_dim` of every leaf, where the process keeps FSDP blocks
         self._placed = None
         if self.batch_axes:
@@ -710,7 +716,8 @@ class Model:
         return nll
 
     # --------------------------------------------------------------- decode
-    def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16) -> Dict[str, Any]:
+    def init_decode_state(self, b: int, s_max: int, cache_dtype=torch.bfloat16, *,
+                          seq_shard: bool = False) -> Dict[str, Any]:
         """``{"pos": int, <group>: state}``, each leaf stacked (L, ...): a
         ``KVCache`` of (L, B, S, KVH, D) K and V, or for MLA an
         ``MLACache`` of (L, B, S, kv_lora_rank) latents and (L, B, S,
@@ -722,26 +729,38 @@ class Model:
         width-4 conv window and the sLSTM (h, c, n, m). The KV cache is
         bfloat16 by default even for a float32 model, as the reference's
         is. No state for whisper's encoder; its decoder's cross K / V come
-        with ``prefill``. On a ``ProcessGroupMesh`` the KV heads, the
-        mLSTM heads and the ``di`` channels of the conv windows and the
-        Mamba state are the rank's."""
+        with ``prefill``. The KV cache lies as the reference's
+        ``decode_state_shardings`` places it (``attention.cache_block``):
+        its KV heads over ``model`` where the axis divides them, else its
+        head dim where the axis divides that; ``seq_shard`` (the
+        reference's ``long_500k``: a batch every ``data`` rank holds) puts
+        its sequence, meta tokens included, in blocks over ``data`` where
+        that axis divides it (``common.seq_blocks``); ``prefill`` and
+        ``decode_step`` read the cache so (``serve_tp``) until the next
+        call makes a state without it. On a ``ProcessGroupMesh`` those blocks, the mLSTM heads
+        and the ``di`` channels of the conv windows and the Mamba state
+        are the rank's."""
         s_tot = s_max + self.cfg.meta_tokens
+        tp = self.tp.with_kv_seq(seq_shard, s_tot)
+        if tp.kv_seq is not None and self.cfg.mla is not None:
+            raise NotImplementedError("the latent cache's sequence over data (MLA with seq_shard): no cell runs it")
+        self.serve_tp = tp
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:
             if g.kind != "enc":
-                state[g.name] = _stack_state(self._layer_state(g, b, s_tot, cache_dtype), g.count)
+                state[g.name] = _stack_state(self._layer_state(g, b, s_tot, cache_dtype, tp), g.count)
         return state
 
-    def _layer_state(self, g: Group, b: int, s_tot: int, cache_dtype):
+    def _layer_state(self, g: Group, b: int, s_tot: int, cache_dtype, tp: common.TP):
         """One layer's initial decode state for group ``g``."""
-        cfg, dev, tp = self.cfg, self.device, self.tp
+        cfg, dev = self.cfg, self.device
         if g.kind in ("dec", "dec_moe"):
             return blocks.init_block_cache(cfg, b, s_tot, cache_dtype, dev, tp)
         di = int(cfg.ssm.expand * cfg.d_model)
         own = di // tp.p if tp.holds_block and tp.splits(di) else di  # the rank's channels
         if g.kind == "hymba":
             return blocks.HymbaState(
-                kv=attention.init_kv_cache(b, s_tot, attention.cache_heads(cfg, tp), cfg.head_dim_, cache_dtype, dev),
+                kv=attention.init_kv_cache(*attention.cache_block(cfg, tp, b, s_tot), cache_dtype, dev),
                 mamba=ssm.MambaState(h=torch.zeros((b, own, cfg.ssm.state_dim), device=dev),
                                      conv=torch.zeros((b, cfg.ssm.conv_dim - 1, own), device=dev)))
         h, dh = cfg.num_heads, di // cfg.num_heads
@@ -763,7 +782,7 @@ class Model:
             x = self._embed_dec(params, batch["tokens"])
         else:
             x = self._embed_in(params, batch)
-        x = self._through_caches(params, x, state, self._prefill_block)
+        x = self._through_caches(params, x, state, functools.partial(self._prefill_block, tp=self.serve_tp))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = x.shape[1]
         return state, self._logits(params, x[:, -1:])[:, 0]
@@ -789,7 +808,7 @@ class Model:
                                                  self.tp, cfg.vocab_size))
         if cfg.rope_theta <= 0:
             x = x + self._abs_pos(state["pos"])
-        x = self._through_caches(params, x, state, self._decode_block)
+        x = self._through_caches(params, x, state, functools.partial(self._decode_block, tp=self.serve_tp))
         x = common.apply_norm(params["final_norm"], x, cfg.norm_kind)
         state["pos"] = state["pos"] + 1
         return self._logits(params, x)[:, 0], state
@@ -809,8 +828,8 @@ class Model:
         return blocks.apply_decoder_block(p, x, cfg, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl, tp=tp,
                                           cross_kv=cross)
 
-    def _prefill_block(self, g: Group, p, x, st, flag: bool, cross=None):
-        cfg, impl, tp = self.cfg, self.attn_impl, self.tp
+    def _prefill_block(self, g: Group, p, x, st, flag: bool, cross=None, *, tp: common.TP):
+        cfg, impl = self.cfg, self.attn_impl
         if g.kind == "hymba":
             return blocks.prefill_hymba_block(p, x, cfg, st, is_global=flag, impl=impl, tp=tp)
         if g.kind == "xlstm_pair":
@@ -820,8 +839,8 @@ class Model:
         return blocks.prefill_decoder_block(p, x, cfg, st, is_global=flag, use_moe=g.kind == "dec_moe", impl=impl,
                                             tp=tp, cross_kv=cross)
 
-    def _decode_block(self, g: Group, p, x, st, flag: bool, cross=None):
-        cfg, tp = self.cfg, self.tp
+    def _decode_block(self, g: Group, p, x, st, flag: bool, cross=None, *, tp: common.TP):
+        cfg = self.cfg
         if g.kind == "hymba":
             return blocks.decode_hymba_block(p, x, cfg, st, is_global=flag, tp=tp)
         if g.kind == "xlstm_pair":

@@ -297,10 +297,18 @@ def production_run(tmp_path_factory):
     from repro_torch.launch import dryrun
 
     out = tmp_path_factory.mktemp("dryrun")
+    # the workers start without the variable torch's first import of dynamo
+    # sets, as a fresh shell would start them
+    cache_dir = os.environ.pop("TORCHINDUCTOR_CACHE_DIR", None)
     env = dict(os.environ)
-    with pytest.raises(SystemExit) as done:
-        dryrun.main(["--all", "--mesh", "both", "--out", str(out)])
-    return {"code": done.value.code, "out": out, "env": (env, dict(os.environ)),
+    try:
+        with pytest.raises(SystemExit) as done:
+            dryrun.main(["--all", "--mesh", "both", "--out", str(out)])
+    finally:
+        after = dict(os.environ)
+        if cache_dir is not None:
+            os.environ["TORCHINDUCTOR_CACHE_DIR"] = cache_dir
+    return {"code": done.value.code, "out": out, "env": (env, after),
             "cuda": torch.cuda.is_initialized(), "group": dist.is_available() and dist.is_initialized()}
 
 
@@ -667,14 +675,22 @@ def test_the_executed_half_leaves_the_counters_alone():
     reset_collectives()
 
 
-@pytest.mark.parametrize("dims", GRIDS)
-@pytest.mark.parametrize("arch,sname", CELLS)
+#: serving cells whose cache the reference's ``decode_state_shardings``
+#: cuts where the 12 do not: reduced Qwen's 2 KV heads along the head dim
+#: on (1, 4), and reduced hymba's sequence over ``data`` (``long_500k``'s
+#: ``seq_shard``) on (2, 2)
+CUT_CELLS = [("qwen2.5-32b", "decode_32k", (1, 4)), ("hymba-1.5b", "long_500k", (2, 2))]
+
+
+@pytest.mark.parametrize("arch,sname,dims", [(a, s, d) for a, s in CELLS for d in GRIDS] + CUT_CELLS)
 def test_the_meta_rank_counts_the_walks_collectives(arch, sname, dims):
     """One rank's whole step on a ``core.mesh.MetaRankMesh`` of the
     cell's mesh -- ``ProcessGroupMesh``'s transports, no wire -- counts in
     ``core.mesh.COLLECTIVE_BYTES`` exactly the collectives the walk
     predicts (``dryrun.collectives``: the state's and the activations',
-    counts and assembled bytes of each kind) on the 12 cells."""
+    counts and assembled bytes of each kind) on the 12 cells and
+    CUT_CELLS (the cut cache's query gather, scores' psum, output
+    all-to-all and the combine's pmax and psums over ``data``)."""
     from repro_torch.configs import SHAPES, get_config
     from repro_torch.core.mesh import collectives, reset_collectives
     from repro_torch.launch import dryrun
@@ -688,6 +704,27 @@ def test_the_meta_rank_counts_the_walks_collectives(arch, sname, dims):
     for scope in ("state", "activation"):
         got = collectives(scope)
         assert (got["counts"], got["bytes"]) == (walk[scope]["counts"], walk[scope]["bytes"]), scope
+
+
+@pytest.mark.parametrize("arch,sname,dims", CUT_CELLS + [("hymba-1.5b", "prefill_32k", (1, 4))])
+def test_the_traced_rank_holds_the_walks_arguments(arch, sname, dims):
+    """The serving state one rank's traced step holds is the reference's
+    spec (``decode_state_shardings``): ``executed.args_bytes`` equals the
+    walk's ``argument_bytes``, whose weights differ from the reference's
+    only by the named ``PLACED`` leaves
+    (test_argument_bytes_are_the_reference_memory_analysis) -- on the cut
+    caches of CUT_CELLS and on hymba's prefill on (1, 4), where the whole
+    KV heads once held 302,063,616 B past the arguments."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+
+    cfg, shape, mesh = get_config(arch, reduced=True), SHAPES[sname], _mesh(dims)
+    ex = dryrun.executed(cfg, shape, mesh)
+    args = dryrun.arguments(cfg, shape, mesh)
+    assert ex["args_bytes"] == sum(args.values())
+    _, spec = dryrun.decode_state(cfg, shape, mesh)
+    k = spec["hymba"].kv.k if cfg.family == "hybrid" else spec["layers"].k  # (L, B, S, KVH, hd)
+    assert (k[2], k[4]) == (("data", None) if sname == "long_500k" else (None, "model")), k
 
 
 #: the executed half against the reference's compiled program on the 12

@@ -7,7 +7,8 @@ runs the same weights and tokens on a ``SimMesh`` of the same
 ``("data", "model")`` axes:
 
 - ``qwen2.5-32b`` on (1, 4): 4 heads split, its 2 KV heads do not divide
-  4, so ``wk`` / ``wv`` and the cache stay whole; the same with
+  4, so ``wk`` / ``wv`` stay whole and the cache is cut along its head
+  dim (the reference's ``decode_state_shardings``); the same with
   ``attn_partition="context"``; and on the (2, 2) grid, whose ``model``
   axis of 2 splits the KV heads and the cache too;
 - ``gemma2-9b`` on (1, 2): heads and KV heads split, softcaps,
@@ -18,7 +19,8 @@ runs the same weights and tokens on a ``SimMesh`` of the same
 - ``xlstm-1.3b``, ``hymba-1.5b`` and ``whisper-medium`` on (1, 2) and
   (1, 4): the SSM mixers split by channel (Mamba's and the mLSTM's
   ``[x | z]`` halves, the sLSTM's gathered pre-activations), hymba's
-  attention (4 heads, 2 KV heads: whole at 4) and the encoder-decoder's
+  attention (4 heads, 2 KV heads: ``wk`` / ``wv`` whole at 4, the cache
+  cut along its head dim, as mixtral's) and the encoder-decoder's
   encoder, cross-attention and vocabulary;
 - the reference's ``flash_decode_combine`` under ``shard_map``
   (``tests/test_attention.py``'s case) against the port's over
@@ -34,7 +36,10 @@ its blocks, bitwise the one-rank model's slice after ``init`` and the
 reference's after ``params_from_numpy`` (for the SSM leaves each packed
 half's block: ``win`` / ``wup``); ``logits``, prefill and decode within
 1e-5 of the one-rank model in both attention partitions, and for xLSTM,
-hymba and whisper, every rank's logits bitwise equal; and the SPMD
+hymba and whisper, every rank's logits bitwise equal; a rank's cut cache
+(Qwen's (B, S, KVH, hd / 4)) against the one-rank cache's slice, and
+reduced hymba with one KV head on a (2, 2) grid at batch 1 with
+``seq_shard`` (both cuts: a quarter of the cache a rank); and the SPMD
 ``ServeEngine`` serving Qwen's and hymba's reduced configs gives the
 reference engine's greedy tokens on every rank.
 """
@@ -76,6 +81,10 @@ CASES = (
     ("whisper", "whisper-medium", (1, 2), {}),
     ("whisper_4", "whisper-medium", (1, 4), {}),
 )
+#: (name, arch, dims, overrides, the CASES entry whose reference run it is held to): the cache's sequence over
+#: ``data`` (``seq_shard``) on a SimMesh, which holds the whole batch at every ``data`` coordinate; the
+#: reference's values do not depend on where its cache lies, so these cases need no run of their own
+SEQ_CASES = (("hymba_seq", "hymba-1.5b", (2, 2), {}, "hymba"), ("gemma_seq", "gemma2-9b", (2, 2), {}, "gemma"))
 REF_GROUPS = (("deepseek",), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"),
               ("xlstm", "xlstm_4", "hymba", "hymba_4", "whisper", "whisper_4"))
 #: whisper's frame embeddings (B, S_ENC, d_model of the reduced config)
@@ -183,20 +192,21 @@ def _flat(tree, prefix=""):
     return {prefix.lstrip("/"): np.asarray(tree)}
 
 
-def _run(model, params, toks, enc=None):
+def _run(model, params, toks, enc=None, *, seq_shard=False):
     """logits of the first 16 tokens, and a prefill of them + two decode
-    steps (float32 cache); ``enc``: whisper's frame embeddings."""
+    steps (float32 cache), and the state after them; ``enc``: whisper's
+    frame embeddings."""
     def batch(t):
         return {"tokens": t} if enc is None else {"enc_embeds": enc, "tokens": t}
 
     logits = model.logits(params, batch(toks[:, :16]))
-    state = model.init_decode_state(2, 18, cache_dtype=torch.float32)
+    state = model.init_decode_state(toks.shape[0], 18, cache_dtype=torch.float32, seq_shard=seq_shard)
     state, pl = model.prefill(params, batch(toks[:, :16]), state)
     steps = [pl]
     for t in (16, 17):
         lg, state = model.decode_step(params, toks[:, t:t + 1], state)
         steps.append(lg)
-    return logits, steps
+    return logits, steps, state
 
 
 @pytest.fixture(scope="module")
@@ -406,6 +416,7 @@ def _model_cases(mesh, ran):
         for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
             assert rel(g, e) <= REL_TOL, kw
         assert all(np.array_equal(g, got[1][-1].numpy()) for g in _gathered(got[1][-1].numpy())), kw
+        _cut_cache_case(got[2]["layers"], exp[2]["layers"], mesh.rank, kw)
     enc = torch.from_numpy(np.random.default_rng(2).standard_normal((2, S_ENC, 64)).astype(np.float32))
     for arch, kw in MESH_ARCHS:
         cfg = _cfg(arch, **kw)
@@ -419,6 +430,53 @@ def _model_cases(mesh, ran):
         mine = np.stack([got[0][:, -1].numpy()] + [t.numpy() for t in got[1]])
         assert all(np.array_equal(g, mine) for g in _gathered(mine)), arch
     ran.append("the model over gloo")
+
+
+def _cut_cache_case(got, exp, c: int, kw) -> None:
+    """Reduced Qwen's cache on a rank at P = 4 after a prefill and two
+    decode steps: its 2 KV heads do not divide 4, so the rank holds the
+    (L, B, S, 2, 16 / 4) slice c of the head dim, as the reference's
+    ``decode_state_shardings`` cuts it -- within 1e-5 of the one-rank
+    cache's slice, and bitwise in the first layer, whose K / V come from
+    the same inputs on every rank (the later layers' inputs differ by the
+    psums' order)."""
+    for g, e in ((got.k, exp.k), (got.v, exp.v)):
+        assert g.shape == e.shape[:4] + (e.shape[4] // P,), (kw, g.shape)
+        e = e[..., 4 * c:4 * c + 4]
+        assert torch.equal(g[0], e[0]) and rel(g, e) <= REL_TOL, kw
+    assert torch.equal(got.length, exp.length)
+
+
+def _seq_shard_case(ran):
+    """Reduced hymba with one KV head (the ``model`` axis of 2 cuts its head
+    dim) on a (2, 2) grid at batch 1 with ``seq_shard`` (its 18 + 8 meta
+    positions in two blocks over ``data``): each rank holds a quarter of
+    the cache, (L, 1, 13, 1, 8), bitwise its block of the one-rank cache
+    in the first layer and within 1e-5 in all; the prefill and two decode
+    steps (the scores' psum over ``model``, then the combine over
+    ``data``) within 1e-5 of the one-rank model's, bitwise equal on every
+    rank."""
+    from repro_torch.core import ProcessGroupMesh
+
+    grid = ProcessGroupMesh(device="cpu", grid=(2, 2), axis_names=DATA_MODEL, timeout_s=60)
+    d, c = grid.axis_index("data"), grid.axis_index("model")
+    cfg = _cfg("hymba-1.5b", num_kv_heads=1)
+    toks = torch.from_numpy(np.random.default_rng(3).integers(0, 256, (1, 18)))
+    whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    own = params_from_numpy(_np(whole), device="cpu", mesh=grid, specs=specs, cfg=cfg)
+    model = Model(cfg, grid, device="cpu")
+    got = _run(model, own, toks, seq_shard=True)
+    exp = _run(Model(cfg, device="cpu"), whole, toks)
+    assert model.serve_tp.kv_seq.blocks == 2 and model.serve_tp.kv_seq.holds_block
+    for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
+        assert rel(g, e) <= REL_TOL
+    for g, e in ((got[2]["hymba"].kv.k, exp[2]["hymba"].kv.k), (got[2]["hymba"].kv.v, exp[2]["hymba"].kv.v)):
+        assert g.numel() * 4 == e.numel() and g.shape == (e.shape[0], 1, 13, 1, 8)
+        e = e[:, :, 13 * d:13 * d + 13, :, 8 * c:8 * c + 8]
+        assert torch.equal(g[0], e[0]) and rel(g, e) <= REL_TOL
+    mine = np.stack([t.numpy() for t in got[1]])
+    assert all(np.array_equal(g, mine) for g in _gathered(mine))
+    ran.append("the cut cache over gloo")
 
 
 def _engine_case(mesh, ran, ref_dir):
@@ -477,6 +535,7 @@ def _worker(rank, world, init_method, tmp, ref_dir):
         _collective_cases(mesh, ran)
         _placement_cases(mesh, ran, ref_dir)
         _model_cases(mesh, ran)
+        _seq_shard_case(ran)
         _engine_case(mesh, ran, ref_dir)
         with open(f"{tmp}/ran{rank}.json", "w") as fh:
             json.dump(ran, fh)
@@ -491,7 +550,7 @@ def test_tensor_parallel_over_a_process_group(tmp_path, engine_refs):
     for rank in range(P):
         ran = json.loads((tmp_path / f"ran{rank}.json").read_text())
         assert ran == ["psum / pmax", "each rank holds its blocks", "the model over gloo",
-                       "SPMD engine equals the reference"], (rank, ran)
+                       "the cut cache over gloo", "SPMD engine equals the reference"], (rank, ran)
 
 
 # ---------------------------------------------------------------------------
@@ -499,30 +558,65 @@ def test_tensor_parallel_over_a_process_group(tmp_path, engine_refs):
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name,arch,dims,kw", CASES, ids=[c[0] for c in CASES])
-def test_model_on_a_mesh_matches_reference(ref, monkeypatch, name, arch, dims, kw):
+MESH_CASES = [c + (c[0], False) for c in CASES] + [c + (True,) for c in SEQ_CASES]
+
+
+@pytest.mark.parametrize("name,arch,dims,kw,ref_name,seq_shard", MESH_CASES, ids=[c[0] for c in MESH_CASES])
+def test_model_on_a_mesh_matches_reference(ref, monkeypatch, name, arch, dims, kw, ref_name, seq_shard):
     """logits (S = 16: the sequence-parallel rings, one reduce-scatter per
     sublayer), prefill and two decode steps (the psum form), float32
-    caches, against the reference's Model(cfg, mesh)."""
-    scatters = []
+    caches, against the reference's Model(cfg, mesh). With ``seq_shard``
+    (SEQ_CASES) the cache's 18 (+ 8 meta) positions lie in two blocks over
+    ``data``, each ``model`` coordinate's heads combining them once a
+    step and layer."""
+    scatters, combines = [], []
     orig = overlap.ring_reduce_scatter
     monkeypatch.setattr(overlap, "ring_reduce_scatter", lambda *a, **k: scatters.append(1) or orig(*a, **k))
+    combine = A.flash_decode_combine
+    monkeypatch.setattr(A, "flash_decode_combine", lambda *a: combines.append(1) or combine(*a))
     cfg = _cfg(arch, **kw)
     model = Model(cfg, _mesh(*dims), attn_impl="chunked", device="cpu")
     params = params_from_numpy(_unflat(ref, f"w/{arch}"), device="cpu")
     recurrent = cfg.family in ("ssm", "hybrid")
     assert model.seq_parallel(16) is not recurrent and model.tp.p == dims[1]
     enc = torch.from_numpy(ref["enc"]) if cfg.is_encdec else None
-    logits, steps = _run(model, params, torch.from_numpy(ref["toks"]), enc)
-    assert rel(logits, ref[f"{name}/logits"]) <= REL_TOL
-    for got, exp in zip(steps, ref[f"{name}/steps"]):
+    logits, steps, _ = _run(model, params, torch.from_numpy(ref["toks"]), enc, seq_shard=seq_shard)
+    assert rel(logits, ref[f"{ref_name}/logits"]) <= REL_TOL
+    for got, exp in zip(steps, ref[f"{ref_name}/steps"]):
         assert rel(got, exp) <= REL_TOL
+    assert (model.serve_tp.kv_seq is not None) is seq_shard
+    assert len(combines) == (2 * cfg.num_layers * dims[1] if seq_shard else 0)  # a step, layer and coordinate
     moe_layers = 0 if cfg.moe is None else cfg.num_layers - cfg.moe.first_k_dense
     # attention + dense FFN (+ whisper's cross-attention, and its encoder's layers in logits and again in
     # prefill); a MoE FFN gathers the sequence; the SSM and hybrid models keep it whole
     expect = 0 if recurrent else 2 * cfg.num_layers - moe_layers + cfg.is_encdec * (cfg.num_layers
                                                                                      + 4 * cfg.encoder_layers)
     assert len(scatters) == expect
+
+
+@pytest.mark.parametrize("arch,kw", [("hymba-1.5b", {"num_kv_heads": 1}), ("gemma2-9b", {"window_size": 4})],
+                         ids=["hymba_1kv", "gemma_window_4"])
+def test_a_sequence_sharded_cache_on_a_sim_mesh_matches_one_rank(arch, kw):
+    """``seq_shard`` on SimMesh((2, 2)) against the one-rank model on the
+    same weights, within 1e-5: reduced hymba with one KV head (the
+    ``model`` axis cuts its head dim, so the scores' psum over ``model``
+    runs before the combine over ``data``), and reduced gemma2 with
+    4-token windows, whose windowed layers see no key of the first block
+    when they decode positions 16 and 17 (m = -inf, l = 0 there). The
+    cache stays whole on the one process."""
+    cfg = _cfg(arch, **kw)
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 18)))
+    whole, _ = Model(cfg, device="cpu").init(torch.Generator().manual_seed(6))
+    model = Model(cfg, _mesh(2, 2), device="cpu")
+    got = _run(model, whole, toks, seq_shard=True)
+    exp = _run(Model(cfg, device="cpu"), whole, toks)
+    assert model.serve_tp.kv_seq.blocks == 2 and not model.serve_tp.kv_seq.holds_block
+    for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
+        assert rel(g, e) <= REL_TOL
+    key = "hymba" if cfg.family == "hybrid" else "layers"
+    cache = got[2][key].kv if cfg.family == "hybrid" else got[2][key]
+    ref_cache = exp[2][key].kv if cfg.family == "hybrid" else exp[2][key]
+    assert cache.k.shape == ref_cache.k.shape and rel(cache.k, ref_cache.k) <= REL_TOL
 
 
 def test_flash_decode_combine_matches_reference(ref):
@@ -585,3 +679,29 @@ def test_psum_and_pmax_sum_each_ring_in_rank_order():
     assert [float(t[0]) for t in mesh.psum(xs, "data")] == [5.0, 10.0, 5.0, 10.0]
     assert [float(t[0]) for t in mesh.pmax(xs, "model")] == [2.0, 2.0, 8.0, 8.0]
     assert [float(t[0]) for t in SimMesh(4, device="cpu").psum(xs)] == [15.0] * 4
+
+
+@pytest.mark.parametrize("p", [2, 4, 8, 16])
+def test_the_cache_cut_is_the_references_rule(p):
+    """``attention.cache_model_dim`` -- the dim of the KV cache the model
+    cuts over ``model``, which the port's ``launch.specs._leaf_spec``
+    reads -- is the reference's ``_leaf_spec`` decision for every full
+    config with a KV cache at ``p`` ranks: the dim it places ``model``
+    on, none where that dim's size does not divide (its ``sanitize_spec``
+    drops the axis); and the port's spec of the cache is the reference's,
+    with and without ``seq_shard``."""
+    from repro.launch.specs import _leaf_spec as ref_leaf_spec
+    from repro_torch.configs import _MODULES
+    from repro_torch.launch.specs import _leaf_spec
+
+    for arch in _MODULES:
+        cfg = get_config(arch)
+        if cfg.mla is not None or cfg.family == "ssm":
+            continue
+        shape = (cfg.num_layers, 8, 64, cfg.num_kv_heads, cfg.head_dim_)
+        ref = ref_leaf_spec(".layers.k", 5, ba=None, seq_shard=False, shape=shape, tp=p)
+        dim = tuple(ref).index("model")
+        assert A.cache_model_dim(shape[3], shape[4], p) == (dim - 1 if shape[dim] % p == 0 else None), arch
+        for ba, seq in ((("pod", "data"), False), (None, True)):
+            assert _leaf_spec(".layers.v", 5, ba=ba, seq_shard=seq, shape=shape, tp=p) == \
+                tuple(ref_leaf_spec(".layers.v", 5, ba=ba, seq_shard=seq, shape=shape, tp=p)), (arch, ba, seq)
