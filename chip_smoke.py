@@ -135,7 +135,11 @@ Phases, each printing a line; any failure exits non-zero with no result:
    beside two bounds (all the weights: the einsum dispatch reads every
    expert; and only the experts that step routed to), peak memory
    (fails above 72 GiB); (4) launch.serve.main --arch at its reduced
-   default. No FFT kernel runs here (``moe_serving_<arch>``: 0 each);
+   default; after phase 16, DeepSeek-V3's engine decodes one step (batch
+   1, bfloat16) over a 131,072-position latent cache filled from the
+   seed, whole on one rank and with its sequence over data on
+   SimMesh((2, 2)): both steps' ms and the cache bytes a rank, no gate on
+   speed. No FFT kernel runs here (``moe_serving_<arch>``: 0 each);
 16. expert parallelism on SimMesh(4) -- each of phase 15's models split
    four ways on this card, on phase 15's weights (the same tensors: a
    rank's experts are views of the stacks): (1) on check 1's float32
@@ -157,7 +161,11 @@ Phases, each printing a line; any failure exits non-zero with no result:
    steps (the psum form), each within 1e-5 of the one-rank model, for
    Qwen2.5-32B (heads partition, and attn_partition="context"),
    Gemma2-9B, and phase 15's two check-1 models (run beside phase 16's
-   check 1: tensor- and expert-parallel); (2) Qwen2.5-32B at 8 of 64
+   check 1: tensor- and expert-parallel); the cache's sequence over data
+   (seq_shard) on SimMesh((2, 2)): phase 15's check-1 DeepSeek-V3 (its
+   latent cache) and Hymba-1.5B at 4 layers, 2 rows, a 300-token prompt
+   written into both blocks and 2 decode steps within 1e-5 of one rank,
+   flash_decode_combine counted; (2) Qwen2.5-32B at 8 of 64
    layers in bfloat16, phase 14's stream on one rank and on
    Model(cfg, SimMesh(4)) on the same weights: phase 14's report, the
    share of greedy tokens equal to one rank's; one prefill of 2 x 512
@@ -296,7 +304,11 @@ tensor parallelism over NCCL (``nccl_tp``; alone: ``nccl_tp_phase``):
 phase 17's float32 dense checks and phase 19's models' (whisper,
 xLSTM, hymba: logits, prefill, decode) against one card, every rank's
 outputs bitwise equal (the MoE check above holds its logits so too), and on
-P > 1 cards Qwen2.5-32B at 64 layers served; each served model prints
+P > 1 cards Qwen2.5-32B at 64 layers served; on four cards DeepSeek-V3
+(full width, its 2 dense layers, float32) with its latent cache's
+sequence over data on a (2, 2) grid (``nccl_latent_seq``), a 300-token
+prefill and 2 decode steps within 1e-5 of one card, half the latent
+cache a rank; each served model prints
 one decode step's collectives by name and checks its activation
 collectives against the dry run's decode cell on every rank, exactly
 (``nccl_tp``: 0 FFT launches),
@@ -356,6 +368,7 @@ import shutil
 import statistics
 import subprocess
 import sys
+import traceback
 import tempfile
 import time
 
@@ -460,6 +473,17 @@ TP_F32_MORE = (("whisper-medium", {"encoder_layers": 2}), ("xlstm-1.3b", {}), ("
 TP_SERVE_LAYERS = 8  # phase 17's bf16 serving: Qwen2.5-32B at full width, 8 of 64 layers
 TP_PREFILL, TP_REPS = 512, 3  # one 512-token prompt: prefill (psum form) beside hidden (the rings)
 TP_COUNT_BATCH = 2  # phase 17's counted prefill and decode step: 2 rows of TP_PREFILL
+#: the serving cache's sequence over ``data`` (``seq_shard``, the reference's
+#: long_500k): phase 17 on SimMesh(SEQ_GRID) over ("data", "model") -- phase
+#: 15's check-1 DeepSeek-V3 (its latent cache) and Hymba-1.5B at 4 layers
+#: (its KV cache, head dim cut over model) -- and phase 7 on four cards over
+#: NCCL (DeepSeek-V3, half the latent cache a rank); phase 15 times one bf16
+#: decode step of its DeepSeek-V3 over a SEQ_LONG-position latent cache
+SEQ_GRID = (2, 2)
+SEQ_AXES = ("data", "model")
+SEQ_HYMBA_LAYERS = 4
+SEQ_LONG, SEQ_REPS = 131072, 5
+NCCL_SEQ_LAYERS = 2  # phase 7's check: DeepSeek-V3's first two layers, both dense
 #: phase 18: SSM and hybrid serving on one card at full width and depth.
 #: xLSTM-1.3B (src/repro/configs/xlstm_1p3b.py: 48 layers as 24 mLSTM +
 #: sLSTM pairs, d_model 2048, mLSTM 4 heads of 1024 (expand 2), sLSTM 4
@@ -2073,6 +2097,8 @@ def moe_width_checks(torch, seed, arch: str) -> None:
     check(err <= MOE_DISPATCH_REL_TOL, f"{label} einsum vs dense dispatch: {err:.3e} > {MOE_DISPATCH_REL_TOL}")
     ep_width_checks(torch, g, model, params, f"EP SimMesh({EP_P}) {arch}")
     tp_width_check(torch, g, model, params, f"TP SimMesh({TP_P}) {arch}")
+    if cfg.mla is not None:  # phase 17's sequence cut of the latent cache
+        seq_width_check(torch, g, model, params, f"TP SimMesh({SEQ_GRID}) {arch}")
 
 
 def ep_interleaved(moe, on: bool):
@@ -2330,6 +2356,10 @@ def moe_serving_phase(torch, seed, fft_stage, cm) -> dict:
         by_path[f"moe_serving_{arch}"] = launches
         by_path[f"ep_sim_serving_{arch}"] = ep_sim_serving(torch, seed, fft_stage, cm, eng, cfg, scfg, nbytes, launch,
                                                            stream[0])
+        if cfg.mla is not None:
+            eng.state = None  # the engine's caches
+            torch.cuda.empty_cache()
+            latent_seq_decode(torch, seed, eng, cfg)
         del eng
     return by_path
 
@@ -2460,6 +2490,130 @@ def tp_counted_check(torch, model, params, cfg, seed: int, label: str) -> None:
     torch.cuda.empty_cache()
 
 
+def seq_runs(torch, model, params, toks, n: int, seq_shard: bool):
+    """A prefill of ``toks[:, :n]`` and a decode step for each later token
+    on a float32 cache of ``toks.shape[1]`` positions (``seq_shard``: its
+    sequence over ``data``): ([prefill logits, decode logits...], the
+    state)."""
+    state = model.init_decode_state(toks.shape[0], toks.shape[1], cache_dtype=torch.float32, seq_shard=seq_shard)
+    state, pl = model.prefill(params, {"tokens": toks[:, :n]}, state)
+    out = [pl]
+    for t in range(n, toks.shape[1]):
+        lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+        out.append(lg)
+    return out, state
+
+
+def latent_bytes(state) -> int:
+    """The bytes of a decode state's latent caches (every ``MLACache``'s
+    ``ckv`` and ``k_rope``)."""
+    from repro_torch.models.attention import MLACache
+
+    return sum(c.ckv.numel() * c.ckv.element_size() + c.k_rope.numel() * c.k_rope.element_size()
+               for c in state.values() if isinstance(c, MLACache))
+
+
+def seq_width_check(torch, g, model, params, label: str) -> None:
+    """Phase 17's sequence cut: ``model``'s float32 weights (the same
+    tensors) on Model(cfg, SimMesh(SEQ_GRID)) over ("data", "model") with
+    ``seq_shard`` -- the cache's LM_SEQ + TP_DECODE positions (and the
+    meta tokens) in two blocks over ``data``, the prompt's LM_SEQ written
+    into both -- against the one-rank model: a prefill and TP_DECODE
+    decode steps within TP_REL_TOL, and ``attention.flash_decode_combine``
+    must have run (its calls counted). One row for each ``data``
+    coordinate: the MoE ring's islands take the rows over ``data``, as the
+    reference's ``x_spec`` does (its shard_map refuses a batch the axis
+    does not divide)."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models import attention
+    from repro_torch.models.model import Model
+
+    cfg = model.cfg
+    toks = torch.randint(0, cfg.vocab_size, (SEQ_GRID[0], LM_SEQ + TP_DECODE), device="cuda", generator=g)
+    one, _ = seq_runs(torch, model, params, toks, LM_SEQ, False)
+    cut = Model(cfg, SimMesh(SEQ_GRID, axis_names=SEQ_AXES))
+    calls, combine = [], attention.flash_decode_combine
+    attention.flash_decode_combine = lambda *a: calls.append(1) or combine(*a)
+    try:
+        got, _ = seq_runs(torch, cut, params, toks, LM_SEQ, True)
+    finally:
+        attention.flash_decode_combine = combine
+    sc, s_tot = cut.serve_tp.kv_seq, toks.shape[1] + cfg.meta_tokens
+    check(sc is not None and sc.blocks == SEQ_GRID[0], f"{label}: the cache's sequence is not cut over data")
+    errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
+    print(f"{label} full width, {cfg.num_layers} layers, float32 (float32 cache), seq_shard on SimMesh({SEQ_GRID}) "
+          f"{SEQ_AXES}: the cache's {s_tot} positions in {sc.blocks} blocks of {s_tot // sc.blocks} over data, a "
+          f"{LM_SEQ}-token prompt written into both; vs the one-rank model on the same weights, rel_err prefill "
+          f"{errs[0]:.3e}, {TP_DECODE} decode steps {', '.join(f'{e:.3e}' for e in errs[1:])} (tol {TP_REL_TOL}); "
+          f"flash_decode_combine calls {len(calls)}", flush=True)
+    check(len(calls) > 0, f"{label}: the sequence-cut decode never combined its blocks")
+    check(max(errs) <= TP_REL_TOL, f"{label} seq_shard: {max(errs):.3e} > {TP_REL_TOL}")
+
+
+def seq_hymba_check(torch, seed) -> None:
+    """Phase 17's sequence cut of a KV cache: Hymba-1.5B at full width,
+    SEQ_HYMBA_LAYERS layers (layer 1 windowed), float32; its 5 KV heads
+    of 64 cut along the head dim over ``model`` as well."""
+    from repro_torch.models.model import Model
+
+    model = Model(ssm_cfg("hymba-1.5b", SEQ_HYMBA_LAYERS, "float32"))
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed)
+    params, _ = model.init(g)
+    seq_width_check(torch, g, model, params, f"TP SimMesh({SEQ_GRID}) hymba-1.5b")
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def latent_seq_decode(torch, seed, eng, cfg) -> None:
+    """Phase 15's long-context decode: the engine's DeepSeek-V3 (MOE_CUTS'
+    depth, bfloat16 weights), batch 1, one decode step at position
+    SEQ_LONG - 1 of a SEQ_LONG-position bfloat16 latent cache filled from
+    the seed (no prefill), whole on one rank and with its sequence over
+    ``data`` on SimMesh(SEQ_GRID) on the same weights: each step's CUDA-
+    event ms (median of SEQ_REPS), its logits' distance between the two,
+    the cache bytes a rank holds; no gate on speed."""
+    from repro_torch.core import SimMesh
+    from repro_torch.models.attention import MLACache
+    from repro_torch.models.model import Model
+
+    g = torch.Generator(device="cuda")
+    g.manual_seed(seed + 9)
+    tok = torch.randint(0, cfg.vocab_size, (1, 1), device="cuda", generator=g)
+    runs = {}
+    for name, model, cut in (("one rank", eng.model, False),
+                             (f"SimMesh({SEQ_GRID}) seq_shard", Model(cfg, SimMesh(SEQ_GRID, axis_names=SEQ_AXES)), True)):
+        state = model.init_decode_state(1, SEQ_LONG, seq_shard=cut)
+        caches = [c for c in state.values() if isinstance(c, MLACache)]
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed + 10)  # the same cache for both
+        for c in caches:
+            c.ckv.normal_(generator=gen)
+            c.k_rope.normal_(generator=gen)
+
+        def step():
+            for c in caches:
+                c.length.fill_(SEQ_LONG - 1)
+            state["pos"] = SEQ_LONG - 1
+            return model.decode_step(eng.params, tok, state)[0]
+
+        with torch.inference_mode():
+            logits = step()
+            ms = events_ms(torch, step, reps=SEQ_REPS)
+        blocks = model.serve_tp.kv_seq.blocks if cut else 1
+        runs[name] = (logits.float(), ms, latent_bytes(state), blocks)
+        del state, caches
+        torch.cuda.empty_cache()
+    (one, one_ms, nbytes, _), (got, ms, _, blocks) = runs.values()
+    print(f"MoE serving {cfg.name} {cfg.num_layers} layers bf16, batch 1, one decode step at position {SEQ_LONG - 1} of "
+          f"a {SEQ_LONG}-position latent cache filled from the seed ({nbytes} B bf16 in all): one rank "
+          f"{one_ms:.3f} ms, SimMesh({SEQ_GRID}) with its sequence over data {ms:.3f} ms (CUDA events, median of "
+          f"{SEQ_REPS}; the SimMesh runs every rank's blocks on this card); a rank's block of the cut cache "
+          f"{nbytes // blocks} B (1/{blocks}, what a process of the grid holds); logits rel_err between the two "
+          f"{lm_rel_err(got, one):.3e} (bf16, not gated) ({card()})", flush=True)
+
+
 def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
     """Phase 17: tensor parallelism on SimMesh(TP_P), one card. Check 1
     (the dense archs; the MoE archs ran beside phase 16's check 1), then
@@ -2477,6 +2631,7 @@ def tp_serving_phase(torch, seed, fft_stage, cm) -> dict:
     from repro_torch.serve import ServeEngine
 
     tp_dense_checks(torch, seed)
+    seq_hymba_check(torch, seed)
     cfg, scfg = dataclasses.replace(get_config(LM_ARCH), num_layers=TP_SERVE_LAYERS), ServeConfig()
     label = f"TP SimMesh({TP_P}) {cfg.name}"
     lm_check_free(torch, f"{label} before serving", 2 * cfg.param_count() + 2 * lm_kv_bytes(cfg, scfg)
@@ -4701,6 +4856,49 @@ def nccl_tp_train(torch, mesh, seed: int) -> dict:
                 sharded=len(whole) - sum(whole))
 
 
+def nccl_latent_seq(torch, mesh, seed: int) -> dict:
+    """Phase 7's sequence cut over NCCL, one rank of four: DeepSeek-V3 at
+    full width, its first NCCL_SEQ_LAYERS (dense) layers, float32, on this
+    card alone, freed, then Model(cfg, ProcessGroupMesh over SEQ_GRID)
+    from the same seed with ``seq_shard``: the rank holds its block of
+    the latent cache over ``data`` (half of one card's), and a
+    LM_SEQ-token prefill and TP_DECODE decode steps lie within TP_REL_TOL
+    of one card's, bitwise equal on every rank. Dense layers: a float32
+    MoE layer's experts, gathered whole over ``data`` by FSDP, took a rank
+    past 80 GB in the whole phase 7 (62.5 GiB allocated beside its NCCL
+    groups' buffers); the latent cache is the attention's."""
+    from repro_torch.core import ProcessGroupMesh
+    from repro_torch.models.model import Model
+
+    cfg = moe_cfg("deepseek-v3-671b", dtype="float32", num_layers=NCCL_SEQ_LAYERS, first_k_dense=NCCL_SEQ_LAYERS)
+    g = torch.Generator(device=mesh.device)
+    g.manual_seed(seed + 7)
+    toks = torch.randint(0, cfg.vocab_size, (1, LM_SEQ + TP_DECODE), device=mesh.device, generator=g)
+
+    def run(model, cut: bool):
+        gen = torch.Generator(device=mesh.device)
+        gen.manual_seed(seed)
+        params, _ = model.init(gen)
+        out, state = seq_runs(torch, model, params, toks, LM_SEQ, cut)
+        return out, latent_bytes(state)
+
+    one, one_bytes = run(Model(cfg), False)
+    gc.collect()
+    torch.cuda.empty_cache()
+    grid = ProcessGroupMesh(grid=SEQ_GRID, axis_names=SEQ_AXES, timeout_s=NCCL_TIMEOUT_S)
+    got, nbytes = run(Model(cfg, grid), True)
+    errs = [lm_rel_err(a, b) for a, b in zip(got, one)]
+    check(max(errs) <= TP_REL_TOL, f"rank {mesh.rank}: NCCL seq_shard {cfg.name} float32 vs one card {errs} > "
+          f"{TP_REL_TOL}")
+    same_on_every_rank(mesh, [digest(t) for t in got], f"{cfg.name} seq_shard float32 outputs (bitwise)")
+    check(nbytes * SEQ_GRID[0] == one_bytes, f"rank {mesh.rank}: {cfg.name} holds {nbytes} B of latent cache, not "
+          f"1/{SEQ_GRID[0]} of one card's {one_bytes} B")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return dict(errs=errs, layers=cfg.num_layers, latent_bytes=nbytes, one_latent_bytes=one_bytes,
+                coords=[grid.axis_index(a) for a in SEQ_AXES])
+
+
 def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
     """Phase 7's TP part, one rank: the float32 checks of TP_F32, one TP
     train step (``nccl_tp_train``), then (P > 1) Qwen2.5-32B at all 64
@@ -4715,6 +4913,8 @@ def nccl_tp(torch, mesh, fft_stage, seed: int) -> dict:
         out["train"] = nccl_tp_train(torch, mesh, seed)
         gc.collect()
         torch.cuda.empty_cache()
+        if mesh.p == math.prod(SEQ_GRID):
+            out["latent_seq"] = nccl_latent_seq(torch, mesh, seed)
         if mesh.p > 1:
             r = nccl_served(torch, mesh, seed, get_config(LM_ARCH))
             r.pop("params")
@@ -4736,6 +4936,16 @@ def print_nccl_tp(rep) -> None:
               f"{', '.join(f'{e:.3e}' for e in r['errs'])} (tol {r['tol']:.3e}), bitwise equal on every rank; weights "
               f"{r['gib']:.2f} GiB a rank vs {r['one_gib']:.2f} on one card; KV cache {r['kv_bytes']} B a rank vs "
               f"{r['one_kv_bytes']} B on one card (1/{rep['P']})", flush=True)
+    if "latent_seq" in m:
+        r = m["latent_seq"]
+        print(f"{who} deepseek-v3-671b full width, its first {r['layers']} (dense) layers, float32, seq_shard on a {SEQ_GRID} grid "
+              f"{SEQ_AXES} (this rank {r['coords']}): a {LM_SEQ}-token prefill and {TP_DECODE} decode steps vs one "
+              f"card on the same seed, rel_err {', '.join(f'{e:.3e}' for e in r['errs'])} (tol {TP_REL_TOL}), "
+              f"bitwise equal on every rank; latent cache {r['latent_bytes']} B a rank vs {r['one_latent_bytes']} B "
+              f"on one card (1/{SEQ_GRID[0]})", flush=True)
+    else:
+        print(f"{who} the latent cache's sequence cut over NCCL needs {math.prod(SEQ_GRID)} cards; "
+              f"{rep['P']} here", flush=True)
     r = m["train"]
     print(f"{who} training: {TRAIN_ARCH} full width, {TRAIN_F32_LAYERS} layers, float32, 1 x {NCCL_TRAIN_SEQ} tokens, "
           f"one make_train_step at lr {TRAIN_LR} on Model(cfg, ProcessGroupMesh) ({r['sharded']} of {r['leaves']} leaves "
@@ -4909,6 +5119,11 @@ def nccl_rank(rank: int, world: int, init_method: str, seed: int, out_dir: str) 
         report["fsdp"] = nccl_fsdp(torch, mesh, fft_stage, seed)
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as fh:
             json.dump(report, fh)
+    except BaseException:  # said here: destroy_process_group waits on the other ranks, which may wait on this one
+        print(f"NCCL rank {rank}/{world} failed:", flush=True)
+        traceback.print_exc()
+        sys.stderr.flush()
+        raise
     finally:
         dist.destroy_process_group()
 

@@ -92,6 +92,7 @@ bytes at the HBM rate and the shipped collective bytes at NVLink's.
 
 Usage:
   python -m repro_torch.launch.dryrun --arch deepseek-v3-671b --shape train_4k --mesh single
+  python -m repro_torch.launch.dryrun --arch deepseek-v3-671b --shape long_500k --mesh both
   python -m repro_torch.launch.dryrun --all --mesh both [--reduced] [--out DIR]
 """
 
@@ -125,7 +126,8 @@ from repro_torch.models.model import Model, abstract, build_groups, placements
 
 RESULT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..", "experiments", "dryrun")
 
-#: long_500k runs only for the sub-quadratic archs (the reference's rule)
+#: the archs ``--all`` runs long_500k for, the sub-quadratic ones (the reference's rule); a named ``--arch`` and
+#: ``--shape`` run any cell, as the reference's CLI does
 LONG_OK = ("xlstm-1.3b", "hymba-1.5b")
 
 #: the reference's production training defaults (``lower_cell``)
@@ -632,6 +634,13 @@ class _Acts:
             self.vary(tp, self.leaf(*pre, "wo"))
             self.reduce(tp, "seq", b * s * d * it, g)
 
+    def combine(self, b: int, nh: int, dv: int) -> None:
+        """``attention.flash_decode_combine`` over ``data``: the pmax of
+        the float32 (B, H') maxima, the psums of the (B, 1, H', Dv)
+        outputs and of the (B, H') sums, for ``nh`` heads a rank."""
+        for nbytes in (b * nh * 4, b * nh * dv * 4, b * nh * 4):
+            self.fwd("all-reduce", nbytes, axes=("data",))
+
     def decode_attention(self, tp: _TP, b: int, s_kv: int, blocks: int) -> None:
         """``attention.decode_attention`` over a cache of ``s_kv``
         positions in ``blocks`` sequence blocks over ``data``: on a
@@ -651,10 +660,7 @@ class _Acts:
             if heads:
                 self.a2a(b * h * (hd // tp.p) * it)
         if blocks > 1:
-            nh = h // tp.p if heads and cut != 3 else h  # the heads a rank attends for
-            dv = hd // tp.p if cut == 3 else hd
-            for nbytes in (b * nh * 4, b * nh * dv * 4, b * nh * 4):
-                self.fwd("all-reduce", nbytes, axes=("data",))
+            self.combine(b, h // tp.p if heads and cut != 3 else h, hd // tp.p if cut == 3 else hd)
         self.reduce(tp, "partial" if heads or cut == 3 else "whole", b * cfg.d_model * it)
 
     def mla(self, tp: _TP, pre: tuple, b: int, s: int, g: bool = True) -> None:
@@ -711,6 +717,8 @@ class _Acts:
                 self.fwd("all-gather", math.prod(shape.values()) * 4, tuple(shape))  # each island's (1, 1) aux
                 if self.batch:  # every data group's aux mean
                     self.fwd("all-gather", _size(self.mesh.shape, self.batch) * 4, self.batch)
+        elif dispatch == "dense" and self.batch:  # the aux's counts and sums over every row
+            self.fwd("all-reduce", (2 * e + 1) * 4, self.batch)
         elif dispatch == "einsum" and math.prod(shape.values()) > 1:
             t = b * s
             groups = moe_lib._groups(mesh, t)
@@ -813,8 +821,11 @@ class _Acts:
     def decode_decoder(self, tp: _TP, pre: tuple, b: int, moe: bool, s_kv: int, blocks: int,
                        s_enc: int = 0) -> None:
         cfg = self.cfg
-        if cfg.mla is not None:
-            self.reduce(tp, "partial" if tp.splits(cfg.num_heads) else "whole", b * cfg.d_model * self.it)
+        if cfg.mla is not None:  # ``attention.decode_mla``: over ``data`` the combine, then the psum
+            split = tp.splits(cfg.num_heads)
+            if blocks > 1:
+                self.combine(b, cfg.num_heads // tp.p if split else cfg.num_heads, cfg.mla.v_head_dim)
+            self.reduce(tp, "partial" if split else "whole", b * cfg.d_model * self.it)
         else:
             self.decode_attention(tp, b, s_kv, blocks)
         if s_enc:

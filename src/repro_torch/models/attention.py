@@ -58,7 +58,9 @@ whole heads (``core.sharding.placement``):
 - **MLA**: ``wdq`` / ``wdkv`` and the latent cache whole on every rank,
   ``wuq`` / ``wukv`` column blocks by head (the absorbed decode absorbs
   the rank's heads), ``wo`` a row block, one psum (the reference
-  constrains MLA to the heads partition).
+  constrains MLA to the heads partition). With ``TP.kv_seq`` the latent
+  cache's sequence lies in blocks over ``data`` (:func:`mla_cache_block`),
+  and the decode combines the blocks' partial softmaxes after ``wuv``.
 
 :func:`flash_decode_combine` merges partial online softmaxes over a
 sequence-sharded KV (``pmax`` then two ``psum`` s): the decode of a
@@ -843,25 +845,83 @@ class MLACache(NamedTuple):
     length: torch.Tensor  # (B,) int32
 
 
-def init_mla_cache(b: int, s_max: int, m: MLAConfig, dtype=torch.bfloat16, device=None) -> MLACache:
+def mla_cache_block(tp: TP, b: int, s_tot: int) -> Tuple[int, int]:
+    """The (B, S) of the latent cache of ``b`` rows and ``s_tot``
+    positions this process holds, :func:`cache_block`'s counterpart: the
+    sequence over ``data`` where ``tp.kv_seq`` and the process holds its
+    own block (a ``ProcessGroupMesh``), else the whole cache (a
+    ``SimMesh``: each block a view, :func:`_cache_view`). The latent
+    stays whole over ``model``, as the reference's spec has it."""
+    if tp.kv_seq is not None and tp.kv_seq.holds_block:
+        return b, s_tot // tp.kv_seq.blocks
+    return b, s_tot
+
+
+def init_mla_cache(b: int, s_max: int, m: MLAConfig, dtype=torch.bfloat16, device=None,
+                   tp: TP = common.SINGLE) -> MLACache:
+    """One layer's latent cache: this process's block of it (:func:`mla_cache_block`)."""
+    b, s = mla_cache_block(tp, b, s_max)
     return MLACache(
-        ckv=torch.zeros((b, s_max, m.kv_lora_rank), dtype=dtype, device=device),
-        k_rope=torch.zeros((b, s_max, m.rope_head_dim), dtype=dtype, device=device),
+        ckv=torch.zeros((b, s, m.kv_lora_rank), dtype=dtype, device=device),
+        k_rope=torch.zeros((b, s, m.rope_head_dim), dtype=dtype, device=device),
         length=torch.zeros((b,), dtype=torch.int32, device=device),
     )
+
+
+def _latent_blocks(cache: MLACache, tp: TP) -> List[Tuple[int, torch.Tensor, torch.Tensor]]:
+    """(``data`` coordinate, ckv, k_rope) of each block of the latent
+    cache the process holds or views; without ``tp.kv_seq`` one, the
+    whole cache."""
+    return [(d, _cache_view(cache.ckv, None, tp, 0, d), _cache_view(cache.k_rope, None, tp, 0, d))
+            for d in (tp.kv_seq.coords if tp.kv_seq is not None else [0])]
 
 
 def prefill_mla(
     p: Params, x: torch.Tensor, cache: MLACache, cfg: ModelConfig, spec: AttnSpec, *, impl: str = "chunked",
     tp: TP = common.SINGLE,
 ) -> Tuple[torch.Tensor, MLACache]:
-    """Full-sequence MLA pass that writes the latent cache[0:S] in place.
+    """Full-sequence MLA pass that writes the latent cache[0:S] in place,
+    into each block of it the process holds (:func:`mla_cache_block`).
     It attends the fresh latent, not the cache's (bfloat16) copy of it."""
     b, s, _ = x.shape
     out, ckv, k_rope = _mla_expanded(p, x, cfg, spec, torch.arange(s, device=x.device), impl, tp)
-    cache.ckv[:, :s] = ckv.to(cache.ckv.dtype)
-    cache.k_rope[:, :s] = k_rope[:, :, 0, :].to(cache.k_rope.dtype)
+    for d, ckv_d, kr_d in _latent_blocks(cache, tp):
+        lo, n = d * ckv_d.shape[1], ckv_d.shape[1]
+        if lo < s:
+            ckv_d[:, :min(s - lo, n)] = ckv[:, lo:lo + n].to(ckv_d.dtype)
+            kr_d[:, :min(s - lo, n)] = k_rope[:, lo:lo + n, 0, :].to(kr_d.dtype)
     return out, MLACache(cache.ckv, cache.k_rope, torch.full((b,), s, dtype=torch.int32, device=x.device))
+
+
+def _latent_block_attend(q_lat: torch.Tensor, q_rope: torch.Tensor, wuv: torch.Tensor, ckv: torch.Tensor,
+                         k_rope: torch.Tensor, k0: int, pos: torch.Tensor, cfg: ModelConfig):
+    """One block of the latent cache (positions ``k0`` on) under a
+    coordinate's absorbed queries (B, 1, H', r) and rope queries: its
+    (B, 1, H', v_head_dim) output through ``wuv``, normalized over the
+    block, and its (B, H', 1, S_block) float32 scores, scaled and masked
+    on absolute positions, for :func:`_latent_combine`."""
+    m: MLAConfig = cfg.mla
+    t_idx = torch.arange(k0, k0 + ckv.shape[1], device=ckv.device)
+    s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv)
+    s_rope = torch.einsum("bshe,bte->bhst", q_rope, k_rope)
+    scores = (s_lat + s_rope).float() / math.sqrt(m.nope_head_dim + m.rope_head_dim)
+    scores = torch.where((t_idx <= pos[:, None])[:, None, None, :], scores, NEG_INF)
+    pr = torch.softmax(scores, dim=-1)
+    lat_sum = torch.einsum("bhst,btr->bshr", pr.to(q_lat.dtype), ckv)
+    return torch.einsum("bshr,rhe->bshe", lat_sum, wuv), scores
+
+
+def _latent_combine(runs, tp: TP) -> torch.Tensor:
+    """The data blocks' normalized outputs and scores
+    (:func:`_latent_block_attend`) merged by :func:`flash_decode_combine`
+    over ``data``: each block enters with its log-sum-exp as the max and
+    1 as the sum, so the combine weighs the blocks by their shares of the
+    softmax. A block with no visible key has a log-sum-exp of -inf and
+    adds nothing, as :func:`_attend_cache`'s empty blocks."""
+    lse = [torch.logsumexp(sc, -1)[..., 0] for _, sc in runs]
+    lse = [x.masked_fill(x <= NEG_INF, -math.inf) for x in lse]
+    return flash_decode_combine([o.float() for o, _ in runs], lse, [torch.ones_like(x) for x in lse],
+                                tp.kv_seq.ring, "data")[0]
 
 
 def decode_mla(
@@ -875,17 +935,28 @@ def decode_mla(
     :func:`decode_attention`); every row attends positions <= its own.
     Each rank absorbs its heads' up-projection. ``spec`` is unused, as in
     the reference (no window, no softcap).
+
+    The new latent goes into the block that holds each row's position
+    (the whole cache, without ``tp.kv_seq``), and each coordinate's heads
+    attend each block apart (:func:`_latent_block_attend`). With the
+    sequence over ``data`` the blocks combine (:func:`_latent_combine`)
+    after ``wuv`` (which is linear) and before ``wo``: (B, 1, H',
+    v_head_dim) a block rather than the latent sum's (B, 1, H',
+    kv_lora_rank).
     """
     m: MLAConfig = cfg.mla
     h, e = cfg.num_heads, m.nope_head_dim + m.v_head_dim
     pos = cache.length  # (B,)
-    b, dt = x.shape[0], x.dtype
+    dt = x.dtype
     split = tp.splits(h)
     coords = tp.owners(split)
     ranks = _mla_ranks(p, x, cfg, pos[:, None], tp, coords)
-    _write_rows(pos, (cache.ckv, ranks[0][2][:, 0]), (cache.k_rope, ranks[0][3][:, 0, 0, :]))
-    ckv_c, kr_c = cache.ckv.to(dt), cache.k_rope.to(dt)
-    t_idx = torch.arange(ckv_c.shape[1], device=x.device)
+    new = (ranks[0][2][:, 0], ranks[0][3][:, 0, 0, :])
+    held = []  # (the block's first position, ckv, k_rope) after the write
+    for d, ckv_d, kr_d in _latent_blocks(cache, tp):
+        k0 = d * ckv_d.shape[1]
+        _write_rows(pos - k0 if k0 else pos, (ckv_d, new[0]), (kr_d, new[1]))
+        held.append((k0, ckv_d.to(dt), kr_d.to(dt)))
     parts = []
     for c, (q_nope, q_rope, _, _) in zip(coords, ranks):
         n = q_nope.shape[2]
@@ -893,12 +964,7 @@ def decode_mla(
         wuk = wukv[..., :m.nope_head_dim].to(dt)  # (r, h, nope)
         wuv = wukv[..., m.nope_head_dim:].to(dt)  # (r, h, v)
         q_lat = torch.einsum("bshe,rhe->bshr", q_nope, wuk)  # the absorbed query
-        s_lat = torch.einsum("bshr,btr->bhst", q_lat, ckv_c)
-        s_rope = torch.einsum("bshe,bte->bhst", q_rope, kr_c)
-        scores = (s_lat + s_rope).float() / math.sqrt(m.nope_head_dim + m.rope_head_dim)
-        scores = torch.where((t_idx <= pos[:, None])[:, None, None, :], scores, NEG_INF)
-        pr = torch.softmax(scores, dim=-1)
-        lat_sum = torch.einsum("bhst,btr->bshr", pr.to(dt), ckv_c)
-        o = torch.einsum("bshr,rhe->bshe", lat_sum, wuv)
-        parts.append(_out(p, o, c, cfg, tp, m.v_head_dim))
+        runs = [_latent_block_attend(q_lat, q_rope, wuv, ckv_d, kr_d, k0, pos, cfg) for k0, ckv_d, kr_d in held]
+        o = _latent_combine(runs, tp) if tp.kv_seq is not None else runs[0][0]
+        parts.append(_out(p, o.to(dt), c, cfg, tp, m.v_head_dim))
     return tp.reduce(parts, "partial" if split else "whole"), MLACache(cache.ckv, cache.k_rope, pos + 1)

@@ -179,10 +179,10 @@ def apply_decoder_block(
 
 def init_block_cache(cfg: ModelConfig, b: int, s_max: int, dtype=torch.bfloat16, device=None,
                      tp: common.TP = common.SINGLE) -> Cache:
-    """One layer's cache; a GQA cache holds this process's block
-    (``attention.cache_block``)."""
+    """One layer's cache: this process's block of it
+    (``attention.cache_block``, ``attention.mla_cache_block``)."""
     if cfg.mla is not None:
-        return attn.init_mla_cache(b, s_max, cfg.mla, dtype, device)
+        return attn.init_mla_cache(b, s_max, cfg.mla, dtype, device, tp)
     return attn.init_kv_cache(*attn.cache_block(cfg, tp, b, s_max), dtype, device)
 
 

@@ -735,15 +735,14 @@ class Model:
         head dim where the axis divides that; ``seq_shard`` (the
         reference's ``long_500k``: a batch every ``data`` rank holds) puts
         its sequence, meta tokens included, in blocks over ``data`` where
-        that axis divides it (``common.seq_blocks``); ``prefill`` and
+        that axis divides it (``common.seq_blocks``), the latent cache's
+        as the KV cache's (``attention.mla_cache_block``); ``prefill`` and
         ``decode_step`` read the cache so (``serve_tp``) until the next
         call makes a state without it. On a ``ProcessGroupMesh`` those blocks, the mLSTM heads
         and the ``di`` channels of the conv windows and the Mamba state
         are the rank's."""
         s_tot = s_max + self.cfg.meta_tokens
         tp = self.tp.with_kv_seq(seq_shard, s_tot)
-        if tp.kv_seq is not None and self.cfg.mla is not None:
-            raise NotImplementedError("the latent cache's sequence over data (MLA with seq_shard): no cell runs it")
         self.serve_tp = tp
         state: Dict[str, Any] = {"pos": 0}
         for g in self.groups:

@@ -34,7 +34,9 @@ token priority within each expert, as the reference assigns them.
     reference does.
 ``dispatch='dense'``
     Every expert on every token, weighted by the gates (small configs);
-    it needs every expert on the rank.
+    it needs every expert on the rank. Where ranks hold their own rows of
+    the batch, its aux is the one over every token (the reference's over
+    the whole batch under GSPMD).
 
 The router is whole on every rank; the shared expert is a
 tensor-parallel MLP (``mlp.apply_mlp`` over the ``model`` axis). The
@@ -100,17 +102,35 @@ def _one_hot(idx: torch.Tensor, n: int) -> torch.Tensor:
     return torch.zeros(idx.shape + (n,), dtype=torch.int64, device=idx.device).scatter_(-1, idx[..., None], 1)
 
 
-def router_topk(x: torch.Tensor, wr: torch.Tensor, k: int) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+def router_topk(x: torch.Tensor, wr: torch.Tensor, k: int, *,
+                batch=None) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Returns (weights (T, k) float32, indices (T, k) int64, aux
-    load-balance loss)."""
+    load-balance loss).
+
+    With ``batch`` (``TP.batch``: the mesh and the axes whose ranks hold
+    the batch's rows) the aux is the one over every token (the
+    reference's over the whole batch): the routed counts, the
+    probabilities' sums and the token counts summed over those axes. The
+    probabilities are the rank's own, so its rows' share of the aux
+    carries their gradient; ``Model.loss`` divides a rank's aux by the
+    ranks of those axes (each rank's aux is its group's in the other
+    dispatches), so the share enters n times, and the value is the
+    global aux on every rank."""
     probs = torch.softmax(x.float() @ wr.float(), dim=-1)
     w, idx = torch.topk(probs, k, dim=-1)
     w = w / torch.clamp(w.sum(-1, keepdim=True), min=1e-9)
     # GShard aux: E * sum_e (fraction routed to e) * (mean prob of e)
     e = wr.shape[1]
-    frac = _one_hot(idx, e).float().sum(1).mean(0)  # (E,)
-    aux = e * torch.sum(frac * probs.mean(0))
-    return w, idx, aux
+    if batch is None:
+        frac = _one_hot(idx, e).float().sum(1).mean(0)  # (E,)
+        return w, idx, e * torch.sum(frac * probs.mean(0))
+    full, axes = batch
+    local = torch.cat([_one_hot(idx, e).float().sum((0, 1)), probs.detach().sum(0),
+                       probs.new_full((1,), float(x.shape[0]))])
+    tot = full.psum([local], axes, activation=True)[0]
+    frac, mean, t = tot[:e] / tot[-1], tot[e:2 * e] / tot[-1], tot[-1]
+    share = full.axis_size(axes) * e * torch.sum(frac * probs.sum(0)) / t
+    return w, idx, share + (e * torch.sum(frac * mean) - share).detach()
 
 
 def _expert_ffn(wg, wu, wd, x: torch.Tensor, kind: str) -> torch.Tensor:
@@ -245,12 +265,16 @@ def _apply_moe_gspmd(p, x2d: torch.Tensor, cfg: ModelConfig, mesh=None,
     return out, torch.stack([r[3] for r in routed]).mean()
 
 
-def _apply_moe_dense(p, x2d: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+def _apply_moe_dense(p, x2d: torch.Tensor, cfg: ModelConfig,
+                     tp: Optional[common.TP] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Every expert on every token, weighted by the gates. Where the
+    process holds its rows of the batch (``tp.batch``), the aux is the
+    one over every token (:func:`router_topk`'s ``batch``)."""
     mo = cfg.moe
     if p["wu"].shape[0] != mo.num_experts:
         raise ValueError(f"the dense dispatch runs every expert; this rank holds {p['wu'].shape[0]} of "
                          f"{mo.num_experts}")
-    w, idx, aux = router_topk(x2d, p["router"], mo.top_k)
+    w, idx, aux = router_topk(x2d, p["router"], mo.top_k, batch=tp.batch if tp is not None else None)
     all_y = _expert_ffn(p.get("wg"), p["wu"], p["wd"], x2d[None], cfg.mlp_kind)  # (E, T, d)
     gate = torch.einsum("tk,tke->te", w, _one_hot(idx, mo.num_experts).float())  # (T, E)
     return torch.einsum("te,etd->td", gate.to(x2d.dtype), all_y), aux
@@ -367,14 +391,11 @@ def apply_moe(p: Params, x: torch.Tensor, cfg: ModelConfig, *, mesh=None,
         pn = mesh.shape.get("model", 1) if mesh is not None else 1
         if mesh is None or pn == 1 or mo.num_experts % pn or s % pn:
             dispatch = "einsum"  # the reference's divisibility fallback
-    if dispatch == "dense" and tp.batch is not None:
-        raise NotImplementedError("the dense dispatch's aux loss is one over every token: it does not split over "
-                                  "ranks that each hold their rows of the batch (use the einsum or ring dispatch)")
     DISPATCHES[(dispatch, 1 if mesh is None else mesh.p)] += 1
     if dispatch == "ring":
         out, aux = _apply_moe_ring(p, x, cfg, mesh, tp)
     elif dispatch == "dense":
-        out, aux = _apply_moe_dense(p, x.reshape(b * s, d), cfg)
+        out, aux = _apply_moe_dense(p, x.reshape(b * s, d), cfg, tp)
     else:
         out, aux = _apply_moe_gspmd(p, x.reshape(b * s, d), cfg, mesh, tp)
     out = out.reshape(b, s, d)

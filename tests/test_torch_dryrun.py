@@ -26,6 +26,9 @@ from torch_train_common import on_one_thread  # noqa: F401 (autouse: one torch t
 CELLS = [("qwen2.5-32b", "train_4k"), ("deepseek-v3-671b", "decode_32k"), ("xlstm-1.3b", "long_500k"),
          ("hymba-1.5b", "prefill_32k")]
 GRIDS = [(2, 2), (4, 1), (1, 4)]
+#: DeepSeek-V3's latent cache with its sequence over ``data`` (``long_500k``'s ``seq_shard``), compiled by the
+#: reference's subprocess beside the 12 cells
+LATENT_CUT = [("deepseek-v3-671b", "long_500k", (2, 2))]
 
 #: the weights the port places otherwise than the reference's
 #: ``tree_shardings`` / ``state_shardings`` (ROADMAP queue C): heads kept
@@ -130,26 +133,25 @@ def arguments(arch, sname, mesh):
 
 OUT_NAMES = {"train": ("", "metrics"), "prefill": ("state", "logits"), "decode": ("logits", "state")}
 res = {}
-for arch, sname in __CELLS__:
-    for dims in __GRIDS__:
-        mesh = make_mesh(dims, ("data", "model"))  # the reference's own builder (jax.make_mesh raises here)
-        lowered = dryrun.lower_cell(arch, sname, mesh, reduced=True)
-        compiled = lowered.compile()
-        ma = compiled.memory_analysis()
-        per_arg = arguments(arch, sname, mesh)
-        kept = lowered._lowering.compile_args["kept_var_idx"]
-        flat_names = [n for group in per_arg for n in group]  # in the order jit flattens its arguments
-        pruned = [n for i, n in enumerate(flat_names) if i not in kept]
-        outs = {}
-        first, second = OUT_NAMES[SHAPES[sname].kind]
-        for i, (tree, shs) in enumerate(zip(lowered.out_info, compiled.output_shardings)):
-            outs.update(blocks((first, second)[i], tree, shs))
-        cost = hlo_analysis.analyze_compiled(compiled)  # the reference's run_cell collectives, loop-aware
-        res[f"{arch}|{sname}|{dims[0]},{dims[1]}"] = {
-            "ma": [ma.argument_size_in_bytes, ma.output_size_in_bytes, ma.alias_size_in_bytes],
-            "temp": ma.temp_size_in_bytes, "flops": cost.flops, "hbm": cost.hbm_bytes,
-            "args": {n: v for group in per_arg for n, v in group.items()}, "pruned": pruned, "outs": outs,
-            "coll_counts": cost.coll_counts, "coll_bytes": cost.coll_bytes_by_kind}
+for arch, sname, dims in __CELLS__:
+    mesh = make_mesh(dims, ("data", "model"))  # the reference's own builder (jax.make_mesh raises here)
+    lowered = dryrun.lower_cell(arch, sname, mesh, reduced=True)
+    compiled = lowered.compile()
+    ma = compiled.memory_analysis()
+    per_arg = arguments(arch, sname, mesh)
+    kept = lowered._lowering.compile_args["kept_var_idx"]
+    flat_names = [n for group in per_arg for n in group]  # in the order jit flattens its arguments
+    pruned = [n for i, n in enumerate(flat_names) if i not in kept]
+    outs = {}
+    first, second = OUT_NAMES[SHAPES[sname].kind]
+    for i, (tree, shs) in enumerate(zip(lowered.out_info, compiled.output_shardings)):
+        outs.update(blocks((first, second)[i], tree, shs))
+    cost = hlo_analysis.analyze_compiled(compiled)  # the reference's run_cell collectives, loop-aware
+    res[f"{arch}|{sname}|{dims[0]},{dims[1]}"] = {
+        "ma": [ma.argument_size_in_bytes, ma.output_size_in_bytes, ma.alias_size_in_bytes],
+        "temp": ma.temp_size_in_bytes, "flops": cost.flops, "hbm": cost.hbm_bytes,
+        "args": {n: v for group in per_arg for n, v in group.items()}, "pruned": pruned, "outs": outs,
+        "coll_counts": cost.coll_counts, "coll_bytes": cost.coll_bytes_by_kind}
 print("RESULT" + json.dumps(res))
 print("PASS")
 """
@@ -157,7 +159,7 @@ print("PASS")
 
 @pytest.fixture(scope="module")
 def reference():
-    code = REF_CODE.replace("__CELLS__", repr(CELLS)).replace("__GRIDS__", repr(GRIDS))
+    code = REF_CODE.replace("__CELLS__", repr([(a, s, d) for a, s in CELLS for d in GRIDS] + LATENT_CUT))
     out = run_subprocess(code, devices=4, timeout=600)
     line = next(x for x in out.splitlines() if x.startswith("RESULT"))
     return json.loads(line[len("RESULT"):])
@@ -219,6 +221,20 @@ def test_argument_bytes_are_the_reference_memory_analysis(reference, arch, sname
     departures (heads whole, ``ssm.MESH_LAYOUT``, the serving weights'
     dtype, the host position) and the leaves the reference's jit prunes;
     the difference is exactly their bytes."""
+    _arguments_held(reference, arch, sname, dims)
+
+
+@pytest.mark.parametrize("arch,sname,dims", LATENT_CUT)
+def test_latent_cut_bytes_are_the_reference_memory_analysis(reference, arch, sname, dims):
+    """DeepSeek-V3's ``long_500k`` cell, its latent cache's sequence over
+    ``data``: the argument bytes held as the 12 cells' are (each block of
+    ``ckv`` / ``k_rope`` the reference's, every other difference a named
+    departure), and the output and alias bytes likewise."""
+    _arguments_held(reference, arch, sname, dims)
+    _outputs_held(reference, arch, sname, dims)
+
+
+def _arguments_held(reference, arch, sname, dims):
     ref = reference[f"{arch}|{sname}|{dims[0]},{dims[1]}"]
     cfg, shape, args, _, rep = _port(arch, sname, dims)
     rargs = ref["args"]
@@ -253,6 +269,10 @@ def test_output_and_alias_bytes_against_the_reference(reference, arch, sname, di
     exactly where its compiler re-sharded none, and less where it did
     (XLA decides which re-sharded buffers it reuses); the port's outputs
     are its state, updated in place, and all of it is aliased."""
+    _outputs_held(reference, arch, sname, dims)
+
+
+def _outputs_held(reference, arch, sname, dims):
     from repro_torch.launch import dryrun
 
     ref = reference[f"{arch}|{sname}|{dims[0]},{dims[1]}"]
@@ -677,9 +697,9 @@ def test_the_executed_half_leaves_the_counters_alone():
 
 #: serving cells whose cache the reference's ``decode_state_shardings``
 #: cuts where the 12 do not: reduced Qwen's 2 KV heads along the head dim
-#: on (1, 4), and reduced hymba's sequence over ``data`` (``long_500k``'s
-#: ``seq_shard``) on (2, 2)
-CUT_CELLS = [("qwen2.5-32b", "decode_32k", (1, 4)), ("hymba-1.5b", "long_500k", (2, 2))]
+#: on (1, 4), and reduced hymba's KV cache and DeepSeek-V3's latent cache
+#: with their sequence over ``data`` (``long_500k``'s ``seq_shard``) on (2, 2)
+CUT_CELLS = [("qwen2.5-32b", "decode_32k", (1, 4)), ("hymba-1.5b", "long_500k", (2, 2))] + LATENT_CUT
 
 
 @pytest.mark.parametrize("arch,sname,dims", [(a, s, d) for a, s in CELLS for d in GRIDS] + CUT_CELLS)
@@ -723,6 +743,9 @@ def test_the_traced_rank_holds_the_walks_arguments(arch, sname, dims):
     args = dryrun.arguments(cfg, shape, mesh)
     assert ex["args_bytes"] == sum(args.values())
     _, spec = dryrun.decode_state(cfg, shape, mesh)
+    if cfg.mla is not None:  # (L, B, S, r) and (L, B, S, rope), whole over model
+        assert all(tuple(c[2:]) == ("data", None) for g in ("dense_prefix", "moe") for c in spec[g][:2]), spec
+        return
     k = spec["hymba"].kv.k if cfg.family == "hybrid" else spec["layers"].k  # (L, B, S, KVH, hd)
     assert (k[2], k[4]) == (("data", None) if sname == "long_500k" else (None, "model")), k
 

@@ -15,7 +15,8 @@ runs the same weights and tokens on a ``SimMesh`` of the same
   alternating windows, tied embeddings;
 - ``mixtral-8x22b`` and ``deepseek-v3-671b`` on (1, 4), tensor- and
   expert-parallel, drops included at the stock factor (DeepSeek-V3: MLA
-  and the dense prefix);
+  and the dense prefix), and DeepSeek-V3 on the (2, 2) grid, whose run
+  also holds its latent cache's sequence cut (``seq_shard``);
 - ``xlstm-1.3b``, ``hymba-1.5b`` and ``whisper-medium`` on (1, 2) and
   (1, 4): the SSM mixers split by channel (Mamba's and the mLSTM's
   ``[x | z]`` halves, the sLSTM's gathered pre-activations), hymba's
@@ -39,7 +40,10 @@ half's block: ``win`` / ``wup``); ``logits``, prefill and decode within
 hymba and whisper, every rank's logits bitwise equal; a rank's cut cache
 (Qwen's (B, S, KVH, hd / 4)) against the one-rank cache's slice, and
 reduced hymba with one KV head on a (2, 2) grid at batch 1 with
-``seq_shard`` (both cuts: a quarter of the cache a rank); and the SPMD
+``seq_shard`` (both cuts: a quarter of the cache a rank), and reduced
+DeepSeek-V3 there (half the latent cache a rank); the dense MoE dispatch
+on a (4, 1) grid, each rank on its row of the batch, against the
+reference's ``_apply_moe_dense`` on the whole batch; and the SPMD
 ``ServeEngine`` serving Qwen's and hymba's reduced configs gives the
 reference engine's greedy tokens on every rank.
 """
@@ -74,6 +78,7 @@ CASES = (
     ("gemma", "gemma2-9b", (1, 2), {}),
     ("mixtral", "mixtral-8x22b", (1, 4), {}),
     ("deepseek", "deepseek-v3-671b", (1, 4), {}),
+    ("deepseek_grid", "deepseek-v3-671b", (2, 2), {}),
     ("xlstm", "xlstm-1.3b", (1, 2), {}),
     ("xlstm_4", "xlstm-1.3b", (1, 4), {}),
     ("hymba", "hymba-1.5b", (1, 2), {}),
@@ -83,9 +88,12 @@ CASES = (
 )
 #: (name, arch, dims, overrides, the CASES entry whose reference run it is held to): the cache's sequence over
 #: ``data`` (``seq_shard``) on a SimMesh, which holds the whole batch at every ``data`` coordinate; the
-#: reference's values do not depend on where its cache lies, so these cases need no run of their own
-SEQ_CASES = (("hymba_seq", "hymba-1.5b", (2, 2), {}, "hymba"), ("gemma_seq", "gemma2-9b", (2, 2), {}, "gemma"))
-REF_GROUPS = (("deepseek",), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"),
+#: reference's values do not depend on where its cache lies, so these cases need no run of their own. They do
+#: depend on the mesh's shape where a MoE routes (its capacity groups and ring islands follow the ``data`` and
+#: ``model`` axes): DeepSeek-V3's sequence cut is held to the run on its own (2, 2) grid
+SEQ_CASES = (("hymba_seq", "hymba-1.5b", (2, 2), {}, "hymba"), ("gemma_seq", "gemma2-9b", (2, 2), {}, "gemma"),
+             ("deepseek_seq", "deepseek-v3-671b", (2, 2), {}, "deepseek_grid"))
+REF_GROUPS = (("deepseek", "deepseek_grid"), ("mixtral", "gemma", "flash"), ("qwen", "qwen_context", "qwen_grid"),
               ("xlstm", "xlstm_4", "hymba", "hymba_4", "whisper", "whisper_4"))
 #: whisper's frame embeddings (B, S_ENC, d_model of the reduced config)
 S_ENC = 16
@@ -476,7 +484,97 @@ def _seq_shard_case(ran):
         assert torch.equal(g[0], e[0]) and rel(g, e) <= REL_TOL
     mine = np.stack([t.numpy() for t in got[1]])
     assert all(np.array_equal(g, mine) for g in _gathered(mine))
+    _latent_seq_case(grid, d)
     ran.append("the cut cache over gloo")
+
+
+def _latent_seq_case(grid, d: int) -> None:
+    """Reduced DeepSeek-V3 (capacity E / k: no drop, so the MoE's groups
+    do not move the values) on the (2, 2) grid at batch 1 with
+    ``seq_shard``: its 18 positions in two blocks of 9 over ``data``, each
+    rank holding its (L, 1, 9, r) block of ``ckv`` and ``k_rope`` alone. An
+    8-token prompt and two decode steps, at positions 8 (the first block's
+    last row) and 9 (the second block's first): within 1e-5 of the
+    one-rank model, bitwise equal on every rank; the blocks within 1e-5
+    of the one-rank cache's."""
+    cfg = _cfg("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, capacity_factor=_no_drop(cfg)))
+    toks = torch.from_numpy(np.random.default_rng(9).integers(0, 256, (1, 10)))
+    whole, specs = Model(cfg, device="cpu").init(torch.Generator().manual_seed(5))
+    own = params_from_numpy(_np(whole), device="cpu", mesh=grid, specs=specs, cfg=cfg)
+    model = Model(cfg, grid, device="cpu")
+    got = _run_from(model, own, toks, 8, 18, seq_shard=True)
+    exp = _run_from(Model(cfg, device="cpu"), whole, toks, 8, 18)
+    assert model.serve_tp.kv_seq.blocks == 2 and model.serve_tp.kv_seq.holds_block
+    for g, e in zip(got[0], exp[0]):
+        assert rel(g, e) <= REL_TOL
+    for group in ("dense_prefix", "moe"):
+        for g, e in zip(got[1][group][:2], exp[1][group][:2]):
+            assert g.shape == e.shape[:2] + (9,) + e.shape[3:], (group, g.shape)
+            assert rel(g, e[:, :, 9 * d:9 * d + 9]) <= REL_TOL, group
+    mine = np.stack([t.numpy() for t in got[0]])
+    assert all(np.array_equal(g, mine) for g in _gathered(mine))
+
+
+def _no_drop(cfg) -> float:
+    """The capacity factor at which no expert drops a token: E / k."""
+    return cfg.moe.num_experts / cfg.moe.top_k
+
+
+def _run_from(model, params, toks, prompt: int, s_max: int, *, seq_shard=False):
+    """A prefill of ``toks[:, :prompt]`` and a decode step for each later
+    token (float32 cache of ``s_max`` positions): (their logits, the
+    state)."""
+    state = model.init_decode_state(toks.shape[0], s_max, cache_dtype=torch.float32, seq_shard=seq_shard)
+    state, lg = model.prefill(params, {"tokens": toks[:, :prompt]}, state)
+    steps = [lg]
+    for t in range(prompt, toks.shape[1]):
+        lg, state = model.decode_step(params, toks[:, t:t + 1], state)
+        steps.append(lg)
+    return steps, state
+
+
+#: the dense dispatch's case: B rows of S tokens, one row a rank of the (P, 1) grid
+DENSE_B, DENSE_S = P, 4
+
+
+def _dense_inputs():
+    """Reduced DeepSeek-V3's MoE with the dense dispatch and no shared
+    expert, float32; its weights, input and the output's cotangent from
+    one numpy seed."""
+    cfg = _cfg("deepseek-v3-671b")
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe, dispatch="dense", num_shared=0))
+    e, d, f = cfg.moe.num_experts, cfg.d_model, cfg.moe.expert_d_ff
+    rng = np.random.default_rng(11)
+    w = {"router": rng.standard_normal((d, e)) / np.sqrt(d), "wg": rng.standard_normal((e, d, f)) / np.sqrt(d),
+         "wu": rng.standard_normal((e, d, f)) / np.sqrt(d), "wd": rng.standard_normal((e, f, d)) / np.sqrt(f)}
+    w = {k: v.astype(np.float32) for k, v in w.items()}
+    x, g = (rng.standard_normal((DENSE_B, DENSE_S, d)).astype(np.float32) for _ in range(2))
+    return cfg, w, x, g
+
+
+def _dense_dispatch_case(ran, tmp):
+    """``apply_moe`` with the dense dispatch where each process holds its
+    row of the batch (``TP.batch`` over ``data`` of a (P, 1) grid): its
+    output rows, its aux (the same on every rank) and, from its share of
+    ``sum(out * g) + aux`` (``Model.loss`` divides the aux by the P
+    ranks), its router gradient, saved for the test to hold to the
+    reference."""
+    from repro_torch.core import ProcessGroupMesh
+    from repro_torch.models import common
+    from repro_torch.models import moe
+
+    grid = ProcessGroupMesh(device="cpu", grid=(P, 1), axis_names=DATA_MODEL, timeout_s=60)
+    r = grid.axis_index("data")
+    cfg, w, x, g = _dense_inputs()
+    p = {k: torch.from_numpy(v).requires_grad_(k == "router") for k, v in w.items()}
+    ring = grid.rings("model")[0][0]
+    out, aux = moe.apply_moe(p, torch.from_numpy(x[r:r + 1]), cfg, mesh=ring,
+                             tp=common.TP(ring, batch=(grid, ("data",))))
+    (grad,) = torch.autograd.grad((out * torch.from_numpy(g[r:r + 1])).sum() + aux / P, [p["router"]])
+    np.savez(f"{tmp}/dense{grid.rank}.npz", row=r, out=out.detach().numpy(), aux=aux.detach().numpy(),
+             grad=grad.numpy())
+    ran.append("dense dispatch over rows")
 
 
 def _engine_case(mesh, ran, ref_dir):
@@ -536,6 +634,7 @@ def _worker(rank, world, init_method, tmp, ref_dir):
         _placement_cases(mesh, ran, ref_dir)
         _model_cases(mesh, ran)
         _seq_shard_case(ran)
+        _dense_dispatch_case(ran, tmp)
         _engine_case(mesh, ran, ref_dir)
         with open(f"{tmp}/ran{rank}.json", "w") as fh:
             json.dump(ran, fh)
@@ -550,7 +649,36 @@ def test_tensor_parallel_over_a_process_group(tmp_path, engine_refs):
     for rank in range(P):
         ran = json.loads((tmp_path / f"ran{rank}.json").read_text())
         assert ran == ["psum / pmax", "each rank holds its blocks", "the model over gloo",
-                       "the cut cache over gloo", "SPMD engine equals the reference"], (rank, ran)
+                       "the cut cache over gloo", "dense dispatch over rows", "SPMD engine equals the reference"], \
+            (rank, ran)
+    _dense_against_the_reference(tmp_path)
+
+
+def _dense_against_the_reference(tmp):
+    """The spawn's dense dispatch over rows against the reference's
+    ``_apply_moe_dense`` on the whole batch: each rank's output row, the
+    aux on every rank, and the router gradient summed over the ranks, each
+    within 1e-5 (float32)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.configs import get_config as r_get_config
+    from repro.models import moe as RM
+
+    cfg, w, x, g = _dense_inputs()
+    rcfg = dataclasses.replace(r_get_config("deepseek-v3-671b", reduced=True), dtype="float32", moe=cfg.moe)
+
+    def loss(router):
+        out, aux = RM._apply_moe_dense(dict(w, router=router), jnp.asarray(x.reshape(-1, x.shape[-1])), rcfg)
+        return (out * g.reshape(out.shape)).sum() + aux, (out, aux)
+
+    (_, (out, aux)), grad = jax.value_and_grad(loss, has_aux=True)(jnp.asarray(w["router"]))
+    out = np.asarray(out).reshape(x.shape)
+    got = [np.load(tmp / f"dense{rank}.npz") for rank in range(P)]
+    assert sorted(int(a["row"]) for a in got) == list(range(P))
+    for a in got:
+        assert rel(a["out"], out[int(a["row"])][None]) <= REL_TOL
+        assert abs(float(a["aux"]) - float(aux)) <= REL_TOL * abs(float(aux))
+    assert rel(sum(a["grad"] for a in got), np.asarray(grad)) <= REL_TOL
 
 
 # ---------------------------------------------------------------------------
@@ -594,29 +722,40 @@ def test_model_on_a_mesh_matches_reference(ref, monkeypatch, name, arch, dims, k
     assert len(scatters) == expect
 
 
-@pytest.mark.parametrize("arch,kw", [("hymba-1.5b", {"num_kv_heads": 1}), ("gemma2-9b", {"window_size": 4})],
-                         ids=["hymba_1kv", "gemma_window_4"])
+def _ds_no_drop():
+    cfg = get_config("deepseek-v3-671b", reduced=True)
+    return {"moe": dataclasses.replace(cfg.moe, capacity_factor=_no_drop(cfg))}
+
+
+@pytest.mark.parametrize("arch,kw", [("hymba-1.5b", {"num_kv_heads": 1}), ("gemma2-9b", {"window_size": 4}),
+                                     ("deepseek-v3-671b", _ds_no_drop())],
+                         ids=["hymba_1kv", "gemma_window_4", "deepseek_no_drop"])
 def test_a_sequence_sharded_cache_on_a_sim_mesh_matches_one_rank(arch, kw):
     """``seq_shard`` on SimMesh((2, 2)) against the one-rank model on the
     same weights, within 1e-5: reduced hymba with one KV head (the
     ``model`` axis cuts its head dim, so the scores' psum over ``model``
-    runs before the combine over ``data``), and reduced gemma2 with
-    4-token windows, whose windowed layers see no key of the first block
-    when they decode positions 16 and 17 (m = -inf, l = 0 there). The
-    cache stays whole on the one process."""
+    runs before the combine over ``data``), reduced gemma2 with 4-token
+    windows, whose windowed layers see no key of the first block when
+    they decode positions 16 and 17 (m = -inf, l = 0 there), and reduced
+    DeepSeek-V3's latent cache (capacity E / k: the MoE's groups follow
+    the mesh, and without drops they do not move the values). A third
+    decode step at position 18, past the cache's 18 positions, writes no
+    block and attends every cached one, as the one-rank model (and JAX,
+    which drops the write) does. The cache stays whole on the one
+    process."""
     cfg = _cfg(arch, **kw)
-    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 18)))
+    toks = torch.from_numpy(np.random.default_rng(4).integers(0, 256, (2, 19)))
     whole, _ = Model(cfg, device="cpu").init(torch.Generator().manual_seed(6))
     model = Model(cfg, _mesh(2, 2), device="cpu")
     got = _run(model, whole, toks, seq_shard=True)
     exp = _run(Model(cfg, device="cpu"), whole, toks)
     assert model.serve_tp.kv_seq.blocks == 2 and not model.serve_tp.kv_seq.holds_block
-    for g, e in zip([got[0]] + got[1], [exp[0]] + exp[1]):
+    past = [m.decode_step(whole, toks[:, 18:19], run[2])[0] for m, run in ((model, got), (Model(cfg, device="cpu"), exp))]
+    for g, e in zip([got[0]] + got[1] + past[:1], [exp[0]] + exp[1] + past[1:]):
         assert rel(g, e) <= REL_TOL
-    key = "hymba" if cfg.family == "hybrid" else "layers"
-    cache = got[2][key].kv if cfg.family == "hybrid" else got[2][key]
-    ref_cache = exp[2][key].kv if cfg.family == "hybrid" else exp[2][key]
-    assert cache.k.shape == ref_cache.k.shape and rel(cache.k, ref_cache.k) <= REL_TOL
+    key = {"hybrid": "hymba", "moe": "moe"}.get(cfg.family, "layers")
+    cache, ref_cache = ((run[2][key].kv if cfg.family == "hybrid" else run[2][key]) for run in (got, exp))
+    assert cache[0].shape == ref_cache[0].shape and rel(cache[0], ref_cache[0]) <= REL_TOL
 
 
 def test_flash_decode_combine_matches_reference(ref):

@@ -53,8 +53,8 @@ def main(argv=None) -> int:
     record, held = [], []
     router = moe.router_topk
 
-    def recorded_router(x, wr, k):
-        w, idx, aux = router(x, wr, k)
+    def recorded_router(x, wr, k, **kw):
+        w, idx, aux = router(x, wr, k, **kw)
         if held:  # the whole sequence's choices for these tokens
             idx = held.pop(0)
             w = torch.softmax(x.float() @ wr.float(), dim=-1).gather(1, idx)
